@@ -3,9 +3,17 @@ on the GPU.
 
     python3 scripts/torch_ba_profile.py [--cameras 1024] [--points 250000]
                                         [--obs 4] [--out FILE]
+                                        [--schedule precompute_j|apply_separately]
+                                        [--segsum tiled]
 
 Builds the uniform BA scene (models/bundle_adjustment.synthetic_inputs,
-seed 0), runs two LM steps to warm up, then measures a step two ways:
+seed 0) and an LM plan of it: the default block-sparse materialized JᵀJ,
+or with --schedule the materialized-J schedule that the energy text's
+``r.<name>.J.set_materialize(True)`` (precompute_j) or
+``Jp.set_materialize(True)`` (apply_separately) selects; --segsum tiled
+sets THALLO_SEGSUM=tiled before init, so the scatters of those schedules
+run through the segment-sum kernel.  It runs two LM steps to warm up,
+then measures a step two ways:
 
 * phases: solve_setup / linear_solve / finish_step called one at a time,
   each ended by torch.cuda.synchronize(), host clock;
@@ -16,6 +24,7 @@ seed 0), runs two LM steps to warm up, then measures a step two ways:
 The report goes to stdout and, with --out, to FILE.  Needs CUDA.
 """
 import argparse
+import os
 import sys
 import time
 from pathlib import Path
@@ -25,14 +34,21 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-def make_plan(n_cameras, n_points, obs, device):
+# --schedule -> the handle the energy text sets to materialize
+SCHEDULES = {"precompute_j": "J", "apply_separately": "Jp"}
+
+
+def make_plan(n_cameras, n_points, obs, device, schedule=None):
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
     inputs, _ = ba.synthetic_inputs(n_cameras=n_cameras, n_points=n_points,
                                     obs_per_point=obs, seed=0)
     dims = {"C": n_cameras, "P": n_points, "O": len(inputs["oToC"])}
-    plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=device)
+    text = ba.ENERGY
+    if schedule:
+        text += f"\nr.snavely_reprojection_error.{SCHEDULES[schedule]}.set_materialize(True)\n"
+    plan = tt.load_energy(text).plan(dims, solver="levenberg_marquardt", device=device)
     plan.set_solver_parameter("nIterations", 1000)
     plan.init(inputs)
     return plan
@@ -98,7 +114,11 @@ def main():
     ap.add_argument("--points", type=int, default=250_000)
     ap.add_argument("--obs", type=int, default=4)
     ap.add_argument("--out")
+    ap.add_argument("--schedule", choices=sorted(SCHEDULES))
+    ap.add_argument("--segsum", choices=["tiled"])
     args = ap.parse_args()
+    if args.segsum:
+        os.environ["THALLO_SEGSUM"] = args.segsum
     if not torch.cuda.is_available():
         print("torch_ba_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -109,8 +129,9 @@ def main():
         lines.append(s)
 
     say(f"device {torch.cuda.get_device_name(0)}; BA {args.cameras} cameras x "
-        f"{args.points} points x {args.obs} obs")
-    plan = make_plan(args.cameras, args.points, args.obs, "cuda")
+        f"{args.points} points x {args.obs} obs; schedule "
+        f"{args.schedule or 'block-sparse JtJ'}; THALLO_SEGSUM={args.segsum or 'unset'}")
+    plan = make_plan(args.cameras, args.points, args.obs, "cuda", args.schedule)
     for _ in range(2):
         plan.step()
     torch.cuda.synchronize()

@@ -18,6 +18,7 @@ import jax  # noqa: E402
 import thallo_tpu as tl  # noqa: E402
 import thallo_tpu_torch as tt  # noqa: E402
 from thallo_tpu.models import bundle_adjustment as ba  # noqa: E402
+from thallo_tpu_torch.solver.gn import CompiledSolver, GroupPlan  # noqa: E402
 
 N_CAM, N_PT, OBS = 16, 1400, 4
 STEPS = 5
@@ -263,3 +264,16 @@ r = Residuals(fit=X(x, y) - A(x, y), reg=X(x, y) - X(x + 1, y))
         tt.load_energy(grid).plan({"W": 80, "H": 80}, device="cpu")
     with pytest.raises(NotImplementedError, match="Schur"):
         _port_plan(linear_solver="schur_pcg")
+    # the matrix-free schedules other than PRECOMPUTE_J / APPLY_SEPARATELY:
+    # a graph group reaches LINEARIZE from a directive that materializes
+    # neither J, JᵀJ nor Jp (here JtF), INLINE only from a group plan
+    # built directly
+    inputs, dims = _scene()
+    linearize = ba.ENERGY + "\nr.snavely_reprojection_error.JtF.set_materialize(True)\n"
+    with pytest.raises(NotImplementedError, match="schedule linearize"):
+        tt.load_energy(linearize).plan(dims, solver="levenberg_marquardt", device="cpu")
+    spec = tt.load_energy(ba.ENERGY)
+    g = spec.plan(dims, solver="levenberg_marquardt", device="cpu").compiled.groups[0]
+    with pytest.raises(NotImplementedError, match="schedule inline"):
+        CompiledSolver(spec, [GroupPlan(g.name, g.group, tt.JTJpSchedule.INLINE)], True,
+                       torch.float32, {}, torch.device("cpu"))

@@ -1,5 +1,7 @@
-"""thallo_tpu_torch frontend: its jax-free modules run thallo_tpu's own
-source files, and the port imports with jax blocked."""
+"""thallo_tpu_torch frontend: the port keeps its own copy of the JAX
+package's jax-free modules, reads nothing of thallo_tpu/, and imports
+with jax blocked."""
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -11,19 +13,24 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parent.parent
 SHARED = ["typesys.py", "dims.py", "expr.py", "inputs.py", "spec.py", "lib_env.py",
           "models/bundle_adjustment.py"]
+# every Python file of the port, and the smoke run that drives it on the card
+PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "thallo_tpu_torch").rglob("*.py"))
+PORT_FILES.append("chip_smoke.py")
 
 
 @pytest.mark.parametrize("rel", SHARED)
 def test_frontend_runs_the_jax_package_file(rel):
-    """Every function of the port's frontend module is compiled from
-    thallo_tpu's file of the same name: one source, no copy."""
+    """The port's frontend module runs the port's own copy of the JAX
+    package's file of that name: every function of it is compiled from
+    its file under thallo_tpu_torch/, none from thallo_tpu/."""
     import importlib
     import inspect
 
     name = "thallo_tpu_torch." + rel[:-3].replace("/", ".")
     mod = importlib.import_module(name)
-    src = str(ROOT / "thallo_tpu" / rel)
-    assert mod.__shared_source__ == src
+    src = str(ROOT / "thallo_tpu_torch" / rel)
+    assert mod.__file__ == src
+    assert not hasattr(mod, "__shared_source__")
     defined = [v for v in vars(mod).values()
                if (inspect.isfunction(v) or inspect.isclass(v)) and v.__module__ == name]
     fns = [f for v in defined
@@ -34,14 +41,83 @@ def test_frontend_runs_the_jax_package_file(rel):
     assert all(f.__code__.co_filename == src for f in fns)
 
 
+# calls that import, execute or read a file or module named by a string
+_READERS = {"exec", "eval", "compile", "open", "Path", "PurePath", "import_module",
+            "__import__", "read_text", "read_bytes", "run_path", "run_module",
+            "spec_from_file_location", "SourceFileLoader", "glob", "rglob", "joinpath"}
+
+
+def _names_jax_package(node) -> bool:
+    for sub in ast.walk(node):
+        if isinstance(sub, ast.Constant) and isinstance(sub.value, str):
+            v = sub.value.strip()
+            if v == "thallo_tpu" or v.startswith(("thallo_tpu/", "thallo_tpu.")) \
+                    or "/thallo_tpu/" in v:
+                return True
+    return False
+
+
+def jax_package_uses(source: str):
+    """(line, what) for every import of thallo_tpu and every import, exec,
+    open or path built from a string that names a path under thallo_tpu/."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        else:
+            mods = []
+        found += [(node.lineno, f"import {m}") for m in mods
+                  if m == "thallo_tpu" or m.startswith("thallo_tpu.")]
+        if isinstance(node, ast.Call):
+            f = node.func
+            fname = f.id if isinstance(f, ast.Name) else getattr(f, "attr", "")
+            if fname in _READERS and _names_jax_package(node):
+                found.append((node.lineno, f"{fname}(...)"))
+        if isinstance(node, ast.BinOp) and isinstance(node.op, ast.Div) \
+                and _names_jax_package(node.right):
+            found.append((node.lineno, "path / 'thallo_tpu...'"))
+    return found
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_torch_port_file_reads_nothing_of_jax_package(rel):
+    assert jax_package_uses((ROOT / rel).read_text()) == []
+
+
+@pytest.mark.parametrize("snippet", [
+    "import thallo_tpu.dims",
+    "from thallo_tpu.ops import segsum",
+    "JAX_PACKAGE = Path(__file__).parent.parent / 'thallo_tpu'",
+    "code = compile(open('thallo_tpu/spec.py').read(), 'spec.py', 'exec')",
+    "exec(Path(ROOT, 'thallo_tpu/lib_env.py').read_text())",
+    "importlib.import_module('thallo_tpu.plan')",
+])
+def test_torch_port_check_catches_jax_package_reads(snippet):
+    """The check above is not vacuous: each way of reaching the JAX
+    package (the removed frontend stub used the path join and exec)."""
+    assert jax_package_uses(snippet)
+
+
+def test_torch_port_check_allows_citations():
+    """Strings that cite a file and line for a reader are no read."""
+    assert jax_package_uses('"""Replaces thallo_tpu/ops/segsum.py:254."""\n'
+                            'KERNELS = {"x": ("csrc/a.cu", "thallo_tpu/ops/ohsetup.py:236")}\n'
+                            'from thallo_tpu_torch.ops import segsum\n') == []
+
+
 def test_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import thallo_tpu_torch, thallo_tpu_torch.plan, thallo_tpu_torch.lower\n"
+        "import thallo_tpu_torch.typesys, thallo_tpu_torch.dims, thallo_tpu_torch.expr\n"
+        "import thallo_tpu_torch.inputs, thallo_tpu_torch.spec, thallo_tpu_torch.lib_env\n"
         "import thallo_tpu_torch.solver.gn, thallo_tpu_torch.solver.blocksparse\n"
         "import thallo_tpu_torch.ops.fusedpair, thallo_tpu_torch.ops.ohsetup\n"
         "import thallo_tpu_torch.ops.fullrepeat, thallo_tpu_torch.ops._cuda\n"
+        "import thallo_tpu_torch.ops.segsum\n"
         "from thallo_tpu_torch.models import bundle_adjustment as ba\n"
         "spec = thallo_tpu_torch.load_energy(ba.ENERGY)\n"
         "assert not any(m in ('jax', 'thallo_tpu') or m.startswith(('jax.', 'thallo_tpu.'))\n"

@@ -108,3 +108,44 @@ def fr_oracle(rT, Jall, N_t, W):
 FUSED_SHAPES = [(4, 1000, 64), (3, 777, 500)]  # (W, N, S): ragged N; S > 256
 OH_SHAPES = [(777, 96), (2348, 64)]            # (R, N)
 FR_SHAPES = [(500, 4), (130, 3)]               # (N_t, W)
+
+
+# small-image aggregation (oh_setup_aggregate): F channels of per-row
+# parts summed by id; a tail of out-of-range ids drops
+AGG_F = 13
+AGG_SHAPES = [(700, 64), (700, 300), (6161, 64), (6161, 300)]  # (R, N)
+
+
+def agg_inputs(R, N, seed=4):
+    rng = np.random.default_rng(seed)
+    parts = (rng.normal(size=(AGG_F, R)) * 100).astype(np.float32)
+    ids = rng.integers(0, N, R).astype(np.int32)
+    ids[-5:] = N + 2
+    ids[0] = -1
+    return parts, ids
+
+
+def agg_oracle(parts, ids, N):
+    out = np.zeros((parts.shape[0], N))
+    ok = (ids >= 0) & (ids < N)
+    for f in range(parts.shape[0]):
+        np.add.at(out[f], ids[ok], parts[f, ok].astype(np.float64))
+    return out
+
+
+# destination-tiled segment sum: (M rows, S segments, C channels); the
+# last shape has more tiles than rows (mostly padded lanes)
+SEG_SHAPES = [(1000, 257, 3), (5000, 64, 9), (128, 4096, 3)]
+
+
+def seg_inputs(M, S, C, seed=5):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, S, M).astype(np.int32)
+    data = rng.normal(size=(M, C)).astype(np.float32)
+    return data, ids
+
+
+def seg_oracle(data, ids, S):
+    out = np.zeros((S, data.shape[1]))
+    np.add.at(out, ids, data.astype(np.float64))
+    return out

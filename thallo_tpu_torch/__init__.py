@@ -1,12 +1,16 @@
 """thallo_tpu_torch: the PyTorch/CUDA port of thallo_tpu.
 
-The frontend (DSL, dims, expressions, inputs, spec) is a byte-identical
-copy of the JAX package's jax-free modules, so both packages build the
-same energy from the same text.  Planning lowers graph energies to
-torch: channel-major residual evaluation, point Jacobians by
-``torch.func.vjp``, a block-sparse materialized JᵀJ and an LM/GN solver
-with block-Jacobi PCG.  Three hand-written CUDA kernels (``ops/``,
-``csrc/``) carry the block-sparse setup and the per-iteration JᵀJ·p.
+The frontend (DSL, dims, expressions, inputs, spec, energy stdlib) is
+the port's own copy of the JAX package's jax-free modules, so both
+packages build the same energy from the same text; the port imports
+nothing of the JAX package.  Planning lowers graph energies to torch:
+channel-major residual evaluation, point Jacobians by
+``torch.func.vjp``, and an LM/GN solver with PCG over either the
+block-sparse materialized JᵀJ (block-Jacobi) or the stored per-point
+Jacobians (PRECOMPUTE_J / APPLY_SEPARATELY, scalar Jacobi).  Five
+hand-written CUDA kernels (``ops/``, ``csrc/``) carry the block-sparse
+setup, the per-iteration JᵀJ·p and the scatters of the matrix-free
+schedules.
 
 Plans take an explicit ``device`` ("cuda" by default); nothing here
 falls back to the CPU when no GPU is present.

@@ -9,12 +9,22 @@ DAG op runs elementwise over the R residual points, so the batch axis is
 written out and no ``vmap`` is needed.  Point Jacobians come from
 ``torch.func.vjp``, one cotangent pass per residual channel.
 
+The materialized-J schedules (PRECOMPUTE_J, APPLY_SEPARATELY) also need the
+slot gather and its transpose, the scatter-add of per-point values into
+the slot's image.  ``scatter_slot`` routes it as thallo_tpu's
+``_scatter`` does (``lower.py:706-747``): through the destination-tiled
+segment sum (ops/segsum.py) when ``THALLO_SEGSUM=tiled`` built a plan for
+the slot at init; else, for a small image gathered from a large domain
+(S <= 1024 and R > 4S), through ``oh_setup_aggregate`` (ops/ohsetup.py);
+else through ``index_add_``, the counterpart of ``jax.ops.segment_sum``.
+
 Not ported yet (they raise NotImplementedError at plan time): grid
 stencils (roll plans), contractions (``Sum``), bounds and index-value
 leaves, materialized computed arrays and sampled images.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -33,6 +43,10 @@ from .expr import (
     SampleAccess,
 )
 from .inputs import Image
+from .ops.ohsetup import oh_setup_aggregate
+from .ops.segsum import build_plan, segment_sum
+
+ONEHOT_MAX_SEGMENTS = 1024  # thallo_tpu/ops/segsum.py: small-image scatter bound
 
 
 # ---------------------------------------------------------------------------
@@ -417,7 +431,10 @@ class LoweredGroup:
         """Everything non-differentiated, computed once per init: slot
         index tables (host -> device once), channel-major const-slot
         values, params — and, when the schedule materializes JᵀJ, the
-        static block-sparse tables (solver/blocksparse.py)."""
+        static block-sparse tables (solver/blocksparse.py); otherwise the
+        scatter route of each slot: a segment-sum plan ("stables", with
+        THALLO_SEGSUM=tiled, read here as thallo_tpu reads it) or the
+        int32 ids of a small image for the aggregation kernel."""
         idx = [self._slot_flat_indices(s, inputs) for s in self.uslots]
         cvals = []
         for s in self.cslots:
@@ -428,17 +445,33 @@ class LoweredGroup:
             cvals.append(img.index_select(0, flat).T.contiguous())  # [C, R]
         params = {p.name: inputs[p.name] for p in self.col.params.values()}
         bsr = None
+        stables, agg_ids = {}, {}
         if want_bsr:
             from .solver.blocksparse import build_group_bsr
 
             bsr = build_group_bsr(self, idx, self.dtype, device)
+        else:
+            tiled = os.environ.get("THALLO_SEGSUM") == "tiled"
+            for i, flat in enumerate(idx):
+                S = self.slot_size(i)
+                plan = build_plan(flat, S, device=device) if tiled else None
+                if plan is not None:
+                    stables[i] = plan
+                elif S <= ONEHOT_MAX_SEGMENTS and self.R > 4 * S:
+                    agg_ids[i] = torch.from_numpy(flat).to(device)
         return {
             "bsr": bsr,
             "slot_idx": [torch.from_numpy(i).to(device=device, dtype=torch.long)
                          for i in idx],
             "cvals": cvals,
             "params": params,
+            "stables": stables,
+            "agg_ids": agg_ids,
         }
+
+    def slot_size(self, i: int) -> int:
+        """Element count of unknown slot i's image."""
+        return int(np.prod([d.size for d in self.uslots[i].image.dims]))
 
     # -- the local function -------------------------------------------------
     def _build_local_fn(self):
@@ -495,6 +528,33 @@ class LoweredGroup:
             src = X[s.image.name].reshape(-1, s.image.channels).T
             out.append(src.index_select(1, flat))
         return out
+
+    def gather_slot(self, i: int, X, consts):
+        """[C, R] channel-major values of unknown slot i (X may be any
+        image-shaped tree over the unknowns, e.g. a PCG direction)."""
+        s = self.uslots[i]
+        return X[s.image.name].reshape(-1, s.image.channels).T.index_select(
+            1, consts["slot_idx"][i])
+
+    def scatter_slot(self, i: int, valsT, consts):
+        """Transpose of gather_slot: per-point values [F, R] summed into
+        slot i's image, returned image-shaped [*dims, F].  Routed as
+        thallo_tpu's _scatter: segment-sum plan, else the aggregation
+        kernel for a small image, else index_add_."""
+        F = valsT.shape[0]
+        N = self.slot_size(i)
+        stable = consts["stables"].get(i)
+        if stable is not None:
+            out = segment_sum(valsT.T, stable)  # [N, F]
+        else:
+            ids = consts["agg_ids"].get(i)
+            if ids is not None:
+                outT = oh_setup_aggregate(valsT.contiguous(), ids, N=N)
+            else:
+                outT = torch.zeros((F, N), dtype=valsT.dtype, device=valsT.device)
+                outT.index_add_(1, consts["slot_idx"][i], valsT)
+            out = outT.T
+        return out.reshape(tuple(d.size for d in self.uslots[i].image.dims) + (F,))
 
     def _eval_cm(self, uvalsT, consts):
         device = consts["slot_idx"][0].device if consts["slot_idx"] else None

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 On first use, every ``thallo_tpu_torch/csrc/*.cu`` is compiled by
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, and loaded with ``ctypes``.  The library lands in
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The library lands in
 ``build/thallo_tpu_torch/`` beside the package under a name keyed by a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the existing build.  nvcc's register and spill
@@ -28,15 +29,19 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# dynamic shared memory a launcher may request (csrc/*.cu kMaxSmem)
+MAX_DYNAMIC_SMEM = 96 * 1024
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thallo_tpu_torch"
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # exported symbol -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "thallo_fused_pair_apply": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_oh_setup_products": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup": (P, P, P, P, P, I, I, I, I, P),
+    "thallo_oh_setup_aggregate": (P, P, P, I, I, I, P),
+    "thallo_segment_sum": (P, L, L, P, P, P, P, I, I, I, I, I, I, I, P),
 }
 
 _lib = None
@@ -67,13 +72,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc, tag = _nvcc(), f"{lib.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f".{s.stem}.{tag}.o" for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    log = []
+    for s, proc in zip(srcs, procs):
+        out, _ = proc.communicate()
+        log.append(f"== {s.name}\n{out}")
+        if proc.returncode != 0:
+            for other in procs:
+                other.wait()
+            raise RuntimeError(f"nvcc failed on {s.name} ({proc.returncode}):\n{out}")
+    tmp = BUILD_DIR / f".{tag}.tmp"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    for o in objs:
+        o.unlink()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
                            f"{proc.stdout}\n{proc.stderr}")
-    Path(f"{lib}.log").write_text(proc.stdout + proc.stderr)
+    Path(f"{lib}.log").write_text("".join(log))
     os.replace(tmp, lib)
     return lib
 

@@ -1,8 +1,8 @@
-"""Camera-side (one-hot row mode) setup products: per observation, the
-recipe's slabs, summed by the observation's element id.
+"""Segment sums by a per-row id into a small image: the camera-side
+(one-hot row mode) setup products, and the plain aggregation.
 
-Replaces ``thallo_tpu/ops/ohsetup.py::oh_setup_products`` (Pallas body
-``_products_kernel``).  For residuals ``rT [rc, R]``, stacked
+``oh_setup_products`` replaces ``thallo_tpu/ops/ohsetup.py::
+oh_setup_products`` (Pallas body ``_products_kernel``).  For residuals ``rT [rc, R]``, stacked
 channel-major Jacobian slots ``Jall [K, R]`` (slot rows
 ``off + c*C + ch``) and ids ``[R]``, each recipe entry yields a slab:
 
@@ -20,6 +20,20 @@ reuse) and adds it into ``out[f, id]`` with a global atomic — F*R adds
 address.  The bound is the atomic traffic, not the 80 MB of input.
 The TPU kernel's in-VMEM one-hot and 3-term bf16 split are not carried
 over: every sum is a plain f32 sum whose order varies with the atomics.
+
+``oh_setup_aggregate`` replaces ``thallo_tpu/ops/ohsetup.py::
+oh_setup_aggregate`` (Pallas body ``_kernel``): channel-major parts
+``[F, R]`` summed by ``ids [R]`` into ``[F, N]``; ids outside [0, N)
+drop.  The matrix-free schedules (PRECOMPUTE_J, APPLY_SEPARATELY) scatter
+a small image's per-observation values with it (lower.py), in setup and
+on every PCG iteration.  On the card (``csrc/oh_aggregate.cu``) each
+thread block takes a contiguous run of rows, sums them into an
+``[F_chunk, N]`` accumulator in shared memory (shared-memory atomics,
+~R/N hits per address spread over the block), then adds each nonzero
+entry into the output with one global atomic: about (blocks x F x N)
+global atomics (2.3 M at BA-1M, F = 9) instead of F x R (9 M).  The
+bound is the parts read, F*R*4 bytes.  Channels that do not fit the
+shared accumulator at once run as further chunks (grid y).
 """
 from __future__ import annotations
 
@@ -98,3 +112,36 @@ def oh_setup_products(rT, Jall, ids, *, N, recipe):
 
 
 oh_setup_products.launches = 0
+
+
+def oh_setup_aggregate_reference(parts_cm, ids, *, N):
+    """Plain torch version (f32): index_add_ of the in-range rows."""
+    ok = (ids >= 0) & (ids < N)
+    out = torch.zeros((parts_cm.shape[0], N), dtype=torch.float32, device=parts_cm.device)
+    return out.index_add_(1, ids[ok].long(), parts_cm.to(torch.float32)[:, ok])
+
+
+def oh_setup_aggregate(parts_cm, ids, *, N):
+    """parts_cm [F, R] f32, ids [R] int32 -> [F, N] f32 (out-of-range ids
+    drop).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if parts_cm.device.type == "cpu":
+        return oh_setup_aggregate_reference(parts_cm, ids, N=N)
+    if parts_cm.device.type != "cuda":
+        raise ValueError(f"oh_setup_aggregate: unsupported device {parts_cm.device}")
+    F, R = parts_cm.shape
+    dev = parts_cm.device
+    _cuda.require(parts_cm, "parts_cm", (F, R), torch.float32, dev)
+    _cuda.require(ids, "ids", (R,), torch.int32, dev)
+    if N * 4 > _cuda.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"oh_setup_aggregate: N={N} exceeds the "
+                         f"{_cuda.MAX_DYNAMIC_SMEM}-byte shared accumulator")
+    out = torch.zeros((F, N), dtype=torch.float32, device=dev)
+    code = _cuda.lib().thallo_oh_setup_aggregate(
+        parts_cm.data_ptr(), ids.data_ptr(), out.data_ptr(), F, R, N, _cuda.stream(parts_cm))
+    _cuda.check(code, "oh_setup_aggregate")
+    oh_setup_aggregate.launches += 1
+    return out
+
+
+oh_setup_aggregate.launches = 0

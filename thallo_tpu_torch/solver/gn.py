@@ -1,9 +1,24 @@
-"""Gauss-Newton / Levenberg-Marquardt outer loop with a block-Jacobi
-preconditioned-conjugate-gradient inner loop (counterpart of
-``thallo_tpu/solver/gn.py``, block-sparse path).
+"""Gauss-Newton / Levenberg-Marquardt outer loop with a preconditioned-
+conjugate-gradient inner loop (counterpart of ``thallo_tpu/solver/gn.py``,
+graph groups).
 
-Numerics follow the JAX solver step for step: -JᵀF and diag(JᵀJ) from
-the block-sparse setup, Ceres-style LM damping with Jacobi scaling,
+Each group runs one of two schedules of JᵀJ·p:
+
+* materialized JᵀJ (PRECOMPUTE_JTJ, the default for graph groups above
+  the dense threshold): block-sparse tables and blocks from the setup
+  (solver/blocksparse.py), block-Jacobi preconditioner;
+* materialized J (PRECOMPUTE_J, from ``r.<name>.J.set_materialize(True)``,
+  and APPLY_SEPARATELY, from ``r.<name>.Jp.set_materialize(True)``): the
+  per-point Jacobians are stored at setup, JᵀF and diag(JᵀJ) (partial²
+  per access, as thallo_tpu) are scattered from them, and every PCG
+  iteration gathers p, forms J·p and scatters Jᵀ(J·p) (lower.py's
+  ``scatter_slot``).  Eager torch materializes J·p between the two passes
+  in both schedules, so APPLY_SEPARATELY's split (JAX's optimization
+  barrier) is what PRECOMPUTE_J runs too.  No diag-pair blocks exist, so
+  the preconditioner stays scalar Jacobi, as in thallo_tpu.
+
+Numerics follow the JAX solver step for step: -JᵀF and diag(JᵀJ),
+Ceres-style LM damping with Jacobi scaling,
 block-Jacobi inverses with unit-diagonal equilibration, PCG with the
 residual reset and the Q/zeta early stop, and the trust-region
 accept/revert.  The PCG loop runs ``lIterations`` iterations with no
@@ -13,9 +28,8 @@ results are the same).  Routing is f32 everywhere, so the zeta test
 needs no noise floor.
 
 Not ported yet (NotImplementedError at plan time): the dense JᵀJ path
-(<= 4096 unknowns), direct/Schur solves, matrix-free schedules
-(INLINE/LINEARIZE/PRECOMPUTE_J/APPLY_SEPARATELY), Exclude masks, bf16
-block storage and double precision.
+(<= 4096 unknowns), direct/Schur solves, the INLINE and LINEARIZE
+schedules, Exclude masks, bf16 block storage and double precision.
 """
 from __future__ import annotations
 
@@ -31,6 +45,8 @@ from ..spec import JTJpSchedule
 from .blocksparse import bsr_apply, bsr_setup
 
 DENSE_JTJ_MAX_UNKNOWNS = 4096  # thallo_tpu/schedule.py: smaller problems go dense
+# schedules that store the per-point Jacobians and apply JᵀJ·p from them
+MATERIALIZED_J = (JTJpSchedule.PRECOMPUTE_J, JTJpSchedule.APPLY_SEPARATELY)
 
 
 # ---------------------------------------------------------------------------
@@ -199,14 +215,15 @@ class CompiledSolver:
                 raise NotImplementedError(
                     f"group {gp.name!r} has stencil (grid-offset) accesses; the "
                     "matrix-free grid path is not ported yet")
-            if not self._wants_bsr(gp):
+            if not self._wants_bsr(gp) and gp.schedule not in MATERIALIZED_J:
                 _, total = self.unknown_layout()
                 why = (f"schedule {gp.schedule.value}"
                        if gp.schedule is not JTJpSchedule.PRECOMPUTE_JTJ
                        else f"{total} unknowns <= {DENSE_JTJ_MAX_UNKNOWNS} (dense JᵀJ)")
                 raise NotImplementedError(
                     f"group {gp.name!r}: {why} is not ported yet; only the "
-                    "block-sparse materialized JᵀJ path is")
+                    "block-sparse materialized JᵀJ and the materialized-J "
+                    "schedules (PRECOMPUTE_J, APPLY_SEPARATELY) are")
 
     # -- layout ------------------------------------------------------------
     def unknown_layout(self):
@@ -231,9 +248,11 @@ class CompiledSolver:
 
     def prepare(self, inputs):
         """Input-only precomputation, once per init: slot index tables,
-        const-slot values and the block-sparse tables of each group."""
+        const-slot values, and per group the block-sparse tables or the
+        scatter routes of the materialized-J schedules."""
         return {
-            "consts": [gp.group.prepared_consts(inputs, self.device, want_bsr=True)
+            "consts": [gp.group.prepared_consts(inputs, self.device,
+                                                want_bsr=self._wants_bsr(gp))
                        for gp in self.groups],
             "twin_consts": [None] * len(self.groups),
         }
@@ -253,30 +272,63 @@ class CompiledSolver:
                 for im in self.spec.unknowns}
 
     def jtf_and_diag(self, U, inputs, consts, masks, jac_store, twin_consts=None):
-        """Returns (minus_jtf, diag, jac_store): the block-sparse setup of
-        every group, its assembled blocks stored under jac_store[str(gi)]."""
+        """Returns (minus_jtf, diag, jac_store).  Block-sparse groups store
+        their assembled blocks under jac_store[str(gi)]["bsr"]; the
+        materialized-J groups store the per-point Jacobians under
+        jac_store[str(gi)]["jacs"] and scatter Jᵀr and diag = partial² per access (thallo_tpu's
+        semantics: two accesses of one residual aliasing one element add
+        a² + b², not (a+b)²)."""
         mjtf = self._zeros_like_unknowns()
         diag = self._zeros_like_unknowns()
         for gi, (gp, c) in enumerate(zip(self.groups, consts)):
-            r, jacs = gp.group.point_jacobians_cm(U, inputs, c)
-            jtr_d, d2_d, blocks = bsr_setup(c["bsr"], r, jacs)
-            jac_store[str(gi)] = {"bsr": blocks}
-            for name, v in jtr_d.items():
-                mjtf[name] = mjtf[name] - v
-            for name, v in d2_d.items():
-                diag[name] = diag[name] + v
+            g = gp.group
+            r, jacs = g.point_jacobians_cm(U, inputs, c)
+            if c["bsr"] is not None:
+                jtr_d, d2_d, blocks = bsr_setup(c["bsr"], r, jacs)
+                jac_store[str(gi)] = {"bsr": blocks}
+                for name, v in jtr_d.items():
+                    mjtf[name] = mjtf[name] - v
+                for name, v in d2_d.items():
+                    diag[name] = diag[name] + v
+                continue
+            jac_store[str(gi)] = {"jacs": tuple(jacs)}
+            for i, slot in enumerate(g.uslots):
+                J = jacs[i]  # [rc, C, R]
+                C = J.shape[1]
+                # Jᵀr and partial² stacked, so one scatter carries both
+                parts = torch.cat([(J * r[:, None]).sum(0), (J * J).sum(0)])
+                both = g.scatter_slot(i, parts, c)  # [*dims, 2C]
+                name = slot.image.name
+                mjtf[name] = mjtf[name] - both[..., :C]
+                diag[name] = diag[name] + both[..., C:]
         return mjtf, diag, jac_store
 
     def make_jtjp(self, U, inputs, consts, masks, jac_store, twin_consts=None):
-        """Ap(p) = sum_g J_gᵀ J_g p from the blocks assembled this step."""
-        pairs = [(consts[gi]["bsr"], jac_store[str(gi)]["bsr"])
-                 for gi in range(len(self.groups))]
+        """Ap(p) = sum_g J_gᵀ J_g p: from the blocks assembled this step
+        (block-sparse groups) or the stored per-point Jacobians
+        (materialized-J groups: gather p, J·p, scatter Jᵀ(J·p))."""
+        pairs, jac_groups = [], []
+        for gi, gp in enumerate(self.groups):
+            entry = jac_store[str(gi)]
+            if "bsr" in entry:
+                pairs.append((consts[gi]["bsr"], entry["bsr"]))
+            else:
+                jac_groups.append((gp.group, consts[gi], entry["jacs"]))
 
         def apply_jtjp(p):
             Ap = tree_zeros_like(p)
             for bsr, blocks in pairs:
                 for name, v in bsr_apply(bsr, blocks, p).items():
                     Ap[name] = Ap[name] + v
+            for g, c, jacs in jac_groups:
+                Jp = None  # [rc, R]: sum over slots of J_slot · p_slot
+                for i in range(len(g.uslots)):
+                    term = (jacs[i] * g.gather_slot(i, p, c)[None]).sum(1)
+                    Jp = term if Jp is None else Jp + term
+                for i, slot in enumerate(g.uslots):
+                    contrib = (jacs[i] * Jp[:, None]).sum(0)  # [C, R]
+                    name = slot.image.name
+                    Ap[name] = Ap[name] + g.scatter_slot(i, contrib, c)
             return Ap
 
         return apply_jtjp
@@ -346,7 +398,8 @@ class CompiledSolver:
     # -- block-Jacobi preconditioner -----------------------------------------
     def _block_preconditioner(self, consts, jac_store, rawdiag, CtC, lm):
         """Per-unknown-element CxC inverses of the damped JᵀJ block
-        diagonal (from the setup's diag-pair blocks)."""
+        diagonal (from the setup's diag-pair blocks).  Images no
+        block-sparse group touches get none: they stay scalar Jacobi."""
         B = self._diag_pair_blocks(consts, jac_store)
         return self._invert_damped_blocks(B, rawdiag, CtC)
 
@@ -356,6 +409,8 @@ class CompiledSolver:
         B = {}
         for gi in range(len(self.groups)):
             bsr = consts[gi]["bsr"]
+            if bsr is None:
+                continue
             blocks = jac_store[str(gi)]["bsr"]
             for p_idx, pr in enumerate(bsr.pairs):
                 if pr[2] != "diag":
