@@ -2,18 +2,29 @@
 
     python3 chip_smoke.py
 
-The BA 1M-observation scene (1024 cameras, 250 000 points, 4
-observations per point, random from a seed) is generated once, on the
-host, and each solve gets its own copy.  Phases (each prints its
-seconds; any failure exits non-zero):
+Two 1M-observation BA scenes are generated once, on the host, from a
+seed, and each solve gets its own copy: the uniform one (1024 cameras,
+250 000 points, 4 observations per point) and the degree-skewed one
+(``skewed_inputs(1024, 250000, target_obs=1_000_000)``: 953 157 shuffled
+observations, power-law point and camera degrees).  Phases (each prints
+its seconds; any failure exits non-zero):
   1. build the CUDA kernels from thallo_tpu_torch/csrc (one nvcc per
      source, in parallel) and print nvcc's register/spill report;
-  2. each of the five kernels against its plain torch version on the
-     card, at the 1M shapes (the segment sum with plans built from the
-     scene's oToP and oToC) and at a small ragged shape with out-of-range
-     ids or padded plan lanes; kernel, plain and index_add_ times in ms;
+  2. each kernel against its plain torch version on the card, at the
+     shapes its path gives it (the uniform scene's, the segment sum with
+     plans built from its oToP and oToC; the fused pair at each level of
+     the skewed scene's sorted tables, W <= 8 by fused_pair_apply and
+     W > 8 by the W-loop kernel, both timed there; oh_setup_products at
+     the skewed camera ids; the measurement scripts' kernels at the JAX
+     scripts' BA-1M shape) and at a small ragged shape with out-of-range
+     ids or padded plan lanes; kernel, plain and library times in ms; the
+     W-loop kernel is also timed at every W <= 8 shape (uniform W = 4,
+     skewed levels 0-1), where the solver takes fused_pair_apply;
   3. the small BA scene solved with LM on the card and on the CPU (the
-     plain versions): per-step unknowns and costs agree;
+     plain versions): per-step unknowns and costs agree; then the small
+     skewed scene (``skewed_inputs(16, 1400, 5600)``: point levels
+     W = 8, 24, 273, so both fused-pair kernels run), under scalar and
+     block Jacobi;
   4. the 1M LM solve, block-sparse materialized JᵀJ: its three kernels
      launched, costs finite, final cost <= 1e-2 x initial;
   5. the 1M LM solve under PRECOMPUTE_J (``J.set_materialize(True)``),
@@ -24,19 +35,31 @@ seconds; any failure exits non-zero):
   6. the 1M LM solve under APPLY_SEPARATELY (``Jp.set_materialize(True)``)
      with THALLO_SEGSUM=tiled: both scatters through the segment-sum
      kernel (launched); costs finite and never rising; its first 3 steps
-     agree with phase 5's.
-Each solve's kernel counts are set to 0 just before it and read just
-after.
+     agree with phase 5's;
+  7. the skewed 1M LM solve, block-sparse JᵀJ over level tables after
+     the residual sort: fused_pair_apply, the W-loop kernel and
+     oh_setup_products launched, costs never rising, final cost <= 1e-2 x
+     initial; launches per level shape (W, N_t), each read from the
+     wrapper's own count around its calls;
+  8. the measurement scripts (scripts/torch_fused_pair_micro.py,
+     torch_fused_variants.py, torch_loop_floor.py) run through their
+     main() with few launches per timing: the bf16 fused pair, its three
+     variants and the loop-floor kernel (one tile and 64 tiles) launched.
+Each solve's and phase 8's kernel counts are set to 0 just before it and
+read just after.
 
 Needs CUDA: exits 1 without printing a result when none is available.
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
 """
+import collections
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -44,6 +67,14 @@ import torch
 SEED = 0
 # phase 2: f32 on both sides; only the order of (atomic) sums differs
 KERNEL_TOL = 1e-5
+# ... except on the skewed scene, whose hot camera sums up to ~1e6 terms
+# into one output: an f32 sum of n terms in another order moves by about
+# 2^-24 sqrt(n/3) x the sum of their magnitudes (measured: 19 on the
+# hot camera's d2, 478k positive terms, far beyond KERNEL_TOL x max|ref|).
+# There each output is held to KERNEL_SUM_TOL sqrt(n) x the sum of its
+# terms' magnitudes (n and that sum from the plain version on ones and on
+# |inputs|): 4 x 2^-24, about 10x above that measured error.
+KERNEL_SUM_TOL = 4 * 2.0 ** -24
 # phase 3: the unknowns after each LM step agree to f32 trajectory noise;
 # near convergence this scene's cost moves ~2e-3 relative under such
 # changes of the unknowns (measured CPU-port vs CPU-JAX), hence the cost
@@ -52,9 +83,23 @@ KERNEL_TOL = 1e-5
 # differ only in f32 summation order (atomics, assembly order).
 STEP_U_TOL = 1e-4
 STEP_COST_RTOL = 1e-2
+# The skewed small scene under block-Jacobi: its ill-conditioned 3x3
+# point blocks (points seen by 2 near-parallel cameras) carry f32 summation
+# noise into each step far more.  scripts/torch_skew_small_spread.py,
+# card vs CPU on an H100 over seeds 0-7 x 3 card runs, 5 steps each: at
+# most 4.1e-4 of max|U| and 2.4e-2 of the cost (seed 7, step 3, near
+# convergence at 2e-7 of the initial cost; this scene, seed 0: at most
+# 1.6e-2); under scalar Jacobi 3.5e-6 and 3.7e-4, so the phase-3 bounds
+# hold there.
+SKEW_BLOCK_U_TOL = 2e-3
+SKEW_BLOCK_COST_RTOL = 3e-2
 CROSS_STEPS = 3
 BA_1M = (1024, 250_000, 4)
+SKEW_1M = (1024, 250_000, 1_000_000)  # cameras, points, target observations
+SKEW_SMALL = (16, 1400, 5600)
 N_STEPS_1M = 10
+# launches per timing when phase 8 drives the measurement scripts
+SCRIPT_LAUNCHES = 10
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM and f32 outside
 # the tensor cores; the bound of a kernel is the larger of its bytes (each
 # input read once, each output written once) and its f32 operations over them
@@ -79,15 +124,25 @@ def timed_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare(name, got, ref):
-    """max|got - ref| over all outputs; fails above KERNEL_TOL * max|ref|."""
+def compare(name, got, ref, terms=None):
+    """max|got - ref| over all outputs; fails above KERNEL_TOL * max|ref|,
+    or, given terms = (each output's sum of |terms|, its number of terms),
+    where an output differs by more than KERNEL_SUM_TOL sqrt(n) x its
+    sum of |terms|."""
     err, scale = 0.0, 0.0
-    for g, r in zip(got, ref):
+    for k, (g, r) in enumerate(zip(got, ref)):
         if g.shape != r.shape or not bool(torch.isfinite(g).all()):
             raise AssertionError(f"{name}: shape {tuple(g.shape)} vs {tuple(r.shape)} or non-finite")
         err = max(err, float((g - r).abs().max()))
         scale = max(scale, float(r.abs().max()))
-    if err > KERNEL_TOL * scale:
+        if terms is not None:
+            bound = KERNEL_SUM_TOL * terms[1][k].sqrt() * terms[0][k]
+            excess = float(((g - r).abs() - bound).max())
+            if excess > 0:
+                raise AssertionError(f"{name}: an output is off by {excess:.3e} more than "
+                                     f"{KERNEL_SUM_TOL:.2e} sqrt(n) x the sum of its terms' "
+                                     "magnitudes")
+    if terms is None and err > KERNEL_TOL * scale:
         raise AssertionError(f"{name}: max|err| {err:.3e} > {KERNEL_TOL} * {scale:.3e}")
     return err
 
@@ -110,9 +165,11 @@ def nbytes(*ts):
 
 
 def kernel_cases(dev, rng, scene):
-    """(name, shape tag, kernel call, plain call, index_add_ call or None,
-    input bytes, f32 operations) per kernel, at the BA-1M shapes and at a
-    small ragged shape with out-of-range ids or padded plan lanes."""
+    """(name, shape tag, kernel call, plain call, library call or None,
+    input bytes, f32 operations, None or the plain call on |inputs| and on
+    ones (each output's sum of |terms| and number of terms)) per
+    kernel, at the BA-1M shapes and at a small ragged shape with
+    out-of-range ids or padded plan lanes."""
     from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup, segsum
 
     def t(a):
@@ -127,10 +184,12 @@ def kernel_cases(dev, rng, scene):
         a = (t(ids), t(rng.normal(size=(W * 27, N)).astype(np.float32)),
              t(rng.normal(size=(9, S)).astype(np.float32)),
              t(rng.normal(size=(3, N)).astype(np.float32)))
-        cases.append(("fused_pair_apply", tag,
-                      lambda a=a, S=S: fusedpair.fused_pair_apply(*a, Ci=3, Cj=9, S=S),
-                      lambda a=a, S=S: fusedpair.fused_pair_apply_reference(*a, Ci=3, Cj=9, S=S),
-                      None, nbytes(*a), 4 * W * N * 27))
+        for name in ("fused_pair_apply", "fused_pair_apply_wloop"):
+            cases.append((name, tag,
+                          lambda a=a, S=S, fn=getattr(fusedpair, name): fn(*a, Ci=3, Cj=9, S=S),
+                          lambda a=a, S=S: fusedpair.fused_pair_apply_reference(
+                              *a, Ci=3, Cj=9, S=S),
+                          None, nbytes(*a), 4 * W * N * 27, None))
     oh_recipe = (("jtr", 0, 9), ("d2", 0, 9), ("pair", 0, 9, 0, 9))
     for tag, (R, N) in (("ba1m", (1_000_000, 1024)), ("ragged", (2349, 97))):
         ids = rng.integers(0, N, R).astype(np.int32)
@@ -143,7 +202,7 @@ def kernel_cases(dev, rng, scene):
                       lambda a=a, N=N: (ohsetup.oh_setup_products(*a, N=N, recipe=oh_recipe),),
                       lambda a=a, N=N: (ohsetup.oh_setup_products_reference(
                           *a, N=N, recipe=oh_recipe),),
-                      None, nbytes(*a), (9 + 9 + 81) * 2 * 2 * R))
+                      None, nbytes(*a), (9 + 9 + 81) * 2 * 2 * R, None))
     fr_recipe = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 6, 9, 0), ("diag", 0, 3, 0, 3))
     for tag, (N_t, W) in (("ba1m", (250_000, 4)), ("ragged", (131, 3))):
         a = (t(rng.normal(size=(2, N_t * W)).astype(np.float32)),
@@ -156,7 +215,7 @@ def kernel_cases(dev, rng, scene):
         cases.append(("fullrepeat_setup", tag,
                       lambda run=run: run(fullrepeat.fullrepeat_setup),
                       lambda run=run: run(fullrepeat.fullrepeat_setup_reference),
-                      None, nbytes(*a), (3 + 3 + 27 + 9) * 2 * 2 * N_t * W))
+                      None, nbytes(*a), (3 + 3 + 27 + 9) * 2 * 2 * N_t * W, None))
     # the camera scatter of the materialized-J schedules: [9, 1M] by oToC
     for tag, (R, N) in (("ba1m", (len(scene["oToC"]), BA_1M[0])), ("ragged", (2349, 97))):
         if tag == "ba1m":
@@ -173,7 +232,7 @@ def kernel_cases(dev, rng, scene):
                       lambda a=a, N=N: (ohsetup.oh_setup_aggregate_reference(*a, N=N),),
                       lambda la=lib_args, N=N: torch.zeros(
                           (9, N), device=dev).index_add_(1, *la),
-                      nbytes(*a), 9 * R))
+                      nbytes(*a), 9 * R, None))
     # the segment sum of APPLY_SEPARATELY + THALLO_SEGSUM=tiled: points
     # [1M, 3] -> [250000, 3] and cameras [1M, 9] -> [1024, 9], plans from
     # the scene's maps, data as the strided transpose of a channel-major
@@ -197,15 +256,125 @@ def kernel_cases(dev, rng, scene):
                       lambda d=data, p=plan: (segsum.segment_sum_reference(d, p),),
                       lambda la=lib_args, S=S, C=C: torch.zeros(
                           (S, C), device=dev).index_add_(0, *la),
-                      nbytes(cm, plan.gather_idx, plan.rel, plan.mask), 2 * len(ids) * C))
+                      nbytes(cm, plan.gather_idx, plan.rel, plan.mask), 2 * len(ids) * C,
+                      None))
     return cases
 
 
-# kernel -> (source, the TPU kernel it replaces: file:line of the def,
-# the smoke solve that runs it)
+def _pair_args(t, rng, ids, Ci=3, Cj=9, S=1024, block_dtype=torch.float32):
+    W, N = ids.shape
+    return (ids, t(rng.normal(size=(W * Ci * Cj, N)).astype(np.float32)).to(block_dtype),
+            t(rng.normal(size=(Cj, S)).astype(np.float32)),
+            t(rng.normal(size=(Ci, N)).astype(np.float32)))
+
+
+def skew_kernel_cases(dev, rng, bsr):
+    """The skewed 1M scene's kernels: the fused pair at each level of its
+    sorted point tables by both kernels (the solver takes fused_pair_apply
+    where W <= 8, the W-loop kernel where W > 8) and a ragged wide level;
+    oh_setup_products at its camera ids."""
+    from thallo_tpu_torch.ops import fusedpair, ohsetup
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    cases = []
+    levels = [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
+    log("skewed scene point levels (W, N_t): " + ", ".join(str(tuple(c.shape)) for c in levels))
+    ragged = rng.integers(0, 500, (24, 1001)).astype(np.int32)
+    ragged[:, -7:] = 503
+    ragged[0, :5] = -1
+    # the widest level is tagged skew_tail: the W-loop kernel's record
+    shapes = [(f"skew_w{c.shape[0]}", c, 1024) for c in levels[:-1]]
+    shapes += [("skew_tail", levels[-1], 1024), ("ragged_w24", t(ragged), 500)]
+    for tag, ids, S in shapes:
+        W, N = ids.shape
+        a = _pair_args(t, rng, ids, S=S)
+        absa = (a[0], *(x.abs() for x in a[1:]))
+        ones = (a[0], *(torch.ones_like(x) for x in a[1:]))
+        for name in ("fused_pair_apply_wloop", "fused_pair_apply"):
+            cases.append((name, tag,
+                          lambda a=a, S=S, fn=getattr(fusedpair, name): fn(*a, Ci=3, Cj=9, S=S),
+                          lambda a=a, S=S: fusedpair.fused_pair_apply_reference(
+                              *a, Ci=3, Cj=9, S=S),
+                          None, nbytes(*a), 4 * W * N * 27,
+                          lambda b=(absa, ones), S=S: tuple(
+                              fusedpair.fused_pair_apply_reference(*x, Ci=3, Cj=9, S=S)
+                              for x in b)))
+    cam = next(x for x in bsr.oh_idxs if x is not None)
+    R = cam.shape[0]
+    a = (t(rng.normal(size=(2, R)).astype(np.float32)),
+         t(rng.normal(size=(18, R)).astype(np.float32)), cam)
+    recipe = (("jtr", 0, 9), ("d2", 0, 9), ("pair", 0, 9, 0, 9))
+    absa = (a[0].abs(), a[1].abs(), cam)
+    ones = (torch.ones_like(a[0]), torch.ones_like(a[1]), cam)
+    cases.append(("oh_setup_products", "skew",
+                  lambda a=a: (ohsetup.oh_setup_products(*a, N=BA_1M[0], recipe=recipe),),
+                  lambda a=a: (ohsetup.oh_setup_products_reference(
+                      *a, N=BA_1M[0], recipe=recipe),),
+                  None, nbytes(*a), (9 + 9 + 81) * 2 * 2 * R,
+                  lambda b=(absa, ones): tuple((ohsetup.oh_setup_products_reference(
+                      *x, N=BA_1M[0], recipe=recipe),) for x in b)))
+    return cases
+
+
+def measurement_kernel_cases(dev, rng):
+    """The measurement scripts' kernels: the bf16-block fused pair and its
+    three cols variants at the JAX scripts' ba_1m_pt_cam shape (W 4,
+    N 250 000, S 1024) and a ragged one; the launch-floor probe on one
+    [8, 1024] tile and as 64 tiles over [8, 65536]."""
+    from thallo_tpu_torch.ops import fusedpair, loopfloor
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    cases = []
+    for tag, (W, N, S) in (("ba1m", (4, 250_000, 1024)), ("ragged", (3, 1001, 500))):
+        ids = rng.integers(0, S, (W, N)).astype(np.int32)
+        if tag == "ragged":
+            ids[:, -7:] = S + 3
+            ids[0, :5] = -1
+        a = _pair_args(t, rng, t(ids), S=S, block_dtype=torch.bfloat16)
+        for name in ("fused_pair_bf16", "fused_pair_v1_rows", "fused_pair_v2_smem",
+                     "fused_pair_v3_partials"):
+            rows_only = name == "fused_pair_v1_rows"
+            cases.append((name, tag,
+                          lambda a=a, S=S, fn=getattr(fusedpair, name), ro=rows_only:
+                          (fn(*a, Ci=3, Cj=9, S=S),) if ro else fn(*a, Ci=3, Cj=9, S=S),
+                          lambda a=a, S=S, ro=rows_only: fusedpair.fused_pair_apply_reference(
+                              *a, Ci=3, Cj=9, S=S)[:1 if ro else 2],
+                          None, nbytes(*a), (2 if rows_only else 4) * W * N * 27, None))
+    for tag, tiles in (("tile1", 1), ("grid64", 64)):
+        x = t(rng.normal(size=(loopfloor.ROWS, 1024 * tiles)).astype(np.float32))
+        cases.append(("loop_floor_add_one", tag,
+                      lambda x=x, n=tiles: (loopfloor.add_one(x, tiles=n),),
+                      lambda x=x: (loopfloor.add_one_reference(x),),
+                      lambda x=x: torch.add(x, 1.0), nbytes(x), x.numel(), None))
+    return cases
+
+
+# (kernel, case tag) -> the name of its entry in the kernels record
+RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
+          ("fused_pair_apply_wloop", "skew_tail"): "fused_pair_apply_wloop",
+          ("oh_setup_products", "ba1m"): "oh_setup_products",
+          ("fullrepeat_setup", "ba1m"): "fullrepeat_setup",
+          ("oh_setup_aggregate", "ba1m"): "oh_setup_aggregate",
+          ("segment_sum", "ba1m"): "segment_sum",
+          ("fused_pair_bf16", "ba1m"): "fused_pair_bf16",
+          ("fused_pair_v1_rows", "ba1m"): "fused_pair_v1_rows",
+          ("fused_pair_v2_smem", "ba1m"): "fused_pair_v2_smem",
+          ("fused_pair_v3_partials", "ba1m"): "fused_pair_v3_partials",
+          ("loop_floor_add_one", "tile1"): "loop_floor_add_one",
+          ("loop_floor_add_one", "grid64"): "loop_floor_add_one_grid64"}
+
+# record entry -> (source, the TPU kernel it replaces: file:line of its
+# pallas_call or kernel body, the smoke solve or phase whose launches it
+# reports)
 KERNELS = {
     "fused_pair_apply": ("thallo_tpu_torch/csrc/fused_pair.cu",
-                         "thallo_tpu/ops/fusedpair.py:309", "block-sparse"),
+                         "thallo_tpu/ops/fusedpair.py:349", "block-sparse"),
+    "fused_pair_apply_wloop": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
+                               "thallo_tpu/ops/fusedpair.py:385", "skew block-sparse"),
     "oh_setup_products": ("thallo_tpu_torch/csrc/oh_setup.cu",
                           "thallo_tpu/ops/ohsetup.py:192", "block-sparse"),
     "fullrepeat_setup": ("thallo_tpu_torch/csrc/fullrepeat.cu",
@@ -214,17 +383,36 @@ KERNELS = {
                            "thallo_tpu/ops/ohsetup.py:236", "precompute_j"),
     "segment_sum": ("thallo_tpu_torch/csrc/segsum.cu",
                     "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
+    "fused_pair_bf16": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+                        "scripts/tpu_fused_pair_micro.py:31", "measurement"),
+    "fused_pair_v1_rows": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+                           "scripts/tpu_fused_variants.py:56", "measurement"),
+    "fused_pair_v2_smem": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+                           "scripts/tpu_fused_variants.py:80", "measurement"),
+    "fused_pair_v3_partials": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+                               "scripts/tpu_fused_variants.py:121", "measurement"),
+    "loop_floor_add_one": ("thallo_tpu_torch/csrc/loop_floor.cu",
+                           "scripts/tpu_loop_floor.py:36", "measurement"),
+    "loop_floor_add_one_grid64": ("thallo_tpu_torch/csrc/loop_floor.cu",
+                                  "scripts/tpu_loop_floor.py:36", "measurement"),
 }
 
 
 def counters():
-    from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup, segsum
+    """Every kernel wrapper by name: each counts its own launches."""
+    from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segsum
 
     return {"fused_pair_apply": fusedpair.fused_pair_apply,
+            "fused_pair_apply_wloop": fusedpair.fused_pair_apply_wloop,
             "oh_setup_products": ohsetup.oh_setup_products,
             "fullrepeat_setup": fullrepeat.fullrepeat_setup,
             "oh_setup_aggregate": ohsetup.oh_setup_aggregate,
-            "segment_sum": segsum.segment_sum}
+            "segment_sum": segsum.segment_sum,
+            "fused_pair_bf16": fusedpair.fused_pair_bf16,
+            "fused_pair_v1_rows": fusedpair.fused_pair_v1_rows,
+            "fused_pair_v2_smem": fusedpair.fused_pair_v2_smem,
+            "fused_pair_v3_partials": fusedpair.fused_pair_v3_partials,
+            "loop_floor_add_one": loopfloor.add_one}
 
 
 def ba_plan(ba, tt, inputs, dims, device, n_iter, schedule=None, **options):
@@ -244,6 +432,57 @@ def make_scene(ba, n_cameras, n_points, obs_per_point):
     log(f"scene {n_cameras}x{n_points}x{obs_per_point}: host generation "
         f"{time.perf_counter() - t0:.2f} s")
     return inputs, {"C": n_cameras, "P": n_points, "O": len(inputs["oToC"])}
+
+
+def make_skew_scene(ba, n_cameras, n_points, target_obs):
+    t0 = time.perf_counter()
+    inputs, _ = ba.skewed_inputs(n_cameras=n_cameras, n_points=n_points,
+                                 target_obs=target_obs, seed=SEED)
+    log(f"skewed scene {n_cameras}x{n_points}, target {target_obs} observations: "
+        f"{len(inputs['oToC'])} observations, host generation {time.perf_counter() - t0:.2f} s")
+    return inputs, {"C": n_cameras, "P": n_points, "O": len(inputs["oToC"])}
+
+
+def skew_tables(ba, tt, scene):
+    """The block-sparse tables of the skewed scene, as its plan builds
+    them on the card (residual sort, level tables)."""
+    inputs, dims = scene
+    plan = ba_plan(ba, tt, inputs, dims, "cuda", 1)
+    plan.init({k: np.copy(v) for k, v in inputs.items()})
+    return plan._prep["consts"][0]["bsr"]
+
+
+def phase_small_skew(ba, tt):
+    """The small skewed scene on the card and the CPU, 5 LM steps each,
+    under scalar Jacobi (phase-3 bounds) and block Jacobi (its own)."""
+    scene = make_skew_scene(ba, *SKEW_SMALL)
+    inputs, dims = scene
+    fns = counters()
+    for precond, u_tol, c_tol in (("jacobi", STEP_U_TOL, STEP_COST_RTOL),
+                                  ("auto", SKEW_BLOCK_U_TOL, SKEW_BLOCK_COST_RTOL)):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            plan = ba_plan(ba, tt, inputs, dims, device, 5, preconditioner=precond)
+            for fn in fns.values():
+                fn.launches = 0
+            costs, Us = [plan.init({k: np.copy(v) for k, v in inputs.items()})], []
+            for _ in range(5):
+                plan.step()
+                costs.append(plan.cost())
+                Us.append({k: v.cpu().numpy() for k, v in plan.unknowns().items()})
+            torch.cuda.synchronize()
+            runs[device] = (costs, Us, {n: fn.launches for n, fn in fns.items()})
+        (cg, Ug, lg), (cc, Uc, _) = runs["cuda"], runs["cpu"]
+        log(f"small skewed scene ({precond}) costs cuda {cg}")
+        log(f"small skewed scene ({precond}) costs cpu  {cc}")
+        widths = [p.shape[1] for p in plan._prep["consts"][0]["bsr"].perms]
+        log(f"small skewed scene ({precond}) point levels W {widths}, card launches "
+            f"fused_pair_apply {lg['fused_pair_apply']}, "
+            f"fused_pair_apply_wloop {lg['fused_pair_apply_wloop']}")
+        if not (lg["fused_pair_apply"] > 0 and lg["fused_pair_apply_wloop"] > 0):
+            raise AssertionError("small skewed scene: a fused-pair kernel never launched")
+        check_steps(f"small skewed scene ({precond}) cuda vs cpu", cg, Ug, cc, Uc, u_tol, c_tol)
+        never_rising(f"small skewed scene ({precond}) cuda", cg)
 
 
 def phase_small_scene(ba, tt):
@@ -266,17 +505,58 @@ def phase_small_scene(ba, tt):
         raise AssertionError("small scene did not converge on the card")
 
 
-def check_steps(what, costs, Us, ref_costs, ref_Us):
-    """Costs within STEP_COST_RTOL and unknowns within STEP_U_TOL x max|U|
-    of the reference, step by step (as far as both lists go)."""
+def check_steps(what, costs, Us, ref_costs, ref_Us, u_tol=STEP_U_TOL,
+                cost_rtol=STEP_COST_RTOL):
+    """Costs within cost_rtol and unknowns within u_tol x max|U| of the
+    reference, step by step (as far as both lists go)."""
+    rel = [max(float(np.abs(u[n] - ref[n]).max() / np.abs(ref[n]).max()) for n in ref)
+           for u, ref in zip(Us, ref_Us)]
+    log(f"{what}: max|dU|/max|U| per step {rel}")
     for k, (a, b) in enumerate(zip(costs, ref_costs)):
-        if not (np.isfinite(a) and abs(a - b) <= STEP_COST_RTOL * abs(b)):
+        if not (np.isfinite(a) and abs(a - b) <= cost_rtol * abs(b)):
             raise AssertionError(f"{what}, step {k}: cost {a} vs {b}")
     for k, (u, ref) in enumerate(zip(Us, ref_Us)):
         for name in ref:
             err = np.abs(u[name] - ref[name]).max()
-            if not err <= STEP_U_TOL * np.abs(ref[name]).max():
+            if not err <= u_tol * np.abs(ref[name]).max():
                 raise AssertionError(f"{what}, step {k + 1}: {name} differs by {err}")
+
+
+class _Tally:
+    """A kernel wrapper behind a hook that adds the launches of each call,
+    read from the wrapper's own count around it, to counts[key(*args,
+    **kwargs)].  ``launches`` passes through to the wrapper's count, which
+    a wrapper reaches by its module-level name."""
+
+    def __init__(self, real, key):
+        self.real, self.key, self.counts = real, key, collections.Counter()
+
+    def __call__(self, *args, **kwargs):
+        n0 = self.real.launches
+        out = self.real(*args, **kwargs)
+        self.counts[self.key(*args, **kwargs)] += self.real.launches - n0
+        return out
+
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real.launches = n
+
+
+@contextlib.contextmanager
+def tally(module, name, key):
+    """``module.name`` (a kernel wrapper) behind a _Tally while the block
+    runs; yields its counts."""
+    real = getattr(module, name)
+    hook = _Tally(real, key)
+    setattr(module, name, hook)
+    try:
+        yield hook.counts
+    finally:
+        setattr(module, name, real)
 
 
 def solve_1m(ba, tt, scene, label, kernels, n_steps=N_STEPS_1M, schedule=None,
@@ -284,7 +564,7 @@ def solve_1m(ba, tt, scene, label, kernels, n_steps=N_STEPS_1M, schedule=None,
     """One LM solve of the 1M scene on the card, on its own copy of the
     scene.  The counts of `kernels` are set to 0 just before the solve and
     read just after; every one of them must have launched.  Returns
-    (costs, unknowns of the first `keep_unknowns` steps, launches)."""
+    (costs, unknowns of the first `keep_unknowns` steps, launches, plan)."""
     inputs, dims = scene
     plan = ba_plan(ba, tt, inputs, dims, "cuda", n_steps, schedule, **options)
     own = {k: np.copy(v) for k, v in inputs.items()}
@@ -322,7 +602,7 @@ def solve_1m(ba, tt, scene, label, kernels, n_steps=N_STEPS_1M, schedule=None,
     steady = step_s[1:] or step_s
     log(f"{label} LM step time: first {step_s[0] * 1e3:.2f} ms, median of the rest "
         f"{float(np.median(steady)) * 1e3:.2f} ms over {len(steady)} steps")
-    return costs, Us, launches
+    return costs, Us, launches, plan
 
 
 def never_rising(label, costs):
@@ -334,7 +614,7 @@ def never_rising(label, costs):
 
 
 def phase_ba_1m(ba, tt, scene):
-    costs, _, launches = solve_1m(ba, tt, scene, "1M block-sparse", (
+    costs, _, launches, _ = solve_1m(ba, tt, scene, "1M block-sparse", (
         "fused_pair_apply", "oh_setup_products", "fullrepeat_setup"))
     if not costs[-1] <= 1e-2 * costs[0]:
         raise AssertionError(f"final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
@@ -342,11 +622,11 @@ def phase_ba_1m(ba, tt, scene):
 
 
 def phase_precompute_j(ba, tt, scene):
-    costs, Us, launches = solve_1m(ba, tt, scene, "1M PRECOMPUTE_J", ("oh_setup_aggregate",),
+    costs, Us, launches, _ = solve_1m(ba, tt, scene, "1M PRECOMPUTE_J", ("oh_setup_aggregate",),
                                    schedule="J", keep_unknowns=CROSS_STEPS,
                                    preconditioner="jacobi")
     never_rising("1M PRECOMPUTE_J", costs)
-    ref_costs, ref_Us, _ = solve_1m(ba, tt, scene, "1M block-sparse, jacobi",
+    ref_costs, ref_Us, _, _ = solve_1m(ba, tt, scene, "1M block-sparse, jacobi",
                                     ("fused_pair_apply",), n_steps=CROSS_STEPS,
                                     keep_unknowns=CROSS_STEPS, preconditioner="jacobi")
     check_steps("PRECOMPUTE_J vs block-sparse (jacobi)", costs[:CROSS_STEPS + 1], Us,
@@ -357,7 +637,7 @@ def phase_precompute_j(ba, tt, scene):
 def phase_apply_separately_tiled(ba, tt, scene, ref):
     os.environ["THALLO_SEGSUM"] = "tiled"  # read by plan.init, as thallo_tpu reads it
     try:
-        costs, Us, launches = solve_1m(ba, tt, scene, "1M APPLY_SEPARATELY tiled",
+        costs, Us, launches, _ = solve_1m(ba, tt, scene, "1M APPLY_SEPARATELY tiled",
                                        ("segment_sum",), schedule="Jp",
                                        keep_unknowns=CROSS_STEPS)
     finally:
@@ -365,6 +645,59 @@ def phase_apply_separately_tiled(ba, tt, scene, ref):
     never_rising("1M APPLY_SEPARATELY tiled", costs)
     check_steps("APPLY_SEPARATELY tiled vs PRECOMPUTE_J", costs[:CROSS_STEPS + 1], Us,
                 ref[0], ref[1])
+    return launches
+
+
+def phase_skew_1m(ba, tt, scene):
+    """The skewed 1M solve: level tables after the residual sort."""
+    from thallo_tpu_torch.solver import blocksparse
+
+    label = "1M skew block-sparse"
+    by_shape = {}
+    with contextlib.ExitStack() as hooks:
+        for name in ("fused_pair_apply", "fused_pair_apply_wloop"):
+            by_shape[name] = hooks.enter_context(
+                tally(blocksparse, name, lambda ids, *a, **k: tuple(ids.shape)))
+        costs, _, launches, plan = solve_1m(ba, tt, scene, label, (
+            "fused_pair_apply", "fused_pair_apply_wloop", "oh_setup_products"))
+    if "O" not in plan._residual_perms:
+        raise AssertionError(f"{label}: the residual sort was not applied")
+    never_rising(label, costs)
+    if not costs[-1] <= 1e-2 * costs[0]:
+        raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
+    log(f"{label} launches per level shape: " + ", ".join(
+        f"(W {W}, N_t {N}) {name} {n}" for name, counts in by_shape.items()
+        for (W, N), n in sorted(counts.items())))
+    return launches
+
+
+def phase_measurement_scripts():
+    """The three measurement scripts through their main(), counts set to 0
+    just before and read just after; returns launches per record entry."""
+    from thallo_tpu_torch.ops import loopfloor
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import torch_fused_pair_micro
+    import torch_fused_variants
+    import torch_loop_floor
+
+    fns = counters()
+    for fn in fns.values():
+        fn.launches = 0
+    argv = ["--n", str(SCRIPT_LAUNCHES)]
+    with tally(loopfloor, "add_one", lambda x, tiles=1: tiles) as by_tiles:
+        for script in (torch_fused_pair_micro, torch_fused_variants, torch_loop_floor):
+            if script.main(argv) != 0:
+                raise AssertionError(f"{script.__name__} failed")
+    torch.cuda.synchronize()
+    launches = {n: fns[n].launches for n, (_, _, path) in KERNELS.items()
+                if path == "measurement" and n in fns}
+    launches["loop_floor_add_one"] = by_tiles[1]
+    launches["loop_floor_add_one_grid64"] = by_tiles[64]
+    log(f"measurement scripts launches {launches}")
+    missing = [n for n, k in launches.items() if k <= 0]
+    if missing:
+        raise AssertionError(f"measurement scripts: kernels never launched: {missing}")
     return launches
 
 
@@ -397,34 +730,41 @@ def main():
     log(f"phase 1 build {path.name}: {time.perf_counter() - t0:.2f} s")
 
     scene = make_scene(ba, *BA_1M)
+    skew_scene = make_skew_scene(ba, *SKEW_1M)
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     record = {}
-    for name, tag, kern, plain, lib, in_bytes, flops in kernel_cases(dev, rng, scene[0]):
+    cases = kernel_cases(dev, rng, scene[0])
+    cases += skew_kernel_cases(dev, rng, skew_tables(ba, tt, skew_scene))
+    cases += measurement_kernel_cases(dev, rng)
+    for name, tag, kern, plain, lib, in_bytes, flops, terms in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        err = compare(f"{name}[{tag}]", got, ref)
+        err = compare(f"{name}[{tag}]", got, ref, terms() if terms else None)
         ms = timed_ms(kern, 20)
         plain_ms = timed_ms(plain, 5)
         lib_ms = timed_ms(lib, 20) if lib is not None else None
         moved = in_bytes + nbytes(*got)
         bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        lib_txt = f", index_add_ {lib_ms:.4f} ms" if lib is not None else ""
+        lib_txt = f", library {lib_ms:.4f} ms" if lib is not None else ""
         log(f"{name}[{tag}]: max|err| {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
             f"{lib_txt}, bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP)")
-        if tag == "ba1m":
-            record[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": bound_ms,
-                            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                            "library_ms": lib_ms}
+        if (name, tag) in RECORD:
+            record[RECORD[name, tag]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                         "bound_ms": bound_ms,
+                                         "bound_by": "bytes" if bytes_ms >= ops_ms
+                                         else "operations",
+                                         "library_ms": lib_ms}
+    del cases, got, ref
     torch.cuda.synchronize()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     phase_small_scene(ba, tt)
-    log(f"phase 3 small scene cuda vs cpu: {time.perf_counter() - t0:.2f} s")
+    phase_small_skew(ba, tt)
+    log(f"phase 3 small scenes cuda vs cpu: {time.perf_counter() - t0:.2f} s")
 
     runs = {}
     t0 = time.perf_counter()
@@ -443,7 +783,18 @@ def main():
     log(f"phase 6 BA 1M LM solve, APPLY_SEPARATELY + THALLO_SEGSUM=tiled: "
         f"{time.perf_counter() - t0:.2f} s")
 
-    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+    t0 = time.perf_counter()
+    runs["skew block-sparse"] = phase_skew_1m(ba, tt, skew_scene)
+    torch.cuda.synchronize()
+    log(f"phase 7 skewed BA 1M LM solve, block-sparse JᵀJ over level tables: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    runs["measurement"] = phase_measurement_scripts()
+    log(f"phase 8 measurement scripts: {time.perf_counter() - t0:.2f} s")
+
+    # launches on the run named beside each kernel (a solve, or phase 8)
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
                 "launches": runs[path][name], **record[name]}
                for name, (src, rep, path) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_all:.2f} s")

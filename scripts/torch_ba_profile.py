@@ -4,10 +4,12 @@ on the GPU.
     python3 scripts/torch_ba_profile.py [--cameras 1024] [--points 250000]
                                         [--obs 4] [--out FILE]
                                         [--schedule precompute_j|apply_separately]
-                                        [--segsum tiled]
+                                        [--segsum tiled] [--skew OBSERVATIONS]
 
 Builds the uniform BA scene (models/bundle_adjustment.synthetic_inputs,
-seed 0) and an LM plan of it: the default block-sparse materialized JᵀJ,
+seed 0; with --skew, skewed_inputs with that target observation count:
+power-law degrees, level tables after the residual sort) and an LM plan
+of it: the default block-sparse materialized JᵀJ,
 or with --schedule the materialized-J schedule that the energy text's
 ``r.<name>.J.set_materialize(True)`` (precompute_j) or
 ``Jp.set_materialize(True)`` (apply_separately) selects; --segsum tiled
@@ -38,12 +40,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 SCHEDULES = {"precompute_j": "J", "apply_separately": "Jp"}
 
 
-def make_plan(n_cameras, n_points, obs, device, schedule=None):
+def make_plan(n_cameras, n_points, obs, device, schedule=None, skew=None):
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
-    inputs, _ = ba.synthetic_inputs(n_cameras=n_cameras, n_points=n_points,
-                                    obs_per_point=obs, seed=0)
+    if skew:
+        inputs, _ = ba.skewed_inputs(n_cameras=n_cameras, n_points=n_points,
+                                     target_obs=skew, seed=0)
+    else:
+        inputs, _ = ba.synthetic_inputs(n_cameras=n_cameras, n_points=n_points,
+                                        obs_per_point=obs, seed=0)
     dims = {"C": n_cameras, "P": n_points, "O": len(inputs["oToC"])}
     text = ba.ENERGY
     if schedule:
@@ -116,6 +122,8 @@ def main():
     ap.add_argument("--out")
     ap.add_argument("--schedule", choices=sorted(SCHEDULES))
     ap.add_argument("--segsum", choices=["tiled"])
+    ap.add_argument("--skew", type=int, metavar="OBSERVATIONS",
+                    help="the degree-skewed scene with this target observation count")
     args = ap.parse_args()
     if args.segsum:
         os.environ["THALLO_SEGSUM"] = args.segsum
@@ -128,10 +136,12 @@ def main():
         print(s, flush=True)
         lines.append(s)
 
+    scene = (f"skewed, target {args.skew} obs" if args.skew
+             else f"{args.obs} obs per point")
     say(f"device {torch.cuda.get_device_name(0)}; BA {args.cameras} cameras x "
-        f"{args.points} points x {args.obs} obs; schedule "
+        f"{args.points} points, {scene}; schedule "
         f"{args.schedule or 'block-sparse JtJ'}; THALLO_SEGSUM={args.segsum or 'unset'}")
-    plan = make_plan(args.cameras, args.points, args.obs, "cuda", args.schedule)
+    plan = make_plan(args.cameras, args.points, args.obs, "cuda", args.schedule, args.skew)
     for _ in range(2):
         plan.step()
     torch.cuda.synchronize()

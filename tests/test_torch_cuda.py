@@ -8,10 +8,11 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup, segsum  # noqa: E402
+from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segsum  # noqa: E402
 from tests.torch_cases import (  # noqa: E402
     AGG_SHAPES, CI, CJ, FR_RECIPE, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
-    SEG_SHAPES, agg_inputs, close, fr_inputs, fused_inputs, oh_inputs, seg_inputs)
+    SEG_SHAPES, WLOOP_SHAPES, agg_inputs, bf16_round, close, fr_inputs, fused_inputs,
+    oh_inputs, seg_inputs)
 
 # f32 on both sides; only the order of (atomic) sums differs
 CUDA_TOL = 1e-5
@@ -103,3 +104,82 @@ def test_segsum_cuda_matches_plain(cuda, M, S, C):
     bad = np.zeros(S, bool)
     bad[ids[7]] = True
     assert np.isnan(got[bad]).all() and np.isfinite(got[~bad]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,S", WLOOP_SHAPES + FUSED_SHAPES)
+def test_fused_pair_wloop_cuda_matches_plain(cuda, W, N, S):
+    """The W-loop kernel at wide levels, at narrow ones, and where its
+    [Cj, S] accumulator runs as several channel chunks (S = 5000)."""
+    args = [torch.from_numpy(a).to(cuda) for a in fused_inputs(W, N, S)]
+    n0 = fusedpair.fused_pair_apply_wloop.launches
+    rows, cols = fusedpair.fused_pair_apply_wloop(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert fusedpair.fused_pair_apply_wloop.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_pair_bf16", "fused_pair_v1_rows",
+                                  "fused_pair_v2_smem", "fused_pair_v3_partials"])
+@pytest.mark.parametrize("W,N,S", FUSED_SHAPES)
+def test_fused_pair_bf16_cuda_matches_plain(cuda, name, W, N, S):
+    ids, blocks, pcol, prow = fused_inputs(W, N, S)
+    args = [torch.from_numpy(ids).to(cuda), torch.from_numpy(bf16_round(blocks)).to(cuda).bfloat16(),
+            torch.from_numpy(pcol).to(cuda), torch.from_numpy(prow).to(cuda)]
+    fn = getattr(fusedpair, name)
+    n0 = fn.launches
+    out = fn(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    if name == "fused_pair_v1_rows":
+        close(out.cpu(), r_ref.cpu(), CUDA_TOL)
+        return
+    close(out[0].cpu(), r_ref.cpu(), CUDA_TOL)
+    close(out[1].cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1024, 65536])
+def test_loop_floor_cuda_matches_plain(cuda, L):
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(8, L)).astype(np.float32)).to(cuda)
+    n0 = loopfloor.add_one.launches
+    out = loopfloor.add_one(x, tiles=L // 1024)
+    torch.cuda.synchronize()
+    assert loopfloor.add_one.launches == n0 + 1
+    assert torch.equal(out, loopfloor.add_one_reference(x))
+
+
+@pytest.mark.cuda
+def test_skewed_setup_and_apply_cuda_matches_cpu(cuda):
+    """The level tables on the card: skewed_inputs(16, 1400, 5600) (point
+    levels W = 8, 24, 273; the residual sort) gives the same -JᵀF, diag
+    and JᵀJ·p on the card as on the CPU, through both fused-pair
+    kernels."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+
+    ins, _ = ba.skewed_inputs(16, 1400, 5600)
+    dims = {"C": 16, "P": 1400, "O": len(ins["oToC"])}
+    rng = np.random.default_rng(3)
+    out = {}
+    n0 = (fusedpair.fused_pair_apply.launches, fusedpair.fused_pair_apply_wloop.launches)
+    for device in ("cuda", "cpu"):
+        plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=device)
+        plan.init({k: np.copy(v) for k, v in ins.items()})
+        comp, consts = plan.compiled, plan._prep["consts"]
+        p = {k: torch.from_numpy(rng.normal(size=v.shape).astype(np.float32)).to(device)
+             for k, v in plan._U.items()}
+        rng = np.random.default_rng(3)
+        mjtf, diag, store = comp.jtf_and_diag(plan._U, plan._step_inputs(), consts, None, {})
+        jtjp = comp.make_jtjp(plan._U, plan._step_inputs(), consts, None, store)(p)
+        out[device] = [{k: v.cpu() for k, v in t.items()} for t in (mjtf, diag, jtjp)]
+    torch.cuda.synchronize()
+    assert fusedpair.fused_pair_apply.launches == n0[0] + 1
+    assert fusedpair.fused_pair_apply_wloop.launches == n0[1] + 2
+    for got, ref in zip(out["cuda"], out["cpu"]):
+        for k in ref:
+            close(got[k], ref[k], 1e-4)

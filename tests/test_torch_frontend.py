@@ -117,7 +117,8 @@ def test_imports_with_jax_blocked():
         "import thallo_tpu_torch.solver.gn, thallo_tpu_torch.solver.blocksparse\n"
         "import thallo_tpu_torch.ops.fusedpair, thallo_tpu_torch.ops.ohsetup\n"
         "import thallo_tpu_torch.ops.fullrepeat, thallo_tpu_torch.ops._cuda\n"
-        "import thallo_tpu_torch.ops.segsum\n"
+        "import thallo_tpu_torch.ops.segsum, thallo_tpu_torch.ops.loopfloor\n"
+        "import thallo_tpu_torch.ops.structured, thallo_tpu_torch.reorder\n"
         "from thallo_tpu_torch.models import bundle_adjustment as ba\n"
         "spec = thallo_tpu_torch.load_energy(ba.ENERGY)\n"
         "assert not any(m in ('jax', 'thallo_tpu') or m.startswith(('jax.', 'thallo_tpu.'))\n"

@@ -7,6 +7,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import importlib.util  # noqa: E402
+from pathlib import Path  # noqa: E402
+
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -15,11 +18,22 @@ from thallo_tpu.ops.fullrepeat import fullrepeat_setup as jax_fullrepeat  # noqa
 from thallo_tpu.ops.fusedpair import fused_pair_apply as jax_fused_pair  # noqa: E402
 from thallo_tpu.ops.ohsetup import oh_setup_aggregate as jax_oh_aggregate  # noqa: E402
 from thallo_tpu.ops.ohsetup import oh_setup_products as jax_oh_products  # noqa: E402
-from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup, segsum  # noqa: E402
+from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segsum  # noqa: E402
 from tests.torch_cases import (  # noqa: E402
     AGG_SHAPES, CI, CJ, FR_RECIPE, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
-    ORACLE_TOL, SEG_SHAPES, agg_inputs, agg_oracle, close, fr_inputs, fr_oracle,
-    fused_inputs, fused_oracle, oh_inputs, oh_oracle, seg_inputs, seg_oracle)
+    ORACLE_TOL, SEG_SHAPES, WLOOP_SHAPES, agg_inputs, agg_oracle, bf16_round, close,
+    fr_inputs, fr_oracle, fused_inputs, fused_oracle, oh_inputs, oh_oracle, seg_inputs,
+    seg_oracle)
+
+
+def _load_script(name):
+    """A measurement script of the JAX package, imported by path (its
+    main() runs only as __main__)."""
+    path = Path(__file__).resolve().parent.parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 # JAX's products/full-repeat/aggregate kernels split f32 into three bf16
 # terms exactly, and its segment sum contracts f32 against a one-hot,
@@ -101,6 +115,76 @@ def test_fullrepeat_plain_matches_jax(N_t, W):
 
 
 # ---------------------------------------------------------------------------
+# wide levels: the W-loop body (JAX runs _kernel_wloop where W > 8)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("W,N,S", WLOOP_SHAPES)
+def test_fused_pair_wloop_plain_matches_oracle(W, N, S):
+    ids, blocks, pcol, prow = fused_inputs(W, N, S)
+    rows, cols = fusedpair.fused_pair_apply_wloop(
+        torch.from_numpy(ids), torch.from_numpy(blocks), torch.from_numpy(pcol),
+        torch.from_numpy(prow), Ci=CI, Cj=CJ, S=S)
+    r_ref, c_ref = fused_oracle(ids, blocks, pcol, prow, S)
+    close(rows, r_ref, ORACLE_TOL)
+    close(cols, c_ref, ORACLE_TOL)
+
+
+@pytest.mark.parametrize("W,N,S", WLOOP_SHAPES[:2])
+def test_fused_pair_wloop_plain_matches_jax(W, N, S):
+    test_fused_pair_plain_matches_jax(W, N, S)
+
+
+# ---------------------------------------------------------------------------
+# the measurement scripts' kernels: bf16 block storage, and the launch floor
+# ---------------------------------------------------------------------------
+BF16_KERNELS = ["fused_pair_bf16", "fused_pair_v1_rows", "fused_pair_v2_smem",
+                "fused_pair_v3_partials"]
+
+
+def _bf16_inputs(W, N, S):
+    ids, blocks, pcol, prow = fused_inputs(W, N, S)
+    return ids, bf16_round(blocks), pcol, prow
+
+
+@pytest.mark.parametrize("name", BF16_KERNELS)
+@pytest.mark.parametrize("W,N,S", FUSED_SHAPES)
+def test_fused_pair_bf16_plain_matches_oracle(name, W, N, S):
+    """bf16 blocks (values exactly representable), f32 arithmetic: the
+    oracle on the same rounded values differs only by f32 rounding."""
+    ids, blocks, pcol, prow = _bf16_inputs(W, N, S)
+    out = getattr(fusedpair, name)(
+        torch.from_numpy(ids), torch.from_numpy(blocks).bfloat16(), torch.from_numpy(pcol),
+        torch.from_numpy(prow), Ci=CI, Cj=CJ, S=S)
+    r_ref, c_ref = fused_oracle(ids, blocks, pcol, prow, S)
+    if name == "fused_pair_v1_rows":
+        close(out, r_ref, ORACLE_TOL)
+        return
+    close(out[0], r_ref, ORACLE_TOL)
+    close(out[1], c_ref, ORACLE_TOL)
+
+
+@pytest.mark.parametrize("W,N,S", FUSED_SHAPES)
+def test_fused_pair_bf16_plain_matches_jax_micro(W, N, S):
+    """Against the micro script's XLA formulation, which rounds pcol and
+    z to bf16 as well (2^-8 relative per term): JAX_BF16_TOL."""
+    micro = _load_script("tpu_fused_pair_micro")
+    ids, blocks, pcol, prow = _bf16_inputs(W, N, S)
+    rows, cols = fusedpair.fused_pair_bf16(
+        torch.from_numpy(ids), torch.from_numpy(blocks).bfloat16(), torch.from_numpy(pcol),
+        torch.from_numpy(prow), Ci=CI, Cj=CJ, S=S)
+    jr, jc = micro.xla_reference(jnp.asarray(ids), jnp.asarray(blocks, jnp.bfloat16),
+                                 jnp.asarray(pcol), jnp.asarray(prow), Ci=CI, Cj=CJ, W=W, S=S)
+    close(rows, jr, JAX_BF16_TOL)
+    close(cols, jc, JAX_BF16_TOL)
+
+
+@pytest.mark.parametrize("L", [1024, 65536])
+def test_loop_floor_plain(L):
+    x = np.random.default_rng(6).normal(size=(loopfloor.ROWS, L)).astype(np.float32)
+    out = loopfloor.add_one(torch.from_numpy(x), tiles=L // 1024)
+    np.testing.assert_array_equal(out.numpy(), x + np.float32(1))
+
+
+# ---------------------------------------------------------------------------
 # the materialized-J scatters: aggregation and the tiled segment sum
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("R,N", AGG_SHAPES)
@@ -173,7 +257,9 @@ def test_segsum_plan_refuses_degenerate():
 def _launches():
     return (fusedpair.fused_pair_apply.launches, ohsetup.oh_setup_products.launches,
             fullrepeat.fullrepeat_setup.launches, ohsetup.oh_setup_aggregate.launches,
-            segsum.segment_sum.launches)
+            segsum.segment_sum.launches, fusedpair.fused_pair_apply_wloop.launches,
+            loopfloor.add_one.launches,
+            *(getattr(fusedpair, name).launches for name in BF16_KERNELS))
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -185,6 +271,10 @@ def test_cpu_tensors_launch_no_kernel():
                                 W=FR_SHAPES[0][1], N_t=FR_SHAPES[0][0], recipe=FR_RECIPE)
     test_oh_aggregate_plain_matches_oracle(*AGG_SHAPES[0])
     test_segsum_plain_matches_jax(*SEG_SHAPES[0])
+    test_fused_pair_wloop_plain_matches_oracle(*WLOOP_SHAPES[0])
+    for name in BF16_KERNELS:
+        test_fused_pair_bf16_plain_matches_oracle(name, *FUSED_SHAPES[0])
+    test_loop_floor_plain(1024)
     assert _launches() == before
 
 

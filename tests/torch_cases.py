@@ -30,6 +30,13 @@ def fused_inputs(W, N, S, seed=0):
     return ids, blocks, pcol, prow
 
 
+def bf16_round(a):
+    """f32 values rounded to bf16 (nearest even), kept as f32."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
 def fused_oracle(ids, blocks, pcol, prow, S):
     W, N = ids.shape
     b = blocks.astype(np.float64).reshape(W, CI, CJ, N)
@@ -106,6 +113,9 @@ def fr_oracle(rT, Jall, N_t, W):
 
 
 FUSED_SHAPES = [(4, 1000, 64), (3, 777, 500)]  # (W, N, S): ragged N; S > 256
+# wide levels (W > 8: JAX's _kernel_wloop, the port's W-loop kernel); the
+# last one's [Cj, S] accumulator does not fit the shared memory at once
+WLOOP_SHAPES = [(12, 2000, 64), (24, 333, 300), (40, 100, 5000)]
 OH_SHAPES = [(777, 96), (2348, 64)]            # (R, N)
 FR_SHAPES = [(500, 4), (130, 3)]               # (N_t, W)
 

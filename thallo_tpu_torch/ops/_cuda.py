@@ -42,6 +42,9 @@ SIGNATURES = {
     "thallo_fullrepeat_setup": (P, P, P, P, P, I, I, I, I, P),
     "thallo_oh_setup_aggregate": (P, P, P, I, I, I, P),
     "thallo_segment_sum": (P, L, L, P, P, P, P, I, I, I, I, I, I, I, P),
+    "thallo_fused_pair_wloop": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_fused_pair_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    "thallo_loop_floor_add_one": (P, P, I, I, P),
 }
 
 _lib = None

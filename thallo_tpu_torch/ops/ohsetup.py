@@ -48,7 +48,9 @@ def recipe_width(recipe) -> int:
     return sum(e[2] if e[0] in ("jtr", "d2") else e[2] * e[4] for e in recipe)
 
 
-def _slabs(rT, Jall, recipe):
+def setup_slabs(rT, Jall, recipe):
+    """The recipe's slabs, stacked channel-major: [F, R] (f32, per
+    observation, before any sum by id)."""
     rc, R = rT.shape
     out = []
     for ent in recipe:
@@ -66,7 +68,7 @@ def _slabs(rT, Jall, recipe):
 
 def oh_setup_products_reference(rT, Jall, ids, *, N, recipe):
     """Plain torch version (f32): slabs [F, R], then index_add_ by id."""
-    x = _slabs(rT.to(torch.float32), Jall.to(torch.float32), recipe)
+    x = setup_slabs(rT.to(torch.float32), Jall.to(torch.float32), recipe)
     ok = (ids >= 0) & (ids < N)
     out = torch.zeros((x.shape[0], N), dtype=torch.float32, device=rT.device)
     return out.index_add_(1, ids[ok].long(), x[:, ok])

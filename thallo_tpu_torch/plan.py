@@ -7,12 +7,14 @@ every kernel's plain torch version.  Nothing picks a device by itself.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from . import reorder
 from .lower import Collection, LoweredGroup, inline_computed
 from .solver.gn import (
     SOLVER_PARAMETER_DEFAULTS,
@@ -94,8 +96,6 @@ class Plan:
         for name, (default, what) in _UNPORTED_OPTIONS.items():
             if options.get(name, default) != default:
                 raise NotImplementedError(f"{name}={options[name]!r}: {what} is not ported yet")
-        if options.get("sort_residuals", "auto") not in ("auto", False):
-            raise NotImplementedError("the residual-domain sort (reorder.py) is not ported yet")
         if spec.double_precision:
             raise NotImplementedError("double_precision is not ported yet: the port runs in f32")
         self.device = _resolve_device(options.get("device", "cuda"))
@@ -122,6 +122,12 @@ class Plan:
         self.solver_parameters.update(options.get("solver_parameters", {}))
         self.verbosity = int(options.get("verbosity", 0))
         self.debug_check_finite = bool(options.get("debug_check_finite", False))
+        # init-time residual-domain sort (reorder.py): "auto" sorts
+        # order-free graph domains by their largest unstructured sparse
+        # map, so the block-sparse row tables read contiguous runs; False
+        # disables (also THALLO_SORT_RESIDUALS=0)
+        self.sort_residuals = options.get("sort_residuals", "auto")
+        self._residual_perms = {}
         self._inputs = None
         self._U = None
         self._lm = None
@@ -223,8 +229,32 @@ class Plan:
             out[p.name] = self._scalar(inputs[p.name])
         return out
 
+    def _maybe_sort_residuals(self, inputs):
+        """Init-time residual-domain sort (thallo_tpu/plan.py:439-473):
+        relabel order-free graph domains so the largest unstructured
+        sparse map is sorted.  The residual multiset, and so every cost
+        and product, is unchanged up to summation order."""
+        self._residual_perms = {}
+        if not self.sort_residuals or os.environ.get("THALLO_SORT_RESIDUALS", "1") == "0":
+            return inputs
+        gps = self.compiled.groups
+        want = {id(gp.group): self.compiled._wants_bsr(gp) for gp in gps}
+        try:
+            perms = reorder.choose_sort_keys(self.spec, [gp.group for gp in gps], inputs,
+                                             lambda g: want.get(id(g), False))
+            out = reorder.apply_perms(self.spec, inputs, perms)
+        except (ValueError, IndexError, KeyError):
+            if self.sort_residuals != "auto":
+                raise
+            return inputs  # "auto": the sort is an optimization only
+        if perms and self.verbosity:
+            print(f"[thallo_tpu_torch] residual sort: {sorted(perms)}")
+        self._residual_perms = perms
+        return out
+
     def init(self, inputs: Dict[str, np.ndarray]):
         """Bind user arrays and reset solver state.  Returns the initial cost."""
+        inputs = self._maybe_sort_residuals(inputs)
         self._inputs = self._normalize_inputs(inputs)
         self._U = {im.name: self._inputs[im.name].clone() for im in self.spec.unknowns}
         self._const_inputs = {k: v for k, v in self._inputs.items() if k not in self._U}

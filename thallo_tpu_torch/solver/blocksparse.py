@@ -1,37 +1,54 @@
 """Block-sparse materialized JᵀJ for graph energies (counterpart of
-``thallo_tpu/solver/blocksparse.py``), restricted to the two slot kinds
-of bundle adjustment:
+``thallo_tpu/solver/blocksparse.py``).
 
-* **one-hot row mode** for slots over small images (BA cameras: the same
-  rule as JAX, ``N <= 1024 and R >= 4*N``).  The name is kept; on the
-  GPU their setup aggregation is a segment sum by element id
+Each unknown slot of a group takes one of three row forms, chosen at
+table build (plan init) as the JAX package chooses:
+
+* **one-hot row mode** for slots over small images (BA cameras:
+  ``N <= THALLO_ONEHOT_ROWS`` (1024) and ``R >= 4*N``).  The name is kept;
+  on the GPU their setup aggregation is a segment sum by element id
   (ops/ohsetup.py) and their cross JᵀJ·p term is the transpose of the
   partner pair's blocks, computed by the fused pair kernel;
-* **full-repeat row tables** for every other slot: the index array must
-  be ``repeat(arange(N), W)`` (a sorted map with W incidences per
-  element), so observation ``n*W + w`` is entry (n, w) of the table and
-  the setup reads contiguous windows (ops/fullrepeat.py).
+* **full-repeat row tables** when the index array is
+  ``repeat(arange(N), W)`` (a sorted map with W >= 2 incidences per
+  element, which the JAX package keys by affine segment): observation
+  ``n*W + w`` is entry (n, w) of the table and the setup reads contiguous
+  windows (ops/fullrepeat.py);
+* **rank-keyed level tables** for every other map (degree skew, unsorted
+  maps): level 0 is an [N, W0] table over the first W0 incidences of
+  every element, and each overflow level covers incidence ranks
+  [T, T+W) of the N_t elements whose degree exceeds T, with its element
+  ids in ``row_sels``.  The setup gathers one channel-major payload per
+  level (``index_select`` by perm, times mask) and folds the overflow
+  levels' sums into one ``index_add_`` per base table; the apply adds the
+  overflow levels' row contributions with one ``index_add_`` per slot.
 
-The tables (perms, masks, cols, oh_idxs, pairs) equal what JAX's
-``build_group_bsr`` builds for such groups.  Not ported yet (they raise
-NotImplementedError): rank-keyed row tables with overflow levels (degree
-skew, unsorted maps), structured-index plans, the payload-gather setup,
-and cross pairs without a transpose partner.
+The tables (perms, masks, cols, row_sels, row_starts, oh_idxs, pairs)
+equal what JAX's ``build_group_bsr`` builds.  A col pair with a transpose
+partner runs both directions through one fused kernel launch per level
+(``fused_pair_apply``, or ``fused_pair_apply_wloop`` where W > 8, JAX's
+``store_3d`` levels); a col pair without one gathers p by its col table
+and multiplies.  Not ported: segment-keyed tables of affine maps that
+are not a full repeat (they raise NotImplementedError; ROADMAP queue 1,
+item 5).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import structured
 from ..ops.fullrepeat import fullrepeat_setup
-from ..ops.fusedpair import fused_pair_apply
-from ..ops.ohsetup import oh_setup_products
+from ..ops.fusedpair import WLOOP_MIN_W, fused_pair_apply, fused_pair_apply_wloop
+from ..ops.ohsetup import oh_setup_products, setup_slabs
 
-ONEHOT_ROWS_MAX = 1024   # one-hot row mode: slot_N <= this and R >= 4*slot_N
-TRANSPOSE_ROWS_MAX = 8192
+# padding budget of the rank-keyed tables: sum N_t*W_t <= MAX_WASTE*R + MAX_PAD_EXTRA
+MAX_WASTE = 4.0
+MAX_PAD_EXTRA = 1 << 16
 
 
 @dataclasses.dataclass
@@ -41,18 +58,35 @@ class GroupBsr:
     perms: Tuple[torch.Tensor, ...]      # per row table: [N_t, W_t] int32 into [0, R)
     masks: Tuple[torch.Tensor, ...]      # per row table: [N_t, W_t] float (1 = valid)
     cols: Tuple[torch.Tensor, ...]       # per col table: [W_t, N_t] int32 element ids
-    slot_row: Tuple[int, ...]            # slot i -> row table, or -1 for one-hot row mode
-    pairs: Tuple[tuple, ...]             # (i, j, "diag") | (i, j, "col", gather_idx)
+    slot_row: Tuple[int, ...]            # slot i -> BASE row table, or -1 for one-hot row mode
+    pairs: Tuple[tuple, ...]             # (i, j, "diag") | (i, j, "col", gather_idx) per level
     #                                      | (i, j, "transpose", partner_pair_idx)
     col_gathers: Tuple[tuple, ...]       # per gather: (col_table, image_name, C)
     slot_images: Tuple[str, ...]         # slot i -> image name
     slot_channels: Tuple[int, ...]       # slot i -> channel count
     image_shapes: dict                   # image name -> full array shape
     col_row: Tuple[int, ...]             # col table -> owning row table
+    row_base: Tuple[int, ...]            # row table -> its level-0 base table
+    # per row table: [N_t] int32 element ids of an overflow level, or None
+    # (level 0 covers every element)
+    row_sels: Tuple[Optional[torch.Tensor], ...]
     oh_idxs: Tuple[Optional[torch.Tensor], ...]  # per slot: [R] int32 ids (one-hot) or None
+    # per row table of a sorted map: [N_t] int32 first payload row of each
+    # element's run at this level, or None.  Kept on the host: JAX's
+    # sorted-run gather reads it, the port's gather reads the perm.
+    row_starts: Tuple[Optional[np.ndarray], ...]
+    full_repeat: Tuple[bool, ...]        # row table -> full-repeat (ops/fullrepeat.py)
+
+    def levels_of(self, base: int) -> Tuple[int, ...]:
+        """All row tables sharing this base, base first."""
+        return _levels_of(self.row_base, base)
 
     def slot_onehot(self, i: int) -> bool:
         return self.slot_row[i] < 0
+
+
+def _levels_of(row_base, base: int) -> Tuple[int, ...]:
+    return tuple(t for t, b in enumerate(row_base) if b == base)
 
 
 def _repeat_width(idx: np.ndarray, N: int) -> int:
@@ -66,15 +100,136 @@ def _repeat_width(idx: np.ndarray, N: int) -> int:
     return W
 
 
+def _seg_keyed(idx: np.ndarray, N: int, R: int) -> bool:
+    """Whether thallo_tpu keys this index array's row table by affine
+    segment (``_seg_keyed_table``, blocksparse.py:147-197): the same
+    tests, without building the table."""
+    segs = structured.detect_segments_cached(idx) if structured.enabled() else None
+    segs = structured.normalize_segments(segs)
+    if segs is None:
+        return False
+    D = 0
+    for (_s0, H, W, _b, c1, c2) in segs:
+        if c2 == 0 and W > 1:
+            if H > 1 and c1 == 0:
+                return False  # same unknown everywhere: not keyable
+            D += W
+        else:
+            D += 1
+    return D <= 32 and N * D <= MAX_WASTE * R + MAX_PAD_EXTRA
+
+
+def _level_widths(counts: np.ndarray, R: int, max_waste: float,
+                  max_pad_extra: int) -> Optional[List[Tuple[int, int]]]:
+    """Level boundaries [(rank_start, width), ...] of a rank-keyed row
+    table under degree skew (a copy of thallo_tpu's ``_level_widths``).
+    Level 0 covers every element; each further level covers the elements
+    whose degree exceeds the cumulative cap, with geometrically growing
+    widths.  The base width minimizes the padded entries plus 16384 per
+    level, within the waste budget; None when even W0 = 1 exceeds it."""
+    N = counts.shape[0]
+    Dmax = int(counts.max()) if counts.size else 1
+    Dmax = max(Dmax, 1)
+    budget = max_waste * R + max_pad_extra
+    if N > budget:
+        return None
+    csort = np.sort(counts)
+
+    def simulate(W0):
+        levels = [(0, min(W0, Dmax))]
+        total = N * levels[0][1]
+        T = levels[0][1]
+        while T < Dmax:
+            n_over = int(N - np.searchsorted(csort, T, side="right"))
+            if n_over == 0:
+                break
+            remaining = int(np.clip(counts - T, 0, None).sum())
+            if n_over * (Dmax - T) <= max_waste * remaining + 4096:
+                W = Dmax - T  # the tail is cheap to finish in one level
+            else:
+                W = min(max(1, 3 * T), Dmax - T)
+            levels.append((T, W))
+            total += n_over * W
+            T += W
+        return levels, total
+
+    qs = [max(1, int(np.ceil(np.quantile(counts, q))))
+          for q in (0.5, 0.75, 0.9, 0.95)]
+    cands = sorted({*qs, *(1 << k for k in range(0, 11)
+                           if (1 << k) <= max(qs[-1] * 2, 2))})
+    best = None
+    for W0 in cands:
+        if N * W0 > budget:
+            continue
+        levels, total = simulate(W0)
+        if total > budget:
+            continue
+        score = total + 16384 * len(levels)
+        if best is None or score < best[1]:
+            best = (levels, score)
+    if best is None:
+        return None
+    return best[0]
+
+
+def _rank_keyed_tables(idx: np.ndarray, N: int, R: int, max_waste: float,
+                       max_pad_extra: int) -> Optional[List[dict]]:
+    """The level tables of one index array (a copy of thallo_tpu's
+    ``_rank_keyed_tables``): dicts with perm, mask, sel (None on level 0)
+    and start (run starts when the array is sorted, else None), level 0
+    first; None when the budget refuses every base width."""
+    counts = np.bincount(idx, minlength=N)
+    levels = _level_widths(counts, R, max_waste, max_pad_extra)
+    if levels is None:
+        return None
+    order = np.argsort(idx, kind="stable").astype(np.int64)
+    starts = np.zeros(N + 1, np.int64)
+    starts[1:] = np.cumsum(counts)
+    sorted_rows = idx[order]
+    pos = np.arange(R, dtype=np.int64) - starts[sorted_rows]
+    is_sorted = bool(np.all(np.diff(idx) >= 0)) if idx.size else False
+    out = []
+    for li, (T, W) in enumerate(levels):
+        if li == 0:
+            sel = None
+            rowmap = None
+            N_t = N
+        else:
+            sel = np.nonzero(counts > T)[0].astype(np.int32)
+            N_t = sel.shape[0]
+            if N_t == 0:
+                continue
+            rowmap = np.full(N, -1, np.int64)
+            rowmap[sel] = np.arange(N_t)
+        in_level = (pos >= T) & (pos < T + W)
+        rows = sorted_rows[in_level]
+        lanes = pos[in_level] - T
+        perm = np.zeros((N_t, W), np.int32)
+        mask = np.zeros((N_t, W), np.float32)
+        r_t = rows if rowmap is None else rowmap[rows]
+        perm[r_t, lanes] = order[in_level].astype(np.int32)
+        mask[r_t, lanes] = 1.0
+        run_start = None
+        if is_sorted:
+            elems = np.arange(N, dtype=np.int64) if sel is None else sel
+            run_start = np.minimum(starts[elems] + T, R).astype(np.int32)
+        out.append({"perm": perm, "mask": mask, "sel": sel, "start": run_start})
+    return out
+
+
 def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
     """Build the static tables from the slots' concrete flat indices
-    (host side, once per init).  idxs[i] is slot i's [R] element index."""
+    (host side, once per init).  idxs[i] is slot i's [R] element index.
+    THALLO_ONEHOT_ROWS and THALLO_TRANSPOSE_ROWS are read here, as
+    thallo_tpu reads them."""
     jslots = group.uslots
     R = group.R
     slot_N = [int(np.prod([d.size for d in s.image.dims])) for s in jslots]
     nslots = len(jslots)
 
-    onehot = [slot_N[i] <= ONEHOT_ROWS_MAX and R >= 4 * slot_N[i] for i in range(nslots)]
+    oh_max = int(os.environ.get("THALLO_ONEHOT_ROWS", "1024"))
+    onehot = [0 < oh_max and slot_N[i] <= oh_max and R >= 4 * slot_N[i]
+              for i in range(nslots)]
     for i in range(nslots):
         for j in range(nslots):
             if i == j or not (onehot[i] and onehot[j]):
@@ -83,17 +238,20 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
                 continue  # diag pair: pure aggregation, no table needed
             k = i if slot_N[i] > slot_N[j] else j  # demote the larger
             onehot[k] = False
+    tr_max = int(os.environ.get("THALLO_TRANSPOSE_ROWS", "8192"))
 
     def _transpose_ok(i, j):
         if onehot[i]:
             return True
-        if slot_N[i] > TRANSPOSE_ROWS_MAX or onehot[j]:
+        if slot_N[i] > tr_max or onehot[j]:
             return False
         return (slot_N[i], i) < (slot_N[j], j)
 
-    # row tables keyed by the index array's bytes: full-repeat only
+    # row tables keyed by the index array's bytes; each key maps to its
+    # base (level-0) table
     row_of_slot: List[int] = []
-    row_tables: List[np.ndarray] = []
+    tables: List[dict] = []
+    row_base_of: List[int] = []
     key_to_row: Dict[bytes, int] = {}
     for i, s in enumerate(jslots):
         if onehot[i]:
@@ -101,14 +259,28 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
             continue
         key = idxs[i].tobytes()
         if key not in key_to_row:
-            W = _repeat_width(idxs[i], slot_N[i])
-            if W < 2:
-                raise NotImplementedError(
-                    f"slot {s!r}: its index array is not a sorted map with the "
-                    "same number (>= 2) of incidences per element; rank-keyed "
-                    "row tables (degree skew, unsorted maps) are not ported yet")
-            key_to_row[key] = len(row_tables)
-            row_tables.append(np.arange(R, dtype=np.int32).reshape(slot_N[i], W))
+            idx, N, base = idxs[i], slot_N[i], len(tables)
+            if _seg_keyed(idx, N, R):
+                W = _repeat_width(idx, N)
+                if W < 2:
+                    raise NotImplementedError(
+                        f"slot {s!r}: its index array is affine-structured but not a "
+                        "full repeat; thallo_tpu keys its row table by segment, which "
+                        "is not ported yet (ROADMAP queue 1, item 5)")
+                tables.append({"perm": np.arange(R, dtype=np.int32).reshape(N, W),
+                               "mask": np.ones((N, W), np.float32), "sel": None,
+                               "start": None, "full": True})
+                row_base_of.append(base)
+            else:
+                levels = _rank_keyed_tables(idx, N, R, MAX_WASTE, MAX_PAD_EXTRA)
+                if levels is None:
+                    raise NotImplementedError(
+                        f"slot {s!r}: {N} elements exceed the row-table padding budget; "
+                        "thallo_tpu falls back to its J-block path, which is not ported")
+                for t in levels:
+                    tables.append({**t, "full": False})
+                    row_base_of.append(base)
+            key_to_row[key] = base
         row_of_slot.append(key_to_row[key])
 
     pairs: List[tuple] = []
@@ -117,7 +289,7 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
     col_key: Dict[tuple, int] = {}
     gathers: List[tuple] = []
     gather_key: Dict[tuple, int] = {}
-    partner_pair: Dict[Tuple[int, int], int] = {}
+    partner_pairs: Dict[Tuple[int, int], List[int]] = {}  # (i, j) -> col pairs, per level
     transpose_todo: List[Tuple[int, int]] = []
     for i in range(nslots):
         for j, sj in enumerate(jslots):
@@ -127,37 +299,36 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
             if _transpose_ok(i, j):
                 transpose_todo.append((i, j))
                 continue
-            t = row_of_slot[i]
-            ck = (t, idxs[j].tobytes())
-            if ck not in col_key:
-                col_key[ck] = len(col_tables)
-                col_tables.append(np.ascontiguousarray(idxs[j][row_tables[t]].T))
-                col_row_of.append(t)
-            gk = (col_key[ck], sj.image.name)
-            if gk not in gather_key:
-                gather_key[gk] = len(gathers)
-                gathers.append((col_key[ck], sj.image.name, sj.image.channels))
-            partner_pair[(i, j)] = len(pairs)
-            pairs.append((i, j, "col", gather_key[gk]))
+            plist = []
+            for t in _levels_of(row_base_of, row_of_slot[i]):
+                ck = (t, idxs[j].tobytes())
+                if ck not in col_key:
+                    # column element ids aligned to table t's padded layout
+                    # (padded lanes repeat idxs[j][0]; their blocks are 0)
+                    col_key[ck] = len(col_tables)
+                    col_tables.append(np.ascontiguousarray(
+                        idxs[j][tables[t]["perm"]].astype(np.int32).T))
+                    col_row_of.append(t)
+                gk = (col_key[ck], sj.image.name)
+                if gk not in gather_key:
+                    gather_key[gk] = len(gathers)
+                    gathers.append((col_key[ck], sj.image.name, sj.image.channels))
+                plist.append(len(pairs))
+                pairs.append((i, j, "col", gather_key[gk]))
+            partner_pairs[(i, j)] = plist
     for (i, j) in transpose_todo:
-        pairs.append((i, j, "transpose", partner_pair[(j, i)]))
-    with_partner = {pr[3] for pr in pairs if pr[2] == "transpose"}
-    lone = [pr for p, pr in enumerate(pairs) if pr[2] == "col" and p not in with_partner]
-    if lone:
-        raise NotImplementedError(
-            f"cross pairs {lone} have no transpose partner; only the fused "
-            "col+transpose form is ported")
+        for pidx in partner_pairs[(j, i)]:
+            pairs.append((i, j, "transpose", pidx))
 
     shapes = {s.image.name: tuple(d.size for d in s.image.dims) + (s.image.channels,)
               for s in jslots}
-    # _repeat_width checked that every (n, w) lane of a row table holds an
-    # observation of element n, so the masks are all ones and the setup
-    # kernel never reads them (thallo_tpu's fused setup does not either)
-    masks = [np.ones(p.shape, np.float32) for p in row_tables]
-    dev = lambda a, dt=None: torch.as_tensor(a, dtype=dt).to(device)  # noqa: E731
+
+    def dev(a, dt=None):
+        return None if a is None else torch.as_tensor(a, dtype=dt).to(device)
+
     return GroupBsr(
-        perms=tuple(dev(p) for p in row_tables),
-        masks=tuple(dev(m, dtype) for m in masks),
+        perms=tuple(dev(t["perm"]) for t in tables),
+        masks=tuple(dev(t["mask"], dtype) for t in tables),
         cols=tuple(dev(c) for c in col_tables),
         slot_row=tuple(row_of_slot),
         pairs=tuple(pairs),
@@ -166,8 +337,12 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
         slot_channels=tuple(s.image.channels for s in jslots),
         image_shapes=shapes,
         col_row=tuple(col_row_of),
+        row_base=tuple(row_base_of),
+        row_sels=tuple(dev(t["sel"]) for t in tables),
         oh_idxs=tuple(dev(idxs[i].astype(np.int32)) if onehot[i] else None
                       for i in range(nslots)),
+        row_starts=tuple(t["start"] for t in tables),
+        full_repeat=tuple(t["full"] for t in tables),
     )
 
 
@@ -182,12 +357,67 @@ def _stack_slots(jTs, slots, rc, R):
     return torch.cat(parts).contiguous(), offs
 
 
+def _pair_slots(bsr, kind, key):
+    return (bsr.pairs[key][0], bsr.pairs[key][1]) if kind == "pair" else (key,)
+
+
+def _slab_entry(bsr, kind, key, offs):
+    """The ohsetup/fullrepeat recipe entry of one spec, without its kind."""
+    if kind == "pair":
+        a, b = bsr.pairs[key][0], bsr.pairs[key][1]
+        return (offs[a], bsr.slot_channels[a], offs[b], bsr.slot_channels[b])
+    return (offs[key], bsr.slot_channels[key])
+
+
+def _setup_levels(bsr, base, specs, rT, Jall, offs, blocks):
+    """Setup of a rank-keyed table: the per-observation slabs of every
+    spec (one payload [F, R], each cross pair's slab once), one gather of
+    it per level, the aggregated rows summed into full element order
+    (overflow levels by one index_add_) and each col pair's w-major
+    blocks [W*Ci*Cj, N_t] from its level's gather.  Returns the
+    aggregated [A, N] in the order of the non-cross specs."""
+    recipe, A = [], 0
+    for kind, key, width in specs:
+        if kind != "pair" or bsr.pairs[key][2] == "diag":
+            recipe.append((kind,) + _slab_entry(bsr, kind, key, offs))
+            A += width
+    F, cross_off, level_pairs = A, {}, {}
+    for kind, key, width in specs:
+        if kind != "pair" or bsr.pairs[key][2] == "diag":
+            continue
+        ij = bsr.pairs[key][:2]
+        if ij not in cross_off:
+            cross_off[ij] = F
+            recipe.append(("pair",) + _slab_entry(bsr, kind, key, offs))
+            F += width
+        t = bsr.col_row[bsr.col_gathers[bsr.pairs[key][3]][0]]
+        level_pairs.setdefault(t, []).append((key, cross_off[ij], width))
+    payload = setup_slabs(rT, Jall, tuple(recipe))  # [F, R]
+    agg, deferred = None, []
+    for t in bsr.levels_of(base):
+        N_t, W = bsr.perms[t].shape
+        g = payload.index_select(1, bsr.perms[t].T.reshape(-1)).view(F, W, N_t) \
+            * bsr.masks[t].T
+        gsum = g[:A].sum(1)  # [A, N_t]
+        if bsr.row_sels[t] is None:
+            agg = gsum if agg is None else agg + gsum
+        else:
+            deferred.append((bsr.row_sels[t], gsum))
+        for key, off, width in level_pairs.get(t, ()):
+            blocks[key] = g[off:off + width].transpose(0, 1).reshape(W * width, N_t)
+    if deferred:
+        agg.index_add_(1, torch.cat([s for s, _ in deferred]),
+                       torch.cat([v for _, v in deferred], 1))
+    return agg
+
+
 def bsr_setup(bsr: GroupBsr, rT, jTs):
     """Once per nonlinear iteration: JᵀF, diag(JᵀJ) and every pair's
     blocks.  rT [rc, R], jTs per slot [rc, C, R] (channel-major, as
     point_jacobians_cm makes them).  Returns (jtr, d2, blocks): jtr/d2
     map image -> [*imshape], blocks map pair idx -> [Ci*Cj, N] (diag) or
-    [W*Ci*Cj, N_t] w-major (col pairs; transpose pairs store nothing)."""
+    [W*Ci*Cj, N_t] w-major (col pairs, per level; transpose pairs store
+    nothing)."""
     rc, R = rT.shape
     rT = rT.contiguous()
     jtr_out: Dict[str, torch.Tensor] = {}
@@ -219,45 +449,40 @@ def bsr_setup(bsr: GroupBsr, rT, jTs):
                   for p, pr in enumerate(bsr.pairs) if pr[2] == "diag" and pr[0] == i]
         slots = sorted({i} | {bsr.pairs[k][1] for kind, k, _ in specs if kind == "pair"})
         Jall, offs = _stack_slots(jTs, slots, rc, R)
-        recipe = []
-        for kind, key, _ in specs:
-            if kind == "pair":
-                a, b = bsr.pairs[key][0], bsr.pairs[key][1]
-                recipe.append(("pair", offs[a], bsr.slot_channels[a], offs[b], bsr.slot_channels[b]))
-            else:
-                recipe.append((kind, offs[key], bsr.slot_channels[key]))
+        recipe = tuple((kind,) + _slab_entry(bsr, kind, key, offs) for kind, key, _ in specs)
         N = int(np.prod(bsr.image_shapes[bsr.slot_images[i]][:-1]))
-        agg = oh_setup_products(rT, Jall, bsr.oh_idxs[i], N=N, recipe=tuple(recipe))
+        agg = oh_setup_products(rT, Jall, bsr.oh_idxs[i], N=N, recipe=recipe)
         scatter_slabs(agg, specs)
 
-    # ---- full-repeat row tables: one setup pass per table ---------------
-    for t, perm in enumerate(bsr.perms):
-        N_t, W = perm.shape
+    # ---- table-backed slots: one setup pass per base table ---------------
+    for base in dict.fromkeys(bsr.row_base):
         specs, slots = [], []
         for i in range(len(bsr.slot_images)):
-            if bsr.slot_row[i] == t:
+            if bsr.slot_row[i] == base:
                 specs += [("jtr", i, bsr.slot_channels[i]), ("d2", i, bsr.slot_channels[i])]
         for p, pr in enumerate(bsr.pairs):
-            if pr[2] != "transpose" and bsr.slot_row[pr[0]] == t:
+            if pr[2] != "transpose" and bsr.slot_row[pr[0]] == base:
                 specs.append(("pair", p, bsr.slot_channels[pr[0]] * bsr.slot_channels[pr[1]]))
         for kind, key, _ in specs:
-            for s in ((bsr.pairs[key][0], bsr.pairs[key][1]) if kind == "pair" else (key,)):
+            for s in _pair_slots(bsr, kind, key):
                 if s not in slots:
                     slots.append(s)
         Jall, offs = _stack_slots(jTs, slots, rc, R)
-        recipe, agg_specs, cross_keys = [], [], []
-        for kind, key, width in specs:
+        agg_specs = [sp for sp in specs
+                     if sp[0] != "pair" or bsr.pairs[sp[1]][2] == "diag"]
+        if not bsr.full_repeat[base]:
+            scatter_slabs(_setup_levels(bsr, base, specs, rT, Jall, offs, blocks), agg_specs)
+            continue
+        N_t, W = bsr.perms[base].shape
+        recipe, cross_keys = [], []
+        for kind, key, _ in specs:
+            ent = _slab_entry(bsr, kind, key, offs)
             if kind != "pair":
-                recipe.append((kind, offs[key], bsr.slot_channels[key]))
-                agg_specs.append((kind, key, width))
-                continue
-            a, b = bsr.pairs[key][0], bsr.pairs[key][1]
-            ab = (offs[a], bsr.slot_channels[a], offs[b], bsr.slot_channels[b])
-            if bsr.pairs[key][2] == "diag":
-                recipe.append(("diag",) + ab)
-                agg_specs.append(("pair", key, width))
+                recipe.append((kind,) + ent)
+            elif bsr.pairs[key][2] == "diag":
+                recipe.append(("diag",) + ent)
             else:
-                recipe.append(("cross",) + ab + (len(cross_keys),))
+                recipe.append(("cross",) + ent + (len(cross_keys),))
                 cross_keys.append(key)
         agg, crosses = fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=tuple(recipe))
         scatter_slabs(agg, agg_specs)
@@ -269,14 +494,22 @@ def bsr_setup(bsr: GroupBsr, rT, jTs):
 def bsr_apply(bsr: GroupBsr, blocks, p):
     """JᵀJ·p for this group from the assembled blocks.  Diagonal pairs are
     a per-element block matvec; each col pair and its transpose partner
-    run through one fused kernel launch.  p: dict image -> [*imshape].
-    Returns dict image -> [*imshape] contribution."""
+    run through one fused kernel launch per level; a col pair without a
+    partner gathers p by its col table.  Overflow levels' row
+    contributions are merged into one index_add_ per slot (duplicate ids
+    across levels accumulate).  p: dict image -> [*imshape].  Returns dict
+    image -> [*imshape] contribution."""
     pT = {img: p[img].reshape(-1, p[img].shape[-1]).T.contiguous()
           for img in set(bsr.slot_images)}
+    partnered = {pr[3] for pr in bsr.pairs if pr[2] == "transpose"}
     acc: Dict[int, torch.Tensor] = {}
+    deferred: Dict[int, list] = {}
 
-    def add(i, v):
-        acc[i] = acc[i] + v if i in acc else v
+    def add(i, v, sel=None):
+        if sel is not None:
+            deferred.setdefault(i, []).append((sel, v))
+        else:
+            acc[i] = acc[i] + v if i in acc else v
 
     for p_idx, pr in enumerate(bsr.pairs):
         i, j, kind = pr[0], pr[1], pr[2]
@@ -288,14 +521,30 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
             add(i, (B * pT[bsr.slot_images[j]][None]).sum(1))
             continue
         ct = bsr.col_gathers[pr[3]][0]
-        img_j = bsr.slot_images[j]
-        rows, cols = fused_pair_apply(
-            bsr.cols[ct], blocks[p_idx], pT[img_j], pT[bsr.slot_images[i]],
-            Ci=Ci, Cj=Cj, S=pT[img_j].shape[1])
-        add(i, rows)
-        add(j, cols)
+        ids = bsr.cols[ct]
+        W, N_t = ids.shape
+        sel = bsr.row_sels[bsr.col_row[ct]]
+        prow = pT[bsr.slot_images[i]]
+        if sel is not None:
+            prow = prow.index_select(1, sel)  # [Ci, N_t]: the overflow elements
+        pcol = pT[bsr.slot_images[j]]
+        if p_idx in partnered:
+            fn = fused_pair_apply_wloop if W >= WLOOP_MIN_W else fused_pair_apply
+            rows, cols = fn(ids, blocks[p_idx], pcol, prow, Ci=Ci, Cj=Cj, S=pcol.shape[1])
+            add(i, rows, sel)
+            add(j, cols)
+            continue
+        pg = pcol.index_select(1, ids.reshape(-1)).view(Cj, W, N_t)
+        B = blocks[p_idx].view(W, Ci, Cj, N_t)
+        add(i, (B * pg.transpose(0, 1)[:, None]).sum((0, 2)), sel)
     out: Dict[str, torch.Tensor] = {}
-    for i, v in acc.items():
+    for i in list(acc) + [k for k in deferred if k not in acc]:
+        v = acc.get(i)
+        if v is None:
+            v = torch.zeros_like(pT[bsr.slot_images[i]])
+        ents = deferred.get(i)
+        if ents:
+            v = v.index_add(1, torch.cat([s for s, _ in ents]), torch.cat([c for _, c in ents], 1))
         name = bsr.slot_images[i]
         v = v.T.reshape(bsr.image_shapes[name])
         out[name] = out[name] + v if name in out else v
