@@ -17,9 +17,19 @@ its seconds; any failure exits non-zero):
      W > 8 by the W-loop kernel, both timed there; oh_setup_products at
      the skewed camera ids; the measurement scripts' kernels at the JAX
      scripts' BA-1M shape) and at a small ragged shape with out-of-range
-     ids or padded plan lanes; kernel, plain and library times in ms; the
-     W-loop kernel is also timed at every W <= 8 shape (uniform W = 4,
-     skewed levels 0-1), where the solver takes fused_pair_apply;
+     ids or padded plan lanes; kernel, plain and library times in ms, each
+     kernel and library call twice: `ms` over 20 eager calls (host and
+     device) and `device_ms` over the same call captured 10 times in one
+     CUDA graph and replayed (the device alone; everything under 50 MB is
+     warm in L2 there, as the solver's caller finds pcol and the plans,
+     while the 108 MB of blocks stay cold).  At every W <= 8 shape (uniform
+     W = 4, skewed levels 0-1) the fused pair is timed four ways: the
+     persistent kernel the solver takes (fused_pair_apply), the kept
+     global-atomics body (fused_pair_apply_atomics), the W-loop kernel,
+     and the persistent kernel without its cols side (the rows-only
+     floor).  The segment sum is also held against index_add_ on the
+     skewed scene's camera map (one segment with half the rows), on a
+     ragged map with empty segments, and on row-major data;
   3. the small BA scene solved with LM on the card and on the CPU (the
      plain versions): per-step unknowns and costs agree; then the small
      skewed scene (``skewed_inputs(16, 1400, 5600)``: point levels
@@ -42,9 +52,10 @@ its seconds; any failure exits non-zero):
      initial; launches per level shape (W, N_t), each read from the
      wrapper's own count around its calls;
   8. the measurement scripts (scripts/torch_fused_pair_micro.py,
-     torch_fused_variants.py, torch_loop_floor.py) run through their
-     main() with few launches per timing: the bf16 fused pair, its three
-     variants and the loop-floor kernel (one tile and 64 tiles) launched.
+     torch_fused_variants.py, torch_loop_floor.py, torch_redesign_sweep.py)
+     run through their main() with few launches per timing: the bf16 fused
+     pair, its three variants, the loop-floor kernel (one tile and 64
+     tiles) and the global-atomics fused pair launched.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -98,6 +109,9 @@ BA_1M = (1024, 250_000, 4)
 SKEW_1M = (1024, 250_000, 1_000_000)  # cameras, points, target observations
 SKEW_SMALL = (16, 1400, 5600)
 N_STEPS_1M = 10
+# device_ms: calls per captured CUDA graph, replays per timing
+GRAPH_CALLS = 10
+GRAPH_REPLAYS = 5
 # launches per timing when phase 8 drives the measurement scripts
 SCRIPT_LAUNCHES = 10
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM and f32 outside
@@ -122,6 +136,28 @@ def timed_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn):
+    """ms of device time per call of fn: GRAPH_CALLS calls captured in one
+    CUDA graph, replayed GRAPH_REPLAYS times between two events.  Where
+    capture fails, the summed device time of fn's kernels under
+    torch.profiler."""
+    from torch_measure import graph_ms
+
+    try:
+        return graph_ms(fn, GRAPH_CALLS, GRAPH_REPLAYS)
+    except RuntimeError as exc:
+        log(f"CUDA graph capture failed ({str(exc).splitlines()[0]}); device time "
+            "from torch.profiler")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(GRAPH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages())
+    return us / 1e3 / GRAPH_CALLS
 
 
 def compare(name, got, ref, terms=None):
@@ -164,7 +200,29 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def kernel_cases(dev, rng, scene):
+PAIR_KERNELS = ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
+                "fused_pair_rows_floor")
+
+
+def pair_cases(tag, a, S, fusedpair, terms=None):
+    """The fused pair's four kernels on operands a (3 x 9): one case each;
+    the rows-only floor is held to the plain version's rows."""
+    W, N = a[0].shape
+    cases = []
+    for name in PAIR_KERNELS:
+        floor = name == "fused_pair_rows_floor"
+        cases.append((name, tag,
+                      lambda fn=getattr(fusedpair, name), floor=floor:
+                      (fn(*a, Ci=3, Cj=9, S=S),) if floor else fn(*a, Ci=3, Cj=9, S=S),
+                      lambda floor=floor: fusedpair.fused_pair_apply_reference(
+                          *a, Ci=3, Cj=9, S=S)[:1 if floor else 2],
+                      None, nbytes(*a), (2 if floor else 4) * W * N * 27,
+                      (lambda floor=floor: tuple(t[:1 if floor else 2] for t in terms()))
+                      if terms else None))
+    return cases
+
+
+def kernel_cases(dev, rng, scene, skew_oToC):
     """(name, shape tag, kernel call, plain call, library call or None,
     input bytes, f32 operations, None or the plain call on |inputs| and on
     ones (each output's sum of |terms| and number of terms)) per
@@ -184,12 +242,7 @@ def kernel_cases(dev, rng, scene):
         a = (t(ids), t(rng.normal(size=(W * 27, N)).astype(np.float32)),
              t(rng.normal(size=(9, S)).astype(np.float32)),
              t(rng.normal(size=(3, N)).astype(np.float32)))
-        for name in ("fused_pair_apply", "fused_pair_apply_wloop"):
-            cases.append((name, tag,
-                          lambda a=a, S=S, fn=getattr(fusedpair, name): fn(*a, Ci=3, Cj=9, S=S),
-                          lambda a=a, S=S: fusedpair.fused_pair_apply_reference(
-                              *a, Ci=3, Cj=9, S=S),
-                          None, nbytes(*a), 4 * W * N * 27, None))
+        cases += pair_cases(tag, a, S, fusedpair)
     oh_recipe = (("jtr", 0, 9), ("d2", 0, 9), ("pair", 0, 9, 0, 9))
     for tag, (R, N) in (("ba1m", (1_000_000, 1024)), ("ragged", (2349, 97))):
         ids = rng.integers(0, N, R).astype(np.int32)
@@ -236,28 +289,42 @@ def kernel_cases(dev, rng, scene):
     # the segment sum of APPLY_SEPARATELY + THALLO_SEGSUM=tiled: points
     # [1M, 3] -> [250000, 3] and cameras [1M, 9] -> [1024, 9], plans from
     # the scene's maps, data as the strided transpose of a channel-major
-    # buffer (what lower.py's scatter passes)
-    n_pt = BA_1M[1]
-    seg = [("ba1m", np.asarray(scene["oToP"], np.int32), n_pt, 3),
-           ("ba1m_cameras", np.asarray(scene["oToC"], np.int32), BA_1M[0], 9)]
-    ragged_ids = rng.integers(0, 300, 1001).astype(np.int32)
-    seg.append(("ragged", ragged_ids, 300, 3))
+    # buffer (what lower.py's scatter passes) and row-major; the skewed
+    # scene's camera map (one camera owns half the rows: a two-level plan
+    # with a warp per segment at level 2); a ragged map with padded lanes
+    # and one with empty segments
+    seg = [("ba1m", np.asarray(scene["oToP"], np.int32), BA_1M[1], 3),
+           ("ba1m_cameras", np.asarray(scene["oToC"], np.int32), BA_1M[0], 9),
+           ("skew_cameras", np.asarray(skew_oToC, np.int32), SKEW_1M[0], 9),
+           ("ragged", rng.integers(0, 300, 1001).astype(np.int32), 300, 3),
+           ("ragged_empty", (rng.integers(0, 100, 1001) * 3).astype(np.int32), 340, 3)]
     for tag, ids, S, C in seg:
         plan = segsum.build_plan(ids, S, device=dev)
         if plan is None:
             raise AssertionError(f"segment_sum[{tag}]: build_plan refused the map")
         if tag == "ragged" and not bool((plan.mask == 0).any()):
             raise AssertionError("segment_sum[ragged]: the plan has no padded lanes")
+        log(f"segment_sum[{tag}] plan: {len(ids)} rows -> {S} segments, level kernels "
+            f"{[('thread', 'warp')[m] for m in plan.modes]}, "
+            f"{0 if plan.piece_start is None else plan.piece_start.shape[0] - 1} pieces")
         cm = t(rng.normal(size=(C, len(ids))).astype(np.float32))
-        data = cm.T if tag != "ragged" else cm.T.contiguous()
-        lib_args = (t(ids).long(), data)
-        cases.append(("segment_sum", tag,
-                      lambda d=data, p=plan: (segsum.segment_sum(d, p),),
-                      lambda d=data, p=plan: (segsum.segment_sum_reference(d, p),),
-                      lambda la=lib_args, S=S, C=C: torch.zeros(
-                          (S, C), device=dev).index_add_(0, *la),
-                      nbytes(cm, plan.gather_idx, plan.rel, plan.mask), 2 * len(ids) * C,
-                      None))
+        layouts = [("", cm.T)]
+        if not tag.startswith("ragged"):
+            layouts.append(("_rowmajor", cm.T.contiguous()))
+        idl = t(ids).long()
+        for suffix, data in layouts:
+            terms = None
+            if tag == "skew_cameras":  # the hot camera sums ~478k rows
+                terms = lambda d=data, p=plan: (  # noqa: E731
+                    (segsum.segment_sum_reference(d.abs(), p),),
+                    (segsum.segment_sum_reference(torch.ones_like(d), p),))
+            cases.append(("segment_sum", tag + suffix,
+                          lambda d=data, p=plan: (segsum.segment_sum(d, p),),
+                          lambda d=data, p=plan: (segsum.segment_sum_reference(d, p),),
+                          lambda d=data, S=S, C=C, idl=idl: torch.zeros(
+                              (S, C), device=dev).index_add_(0, idl, d),
+                          # the compact form: 4 bytes a lane, the offsets, data once
+                          nbytes(cm, plan.order, plan.seg_start), len(ids) * C, terms))
     return cases
 
 
@@ -270,7 +337,7 @@ def _pair_args(t, rng, ids, Ci=3, Cj=9, S=1024, block_dtype=torch.float32):
 
 def skew_kernel_cases(dev, rng, bsr):
     """The skewed 1M scene's kernels: the fused pair at each level of its
-    sorted point tables by both kernels (the solver takes fused_pair_apply
+    sorted point tables by every kernel (the solver takes fused_pair_apply
     where W <= 8, the W-loop kernel where W > 8) and a ragged wide level;
     oh_setup_products at its camera ids."""
     from thallo_tpu_torch.ops import fusedpair, ohsetup
@@ -288,19 +355,11 @@ def skew_kernel_cases(dev, rng, bsr):
     shapes = [(f"skew_w{c.shape[0]}", c, 1024) for c in levels[:-1]]
     shapes += [("skew_tail", levels[-1], 1024), ("ragged_w24", t(ragged), 500)]
     for tag, ids, S in shapes:
-        W, N = ids.shape
         a = _pair_args(t, rng, ids, S=S)
         absa = (a[0], *(x.abs() for x in a[1:]))
         ones = (a[0], *(torch.ones_like(x) for x in a[1:]))
-        for name in ("fused_pair_apply_wloop", "fused_pair_apply"):
-            cases.append((name, tag,
-                          lambda a=a, S=S, fn=getattr(fusedpair, name): fn(*a, Ci=3, Cj=9, S=S),
-                          lambda a=a, S=S: fusedpair.fused_pair_apply_reference(
-                              *a, Ci=3, Cj=9, S=S),
-                          None, nbytes(*a), 4 * W * N * 27,
-                          lambda b=(absa, ones), S=S: tuple(
-                              fusedpair.fused_pair_apply_reference(*x, Ci=3, Cj=9, S=S)
-                              for x in b)))
+        cases += pair_cases(tag, a, S, fusedpair, lambda b=(absa, ones), S=S: tuple(
+            fusedpair.fused_pair_apply_reference(*x, Ci=3, Cj=9, S=S) for x in b))
     cam = next(x for x in bsr.oh_idxs if x is not None)
     R = cam.shape[0]
     a = (t(rng.normal(size=(2, R)).astype(np.float32)),
@@ -355,6 +414,8 @@ def measurement_kernel_cases(dev, rng):
 
 # (kernel, case tag) -> the name of its entry in the kernels record
 RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
+          ("fused_pair_apply_atomics", "ba1m"): "fused_pair_apply_atomics",
+          ("segment_sum", "ba1m_cameras"): "segment_sum_cameras",
           ("fused_pair_apply_wloop", "skew_tail"): "fused_pair_apply_wloop",
           ("oh_setup_products", "ba1m"): "oh_setup_products",
           ("fullrepeat_setup", "ba1m"): "fullrepeat_setup",
@@ -373,6 +434,8 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
 KERNELS = {
     "fused_pair_apply": ("thallo_tpu_torch/csrc/fused_pair.cu",
                          "thallo_tpu/ops/fusedpair.py:349", "block-sparse"),
+    "fused_pair_apply_atomics": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                                 "thallo_tpu/ops/fusedpair.py:349", "measurement"),
     "fused_pair_apply_wloop": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
                                "thallo_tpu/ops/fusedpair.py:385", "skew block-sparse"),
     "oh_setup_products": ("thallo_tpu_torch/csrc/oh_setup.cu",
@@ -383,6 +446,8 @@ KERNELS = {
                            "thallo_tpu/ops/ohsetup.py:236", "precompute_j"),
     "segment_sum": ("thallo_tpu_torch/csrc/segsum.cu",
                     "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
+    "segment_sum_cameras": ("thallo_tpu_torch/csrc/segsum.cu",
+                            "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
     "fused_pair_bf16": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
                         "scripts/tpu_fused_pair_micro.py:31", "measurement"),
     "fused_pair_v1_rows": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
@@ -403,6 +468,8 @@ def counters():
     from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segsum
 
     return {"fused_pair_apply": fusedpair.fused_pair_apply,
+            "fused_pair_apply_atomics": fusedpair.fused_pair_apply_atomics,
+            "fused_pair_rows_floor": fusedpair.fused_pair_rows_floor,
             "fused_pair_apply_wloop": fusedpair.fused_pair_apply_wloop,
             "oh_setup_products": ohsetup.oh_setup_products,
             "fullrepeat_setup": fullrepeat.fullrepeat_setup,
@@ -635,13 +702,22 @@ def phase_precompute_j(ba, tt, scene):
 
 
 def phase_apply_separately_tiled(ba, tt, scene, ref):
+    from thallo_tpu_torch import lower
+
     os.environ["THALLO_SEGSUM"] = "tiled"  # read by plan.init, as thallo_tpu reads it
     try:
-        costs, Us, launches, _ = solve_1m(ba, tt, scene, "1M APPLY_SEPARATELY tiled",
-                                       ("segment_sum",), schedule="Jp",
-                                       keep_unknowns=CROSS_STEPS)
+        with tally(lower, "segment_sum", lambda data, plan: plan.num_segments) as by_plan:
+            costs, Us, launches, _ = solve_1m(ba, tt, scene, "1M APPLY_SEPARATELY tiled",
+                                           ("segment_sum",), schedule="Jp",
+                                           keep_unknowns=CROSS_STEPS)
     finally:
         del os.environ["THALLO_SEGSUM"]
+    # the record lists the two plans apart: points, cameras
+    launches["segment_sum"] = by_plan[scene[1]["P"]]
+    launches["segment_sum_cameras"] = by_plan[scene[1]["C"]]
+    log(f"1M APPLY_SEPARATELY tiled segment_sum launches per plan (segments): {dict(by_plan)}")
+    if min(launches["segment_sum"], launches["segment_sum_cameras"]) <= 0:
+        raise AssertionError("1M APPLY_SEPARATELY tiled: a segment-sum plan never launched")
     never_rising("1M APPLY_SEPARATELY tiled", costs)
     check_steps("APPLY_SEPARATELY tiled vs PRECOMPUTE_J", costs[:CROSS_STEPS + 1], Us,
                 ref[0], ref[1])
@@ -672,21 +748,22 @@ def phase_skew_1m(ba, tt, scene):
 
 
 def phase_measurement_scripts():
-    """The three measurement scripts through their main(), counts set to 0
+    """The four measurement scripts through their main(), counts set to 0
     just before and read just after; returns launches per record entry."""
     from thallo_tpu_torch.ops import loopfloor
 
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     import torch_fused_pair_micro
     import torch_fused_variants
     import torch_loop_floor
+    import torch_redesign_sweep
 
     fns = counters()
     for fn in fns.values():
         fn.launches = 0
     argv = ["--n", str(SCRIPT_LAUNCHES)]
     with tally(loopfloor, "add_one", lambda x, tiles=1: tiles) as by_tiles:
-        for script in (torch_fused_pair_micro, torch_fused_variants, torch_loop_floor):
+        for script in (torch_fused_pair_micro, torch_fused_variants, torch_loop_floor,
+                       torch_redesign_sweep):
             if script.main(argv) != 0:
                 raise AssertionError(f"{script.__name__} failed")
     torch.cuda.synchronize()
@@ -707,6 +784,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))  # torch_measure etc.
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
     from thallo_tpu_torch.ops import _cuda
@@ -735,28 +813,33 @@ def main():
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     record = {}
-    cases = kernel_cases(dev, rng, scene[0])
+    cases = kernel_cases(dev, rng, scene[0], skew_scene[0]["oToC"])
     cases += skew_kernel_cases(dev, rng, skew_tables(ba, tt, skew_scene))
     cases += measurement_kernel_cases(dev, rng)
     for name, tag, kern, plain, lib, in_bytes, flops, terms in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         err = compare(f"{name}[{tag}]", got, ref, terms() if terms else None)
-        ms = timed_ms(kern, 20)
+        ms, dev_ms = timed_ms(kern, 20), device_ms(kern)
         plain_ms = timed_ms(plain, 5)
-        lib_ms = timed_ms(lib, 20) if lib is not None else None
+        lib_ms = lib_dev_ms = None
+        if lib is not None:
+            lib_ms, lib_dev_ms = timed_ms(lib, 20), device_ms(lib)
         moved = in_bytes + nbytes(*got)
         bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        lib_txt = f", library {lib_ms:.4f} ms" if lib is not None else ""
-        log(f"{name}[{tag}]: max|err| {err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            f"{lib_txt}, bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP)")
+        lib_txt = (f", library {lib_ms:.4f} ms (device {lib_dev_ms:.4f})"
+                   if lib is not None else "")
+        log(f"{name}[{tag}]: max|err| {err:.3e}, kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms{lib_txt}, bound {bound_ms:.4f} ms "
+            f"({moved / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP)")
         if (name, tag) in RECORD:
-            record[RECORD[name, tag]] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                         "bound_ms": bound_ms,
+            record[RECORD[name, tag]] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                                          "bound_by": "bytes" if bytes_ms >= ops_ms
                                          else "operations",
-                                         "library_ms": lib_ms}
+                                         "library_ms": lib_ms,
+                                         "library_device_ms": lib_dev_ms}
     del cases, got, ref
     torch.cuda.synchronize()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.2f} s")

@@ -1,9 +1,11 @@
 """Shared pieces of the card-side measurement scripts
-(torch_fused_pair_micro.py, torch_fused_variants.py, torch_loop_floor.py):
+(torch_fused_pair_micro.py, torch_fused_variants.py, torch_loop_floor.py,
+torch_redesign_sweep.py):
 the card's name and power limit, per-launch times of a callable run n
 times eagerly and captured in one CUDA graph, and the skewed 1M BA
 scene's real fused-pair tables.  Import only; nothing runs on import.
 """
+import functools
 import json
 import subprocess
 import sys
@@ -48,9 +50,10 @@ def eager_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def graph_ms(fn, n):
+def graph_ms(fn, n, replays=1):
     """ms per call of fn over n calls captured in one CUDA graph and
-    replayed (CUDA events around the replay)."""
+    replayed `replays` times after a warm-up replay (CUDA events around
+    the replays)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up on a side stream, as capture wants
@@ -64,10 +67,11 @@ def graph_ms(fn, n):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    g.replay()
+    for _ in range(replays):
+        g.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    return start.elapsed_time(end) / (n * replays)
 
 
 def per_launch_ms(fn, n):
@@ -81,11 +85,9 @@ def max_rel_err(got, ref):
     return err / max(float(r.abs().max()) for r in ref)
 
 
-def skew_tables():
-    """[(tag, ids [W, N_t] int32 on the card)] of the skewed 1M BA scene
-    (skewed_inputs(1024, 250000, target_obs=1_000_000), seed 0) after the
-    residual sort: its level-0 table and its widest level, the col tables
-    that the fused-pair kernels read."""
+@functools.lru_cache(maxsize=1)
+def _skew_cols():
+    """Every col table of the skewed 1M BA scene's plan, on the card."""
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
@@ -95,9 +97,17 @@ def skew_tables():
                                           solver="levenberg_marquardt", device="cuda")
     plan.init(inputs)
     bsr = plan._prep["consts"][0]["bsr"]
-    cols = [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
-    return [(f"skew_1m_level0_w{cols[0].shape[0]}", cols[0]),
-            (f"skew_1m_tail_w{cols[-1].shape[0]}", cols[-1])]
+    return [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
+
+
+def skew_tables(levels=(0, -1)):
+    """[(tag, ids [W, N_t] int32 on the card)] of the skewed 1M BA scene
+    (skewed_inputs(1024, 250000, target_obs=1_000_000), seed 0) after the
+    residual sort: the col tables of `levels` (by default level 0 and the
+    widest one) that the fused-pair kernels read."""
+    cols = _skew_cols()
+    return [(f"skew_1m_{'tail' if k == -1 else f'level{k}'}_w{cols[k].shape[0]}", cols[k])
+            for k in levels]
 
 
 def random_ids(rng, W, N, S):

@@ -12,7 +12,7 @@ from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segs
 from tests.torch_cases import (  # noqa: E402
     AGG_SHAPES, CI, CJ, FR_RECIPE, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
     SEG_SHAPES, WLOOP_SHAPES, agg_inputs, bf16_round, close, fr_inputs, fused_inputs,
-    oh_inputs, seg_inputs)
+    oh_inputs, seg_inputs, seg_maps)
 
 # f32 on both sides; only the order of (atomic) sums differs
 CUDA_TOL = 1e-5
@@ -36,6 +36,77 @@ def test_fused_pair_cuda_matches_plain(cuda, W, N, S):
     r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
     close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
     close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+# ragged N; an accumulator above 48 KB (opt-in shared memory); one above
+# the persistent kernel's limit (the atomics route)
+PAIR_SHAPES = FUSED_SHAPES + [(4, 1002, 64), (2, 1003, 64), (3, 5000, 3000), (3, 600, 3200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_pair_apply_atomics", "fused_pair_rows_floor"])
+@pytest.mark.parametrize("W,N,S", PAIR_SHAPES)
+def test_fused_pair_other_kernels_cuda_match_plain(cuda, name, W, N, S):
+    """The kept global-atomics body at every shape, and the persistent
+    kernel without its cols side wherever fused_pair_route sends it."""
+    args = [torch.from_numpy(a).to(cuda) for a in fused_inputs(W, N, S)]
+    fn = getattr(fusedpair, name)
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    if name == "fused_pair_rows_floor" and fusedpair.fused_pair_route(CI, CJ, S) == "atomics":
+        with pytest.raises(ValueError, match="no persistent kernel"):
+            fn(*args, Ci=CI, Cj=CJ, S=S)
+        return
+    n0 = fn.launches
+    out = fn(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    if name == "fused_pair_rows_floor":
+        close(out.cpu(), r_ref.cpu(), CUDA_TOL)
+        return
+    close(out[0].cpu(), r_ref.cpu(), CUDA_TOL)
+    close(out[1].cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,S", PAIR_SHAPES[2:])
+def test_fused_pair_routes_cuda_match_plain(cuda, W, N, S):
+    """fused_pair_apply launches the kernel fused_pair_route names (its own
+    count, or the atomics wrapper's) and agrees with the plain version."""
+    args = [torch.from_numpy(a).to(cuda) for a in fused_inputs(W, N, S)]
+    counted = (fusedpair.fused_pair_apply if fusedpair.fused_pair_route(CI, CJ, S)
+               == "persistent" else fusedpair.fused_pair_apply_atomics)
+    n0 = counted.launches
+    rows, cols = fusedpair.fused_pair_apply(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert counted.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_pair_apply", "fused_pair_apply_atomics"])
+@pytest.mark.parametrize("share", [1.0, 0.5, 0.1])
+@pytest.mark.parametrize("W,N,S", [(4, 4096, 64), (3, 777, 500)])
+def test_fused_pair_duplicate_ids_cuda_match_plain(cuda, name, share, W, N, S):
+    """`share` of all entries carry one id (a hot camera): every lane of a
+    warp, half of them, or a few.  The hot id's sums hold up to W*N terms,
+    so each cols output is held to 4 x 2^-24 sqrt(n) x the sum of its
+    terms' magnitudes (chip_smoke.py's rule for the skewed scene)."""
+    ids, blocks, pcol, prow = fused_inputs(W, N, S)
+    rng = np.random.default_rng(11)
+    ids = np.where(rng.random(ids.shape) < share, 5, ids).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (ids, blocks, pcol, prow)]
+    rows, cols = getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    mags = fusedpair.fused_pair_apply_reference(args[0], *(a.abs() for a in args[1:]),
+                                                Ci=CI, Cj=CJ, S=S)[1]
+    n = fusedpair.fused_pair_apply_reference(args[0], *(torch.ones_like(a) for a in args[1:]),
+                                             Ci=CI, Cj=CJ, S=S)[1]
+    bound = 4 * 2.0 ** -24 * n.sqrt() * mags
+    assert bool(((cols - c_ref).abs() <= bound).all())
 
 
 @pytest.mark.cuda
@@ -104,6 +175,36 @@ def test_segsum_cuda_matches_plain(cuda, M, S, C):
     bad = np.zeros(S, bool)
     bad[ids[7]] = True
     assert np.isnan(got[bad]).all() and np.isfinite(got[~bad]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,ids,S", seg_maps(), ids=[m[0] for m in seg_maps()])
+def test_segsum_maps_cuda_match_plain(cuda, name, ids, S):
+    """Every pairing of level kernels choose_modes picks (one level and
+    two; empty segments; one segment with half the rows), on row-major and
+    on transposed channel-major data (the staged kernel where the plan has
+    the staged form), each twice with the same bits."""
+    C = 9 if name in ("uniform1", "skew", "cams") else 3
+    data = np.random.default_rng(10).normal(size=(len(ids), C)).astype(np.float32)
+    plan = segsum.build_plan(ids, S, device=cuda)
+    d = torch.from_numpy(data).to(cuda)
+    n0 = segsum.segment_sum.launches
+    cm = d.T.contiguous().T
+    out = segsum.segment_sum(d, plan)
+    strided = segsum.segment_sum(cm, plan)
+    torch.cuda.synchronize()
+    assert segsum.segment_sum.launches == n0 + 2
+    assert torch.equal(out, segsum.segment_sum(d, plan))
+    assert torch.equal(strided, segsum.segment_sum(cm, plan))
+    ref = segsum.segment_sum_reference(d, plan)
+    n = torch.bincount(torch.from_numpy(ids).long().to(cuda), minlength=S)[:, None]
+    bound = 4 * 2.0 ** -24 * n.sqrt() * segsum.segment_sum_reference(d.abs(), plan)
+    bound = torch.clamp(bound, min=CUDA_TOL * float(ref.abs().max()))
+    assert bool(((out - ref).abs() <= bound).all())
+    assert bool(((strided - ref).abs() <= bound).all())
+    close(out.cpu(), segsum.segment_sum_compact_reference(d, plan).cpu(), CUDA_TOL)
+    if plan.local is not None:
+        close(strided.cpu(), segsum.segment_sum_staged_reference(d, plan).cpu(), CUDA_TOL)
 
 
 @pytest.mark.cuda

@@ -159,3 +159,22 @@ def seg_oracle(data, ids, S):
     out = np.zeros((S, data.shape[1]))
     np.add.at(out, ids, data.astype(np.float64))
     return out
+
+
+# maps for the compact plan form: (name, ids, S).  "empty": every third
+# segment has no row and the last 40 none either; "skew": one segment
+# owns half the rows (a hot camera), the rest spread with a long tail;
+# "tail": runs of ~3 rows with one of 400 (a point seen by many cameras);
+# "cams": 200 segments of ~150 scattered rows over 15 chunks of data rows
+# (with "uniform1" the maps that also get the staged form)
+def seg_maps():
+    rng = np.random.default_rng(9)
+    maps = [(f"uniform{k}", seg_inputs(M, S, C)[1], S) for k, (M, S, C) in enumerate(SEG_SHAPES)]
+    ids = rng.integers(0, 100, 2000) * 3
+    maps.append(("empty", ids.astype(np.int32), 340))
+    hot = np.where(rng.random(12000) < 0.5, 17, rng.zipf(1.5, 12000) % 96)
+    maps.append(("skew", hot.astype(np.int32), 96))
+    tail = np.concatenate([np.repeat(np.arange(600), 3), np.full(400, 77)])
+    maps.append(("tail", rng.permutation(tail).astype(np.int32), 600))
+    maps.append(("cams", rng.integers(0, 200, 30000).astype(np.int32), 200))
+    return maps

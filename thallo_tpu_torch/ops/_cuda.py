@@ -37,11 +37,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thallo_tpu_torch"
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # exported symbol -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
-    "thallo_fused_pair_apply": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_fused_pair_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
+    "thallo_fused_pair_atomics": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_oh_setup_products": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup": (P, P, P, P, P, I, I, I, I, P),
     "thallo_oh_setup_aggregate": (P, P, P, I, I, I, P),
-    "thallo_segment_sum": (P, L, L, P, P, P, P, I, I, I, I, I, I, I, P),
+    "thallo_segment_sum": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_segment_sum_staged": (P, L, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_wloop": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "thallo_loop_floor_add_one": (P, P, I, I, P),

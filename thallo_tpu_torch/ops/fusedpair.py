@@ -9,24 +9,36 @@ stored w-major (``[W*Ci*Cj, N]``, the same memory as ``[W, Ci*Cj, N]``):
   cols[cj, s] += sum_{ci,w} B[w,ci,cj,n] * prow[ci, n]   over ids[w,n] == s
 
 An entry (w, n) whose id lies outside [0, S) contributes to neither
-output (row-table padding relies on this).  Two kernels compute it:
+output (row-table padding relies on this).  Three kernels compute it, all
+bound by the block read, W*Ci*Cj*N*4 bytes (108 MB at W=4, 3x9,
+N=250 000); what they differ in is the cols side, W*N*Cj scattered
+additions (9 M at that shape, half of them onto one camera's 9 addresses
+on a degree-skewed scene):
 
 * ``fused_pair_apply`` (``csrc/fused_pair.cu``, JAX's ``_kernel``, levels
-  with W <= 8): one thread per n loops over w, reads ids[w, n] and the
-  Ci*Cj block entries with neighbouring threads on neighbouring n
-  (coalesced), gathers pcol[:, id] (Cj*S floats, 36 KB at BA-1M,
-  resident in L1/L2), owns rows[:, n] outright, and adds its Cj-vector z
-  into cols[:, id] with global atomics.
+  with W <= 8).  ``fused_pair_route`` sends the pairs the kernel is
+  specialised for (3 x 9) whose [Cj, S] f32 accumulator fits the shared
+  memory to the persistent kernel: a fixed grid of blocks strides over
+  element tiles (one element per thread), the cols side is
+  summed in the block's shared accumulator (a warp first merges lanes
+  with equal ids by shuffles, so a hot id costs one shared addition per
+  warp and channel) and flushed once, one global atomic per nonzero
+  entry.  Every other shape goes to ``fused_pair_apply_atomics``.
+* ``fused_pair_apply_atomics`` (same source): one thread per n loops
+  over w, owns rows[:, n] outright and adds its Cj-vector z into
+  cols[:, id] with global atomics.  Any (Ci, Cj) up to 8 x 16, any S.
 * ``fused_pair_apply_wloop`` (``csrc/fused_pair_wloop.cu``, JAX's
   ``_kernel_wloop``, levels with W > 8, the wide and short tails of
   degree skew): blocks over (32-element tile, w-chunk); rows summed per
   block and added once, cols summed in a shared-memory [Cj, S]
   accumulator and added once per nonzero entry per block.
 
-Both are bound by the block read, W*Ci*Cj*N*4 bytes (108 MB at W=4, 3x9,
-N=250 000).  Unlike the TPU kernel there is no one-hot, no id
-decomposition and no bf16 rounding: values stay f32.  Atomics make the
-cols sums' order vary from run to run.
+``fused_pair_rows_floor`` runs the persistent kernel with its cols side
+compiled out: the time below which no design of the cols side can bring
+``fused_pair_apply`` (``chip_smoke.py`` times it; no solver path runs it).
+Unlike the TPU kernel there is no one-hot, no id decomposition and no
+bf16 rounding: values stay f32.  Atomics make the cols sums' order vary
+from run to run.
 
 The measurement scripts' kernels (``scripts/tpu_fused_pair_micro.py``,
 ``scripts/tpu_fused_variants.py``) are the same pair with bf16 block
@@ -41,11 +53,25 @@ time them; no solver path runs them.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import _cuda
 
 MAX_CI, MAX_CJ = 8, 16  # csrc/fused_pair*.cu register-array bounds
+# the persistent kernel (csrc/fused_pair.cu): the pairs it is instantiated
+# for, and the largest [Cj, S] f32 accumulator it takes (kMaxSmem there):
+# two blocks still fit an SM's shared memory
+PERSISTENT_PAIRS = frozenset({(3, 9)})
+PERSISTENT_MAX_SMEM = 112 * 1024
+SM_SMEM = 227 * 1024  # shared memory the blocks resident on one H100 SM share
+# persistent blocks: threads each, and how many per SM (H100 sweep over
+# 128-1024 x 1-12, scripts/torch_redesign_sweep.py --sweep: larger blocks
+# flush fewer accumulators; 1024 x 1 leaves SMs idle on short levels)
+THREADS = 512
+BLOCKS_PER_SM = 2
+MERGE_MIN = 2  # a warp merges equal ids once some id has this many lanes
 # thallo_tpu's store_3d: levels wider than 8 take the W-loop body
 WLOOP_MIN_W = 9
 
@@ -82,26 +108,84 @@ def _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype):
     return W, N, blocks
 
 
-def fused_pair_apply(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """ids2d [W, N] int32; blocks_wm [W*Ci*Cj, N] (or [W, Ci*Cj, N]) f32;
-    pcol [Cj, S] f32; prow [Ci, N] f32 -> (rows [Ci, N], cols [Cj, S]) f32.
-    One thread per element (any W; the solver sends W <= 8).  CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    if ids2d.device.type == "cpu":
-        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
-    W, N, blocks = _checked("fused_pair_apply", ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
-                            torch.float32)
-    rows = torch.empty((Ci, N), dtype=torch.float32, device=ids2d.device)
-    cols = torch.zeros((Cj, S), dtype=torch.float32, device=ids2d.device)
-    code = _cuda.lib().thallo_fused_pair_apply(
-        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
-        rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S, _cuda.stream(ids2d))
-    _cuda.check(code, "fused_pair_apply")
-    fused_pair_apply.launches += 1
+def fused_pair_route(Ci: int, Cj: int, S: int) -> str:
+    """The kernel fused_pair_apply launches on the card, from the shape
+    alone: "persistent" for a specialised pair whose [Cj, S] f32
+    accumulator fits the shared memory, else "atomics"."""
+    if (Ci, Cj) in PERSISTENT_PAIRS and Cj * S * 4 <= PERSISTENT_MAX_SMEM:
+        return "persistent"
+    return "atomics"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols):
+    what = fn.__name__
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, torch.float32)
+    if fused_pair_route(Ci, Cj, S) != "persistent":
+        raise ValueError(f"{what}: no persistent kernel for Ci={Ci}, Cj={Cj}, S={S}")
+    dev = ids2d.device
+    rows = torch.empty((Ci, N), dtype=torch.float32, device=dev)
+    cols = torch.zeros((Cj, S), dtype=torch.float32, device=dev) if with_cols else None
+    # blocks resident on an SM: BLOCKS_PER_SM, fewer where the accumulator
+    # (plus the 1 KB a block reserves) leaves no room for as many
+    smem = Cj * S * 4 + 1024 if with_cols else 1024
+    per_sm = max(1, min(BLOCKS_PER_SM, SM_SMEM // smem))
+    code = _cuda.lib().thallo_fused_pair_persistent(
+        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(), rows.data_ptr(),
+        cols.data_ptr() if with_cols else None, W, N, Ci, Cj, S, THREADS,
+        per_sm * _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()),
+        MERGE_MIN, _cuda.stream(ids2d))
+    _cuda.check(code, what)
+    fn.launches += 1
     return rows, cols
 
 
-fused_pair_apply.launches = 0
+def fused_pair_apply(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """ids2d [W, N] int32; blocks_wm [W*Ci*Cj, N] (or [W, Ci*Cj, N]) f32;
+    pcol [Cj, S] f32; prow [Ci, N] f32 -> (rows [Ci, N], cols [Cj, S]) f32
+    (any W; the solver sends W <= 8).  CPU tensors take the plain version;
+    CUDA tensors launch the persistent kernel, or, where fused_pair_route
+    says so, go to fused_pair_apply_atomics."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    if fused_pair_route(Ci, Cj, S) == "atomics":
+        return fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_persistent(fused_pair_apply, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, True)
+
+
+def fused_pair_rows_floor(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """rows [Ci, N] alone, by the persistent kernel with its cols side
+    compiled out (a measurement; the persistent route's shapes only)."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)[0]
+    return _launch_persistent(fused_pair_rows_floor, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
+                              False)[0]
+
+
+def fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """The contract of fused_pair_apply by one thread per element and one
+    global atomic per cols value: any Ci <= 8, Cj <= 16 and S.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    W, N, blocks = _checked("fused_pair_apply_atomics", ids2d, blocks_wm, pcol, prow, Ci, Cj,
+                            S, torch.float32)
+    rows = torch.empty((Ci, N), dtype=torch.float32, device=ids2d.device)
+    cols = torch.zeros((Cj, S), dtype=torch.float32, device=ids2d.device)
+    code = _cuda.lib().thallo_fused_pair_atomics(
+        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
+        rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S, _cuda.stream(ids2d))
+    _cuda.check(code, "fused_pair_apply_atomics")
+    fused_pair_apply_atomics.launches += 1
+    return rows, cols
+
+
+for _fn in (fused_pair_apply, fused_pair_rows_floor, fused_pair_apply_atomics):
+    _fn.launches = 0
 
 
 def fused_pair_apply_wloop(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
