@@ -13,28 +13,31 @@ its seconds; any failure exits non-zero):
   2. each kernel against its plain torch version on the card, at the
      shapes its path gives it (the uniform scene's, the segment sum with
      plans built from its oToP and oToC; the fused pair at each level of
-     the skewed scene's sorted tables, W <= 8 by fused_pair_apply and
-     W > 8 by the W-loop kernel, both timed there; oh_setup_products at
-     the skewed camera ids; the measurement scripts' kernels at the JAX
+     the skewed scene's sorted tables by every kernel, the solver taking
+     the one fused_pair_route names; oh_setup_products and its first
+     body at the uniform and the skewed camera ids; the measurement
+     scripts' kernels at the JAX
      scripts' BA-1M shape) and at a small ragged shape with out-of-range
      ids or padded plan lanes; kernel, plain and library times in ms, each
      kernel and library call twice: `ms` over 20 eager calls (host and
      device) and `device_ms` over the same call captured 10 times in one
      CUDA graph and replayed (the device alone; everything under 50 MB is
      warm in L2 there, as the solver's caller finds pcol and the plans,
-     while the 108 MB of blocks stay cold).  At every W <= 8 shape (uniform
-     W = 4, skewed levels 0-1) the fused pair is timed four ways: the
-     persistent kernel the solver takes (fused_pair_apply), the kept
-     global-atomics body (fused_pair_apply_atomics), the W-loop kernel,
-     and the persistent kernel without its cols side (the rows-only
-     floor).  The segment sum is also held against index_add_ on the
+     while the 108 MB of blocks stay cold).  At every fused-pair shape
+     (uniform W = 4, the skewed levels) the pair is timed five ways: the
+     persistent kernel (fused_pair_apply), the kept global-atomics body
+     (fused_pair_apply_atomics), the persistent W-loop kernel
+     (fused_pair_apply_wloop), the first W-loop body
+     (fused_pair_apply_wloop_chunked), and the persistent kernel without
+     its cols side (the rows-only floor).  The segment sum is also held
+     against index_add_ on the
      skewed scene's camera map (one segment with half the rows), on a
      ragged map with empty segments, and on row-major data;
   3. the small BA scene solved with LM on the card and on the CPU (the
      plain versions): per-step unknowns and costs agree; then the small
      skewed scene (``skewed_inputs(16, 1400, 5600)``: point levels
-     W = 8, 24, 273, so both fused-pair kernels run), under scalar and
-     block Jacobi;
+     W = 8, 24, 273), under scalar and block Jacobi: each level launches
+     the kernel fused_pair_route names for it;
   4. the 1M LM solve, block-sparse materialized JᵀJ: its three kernels
      launched, costs finite, final cost <= 1e-2 x initial;
   5. the 1M LM solve under PRECOMPUTE_J (``J.set_materialize(True)``),
@@ -47,15 +50,17 @@ its seconds; any failure exits non-zero):
      kernel (launched); costs finite and never rising; its first 3 steps
      agree with phase 5's;
   7. the skewed 1M LM solve, block-sparse JᵀJ over level tables after
-     the residual sort: fused_pair_apply, the W-loop kernel and
-     oh_setup_products launched, costs never rising, final cost <= 1e-2 x
-     initial; launches per level shape (W, N_t), each read from the
-     wrapper's own count around its calls;
+     the residual sort: each level launches the fused-pair kernel
+     fused_pair_route names for it, and oh_setup_products launched, costs
+     never rising, final cost <= 1e-2 x initial; launches per level shape
+     (W, N_t), each read from the wrapper's own count around its calls;
   8. the measurement scripts (scripts/torch_fused_pair_micro.py,
      torch_fused_variants.py, torch_loop_floor.py, torch_redesign_sweep.py)
      run through their main() with few launches per timing: the bf16 fused
      pair, its three variants, the loop-floor kernel (one tile and 64
-     tiles) and the global-atomics fused pair launched.
+     tiles), the global-atomics fused pair and the two first bodies the
+     redesigns replaced (the chunked W-loop kernel, the global-atomics
+     oh_setup_products) launched.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -201,11 +206,11 @@ def nbytes(*ts):
 
 
 PAIR_KERNELS = ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
-                "fused_pair_rows_floor")
+                "fused_pair_apply_wloop_chunked", "fused_pair_rows_floor")
 
 
 def pair_cases(tag, a, S, fusedpair, terms=None):
-    """The fused pair's four kernels on operands a (3 x 9): one case each;
+    """The fused pair's five kernels on operands a (3 x 9): one case each;
     the rows-only floor is held to the plain version's rows."""
     W, N = a[0].shape
     cases = []
@@ -220,6 +225,21 @@ def pair_cases(tag, a, S, fusedpair, terms=None):
                       (lambda floor=floor: tuple(t[:1 if floor else 2] for t in terms()))
                       if terms else None))
     return cases
+
+
+PRODUCTS_KERNELS = ("oh_setup_products", "oh_setup_products_atomics")
+
+
+def products_cases(tag, a, N, recipe, terms=None):
+    """oh_setup_products's two kernels (the shared-memory kernel and the
+    first, global-atomics body) on operands a = (rT, Jall, ids)."""
+    from thallo_tpu_torch.ops import ohsetup
+
+    R = a[0].shape[1]
+    return [(name, tag, lambda fn=getattr(ohsetup, name): (fn(*a, N=N, recipe=recipe),),
+             lambda: (ohsetup.oh_setup_products_reference(*a, N=N, recipe=recipe),),
+             None, nbytes(*a), (9 + 9 + 81) * 2 * 2 * R, terms)
+            for name in PRODUCTS_KERNELS]
 
 
 def kernel_cases(dev, rng, scene, skew_oToC):
@@ -251,11 +271,7 @@ def kernel_cases(dev, rng, scene, skew_oToC):
             ids[3] = -2
         a = (t(rng.normal(size=(2, R)).astype(np.float32)),
              t(rng.normal(size=(18, R)).astype(np.float32)), t(ids))
-        cases.append(("oh_setup_products", tag,
-                      lambda a=a, N=N: (ohsetup.oh_setup_products(*a, N=N, recipe=oh_recipe),),
-                      lambda a=a, N=N: (ohsetup.oh_setup_products_reference(
-                          *a, N=N, recipe=oh_recipe),),
-                      None, nbytes(*a), (9 + 9 + 81) * 2 * 2 * R, None))
+        cases += products_cases(tag, a, N, oh_recipe)
     fr_recipe = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 6, 9, 0), ("diag", 0, 3, 0, 3))
     for tag, (N_t, W) in (("ba1m", (250_000, 4)), ("ragged", (131, 3))):
         a = (t(rng.normal(size=(2, N_t * W)).astype(np.float32)),
@@ -337,9 +353,9 @@ def _pair_args(t, rng, ids, Ci=3, Cj=9, S=1024, block_dtype=torch.float32):
 
 def skew_kernel_cases(dev, rng, bsr):
     """The skewed 1M scene's kernels: the fused pair at each level of its
-    sorted point tables by every kernel (the solver takes fused_pair_apply
-    where W <= 8, the W-loop kernel where W > 8) and a ragged wide level;
-    oh_setup_products at its camera ids."""
+    sorted point tables by every kernel (the solver takes the one
+    fused_pair_route names) and a ragged wide level; oh_setup_products and
+    its first body at its camera ids."""
     from thallo_tpu_torch.ops import fusedpair, ohsetup
 
     def t(a):
@@ -367,13 +383,8 @@ def skew_kernel_cases(dev, rng, bsr):
     recipe = (("jtr", 0, 9), ("d2", 0, 9), ("pair", 0, 9, 0, 9))
     absa = (a[0].abs(), a[1].abs(), cam)
     ones = (torch.ones_like(a[0]), torch.ones_like(a[1]), cam)
-    cases.append(("oh_setup_products", "skew",
-                  lambda a=a: (ohsetup.oh_setup_products(*a, N=BA_1M[0], recipe=recipe),),
-                  lambda a=a: (ohsetup.oh_setup_products_reference(
-                      *a, N=BA_1M[0], recipe=recipe),),
-                  None, nbytes(*a), (9 + 9 + 81) * 2 * 2 * R,
-                  lambda b=(absa, ones): tuple((ohsetup.oh_setup_products_reference(
-                      *x, N=BA_1M[0], recipe=recipe),) for x in b)))
+    cases += products_cases("skew", a, BA_1M[0], recipe, lambda b=(absa, ones): tuple(
+        (ohsetup.oh_setup_products_reference(*x, N=BA_1M[0], recipe=recipe),) for x in b))
     return cases
 
 
@@ -417,7 +428,9 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("fused_pair_apply_atomics", "ba1m"): "fused_pair_apply_atomics",
           ("segment_sum", "ba1m_cameras"): "segment_sum_cameras",
           ("fused_pair_apply_wloop", "skew_tail"): "fused_pair_apply_wloop",
+          ("fused_pair_apply_wloop_chunked", "skew_tail"): "fused_pair_apply_wloop_chunked",
           ("oh_setup_products", "ba1m"): "oh_setup_products",
+          ("oh_setup_products_atomics", "ba1m"): "oh_setup_products_atomics",
           ("fullrepeat_setup", "ba1m"): "fullrepeat_setup",
           ("oh_setup_aggregate", "ba1m"): "oh_setup_aggregate",
           ("segment_sum", "ba1m"): "segment_sum",
@@ -438,8 +451,12 @@ KERNELS = {
                                  "thallo_tpu/ops/fusedpair.py:349", "measurement"),
     "fused_pair_apply_wloop": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
                                "thallo_tpu/ops/fusedpair.py:385", "skew block-sparse"),
+    "fused_pair_apply_wloop_chunked": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
+                                       "thallo_tpu/ops/fusedpair.py:385", "measurement"),
     "oh_setup_products": ("thallo_tpu_torch/csrc/oh_setup.cu",
                           "thallo_tpu/ops/ohsetup.py:192", "block-sparse"),
+    "oh_setup_products_atomics": ("thallo_tpu_torch/csrc/oh_setup.cu",
+                                  "thallo_tpu/ops/ohsetup.py:192", "measurement"),
     "fullrepeat_setup": ("thallo_tpu_torch/csrc/fullrepeat.cu",
                          "thallo_tpu/ops/fullrepeat.py:178", "block-sparse"),
     "oh_setup_aggregate": ("thallo_tpu_torch/csrc/oh_aggregate.cu",
@@ -471,7 +488,9 @@ def counters():
             "fused_pair_apply_atomics": fusedpair.fused_pair_apply_atomics,
             "fused_pair_rows_floor": fusedpair.fused_pair_rows_floor,
             "fused_pair_apply_wloop": fusedpair.fused_pair_apply_wloop,
+            "fused_pair_apply_wloop_chunked": fusedpair.fused_pair_apply_wloop_chunked,
             "oh_setup_products": ohsetup.oh_setup_products,
+            "oh_setup_products_atomics": ohsetup.oh_setup_products_atomics,
             "fullrepeat_setup": fullrepeat.fullrepeat_setup,
             "oh_setup_aggregate": ohsetup.oh_setup_aggregate,
             "segment_sum": segsum.segment_sum,
@@ -519,6 +538,21 @@ def skew_tables(ba, tt, scene):
     return plan._prep["consts"][0]["bsr"]
 
 
+def level_routes(bsr):
+    """(W, N_t) of each col level of a plan's tables -> the fused-pair
+    kernel fused_pair_route names for it."""
+    from thallo_tpu_torch.ops import fusedpair
+
+    out = {}
+    for pr in bsr.pairs:
+        if pr[2] == "col":
+            W, N_t = bsr.cols[bsr.col_gathers[pr[3]][0]].shape
+            S = int(np.prod(bsr.image_shapes[bsr.slot_images[pr[1]]][:-1]))
+            out[W, N_t] = fusedpair.fused_pair_route(
+                W, N_t, bsr.slot_channels[pr[0]], bsr.slot_channels[pr[1]], S)
+    return out
+
+
 def phase_small_skew(ba, tt):
     """The small skewed scene on the card and the CPU, 5 LM steps each,
     under scalar Jacobi (phase-3 bounds) and block Jacobi (its own)."""
@@ -542,12 +576,11 @@ def phase_small_skew(ba, tt):
         (cg, Ug, lg), (cc, Uc, _) = runs["cuda"], runs["cpu"]
         log(f"small skewed scene ({precond}) costs cuda {cg}")
         log(f"small skewed scene ({precond}) costs cpu  {cc}")
-        widths = [p.shape[1] for p in plan._prep["consts"][0]["bsr"].perms]
-        log(f"small skewed scene ({precond}) point levels W {widths}, card launches "
-            f"fused_pair_apply {lg['fused_pair_apply']}, "
-            f"fused_pair_apply_wloop {lg['fused_pair_apply_wloop']}")
-        if not (lg["fused_pair_apply"] > 0 and lg["fused_pair_apply_wloop"] > 0):
-            raise AssertionError("small skewed scene: a fused-pair kernel never launched")
+        routes = level_routes(plan._prep["consts"][0]["bsr"])
+        log(f"small skewed scene ({precond}) point levels (W, N_t) -> kernel {routes}, card "
+            f"launches {({n: lg[n] for n in set(routes.values())})}")
+        if not all(lg[n] > 0 for n in routes.values()):
+            raise AssertionError("small skewed scene: a routed fused-pair kernel never launched")
         check_steps(f"small skewed scene ({precond}) cuda vs cpu", cg, Ug, cc, Uc, u_tol, c_tol)
         never_rising(f"small skewed scene ({precond}) cuda", cg)
 
@@ -731,13 +764,18 @@ def phase_skew_1m(ba, tt, scene):
     label = "1M skew block-sparse"
     by_shape = {}
     with contextlib.ExitStack() as hooks:
-        for name in ("fused_pair_apply", "fused_pair_apply_wloop"):
+        for name in ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
+                     "fused_pair_apply_wloop_chunked"):
             by_shape[name] = hooks.enter_context(
                 tally(blocksparse, name, lambda ids, *a, **k: tuple(ids.shape)))
-        costs, _, launches, plan = solve_1m(ba, tt, scene, label, (
-            "fused_pair_apply", "fused_pair_apply_wloop", "oh_setup_products"))
+        costs, _, launches, plan = solve_1m(ba, tt, scene, label, ("oh_setup_products",))
     if "O" not in plan._residual_perms:
         raise AssertionError(f"{label}: the residual sort was not applied")
+    routes = level_routes(plan._prep["consts"][0]["bsr"])
+    log(f"{label} point levels (W, N_t) -> kernel {routes}")
+    missing = [(shape, name) for shape, name in routes.items() if by_shape[name][shape] <= 0]
+    if missing:
+        raise AssertionError(f"{label}: levels whose routed kernel never launched: {missing}")
     never_rising(label, costs)
     if not costs[-1] <= 1e-2 * costs[0]:
         raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")

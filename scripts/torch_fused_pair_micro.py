@@ -11,7 +11,7 @@ random ids never show the hot camera's contention), it runs
 plain torch version, and prints one JSON line: ms per launch over n
 launches eager and in one CUDA graph (CUDA events), the plain version's
 ms, and beside them the solver's f32 kernel on the same values
-(fused_pair_apply, or the W-loop kernel where W > 8), eager.  The JAX
+(the kernel fused_pair_route names for the shape), eager.  The JAX
 script timed inside one lax.while_loop dispatch; the graph time is the
 counterpart.  Needs CUDA.
 """
@@ -47,8 +47,7 @@ def main(argv=None):
             eager, graph = per_launch_ms(lambda: fusedpair.fused_pair_bf16(*ops, **kw), args.n)
             plain = eager_ms(lambda: fusedpair.fused_pair_apply_reference(*ops, **kw),
                              max(1, args.n // 10))
-            f32_fn = (fusedpair.fused_pair_apply_wloop if W >= fusedpair.WLOOP_MIN_W
-                      else fusedpair.fused_pair_apply)
+            f32_fn = getattr(fusedpair, fusedpair.fused_pair_route(W, N, Ci, Cj, S))
             f32_ms = eager_ms(lambda: f32_fn(*f32, **kw), args.n)
             block_mb = ops[1].numel() * 2 / 1e6
             emit({"name": name, "Ci": Ci, "Cj": Cj, "W": W, "S": S, "N": N,

@@ -86,8 +86,9 @@ def max_rel_err(got, ref):
 
 
 @functools.lru_cache(maxsize=1)
-def _skew_cols():
-    """Every col table of the skewed 1M BA scene's plan, on the card."""
+def _skew_bsr():
+    """The block-sparse tables of the skewed 1M BA scene's plan, on the
+    card."""
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
@@ -96,18 +97,26 @@ def _skew_cols():
     plan = tt.load_energy(ba.ENERGY).plan({"C": C, "P": P, "O": len(inputs["oToC"])},
                                           solver="levenberg_marquardt", device="cuda")
     plan.init(inputs)
-    bsr = plan._prep["consts"][0]["bsr"]
-    return [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
+    return plan._prep["consts"][0]["bsr"]
 
 
 def skew_tables(levels=(0, -1)):
     """[(tag, ids [W, N_t] int32 on the card)] of the skewed 1M BA scene
     (skewed_inputs(1024, 250000, target_obs=1_000_000), seed 0) after the
     residual sort: the col tables of `levels` (by default level 0 and the
-    widest one) that the fused-pair kernels read."""
-    cols = _skew_cols()
+    widest one; None: all five) that the fused-pair kernels read."""
+    bsr = _skew_bsr()
+    cols = [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
+    if levels is None:
+        levels = range(len(cols))
     return [(f"skew_1m_{'tail' if k == -1 else f'level{k}'}_w{cols[k].shape[0]}", cols[k])
             for k in levels]
+
+
+def skew_camera_ids():
+    """The skewed 1M BA scene's camera ids in its sorted residual order
+    (what oh_setup_products sums by; one camera has half of them)."""
+    return next(x for x in _skew_bsr().oh_idxs if x is not None)
 
 
 def random_ids(rng, W, N, S):

@@ -1,47 +1,72 @@
-"""The redesigned fused pair and segment sum on the card, beside what
-they replaced, and the sweeps behind their constants.
+"""The redesigned kernels on the card, beside what they replaced, and the
+sweeps behind their constants.
 
-    python3 scripts/torch_redesign_sweep.py [--n 20] [--sweep] [--out FILE]
+    python3 scripts/torch_redesign_sweep.py [--n 20] [--sweep] [--only GROUP ...] [--out FILE]
 
-Fused pair (f32 blocks, 3 x 9, S 1024), at the uniform 1M BA shape
-(W 4, N 250 000, random ids) and at the skewed 1M scene's real level-0
-and level-1 col tables:
-  persistent  fused_pair_apply (csrc/fused_pair.cu, the persistent kernel)
-  atomics     fused_pair_apply_atomics (one global atomic per cols value)
-  wloop       fused_pair_apply_wloop
-  rows_floor  the persistent kernel without its cols side
-With --sweep the persistent kernel is also timed over its block size and
-blocks per SM (THREADS, BLOCKS_PER_SM) and over the warp-merge threshold
-(MERGE_MIN; 33 = never merge).
-Segment sum, on maps with the 1M scenes' statistics (points: 250 000
-segments of 4 sorted rows, 3 channels; cameras: 1024 segments of ~977
-scattered rows, 9 channels; the skewed scene's real oToC, one camera with
-half the rows), data channel-major transposed (as the solver passes it)
-and row-major: segment_sum against torch.zeros(...).index_add_.  With
---sweep also the sorted runs alone over TARGET_PIECES, and the staged
-kernel over STAGED_ROWS, on the skewed map too (which staged_eligible
-refuses: a thread sums the hot camera's share of a chunk alone).  One JSON line per timing: ms per call
-over n calls eager and in one CUDA graph (CUDA events; a replayed graph
-finds everything below 50 MB warm in L2), and the error against the
-plain torch version.  Needs CUDA.
+Groups (all by default):
+  pairs   fused pair (f32 blocks, 3 x 9, S 1024) at the uniform 1M BA
+          shape (W 4, N 250 000, random ids) and at the skewed 1M scene's
+          real level-0 and level-1 col tables:
+            persistent     fused_pair_apply (the persistent kernel)
+            atomics        fused_pair_apply_atomics (a global atomic per cols value)
+            wloop          fused_pair_apply_wloop
+            rows_floor     the persistent kernel without its cols side
+          --sweep: the persistent kernel over THREADS x BLOCKS_PER_SM and
+          MERGE_MIN (33 = never merge).
+  wloop   the skewed 1M scene's five real levels, (2, 250000) to
+          (716, 325), and narrow levels of fewer elements (random ids):
+          persistent, wloop and wloop_chunked (the first W-loop body); the
+          numbers behind fused_pair_route.  --sweep: the W-loop kernel over
+          WLOOP_THREADS x WLOOP_BLOCKS_PER_SM and WLOOP_MIN_ITEM.
+  oh      oh_setup_products at BA-1M (R 1 000 000, N 1024, random ids) and
+          at the skewed scene's camera ids (sorted residual order, one
+          camera with half the rows), recipe jtr 9 + d2 9 + pair 9 x 9:
+          the shared-memory kernel and oh_setup_products_atomics (the
+          first body).  --sweep: PRODUCTS_THREADS x PRODUCTS_SMEM (the
+          channel chunks) x PRODUCTS_BLOCKS_PER_SM.
+  segsum  segment sum, on maps with the 1M scenes' statistics (points:
+          250 000 segments of 4 sorted rows, 3 channels; cameras: 1024
+          segments of ~977 scattered rows, 9 channels; the skewed scene's
+          real oToC), data channel-major transposed (as the solver passes
+          it) and row-major: segment_sum against torch.zeros(...).index_add_.
+          --sweep: the sorted runs alone over TARGET_PIECES, and the staged
+          kernel over STAGED_ROWS, on the skewed map too (which
+          staged_eligible refuses: a thread sums the hot camera's share of
+          a chunk alone).
+One JSON line per timing: ms per call over n calls eager and in one CUDA
+graph (CUDA events; a replayed graph finds everything below 50 MB warm
+in L2), and the error against the plain torch version.  Needs CUDA.
 """
 import argparse
+import contextlib
 import sys
 
 import numpy as np
 import torch
 
 from torch_measure import (SKEW_1M, card, emit, max_rel_err, per_launch_ms, random_ids,
-                           skew_tables)
+                           skew_camera_ids, skew_tables)
 
 PAIR_KERNELS = [("persistent", "fused_pair_apply"), ("atomics", "fused_pair_apply_atomics"),
                 ("wloop", "fused_pair_apply_wloop"), ("rows_floor", "fused_pair_rows_floor")]
+WLOOP_KERNELS = [("persistent", "fused_pair_apply"), ("wloop", "fused_pair_apply_wloop"),
+                 ("wloop_chunked", "fused_pair_apply_wloop_chunked")]
 PAIR_SWEEP = [((256, 1), (256, 2), (256, 3), (256, 4), (256, 5), (256, 6), (256, 8),
                (128, 4), (128, 8), (128, 12), (512, 1), (512, 2), (512, 3), (512, 4),
                (1024, 1), (1024, 2)),  # (THREADS, BLOCKS_PER_SM)
               (2, 4, 33)]  # MERGE_MIN
 PIECES_SWEEP = (1024, 2048, 4096, 8192, 16384, 32768)
 STAGED_ROWS_SWEEP = (1024, 1536, 2048, 3072, 4096)
+WLOOP_SWEEP = (((256, 2), (256, 4), (512, 1), (512, 2), (1024, 1)),  # (THREADS, BLOCKS_PER_SM)
+               (1, 4, 8, 16, 32))  # WLOOP_MIN_ITEM
+# narrow levels of fewer elements than the 1M scene's (W, N), random ids:
+# where the persistent kernel's one thread per element stops filling the card
+ROUTE_SHAPES = ((8, 16384), (8, 4096), (8, 1400), (4, 62500), (4, 8192), (2, 32768))
+# (PRODUCTS_THREADS, PRODUCTS_SMEM, PRODUCTS_BLOCKS_PER_SM)
+OH_SWEEP = ((128, 56 * 1024, 4), (256, 75 * 1024, 3), (256, 112 * 1024, 2),
+            (512, 112 * 1024, 2), (256, 224 * 1024, 1), (512, 224 * 1024, 1),
+            (1024, 224 * 1024, 1))
+OH_RECIPE = (("jtr", 0, 9), ("d2", 0, 9), ("pair", 0, 9, 0, 9))
 
 
 def f32_operands(rng, ids, Ci, Cj, S):
@@ -51,6 +76,17 @@ def f32_operands(rng, ids, Ci, Cj, S):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
 
     return ids, t(W * Ci * Cj, N), t(Cj, S), t(Ci, N)
+
+
+@contextlib.contextmanager
+def kept(module, *names):
+    """Restores module.<names> when the block ends."""
+    saved = {n: getattr(module, n) for n in names}
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            setattr(module, n, v)
 
 
 def sweep_pairs(args, smi, out):
@@ -76,17 +112,87 @@ def sweep_pairs(args, smi, out):
             timed(kernel, fname)
         if not args.sweep:
             continue
-        kept = fusedpair.THREADS, fusedpair.BLOCKS_PER_SM, fusedpair.MERGE_MIN
-        try:
+        with kept(fusedpair, "THREADS", "BLOCKS_PER_SM"):
             for fusedpair.THREADS, fusedpair.BLOCKS_PER_SM in PAIR_SWEEP[0]:
                 swept = dict(THREADS=fusedpair.THREADS, BLOCKS_PER_SM=fusedpair.BLOCKS_PER_SM)
                 timed("persistent", "fused_pair_apply", **swept)
                 timed("rows_floor", "fused_pair_rows_floor", **swept)
-            fusedpair.THREADS, fusedpair.BLOCKS_PER_SM = kept[:2]
+        with kept(fusedpair, "MERGE_MIN"):
             for fusedpair.MERGE_MIN in PAIR_SWEEP[1]:
                 timed("persistent", "fused_pair_apply", MERGE_MIN=fusedpair.MERGE_MIN)
-        finally:
-            fusedpair.THREADS, fusedpair.BLOCKS_PER_SM, fusedpair.MERGE_MIN = kept
+
+
+def sweep_wloop(args, smi, out):
+    from thallo_tpu_torch.ops import _cuda, fusedpair
+
+    rng = np.random.default_rng(2)
+    kw = dict(Ci=3, Cj=9, S=1024)
+    sms = _cuda.sm_count(torch.device("cuda"))
+    cases = skew_tables(None) + [(f"random_w{W}_n{N}", random_ids(rng, W, N, kw["S"]))
+                                 for W, N in ROUTE_SHAPES]
+    for name, ids in cases:
+        W, N = ids.shape
+        ops = f32_operands(rng, ids, **kw)
+        ref = fusedpair.fused_pair_apply_reference(*ops, **kw)
+
+        def timed(kernel, fname, **extra):
+            fn = getattr(fusedpair, fname)
+            err = max_rel_err(fn(*ops, **kw), ref)
+            eager, graph = per_launch_ms(lambda: fn(*ops, **kw), args.n)
+            if kernel == "wloop":
+                extra["w_item"], extra["grid"] = fusedpair.wloop_plan(W, N, kw["S"], sms)
+            emit({"name": name, "kernel": kernel, "W": W, "N": N, "eager_ms": eager,
+                  "graph_ms": graph, "rel_err": err, "card": smi,
+                  "route": fusedpair.fused_pair_route(W, N, **kw), **extra}, out)
+
+        for kernel, fname in WLOOP_KERNELS:
+            timed(kernel, fname)
+        if not args.sweep or name.startswith("random"):
+            continue
+        with kept(fusedpair, "WLOOP_THREADS", "WLOOP_BLOCKS_PER_SM"):
+            for fusedpair.WLOOP_THREADS, fusedpair.WLOOP_BLOCKS_PER_SM in WLOOP_SWEEP[0]:
+                timed("wloop", "fused_pair_apply_wloop", WLOOP_THREADS=fusedpair.WLOOP_THREADS,
+                      WLOOP_BLOCKS_PER_SM=fusedpair.WLOOP_BLOCKS_PER_SM)
+        with kept(fusedpair, "WLOOP_MIN_ITEM"):
+            for fusedpair.WLOOP_MIN_ITEM in WLOOP_SWEEP[1]:
+                timed("wloop", "fused_pair_apply_wloop", WLOOP_MIN_ITEM=fusedpair.WLOOP_MIN_ITEM)
+
+
+def sweep_oh(args, smi, out):
+    from thallo_tpu_torch.ops import ohsetup
+
+    rng = np.random.default_rng(3)
+    C = SKEW_1M[0]
+    cases = [("ba_1m_cameras", torch.from_numpy(
+        rng.integers(0, C, 1_000_000).astype(np.int32)).cuda()),
+             ("skew_1m_cameras", skew_camera_ids())]
+    for name, ids in cases:
+        R = ids.shape[0]
+        ops = tuple(torch.from_numpy(rng.normal(size=(k, R)).astype(np.float32)).cuda()
+                    for k in (2, 18)) + (ids,)
+        ref = ohsetup.oh_setup_products_reference(*ops, N=C, recipe=OH_RECIPE)
+
+        def timed(kernel, fname, **extra):
+            fn = getattr(ohsetup, fname)
+            err = max_rel_err((fn(*ops, N=C, recipe=OH_RECIPE),), (ref,))
+            eager, graph = per_launch_ms(lambda: fn(*ops, N=C, recipe=OH_RECIPE), args.n)
+            if kernel == "smem":
+                plan = ohsetup.products_plan(OH_RECIPE, 2, 18, C, ohsetup.PRODUCTS_THREADS,
+                                             ohsetup.PRODUCTS_SMEM)
+                extra.update(chunk=plan.chunk, n_chunks=plan.n_chunks)
+            emit({"name": name, "kernel": kernel, "R": R, "N": C, "eager_ms": eager,
+                  "graph_ms": graph, "rel_err": err, "card": smi, **extra}, out)
+
+        timed("smem", "oh_setup_products")
+        timed("atomics", "oh_setup_products_atomics")
+        if not args.sweep:
+            continue
+        with kept(ohsetup, "PRODUCTS_THREADS", "PRODUCTS_SMEM", "PRODUCTS_BLOCKS_PER_SM"):
+            for (ohsetup.PRODUCTS_THREADS, ohsetup.PRODUCTS_SMEM,
+                 ohsetup.PRODUCTS_BLOCKS_PER_SM) in OH_SWEEP:
+                timed("smem", "oh_setup_products", PRODUCTS_THREADS=ohsetup.PRODUCTS_THREADS,
+                      PRODUCTS_SMEM=ohsetup.PRODUCTS_SMEM,
+                      PRODUCTS_BLOCKS_PER_SM=ohsetup.PRODUCTS_BLOCKS_PER_SM)
 
 
 def sweep_segsum(args, smi, out):
@@ -141,17 +247,22 @@ def sweep_segsum(args, smi, out):
                  segsum.STAGED_MAX_SHARE) = kept
 
 
+GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=20, help="calls per timing")
     ap.add_argument("--sweep", action="store_true", help="also vary the kernels' constants")
+    ap.add_argument("--only", nargs="+", choices=sorted(GROUPS), help="run these groups only")
     ap.add_argument("--out", help="also append the JSON lines to this file")
     args = ap.parse_args(argv)
     smi = card()
     out = open(args.out, "a") if args.out else None
     try:
-        sweep_pairs(args, smi, out)
-        sweep_segsum(args, smi, out)
+        for name, fn in GROUPS.items():
+            if args.only is None or name in args.only:
+                fn(args, smi, out)
     finally:
         if out is not None:
             out.close()

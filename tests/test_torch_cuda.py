@@ -12,7 +12,7 @@ from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segs
 from tests.torch_cases import (  # noqa: E402
     AGG_SHAPES, CI, CJ, FR_RECIPE, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
     SEG_SHAPES, WLOOP_SHAPES, agg_inputs, bf16_round, close, fr_inputs, fused_inputs,
-    oh_inputs, seg_inputs, seg_maps)
+    hot_ids, oh_inputs, seg_inputs, seg_maps)
 
 # f32 on both sides; only the order of (atomic) sums differs
 CUDA_TOL = 1e-5
@@ -52,7 +52,7 @@ def test_fused_pair_other_kernels_cuda_match_plain(cuda, name, W, N, S):
     args = [torch.from_numpy(a).to(cuda) for a in fused_inputs(W, N, S)]
     fn = getattr(fusedpair, name)
     r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
-    if name == "fused_pair_rows_floor" and fusedpair.fused_pair_route(CI, CJ, S) == "atomics":
+    if name == "fused_pair_rows_floor" and not fusedpair.persistent_fits(CI, CJ, S):
         with pytest.raises(ValueError, match="no persistent kernel"):
             fn(*args, Ci=CI, Cj=CJ, S=S)
         return
@@ -70,11 +70,12 @@ def test_fused_pair_other_kernels_cuda_match_plain(cuda, name, W, N, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,N,S", PAIR_SHAPES[2:])
 def test_fused_pair_routes_cuda_match_plain(cuda, W, N, S):
-    """fused_pair_apply launches the kernel fused_pair_route names (its own
-    count, or the atomics wrapper's) and agrees with the plain version."""
+    """fused_pair_apply launches the persistent kernel where the pair and
+    its accumulator fit it (its own count), else the atomics body (that
+    wrapper's count), and agrees with the plain version."""
     args = [torch.from_numpy(a).to(cuda) for a in fused_inputs(W, N, S)]
-    counted = (fusedpair.fused_pair_apply if fusedpair.fused_pair_route(CI, CJ, S)
-               == "persistent" else fusedpair.fused_pair_apply_atomics)
+    counted = (fusedpair.fused_pair_apply if fusedpair.persistent_fits(CI, CJ, S)
+               else fusedpair.fused_pair_apply_atomics)
     n0 = counted.launches
     rows, cols = fusedpair.fused_pair_apply(*args, Ci=CI, Cj=CJ, S=S)
     torch.cuda.synchronize()
@@ -94,19 +95,12 @@ def test_fused_pair_duplicate_ids_cuda_match_plain(cuda, name, share, W, N, S):
     so each cols output is held to 4 x 2^-24 sqrt(n) x the sum of its
     terms' magnitudes (chip_smoke.py's rule for the skewed scene)."""
     ids, blocks, pcol, prow = fused_inputs(W, N, S)
-    rng = np.random.default_rng(11)
-    ids = np.where(rng.random(ids.shape) < share, 5, ids).astype(np.int32)
-    args = [torch.from_numpy(a).to(cuda) for a in (ids, blocks, pcol, prow)]
+    args = [torch.from_numpy(a).to(cuda) for a in (hot_ids(ids, share), blocks, pcol, prow)]
     rows, cols = getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=S)
     torch.cuda.synchronize()
-    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    r_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)[0]
     close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
-    mags = fusedpair.fused_pair_apply_reference(args[0], *(a.abs() for a in args[1:]),
-                                                Ci=CI, Cj=CJ, S=S)[1]
-    n = fusedpair.fused_pair_apply_reference(args[0], *(torch.ones_like(a) for a in args[1:]),
-                                             Ci=CI, Cj=CJ, S=S)[1]
-    bound = 4 * 2.0 ** -24 * n.sqrt() * mags
-    assert bool(((cols - c_ref).abs() <= bound).all())
+    _close_hot_cols(cols, args, S)
 
 
 @pytest.mark.cuda
@@ -117,6 +111,57 @@ def test_oh_products_cuda_matches_plain(cuda, R, N):
     torch.cuda.synchronize()
     ref = ohsetup.oh_setup_products_reference(*args, N=N, recipe=OH_RECIPE)
     close(out.cpu(), ref.cpu(), CUDA_TOL)
+
+
+def _close_products(out, args, N):
+    """Each output within 4 x 2^-24 sqrt(n) x the sum of its n terms'
+    magnitudes (a hot id sums half the rows; chip_smoke.py's rule)."""
+    ref = ohsetup.oh_setup_products_reference(*args, N=N, recipe=OH_RECIPE)
+    mags = ohsetup.oh_setup_products_reference(args[0].abs(), args[1].abs(), args[2], N=N,
+                                               recipe=OH_RECIPE)
+    n = ohsetup.oh_setup_products_reference(torch.ones_like(args[0]), torch.ones_like(args[1]),
+                                            args[2], N=N, recipe=OH_RECIPE)
+    assert out.shape == ref.shape
+    assert bool(((out - ref).abs() <= 4 * 2.0 ** -24 * n.sqrt() * mags).all())
+
+
+# OH_RECIPE has a symmetric pair (mirrored) and a cross pair (not): 90
+# channels, several chunks of at most 32; N = 3000 leaves room for only a
+# few channels a block, 40000 for none (the atomics route); ids:
+# out-of-range ones, and `share` of the rows on one id
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("R,N", OH_SHAPES + [(20000, 3000)])
+def test_oh_products_forms_cuda_match_plain(cuda, share, R, N):
+    rT, Jall, ids = oh_inputs(R, N)
+    args = [torch.from_numpy(a).to(cuda) for a in (rT, Jall, hot_ids(ids, share))]
+    plan = ohsetup.products_plan(OH_RECIPE, 2, Jall.shape[0], N, ohsetup.PRODUCTS_THREADS,
+                                 ohsetup.PRODUCTS_SMEM)
+    assert plan.n_chunks > 1 and (plan.chunk < 16) == (N == 3000)
+    n0 = ohsetup.oh_setup_products.launches
+    out = ohsetup.oh_setup_products(*args, N=N, recipe=OH_RECIPE)
+    torch.cuda.synchronize()
+    assert ohsetup.oh_setup_products.launches == n0 + 1
+    _close_products(out, args, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", OH_SHAPES + [(20000, 40000)])
+def test_oh_products_atomics_cuda_matches_plain(cuda, R, N):
+    """The first body, directly and where oh_setup_products routes to it
+    (one channel row of N = 40000 does not fit the shared memory)."""
+    rT, Jall, ids = oh_inputs(R, N)
+    args = [torch.from_numpy(a).to(cuda) for a in (rT, Jall, hot_ids(ids, 0.5))]
+    routed = ohsetup.products_plan(OH_RECIPE, 2, Jall.shape[0], N, ohsetup.PRODUCTS_THREADS,
+                                   ohsetup.PRODUCTS_SMEM) is None
+    assert routed == (N == 40000)
+    fn = ohsetup.oh_setup_products if routed else ohsetup.oh_setup_products_atomics
+    n0 = (ohsetup.oh_setup_products.launches, ohsetup.oh_setup_products_atomics.launches)
+    out = fn(*args, N=N, recipe=OH_RECIPE)
+    torch.cuda.synchronize()
+    assert (ohsetup.oh_setup_products.launches, ohsetup.oh_setup_products_atomics.launches) \
+        == (n0[0], n0[1] + 1)
+    _close_products(out, args, N)
 
 
 @pytest.mark.cuda
@@ -210,8 +255,40 @@ def test_segsum_maps_cuda_match_plain(cuda, name, ids, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,N,S", WLOOP_SHAPES + FUSED_SHAPES)
 def test_fused_pair_wloop_cuda_matches_plain(cuda, W, N, S):
-    """The W-loop kernel at wide levels, at narrow ones, and where its
-    [Cj, S] accumulator runs as several channel chunks (S = 5000)."""
+    """The W-loop wrapper at wide levels, at narrow ones, and where the
+    [Cj, S] accumulator is beyond the persistent kernel (S = 5000: the
+    chunked body, whose accumulator runs as several channel chunks)."""
+    args = [torch.from_numpy(a).to(cuda) for a in fused_inputs(W, N, S)]
+    counted = (fusedpair.fused_pair_apply_wloop if fusedpair.persistent_fits(CI, CJ, S)
+               else fusedpair.fused_pair_apply_wloop_chunked)
+    n0 = counted.launches
+    rows, cols = fusedpair.fused_pair_apply_wloop(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert counted.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.fixture
+def wloop_min_item():
+    kept = fusedpair.WLOOP_MIN_ITEM
+    yield
+    fusedpair.WLOOP_MIN_ITEM = kept
+
+
+# min_item 1: items split w (rows by global atomics); 64: every item
+# covers its elements' whole level (rows stored); a ragged N, a level of
+# one tile, out-of-range ids (fused_inputs)
+WLOOP_CASES = WLOOP_SHAPES[:2] + [(9, 1001, 1024), (100, 17, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_item", [1, 64])
+@pytest.mark.parametrize("W,N,S", WLOOP_CASES)
+def test_fused_pair_wloop_forms_cuda_match_plain(cuda, wloop_min_item, min_item, W, N, S):
+    """The persistent W-loop kernel with its rows stored and added."""
+    fusedpair.WLOOP_MIN_ITEM = min_item
     args = [torch.from_numpy(a).to(cuda) for a in fused_inputs(W, N, S)]
     n0 = fusedpair.fused_pair_apply_wloop.launches
     rows, cols = fusedpair.fused_pair_apply_wloop(*args, Ci=CI, Cj=CJ, S=S)
@@ -220,6 +297,52 @@ def test_fused_pair_wloop_cuda_matches_plain(cuda, W, N, S):
     r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
     close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
     close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,S", WLOOP_SHAPES + FUSED_SHAPES)
+def test_fused_pair_wloop_chunked_cuda_matches_plain(cuda, W, N, S):
+    """The first W-loop body, kept for the shapes the persistent one does
+    not take."""
+    args = [torch.from_numpy(a).to(cuda) for a in fused_inputs(W, N, S)]
+    n0 = fusedpair.fused_pair_apply_wloop_chunked.launches
+    rows, cols = fusedpair.fused_pair_apply_wloop_chunked(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert fusedpair.fused_pair_apply_wloop_chunked.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+def _close_hot_cols(cols, args, S):
+    """Each cols output within 4 x 2^-24 sqrt(n) x the sum of its n terms'
+    magnitudes: a hot id sums up to W*N terms, and an f32 sum of n terms
+    in another order moves by about 2^-24 sqrt(n/3) x that sum
+    (chip_smoke.py's rule for the skewed scene)."""
+    c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)[1]
+    mags = fusedpair.fused_pair_apply_reference(args[0], *(a.abs() for a in args[1:]),
+                                                Ci=CI, Cj=CJ, S=S)[1]
+    n = fusedpair.fused_pair_apply_reference(args[0], *(torch.ones_like(a) for a in args[1:]),
+                                             Ci=CI, Cj=CJ, S=S)[1]
+    assert bool(((cols - c_ref).abs() <= 4 * 2.0 ** -24 * n.sqrt() * mags).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_item", [1, 64])
+@pytest.mark.parametrize("share", [1.0, 0.5, 0.1])
+@pytest.mark.parametrize("W,N,S", WLOOP_SHAPES[:2])
+def test_fused_pair_wloop_duplicate_ids_cuda_match_plain(cuda, wloop_min_item, min_item, share,
+                                                        W, N, S):
+    """`share` of all entries carry one id (a hot camera): every lane of a
+    warp, half of them, or a few; rows to CUDA_TOL, cols to the sum rule."""
+    fusedpair.WLOOP_MIN_ITEM = min_item
+    ids, blocks, pcol, prow = fused_inputs(W, N, S)
+    args = [torch.from_numpy(a).to(cuda) for a in (hot_ids(ids, share), blocks, pcol, prow)]
+    rows, cols = fusedpair.fused_pair_apply_wloop(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    close(rows.cpu(), fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)[0].cpu(),
+          CUDA_TOL)
+    _close_hot_cols(cols, args, S)
 
 
 @pytest.mark.cuda
@@ -257,9 +380,9 @@ def test_loop_floor_cuda_matches_plain(cuda, L):
 @pytest.mark.cuda
 def test_skewed_setup_and_apply_cuda_matches_cpu(cuda):
     """The level tables on the card: skewed_inputs(16, 1400, 5600) (point
-    levels W = 8, 24, 273; the residual sort) gives the same -JᵀF, diag
-    and JᵀJ·p on the card as on the CPU, through both fused-pair
-    kernels."""
+    levels (8, 1400), (24, 62), (273, 13); the residual sort) gives the
+    same -JᵀF, diag and JᵀJ·p on the card as on the CPU, each level
+    through the kernel fused_pair_route names for it."""
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
@@ -267,7 +390,8 @@ def test_skewed_setup_and_apply_cuda_matches_cpu(cuda):
     dims = {"C": 16, "P": 1400, "O": len(ins["oToC"])}
     rng = np.random.default_rng(3)
     out = {}
-    n0 = (fusedpair.fused_pair_apply.launches, fusedpair.fused_pair_apply_wloop.launches)
+    names = ("fused_pair_apply", "fused_pair_apply_wloop")
+    n0 = [getattr(fusedpair, n).launches for n in names]
     for device in ("cuda", "cpu"):
         plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=device)
         plan.init({k: np.copy(v) for k, v in ins.items()})
@@ -279,8 +403,12 @@ def test_skewed_setup_and_apply_cuda_matches_cpu(cuda):
         jtjp = comp.make_jtjp(plan._U, plan._step_inputs(), consts, None, store)(p)
         out[device] = [{k: v.cpu() for k, v in t.items()} for t in (mjtf, diag, jtjp)]
     torch.cuda.synchronize()
-    assert fusedpair.fused_pair_apply.launches == n0[0] + 1
-    assert fusedpair.fused_pair_apply_wloop.launches == n0[1] + 2
+    # one launch per level, of the kernel fused_pair_route names for it:
+    # (8, 1400) the persistent kernel, (24, 62) and (273, 13) the W-loop one
+    routes = [fusedpair.fused_pair_route(W, N_t, CI, CJ, 16)
+              for W, N_t in ((8, 1400), (24, 62), (273, 13))]
+    assert [getattr(fusedpair, n).launches - k for n, k in zip(names, n0)] \
+        == [routes.count(n) for n in names]
     for got, ref in zip(out["cuda"], out["cpu"]):
         for k in ref:
             close(got[k], ref[k], 1e-4)

@@ -22,8 +22,8 @@ from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segs
 from tests.torch_cases import (  # noqa: E402
     AGG_SHAPES, CI, CJ, FR_RECIPE, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
     ORACLE_TOL, SEG_SHAPES, WLOOP_SHAPES, agg_inputs, agg_oracle, bf16_round, close,
-    fr_inputs, fr_oracle, fused_inputs, fused_oracle, oh_inputs, oh_oracle, seg_inputs,
-    seg_maps, seg_oracle)
+    fr_inputs, fr_oracle, fused_inputs, fused_oracle, hot_ids, oh_inputs, oh_oracle,
+    seg_inputs, seg_maps, seg_oracle)
 
 
 def _load_script(name):
@@ -131,6 +131,67 @@ def test_fused_pair_wloop_plain_matches_oracle(W, N, S):
 @pytest.mark.parametrize("W,N,S", WLOOP_SHAPES[:2])
 def test_fused_pair_wloop_plain_matches_jax(W, N, S):
     test_fused_pair_plain_matches_jax(W, N, S)
+
+
+@pytest.mark.parametrize("W,N,S", WLOOP_SHAPES)
+def test_fused_pair_wloop_chunked_plain_matches_oracle(W, N, S):
+    ids, blocks, pcol, prow = fused_inputs(W, N, S)
+    rows, cols = fusedpair.fused_pair_apply_wloop_chunked(
+        torch.from_numpy(ids), torch.from_numpy(blocks), torch.from_numpy(pcol),
+        torch.from_numpy(prow), Ci=CI, Cj=CJ, S=S)
+    r_ref, c_ref = fused_oracle(ids, blocks, pcol, prow, S)
+    close(rows, r_ref, ORACLE_TOL)
+    close(cols, c_ref, ORACLE_TOL)
+
+
+# the skewed 1M BA scene's five point levels (W, N_t)
+SKEW_LEVELS = [(2, 250000), (6, 70845), (24, 12599), (96, 2054), (716, 325)]
+
+
+@pytest.mark.parametrize("W,N", SKEW_LEVELS + [(9, 1), (1, 10), (100, 17), (5, 0), (0, 5)])
+@pytest.mark.parametrize("sms", [132, 1])
+def test_wloop_plan(W, N, sms):
+    """Items of one 32-element tile and w_item w's cover every (w, n) once
+    (the kernel's item -> (tile, w0) map); about one item per warp of the
+    grid, at least WLOOP_MIN_ITEM w's where W has that many; the grid no
+    larger than the items fill, and within the blocks the SMs hold."""
+    w_item, grid = fusedpair.wloop_plan(W, N, 1024, sms)
+    warps = fusedpair.WLOOP_THREADS // 32
+    tiles, chunks = -(-N // 32), -(-W // w_item)
+    assert w_item >= 1 and grid >= 1
+    assert w_item >= min(W, fusedpair.WLOOP_MIN_ITEM) and (w_item - 1) * chunks < W or W == 0
+    covered = np.zeros((max(W, 1), max(tiles, 1)), int)
+    for item in range(tiles * chunks):
+        tile, w0 = divmod(item, chunks)
+        covered[w0 * w_item:min(W, (w0 + 1) * w_item), tile] += 1
+    assert W == 0 or N == 0 or (covered == 1).all()
+    assert grid <= max(1, -(-(tiles * chunks) // warps))
+    assert grid <= fusedpair.WLOOP_BLOCKS_PER_SM * sms
+
+
+@pytest.mark.parametrize("W,N_t,Ci,Cj,S,route", [
+    # the skewed 1M scene's levels (measured on the card: PERF.md, the route)
+    *[(W, N, 3, 9, 1024, r) for (W, N), r in zip(SKEW_LEVELS, [
+        "fused_pair_apply", "fused_pair_apply", "fused_pair_apply_wloop",
+        "fused_pair_apply_wloop", "fused_pair_apply_wloop"])],
+    # narrow levels of few elements (measured too): the W-loop kernel
+    (8, 16384, 3, 9, 1024, "fused_pair_apply_wloop"), (4, 8192, 3, 9, 1024, "fused_pair_apply_wloop"),
+    (2, 32768, 3, 9, 1024, "fused_pair_apply"),
+    # the boundary: WLOOP_MIN_W wide, PERSISTENT_MIN_N elements
+    (fusedpair.WLOOP_MIN_W - 1, fusedpair.PERSISTENT_MIN_N, 3, 9, 1024, "fused_pair_apply"),
+    (fusedpair.WLOOP_MIN_W - 1, fusedpair.PERSISTENT_MIN_N - 1, 3, 9, 1024,
+     "fused_pair_apply_wloop"),
+    (fusedpair.WLOOP_MIN_W, fusedpair.PERSISTENT_MIN_N, 3, 9, 1024, "fused_pair_apply_wloop"),
+    (fusedpair.WLOOP_MIN_W, 10 ** 7, 3, 9, 1024, "fused_pair_apply_wloop"),
+    # accumulators beyond the persistent kernels; other pairs
+    (24, 333, 3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36 + 1, "fused_pair_apply_wloop_chunked"),
+    (24, 333, 3, 9, 96 * 1024 // 4 + 1, "fused_pair_apply_atomics"),
+    (4, 333, 3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36 + 1, "fused_pair_apply_atomics"),
+    (24, 333, 9, 3, 64, "fused_pair_apply_wloop_chunked"),
+    (4, 333, 9, 3, 64, "fused_pair_apply_atomics"),
+])
+def test_fused_pair_route_levels(W, N_t, Ci, Cj, S, route):
+    assert fusedpair.fused_pair_route(W, N_t, Ci, Cj, S) == route
 
 
 # ---------------------------------------------------------------------------
@@ -383,13 +444,85 @@ def test_segsum_choose_modes(counts, modes):
 
 
 @pytest.mark.parametrize("Ci,Cj,S,route", [
-    (3, 9, 1024, "persistent"), (3, 9, 16, "persistent"),
-    (3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36, "persistent"),
-    (3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36 + 1, "atomics"),  # accumulator too large
-    (9, 3, 64, "atomics"), (3, 3, 64, "atomics"), (8, 16, 1024, "atomics"),
+    (3, 9, 1024, "fused_pair_apply"), (3, 9, 16, "fused_pair_apply"),
+    (3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36, "fused_pair_apply"),
+    # accumulator too large
+    (3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36 + 1, "fused_pair_apply_atomics"),
+    (9, 3, 64, "fused_pair_apply_atomics"), (3, 3, 64, "fused_pair_apply_atomics"),
+    (8, 16, 1024, "fused_pair_apply_atomics"),
 ])
 def test_fused_pair_route(Ci, Cj, S, route):
-    assert fusedpair.fused_pair_route(Ci, Cj, S) == route
+    """Narrow levels (W 4, many elements): the persistent kernel where the
+    pair and its accumulator fit it, else the atomics body."""
+    assert fusedpair.fused_pair_route(4, 250_000, Ci, Cj, S) == route
+
+
+BA_RECIPE = (("jtr", 0, 9), ("d2", 0, 9), ("pair", 0, 9, 0, 9))
+
+
+@pytest.mark.parametrize("recipe,K", [(BA_RECIPE, 18), (OH_RECIPE, 24)])
+@pytest.mark.parametrize("N", [1024, 97, 3000])
+def test_products_plan(recipe, K, N):
+    """Every output row comes from exactly one channel, as its row or its
+    mirror; a symmetric pair keeps a <= b; the chunks cover the channels
+    and each block's shared memory fits the budget."""
+    plan = ohsetup.products_plan(recipe, 2, K, N, ohsetup.PRODUCTS_THREADS,
+                                 ohsetup.PRODUCTS_SMEM)
+    F = ohsetup.recipe_width(recipe)
+    assert plan.F == F
+    rows = [f for f, _ in plan.dest] + [m for _, m in plan.dest if m >= 0]
+    assert sorted(rows) == list(range(F))
+    n_sym = 45 if recipe == BA_RECIPE else 45 + 27
+    assert len(plan.chan) == 18 + n_sym
+    assert plan.n_chunks * plan.chunk >= len(plan.chan) > (plan.n_chunks - 1) * plan.chunk
+    assert plan.block_smem <= ohsetup.PRODUCTS_SMEM
+    assert max(max(a0 + sa, b0 + sb) for a0, sa, b0, sb in plan.chan) <= 2 + K
+    if (recipe, N) == (BA_RECIPE, 1024):  # BA-1M's camera slot: 2 chunks of 32
+        assert (plan.chunk, plan.n_chunks, plan.stride) == (32, 2, 33)
+
+
+@pytest.mark.parametrize("N,fits", [(20000, True), (30000, False)])
+def test_products_plan_refuses_wide_rows(N, fits):
+    """A channel row that does not fit the budget: no plan (the atomics
+    route)."""
+    assert (ohsetup.products_plan(BA_RECIPE, 2, 18, N, 256, 112 * 1024) is not None) == fits
+
+
+@pytest.mark.parametrize("recipe,K", [(BA_RECIPE, 18), (OH_RECIPE, 24)])
+@pytest.mark.parametrize("small", [False, True])
+@pytest.mark.parametrize("share", [0.0, 0.5])
+def test_oh_products_planned_matches_plain(recipe, K, small, share):
+    """The plan applied in plain torch (chunked, mirrored: what the kernel
+    sums) against the plain version; `small` leaves room for 5 channels a
+    block, so the channels run as many chunks.  f32 sums of the same terms
+    in another order: JAX_EXACT_TOL of max|ref|."""
+    R, N = OH_SHAPES[1]
+    rT, Jall, ids = oh_inputs(R, N)
+    args = (torch.from_numpy(rT), torch.from_numpy(Jall[:K].copy()),
+            torch.from_numpy(hot_ids(ids, share)))
+    threads = ohsetup.PRODUCTS_THREADS
+    smem = ohsetup._smem_bytes(5, N, 2, K, threads) if small else ohsetup.PRODUCTS_SMEM
+    plan = ohsetup.products_plan(recipe, 2, K, N, threads, smem)
+    assert plan.n_chunks > 1 and (plan.chunk <= 5) == small
+    out = ohsetup.oh_setup_products_planned(*args, N=N, recipe=recipe, smem=smem)
+    close(out, ohsetup.oh_setup_products_reference(*args, N=N, recipe=recipe), JAX_EXACT_TOL)
+
+
+@pytest.mark.parametrize("share", [0.5, 1.0])
+def test_oh_products_plain_matches_jax_hot_ids(share):
+    """A hot camera: `share` of the rows on one id, against the Pallas
+    kernel in interpret mode (JAX_EXACT_TOL: its bf16 split is exact; the
+    hot id's sums hold ~R x share terms in another order)."""
+    R, N = OH_SHAPES[1]
+    rT, Jall, ids = oh_inputs(R, N)
+    ids = hot_ids(ids, share)
+    out = ohsetup.oh_setup_products(
+        torch.from_numpy(rT), torch.from_numpy(Jall), torch.from_numpy(ids),
+        N=N, recipe=OH_RECIPE)
+    ref = jax_oh_products(jnp.asarray(rT), jnp.asarray(Jall), jnp.asarray(ids), N=N,
+                          recipe=OH_RECIPE, interpret=True)
+    close(out, ref, JAX_EXACT_TOL)
+    close(out, oh_oracle(rT, Jall, ids, N, OH_RECIPE), ORACLE_TOL)
 
 
 @pytest.mark.parametrize("name", ["fused_pair_apply_atomics", "fused_pair_rows_floor"])
@@ -424,6 +557,8 @@ def _launches():
             segsum.segment_sum.launches, fusedpair.fused_pair_apply_wloop.launches,
             loopfloor.add_one.launches, fusedpair.fused_pair_apply_atomics.launches,
             fusedpair.fused_pair_rows_floor.launches,
+            fusedpair.fused_pair_apply_wloop_chunked.launches,
+            ohsetup.oh_setup_products_atomics.launches,
             *(getattr(fusedpair, name).launches for name in BF16_KERNELS))
 
 
@@ -443,6 +578,9 @@ def test_cpu_tensors_launch_no_kernel():
     for name in ("fused_pair_apply_atomics", "fused_pair_rows_floor"):
         test_fused_pair_other_wrappers_plain_match_oracle(name, *FUSED_SHAPES[0])
     test_segsum_compact_sum_matches_plain_and_jax(*SEG_MAPS[0])
+    test_fused_pair_wloop_chunked_plain_matches_oracle(*WLOOP_SHAPES[0])
+    rT, Jall, ids = (torch.from_numpy(a) for a in oh_inputs(*OH_SHAPES[0]))
+    ohsetup.oh_setup_products_atomics(rT, Jall, ids, N=OH_SHAPES[0][1], recipe=OH_RECIPE)
     assert _launches() == before
 
 
@@ -460,3 +598,11 @@ def test_unsupported_device_raises_new_kernels():
     plan = segsum.build_plan(np.arange(8, dtype=np.int32), 8)
     with pytest.raises(ValueError, match="unsupported device"):
         segsum.segment_sum(torch.zeros((8, 2), device="meta"), plan)
+    r = torch.zeros((2, 8), device="meta")
+    for fn in (ohsetup.oh_setup_products, ohsetup.oh_setup_products_atomics):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(r, torch.zeros((18, 8), device="meta"), ids, N=4, recipe=BA_RECIPE)
+    ids2d = torch.zeros((12, 8), dtype=torch.int32, device="meta")
+    for fn in (fusedpair.fused_pair_apply_wloop, fusedpair.fused_pair_apply_wloop_chunked):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(ids2d, ids2d.float(), ids2d.float(), ids2d.float(), Ci=1, Cj=1, S=2)

@@ -30,6 +30,13 @@ def fused_inputs(W, N, S, seed=0):
     return ids, blocks, pcol, prow
 
 
+def hot_ids(ids, share, hot=5, seed=11):
+    """ids with `share` of the entries (chosen by a seeded draw) set to one
+    id, `hot`: a hot camera."""
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random(ids.shape) < share, hot, ids).astype(np.int32)
+
+
 def bf16_round(a):
     """f32 values rounded to bf16 (nearest even), kept as f32."""
     u = np.ascontiguousarray(a, np.float32).view(np.uint32)

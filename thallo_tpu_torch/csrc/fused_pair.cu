@@ -37,10 +37,14 @@
 //   the persistent kernel does not (an accumulator beyond the shared
 //   memory, another pair).
 //
-// The caller zeroes cols; the kernels allocate nothing.
+// add_cols (the warp merge) lives in block_accum.cuh, shared with the
+// W-loop kernel and oh_setup.cu.  The caller zeroes cols; the kernels
+// allocate nothing.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "block_accum.cuh"  // add_cols
 
 namespace {
 
@@ -48,7 +52,6 @@ constexpr int kMaxCi = 8;   // ops/fusedpair.py MAX_CI
 constexpr int kMaxCj = 16;  // ops/fusedpair.py MAX_CJ
 constexpr int kThreads = 256;      // the atomics kernel's block
 constexpr int kMaxThreads = 1024;  // the persistent kernel's largest block
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 112 * 1024;  // ops/fusedpair.py PERSISTENT_MAX_SMEM
 
 __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
@@ -104,40 +107,6 @@ __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
 #pragma unroll
   for (int ci = 0; ci < kMaxCi; ++ci) {
     if (ci < Ci) rows[ci * Nz + n] = acc[ci];
-  }
-}
-
-// One element's z vector into the block's accumulator.  Every lane of the
-// warp calls this together (ok = false on a lane with nothing to add).
-template <int kCj>
-__device__ __forceinline__ void add_cols(float* __restrict__ acc_cols, int S, int id, bool ok,
-                                         float (&z)[kCj], int lane, int merge_min) {
-  // lanes with nothing to add get keys of their own
-  const unsigned peers = __match_any_sync(kFull, ok ? id : -1 - lane);
-  if (__any_sync(kFull, __popc(peers) >= merge_min)) {
-    // sum each group of equal ids into its first lane: in every round the
-    // lanes of even rank within their group take in the next lane's sum,
-    // and the lanes of odd rank drop out (a tree over ranks, whatever
-    // lanes the group occupies)
-    const unsigned below = peers & ((1u << lane) - 1u);
-    int rank = __popc(below);
-    unsigned higher = peers & (0xfffffffeu << lane);
-    while (__any_sync(kFull, higher != 0u)) {
-      const int next = __ffs(higher);  // 1 + the next lane of the group, or 0
-      const int src = next ? next - 1 : lane;
-#pragma unroll
-      for (int cj = 0; cj < kCj; ++cj) {
-        const float t = __shfl_sync(kFull, z[cj], src);
-        if (next) z[cj] += t;
-      }
-      higher &= ~__ballot_sync(kFull, rank & 1);
-      rank >>= 1;
-    }
-    ok = ok && below == 0u;
-  }
-  if (ok) {
-#pragma unroll
-    for (int cj = 0; cj < kCj; ++cj) atomicAdd(acc_cols + cj * S + id, z[cj]);
   }
 }
 

@@ -8,24 +8,44 @@
 //
 // The skewed levels are wide and short (W = 716 over N = 325 elements on
 // the skewed 1M BA scene): one thread per element, as in fused_pair.cu,
-// would run 11 warps, each looping 716 times.  Here the grid is
-// (32-element tile, w-chunk, cj-chunk).  The 8 warps of a block take the
-// w of its chunk in turn, lane = element, so a warp reads 32 neighbouring
-// floats of one w-plane (coalesced).  Rows: each thread sums its w's in
-// registers, the 8 warps' sums meet in shared memory, and the block adds
-// them to rows with one global atomic per (ci, element).  Cols: the block
-// sums its z values into a shared [cj-chunk, S] accumulator (36 KB for
-// 9 x 1024) with shared atomics and then adds each nonzero entry to cols
-// with one global atomic, so a hot column id meets the other lanes of its
-// block in shared memory first (csrc/oh_aggregate.cu's design).  A
-// cj-chunk is as many channels as fit kMaxSmem; chunks past the first
-// re-read the ids and their own block rows.  The bound is the block read,
-// W*Ci*Cj*N*4 bytes.  The caller zeroes rows and cols; the kernel
-// allocates nothing.
+// would run 11 warps, each looping 716 times.  The bound is the block
+// read, W*Ci*Cj*N*4 bytes.  Two kernels:
+//
+// wloop_persistent_kernel  (thallo_fused_pair_wloop_persistent)
+//   Specialised on 3 x 9.  The work is cut into items of (32-element
+//   tile, range of w_item w's); a warp takes one item at a time, lane =
+//   element, so each load of a w-plane is 32 neighbouring floats, read
+//   once with __ldcs past the caches that hold pcol and ids.  A fixed grid
+//   (a few blocks per SM) strides over the items, so a block zeroes and
+//   flushes its [9, S] shared cols accumulator once, not once per tile.
+//   Before the shared atomics a warp merges equal ids (add_cols,
+//   block_accum.cuh): the hot camera, carried by about half the lanes on
+//   the skewed scene, costs one shared addition per channel.  Rows: an
+//   item that covers all W of its elements stores them; where w is split
+//   it adds its 3 partial sums per element with global atomics (the
+//   caller zeroes rows then).  The flush adds each nonzero accumulator
+//   entry to cols with a global atomic: on the H100 it beat per-block
+//   slabs [G, 9, S] summed by a second kernel at all five levels of the
+//   skewed 1M scene.
+//
+// fused_pair_wloop_kernel  (thallo_fused_pair_wloop, the first body)
+//   Any (Ci, Cj) up to 8 x 16, S up to kMaxSmem / 4: the grid is
+//   (32-element tile, w-chunk, cj-chunk).  The 8 warps of a block take
+//   the w of its chunk in turn; rows meet in shared memory and are added
+//   with one global atomic per (ci, element); cols go to a shared
+//   [cj-chunk, S] accumulator (chunks of as many channels as fit
+//   kMaxSmem, each re-reading the ids and its own block rows), zeroed and
+//   flushed once per block with one global atomic per nonzero entry.  It
+//   takes the shapes the persistent kernel does not: other pairs, and
+//   [9, S] accumulators beyond kMaxPersistentSmem.
+//
+// The caller zeroes what the kernels add to; they allocate nothing.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
+
+#include "block_accum.cuh"  // add_cols
 
 namespace {
 
@@ -34,6 +54,8 @@ constexpr int kMaxCj = 16;   // ops/fusedpair.py MAX_CJ
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxSmem = 96 * 1024;  // ops/_cuda.py MAX_DYNAMIC_SMEM
+constexpr int kMaxPersistentSmem = 112 * 1024;  // ops/fusedpair.py PERSISTENT_MAX_SMEM
+constexpr int kMaxThreads = 1024;
 
 __global__ void fused_pair_wloop_kernel(const int* __restrict__ ids,
                                         const float* __restrict__ blocks,
@@ -117,7 +139,107 @@ __global__ void fused_pair_wloop_kernel(const int* __restrict__ ids,
   }
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+    wloop_persistent_kernel(const int* __restrict__ ids, const float* __restrict__ blocks,
+                            const float* __restrict__ pcol, const float* __restrict__ prow,
+                            float* __restrict__ rows, float* __restrict__ cols, int W, int N,
+                            int S, int w_item, int n_items, int merge_min) {
+  constexpr int kCi = 3, kCj = 9, kF = kCi * kCj;
+  extern __shared__ float acc_cols[];  // [kCj, S]
+  const int n_acc = kCj * S;
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_cols[i] = 0.f;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int w_chunks = (W + w_item - 1) / w_item;
+  const size_t Nz = static_cast<size_t>(N);
+
+  // item, w0 and w1 are the same for every lane of a warp, so all 32
+  // lanes reach add_cols's warp primitives together
+  for (int item = blockIdx.x * warps + (threadIdx.x >> 5); item < n_items;
+       item += gridDim.x * warps) {
+    const int tile = item / w_chunks;
+    const int w0 = (item - tile * w_chunks) * w_item;
+    const int w1 = min(W, w0 + w_item);
+    const int n = tile * 32 + lane;
+    const bool live = n < N;
+    float pr[kCi];
+    float acc[kCi];
+#pragma unroll
+    for (int ci = 0; ci < kCi; ++ci) {
+      pr[ci] = live ? __ldg(prow + ci * Nz + n) : 0.f;
+      acc[ci] = 0.f;
+    }
+    for (int w = w0; w < w1; ++w) {
+      const int id = live ? __ldg(ids + static_cast<size_t>(w) * Nz + n) : -1;
+      const bool ok = static_cast<unsigned>(id) < static_cast<unsigned>(S);
+      float z[kCj];
+#pragma unroll
+      for (int cj = 0; cj < kCj; ++cj) z[cj] = 0.f;
+      if (ok) {  // padded / out-of-range entries read no block
+        float pc[kCj];
+#pragma unroll
+        for (int cj = 0; cj < kCj; ++cj) pc[cj] = __ldg(pcol + static_cast<size_t>(cj) * S + id);
+        const float* b = blocks + static_cast<size_t>(w) * kF * Nz + n;
+#pragma unroll
+        for (int ci = 0; ci < kCi; ++ci) {
+#pragma unroll
+          for (int cj = 0; cj < kCj; ++cj) {
+            const float bv = __ldcs(b + static_cast<size_t>(ci * kCj + cj) * Nz);
+            acc[ci] = fmaf(bv, pc[cj], acc[ci]);
+            z[cj] = fmaf(bv, pr[ci], z[cj]);
+          }
+        }
+      }
+      add_cols<kCj>(acc_cols, S, id, ok, z, lane, merge_min);
+    }
+    if (live) {
+#pragma unroll
+      for (int ci = 0; ci < kCi; ++ci) {
+        if (w_item >= W) {
+          rows[ci * Nz + n] = acc[ci];
+        } else {
+          atomicAdd(rows + ci * Nz + n, acc[ci]);
+        }
+      }
+    }
+  }
+
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
+    const float v = acc_cols[i];
+    if (v != 0.f) atomicAdd(cols + i, v);
+  }
+}
+
 }  // namespace
+
+// The persistent W-loop kernel for 3 x 9.  threads: per block, a multiple
+// of 32; grid: the blocks to launch; w_item: w's per work item (>= W: rows
+// are stored, else added to rows, zeroed by the caller); cols zeroed by
+// the caller.
+extern "C" int thallo_fused_pair_wloop_persistent(const void* ids, const void* blocks,
+                                                  const void* pcol, const void* prow, void* rows,
+                                                  void* cols, int W, int N, int Ci, int Cj, int S,
+                                                  int threads, int grid, int w_item,
+                                                  int merge_min, void* stream) {
+  if (Ci != 3 || Cj != 9 || S < 1 || W < 0 || N < 0 || grid < 1 || w_item < 1 ||
+      merge_min < 2 || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
+      static_cast<size_t>(Cj) * S * sizeof(float) > kMaxPersistentSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = static_cast<size_t>(Cj) * S * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(wloop_persistent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const int n_items = ((N + 31) / 32) * ((W + w_item - 1) / w_item);
+  wloop_persistent_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ids), static_cast<const float*>(blocks),
+      static_cast<const float*>(pcol), static_cast<const float*>(prow),
+      static_cast<float*>(rows), static_cast<float*>(cols), W, N, S, w_item, n_items, merge_min);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int thallo_fused_pair_wloop(const void* ids, const void* blocks,
                                        const void* pcol, const void* prow,

@@ -1,24 +1,53 @@
 // One-hot-row-mode setup products (replaces the Pallas kernel of
-// thallo_tpu/ops/ohsetup.py::oh_setup_products).  See
-// thallo_tpu_torch/ops/ohsetup.py for the contract.
+// thallo_tpu/ops/ohsetup.py::oh_setup_products, body `_products_kernel`).
+// See thallo_tpu_torch/ops/ohsetup.py for the contract and the channel
+// plan.  Both kernels read rT [rc, R] and J [K, R] (R innermost) and drop
+// observations whose id lies outside [0, N).  The bound is the input read,
+// (rc + K + 1) * R * 4 bytes; what costs beyond it is the sum by id: F*R
+// additions (99 M at BA-1M) onto F*N addresses (101 k), half of them onto
+// one camera's 99 addresses on the degree-skewed scene.
 //
-// One thread per observation r.  For each recipe entry the thread forms
-// the entry's slab values from rT[:, r] and Jall[:, r] (rows are [*, R]
-// with R innermost: coalesced across the warp; the repeated reads of
-// the thread's rc + K inputs hit L1) and adds each value into
-// out[f, ids[r]] with a global atomic.  Observations whose id lies
-// outside [0, N) drop.  The caller zeroes out; the kernel allocates
-// nothing.
+// oh_products_persistent_kernel  (thallo_oh_setup_products_persistent)
+//   The sum happens in shared memory.  The plan (ops/ohsetup.py
+//   products_plan) lists the output channels as products
+//   sum_c X[a0 + c*sa] * X[b0 + c*sb] over the stacked inputs X = [rT; J]
+//   (a symmetric pair block keeps only a <= b: 63 channels instead of 99
+//   for BA's camera slot) and cuts them into chunks of at most 32, one
+//   chunk per grid row y.  A fixed grid of blocks strides over tiles of
+//   32 observations, a warp per tile.  Lane = observation first: the warp
+//   copies the tile's rc + K input rows into its own [rc + K, 33] stage
+//   (coalesced reads; a chunk's blocks read the same tiles at about the
+//   same time, so chunks past the first mostly hit L2) and groups equal
+//   ids (__match_any_sync).  Then lane = channel: for each distinct id of
+//   the tile the lanes sum their channel over the id's observations in
+//   registers and add once into the block's [N, stride] accumulator, so
+//   the hot camera of the skewed scene costs a shared atomic per tile and
+//   channel, and the 32 lanes' atomics fall on 32 banks (stride odd).  The
+//   accumulator is zeroed once per block and flushed once, with plain
+//   stores, into a [G, channels, N] slab; slab_sum_kernel sums the slabs
+//   in a fixed order into out and the mirror rows.  (Measured on the H100
+//   and not kept, ops/ohsetup.py has their numbers: a flush by one global
+//   atomic per nonzero entry, and the chunks spread over a thread block
+//   cluster's shared memory, so that each tile is staged once.)
 //
-// recipe: n_entries rows of 6 int32 (kind, offa, Ca, offb, Cb, f0):
+// oh_setup_products_kernel  (thallo_oh_setup_products, the first body)
+//   One thread per observation forms each slab value from its rc + K
+//   inputs and adds it into out[f, id] with a global atomic.  Any N: it
+//   takes the shapes whose channel row does not fit the shared memory.
+//
+// recipe (first body): n_entries rows of 6 int32 (kind, offa, Ca, offb, Cb, f0):
 //   kind 0 jtr   out[f0+ch]       += sum_c J[offa + c*Ca + ch] * r[c]
 //   kind 1 d2    out[f0+ch]       += sum_c J[offa + c*Ca + ch]^2
 //   kind 2 pair  out[f0 + a*Cb+b] += sum_c J[offa + c*Ca + a] * J[offb + c*Cb + b]
+//
+// The first body's caller zeroes out; the kernels allocate nothing.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
 
 __global__ void oh_setup_products_kernel(const float* __restrict__ rT,
                                          const float* __restrict__ J,
@@ -66,7 +95,155 @@ __global__ void oh_setup_products_kernel(const float* __restrict__ rT,
   }
 }
 
+constexpr int kMaxThreads = 1024;
+constexpr int kStageLd = 33;  // a warp's stage row: 32 observations + 1 (no bank conflicts)
+
+__global__ void __launch_bounds__(kMaxThreads)
+    oh_products_persistent_kernel(const float* __restrict__ rT, const float* __restrict__ J,
+                                  const int4* __restrict__ chan, const int* __restrict__ ids,
+                                  float* __restrict__ slab, int n_ch, int chunk, int stride,
+                                  int rc, int K, int R, int N) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int ch0 = blockIdx.y * chunk;
+  const int cc = min(chunk, n_ch - ch0);
+  const int RK = rc + K;
+  float* acc = smem;                                            // [N, stride]
+  float* st = smem + static_cast<size_t>(N) * stride + warp * RK * kStageLd;  // [RK, 33]
+  const size_t n_acc = static_cast<size_t>(N) * stride;
+  for (size_t i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  // lane j forms channel ch0 + j: the stage offsets of its two operands
+  int a = 0, sa = 0, b = 0, sb = 0;
+  if (lane < cc) {
+    const int4 e = chan[ch0 + lane];
+    a = e.x * kStageLd;
+    sa = e.y * kStageLd;
+    b = e.z * kStageLd;
+    sb = e.w * kStageLd;
+  }
+  const size_t Rz = static_cast<size_t>(R);
+  const int n_tiles = (R + 31) / 32;
+  // leaders, members, o and gid are the same for every lane of the warp
+  for (int tile = blockIdx.x * warps + warp; tile < n_tiles; tile += gridDim.x * warps) {
+    // lane = observation: stage its rc + K inputs, group equal ids
+    const int r = tile * 32 + lane;
+    const int id = r < R ? __ldg(ids + r) : -1;
+    const bool ok = static_cast<unsigned>(id) < static_cast<unsigned>(N);
+    if (ok) {
+      for (int k = 0; k < rc; ++k) st[k * kStageLd + lane] = rT[k * Rz + r];
+      for (int k = 0; k < K; ++k) st[(rc + k) * kStageLd + lane] = J[k * Rz + r];
+    }
+    const unsigned peers = __match_any_sync(kFull, ok ? id : -1 - lane);
+    unsigned leaders = __ballot_sync(kFull, ok && (peers & ((1u << lane) - 1u)) == 0u);
+    __syncwarp();
+    // lane = channel: one sum per distinct id of the tile, one shared
+    // atomic per (id, channel), conflict-free (stride is odd)
+    while (leaders != 0u) {
+      const int o = __ffs(leaders) - 1;
+      leaders &= leaders - 1u;
+      unsigned members = __shfl_sync(kFull, peers, o);
+      const int gid = __shfl_sync(kFull, id, o);
+      float v = 0.f;
+      while (members != 0u) {
+        const int m = __ffs(members) - 1;
+        members &= members - 1u;
+        for (int c = 0; c < rc; ++c) v = fmaf(st[a + c * sa + m], st[b + c * sb + m], v);
+      }
+      if (lane < cc) atomicAdd(acc + static_cast<size_t>(gid) * stride + lane, v);
+    }
+    __syncwarp();
+  }
+
+  __syncthreads();
+  // the accumulator by (channel, n), n fastest: conflict-free reads
+  for (size_t i = threadIdx.x; i < static_cast<size_t>(cc) * N; i += blockDim.x) {
+    const int j = static_cast<int>(i / N);
+    const size_t n = i - static_cast<size_t>(j) * N;
+    slab[(static_cast<size_t>(blockIdx.x) * n_ch + ch0) * N + i] = acc[n * stride + j];
+  }
+}
+
+constexpr int kSlabCols = 32;   // columns per block of slab_sum_kernel
+constexpr int kSlabSlices = 8;  // partials each column's sum is split over
+
+// out[dest[r][0]][n] (and out[dest[r][1]][n] where that mirror row is not
+// -1) = sum_g part[g][r][n] for part [G, rows, N], g ascending within each
+// of kSlabSlices slices and the slices in order: the same bits every run.
+__global__ void __launch_bounds__(kSlabCols * kSlabSlices)
+    slab_sum_kernel(const float* __restrict__ part, int G, int rows, int N,
+                    const int* __restrict__ dest, float* __restrict__ out) {
+  __shared__ float red[kSlabSlices][kSlabCols + 1];
+  const size_t M = static_cast<size_t>(rows) * N;
+  const size_t m = static_cast<size_t>(blockIdx.x) * kSlabCols + threadIdx.x;
+  float s = 0.f;
+  if (m < M) {
+    for (int g = threadIdx.y; g < G; g += kSlabSlices) s += __ldcs(part + g * M + m);
+  }
+  red[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y != 0 || m >= M) return;
+  float t = red[0][threadIdx.x];
+#pragma unroll
+  for (int k = 1; k < kSlabSlices; ++k) t += red[k][threadIdx.x];
+  const int r = static_cast<int>(m / N);
+  const size_t n = m - static_cast<size_t>(r) * N;
+  out[static_cast<size_t>(__ldg(dest + 2 * r)) * N + n] = t;
+  const int mirror = __ldg(dest + 2 * r + 1);
+  if (mirror >= 0) out[static_cast<size_t>(mirror) * N + n] = t;
+}
+
+cudaError_t launch_slab_sum(const float* part, int G, int rows, int N, const int* dest,
+                                   float* out, cudaStream_t stream) {
+  const size_t M = static_cast<size_t>(rows) * N;
+  if (M == 0) return cudaGetLastError();
+  const unsigned grid = static_cast<unsigned>((M + kSlabCols - 1) / kSlabCols);
+  slab_sum_kernel<<<grid, dim3(kSlabCols, kSlabSlices), 0, stream>>>(part, G, rows, N, dest, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The shared-memory kernel.  chan [n_ch, 4] int32 (a0, sa, b0, sb: rows of
+// the stacked [rT; J]), dest [n_ch, 2] int32 (output row, mirror row or
+// -1); chunk <= 32 channels per block (grid y = ceil(n_ch / chunk)), an
+// odd stride >= chunk for the [N, stride] accumulator; grid: blocks per
+// chunk (a slab has one row per block); threads: a multiple of 32; slab
+// [grid, n_ch, N] scratch.  out [F, N] is written whole by
+// slab_sum_kernel.
+extern "C" int thallo_oh_setup_products_persistent(const void* rT, const void* Jall,
+                                                   const void* ids, const void* chan,
+                                                   const void* dest, void* out, void* slab,
+                                                   int n_ch, int chunk, int stride, int rc, int K,
+                                                   int R, int N, int threads, int grid,
+                                                   void* stream) {
+  if (n_ch < 1 || chunk < 1 || chunk > 32 || stride < chunk || stride % 2 == 0 || rc < 1 ||
+      K < 1 || R < 0 || N < 1 || grid < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || slab == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = (static_cast<size_t>(N) * stride +
+                       static_cast<size_t>(threads / 32) * (rc + K) * kStageLd) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(oh_products_persistent_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  oh_products_persistent_kernel<<<dim3(grid, (n_ch + chunk - 1) / chunk), threads, smem, s>>>(
+      static_cast<const float*>(rT), static_cast<const float*>(Jall),
+      static_cast<const int4*>(chan), static_cast<const int*>(ids), static_cast<float*>(slab),
+      n_ch, chunk, stride, rc, K, R, N);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_slab_sum(static_cast<const float*>(slab), grid, n_ch, N,
+                                          static_cast<const int*>(dest),
+                                          static_cast<float*>(out), s));
+}
 
 extern "C" int thallo_oh_setup_products(const void* rT, const void* Jall,
                                         const void* ids, const void* recipe,

@@ -32,6 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # dynamic shared memory a launcher may request (csrc/*.cu kMaxSmem)
 MAX_DYNAMIC_SMEM = 96 * 1024
+SM_SMEM = 227 * 1024  # shared memory the blocks resident on one H100 SM share
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thallo_tpu_torch"
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -45,6 +46,8 @@ SIGNATURES = {
     "thallo_segment_sum": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_staged": (P, L, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_wloop": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_fused_pair_wloop_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    "thallo_oh_setup_products_persistent": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "thallo_loop_floor_add_one": (P, P, I, I, P),
 }
@@ -116,6 +119,22 @@ def lib():
     return _lib
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+def blocks_per_sm(block_smem: int, wanted: int) -> int:
+    """Blocks of block_smem bytes of shared memory (plus the 1 KB a block
+    reserves) that one SM holds at once, at most wanted, at least 1."""
+    return max(1, min(wanted, SM_SMEM // (block_smem + 1024)))
+
+
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -139,7 +158,8 @@ def require(t: torch.Tensor, name: str, shape, dtype, device) -> None:
 
 @functools.lru_cache(maxsize=64)
 def recipe_tensor(rows, device) -> torch.Tensor:
-    """A static recipe (tuple of 6-int tuples), as [len, 6] int32 on the
-    device; cached, so a repeated call uploads nothing."""
+    """A static table (tuple of equal-length int tuples: a recipe, a
+    channel plan), as [len, width] int32 on the device; cached, so a
+    repeated call uploads nothing."""
     flat = [int(v) for row in rows for v in row]
-    return torch.tensor(flat, dtype=torch.int32).reshape(-1, 6).to(device)
+    return torch.tensor(flat, dtype=torch.int32).reshape(len(rows), -1).to(device)

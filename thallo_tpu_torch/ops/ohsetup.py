@@ -13,13 +13,28 @@ channel-major Jacobian slots ``Jall [K, R]`` (slot rows
 and the slabs, stacked in recipe order into F rows, are summed over the
 observations of each id into ``[F, N]``.  Ids outside [0, N) drop.
 
-On the card (``csrc/oh_setup.cu``): one thread per observation forms
-each slab value from its rc + K inputs (coalesced reads, L1-resident
-reuse) and adds it into ``out[f, id]`` with a global atomic — F*R adds
-(99 M at BA-1M) spread over F*N addresses (101 k), about R/N per
-address.  The bound is the atomic traffic, not the 80 MB of input.
-The TPU kernel's in-VMEM one-hot and 3-term bf16 split are not carried
-over: every sum is a plain f32 sum whose order varies with the atomics.
+On the card (``csrc/oh_setup.cu``) the sum by id happens in shared
+memory.  ``products_plan`` turns the recipe into channels, each a product
+sum_c X[a0 + c*sa] * X[b0 + c*sb] over the stacked inputs X = [rT; Jall]
+with an output row and a mirror row: a pair entry whose two operands are
+the same slot (``offa == offb``, ``Ca == Cb``: BA's camera-camera block)
+is symmetric, so only its a <= b entries are channels and each b > a
+entry is the mirror of one (63 channels for BA's 99 rows).  The channels
+are cut into chunks of at most 32 whose [N, chunk] f32 accumulator,
+beside a stage of each warp's inputs, fits ``PRODUCTS_SMEM`` (two chunks
+of 32 at N = 1024).  A fixed grid of blocks per chunk strides over
+tiles of 32 observations, a warp per tile: it stages the tile's inputs,
+groups equal ids, and then, a lane per channel, sums each distinct id's
+observations in registers and adds once to the accumulator; the
+accumulator is flushed once per block into a slab, and a second kernel
+sums the slabs in a fixed order and writes the mirror rows.  The bound
+is the input read, 80 MB at BA-1M.  Where one channel row does not fit
+(N beyond ~36 000 for BA's camera slot at the default budget),
+``oh_setup_products`` goes to ``oh_setup_products_atomics``, the first
+body: one thread per observation, a global atomic per slab value (F*R
+adds, 99 M at BA-1M, onto F*N addresses).  The TPU kernel's in-VMEM
+one-hot and 3-term bf16 split are not carried over: every sum is a plain
+f32 sum whose order varies with the shared atomics.
 
 ``oh_setup_aggregate`` replaces ``thallo_tpu/ops/ohsetup.py::
 oh_setup_aggregate`` (Pallas body ``_kernel``): channel-major parts
@@ -37,11 +52,29 @@ shared accumulator at once run as further chunks (grid y).
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Optional, Tuple
+
 import torch
 
 from . import _cuda
 
 _KIND = {"jtr": 0, "d2": 1, "pair": 2}
+# the shared-memory products kernel: threads per block, shared memory a
+# block may take, and blocks per SM over all chunks (H100 sweep,
+# scripts/torch_redesign_sweep.py --sweep: one block of 1024 threads per
+# SM, two chunks of 32 channels, 0.21 ms, against 0.34-0.96 ms for 128-512
+# threads).  Not kept, measured on the same card (H100 80GB HBM3, 700 W):
+# a flush by one global atomic per nonzero entry (0.2507 ms uniform and
+# 0.2133 skewed against 0.2085 and 0.1790 for the slabs), and the two
+# chunks spread over a 2-block thread block cluster's shared memory, each
+# tile staged once (0.2916 and 0.2095 against 0.2549 and 0.2128 on grid y,
+# in a build whose grid-y kernel had been recompiled to 32 registers)
+PRODUCTS_THREADS = 1024
+PRODUCTS_SMEM = 224 * 1024
+PRODUCTS_BLOCKS_PER_SM = 1
+PRODUCTS_MAX_CHUNK = 32  # a lane per channel of the chunk
+_STAGE_LD = 33  # csrc/oh_setup.cu kStageLd
 
 
 def recipe_width(recipe) -> int:
@@ -74,21 +107,101 @@ def oh_setup_products_reference(rT, Jall, ids, *, N, recipe):
     return out.index_add_(1, ids[ok].long(), x[:, ok])
 
 
-def oh_setup_products(rT, Jall, ids, *, N, recipe):
-    """rT [rc, R] f32, Jall [K, R] f32, ids [R] int32, recipe: static
-    tuple of ("jtr", off, C) | ("d2", off, C) | ("pair", offa, Ca, offb, Cb)
-    -> [F, N] f32.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
-    if rT.device.type == "cpu":
-        return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
-    if rT.device.type != "cuda":
-        raise ValueError(f"oh_setup_products: unsupported device {rT.device}")
+class ProductsPlan(NamedTuple):
+    """The channels of a recipe for the shared-memory products kernel:
+    chan[k] = (a0, sa, b0, sb), rows of the stacked [rT; Jall] whose
+    products summed over c < rc give channel k; dest[k] = (its output
+    row, the mirror row that gets the same value or -1); F output rows;
+    chunk channels per block, n_chunks chunks, the odd row stride of the
+    [N, stride] accumulator; block_smem bytes."""
+    chan: Tuple[Tuple[int, int, int, int], ...]
+    dest: Tuple[Tuple[int, int], ...]
+    F: int
+    chunk: int
+    n_chunks: int
+    stride: int
+    block_smem: int
+
+
+def _smem_bytes(chunk, N, rc, K, threads):
+    """Shared memory of a products block (csrc/oh_setup.cu launch_products):
+    the [N, chunk | 1] accumulator and a [rc + K, 33] stage per warp."""
+    return (N * (chunk | 1) + threads // 32 * (rc + K) * _STAGE_LD) * 4
+
+
+@functools.lru_cache(maxsize=64)
+def products_plan(recipe, rc: int, K: int, N: int, threads: int,
+                  smem: int) -> Optional[ProductsPlan]:
+    """The recipe's channels, mirrors and chunks for a block of `threads`
+    observations within `smem` bytes of shared memory; None where not even
+    one channel row fits (those shapes take oh_setup_products_atomics).
+    Pure Python and cached per static recipe."""
+    chan, dest, F = [], [], 0
+    for ent in recipe:
+        if ent[0] in ("jtr", "d2"):
+            _, off, C = ent
+            for ch in range(C):
+                a0 = rc + off + ch
+                chan.append((a0, C, 0, 1) if ent[0] == "jtr" else (a0, C, a0, C))
+                dest.append((F + ch, -1))
+            F += C
+            continue
+        _, offa, Ca, offb, Cb = ent
+        sym = offa == offb and Ca == Cb
+        for a in range(Ca):
+            for b in range(a if sym else 0, Cb):
+                chan.append((rc + offa + a, Ca, rc + offb + b, Cb))
+                dest.append((F + a * Cb + b, F + b * Ca + a if sym and b != a else -1))
+        F += Ca * Cb
+    chunk = min(len(chan), PRODUCTS_MAX_CHUNK)
+    while chunk >= 1 and _smem_bytes(chunk, N, rc, K, threads) > smem:
+        chunk -= 1
+    if chunk < 1:
+        return None
+    n_chunks = -(-len(chan) // chunk)
+    chunk = -(-len(chan) // n_chunks)  # the same work in every chunk
+    return ProductsPlan(tuple(chan), tuple(dest), F, chunk, n_chunks, chunk | 1,
+                        _smem_bytes(chunk, N, rc, K, threads))
+
+
+def products_grid(plan: ProductsPlan, R: int, threads: int, sms: int) -> int:
+    """Blocks per chunk: PRODUCTS_BLOCKS_PER_SM blocks per SM (fewer where
+    the shared memory leaves no room) shared by the chunks, no more than
+    the observation tiles."""
+    blocks = _cuda.blocks_per_sm(plan.block_smem, PRODUCTS_BLOCKS_PER_SM) * sms
+    return max(1, min(blocks // plan.n_chunks, -(-R // threads)))
+
+
+def oh_setup_products_planned(rT, Jall, ids, *, N, recipe, threads=PRODUCTS_THREADS,
+                              smem=PRODUCTS_SMEM):
+    """The sum the shared-memory kernel computes, from its plan alone, in
+    plain torch: each chunk's channels summed by id into a [chunk, N]
+    accumulator, written to their output rows and mirror rows."""
     rc, R = rT.shape
-    K = Jall.shape[0]
-    dev = rT.device
-    _cuda.require(rT, "rT", (rc, R), torch.float32, dev)
-    _cuda.require(Jall, "Jall", (K, R), torch.float32, dev)
-    _cuda.require(ids, "ids", (R,), torch.int32, dev)
+    plan = products_plan(tuple(recipe), rc, Jall.shape[0], N, threads, smem)
+    X = torch.cat([rT, Jall]).to(torch.float32)
+    ok = (ids >= 0) & (ids < N)
+    idx = ids[ok].long()
+    out = torch.full((plan.F, N), float("nan"), dtype=torch.float32, device=rT.device)
+    c = torch.arange(rc, device=rT.device)
+    for k in range(plan.n_chunks):
+        rows = range(k * plan.chunk, min(len(plan.chan), (k + 1) * plan.chunk))
+        a = torch.stack([a0 + sa * c for a0, sa, _, _ in (plan.chan[j] for j in rows)])
+        b = torch.stack([b0 + sb * c for _, _, b0, sb in (plan.chan[j] for j in rows)])
+        v = (X[a][:, :, ok] * X[b][:, :, ok]).sum(1)  # [chunk, R_ok]
+        acc = torch.zeros((len(rows), N), dtype=torch.float32, device=rT.device)
+        acc.index_add_(1, idx, v)
+        for i, j in enumerate(rows):
+            f, mirror = plan.dest[j]
+            out[f] = acc[i]
+            if mirror >= 0:
+                out[mirror] = acc[i]
+    return out
+
+
+def _recipe_rows(recipe, rc, K):
+    """The recipe as the first body's rows (kind, offa, Ca, offb, Cb, f0)
+    and F; raises on an entry that reads past K."""
     rows, F = [], 0
     for ent in recipe:
         kind = _KIND[ent[0]]
@@ -103,17 +216,68 @@ def oh_setup_products(rT, Jall, ids, *, N, recipe):
         if max(rows[-1][1] + rc * rows[-1][2],
                rows[-1][3] + rc * rows[-1][4]) > K:
             raise ValueError(f"oh_setup_products: recipe entry {ent} reads past K={K}")
-    out = torch.zeros((F, N), dtype=torch.float32, device=dev)
-    rec = _cuda.recipe_tensor(tuple(rows), dev)
-    code = _cuda.lib().thallo_oh_setup_products(
-        rT.data_ptr(), Jall.data_ptr(), ids.data_ptr(), rec.data_ptr(),
-        out.data_ptr(), len(rows), rc, R, N, _cuda.stream(rT))
+    return tuple(rows), F
+
+
+def _checked(what, rT, Jall, ids):
+    if rT.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {rT.device}")
+    rc, R = rT.shape
+    K = Jall.shape[0]
+    _cuda.require(rT, "rT", (rc, R), torch.float32, rT.device)
+    _cuda.require(Jall, "Jall", (K, R), torch.float32, rT.device)
+    _cuda.require(ids, "ids", (R,), torch.int32, rT.device)
+    return rc, R, K
+
+
+def oh_setup_products(rT, Jall, ids, *, N, recipe):
+    """rT [rc, R] f32, Jall [K, R] f32, ids [R] int32, recipe: static
+    tuple of ("jtr", off, C) | ("d2", off, C) | ("pair", offa, Ca, offb, Cb)
+    -> [F, N] f32.  CPU tensors take the plain version; CUDA tensors
+    launch the shared-memory kernel, or, where products_plan finds no
+    room for one channel row, go to oh_setup_products_atomics."""
+    if rT.device.type == "cpu":
+        return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
+    rc, R, K = _checked("oh_setup_products", rT, Jall, ids)
+    _recipe_rows(recipe, rc, K)
+    plan = products_plan(tuple(recipe), rc, K, N, PRODUCTS_THREADS, PRODUCTS_SMEM)
+    if plan is None:
+        return oh_setup_products_atomics(rT, Jall, ids, N=N, recipe=recipe)
+    dev = rT.device
+    grid = products_grid(plan, R, PRODUCTS_THREADS, _cuda.sm_count(dev))
+    slab = torch.empty((grid, len(plan.chan), N), dtype=torch.float32, device=dev)
+    out = torch.empty((plan.F, N), dtype=torch.float32, device=dev)
+    chan = _cuda.recipe_tensor(plan.chan, dev)
+    dest = _cuda.recipe_tensor(plan.dest, dev)
+    code = _cuda.lib().thallo_oh_setup_products_persistent(
+        rT.data_ptr(), Jall.data_ptr(), ids.data_ptr(), chan.data_ptr(), dest.data_ptr(),
+        out.data_ptr(), slab.data_ptr(), len(plan.chan), plan.chunk,
+        plan.stride, rc, K, R, N, PRODUCTS_THREADS, grid, _cuda.stream(rT))
     _cuda.check(code, "oh_setup_products")
     oh_setup_products.launches += 1
     return out
 
 
-oh_setup_products.launches = 0
+def oh_setup_products_atomics(rT, Jall, ids, *, N, recipe):
+    """The contract of oh_setup_products by the first body: one thread per
+    observation, one global atomic per slab value; any N.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if rT.device.type == "cpu":
+        return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
+    rc, R, K = _checked("oh_setup_products_atomics", rT, Jall, ids)
+    rows, F = _recipe_rows(recipe, rc, K)
+    out = torch.zeros((F, N), dtype=torch.float32, device=rT.device)
+    rec = _cuda.recipe_tensor(rows, rT.device)
+    code = _cuda.lib().thallo_oh_setup_products(
+        rT.data_ptr(), Jall.data_ptr(), ids.data_ptr(), rec.data_ptr(),
+        out.data_ptr(), len(rows), rc, R, N, _cuda.stream(rT))
+    _cuda.check(code, "oh_setup_products_atomics")
+    oh_setup_products_atomics.launches += 1
+    return out
+
+
+for _fn in (oh_setup_products, oh_setup_products_atomics):
+    _fn.launches = 0
 
 
 def oh_setup_aggregate_reference(parts_cm, ids, *, N):

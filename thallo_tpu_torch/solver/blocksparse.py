@@ -26,8 +26,9 @@ table build (plan init) as the JAX package chooses:
 The tables (perms, masks, cols, row_sels, row_starts, oh_idxs, pairs)
 equal what JAX's ``build_group_bsr`` builds.  A col pair with a transpose
 partner runs both directions through one fused kernel launch per level
-(``fused_pair_apply``, or ``fused_pair_apply_wloop`` where W > 8, JAX's
-``store_3d`` levels); a col pair without one gathers p by its col table
+(the kernel ``fused_pair_route`` names for the level's shape: the
+persistent ``fused_pair_apply`` or the W-loop kernel for wide, short
+levels); a col pair without one gathers p by its col table
 and multiplies.  Not ported: segment-keyed tables of affine maps that
 are not a full repeat (they raise NotImplementedError; ROADMAP queue 1,
 item 5).
@@ -43,7 +44,8 @@ import torch
 
 from ..ops import structured
 from ..ops.fullrepeat import fullrepeat_setup
-from ..ops.fusedpair import WLOOP_MIN_W, fused_pair_apply, fused_pair_apply_wloop
+from ..ops.fusedpair import (fused_pair_apply, fused_pair_apply_atomics, fused_pair_apply_wloop,
+                             fused_pair_apply_wloop_chunked, fused_pair_route)
 from ..ops.ohsetup import oh_setup_products, setup_slabs
 
 # padding budget of the rank-keyed tables: sum N_t*W_t <= MAX_WASTE*R + MAX_PAD_EXTRA
@@ -529,7 +531,11 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
             prow = prow.index_select(1, sel)  # [Ci, N_t]: the overflow elements
         pcol = pT[bsr.slot_images[j]]
         if p_idx in partnered:
-            fn = fused_pair_apply_wloop if W >= WLOOP_MIN_W else fused_pair_apply
+            fn = {"fused_pair_apply": fused_pair_apply,
+                  "fused_pair_apply_atomics": fused_pair_apply_atomics,
+                  "fused_pair_apply_wloop": fused_pair_apply_wloop,
+                  "fused_pair_apply_wloop_chunked": fused_pair_apply_wloop_chunked,
+                  }[fused_pair_route(W, N_t, Ci, Cj, pcol.shape[1])]
             rows, cols = fn(ids, blocks[p_idx], pcol, prow, Ci=Ci, Cj=Cj, S=pcol.shape[1])
             add(i, rows, sel)
             add(j, cols)
