@@ -33,6 +33,18 @@ Groups (all by default):
           kernel over STAGED_ROWS, on the skewed map too (which
           staged_eligible refuses: a thread sums the hot camera's share of
           a chunk alone).
+  fullrepeat  fullrepeat_setup at the uniform 1M scene's point level (N_t
+          250 000, W 4, rc 2, Kall 24; the solver's recipe: jtr 3, d2 3,
+          the 3 x 9 cross pair, the 3 x 3 diag pair): the tile kernel
+          (tiles) and fullrepeat_setup_thread (the first body).  --sweep:
+          the tile kernel over FULLREPEAT_TILE x FULLREPEAT_BLOCKS_PER_SM
+          and FULLREPEAT_THREADS.
+  aggregate  oh_setup_aggregate at the PRECOMPUTE_J camera scatter,
+          [9, 1 000 000] by random ids into 1024, and at the skewed
+          scene's camera ids (one camera with half the rows): the
+          shared-memory kernel, the first body (oh_setup_aggregate_atomics)
+          and torch.zeros(...).index_add_.  --sweep: the shared-memory
+          kernel over AGG_THREADS x AGG_BLOCKS_PER_SM and AGG_MERGE_MIN.
 One JSON line per timing: ms per call over n calls eager and in one CUDA
 graph (CUDA events; a replayed graph finds everything below 50 MB warm
 in L2), and the error against the plain torch version.  Needs CUDA.
@@ -67,6 +79,12 @@ OH_SWEEP = ((128, 56 * 1024, 4), (256, 75 * 1024, 3), (256, 112 * 1024, 2),
             (512, 112 * 1024, 2), (256, 224 * 1024, 1), (512, 224 * 1024, 1),
             (1024, 224 * 1024, 1))
 OH_RECIPE = (("jtr", 0, 9), ("d2", 0, 9), ("pair", 0, 9, 0, 9))
+FR_RECIPE = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 6, 9, 0), ("diag", 0, 3, 0, 3))
+# (FULLREPEAT_TILE, FULLREPEAT_BLOCKS_PER_SM), then FULLREPEAT_THREADS
+FR_SWEEP = (((32, 4), (64, 2), (64, 3), (64, 4), (96, 2), (128, 1), (128, 2), (256, 1)),
+            (128, 256))
+# (AGG_THREADS, AGG_BLOCKS_PER_SM), then AGG_MERGE_MIN (33: never merge)
+AGG_SWEEP = (((256, 4), (512, 2), (512, 4), (1024, 1), (1024, 2)), (4, 8, 33))
 
 
 def f32_operands(rng, ids, Ci, Cj, S):
@@ -195,6 +213,81 @@ def sweep_oh(args, smi, out):
                       PRODUCTS_BLOCKS_PER_SM=ohsetup.PRODUCTS_BLOCKS_PER_SM)
 
 
+def sweep_fullrepeat(args, smi, out):
+    from thallo_tpu_torch.ops import fullrepeat
+
+    rng = np.random.default_rng(4)
+    N_t, W, rc, Kall = 250_000, 4, 2, 24
+    rT, Jall = (torch.from_numpy(rng.normal(size=(k, N_t * W)).astype(np.float32)).cuda()
+                for k in (rc, Kall))
+    kw = dict(W=W, N_t=N_t, recipe=FR_RECIPE)
+    ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, **kw)
+
+    def timed(kernel, fname, **extra):
+        fn = getattr(fullrepeat, fname)
+        agg, crosses = fn(rT, Jall, **kw)
+        eager, graph = per_launch_ms(lambda: fn(rT, Jall, **kw), args.n)
+        if kernel == "tiles":
+            plan = fullrepeat.fullrepeat_plan(
+                FR_RECIPE, W, Kall, rc, fullrepeat.FULLREPEAT_TILE,
+                fullrepeat.FULLREPEAT_BLOCKS_PER_SM, fullrepeat.FULLREPEAT_THREADS)
+            extra.update(T=plan.T, stages=plan.stages, threads=plan.threads,
+                         blocks_per_sm=plan.blocks_per_sm, block_smem=plan.block_smem)
+        emit({"name": "ba_1m_points", "kernel": kernel, "N_t": N_t, "W": W, "eager_ms": eager,
+              "graph_ms": graph, "rel_err": max_rel_err([agg, *crosses], [ragg, *rcross]),
+              "card": smi, **extra}, out)
+
+    timed("tiles", "fullrepeat_setup")
+    timed("thread", "fullrepeat_setup_thread")
+    if not args.sweep:
+        return
+    with kept(fullrepeat, "FULLREPEAT_TILE", "FULLREPEAT_BLOCKS_PER_SM", "FULLREPEAT_THREADS"):
+        for fullrepeat.FULLREPEAT_TILE, fullrepeat.FULLREPEAT_BLOCKS_PER_SM in FR_SWEEP[0]:
+            timed("tiles", "fullrepeat_setup")
+    with kept(fullrepeat, "FULLREPEAT_THREADS"):
+        for fullrepeat.FULLREPEAT_THREADS in FR_SWEEP[1]:
+            timed("tiles", "fullrepeat_setup")
+
+
+def sweep_aggregate(args, smi, out):
+    from thallo_tpu_torch.ops import ohsetup
+
+    rng = np.random.default_rng(5)
+    C = SKEW_1M[0]
+    cases = [("ba_1m_cameras", torch.from_numpy(
+        rng.integers(0, C, 1_000_000).astype(np.int32)).cuda()),
+             ("skew_1m_cameras", skew_camera_ids())]
+    for name, ids in cases:
+        R = ids.shape[0]
+        parts = torch.from_numpy(rng.normal(size=(9, R)).astype(np.float32)).cuda()
+        ref = ohsetup.oh_setup_aggregate_reference(parts, ids, N=C)
+        idl = ids.long()
+
+        def timed(kernel, fn, **extra):
+            err = max_rel_err((fn(),), (ref,))
+            eager, graph = per_launch_ms(fn, args.n)
+            emit({"name": name, "kernel": kernel, "R": R, "N": C, "F": 9, "eager_ms": eager,
+                  "graph_ms": graph, "rel_err": err, "card": smi, **extra}, out)
+
+        names = ("AGG_THREADS", "AGG_BLOCKS_PER_SM", "AGG_MERGE_MIN")
+
+        def smem():
+            timed("smem", lambda: ohsetup.oh_setup_aggregate(parts, ids, N=C),
+                  **{n: getattr(ohsetup, n) for n in names})
+
+        smem()
+        timed("atomics", lambda: ohsetup.oh_setup_aggregate_atomics(parts, ids, N=C))
+        timed("index_add_", lambda: torch.zeros((9, C), device="cuda").index_add_(1, idl, parts))
+        if not args.sweep:
+            continue
+        with kept(ohsetup, *names):
+            for ohsetup.AGG_THREADS, ohsetup.AGG_BLOCKS_PER_SM in AGG_SWEEP[0]:
+                smem()
+        with kept(ohsetup, *names):
+            for ohsetup.AGG_MERGE_MIN in AGG_SWEEP[1]:
+                smem()
+
+
 def sweep_segsum(args, smi, out):
     from thallo_tpu_torch.models import bundle_adjustment as ba
     from thallo_tpu_torch.ops import segsum
@@ -247,7 +340,8 @@ def sweep_segsum(args, smi, out):
                  segsum.STAGED_MAX_SHARE) = kept
 
 
-GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum}
+GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum,
+          "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate}
 
 
 def main(argv=None):

@@ -88,6 +88,7 @@ def jax_run(tmp_path_factory):
     comp, prep = plan.compiled, plan._prep
     ins, sp = plan._step_inputs(), plan._sp()
     out["bsr"] = prep["consts"][0]["bsr"]
+    out["comp"] = comp
     state = comp.solve_setup(plan._U, plan._lm, ins, sp, prep)
     rng = np.random.default_rng(3)
     p = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in plan._U.items()}
@@ -173,6 +174,33 @@ def test_setup_matches_jax(jax_run, port_setup, what):
     assert sorted(got) == sorted(ref)
     for name in ref:
         _close(got[name].numpy(), ref[name], PRECOND_TOL if what == "precond" else SETUP_TOL)
+
+
+def test_singular_block_goes_non_finite_as_in_jax(jax_run, port_setup):
+    """Block-Jacobi setup with one exactly singular 9x9 camera block (all
+    ones: rank 1, unit diagonal after equilibration): jnp.linalg.inv gives
+    that block non-finite entries, and the PCG's isfinite stop takes over;
+    the port's inverse does the same instead of raising.  The other blocks
+    agree within PRECOND_TOL."""
+    rng = np.random.default_rng(7)
+    N, C = N_CAM, 9
+    A = rng.normal(size=(N, C, 2 * C))
+    blocks = A @ A.transpose(0, 2, 1)  # SPD
+    blocks[3] = 1.0
+    B = np.ascontiguousarray(blocks.transpose(1, 2, 0).reshape(C * C, N), np.float32)
+    raw = np.ascontiguousarray(B[np.arange(C) * (C + 1)].T)  # [N, C]: no other group
+    CtC = np.zeros_like(raw)  # no damping: the all-ones block stays singular
+    got = port_setup[0].compiled._invert_damped_blocks(
+        {"cameras": torch.from_numpy(B)}, {"cameras": torch.from_numpy(raw)},
+        {"cameras": torch.from_numpy(CtC)})["cameras"].numpy()
+    ref = np.asarray(jax_run["comp"]._invert_damped_blocks(
+        {"cameras": jax.numpy.asarray(B)}, {"cameras": jax.numpy.asarray(raw)},
+        {"cameras": jax.numpy.asarray(CtC)}, True)["cameras"])
+    assert not np.isfinite(ref[:, 3]).all()
+    assert not np.isfinite(got[:, 3]).all()
+    rest = np.arange(N) != 3
+    assert np.isfinite(got[:, rest]).all()
+    _close(got[:, rest], ref[:, rest], PRECOND_TOL)
 
 
 def test_lm_steps_match_jax(jax_run):

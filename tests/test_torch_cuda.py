@@ -10,7 +10,7 @@ import numpy as np  # noqa: E402
 
 from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segsum  # noqa: E402
 from tests.torch_cases import (  # noqa: E402
-    AGG_SHAPES, CI, CJ, FR_RECIPE, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
+    AGG_SHAPES, CI, CJ, FR_RECIPE, FR_RECIPE2, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
     SEG_SHAPES, WLOOP_SHAPES, agg_inputs, bf16_round, close, fr_inputs, fused_inputs,
     hot_ids, oh_inputs, seg_inputs, seg_maps)
 
@@ -164,16 +164,68 @@ def test_oh_products_atomics_cuda_matches_plain(cuda, R, N):
     _close_products(out, args, N)
 
 
+# N_t not a multiple of the tile, W 2-8 (the tile kernel) and W 9 (the
+# first body); a level of many tiles per block; rc 8, Kall 128, W 8: one
+# window at a time (no room for two)
+FR_CUDA_SHAPES = FR_SHAPES + [(1000, 2), (77, 8), (130, 9), (100_003, 4)]
+
+
+def _fr_case(N_t, W, recipe, rc=2):
+    extra = 2 if recipe == FR_RECIPE2 else 0
+    if rc == 8:  # Kall 128: a further slot of 4 channels (FR_RECIPE2's pair on it)
+        extra = 4
+        recipe = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 24, 9, 0), ("diag", 0, 3, 0, 3)) \
+            + ((("cross", 0, 3, 96, 4, 1), ("jtr", 96, 4)) if recipe == FR_RECIPE2 else ())
+    return recipe, [torch.from_numpy(a).cuda() for a in fr_inputs(N_t, W, rc=rc, extra=extra)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N_t,W", FR_SHAPES)
-def test_fullrepeat_cuda_matches_plain(cuda, N_t, W):
-    rT, Jall = [torch.from_numpy(a).to(cuda) for a in fr_inputs(N_t, W)]
-    agg, crosses = fullrepeat.fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=FR_RECIPE)
+@pytest.mark.parametrize("recipe", [FR_RECIPE, FR_RECIPE2], ids=["one_cross", "two_cross"])
+@pytest.mark.parametrize("N_t,W,rc", [s + (2,) for s in FR_CUDA_SHAPES] + [(301, 8, 8)])
+def test_fullrepeat_cuda_matches_plain(cuda, recipe, N_t, W, rc):
+    """fullrepeat_setup launches the tile kernel where fullrepeat_plan has
+    a plan (its own count), else the first body (that wrapper's count),
+    and agrees with the plain version."""
+    recipe, (rT, Jall) = _fr_case(N_t, W, recipe, rc)
+    plan = fullrepeat.fullrepeat_plan(recipe, W, Jall.shape[0], rc)
+    assert (plan is None) == (W > 8)
+    if rc == 8:
+        assert plan.stages == 1
+    counted = fullrepeat.fullrepeat_setup_thread if plan is None else fullrepeat.fullrepeat_setup
+    n0 = counted.launches
+    agg, crosses = fullrepeat.fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=recipe)
     torch.cuda.synchronize()
-    ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t,
-                                                         recipe=FR_RECIPE)
-    close(agg.cpu(), ragg.cpu(), CUDA_TOL)
-    close(crosses[0].cpu(), rcross[0].cpu(), CUDA_TOL)
+    assert counted.launches == n0 + 1
+    ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    assert len(crosses) == len(rcross)
+    for got, ref in zip([agg, *crosses], [ragg, *rcross]):
+        close(got.cpu(), ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N_t,W", FR_CUDA_SHAPES[:-1])
+def test_fullrepeat_thread_cuda_matches_plain(cuda, N_t, W):
+    """The first body, kept for the shapes the tile kernel does not take."""
+    recipe, (rT, Jall) = _fr_case(N_t, W, FR_RECIPE2)
+    n0 = fullrepeat.fullrepeat_setup_thread.launches
+    agg, crosses = fullrepeat.fullrepeat_setup_thread(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    torch.cuda.synchronize()
+    assert fullrepeat.fullrepeat_setup_thread.launches == n0 + 1
+    ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    for got, ref in zip([agg, *crosses], [ragg, *rcross]):
+        close(got.cpu(), ref.cpu(), CUDA_TOL)
+
+
+def _close_aggregate(out, parts, ids, N):
+    """Each output within 4 x 2^-24 sqrt(n) x the sum of its n terms'
+    magnitudes (a hot id sums up to half the rows; chip_smoke.py's rule),
+    and every output within CUDA_TOL x max|ref|."""
+    ref = ohsetup.oh_setup_aggregate_reference(parts, ids, N=N)
+    mags = ohsetup.oh_setup_aggregate_reference(parts.abs(), ids, N=N)
+    n = ohsetup.oh_setup_aggregate_reference(torch.ones_like(parts), ids, N=N)
+    assert out.shape == ref.shape
+    bound = torch.clamp(4 * 2.0 ** -24 * n.sqrt() * mags, min=CUDA_TOL * float(ref.abs().max()))
+    assert bool(((out - ref).abs() <= bound).all())
 
 
 @pytest.mark.cuda
@@ -185,6 +237,72 @@ def test_oh_aggregate_cuda_matches_plain(cuda, R, N):
     torch.cuda.synchronize()
     assert ohsetup.oh_setup_aggregate.launches == n0 + 1
     close(out.cpu(), ohsetup.oh_setup_aggregate_reference(parts, ids, N=N).cpu(), CUDA_TOL)
+
+
+# R not a multiple of 4 (6161, 4099), out-of-range ids (agg_inputs), one id
+# with `share` of the rows, and F = 56 at N = 1024: two channel chunks
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("F,R,N", [(13, 6161, 300), (9, 200_000, 1024), (56, 4099, 1024),
+                                   (18, 20_000, 64)])
+def test_oh_aggregate_forms_cuda_match_plain(cuda, share, F, R, N):
+    parts, ids = agg_inputs(R, N, F=F)
+    parts = torch.from_numpy(parts).to(cuda)
+    ids = torch.from_numpy(hot_ids(ids, share)).to(cuda)
+    assert ohsetup.aggregate_plan(F, N).n_chunks == (2 if F == 56 else 1)
+    n0 = ohsetup.oh_setup_aggregate.launches
+    out = ohsetup.oh_setup_aggregate(parts, ids, N=N)
+    torch.cuda.synchronize()
+    assert ohsetup.oh_setup_aggregate.launches == n0 + 1
+    _close_aggregate(out, parts, ids, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", AGG_SHAPES + [(5003, 7000)])
+def test_oh_aggregate_atomics_cuda_matches_plain(cuda, R, N):
+    """The first body, directly and where oh_setup_aggregate routes to it
+    (N = 7000: not one batch of channel rows fits the shared memory)."""
+    parts, ids = agg_inputs(R, N)
+    parts = torch.from_numpy(parts).to(cuda)
+    ids = torch.from_numpy(hot_ids(ids, 0.5)).to(cuda)
+    routed = ohsetup.aggregate_plan(parts.shape[0], N) is None
+    assert routed == (N == 7000)
+    fn = ohsetup.oh_setup_aggregate if routed else ohsetup.oh_setup_aggregate_atomics
+    n0 = (ohsetup.oh_setup_aggregate.launches, ohsetup.oh_setup_aggregate_atomics.launches)
+    out = fn(parts, ids, N=N)
+    torch.cuda.synchronize()
+    assert (ohsetup.oh_setup_aggregate.launches, ohsetup.oh_setup_aggregate_atomics.launches) \
+        == (n0[0], n0[1] + 1)
+    _close_aggregate(out, parts, ids, N)
+
+
+@pytest.mark.cuda
+def test_block_jacobi_step_makes_no_host_sync(cuda):
+    """One LM step of the small BA scene under block-Jacobi (9x9 camera
+    blocks inverted by inv_ex) with torch.cuda.set_sync_debug_mode("error"):
+    compiled.nonlinear_step reads nothing back from the card (plan.step
+    reads the stop flag after it).  A first step runs outside the mode: it
+    uploads the kernels' recipe tables once."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+
+    ins, _ = ba.synthetic_inputs(n_cameras=16, n_points=1400, obs_per_point=4)
+    dims = {"C": 16, "P": 1400, "O": len(ins["oToC"])}
+    plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=cuda)
+    plan.init({k: np.copy(v) for k, v in ins.items()})
+    plan.step()
+    comp = plan.compiled
+    state = comp.solve_setup(plan._U, plan._lm, plan._step_inputs(), plan._sp(), plan._prep)
+    assert state["pre_block"]["cameras"].shape == (81, 16)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        U, lm, stop, cost = comp.nonlinear_step(plan._U, plan._lm, plan._step_inputs(),
+                                                plan._sp(), plan._prep)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(cost)) and all(bool(torch.isfinite(u).all()) for u in U.values())
 
 
 @pytest.mark.cuda

@@ -20,7 +20,7 @@ from thallo_tpu.ops.ohsetup import oh_setup_aggregate as jax_oh_aggregate  # noq
 from thallo_tpu.ops.ohsetup import oh_setup_products as jax_oh_products  # noqa: E402
 from thallo_tpu_torch.ops import fullrepeat, fusedpair, loopfloor, ohsetup, segsum  # noqa: E402
 from tests.torch_cases import (  # noqa: E402
-    AGG_SHAPES, CI, CJ, FR_RECIPE, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
+    AGG_SHAPES, CI, CJ, FR_RECIPE, FR_RECIPE2, FR_SHAPES, FUSED_SHAPES, OH_RECIPE, OH_SHAPES,
     ORACLE_TOL, SEG_SHAPES, WLOOP_SHAPES, agg_inputs, agg_oracle, bf16_round, close,
     fr_inputs, fr_oracle, fused_inputs, fused_oracle, hot_ids, oh_inputs, oh_oracle,
     seg_inputs, seg_maps, seg_oracle)
@@ -525,6 +525,117 @@ def test_oh_products_plain_matches_jax_hot_ids(share):
     close(out, oh_oracle(rT, Jall, ids, N, OH_RECIPE), ORACLE_TOL)
 
 
+def _fr_recipe(rc, extra):
+    """The point and camera slots' full-repeat recipe and, with `extra`
+    channels of a further slot, FR_RECIPE2's second cross pair shifted to
+    that slot's rows."""
+    if not extra:
+        return FR_RECIPE
+    return (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 3 * rc, 9, 0), ("diag", 0, 3, 0, 3),
+            ("cross", 0, 3, 12 * rc, extra, 1), ("jtr", 12 * rc, extra))
+
+
+@pytest.mark.parametrize("W", range(fullrepeat.MIN_W, fullrepeat.MAX_W + 1))
+@pytest.mark.parametrize("rc,extra", [(2, 0), (4, 3), (8, 4)])  # Kall 24, 60, 128
+def test_fullrepeat_plan(W, rc, extra):
+    """Over W 2-8, Kall up to 128 and rc up to 8 the tile kernel has a
+    plan: its windows and tables fit a block's shared memory (and the SM's
+    at its blocks per SM), a tile is whole warps, every element lies in a
+    tile, and the channels write every agg row once (as a row or a mirror)
+    and every cross row once."""
+    Kall = rc * (12 + extra)
+    recipe = _fr_recipe(rc, extra)
+    plan = fullrepeat.fullrepeat_plan(recipe, W, Kall, rc)
+    assert plan is not None
+    assert plan.block_smem == fullrepeat.tile_smem(rc, Kall, W, plan.T, plan.stages,
+                                                   len(plan.groups), len(plan.chans))
+    assert plan.block_smem <= 232_448  # an H100 block's dynamic shared memory
+    assert plan.blocks_per_sm * (plan.block_smem + 1024) <= 227 * 1024
+    assert plan.T % 32 == 0 and plan.threads % 32 == 0
+    assert plan.threads <= min(fullrepeat.FULLREPEAT_THREADS, plan.T * len(plan.groups))
+    for N_t in (1, plan.T - 1, 1000, 250_000):
+        grid = fullrepeat.fullrepeat_grid(plan, N_t, 132)
+        tiles = {t for b in range(grid) for t in range(b, -(-N_t // plan.T), grid)}
+        assert tiles == set(range(-(-N_t // plan.T)))
+    agg_rows, cross_rows = [], []
+    for b0, sb, row, step in plan.chans:
+        assert b0 + (rc - 1) * sb < rc + Kall
+        if step > 0:
+            cross_rows += [row + w * step for w in range(W)]
+        else:
+            agg_rows += [row] + ([-1 - step] if step < 0 else [])
+    assert sorted(agg_rows) == list(range(plan.F_agg))
+    assert sorted(cross_rows) == list(range(sum(plan.cross_widths)))
+    bounds = [j for _, _, j0, j1 in plan.groups for j in (j0, j1)]
+    assert bounds[0] == 0 and bounds[-1] == len(plan.chans)
+    assert bounds[1:-1:2] == bounds[2:-1:2]  # each group starts where the last ended
+    if (W, rc, extra) == (4, 2, 0):  # BA-1M's point level: 3 groups of 39 channels
+        assert (plan.T, plan.stages, plan.threads, plan.blocks_per_sm, len(plan.chans)) \
+            == (128, 2, 384, 2, 39)
+
+
+@pytest.mark.parametrize("W,Kall,rc", [(9, 24, 2), (1, 24, 2), (40, 24, 2), (4, 129, 2),
+                                       (4, 90, 9)])
+def test_fullrepeat_plan_refuses(W, Kall, rc):
+    """Shapes outside W 2-8, Kall <= 128, rc <= 8 have no plan: they take
+    the first body (fullrepeat_setup_thread)."""
+    assert fullrepeat.fullrepeat_plan(FR_RECIPE, W, Kall, rc) is None
+
+
+@pytest.mark.parametrize("recipe", [FR_RECIPE, FR_RECIPE2], ids=["one_cross", "two_cross"])
+@pytest.mark.parametrize("N_t,W", FR_SHAPES + [(333, 2), (77, 8)])
+def test_fullrepeat_planned_matches_plain(recipe, N_t, W):
+    """The plan applied in plain torch (what the tile kernel computes: its
+    channels, mirrors and w-strided cross rows) against the plain version
+    and the float64 oracle, every output row written."""
+    extra = 2 if recipe == FR_RECIPE2 else 0
+    rT, Jall = (torch.from_numpy(a) for a in fr_inputs(N_t, W, extra=extra))
+    agg, crosses = fullrepeat.fullrepeat_setup_planned(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    assert len(crosses) == len(rcross) == (2 if extra else 1)
+    for got, ref in zip([agg, *crosses], [ragg, *rcross]):
+        assert bool(torch.isfinite(got).all())
+        close(got, ref, JAX_EXACT_TOL)
+    agg_ref, cross_ref = fr_oracle(rT.numpy(), Jall[:24].numpy(), N_t, W)
+    close(agg[:agg_ref.shape[0]], agg_ref, ORACLE_TOL)
+    close(crosses[0], cross_ref, ORACLE_TOL)
+
+
+@pytest.mark.parametrize("F,N,chunks", [(9, 1024, 1), (18, 1024, 1), (56, 1024, 2), (13, 300, 1),
+                                        (200, 64, 1), (1, 6371, 1), (400, 1000, 8)])
+def test_aggregate_plan(F, N, chunks):
+    """The aggregation kernel's chunks cover the channels in equal parts,
+    the fewest that fit AGG_SMEM, each accumulator a whole number of warp
+    merge batches."""
+    plan = ohsetup.aggregate_plan(F, N)
+    assert plan.n_chunks == chunks
+    assert plan.n_chunks * plan.chunk >= F > (plan.n_chunks - 1) * plan.chunk
+    assert plan.acc_rows % ohsetup.AGG_BATCH == 0 and plan.acc_rows >= plan.chunk
+    assert plan.block_smem == plan.acc_rows * N * 4 <= ohsetup.AGG_SMEM
+    grid = ohsetup.aggregate_grid(plan, 1_000_000, ohsetup.AGG_THREADS, 132)
+    assert grid * plan.n_chunks <= 132 * ohsetup.AGG_BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize("N", [6372, 20000])
+def test_aggregate_plan_refuses_wide_rows(N):
+    """Where not one batch of channel rows fits: no plan (the first body's
+    route)."""
+    assert ohsetup.aggregate_plan(9, N) is None
+
+
+@pytest.mark.parametrize("F,R,N", [(13, 6161, 300), (56, 4099, 1024)])
+@pytest.mark.parametrize("share", [0.0, 0.5])
+def test_oh_aggregate_planned_matches_plain(F, R, N, share):
+    """The plan applied in plain torch (chunked) against the plain version:
+    every row written; ids out of range drop; `share` of the rows on one
+    id."""
+    parts, ids = agg_inputs(R, N, F=F)
+    p, i = torch.from_numpy(parts), torch.from_numpy(hot_ids(ids, share))
+    out = ohsetup.oh_setup_aggregate_planned(p, i, N=N)
+    assert bool(torch.isfinite(out).all())
+    close(out, ohsetup.oh_setup_aggregate_reference(p, i, N=N), JAX_EXACT_TOL)
+
+
 @pytest.mark.parametrize("name", ["fused_pair_apply_atomics", "fused_pair_rows_floor"])
 @pytest.mark.parametrize("W,N,S", FUSED_SHAPES)
 def test_fused_pair_other_wrappers_plain_match_oracle(name, W, N, S):
@@ -559,6 +670,8 @@ def _launches():
             fusedpair.fused_pair_rows_floor.launches,
             fusedpair.fused_pair_apply_wloop_chunked.launches,
             ohsetup.oh_setup_products_atomics.launches,
+            fullrepeat.fullrepeat_setup_thread.launches,
+            ohsetup.oh_setup_aggregate_atomics.launches,
             *(getattr(fusedpair, name).launches for name in BF16_KERNELS))
 
 
@@ -581,6 +694,11 @@ def test_cpu_tensors_launch_no_kernel():
     test_fused_pair_wloop_chunked_plain_matches_oracle(*WLOOP_SHAPES[0])
     rT, Jall, ids = (torch.from_numpy(a) for a in oh_inputs(*OH_SHAPES[0]))
     ohsetup.oh_setup_products_atomics(rT, Jall, ids, N=OH_SHAPES[0][1], recipe=OH_RECIPE)
+    rT, Jall = (torch.from_numpy(a) for a in fr_inputs(*FR_SHAPES[0]))
+    fullrepeat.fullrepeat_setup_thread(rT, Jall, W=FR_SHAPES[0][1], N_t=FR_SHAPES[0][0],
+                                       recipe=FR_RECIPE)
+    parts, ids = (torch.from_numpy(a) for a in agg_inputs(*AGG_SHAPES[0]))
+    ohsetup.oh_setup_aggregate_atomics(parts, ids, N=AGG_SHAPES[0][1])
     assert _launches() == before
 
 
@@ -593,8 +711,13 @@ def test_unsupported_device_raises():
 
 def test_unsupported_device_raises_new_kernels():
     ids = torch.zeros((8,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        ohsetup.oh_setup_aggregate(torch.zeros((2, 8), device="meta"), ids, N=4)
+    for fn in (ohsetup.oh_setup_aggregate, ohsetup.oh_setup_aggregate_atomics):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(torch.zeros((2, 8), device="meta"), ids, N=4)
+    for fn in (fullrepeat.fullrepeat_setup, fullrepeat.fullrepeat_setup_thread):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(torch.zeros((2, 8), device="meta"), torch.zeros((24, 8), device="meta"), W=4,
+               N_t=2, recipe=FR_RECIPE)
     plan = segsum.build_plan(np.arange(8, dtype=np.int32), 8)
     with pytest.raises(ValueError, match="unsupported device"):
         segsum.segment_sum(torch.zeros((8, 2), device="meta"), plan)

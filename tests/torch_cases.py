@@ -99,11 +99,18 @@ def oh_oracle(rT, Jall, ids, N, recipe):
 FR_RECIPE = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 6, 9, 0), ("diag", 0, 3, 0, 3))
 
 
-def fr_inputs(N_t, W, rc=2, seed=2):
+# a second cross pair (points x a 2-channel slot at row 24) and that
+# slot's own jtr: two cross outputs, numbered 0 and 1
+FR_RECIPE2 = FR_RECIPE + (("cross", 0, 3, 24, 2, 1), ("jtr", 24, 2))
+
+
+def fr_inputs(N_t, W, rc=2, seed=2, extra=0):
+    """rT and Jall of a full-repeat level: the point (3) and camera (9)
+    slots, and `extra` channels of a further slot."""
     rng = np.random.default_rng(seed)
     R = N_t * W
     rT = (rng.normal(size=(rc, R)) * 10).astype(np.float32)
-    Jall = rng.normal(size=(rc * 3 + rc * 9, R)).astype(np.float32)
+    Jall = rng.normal(size=(rc * (3 + 9 + extra), R)).astype(np.float32)
     return rT, Jall
 
 
@@ -133,9 +140,9 @@ AGG_F = 13
 AGG_SHAPES = [(700, 64), (700, 300), (6161, 64), (6161, 300)]  # (R, N)
 
 
-def agg_inputs(R, N, seed=4):
+def agg_inputs(R, N, seed=4, F=AGG_F):
     rng = np.random.default_rng(seed)
-    parts = (rng.normal(size=(AGG_F, R)) * 100).astype(np.float32)
+    parts = (rng.normal(size=(F, R)) * 100).astype(np.float32)
     ids = rng.integers(0, N, R).astype(np.int32)
     ids[-5:] = N + 2
     ids[0] = -1

@@ -1,6 +1,6 @@
-// add_cols: the warp merge shared by the fused-pair kernels that sum cols
-// by id into a per-block shared accumulator (fused_pair.cu,
-// fused_pair_wloop.cu).  Where some id has merge_min lanes of a warp, the
+// add_cols: the warp merge shared by the kernels that sum by id into a
+// per-block shared accumulator (fused_pair.cu, fused_pair_wloop.cu,
+// oh_aggregate.cu).  Where some id has merge_min lanes of a warp, the
 // lanes of each id sum their z vectors by shuffles first, so a hot id
 // costs the warp one shared addition per channel instead of up to 32
 // serialised ones.  Internal linkage: each source that includes it

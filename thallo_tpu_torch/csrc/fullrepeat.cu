@@ -1,30 +1,221 @@
 // Full-repeat level setup (replaces the Pallas kernel of
 // thallo_tpu/ops/fullrepeat.py::fullrepeat_setup).  See
-// thallo_tpu_torch/ops/fullrepeat.py for the contract.
+// thallo_tpu_torch/ops/fullrepeat.py for the contract.  Inputs are
+// rT [rc, N_t*W] and J [Kall, N_t*W], observation n*W + w of element n;
+// outputs agg [F_agg, N_t] and cross [rows, N_t], N innermost.  The bound
+// is memory: every input byte read once and every output written once.
 //
-// One thread per element n; its observations are n*W + w, w < W.  The
-// thread sums the aggregated slabs over w and c and writes agg[f, n], and
-// writes each per-w cross value to cross[f0 + w*Ca*Cb + a*Cb + b, n].  No
-// value is shared between threads: no atomics, deterministic sums.  Rows
-// are [*, N_t*W] inputs and [*, N_t] outputs, N innermost.
+// fullrepeat_tile_kernel  (thallo_fullrepeat_setup_tiles)
+//   Persistent blocks stride over tiles of T elements.  A block copies a
+//   tile's [rc + Kall, T*W] window of X = [rT; J] into shared memory with
+//   cp.async (16-byte copies where N_t*W is a multiple of 4, else 4-byte
+//   ones: every input byte read once, coalesced) and, with two stages,
+//   starts the next tile's copy before it works on the current one.  The
+//   plan (ops/fullrepeat.py fullrepeat_plan) lists channels, each a
+//   product sum_c X[a0 + c*sa] * X[b0 + c*sb], grouped by first operand;
+//   a thread takes an (element, group) item, with the 32 lanes of a warp
+//   on 32 consecutive elements of one group: it reads the group's first
+//   operand (rc x W values) into registers once, then per channel the
+//   second operand from shared memory, and writes the channel's agg row
+//   (summed over w; and the mirror row of a symmetric pair) or its W
+//   cross rows at its element: coalesced stores, no atomics.  The window
+//   stays in observation order: a lane reads its element's W observations
+//   of a row as one vector (float4 / float2 for W = 4, 8 / 2: each warp
+//   load takes the minimum of shared-memory wavefronts).
 //
-// recipe: n_entries rows of 6 int32 (kind, offa, Ca, offb, Cb, f0):
-//   kind 0 jtr    agg[f0+ch]          = sum_w sum_c J[offa + c*Ca + ch] * r[c]
-//   kind 1 d2     agg[f0+ch]          = sum_w sum_c J[offa + c*Ca + ch]^2
-//   kind 2 diag   agg[f0 + a*Cb+b]    = sum_w sum_c Ja[c, a] * Jb[c, b]
-//   kind 3 cross  cross[f0 + w*Ca*Cb + a*Cb + b] = sum_c Ja_w[c, a] * Jb_w[c, b]
+// fullrepeat_thread_kernel  (thallo_fullrepeat_setup_thread, the first body)
+//   One thread per element n walks its W observations, sums the
+//   aggregated slabs over w and c and writes agg[f, n], and writes each
+//   per-w cross value to cross[f0 + w*Ca*Cb + a*Cb + b, n], reloading
+//   every operand from global memory.  Any W, rc, Kall.
+//   recipe: n_entries rows of 6 int32 (kind, offa, Ca, offb, Cb, f0):
+//     kind 0 jtr    agg[f0+ch]          = sum_w sum_c J[offa + c*Ca + ch] * r[c]
+//     kind 1 d2     agg[f0+ch]          = sum_w sum_c J[offa + c*Ca + ch]^2
+//     kind 2 diag   agg[f0 + a*Cb+b]    = sum_w sum_c Ja[c, a] * Jb[c, b]
+//     kind 3 cross  cross[f0 + w*Ca*Cb + a*Cb + b] = sum_c Ja_w[c, a] * Jb_w[c, b]
+//
+// Both kernels write every agg and cross row at every element.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 namespace {
 
-__global__ void fullrepeat_kernel(const float* __restrict__ rT,
-                                  const float* __restrict__ J,
-                                  const int* __restrict__ recipe,
-                                  float* __restrict__ agg,
-                                  float* __restrict__ cross,
-                                  int n_entries, int rc, int W, int N_t) {
+constexpr int kMaxRc = 8;             // ops/fullrepeat.py MAX_RC
+constexpr int kMaxTileThreads = 512;  // ops/fullrepeat.py FULLREPEAT_THREADS
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the W observations of one element on one window row (p 16-byte aligned
+// for W % 4 == 0, 8-byte aligned for W == 2)
+template <int W>
+__device__ __forceinline__ void load_obs(const float* p, float (&v)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = q.x;
+      v[4 * i + 1] = q.y;
+      v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
+  } else if constexpr (W == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) v[w] = p[w];
+  }
+}
+
+// Copies tile `tile`'s window of X = [rT; J] into st [RK, T*W] (rows past
+// the level's last observation are left as they were).
+__device__ __forceinline__ void stage_tile(float* st, const float* __restrict__ rT,
+                                           const float* __restrict__ J, int rc, int RK,
+                                           size_t RW, int TW, int tile) {
+  const size_t o0 = static_cast<size_t>(tile) * TW;
+  const int cnt = static_cast<int>(RW - o0 < static_cast<size_t>(TW) ? RW - o0 : TW);
+  if (RW % 4 == 0) {  // every row and tile starts 16-byte aligned; cnt % 4 == 0
+    const int q_row = TW / 4;
+    for (int i = threadIdx.x; i < RK * q_row; i += blockDim.x) {
+      const int k = i / q_row;
+      const int q = i - k * q_row;
+      if (4 * q < cnt) {
+        const float* src = (k < rc ? rT + k * RW : J + (k - rc) * RW) + o0 + 4 * q;
+        cp_async16(st + k * TW + 4 * q, src);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < RK * TW; i += blockDim.x) {
+      const int k = i / TW;
+      const int o = i - k * TW;
+      if (o < cnt) cp_async4(st + i, (k < rc ? rT + k * RW : J + (k - rc) * RW) + o0 + o);
+    }
+  }
+}
+
+template <int W>
+__global__ void __launch_bounds__(kMaxTileThreads)
+    fullrepeat_tile_kernel(const float* __restrict__ rT, const float* __restrict__ J,
+                           const int4* __restrict__ groups_g, const int4* __restrict__ chans_g,
+                           float* __restrict__ agg, float* __restrict__ cross, int n_groups,
+                           int n_chans, int rc, int Kall, int N_t, int T, int stages) {
+  extern __shared__ __align__(16) float smem[];
+  const int RK = rc + Kall;
+  const int TW = T * W;
+  const size_t stage_floats = static_cast<size_t>(RK) * TW;
+  int4* groups = reinterpret_cast<int4*>(smem + stages * stage_floats);
+  int4* chans = groups + n_groups;
+  for (int i = threadIdx.x; i < n_groups; i += blockDim.x) groups[i] = groups_g[i];
+  for (int i = threadIdx.x; i < n_chans; i += blockDim.x) chans[i] = chans_g[i];
+
+  const size_t RW = static_cast<size_t>(N_t) * W;
+  const size_t Nz = static_cast<size_t>(N_t);
+  const int n_tiles = (N_t + T - 1) / T;
+  int tile = blockIdx.x;
+  if (tile < n_tiles) stage_tile(smem, rT, J, rc, RK, RW, TW, tile);
+  cp_async_commit();
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    const float* cur = smem + (stages == 2 ? (it & 1) : 0) * stage_floats;
+    if (stages == 2) {
+      if (next < n_tiles) stage_tile(smem + ((it + 1) & 1) * stage_floats, rT, J, rc, RK, RW,
+                                     TW, next);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // items (group g, element n), n fastest: a warp is 32 elements of one
+    // group (T % 32 == 0)
+    for (int item = threadIdx.x; item < n_groups * T; item += blockDim.x) {
+      const int g = item / T;
+      const int n = item - g * T;
+      const int e = tile * T + n;
+      const int4 gr = groups[g];
+      float xa[kMaxRc][W];
+#pragma unroll
+      for (int c = 0; c < kMaxRc; ++c) {
+        if (c < rc) load_obs<W>(cur + (gr.x + c * gr.y) * TW + n * W, xa[c]);
+      }
+      for (int j = gr.z; j < gr.w; ++j) {
+        const int4 ch = chans[j];
+        float s[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) s[w] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kMaxRc; ++c) {
+          if (c < rc) {
+            float xb[W];
+            load_obs<W>(cur + (ch.x + c * ch.y) * TW + n * W, xb);
+#pragma unroll
+            for (int w = 0; w < W; ++w) s[w] = fmaf(xa[c][w], xb[w], s[w]);
+          }
+        }
+        if (e >= N_t) continue;
+        if (ch.w > 0) {
+#pragma unroll
+          for (int w = 0; w < W; ++w) cross[static_cast<size_t>(ch.z + w * ch.w) * Nz + e] = s[w];
+        } else {
+          float t = 0.f;
+#pragma unroll
+          for (int w = 0; w < W; ++w) t += s[w];
+          agg[static_cast<size_t>(ch.z) * Nz + e] = t;
+          if (ch.w < 0) agg[static_cast<size_t>(-1 - ch.w) * Nz + e] = t;
+        }
+      }
+    }
+    __syncthreads();
+    if (stages == 1 && next < n_tiles) {
+      stage_tile(smem, rT, J, rc, RK, RW, TW, next);
+      cp_async_commit();
+    }
+  }
+}
+
+template <int W>
+cudaError_t launch_tiles(const float* rT, const float* J, const int4* groups, const int4* chans,
+                         float* agg, float* cross, int n_groups, int n_chans, int rc, int Kall,
+                         int N_t, int T, int stages, int threads, int grid, size_t smem,
+                         cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fullrepeat_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  fullrepeat_tile_kernel<W><<<grid, threads, smem, stream>>>(rT, J, groups, chans, agg, cross,
+                                                             n_groups, n_chans, rc, Kall, N_t, T,
+                                                             stages);
+  return cudaGetLastError();
+}
+
+__global__ void fullrepeat_thread_kernel(const float* __restrict__ rT,
+                                         const float* __restrict__ J,
+                                         const int* __restrict__ recipe,
+                                         float* __restrict__ agg,
+                                         float* __restrict__ cross,
+                                         int n_entries, int rc, int W, int N_t) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N_t) return;
   const size_t RW = static_cast<size_t>(N_t) * W;
@@ -83,14 +274,58 @@ __global__ void fullrepeat_kernel(const float* __restrict__ rT,
 
 }  // namespace
 
-extern "C" int thallo_fullrepeat_setup(const void* rT, const void* Jall,
-                                       const void* recipe, void* agg, void* cross,
-                                       int n_entries, int rc, int W, int N_t,
-                                       void* stream) {
+// The tile kernel.  groups [n_groups, 4] int32 (a0, sa, j0, j1), chans
+// [n_chans, 4] int32 (b0, sb, row, step; see ops/fullrepeat.py
+// FullrepeatPlan); 2 <= W <= 8, 1 <= rc <= 8, T a multiple of 32, stages 1
+// or 2, threads a multiple of 32 up to 512, grid persistent blocks.  agg
+// and cross are written at every row a channel names.
+extern "C" int thallo_fullrepeat_setup_tiles(const void* rT, const void* Jall, const void* groups,
+                                             const void* chans, void* agg, void* cross,
+                                             int n_groups, int n_chans, int rc, int Kall, int W,
+                                             int N_t, int T, int stages, int threads, int grid,
+                                             void* stream) {
+  if (W < 2 || W > 8 || rc < 1 || rc > kMaxRc || Kall < 0 || N_t < 0 || T < 32 || T % 32 != 0 ||
+      (stages != 1 && stages != 2) || threads < 32 || threads > kMaxTileThreads ||
+      threads % 32 != 0 || grid < 1 || n_groups < 0 || n_chans < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (N_t == 0 || n_groups == 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = static_cast<size_t>(stages) * (rc + Kall) * T * W * sizeof(float) +
+                      static_cast<size_t>(n_groups + n_chans) * sizeof(int4);
+  const auto* r = static_cast<const float*>(rT);
+  const auto* j = static_cast<const float*>(Jall);
+  const auto* g = static_cast<const int4*>(groups);
+  const auto* c = static_cast<const int4*>(chans);
+  auto* a = static_cast<float*>(agg);
+  auto* x = static_cast<float*>(cross);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (W) {
+#define THALLO_FR_CASE(w)                                                                        \
+  case w:                                                                                        \
+    err = launch_tiles<w>(r, j, g, c, a, x, n_groups, n_chans, rc, Kall, N_t, T, stages,       \
+                          threads, grid, smem, s);                                               \
+    break;
+    THALLO_FR_CASE(2)
+    THALLO_FR_CASE(3)
+    THALLO_FR_CASE(4)
+    THALLO_FR_CASE(5)
+    THALLO_FR_CASE(6)
+    THALLO_FR_CASE(7)
+    THALLO_FR_CASE(8)
+#undef THALLO_FR_CASE
+  }
+  return static_cast<int>(err);
+}
+
+extern "C" int thallo_fullrepeat_setup_thread(const void* rT, const void* Jall,
+                                              const void* recipe, void* agg, void* cross,
+                                              int n_entries, int rc, int W, int N_t,
+                                              void* stream) {
   if (N_t > 0) {
     constexpr int kThreads = 256;
     const int grid = (N_t + kThreads - 1) / kThreads;
-    fullrepeat_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    fullrepeat_thread_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(rT), static_cast<const float*>(Jall),
         static_cast<const int*>(recipe), static_cast<float*>(agg),
         static_cast<float*>(cross), n_entries, rc, W, N_t);

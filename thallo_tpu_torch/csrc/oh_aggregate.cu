@@ -1,26 +1,49 @@
 // Segment sum of channel-major parts by a per-row id into a small image
 // (replaces the Pallas kernel of thallo_tpu/ops/ohsetup.py::
 // oh_setup_aggregate).  See thallo_tpu_torch/ops/ohsetup.py for the
-// contract: out[f, ids[r]] += parts[f, r] for ids[r] in [0, N).
+// contract: out[f, ids[r]] += parts[f, r] for ids[r] in [0, N).  The bound
+// is the read of parts and ids, (F + 1) * R * 4 bytes.
 //
-// Grid (blocks_x, channel chunks).  Block (bx, by) owns the rows
-// [bx*rows, (bx+1)*rows) and the channels [by*f_chunk, ...): it zeroes an
-// [f_chunk, N] accumulator in shared memory, adds its rows into it with
-// shared-memory atomics (threads read parts[f, r] with r innermost:
-// coalesced), and then adds each nonzero accumulator entry into out with
-// one global atomic.  A row's values therefore meet other rows of the
-// same id in shared memory first; the global atomics number about
-// blocks_x * F * N instead of F * R.  The caller zeroes out; the kernel
-// allocates nothing.
+// oh_aggregate_smem_kernel  (thallo_oh_setup_aggregate_smem)
+//   Grid (blocks_x, channel chunks); ops/ohsetup.py aggregate_plan sizes
+//   the chunks (rows: the chunk's channels rounded up to kBatch) so that a
+//   block's [rows, N] f32 accumulator fits its shared memory.  A fixed
+//   grid strides over quads of 4 consecutive rows, a thread per quad: one
+//   16-byte load of its 4 ids and one of each channel's 4 values (where R
+//   is not a multiple of 4, 4-byte loads, masked at the ragged edge).
+//   Then, for each of the quad's 4 rows, the warp's lanes with equal ids
+//   sum their kBatch channel values by shuffles first (add_cols,
+//   block_accum.cuh: only where some id has merge_min lanes), so a hot id
+//   (the skewed scene's camera with half the rows) costs a shared
+//   addition per channel and warp, not up to 32 serialised ones.  The
+//   accumulator is zeroed and flushed once per block, one global atomic
+//   per nonzero entry into a zeroed out.  (Measured on the H100 and not
+//   kept, ops/ohsetup.py has the numbers: a flush into per-block slabs
+//   summed by a second kernel; the next quad's loads issued before the
+//   current quad's additions.)
+//
+// oh_aggregate_kernel  (thallo_oh_setup_aggregate_atomics, the first body)
+//   Block (bx, by) owns the rows [bx*rows, (bx+1)*rows) and the channels
+//   [by*f_chunk, ...): it zeroes an [f_chunk, N] accumulator in shared
+//   memory, adds its rows into it with one shared atomic per row and
+//   channel (4-byte loads, no merging), and then adds each nonzero entry
+//   into out with one global atomic.  N up to kMaxSmem / 4.  The caller
+//   zeroes out.
+//
+// The kernels allocate nothing.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
 
+#include "block_accum.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kMaxSmem = 96 * 1024;  // ops/_cuda.py MAX_DYNAMIC_SMEM
+constexpr int kBatch = 9;            // ops/ohsetup.py AGG_BATCH: channels per add_cols
+constexpr int kMaxAggThreads = 1024;
 
 __global__ void oh_aggregate_kernel(const float* __restrict__ parts,
                                     const int* __restrict__ ids,
@@ -50,10 +73,139 @@ __global__ void oh_aggregate_kernel(const float* __restrict__ parts,
   }
 }
 
+// The 4 ids and the nb (<= kBatch) channel values of quad q (rows 4q ..
+// 4q + 3) from channel rows pf; kVec: R % 4 == 0, so every channel row is
+// 16-byte aligned and every quad whole.  Past the rows: id -1, values 0.
+template <bool kVec>
+__device__ __forceinline__ void load_quad(const float* __restrict__ pf,
+                                          const int* __restrict__ ids, size_t Rz, int R,
+                                          int n_quads, int q, int nb, int (&id)[4],
+                                          float (&v)[kBatch][4]) {
+  const bool in = q < n_quads;
+  if (kVec && in) {
+    const int4 t = __ldcs(reinterpret_cast<const int4*>(ids) + q);
+    id[0] = t.x;
+    id[1] = t.y;
+    id[2] = t.z;
+    id[3] = t.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) id[k] = in && 4 * q + k < R ? __ldcs(ids + 4 * q + k) : -1;
+  }
+#pragma unroll
+  for (int cj = 0; cj < kBatch; ++cj) {
+    const float* row = pf + static_cast<size_t>(cj) * Rz;
+    const bool have = in && cj < nb;
+    if (kVec && have) {
+      const float4 t = __ldcs(reinterpret_cast<const float4*>(row) + q);
+      v[cj][0] = t.x;
+      v[cj][1] = t.y;
+      v[cj][2] = t.z;
+      v[cj][3] = t.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[cj][k] = have && 4 * q + k < R ? __ldcs(row + 4 * q + k) : 0.f;
+      }
+    }
+  }
+}
+
+// A quad's 4 rows into the accumulator, row by row, each through the warp
+// merge.  Every lane of the warp calls this together.
+__device__ __forceinline__ void add_quad(float* acc, int N, const int (&id)[4],
+                                         const float (&v)[kBatch][4], int lane, int merge_min) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float z[kBatch];
+#pragma unroll
+    for (int cj = 0; cj < kBatch; ++cj) z[cj] = v[cj][k];
+    add_cols<kBatch>(acc, N, id[k], static_cast<unsigned>(id[k]) < static_cast<unsigned>(N), z,
+                     lane, merge_min);
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kMaxAggThreads)
+    oh_aggregate_smem_kernel(const float* __restrict__ parts, const int* __restrict__ ids,
+                             float* __restrict__ out, int F, int R, int N, int chunk,
+                             int acc_rows, int merge_min) {
+  extern __shared__ float acc[];  // [acc_rows, N]
+  const int lane = threadIdx.x & 31;
+  const int f0 = blockIdx.y * chunk;
+  const int fc = min(chunk, F - f0);
+  const size_t n_acc = static_cast<size_t>(acc_rows) * N;
+  for (size_t i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.f;
+  __syncthreads();
+
+  const size_t Rz = static_cast<size_t>(R);
+  const int n_quads = (R + 3) / 4;
+  // the loop runs warp by warp (base is the same on every lane): add_cols
+  // needs all 32 lanes
+  for (int base = blockIdx.x * blockDim.x + (threadIdx.x & ~31); base < n_quads;
+       base += gridDim.x * blockDim.x) {
+    for (int fb = 0; fb < fc; fb += kBatch) {
+      int id[4];
+      float v[kBatch][4];
+      load_quad<kVec>(parts + static_cast<size_t>(f0 + fb) * Rz, ids, Rz, R, n_quads,
+                      base + lane, min(kBatch, fc - fb), id, v);
+      add_quad(acc + static_cast<size_t>(fb) * N, N, id, v, lane, merge_min);
+    }
+  }
+  __syncthreads();
+
+  float* dst = out + static_cast<size_t>(f0) * N;
+  for (size_t i = threadIdx.x; i < static_cast<size_t>(fc) * N; i += blockDim.x) {
+    const float a = acc[i];
+    if (a != 0.f) atomicAdd(dst + i, a);
+  }
+}
+
+template <bool kVec>
+cudaError_t launch_smem(const float* parts, const int* ids, float* out, int F, int R, int N,
+                        int chunk, int acc_rows, int merge_min, int threads, int grid,
+                        cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(acc_rows) * N * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(oh_aggregate_smem_kernel<kVec>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 blocks(grid, (F + chunk - 1) / chunk);
+  oh_aggregate_smem_kernel<kVec><<<blocks, threads, smem, stream>>>(parts, ids, out, F, R, N,
+                                                                   chunk, acc_rows, merge_min);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int thallo_oh_setup_aggregate(const void* parts, const void* ids, void* out,
-                                         int F, int R, int N, void* stream) {
+// The shared-memory kernel.  chunk channels per grid row y (grid y =
+// ceil(F / chunk)), acc_rows >= chunk rounded up to kBatch, grid blocks
+// per chunk, threads a multiple of 32 up to 1024, merge_min 2..33 (33:
+// never merge).  out must be zeroed: it takes one global atomic per
+// nonzero accumulator entry and block.
+extern "C" int thallo_oh_setup_aggregate_smem(const void* parts, const void* ids, void* out,
+                                              int F, int R, int N, int chunk, int acc_rows,
+                                              int merge_min, int threads, int grid,
+                                              void* stream) {
+  if (F < 1 || R < 0 || N < 1 || chunk < 1 || acc_rows < chunk || acc_rows % kBatch != 0 ||
+      threads < 32 || threads > kMaxAggThreads || threads % 32 != 0 || grid < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* p = static_cast<const float*>(parts);
+  const auto* id = static_cast<const int*>(ids);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      R % 4 == 0
+          ? launch_smem<true>(p, id, o, F, R, N, chunk, acc_rows, merge_min, threads, grid, s)
+          : launch_smem<false>(p, id, o, F, R, N, chunk, acc_rows, merge_min, threads, grid, s);
+  return static_cast<int>(err);
+}
+
+extern "C" int thallo_oh_setup_aggregate_atomics(const void* parts, const void* ids, void* out,
+                                                 int F, int R, int N, void* stream) {
   if (R > 0 && F > 0 && N > 0) {
     if (static_cast<size_t>(N) * sizeof(float) > kMaxSmem) return cudaErrorInvalidValue;
     int dev = 0, sms = 132;

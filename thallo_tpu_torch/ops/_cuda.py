@@ -41,8 +41,10 @@ SIGNATURES = {
     "thallo_fused_pair_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_atomics": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_oh_setup_products": (P, P, P, P, P, I, I, I, I, P),
-    "thallo_fullrepeat_setup": (P, P, P, P, P, I, I, I, I, P),
-    "thallo_oh_setup_aggregate": (P, P, P, I, I, I, P),
+    "thallo_fullrepeat_setup_thread": (P, P, P, P, P, I, I, I, I, P),
+    "thallo_fullrepeat_setup_tiles": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
+    "thallo_oh_setup_aggregate_atomics": (P, P, P, I, I, I, P),
+    "thallo_oh_setup_aggregate_smem": (P, P, P, I, I, I, I, I, I, I, I, P),
     "thallo_segment_sum": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_staged": (P, L, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_wloop": (P, P, P, P, P, P, I, I, I, I, I, P),

@@ -14,23 +14,52 @@ stacked channel-major Jacobian slot windows ``Jall_win [Kall, N_t*W]``
 
 Returns ``(agg [F_agg, N_t], [cross_0, ...])``.
 
-On the card (``csrc/fullrepeat.cu``): one thread per element n walks
-its W contiguous observations, sums the aggregated slabs and writes the
-per-w cross rows itself — no reduction across threads, no atomics, so
-the result is deterministic.  Reads of ``[*, n*W + w]`` from
-neighbouring threads share cache lines; writes of ``[row, n]`` are
-coalesced.  The bound is memory: the (rc + Kall) * N_t * W * 4 input
-bytes (104 MB at BA-1M) plus the cross output (108 MB).  The TPU
-kernel's resident layout one-hot ``sel`` and its bf16 split are not
-carried over: the element order is just an index.
+The bound is memory: the (rc + Kall) * N_t * W * 4 input bytes (104 MB
+at BA-1M) plus the outputs (123 MB).  Two kernels compute it
+(``csrc/fullrepeat.cu``):
+
+* ``fullrepeat_setup``: the tile kernel, for 2 <= W <= 8, rc <= 8 and a
+  window that fits the shared memory (``fullrepeat_plan``).  A persistent
+  block walks over tiles of T elements; it copies each tile's
+  [rc + Kall, T*W] input window into shared memory with 16-byte
+  ``cp.async`` copies (each input byte read once, coalesced), the next
+  tile's copy in flight while it computes the current one.  The plan
+  turns the recipe into channels, each a product
+  sum_c X[a0 + c*sa] * X[b0 + c*sb] over the stacked inputs X = [rT; Jall],
+  summed over w into an agg row or kept per w as W cross rows, grouped by
+  their first operand (BA's point side: 39 channels in 3 groups, one per
+  point channel; a symmetric diag pair keeps a <= b and writes the
+  mirror).  A thread takes an (element, group) item: it reads the group's
+  first operand into registers once, each channel's second operand from
+  shared memory, and writes the channel's rows at its element, a warp
+  over 32 consecutive elements (coalesced stores).  The TPU kernel's
+  relayout by a one-hot ``sel`` dot is an indexing choice here: the
+  window stays in observation order and a thread reads its element's W
+  observations of a row as one vector (conflict-free for W = 2, 4).
+* ``fullrepeat_setup_thread``: the first body, for every other shape: one
+  thread per element walks its W observations and reloads every operand
+  from global memory.
+
+No atomics in either, so the sums are deterministic.  The TPU kernel's
+bf16 split is not carried over.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from . import _cuda
 
 _KIND = {"jtr": 0, "d2": 1, "diag": 2, "cross": 3}
+# the tile kernel (csrc/fullrepeat.cu): elements per tile, blocks per SM,
+# the cap on threads per block (kMaxTileThreads there), and the shapes it
+# is compiled for (W a template parameter; rc bounds a register array)
+FULLREPEAT_TILE = 128
+FULLREPEAT_BLOCKS_PER_SM = 2
+FULLREPEAT_THREADS = 512
+MIN_W, MAX_W, MAX_RC, MAX_KALL = 2, 8, 8, 128
 
 
 def fullrepeat_setup_reference(rT_win, Jall_win, *, W, N_t, recipe):
@@ -61,19 +90,10 @@ def fullrepeat_setup_reference(rT_win, Jall_win, *, W, N_t, recipe):
     return agg, crosses
 
 
-def fullrepeat_setup(rT_win, Jall_win, *, W, N_t, recipe):
-    """rT_win [rc, N_t*W] f32, Jall_win [Kall, N_t*W] f32, static recipe
-    -> (agg [F_agg, N_t], [cross_k [W*Ca*Cb, N_t]]) f32.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
-    if rT_win.device.type == "cpu":
-        return fullrepeat_setup_reference(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
-    if rT_win.device.type != "cuda":
-        raise ValueError(f"fullrepeat_setup: unsupported device {rT_win.device}")
-    rc = rT_win.shape[0]
-    Kall = Jall_win.shape[0]
-    dev = rT_win.device
-    _cuda.require(rT_win, "rT_win", (rc, N_t * W), torch.float32, dev)
-    _cuda.require(Jall_win, "Jall_win", (Kall, N_t * W), torch.float32, dev)
+def _recipe_rows(recipe, rc, Kall, W):
+    """The recipe as the first body's rows (kind, offa, Ca, offb, Cb, f0),
+    F_agg and the cross widths; raises on an entry that reads past Kall or
+    a cross entry out of order."""
     rows, F_agg, cross_rows, cross_widths = [], 0, 0, []
     for ent in recipe:
         kind = _KIND[ent[0]]
@@ -95,15 +115,192 @@ def fullrepeat_setup(rT_win, Jall_win, *, W, N_t, recipe):
         if max(rows[-1][1] + rc * rows[-1][2],
                rows[-1][3] + rc * rows[-1][4]) > Kall:
             raise ValueError(f"fullrepeat_setup: recipe entry {ent} reads past Kall={Kall}")
-    agg = torch.zeros((max(F_agg, 1), N_t), dtype=torch.float32, device=dev)
-    cross = torch.empty((max(cross_rows, 1), N_t), dtype=torch.float32, device=dev)
-    rec = _cuda.recipe_tensor(tuple(rows), dev)
-    code = _cuda.lib().thallo_fullrepeat_setup(
-        rT_win.data_ptr(), Jall_win.data_ptr(), rec.data_ptr(), agg.data_ptr(),
-        cross.data_ptr(), len(rows), rc, W, N_t, _cuda.stream(rT_win))
+    return tuple(rows), F_agg, tuple(cross_widths)
+
+
+class FullrepeatPlan(NamedTuple):
+    """The recipe for the tile kernel: groups[g] = (a0, sa, j0, j1), the
+    first operand rows a0 + c*sa of the stacked [rT; Jall] shared by
+    channels j0 <= j < j1; chans[j] = (b0, sb, row, step), the second
+    operand and where the channel goes: step == 0 agg row `row` (summed
+    over w), step < 0 agg row `row` and its mirror row -1 - step, step > 0
+    cross rows row + w*step.  T elements per tile, `stages` windows in
+    shared memory (2: the next tile's copy overlaps the current tile's
+    work), threads per block, blocks_per_sm, block_smem bytes."""
+    groups: Tuple[Tuple[int, int, int, int], ...]
+    chans: Tuple[Tuple[int, int, int, int], ...]
+    F_agg: int
+    cross_widths: Tuple[int, ...]
+    T: int
+    stages: int
+    threads: int
+    blocks_per_sm: int
+    block_smem: int
+
+
+def _channels(recipe, rc, W):
+    """Groups and channels of a recipe (FullrepeatPlan's first fields)."""
+    by_a, F, cbase, widths = {}, 0, 0, []
+    for ent in recipe:
+        kind = ent[0]
+        if kind in ("jtr", "d2"):
+            _, off, C = ent
+            for ch in range(C):
+                a = (rc + off + ch, C)
+                by_a.setdefault(a, []).append((0, 1, F + ch, 0) if kind == "jtr"
+                                              else a + (F + ch, 0))
+            F += C
+            continue
+        _, offa, Ca, offb, Cb = ent[:5]
+        sym = kind == "diag" and offa == offb and Ca == Cb
+        for a in range(Ca):
+            for b in range(a if sym else 0, Cb):
+                if kind == "diag":
+                    mirror = F + b * Ca + a
+                    ch = (rc + offb + b, Cb, F + a * Cb + b,
+                          -1 - mirror if sym and b != a else 0)
+                else:
+                    ch = (rc + offb + b, Cb, cbase + a * Cb + b, Ca * Cb)
+                by_a.setdefault((rc + offa + a, Ca), []).append(ch)
+        if kind == "diag":
+            F += Ca * Cb
+        else:
+            widths.append(W * Ca * Cb)
+            cbase += W * Ca * Cb
+    groups, chans = [], []
+    for (a0, sa), cs in by_a.items():
+        groups.append((a0, sa, len(chans), len(chans) + len(cs)))
+        chans += cs
+    return tuple(groups), tuple(chans), F, tuple(widths)
+
+
+def tile_smem(rc, Kall, W, T, stages, n_groups, n_chans) -> int:
+    """Shared memory of a tile-kernel block (csrc/fullrepeat.cu): the input
+    windows and the group and channel tables."""
+    return stages * (rc + Kall) * T * W * 4 + (n_groups + n_chans) * 16
+
+
+@functools.lru_cache(maxsize=64)
+def fullrepeat_plan(recipe, W: int, Kall: int, rc: int, tile: int = FULLREPEAT_TILE,
+                    blocks_per_sm: int = FULLREPEAT_BLOCKS_PER_SM,
+                    threads: int = FULLREPEAT_THREADS) -> Optional[FullrepeatPlan]:
+    """The tile kernel's plan for a recipe at (W, Kall, rc): `blocks_per_sm`
+    blocks to an SM if they fit, else fewer; two windows (double-buffered)
+    if they fit, else one; the largest tile of at most `tile` elements (a
+    multiple of 32) that fits; threads: one per (element, group) item, at most
+    `threads`.  None outside 2 <= W <= 8, rc <= 8, Kall <= 128 (those
+    shapes take fullrepeat_setup_thread).  Pure Python, cached per static
+    recipe."""
+    if not (MIN_W <= W <= MAX_W and 1 <= rc <= MAX_RC and Kall <= MAX_KALL):
+        return None
+    groups, chans, F_agg, widths = _channels(recipe, rc, W)
+    for bps in range(blocks_per_sm, 0, -1):
+        budget = _cuda.SM_SMEM // bps - 1024  # a block reserves 1 KB
+        for stages in (2, 1):
+            for T in range(tile, 31, -32):
+                smem = tile_smem(rc, Kall, W, T, stages, len(groups), len(chans))
+                if smem <= budget:
+                    return FullrepeatPlan(groups, chans, F_agg, widths, T, stages,
+                                          min(threads, T * max(len(groups), 1)), bps, smem)
+    return None
+
+
+def fullrepeat_grid(plan: FullrepeatPlan, N_t: int, sms: int) -> int:
+    """Persistent blocks: plan.blocks_per_sm per SM, no more than tiles."""
+    return max(1, min(plan.blocks_per_sm * sms, -(-N_t // plan.T)))
+
+
+def fullrepeat_setup_planned(rT_win, Jall_win, *, W, N_t, recipe, **plan_kw):
+    """What the tile kernel computes, from its plan alone, in plain torch:
+    every channel's product at every element, written to its agg row (and
+    mirror) or its W cross rows; rows no channel writes stay NaN."""
+    rc, Kall = rT_win.shape[0], Jall_win.shape[0]
+    plan = fullrepeat_plan(tuple(recipe), W, Kall, rc, **plan_kw)
+    X = torch.cat([rT_win, Jall_win]).to(torch.float32).reshape(rc + Kall, N_t, W)
+    dev = rT_win.device
+    agg = torch.full((max(plan.F_agg, 1), N_t), float("nan"), dtype=torch.float32, device=dev)
+    cross = torch.full((max(sum(plan.cross_widths), 1), N_t), float("nan"),
+                       dtype=torch.float32, device=dev)
+    c = torch.arange(rc, device=dev)
+    for a0, sa, j0, j1 in plan.groups:
+        xa = X[a0 + sa * c]  # [rc, N_t, W]
+        for b0, sb, row, step in plan.chans[j0:j1]:
+            s = (xa * X[b0 + sb * c]).sum(0)  # [N_t, W]
+            if step > 0:
+                cross[row + step * torch.arange(W, device=dev)] = s.T
+            else:
+                agg[row] = s.sum(-1)
+                if step < 0:
+                    agg[-1 - step] = agg[row]
+    return agg, list(torch.split(cross, plan.cross_widths)) if plan.cross_widths else []
+
+
+def _checked(what, rT_win, Jall_win, W, N_t):
+    if rT_win.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {rT_win.device}")
+    rc, Kall, dev = rT_win.shape[0], Jall_win.shape[0], rT_win.device
+    _cuda.require(rT_win, "rT_win", (rc, N_t * W), torch.float32, dev)
+    _cuda.require(Jall_win, "Jall_win", (Kall, N_t * W), torch.float32, dev)
+    return rc, Kall, dev
+
+
+def _outputs(F_agg, cross_widths, N_t, dev):
+    """agg and cross for a kernel that writes every row (a recipe without
+    agg entries returns one row of zeros, as the plain version does)."""
+    agg = (torch.empty if F_agg else torch.zeros)((max(F_agg, 1), N_t), dtype=torch.float32,
+                                                  device=dev)
+    cross = torch.empty((max(sum(cross_widths), 1), N_t), dtype=torch.float32, device=dev)
+    return agg, cross
+
+
+def _split(cross, cross_widths):
+    return list(torch.split(cross[:sum(cross_widths)], cross_widths)) if cross_widths else []
+
+
+def fullrepeat_setup(rT_win, Jall_win, *, W, N_t, recipe):
+    """rT_win [rc, N_t*W] f32, Jall_win [Kall, N_t*W] f32, static recipe
+    -> (agg [F_agg, N_t], [cross_k [W*Ca*Cb, N_t]]) f32.  CPU tensors take
+    the plain version; CUDA tensors launch the tile kernel, or, where
+    fullrepeat_plan has no plan for the shape, go to
+    fullrepeat_setup_thread."""
+    if rT_win.device.type == "cpu":
+        return fullrepeat_setup_reference(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
+    rc, Kall, dev = _checked("fullrepeat_setup", rT_win, Jall_win, W, N_t)
+    _recipe_rows(recipe, rc, Kall, W)
+    plan = fullrepeat_plan(tuple(recipe), W, Kall, rc, FULLREPEAT_TILE,
+                           FULLREPEAT_BLOCKS_PER_SM, FULLREPEAT_THREADS)
+    if plan is None:
+        return fullrepeat_setup_thread(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
+    agg, cross = _outputs(plan.F_agg, plan.cross_widths, N_t, dev)
+    groups = _cuda.recipe_tensor(plan.groups, dev)
+    chans = _cuda.recipe_tensor(plan.chans, dev)
+    code = _cuda.lib().thallo_fullrepeat_setup_tiles(
+        rT_win.data_ptr(), Jall_win.data_ptr(), groups.data_ptr(), chans.data_ptr(),
+        agg.data_ptr(), cross.data_ptr(), len(plan.groups), len(plan.chans), rc, Kall, W,
+        N_t, plan.T, plan.stages, plan.threads, fullrepeat_grid(plan, N_t, _cuda.sm_count(dev)),
+        _cuda.stream(rT_win))
     _cuda.check(code, "fullrepeat_setup")
     fullrepeat_setup.launches += 1
-    return agg, list(torch.split(cross[:cross_rows], cross_widths)) if cross_widths else []
+    return agg, _split(cross, plan.cross_widths)
 
 
-fullrepeat_setup.launches = 0
+def fullrepeat_setup_thread(rT_win, Jall_win, *, W, N_t, recipe):
+    """The contract of fullrepeat_setup by the first body: one thread per
+    element; any W, rc, Kall.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if rT_win.device.type == "cpu":
+        return fullrepeat_setup_reference(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
+    rc, Kall, dev = _checked("fullrepeat_setup_thread", rT_win, Jall_win, W, N_t)
+    rows, F_agg, cross_widths = _recipe_rows(recipe, rc, Kall, W)
+    agg, cross = _outputs(F_agg, cross_widths, N_t, dev)
+    rec = _cuda.recipe_tensor(rows, dev)
+    code = _cuda.lib().thallo_fullrepeat_setup_thread(
+        rT_win.data_ptr(), Jall_win.data_ptr(), rec.data_ptr(), agg.data_ptr(),
+        cross.data_ptr(), len(rows), rc, W, N_t, _cuda.stream(rT_win))
+    _cuda.check(code, "fullrepeat_setup_thread")
+    fullrepeat_setup_thread.launches += 1
+    return agg, _split(cross, cross_widths)
+
+
+for _fn in (fullrepeat_setup, fullrepeat_setup_thread):
+    _fn.launches = 0

@@ -41,14 +41,19 @@ oh_setup_aggregate`` (Pallas body ``_kernel``): channel-major parts
 ``[F, R]`` summed by ``ids [R]`` into ``[F, N]``; ids outside [0, N)
 drop.  The matrix-free schedules (PRECOMPUTE_J, APPLY_SEPARATELY) scatter
 a small image's per-observation values with it (lower.py), in setup and
-on every PCG iteration.  On the card (``csrc/oh_aggregate.cu``) each
-thread block takes a contiguous run of rows, sums them into an
-``[F_chunk, N]`` accumulator in shared memory (shared-memory atomics,
-~R/N hits per address spread over the block), then adds each nonzero
-entry into the output with one global atomic: about (blocks x F x N)
-global atomics (2.3 M at BA-1M, F = 9) instead of F x R (9 M).  The
-bound is the parts read, F*R*4 bytes.  Channels that do not fit the
-shared accumulator at once run as further chunks (grid y).
+on every PCG iteration.  The bound is the read of parts and ids,
+(F + 1)*R*4 bytes.  On the card (``csrc/oh_aggregate.cu``) a fixed grid
+of blocks strides over quads of 4 rows, a thread per quad with 16-byte
+loads; lanes of a warp with equal ids sum their values by shuffles
+(``add_cols``, the fused pair's warp merge) before one shared addition
+per channel into the block's ``[rows, N]`` accumulator, of up to
+``AGG_SMEM`` bytes (``aggregate_plan``: channels that do not fit at once
+run as further chunks, grid y); each block adds its accumulator into
+the output once, one global atomic per nonzero entry.  Where not one
+batch of channel rows fits (N beyond ~6 300), ``oh_setup_aggregate``
+goes to ``oh_setup_aggregate_atomics``, the first body: blocks over runs of rows, 4-byte loads, a shared atomic
+per row and channel, and a global atomic per nonzero accumulator entry
+(N up to ``_cuda.MAX_DYNAMIC_SMEM`` / 4).
 """
 from __future__ import annotations
 
@@ -287,27 +292,123 @@ def oh_setup_aggregate_reference(parts_cm, ids, *, N):
     return out.index_add_(1, ids[ok].long(), parts_cm.to(torch.float32)[:, ok])
 
 
+# the shared-memory aggregation kernel: threads per block, blocks per SM,
+# the shared memory a block may take, channels per warp merge (kBatch in
+# csrc/oh_aggregate.cu), the fewest lanes of one id that make a warp merge
+# (33: never).  H100 sweep (scripts/torch_redesign_sweep.py --sweep --only
+# aggregate; H100 80GB HBM3, 700 W): 1024 threads, one block per SM,
+# 0.0365 ms at [9, 1M] -> [9, 1024] and 0.0364 at the skewed scene's
+# camera ids; 256-512 threads 0.0368-0.0420; merging from 2, 4 or 8 equal
+# lanes alike on both, never merging 0.2310 skewed.  Not kept: a flush
+# into per-block slabs summed by a second kernel in a fixed order (0.0394
+# and 0.0394 against 0.0365 and 0.0364 for the global atomics), and the
+# next quad's loads issued before the current quad's additions (128
+# registers, 512 threads: 0.0494 and 0.0490 against 0.0372 and 0.0402 in
+# the same run).
+AGG_THREADS = 1024
+AGG_BLOCKS_PER_SM = 1
+AGG_SMEM = 224 * 1024
+AGG_BATCH = 9
+AGG_MERGE_MIN = 2
+
+
+class AggregatePlan(NamedTuple):
+    """chunk channels per grid row y, n_chunks of them, acc_rows
+    accumulator rows (chunk rounded up to AGG_BATCH), block_smem bytes."""
+    chunk: int
+    n_chunks: int
+    acc_rows: int
+    block_smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def aggregate_plan(F: int, N: int, smem: int = AGG_SMEM) -> Optional[AggregatePlan]:
+    """The channel chunks of the shared-memory kernel: as few as fit
+    `smem` bytes of [acc_rows, N] f32 accumulator, equal in size; None
+    where not even AGG_BATCH rows fit (those shapes take
+    oh_setup_aggregate_atomics)."""
+    max_rows = smem // (N * 4) // AGG_BATCH * AGG_BATCH
+    if F < 1 or max_rows < AGG_BATCH:
+        return None
+    n_chunks = -(-F // max_rows)
+    chunk = -(-F // n_chunks)
+    acc_rows = -(-chunk // AGG_BATCH) * AGG_BATCH
+    return AggregatePlan(chunk, n_chunks, acc_rows, acc_rows * N * 4)
+
+
+def aggregate_grid(plan: AggregatePlan, R: int, threads: int, sms: int) -> int:
+    """Blocks per chunk: AGG_BLOCKS_PER_SM per SM (fewer where the shared
+    memory leaves no room) shared by the chunks, no more than the quads."""
+    blocks = _cuda.blocks_per_sm(plan.block_smem, AGG_BLOCKS_PER_SM) * sms
+    return max(1, min(blocks // plan.n_chunks, -(-R // (4 * threads))))
+
+
+def oh_setup_aggregate_planned(parts_cm, ids, *, N, smem=AGG_SMEM):
+    """The sum the shared-memory kernel computes, from its plan alone, in
+    plain torch: each chunk's channels summed by id into an [acc_rows, N]
+    accumulator and its first rows written out; rows no chunk writes stay
+    NaN."""
+    F = parts_cm.shape[0]
+    plan = aggregate_plan(F, N, smem)
+    ok = (ids >= 0) & (ids < N)
+    out = torch.full((F, N), float("nan"), dtype=torch.float32, device=parts_cm.device)
+    for k in range(plan.n_chunks):
+        f0 = k * plan.chunk
+        fc = min(plan.chunk, F - f0)
+        acc = torch.zeros((plan.acc_rows, N), dtype=torch.float32, device=parts_cm.device)
+        acc[:fc].index_add_(1, ids[ok].long(), parts_cm[f0:f0 + fc][:, ok].to(torch.float32))
+        out[f0:f0 + fc] = acc[:fc]
+    return out
+
+
+def _agg_checked(what, parts_cm, ids):
+    if parts_cm.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {parts_cm.device}")
+    F, R = parts_cm.shape
+    _cuda.require(parts_cm, "parts_cm", (F, R), torch.float32, parts_cm.device)
+    _cuda.require(ids, "ids", (R,), torch.int32, parts_cm.device)
+    return F, R, parts_cm.device
+
+
 def oh_setup_aggregate(parts_cm, ids, *, N):
     """parts_cm [F, R] f32, ids [R] int32 -> [F, N] f32 (out-of-range ids
     drop).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    shared-memory kernel, or, where aggregate_plan has no plan for N, go
+    to oh_setup_aggregate_atomics."""
     if parts_cm.device.type == "cpu":
         return oh_setup_aggregate_reference(parts_cm, ids, N=N)
-    if parts_cm.device.type != "cuda":
-        raise ValueError(f"oh_setup_aggregate: unsupported device {parts_cm.device}")
-    F, R = parts_cm.shape
-    dev = parts_cm.device
-    _cuda.require(parts_cm, "parts_cm", (F, R), torch.float32, dev)
-    _cuda.require(ids, "ids", (R,), torch.int32, dev)
-    if N * 4 > _cuda.MAX_DYNAMIC_SMEM:
-        raise ValueError(f"oh_setup_aggregate: N={N} exceeds the "
-                         f"{_cuda.MAX_DYNAMIC_SMEM}-byte shared accumulator")
+    F, R, dev = _agg_checked("oh_setup_aggregate", parts_cm, ids)
+    plan = aggregate_plan(F, N, AGG_SMEM)
+    if plan is None:
+        return oh_setup_aggregate_atomics(parts_cm, ids, N=N)
+    grid = aggregate_grid(plan, R, AGG_THREADS, _cuda.sm_count(dev))
     out = torch.zeros((F, N), dtype=torch.float32, device=dev)
-    code = _cuda.lib().thallo_oh_setup_aggregate(
-        parts_cm.data_ptr(), ids.data_ptr(), out.data_ptr(), F, R, N, _cuda.stream(parts_cm))
+    code = _cuda.lib().thallo_oh_setup_aggregate_smem(
+        parts_cm.data_ptr(), ids.data_ptr(), out.data_ptr(), F, R, N, plan.chunk,
+        plan.acc_rows, AGG_MERGE_MIN, AGG_THREADS, grid,
+        _cuda.stream(parts_cm))
     _cuda.check(code, "oh_setup_aggregate")
     oh_setup_aggregate.launches += 1
     return out
 
 
-oh_setup_aggregate.launches = 0
+def oh_setup_aggregate_atomics(parts_cm, ids, *, N):
+    """The contract of oh_setup_aggregate by the first body; N up to
+    _cuda.MAX_DYNAMIC_SMEM / 4.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if parts_cm.device.type == "cpu":
+        return oh_setup_aggregate_reference(parts_cm, ids, N=N)
+    F, R, dev = _agg_checked("oh_setup_aggregate_atomics", parts_cm, ids)
+    if N * 4 > _cuda.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"oh_setup_aggregate_atomics: N={N} exceeds the "
+                         f"{_cuda.MAX_DYNAMIC_SMEM}-byte shared accumulator")
+    out = torch.zeros((F, N), dtype=torch.float32, device=dev)
+    code = _cuda.lib().thallo_oh_setup_aggregate_atomics(
+        parts_cm.data_ptr(), ids.data_ptr(), out.data_ptr(), F, R, N, _cuda.stream(parts_cm))
+    _cuda.check(code, "oh_setup_aggregate_atomics")
+    oh_setup_aggregate_atomics.launches += 1
+    return out
+
+
+for _fn in (oh_setup_aggregate, oh_setup_aggregate_atomics):
+    _fn.launches = 0

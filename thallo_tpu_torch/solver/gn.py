@@ -446,7 +446,10 @@ class CompiledSolver:
             if C <= 3:
                 inv_n = _cm_small_inv(Mn, C)
             else:
-                Minv = torch.linalg.inv(Mn.reshape(C, C, N).permute(2, 0, 1))
+                # inv_ex reports a singular block in its info tensor instead
+                # of raising: the block goes non-finite, as jnp.linalg.inv's
+                # does, and the PCG's isfinite stop takes over; no host read
+                Minv = torch.linalg.inv_ex(Mn.reshape(C, C, N).permute(2, 0, 1)).inverse
                 inv_n = Minv.permute(1, 2, 0).reshape(C * C, N)
             out[name] = inv_n / dd
         return out
