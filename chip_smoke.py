@@ -32,7 +32,12 @@ its seconds; any failure exits non-zero):
      (fused_pair_apply_atomics), the persistent W-loop kernel
      (fused_pair_apply_wloop), the first W-loop body
      (fused_pair_apply_wloop_chunked), and the persistent kernel without
-     its cols side (the rows-only floor).  The segment sum is also held
+     its cols side (the rows-only floor); on the same values as bf16
+     blocks (block_dtype="bf16") four ways: the bf16 persistent kernel
+     (fused_pair_apply_bf16), the bf16 W-loop kernel
+     (fused_pair_apply_wloop_bf16), the first bf16 body
+     (fused_pair_bf16_atomics) and the bf16 rows-only floor.  The
+     loop-floor kernel is held against torch.add.  The segment sum is also held
      against index_add_ on the
      skewed scene's camera map (one segment with half the rows), on a
      ragged map with empty segments, and on row-major data;
@@ -64,7 +69,15 @@ its seconds; any failure exits non-zero):
      tiles), the global-atomics fused pair and the four first bodies the
      redesigns replaced (the chunked W-loop kernel, the global-atomics
      oh_setup_products, fullrepeat_setup_thread, oh_setup_aggregate_atomics)
-     launched.
+     launched;
+  9. the 1M LM solve, block-sparse JᵀJ under block_dtype="bf16": the bf16
+     persistent kernel (fused_pair_apply_bf16), oh_setup_products and
+     fullrepeat_setup launched, no f32 or atomics fused pair; costs never
+     rising, final cost <= 1e-2 x initial, logged beside phase 4's;
+ 10. the skewed 1M scene under block_dtype="bf16" for BF16_SKEW_STEPS LM
+     steps: each level launches the bf16 instantiation of the kernel
+     fused_pair_route names for it (the W-loop one at every wide level);
+     costs never rising.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -118,6 +131,7 @@ BA_1M = (1024, 250_000, 4)
 SKEW_1M = (1024, 250_000, 1_000_000)  # cameras, points, target observations
 SKEW_SMALL = (16, 1400, 5600)
 N_STEPS_1M = 10
+BF16_SKEW_STEPS = 3  # phase 10: enough to launch every level's kernel
 # device_ms: calls per captured CUDA graph, replays per timing
 GRAPH_CALLS = 10
 GRAPH_REPLAYS = 5
@@ -217,14 +231,27 @@ def nbytes(*ts):
 
 PAIR_KERNELS = ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
                 "fused_pair_apply_wloop_chunked", "fused_pair_rows_floor")
+# the same pair on bf16 blocks (cases tagged <tag>_bf16)
+BF16_PAIR_KERNELS = ("fused_pair_apply_bf16", "fused_pair_apply_wloop_bf16",
+                     "fused_pair_bf16_atomics", "fused_pair_rows_floor")
 
 
 def pair_cases(tag, a, S, fusedpair, terms=None):
-    """The fused pair's five kernels on operands a (3 x 9): one case each;
-    the rows-only floor is held to the plain version's rows."""
+    """The fused pair's kernels on operands a (3 x 9), f32 blocks: the five
+    f32 kernels; then on the same values as bf16 blocks (rounded), the
+    bf16 ones: one case each; the rows-only floors are held to the plain
+    version's rows."""
+    b = (a[0], a[1].bfloat16(), *a[2:])
+    # the hot-camera rule's magnitudes from the f32 values: bf16 rounding
+    # moves each by at most 2^-9, far inside the rule's 10x margin
+    return (_pair_cases(tag, a, S, fusedpair, PAIR_KERNELS, terms)
+            + _pair_cases(tag + "_bf16", b, S, fusedpair, BF16_PAIR_KERNELS, terms))
+
+
+def _pair_cases(tag, a, S, fusedpair, kernels, terms):
     W, N = a[0].shape
     cases = []
-    for name in PAIR_KERNELS:
+    for name in kernels:
         floor = name == "fused_pair_rows_floor"
         cases.append((name, tag,
                       lambda fn=getattr(fusedpair, name), floor=floor:
@@ -467,7 +494,10 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("fused_pair_v2_smem", "ba1m"): "fused_pair_v2_smem",
           ("fused_pair_v3_partials", "ba1m"): "fused_pair_v3_partials",
           ("loop_floor_add_one", "tile1"): "loop_floor_add_one",
-          ("loop_floor_add_one", "grid64"): "loop_floor_add_one_grid64"}
+          ("loop_floor_add_one", "grid64"): "loop_floor_add_one_grid64",
+          ("fused_pair_apply_bf16", "ba1m_bf16"): "fused_pair_apply_bf16",
+          ("fused_pair_apply_wloop_bf16", "skew_tail_bf16"): "fused_pair_apply_wloop_bf16",
+          ("fused_pair_bf16_atomics", "ba1m_bf16"): "fused_pair_bf16_atomics"}
 
 # record entry -> (source, the TPU kernel it replaces: file:line of its
 # pallas_call or kernel body, the smoke solve or phase whose launches it
@@ -497,8 +527,14 @@ KERNELS = {
                     "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
     "segment_sum_cameras": ("thallo_tpu_torch/csrc/segsum.cu",
                             "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
-    "fused_pair_bf16": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+    "fused_pair_bf16": ("thallo_tpu_torch/csrc/fused_pair.cu",
                         "scripts/tpu_fused_pair_micro.py:31", "measurement"),
+    "fused_pair_bf16_atomics": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+                                "scripts/tpu_fused_pair_micro.py:31", "measurement"),
+    "fused_pair_apply_bf16": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                              "thallo_tpu/ops/fusedpair.py:349", "bf16 block-sparse"),
+    "fused_pair_apply_wloop_bf16": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
+                                    "thallo_tpu/ops/fusedpair.py:385", "skew bf16 block-sparse"),
     "fused_pair_v1_rows": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
                            "scripts/tpu_fused_variants.py:56", "measurement"),
     "fused_pair_v2_smem": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
@@ -529,6 +565,9 @@ def counters():
             "oh_setup_aggregate_atomics": ohsetup.oh_setup_aggregate_atomics,
             "segment_sum": segsum.segment_sum,
             "fused_pair_bf16": fusedpair.fused_pair_bf16,
+            "fused_pair_bf16_atomics": fusedpair.fused_pair_bf16_atomics,
+            "fused_pair_apply_bf16": fusedpair.fused_pair_apply_bf16,
+            "fused_pair_apply_wloop_bf16": fusedpair.fused_pair_apply_wloop_bf16,
             "fused_pair_v1_rows": fusedpair.fused_pair_v1_rows,
             "fused_pair_v2_smem": fusedpair.fused_pair_v2_smem,
             "fused_pair_v3_partials": fusedpair.fused_pair_v3_partials,
@@ -748,10 +787,30 @@ def never_rising(label, costs):
 
 
 def phase_ba_1m(ba, tt, scene):
+    """Returns the launches and the final cost."""
     costs, _, launches, _ = solve_1m(ba, tt, scene, "1M block-sparse", (
         "fused_pair_apply", "oh_setup_products", "fullrepeat_setup"))
     if not costs[-1] <= 1e-2 * costs[0]:
         raise AssertionError(f"final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
+    return launches, costs[-1]
+
+
+def phase_ba_1m_bf16(ba, tt, scene, f32_final):
+    """The uniform 1M solve under block_dtype="bf16": every cross block
+    through the bf16 persistent kernel, none through an f32 or atomics
+    fused pair."""
+    label = "1M block-sparse bf16"
+    costs, _, launches, _ = solve_1m(ba, tt, scene, label, (
+        "fused_pair_apply_bf16", "oh_setup_products", "fullrepeat_setup"), block_dtype="bf16")
+    stray = [n for n in ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
+                         "fused_pair_apply_wloop_chunked", "fused_pair_bf16_atomics")
+             if launches[n]]
+    if stray:
+        raise AssertionError(f"{label}: launched {stray}, not the bf16 persistent kernel")
+    never_rising(label, costs)
+    if not costs[-1] <= 1e-2 * costs[0]:
+        raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
+    log(f"{label}: final cost {costs[-1]!r} (f32 blocks, phase 4: {f32_final!r})")
     return launches
 
 
@@ -791,27 +850,41 @@ def phase_apply_separately_tiled(ba, tt, scene, ref):
     return launches
 
 
-def phase_skew_1m(ba, tt, scene):
-    """The skewed 1M solve: level tables after the residual sort."""
+# the bf16 instantiation of each kernel fused_pair_route names (the rest:
+# fused_pair_bf16_atomics)
+BF16_ROUTES = {"fused_pair_apply": "fused_pair_apply_bf16",
+               "fused_pair_apply_wloop": "fused_pair_apply_wloop_bf16"}
+
+
+def phase_skew_1m(ba, tt, scene, block_dtype=None, n_steps=N_STEPS_1M):
+    """The skewed 1M solve: level tables after the residual sort; under
+    block_dtype="bf16" each level through the bf16 kernel of its route
+    (no convergence gate in a few steps)."""
     from thallo_tpu_torch.solver import blocksparse
 
-    label = "1M skew block-sparse"
+    label = "1M skew block-sparse" + (" bf16" if block_dtype else "")
+    names = (("fused_pair_apply_bf16", "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics")
+             if block_dtype else ("fused_pair_apply", "fused_pair_apply_atomics",
+                                  "fused_pair_apply_wloop", "fused_pair_apply_wloop_chunked"))
     by_shape = {}
     with contextlib.ExitStack() as hooks:
-        for name in ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
-                     "fused_pair_apply_wloop_chunked"):
+        for name in names:
             by_shape[name] = hooks.enter_context(
                 tally(blocksparse, name, lambda ids, *a, **k: tuple(ids.shape)))
-        costs, _, launches, plan = solve_1m(ba, tt, scene, label, ("oh_setup_products",))
+        costs, _, launches, plan = solve_1m(ba, tt, scene, label, ("oh_setup_products",),
+                                            n_steps=n_steps, block_dtype=block_dtype)
     if "O" not in plan._residual_perms:
         raise AssertionError(f"{label}: the residual sort was not applied")
     routes = level_routes(plan._prep["consts"][0]["bsr"])
+    if block_dtype:
+        routes = {shape: BF16_ROUTES.get(name, "fused_pair_bf16_atomics")
+                  for shape, name in routes.items()}
     log(f"{label} point levels (W, N_t) -> kernel {routes}")
     missing = [(shape, name) for shape, name in routes.items() if by_shape[name][shape] <= 0]
     if missing:
         raise AssertionError(f"{label}: levels whose routed kernel never launched: {missing}")
     never_rising(label, costs)
-    if not costs[-1] <= 1e-2 * costs[0]:
+    if not block_dtype and not costs[-1] <= 1e-2 * costs[0]:
         raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
     log(f"{label} launches per level shape: " + ", ".join(
         f"(W {W}, N_t {N}) {name} {n}" for name, counts in by_shape.items()
@@ -923,7 +996,7 @@ def main():
 
     runs = {}
     t0 = time.perf_counter()
-    runs["block-sparse"] = phase_ba_1m(ba, tt, scene)
+    runs["block-sparse"], f32_final = phase_ba_1m(ba, tt, scene)
     torch.cuda.synchronize()
     log(f"phase 4 BA 1M LM solve, block-sparse JᵀJ: {time.perf_counter() - t0:.2f} s")
 
@@ -947,6 +1020,19 @@ def main():
     t0 = time.perf_counter()
     runs["measurement"] = phase_measurement_scripts()
     log(f"phase 8 measurement scripts: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    runs["bf16 block-sparse"] = phase_ba_1m_bf16(ba, tt, scene, f32_final)
+    torch.cuda.synchronize()
+    log(f"phase 9 BA 1M LM solve, block-sparse JᵀJ, block_dtype=bf16: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    runs["skew bf16 block-sparse"] = phase_skew_1m(ba, tt, skew_scene, block_dtype="bf16",
+                                                   n_steps=BF16_SKEW_STEPS)
+    torch.cuda.synchronize()
+    log(f"phase 10 skewed BA 1M LM solve, block_dtype=bf16, {BF16_SKEW_STEPS} steps: "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8)
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,

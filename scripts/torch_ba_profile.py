@@ -5,6 +5,7 @@ on the GPU.
                                         [--obs 4] [--out FILE]
                                         [--schedule precompute_j|apply_separately]
                                         [--segsum tiled] [--skew OBSERVATIONS]
+                                        [--block-dtype bf16]
 
 Builds the uniform BA scene (models/bundle_adjustment.synthetic_inputs,
 seed 0; with --skew, skewed_inputs with that target observation count:
@@ -14,7 +15,9 @@ or with --schedule the materialized-J schedule that the energy text's
 ``r.<name>.J.set_materialize(True)`` (precompute_j) or
 ``Jp.set_materialize(True)`` (apply_separately) selects; --segsum tiled
 sets THALLO_SEGSUM=tiled before init, so the scatters of those schedules
-run through the segment-sum kernel.  It runs two LM steps to warm up,
+run through the segment-sum kernel; --block-dtype bf16 plans with
+``block_dtype="bf16"`` (the cross blocks stored as bf16, read by the
+fused-pair kernels' bf16 instantiations).  It runs two LM steps to warm up,
 then measures a step two ways:
 
 * phases: solve_setup / linear_solve / finish_step called one at a time,
@@ -40,7 +43,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 SCHEDULES = {"precompute_j": "J", "apply_separately": "Jp"}
 
 
-def make_plan(n_cameras, n_points, obs, device, schedule=None, skew=None):
+def make_plan(n_cameras, n_points, obs, device, schedule=None, skew=None, block_dtype=None):
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
@@ -54,7 +57,8 @@ def make_plan(n_cameras, n_points, obs, device, schedule=None, skew=None):
     text = ba.ENERGY
     if schedule:
         text += f"\nr.snavely_reprojection_error.{SCHEDULES[schedule]}.set_materialize(True)\n"
-    plan = tt.load_energy(text).plan(dims, solver="levenberg_marquardt", device=device)
+    plan = tt.load_energy(text).plan(dims, solver="levenberg_marquardt", device=device,
+                                     block_dtype=block_dtype)
     plan.set_solver_parameter("nIterations", 1000)
     plan.init(inputs)
     return plan
@@ -122,6 +126,7 @@ def main():
     ap.add_argument("--out")
     ap.add_argument("--schedule", choices=sorted(SCHEDULES))
     ap.add_argument("--segsum", choices=["tiled"])
+    ap.add_argument("--block-dtype", choices=["bf16"])
     ap.add_argument("--skew", type=int, metavar="OBSERVATIONS",
                     help="the degree-skewed scene with this target observation count")
     args = ap.parse_args()
@@ -140,8 +145,10 @@ def main():
              else f"{args.obs} obs per point")
     say(f"device {torch.cuda.get_device_name(0)}; BA {args.cameras} cameras x "
         f"{args.points} points, {scene}; schedule "
-        f"{args.schedule or 'block-sparse JtJ'}; THALLO_SEGSUM={args.segsum or 'unset'}")
-    plan = make_plan(args.cameras, args.points, args.obs, "cuda", args.schedule, args.skew)
+        f"{args.schedule or 'block-sparse JtJ'}; THALLO_SEGSUM={args.segsum or 'unset'}; "
+        f"block_dtype={args.block_dtype}")
+    plan = make_plan(args.cameras, args.points, args.obs, "cuda", args.schedule, args.skew,
+                     args.block_dtype)
     for _ in range(2):
         plan.step()
     torch.cuda.synchronize()

@@ -45,6 +45,17 @@ Groups (all by default):
           shared-memory kernel, the first body (oh_setup_aggregate_atomics)
           and torch.zeros(...).index_add_.  --sweep: the shared-memory
           kernel over AGG_THREADS x AGG_BLOCKS_PER_SM and AGG_MERGE_MIN.
+  bf16    the fused pair on bf16 blocks (block_dtype="bf16") at the uniform
+          1M BA shape (W 4, N 250 000, random ids) and at the skewed 1M
+          scene's five real levels: the bf16 instantiation of the kernel
+          fused_pair_route names (the persistent one at BF16_ELEMS 1 and 2:
+          one bf16 or one bf16 pair per thread and block row, and without
+          its cols side, rows_floor_bf16; the W-loop one),
+          fused_pair_bf16_atomics (the first bf16 body), and the f32 route
+          kernel on the same values.  --sweep: the bf16 persistent kernel
+          over THREADS x BLOCKS_PER_SM (at most 512 threads: the
+          two-element form's bound) and MERGE_MIN, the bf16 W-loop kernel
+          over WLOOP_THREADS x WLOOP_BLOCKS_PER_SM.
 One JSON line per timing: ms per call over n calls eager and in one CUDA
 graph (CUDA events; a replayed graph finds everything below 50 MB warm
 in L2), and the error against the plain torch version.  Needs CUDA.
@@ -83,6 +94,9 @@ FR_RECIPE = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 6, 9, 0), ("diag", 0, 
 # (FULLREPEAT_TILE, FULLREPEAT_BLOCKS_PER_SM), then FULLREPEAT_THREADS
 FR_SWEEP = (((32, 4), (64, 2), (64, 3), (64, 4), (96, 2), (128, 1), (128, 2), (256, 1)),
             (128, 256))
+# (THREADS or WLOOP_THREADS, BLOCKS_PER_SM or WLOOP_BLOCKS_PER_SM) of the
+# bf16 kernels
+BF16_SWEEP = ((256, 2), (256, 4), (512, 1), (512, 2), (512, 3))
 # (AGG_THREADS, AGG_BLOCKS_PER_SM), then AGG_MERGE_MIN (33: never merge)
 AGG_SWEEP = (((256, 4), (512, 2), (512, 4), (1024, 1), (1024, 2)), (4, 8, 33))
 
@@ -340,8 +354,57 @@ def sweep_segsum(args, smi, out):
                  segsum.STAGED_MAX_SHARE) = kept
 
 
+def sweep_bf16(args, smi, out):
+    from thallo_tpu_torch.ops import fusedpair
+
+    rng = np.random.default_rng(6)
+    kw = dict(Ci=3, Cj=9, S=1024)
+    cases = [("ba_1m_pt_cam", random_ids(rng, 4, 250_000, kw["S"]))] + skew_tables(None)
+    for name, ids in cases:
+        W, N = ids.shape
+        ops = f32_operands(rng, ids, **kw)
+        ops = (ops[0], ops[1].bfloat16(), *ops[2:])
+        f32 = (ops[0], ops[1].float(), *ops[2:])
+        ref = fusedpair.fused_pair_apply_reference(*ops, **kw)
+        route = fusedpair.fused_pair_route(W, N, **kw)
+
+        def timed(kernel, fn, operands=ops, **extra):
+            err = max_rel_err(fn(*operands, **kw), ref)
+            eager, graph = per_launch_ms(lambda: fn(*operands, **kw), args.n)
+            emit({"name": name, "kernel": kernel, "W": W, "N": N, "eager_ms": eager,
+                  "graph_ms": graph, "rel_err": err, "card": smi, "route": route, **extra}, out)
+
+        bf16_fn = getattr(fusedpair, route + "_bf16")
+        persistent = route == "fused_pair_apply"
+        if persistent:
+            with kept(fusedpair, "BF16_ELEMS"):
+                for fusedpair.BF16_ELEMS in (1, 2):
+                    timed(route + "_bf16", bf16_fn, BF16_ELEMS=fusedpair.BF16_ELEMS,
+                          elems=fusedpair.bf16_elems(N))
+            rows = fusedpair.fused_pair_rows_floor
+            timed("rows_floor_bf16", lambda *a, **k: (rows(*a, **k), ref[1]),
+                  elems=fusedpair.bf16_elems(N))
+        else:
+            timed(route + "_bf16", bf16_fn)
+        timed("fused_pair_bf16_atomics", fusedpair.fused_pair_bf16_atomics)
+        timed(route + "_f32", getattr(fusedpair, route), f32)
+        if not args.sweep:
+            continue
+        names = (("THREADS", "BLOCKS_PER_SM") if persistent
+                 else ("WLOOP_THREADS", "WLOOP_BLOCKS_PER_SM"))
+        with kept(fusedpair, *names):
+            for threads, per_sm in BF16_SWEEP:
+                setattr(fusedpair, names[0], threads)
+                setattr(fusedpair, names[1], per_sm)
+                timed(route + "_bf16", bf16_fn, **{names[0]: threads, names[1]: per_sm})
+        if persistent:
+            with kept(fusedpair, "MERGE_MIN"):
+                for fusedpair.MERGE_MIN in PAIR_SWEEP[1]:
+                    timed(route + "_bf16", bf16_fn, MERGE_MIN=fusedpair.MERGE_MIN)
+
+
 GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum,
-          "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate}
+          "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate, "bf16": sweep_bf16}
 
 
 def main(argv=None):

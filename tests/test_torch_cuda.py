@@ -44,6 +44,17 @@ PAIR_SHAPES = FUSED_SHAPES + [(4, 1002, 64), (2, 1003, 64), (3, 5000, 3000), (3,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W,N,S", FUSED_SHAPES)
+def test_fused_pair_rows_floor_bf16_cuda_matches_plain(cuda, W, N, S):
+    """The bf16 persistent kernel without its cols side (a measurement)."""
+    args = _bf16_args(cuda, *fused_inputs(W, N, S))
+    rows = fusedpair.fused_pair_rows_floor(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    r_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)[0]
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fused_pair_apply_atomics", "fused_pair_rows_floor"])
 @pytest.mark.parametrize("W,N,S", PAIR_SHAPES)
 def test_fused_pair_other_kernels_cuda_match_plain(cuda, name, W, N, S):
@@ -283,12 +294,26 @@ def test_block_jacobi_step_makes_no_host_sync(cuda):
     compiled.nonlinear_step reads nothing back from the card (plan.step
     reads the stop flag after it).  A first step runs outside the mode: it
     uploads the kernels' recipe tables once."""
+    _step_makes_no_host_sync(cuda)
+
+
+@pytest.mark.cuda
+def test_bf16_step_makes_no_host_sync(cuda):
+    """The same under block_dtype="bf16": the bf16 cross blocks through the
+    bf16 W-loop kernel (the point level (4, 1400) is short), no host read."""
+    n0 = fusedpair.fused_pair_apply_wloop_bf16.launches
+    _step_makes_no_host_sync(cuda, block_dtype="bf16")
+    assert fusedpair.fused_pair_apply_wloop_bf16.launches > n0
+
+
+def _step_makes_no_host_sync(cuda, **options):
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
     ins, _ = ba.synthetic_inputs(n_cameras=16, n_points=1400, obs_per_point=4)
     dims = {"C": 16, "P": 1400, "O": len(ins["oToC"])}
-    plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=cuda)
+    plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=cuda,
+                                          **options)
     plan.init({k: np.copy(v) for k, v in ins.items()})
     plan.step()
     comp = plan.compiled
@@ -465,7 +490,8 @@ def test_fused_pair_wloop_duplicate_ids_cuda_match_plain(cuda, wloop_min_item, m
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fused_pair_bf16", "fused_pair_v1_rows",
-                                  "fused_pair_v2_smem", "fused_pair_v3_partials"])
+                                  "fused_pair_v2_smem", "fused_pair_v3_partials",
+                                  "fused_pair_bf16_atomics"])
 @pytest.mark.parametrize("W,N,S", FUSED_SHAPES)
 def test_fused_pair_bf16_cuda_matches_plain(cuda, name, W, N, S):
     ids, blocks, pcol, prow = fused_inputs(W, N, S)
@@ -493,6 +519,129 @@ def test_loop_floor_cuda_matches_plain(cuda, L):
     torch.cuda.synchronize()
     assert loopfloor.add_one.launches == n0 + 1
     assert torch.equal(out, loopfloor.add_one_reference(x))
+
+
+@pytest.mark.cuda
+def test_loop_floor_cuda_odd_length(cuda):
+    """L % 4 != 0 (7 tiles of 143): the kernel reads the [8, L] array as
+    8 * L floats, a multiple of 4, so every value lies in some float4; a
+    view that is not 16-byte aligned raises."""
+    L = 1001
+    x = torch.from_numpy(np.random.default_rng(6).normal(size=(8, L)).astype(np.float32)).to(cuda)
+    n0 = loopfloor.add_one.launches
+    out = loopfloor.add_one(x, tiles=7)
+    torch.cuda.synchronize()
+    assert loopfloor.add_one.launches == n0 + 1
+    assert torch.equal(out, loopfloor.add_one_reference(x))
+    shifted = torch.zeros(8 * L + 1, device=cuda)[1:].view(8, L)
+    with pytest.raises(ValueError, match="aligned"):
+        loopfloor.add_one(shifted)
+
+
+# ---------------------------------------------------------------------------
+# bf16 blocks: the bf16 instantiations of the persistent kernels
+# ---------------------------------------------------------------------------
+# (kernel, BF16_ELEMS): the persistent kernel at one and two elements a
+# thread (odd N takes one either way); the W-loop kernel has one a lane
+BF16_PAIR_FORMS = [("fused_pair_apply_bf16", 1), ("fused_pair_apply_bf16", 2),
+                   ("fused_pair_apply_wloop_bf16", 1)]
+
+
+@pytest.fixture
+def bf16_elems():
+    kept = (fusedpair.BF16_ELEMS, fusedpair.WLOOP_MIN_ITEM)
+    yield
+    fusedpair.BF16_ELEMS, fusedpair.WLOOP_MIN_ITEM = kept
+
+
+def _bf16_args(cuda, ids, blocks, pcol, prow):
+    """The operands on the card, blocks as bf16 (values rounded first, so
+    the plain version reads the same values)."""
+    return [torch.from_numpy(ids).to(cuda),
+            torch.from_numpy(bf16_round(blocks)).to(cuda).bfloat16(),
+            torch.from_numpy(pcol).to(cuda), torch.from_numpy(prow).to(cuda)]
+
+
+# ragged N, even (2 elements a thread) and odd (1); wide levels; a level
+# of one W-loop tile; out-of-range and negative ids (fused_inputs)
+BF16_SHAPES = FUSED_SHAPES + WLOOP_SHAPES[:2] + [(9, 1001, 1024), (100, 18, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,elems", BF16_PAIR_FORMS)
+@pytest.mark.parametrize("W,N,S", BF16_SHAPES)
+def test_fused_pair_bf16_instantiations_cuda_match_plain(cuda, bf16_elems, name, elems, W, N, S):
+    """Each bf16 persistent kernel, reached through the f32 wrappers'
+    dtype dispatch, against the plain version on the same bf16 values: f32
+    arithmetic on both sides, only the order of (atomic) sums differs."""
+    fusedpair.BF16_ELEMS = elems
+    args = _bf16_args(cuda, *fused_inputs(W, N, S))
+    fn = getattr(fusedpair, name)
+    entry = fusedpair.fused_pair_apply if name == "fused_pair_apply_bf16" \
+        else fusedpair.fused_pair_apply_wloop
+    n0 = fn.launches
+    rows, cols = entry(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_item", [1, 64])
+@pytest.mark.parametrize("W,N,S", WLOOP_SHAPES[:2] + [(100, 18, 64)])
+def test_fused_pair_wloop_bf16_forms_cuda_match_plain(cuda, bf16_elems, min_item, W, N, S):
+    """The bf16 W-loop kernel with its rows stored (items cover the whole
+    level) and added (w split)."""
+    fusedpair.WLOOP_MIN_ITEM = min_item
+    args = _bf16_args(cuda, *fused_inputs(W, N, S))
+    rows, cols = fusedpair.fused_pair_apply_wloop_bf16(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,elems", BF16_PAIR_FORMS)
+@pytest.mark.parametrize("share", [1.0, 0.5, 0.1])
+@pytest.mark.parametrize("W,N,S", [(4, 4096, 64), (24, 334, 300)])
+def test_fused_pair_bf16_duplicate_ids_cuda_match_plain(cuda, bf16_elems, name, elems, share, W,
+                                                        N, S):
+    """`share` of all entries on one id (a hot camera): rows to CUDA_TOL,
+    cols to the hot-camera sqrt(n) rule."""
+    fusedpair.BF16_ELEMS = elems
+    ids, blocks, pcol, prow = fused_inputs(W, N, S)
+    args = _bf16_args(cuda, hot_ids(ids, share), blocks, pcol, prow)
+    rows, cols = getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    close(rows.cpu(), fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)[0].cpu(),
+          CUDA_TOL)
+    _close_hot_cols(cols, args, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["fused_pair_apply", "fused_pair_apply_wloop"])
+@pytest.mark.parametrize("Ci,Cj,W,N,S", [(3, 9, 3, 600, 3200), (2, 5, 4, 1001, 300),
+                                         (3, 9, 24, 333, 3200)])
+def test_fused_pair_bf16_atomics_route_cuda_matches_plain(cuda, entry, Ci, Cj, W, N, S):
+    """bf16 shapes the persistent kernels do not take (a [9, S] accumulator
+    beyond PERSISTENT_MAX_SMEM, a pair other than 3 x 9) go to
+    fused_pair_bf16_atomics, from both entry points."""
+    rng = np.random.default_rng(8)
+    ids = rng.integers(-2, S + 3, (W, N)).astype(np.int32)
+    args = _bf16_args(cuda, ids, rng.normal(size=(W * Ci * Cj, N)).astype(np.float32),
+                      rng.normal(size=(Cj, S)).astype(np.float32),
+                      rng.normal(size=(Ci, N)).astype(np.float32))
+    assert not fusedpair.persistent_fits(Ci, Cj, S)
+    n0 = fusedpair.fused_pair_bf16_atomics.launches
+    rows, cols = getattr(fusedpair, entry)(*args, Ci=Ci, Cj=Cj, S=S)
+    torch.cuda.synchronize()
+    assert fusedpair.fused_pair_bf16_atomics.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
 
 
 @pytest.mark.cuda

@@ -245,6 +245,58 @@ def test_loop_floor_plain(L):
     np.testing.assert_array_equal(out.numpy(), x + np.float32(1))
 
 
+def test_loop_floor_plain_odd_length():
+    """L % 4 != 0, as 7 tiles of 143."""
+    x = np.random.default_rng(6).normal(size=(loopfloor.ROWS, 1001)).astype(np.float32)
+    out = loopfloor.add_one(torch.from_numpy(x), tiles=7)
+    np.testing.assert_array_equal(out.numpy(), x + np.float32(1))
+
+
+# ---------------------------------------------------------------------------
+# bf16 blocks on the solver's path (block_dtype="bf16"): the wrappers of
+# the bf16 persistent kernels and of the first bf16 body
+# ---------------------------------------------------------------------------
+BF16_PAIR_WRAPPERS = ["fused_pair_apply", "fused_pair_apply_wloop", "fused_pair_apply_bf16",
+                      "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics"]
+
+
+@pytest.mark.parametrize("name", BF16_PAIR_WRAPPERS)
+@pytest.mark.parametrize("W,N,S", FUSED_SHAPES + WLOOP_SHAPES[:2])
+def test_fused_pair_bf16_blocks_plain_matches_oracle(name, W, N, S):
+    """Each wrapper that takes bf16 blocks (the f32 entry points dispatch
+    them by dtype) on the CPU: the oracle on the same rounded values."""
+    ids, blocks, pcol, prow = _bf16_inputs(W, N, S)
+    rows, cols = getattr(fusedpair, name)(
+        torch.from_numpy(ids), torch.from_numpy(blocks).bfloat16(), torch.from_numpy(pcol),
+        torch.from_numpy(prow), Ci=CI, Cj=CJ, S=S)
+    r_ref, c_ref = fused_oracle(ids, blocks, pcol, prow, S)
+    close(rows, r_ref, ORACLE_TOL)
+    close(cols, c_ref, ORACLE_TOL)
+
+
+@pytest.mark.parametrize("W,N,S", FUSED_SHAPES + WLOOP_SHAPES[:2])
+def test_fused_pair_bf16_blocks_plain_matches_jax(W, N, S):
+    """Against JAX's fused_pair_apply on bf16 blocks in interpret mode
+    (its _kernel or _kernel_wloop, as its solver runs them under
+    block_dtype="bf16"), which also rounds pcol and z to bf16: JAX_BF16_TOL."""
+    ids, blocks, pcol, prow = _bf16_inputs(W, N, S)
+    rows, cols = fusedpair.fused_pair_apply(
+        torch.from_numpy(ids), torch.from_numpy(blocks).bfloat16(), torch.from_numpy(pcol),
+        torch.from_numpy(prow), Ci=CI, Cj=CJ, S=S)
+    jr, jc = jax_fused_pair(jnp.asarray(ids), jnp.asarray(blocks, jnp.bfloat16),
+                            jnp.asarray(pcol), jnp.asarray(prow), Ci=CI, Cj=CJ, S=S,
+                            interpret=True)
+    close(rows, jr, JAX_BF16_TOL)
+    close(cols, jc, JAX_BF16_TOL)
+
+
+def test_bf16_elems():
+    """Two elements a thread only where N is even (a bf16 pair is then
+    4-byte aligned in every block plane)."""
+    assert fusedpair.bf16_elems(250_000) == fusedpair.BF16_ELEMS
+    assert fusedpair.bf16_elems(70_845) == 1
+
+
 # ---------------------------------------------------------------------------
 # the materialized-J scatters: aggregation and the tiled segment sum
 # ---------------------------------------------------------------------------
@@ -672,7 +724,7 @@ def _launches():
             ohsetup.oh_setup_products_atomics.launches,
             fullrepeat.fullrepeat_setup_thread.launches,
             ohsetup.oh_setup_aggregate_atomics.launches,
-            *(getattr(fusedpair, name).launches for name in BF16_KERNELS))
+            *(getattr(fusedpair, name).launches for name in BF16_KERNELS + BF16_PAIR_WRAPPERS))
 
 
 def test_cpu_tensors_launch_no_kernel():
@@ -688,6 +740,8 @@ def test_cpu_tensors_launch_no_kernel():
     for name in BF16_KERNELS:
         test_fused_pair_bf16_plain_matches_oracle(name, *FUSED_SHAPES[0])
     test_loop_floor_plain(1024)
+    for name in BF16_PAIR_WRAPPERS:
+        test_fused_pair_bf16_blocks_plain_matches_oracle(name, *FUSED_SHAPES[0])
     for name in ("fused_pair_apply_atomics", "fused_pair_rows_floor"):
         test_fused_pair_other_wrappers_plain_match_oracle(name, *FUSED_SHAPES[0])
     test_segsum_compact_sum_matches_plain_and_jax(*SEG_MAPS[0])

@@ -7,20 +7,26 @@
 //
 // Blocks are w-major [W, Ci*Cj, N] with N innermost; entries with an id
 // outside [0, S) contribute nothing.  The bound is the block read
-// (W*Ci*Cj*N*4 bytes); what costs beyond it is the cols side, W*N*Cj
-// scattered additions, half of them onto one camera's Cj addresses on a
-// degree-skewed scene.  Two kernels:
+// (W*Ci*Cj*N*4 bytes, 2 in bf16); what costs beyond it is the cols side,
+// W*N*Cj scattered additions, half of them onto one camera's Cj addresses
+// on a degree-skewed scene.  Two kernels:
 //
-// fused_pair_persistent_kernel<Ci, Cj, kCols>  (thallo_fused_pair_persistent)
+// fused_pair_persistent_kernel<T, Ci, Cj, kElems, kCols>
+//     (thallo_fused_pair_persistent: T float; thallo_fused_pair_persistent_bf16:
+//     T __nv_bfloat16, the bf16 block storage of the solver's block_dtype)
 //   Specialised on the pair's channel counts (3 x 9, the point-camera
 //   pair of bundle adjustment), so the Ci*Cj products are unrolled with
 //   no guard and a thread keeps ~44 registers: many warps stay resident
 //   to cover the shared atomics.  A fixed grid of blocks (a few per SM)
-//   strides over tiles of one element per thread, neighbouring threads on
-//   neighbouring elements of each block plane.  (Two or four neighbouring
-//   elements per thread with 8- or 16-byte loads were measured on the
-//   H100: the rows side alone gained up to 20%, the whole kernel lost
-//   30-55% to the registers and the serial merges, so one it is.)  The cols
+//   strides over tiles of kElems elements per thread, neighbouring threads
+//   on neighbouring elements of each block plane.  In f32 kElems is 1:
+//   two or four neighbouring elements per thread with 8- or 16-byte loads
+//   were measured on the H100, the rows side alone gained up to 20%, the
+//   whole kernel lost 30-55% to the registers and the serial merges.  In
+//   bf16 one element a lane is a 64-byte warp load; kElems = 2 (an even N
+//   only: the planes start 4-byte aligned) reads a __nv_bfloat162, 128
+//   bytes a warp (pair_slot, fused_pair_slot.cuh).  Block values widen to
+//   f32 on load; every other operand and all arithmetic is f32.  The cols
 //   side goes to a [Cj, S] f32 accumulator in dynamic shared memory,
 //   zeroed once per block and flushed once with one global atomic per
 //   nonzero entry.  Before the shared atomics a warp merges equal ids:
@@ -38,13 +44,16 @@
 //   memory, another pair).
 //
 // add_cols (the warp merge) lives in block_accum.cuh, shared with the
-// W-loop kernel and oh_setup.cu.  The caller zeroes cols; the kernels
-// allocate nothing.
+// W-loop kernel and oh_aggregate.cu; pair_slot (one slot's loads and
+// products) in fused_pair_slot.cuh, shared with the W-loop kernel.  The
+// caller zeroes cols; the kernels allocate nothing.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "block_accum.cuh"  // add_cols
+#include "block_accum.cuh"      // add_cols
+#include "fused_pair_slot.cuh"  // pair_slot
 
 namespace {
 
@@ -110,9 +119,9 @@ __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
   }
 }
 
-template <int kCi, int kCj, bool kCols>
-__global__ void __launch_bounds__(kMaxThreads)
-    fused_pair_persistent_kernel(const int* __restrict__ ids, const float* __restrict__ blocks,
+template <typename T, int kCi, int kCj, int kElems, bool kCols>
+__global__ void __launch_bounds__(kMaxThreads / kElems)
+    fused_pair_persistent_kernel(const int* __restrict__ ids, const T* __restrict__ blocks,
                                  const float* __restrict__ pcol,
                                  const float* __restrict__ prow, float* __restrict__ rows,
                                  float* __restrict__ cols, int W, int N, int S, int n_tiles,
@@ -123,49 +132,42 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_cols[i] = 0.f;
     __syncthreads();
   }
-  constexpr int kF = kCi * kCj;
   const size_t Nz = static_cast<size_t>(N);
   const int lane = threadIdx.x & 31;
 
   // the trip counts of both loops are the same for every lane of a warp,
   // so all 32 lanes reach add_cols's warp primitives together
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int n = tile * blockDim.x + threadIdx.x;
-    const bool live = n < N;
-    float pr[kCi];
-    float acc[kCi];
+    const int n0 = (tile * blockDim.x + threadIdx.x) * kElems;
+    const bool live = n0 < N;  // kElems = 2 only for an even N: both or neither
+    float pr[kElems][kCi];
+    float acc[kElems][kCi];
 #pragma unroll
-    for (int ci = 0; ci < kCi; ++ci) {
-      pr[ci] = live ? __ldg(prow + ci * Nz + n) : 0.f;
-      acc[ci] = 0.f;
+    for (int e = 0; e < kElems; ++e) {
+#pragma unroll
+      for (int ci = 0; ci < kCi; ++ci) {
+        pr[e][ci] = live ? __ldg(prow + ci * Nz + n0 + e) : 0.f;
+        acc[e][ci] = 0.f;
+      }
     }
     for (int w = 0; w < W; ++w) {
-      const int id = live ? __ldg(ids + static_cast<size_t>(w) * Nz + n) : -1;
-      const bool ok = static_cast<unsigned>(id) < static_cast<unsigned>(S);
-      float z[kCj];
+      float z[kElems][kCj];
+      int id[kElems];
+      bool ok[kElems];
+      pair_slot<T, kCi, kCj, kElems, kCols>(ids, blocks, pcol, S, Nz, w, n0, live, pr, acc, z,
+                                            id, ok);
+      if (kCols) {
 #pragma unroll
-      for (int cj = 0; cj < kCj; ++cj) z[cj] = 0.f;
-      if (ok) {  // padded / out-of-range entries read no block
-        float pc[kCj];
-#pragma unroll
-        for (int cj = 0; cj < kCj; ++cj) pc[cj] = __ldg(pcol + static_cast<size_t>(cj) * S + id);
-        const float* b = blocks + static_cast<size_t>(w) * kF * Nz + n;
-#pragma unroll
-        for (int ci = 0; ci < kCi; ++ci) {
-#pragma unroll
-          for (int cj = 0; cj < kCj; ++cj) {
-            // read once: streamed past the caches that hold pcol and ids
-            const float bv = __ldcs(b + static_cast<size_t>(ci * kCj + cj) * Nz);
-            acc[ci] = fmaf(bv, pc[cj], acc[ci]);
-            if (kCols) z[cj] = fmaf(bv, pr[ci], z[cj]);
-          }
-        }
+        for (int e = 0; e < kElems; ++e) add_cols<kCj>(acc_cols, S, id[e], ok[e], z[e], lane,
+                                                       merge_min);
       }
-      if (kCols) add_cols<kCj>(acc_cols, S, id, ok, z, lane, merge_min);
     }
     if (live) {
 #pragma unroll
-      for (int ci = 0; ci < kCi; ++ci) rows[ci * Nz + n] = acc[ci];
+      for (int e = 0; e < kElems; ++e) {
+#pragma unroll
+        for (int ci = 0; ci < kCi; ++ci) rows[ci * Nz + n0 + e] = acc[e][ci];
+      }
     }
   }
 
@@ -178,46 +180,77 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <bool kCols>
+template <typename T, int kElems, bool kCols>
 cudaError_t launch_persistent(const void* ids, const void* blocks, const void* pcol,
                               const void* prow, void* rows, void* cols, int W, int N, int S,
                               int threads, int grid, int merge_min, cudaStream_t stream) {
-  auto kernel = fused_pair_persistent_kernel<3, 9, kCols>;
+  auto kernel = fused_pair_persistent_kernel<T, 3, 9, kElems, kCols>;
   const size_t smem = kCols ? static_cast<size_t>(9) * S * sizeof(float) : 0;
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
   }
-  const int n_tiles = (N + threads - 1) / threads;
+  const int per_tile = threads * kElems;
+  const int n_tiles = (N + per_tile - 1) / per_tile;
   kernel<<<grid < n_tiles ? grid : n_tiles, threads, smem, stream>>>(
-      static_cast<const int*>(ids), static_cast<const float*>(blocks),
+      static_cast<const int*>(ids), static_cast<const T*>(blocks),
       static_cast<const float*>(pcol), static_cast<const float*>(prow),
       static_cast<float*>(rows), static_cast<float*>(cols), W, N, S, n_tiles, merge_min);
   return cudaGetLastError();
 }
 
+bool persistent_args_ok(int Ci, int Cj, int S, int threads, int grid, int merge_min,
+                        int max_threads) {
+  return Ci == 3 && Cj == 9 && S >= 1 && grid >= 1 && merge_min >= 2 && threads >= 32 &&
+         threads <= max_threads && threads % 32 == 0 &&
+         static_cast<size_t>(Cj) * S * sizeof(float) <= kMaxSmem;
+}
+
 }  // namespace
 
-// The persistent kernel for the specialised pairs (3 x 9).  threads: per
-// block, a multiple of 32; grid: blocks to launch at most (fewer when the
-// elements make fewer tiles); cols null: rows only.
+// The persistent kernel for the specialised pairs (3 x 9), f32 blocks.
+// threads: per block, a multiple of 32; grid: blocks to launch at most
+// (fewer when the elements make fewer tiles); cols null: rows only.
 extern "C" int thallo_fused_pair_persistent(const void* ids, const void* blocks,
                                             const void* pcol, const void* prow, void* rows,
                                             void* cols, int W, int N, int Ci, int Cj, int S,
                                             int threads, int grid, int merge_min,
                                             void* stream) {
-  if (Ci != 3 || Cj != 9 || S < 1 || grid < 1 || merge_min < 2 || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 ||
-      static_cast<size_t>(Cj) * S * sizeof(float) > kMaxSmem) {
+  if (!persistent_args_ok(Ci, Cj, S, threads, grid, merge_min, kMaxThreads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      cols != nullptr ? launch_persistent<true>(ids, blocks, pcol, prow, rows, cols, W, N, S,
-                                                threads, grid, merge_min, s)
-                      : launch_persistent<false>(ids, blocks, pcol, prow, rows, cols, W, N, S,
-                                                 threads, grid, merge_min, s);
+      cols != nullptr
+          ? launch_persistent<float, 1, true>(ids, blocks, pcol, prow, rows, cols, W, N, S,
+                                              threads, grid, merge_min, s)
+          : launch_persistent<float, 1, false>(ids, blocks, pcol, prow, rows, cols, W, N, S,
+                                               threads, grid, merge_min, s);
+  return static_cast<int>(err);
+}
+
+// The same for bf16 blocks: elems (1, or 2 for an even N) neighbouring
+// elements per thread, read as one bf16 or one __nv_bfloat162 per block
+// row; at most kMaxThreads / elems threads.
+extern "C" int thallo_fused_pair_persistent_bf16(const void* ids, const void* blocks,
+                                                 const void* pcol, const void* prow, void* rows,
+                                                 void* cols, int W, int N, int Ci, int Cj,
+                                                 int S, int threads, int grid, int merge_min,
+                                                 int elems, void* stream) {
+  if ((elems != 1 && elems != 2) || (elems == 2 && N % 2 != 0) ||
+      !persistent_args_ok(Ci, Cj, S, threads, grid, merge_min, kMaxThreads / elems)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (N <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  const bool c = cols != nullptr;
+  using bf16 = __nv_bfloat16;
+  const cudaError_t err =
+      elems == 2 ? (c ? launch_persistent<bf16, 2, true> : launch_persistent<bf16, 2, false>)(
+                       ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, merge_min, s)
+                 : (c ? launch_persistent<bf16, 1, true> : launch_persistent<bf16, 1, false>)(
+                       ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, merge_min, s);
   return static_cast<int>(err);
 }
 

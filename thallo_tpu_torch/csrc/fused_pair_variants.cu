@@ -1,12 +1,16 @@
 // The fused cross pair with bf16 block storage, in four forms of its cols
-// output (replaces the Pallas kernels of scripts/tpu_fused_pair_micro.py,
-// `fused_pair_kernel`, and scripts/tpu_fused_variants.py, make_v1/v2/v3).
+// output: mode 0 is the first bf16 body of the pair (fused_pair_bf16_atomics:
+// the bf16 shapes the persistent kernels of fused_pair.cu and
+// fused_pair_wloop.cu do not take, and the first port of
+// scripts/tpu_fused_pair_micro.py's `fused_pair_kernel`, whose pair now runs
+// the bf16 persistent kernel); modes 1-3 replace the Pallas kernels of
+// scripts/tpu_fused_variants.py, make_v1/v2/v3.
 // The contract is that of csrc/fused_pair.cu (thallo_tpu_torch/ops/
 // fusedpair.py), with blocks read as bf16 and every other value, and all
 // arithmetic, in f32 (the JAX scripts' bf16 rounding of pcol and z fed the
 // TPU's matrix unit and is not carried over):
 //
-//   kMode 0 (micro)     both outputs; cols by one global atomic per value
+//   kMode 0 (atomics)   both outputs; cols by one global atomic per value
 //   kMode 1 (v1)        rows only
 //   kMode 2 (v2)        cols summed in a shared [Cj, S] accumulator per
 //                       block, then one global atomic per nonzero entry

@@ -11,11 +11,16 @@
 // would run 11 warps, each looping 716 times.  The bound is the block
 // read, W*Ci*Cj*N*4 bytes.  Two kernels:
 //
-// wloop_persistent_kernel  (thallo_fused_pair_wloop_persistent)
+// wloop_persistent_kernel<T>  (thallo_fused_pair_wloop_persistent: T
+//     float; thallo_fused_pair_wloop_persistent_bf16: T __nv_bfloat16)
 //   Specialised on 3 x 9.  The work is cut into items of (32-element
 //   tile, range of w_item w's); a warp takes one item at a time, lane =
-//   element, so each load of a w-plane is 32 neighbouring floats, read
-//   once with __ldcs past the caches that hold pcol and ids.  A fixed grid
+//   element, so each load of a w-plane is 32 neighbouring values (128 bytes
+//   in f32, 64 in bf16), read once with __ldcs past the caches that hold
+//   pcol and ids (pair_slot, fused_pair_slot.cuh, as in fused_pair.cu);
+//   arithmetic is f32.  (Two bf16 elements a lane, as the bf16 persistent
+//   kernel reads them, halve the items: 8% slower at (96, 2054), the one
+//   even wide level of the skewed 1M scene, H100.)  A fixed grid
 //   (a few blocks per SM) strides over the items, so a block zeroes and
 //   flushes its [9, S] shared cols accumulator once, not once per tile.
 //   Before the shared atomics a warp merges equal ids (add_cols,
@@ -40,12 +45,14 @@
 //   [9, S] accumulators beyond kMaxPersistentSmem.
 //
 // The caller zeroes what the kernels add to; they allocate nothing.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstddef>
 
-#include "block_accum.cuh"  // add_cols
+#include "block_accum.cuh"      // add_cols
+#include "fused_pair_slot.cuh"  // pair_slot
 
 namespace {
 
@@ -139,12 +146,13 @@ __global__ void fused_pair_wloop_kernel(const int* __restrict__ ids,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-    wloop_persistent_kernel(const int* __restrict__ ids, const float* __restrict__ blocks,
+    wloop_persistent_kernel(const int* __restrict__ ids, const T* __restrict__ blocks,
                             const float* __restrict__ pcol, const float* __restrict__ prow,
                             float* __restrict__ rows, float* __restrict__ cols, int W, int N,
                             int S, int w_item, int n_items, int merge_min) {
-  constexpr int kCi = 3, kCj = 9, kF = kCi * kCj;
+  constexpr int kCi = 3, kCj = 9;
   extern __shared__ float acc_cols[];  // [kCj, S]
   const int n_acc = kCj * S;
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_cols[i] = 0.f;
@@ -163,43 +171,28 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int w1 = min(W, w0 + w_item);
     const int n = tile * 32 + lane;
     const bool live = n < N;
-    float pr[kCi];
-    float acc[kCi];
+    // pair_slot's one-element form: the lane's element is entry [0]
+    float pr[1][kCi];
+    float acc[1][kCi];
 #pragma unroll
     for (int ci = 0; ci < kCi; ++ci) {
-      pr[ci] = live ? __ldg(prow + ci * Nz + n) : 0.f;
-      acc[ci] = 0.f;
+      pr[0][ci] = live ? __ldg(prow + ci * Nz + n) : 0.f;
+      acc[0][ci] = 0.f;
     }
     for (int w = w0; w < w1; ++w) {
-      const int id = live ? __ldg(ids + static_cast<size_t>(w) * Nz + n) : -1;
-      const bool ok = static_cast<unsigned>(id) < static_cast<unsigned>(S);
-      float z[kCj];
-#pragma unroll
-      for (int cj = 0; cj < kCj; ++cj) z[cj] = 0.f;
-      if (ok) {  // padded / out-of-range entries read no block
-        float pc[kCj];
-#pragma unroll
-        for (int cj = 0; cj < kCj; ++cj) pc[cj] = __ldg(pcol + static_cast<size_t>(cj) * S + id);
-        const float* b = blocks + static_cast<size_t>(w) * kF * Nz + n;
-#pragma unroll
-        for (int ci = 0; ci < kCi; ++ci) {
-#pragma unroll
-          for (int cj = 0; cj < kCj; ++cj) {
-            const float bv = __ldcs(b + static_cast<size_t>(ci * kCj + cj) * Nz);
-            acc[ci] = fmaf(bv, pc[cj], acc[ci]);
-            z[cj] = fmaf(bv, pr[ci], z[cj]);
-          }
-        }
-      }
-      add_cols<kCj>(acc_cols, S, id, ok, z, lane, merge_min);
+      float z[1][kCj];
+      int id[1];
+      bool ok[1];
+      pair_slot<T, kCi, kCj, 1, true>(ids, blocks, pcol, S, Nz, w, n, live, pr, acc, z, id, ok);
+      add_cols<kCj>(acc_cols, S, id[0], ok[0], z[0], lane, merge_min);
     }
     if (live) {
 #pragma unroll
       for (int ci = 0; ci < kCi; ++ci) {
         if (w_item >= W) {
-          rows[ci * Nz + n] = acc[ci];
+          rows[ci * Nz + n] = acc[0][ci];
         } else {
-          atomicAdd(rows + ci * Nz + n, acc[ci]);
+          atomicAdd(rows + ci * Nz + n, acc[0][ci]);
         }
       }
     }
@@ -212,33 +205,66 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+template <typename T>
+cudaError_t launch_wloop_persistent(const void* ids, const void* blocks, const void* pcol,
+                                    const void* prow, void* rows, void* cols, int W, int N,
+                                    int S, int threads, int grid, int w_item, int merge_min,
+                                    cudaStream_t stream) {
+  auto kernel = wloop_persistent_kernel<T>;
+  const size_t smem = static_cast<size_t>(9) * S * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  const int n_items = ((N + 31) / 32) * ((W + w_item - 1) / w_item);
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const int*>(ids), static_cast<const T*>(blocks),
+      static_cast<const float*>(pcol), static_cast<const float*>(prow),
+      static_cast<float*>(rows), static_cast<float*>(cols), W, N, S, w_item, n_items, merge_min);
+  return cudaGetLastError();
+}
+
+bool wloop_persistent_args_ok(int W, int N, int Ci, int Cj, int S, int threads, int grid,
+                              int w_item, int merge_min, int max_threads) {
+  return Ci == 3 && Cj == 9 && S >= 1 && W >= 0 && N >= 0 && grid >= 1 && w_item >= 1 &&
+         merge_min >= 2 && threads >= 32 && threads <= max_threads && threads % 32 == 0 &&
+         static_cast<size_t>(Cj) * S * sizeof(float) <= kMaxPersistentSmem;
+}
+
 }  // namespace
 
-// The persistent W-loop kernel for 3 x 9.  threads: per block, a multiple
-// of 32; grid: the blocks to launch; w_item: w's per work item (>= W: rows
-// are stored, else added to rows, zeroed by the caller); cols zeroed by
-// the caller.
+// The persistent W-loop kernel for 3 x 9, f32 blocks.  threads: per
+// block, a multiple of 32; grid: the blocks to launch; w_item: w's per work
+// item (>= W: rows are stored, else added to rows, zeroed by the caller);
+// cols zeroed by the caller.
 extern "C" int thallo_fused_pair_wloop_persistent(const void* ids, const void* blocks,
                                                   const void* pcol, const void* prow, void* rows,
                                                   void* cols, int W, int N, int Ci, int Cj, int S,
                                                   int threads, int grid, int w_item,
                                                   int merge_min, void* stream) {
-  if (Ci != 3 || Cj != 9 || S < 1 || W < 0 || N < 0 || grid < 1 || w_item < 1 ||
-      merge_min < 2 || threads < 32 || threads > kMaxThreads || threads % 32 != 0 ||
-      static_cast<size_t>(Cj) * S * sizeof(float) > kMaxPersistentSmem) {
+  if (!wloop_persistent_args_ok(W, N, Ci, Cj, S, threads, grid, w_item, merge_min,
+                                kMaxThreads)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = static_cast<size_t>(Cj) * S * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(wloop_persistent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+  return static_cast<int>(launch_wloop_persistent<float>(
+      ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, w_item, merge_min,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The same for bf16 blocks.
+extern "C" int thallo_fused_pair_wloop_persistent_bf16(const void* ids, const void* blocks,
+                                                       const void* pcol, const void* prow,
+                                                       void* rows, void* cols, int W, int N,
+                                                       int Ci, int Cj, int S, int threads,
+                                                       int grid, int w_item, int merge_min,
+                                                       void* stream) {
+  if (!wloop_persistent_args_ok(W, N, Ci, Cj, S, threads, grid, w_item, merge_min,
+                                kMaxThreads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int n_items = ((N + 31) / 32) * ((W + w_item - 1) / w_item);
-  wloop_persistent_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ids), static_cast<const float*>(blocks),
-      static_cast<const float*>(pcol), static_cast<const float*>(prow),
-      static_cast<float*>(rows), static_cast<float*>(cols), W, N, S, w_item, n_items, merge_min);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_wloop_persistent<__nv_bfloat16>(
+      ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, w_item, merge_min,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int thallo_fused_pair_wloop(const void* ids, const void* blocks,

@@ -1,36 +1,45 @@
 // Launch-floor probe: o = x + 1 over an [8, L] f32 array (replaces the
 // Pallas kernel of scripts/tpu_loop_floor.py, `trivial_kernel` in its one-
-// tile and 64-tile forms).  Block b owns columns [b*L/tiles, (b+1)*L/tiles)
-// of all 8 rows, the TPU form's (8, L/tiles) tile; its threads walk the
-// tile with neighbouring threads on neighbouring columns.  The kernel moves
-// 2 * 8 * L * 4 bytes (64 KB for [8, 1024]): what it measures is the cost
-// of a launch.  The kernel allocates nothing.
+// tile and 64-tile forms).  The kernel moves 2 * 8 * L * 4 bytes (64 KB
+// for [8, 1024]): what it measures is the cost of a launch, so what it
+// must not add is latency of its own.  The array is read as one flat run
+// of 8 * L floats, a multiple of 4 whatever L is, so each thread loads
+// and stores one float4 (16 bytes, neighbouring threads on neighbouring
+// addresses) and there is no tail; the grid is ceil(2 * L / kThreads)
+// blocks, and no thread divides by a runtime value.  (Its first body gave
+// each TPU tile one block of 256 threads that walked the tile in a loop,
+// a runtime / and % per element, each load waiting on the one before.)
+// The wrapper checks that x and o are 16-byte aligned; the kernel
+// allocates nothing.
 #include <cuda_runtime.h>
-
-#include <cstddef>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRows = 8;
 
-__global__ void add_one_kernel(const float* __restrict__ x, float* __restrict__ o, int L,
-                               int tile) {
-  const size_t col0 = static_cast<size_t>(blockIdx.x) * tile;
-  for (int i = threadIdx.x; i < kRows * tile; i += kThreads) {
-    const size_t at = static_cast<size_t>(i / tile) * L + col0 + i % tile;
-    o[at] = x[at] + 1.f;
+__global__ void add_one_kernel(const float4* __restrict__ x, float4* __restrict__ o, int n4) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n4) {
+    float4 v = __ldg(x + i);
+    v.x += 1.f;
+    v.y += 1.f;
+    v.z += 1.f;
+    v.w += 1.f;
+    o[i] = v;
   }
 }
 
 }  // namespace
 
-extern "C" int thallo_loop_floor_add_one(const void* x, void* o, int L, int tiles,
-                                         void* stream) {
-  if (tiles < 1 || L % tiles != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (L > 0) {
-    add_one_kernel<<<tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<float*>(o), L, L / tiles);
+// x, o: [8, L] f32, contiguous, 16-byte aligned
+extern "C" int thallo_loop_floor_add_one(const void* x, void* o, int L, void* stream) {
+  if (L < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n4 = kRows * L / 4;
+  if (n4 > 0) {
+    add_one_kernel<<<(n4 + kThreads - 1) / kThreads, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(static_cast<const float4*>(x),
+                                                          static_cast<float4*>(o), n4);
   }
   return static_cast<int>(cudaGetLastError());
 }

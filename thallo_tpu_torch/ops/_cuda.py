@@ -39,6 +39,7 @@ P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # exported symbol -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "thallo_fused_pair_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
+    "thallo_fused_pair_persistent_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_atomics": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_oh_setup_products": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup_thread": (P, P, P, P, P, I, I, I, I, P),
@@ -49,9 +50,10 @@ SIGNATURES = {
     "thallo_segment_sum_staged": (P, L, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_wloop": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_wloop_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    "thallo_fused_pair_wloop_persistent_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_oh_setup_products_persistent": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, P),
-    "thallo_loop_floor_add_one": (P, P, I, I, P),
+    "thallo_loop_floor_add_one": (P, P, I, P),
 }
 
 _lib = None

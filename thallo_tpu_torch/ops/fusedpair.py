@@ -45,19 +45,30 @@ solver takes (``solver/blocksparse.py``), from its shape alone.
 compiled out: the time below which no design of the cols side can bring
 ``fused_pair_apply`` (``chip_smoke.py`` times it; no solver path runs it).
 Unlike the TPU kernel there is no one-hot, no id decomposition and no
-bf16 rounding: values stay f32.  Atomics make the cols sums' order vary
-from run to run.
+bf16 rounding of pcol or z: all arithmetic is f32.  Atomics make the
+cols sums' order vary from run to run.
+
+**bf16 blocks** (the solver's ``block_dtype="bf16"``, JAX's bf16 block
+storage): ``fused_pair_apply`` and ``fused_pair_apply_wloop`` take
+``blocks_wm`` in f32 or bf16 and hand bf16 to ``fused_pair_apply_bf16``
+and ``fused_pair_apply_wloop_bf16``, the bf16 instantiations of the two
+persistent kernels (block values widened to f32 on load, every other
+operand f32; the persistent one takes ``BF16_ELEMS`` neighbouring
+elements per thread where N is even, read as one ``__nv_bfloat162``).  Shapes those do not take go to
+``fused_pair_bf16_atomics`` (``csrc/fused_pair_variants.cu`` mode 0, one
+thread per element, cols by global atomics: the first bf16 body).
 
 The measurement scripts' kernels (``scripts/tpu_fused_pair_micro.py``,
-``scripts/tpu_fused_variants.py``) are the same pair with bf16 block
-storage (``csrc/fused_pair_variants.cu``): ``fused_pair_bf16`` (both
-outputs, global atomics for cols), ``fused_pair_v1_rows`` (rows only),
-``fused_pair_v2_smem`` (cols in a shared accumulator per block, one global
-atomic per nonzero entry) and ``fused_pair_v3_partials`` (per-block cols
-slabs [G, Cj, S], summed outside the kernel).  Their plain version is
-``fused_pair_apply_reference``, which reads the blocks as f32.
-``scripts/torch_fused_pair_micro.py`` and ``scripts/torch_fused_variants.py``
-time them; no solver path runs them.
+``scripts/tpu_fused_variants.py``) are the same pair on bf16 blocks:
+``fused_pair_bf16`` (the micro's pair: the bf16 persistent kernel, counted
+on its own), and in ``csrc/fused_pair_variants.cu`` ``fused_pair_v1_rows``
+(rows only), ``fused_pair_v2_smem`` (cols in a shared accumulator per
+block, one global atomic per nonzero entry) and ``fused_pair_v3_partials``
+(per-block cols slabs [G, Cj, S], summed outside the kernel).  The plain
+version of every kernel here is ``fused_pair_apply_reference``, which
+reads bf16 blocks as f32.  ``scripts/torch_fused_pair_micro.py`` and
+``scripts/torch_fused_variants.py`` time the scripts' kernels; no solver
+path runs them.
 """
 from __future__ import annotations
 
@@ -91,6 +102,19 @@ WLOOP_MIN_ITEM = 2
 # and every W >= 24; one thread per element leaves a short level's SMs idle)
 WLOOP_MIN_W = 9
 PERSISTENT_MIN_N = 32768
+# bf16 blocks: neighbouring elements per thread of the persistent kernel
+# where N is even (odd N: 1); 2 reads one __nv_bfloat162 per block row, 4
+# bytes a lane (H100 sweep, scripts/torch_redesign_sweep.py --only bf16:
+# 9% ahead of 1 at (4, 250000), 5% at (2, 250000); the W-loop kernel keeps
+# one element a lane, csrc/fused_pair_wloop.cu)
+BF16_ELEMS = 2
+
+
+def bf16_elems(N: int) -> int:
+    """Elements per thread of the bf16 persistent kernels at N elements:
+    BF16_ELEMS where N is even (a bf16 pair starts 4-byte aligned in every
+    block plane), else 1."""
+    return BF16_ELEMS if N % 2 == 0 else 1
 
 
 def fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
@@ -147,9 +171,10 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int) -> str:
     return "fused_pair_apply_atomics"
 
 
-def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols):
+def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols,
+                       block_dtype=torch.float32):
     what = fn.__name__
-    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, torch.float32)
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype)
     if not persistent_fits(Ci, Cj, S):
         raise ValueError(f"{what}: no persistent kernel for Ci={Ci}, Cj={Cj}, S={S}")
     dev = ids2d.device
@@ -158,36 +183,58 @@ def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols):
     # blocks resident on an SM: BLOCKS_PER_SM, fewer where the accumulator
     # leaves no room for as many
     per_sm = _cuda.blocks_per_sm(Cj * S * 4 if with_cols else 0, BLOCKS_PER_SM)
-    code = _cuda.lib().thallo_fused_pair_persistent(
-        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(), rows.data_ptr(),
-        cols.data_ptr() if with_cols else None, W, N, Ci, Cj, S, THREADS,
-        per_sm * _cuda.sm_count(dev), MERGE_MIN, _cuda.stream(ids2d))
+    args = (ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
+            rows.data_ptr(), cols.data_ptr() if with_cols else None, W, N, Ci, Cj, S, THREADS,
+            per_sm * _cuda.sm_count(dev), MERGE_MIN)
+    if block_dtype == torch.bfloat16:
+        code = _cuda.lib().thallo_fused_pair_persistent_bf16(*args, bf16_elems(N),
+                                                             _cuda.stream(ids2d))
+    else:
+        code = _cuda.lib().thallo_fused_pair_persistent(*args, _cuda.stream(ids2d))
     _cuda.check(code, what)
     fn.launches += 1
     return rows, cols
 
 
 def fused_pair_apply(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """ids2d [W, N] int32; blocks_wm [W*Ci*Cj, N] (or [W, Ci*Cj, N]) f32;
-    pcol [Cj, S] f32; prow [Ci, N] f32 -> (rows [Ci, N], cols [Cj, S]) f32
-    (any W; the solver sends the levels fused_pair_route names it for).
-    CPU tensors take the plain version; CUDA tensors launch the persistent
+    """ids2d [W, N] int32; blocks_wm [W*Ci*Cj, N] (or [W, Ci*Cj, N]) f32 or
+    bf16; pcol [Cj, S] f32; prow [Ci, N] f32 -> (rows [Ci, N], cols [Cj, S])
+    f32 (any W; the solver sends the levels fused_pair_route names it for).
+    CPU tensors take the plain version; CUDA tensors with bf16 blocks go to
+    fused_pair_apply_bf16; with f32 blocks they launch the f32 persistent
     kernel, or, for a pair it is not specialised for or an accumulator
     beyond its shared memory, go to fused_pair_apply_atomics."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    if blocks_wm.dtype == torch.bfloat16:
+        return fused_pair_apply_bf16(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     if not persistent_fits(Ci, Cj, S):
         return fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     return _launch_persistent(fused_pair_apply, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, True)
 
 
+def fused_pair_apply_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply on bf16 blocks: the bf16 instantiation of the
+    persistent kernel (csrc/fused_pair.cu), or, for a pair it is not
+    specialised for or an accumulator beyond its shared memory,
+    fused_pair_bf16_atomics.  CPU tensors take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    if not persistent_fits(Ci, Cj, S):
+        return fused_pair_bf16_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_persistent(fused_pair_apply_bf16, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
+                              True, torch.bfloat16)
+
+
 def fused_pair_rows_floor(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """rows [Ci, N] alone, by the persistent kernel with its cols side
-    compiled out (a measurement; the persistent route's shapes only)."""
+    """rows [Ci, N] alone, by the persistent kernel (f32 or bf16 blocks)
+    with its cols side compiled out (a measurement; the persistent route's
+    shapes only)."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)[0]
+    bf16 = blocks_wm.dtype == torch.bfloat16
     return _launch_persistent(fused_pair_rows_floor, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
-                              False)[0]
+                              False, torch.bfloat16 if bf16 else torch.float32)[0]
 
 
 def fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
@@ -208,7 +255,8 @@ def fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     return rows, cols
 
 
-for _fn in (fused_pair_apply, fused_pair_rows_floor, fused_pair_apply_atomics):
+for _fn in (fused_pair_apply, fused_pair_apply_bf16, fused_pair_rows_floor,
+            fused_pair_apply_atomics):
     _fn.launches = 0
 
 
@@ -228,29 +276,53 @@ def wloop_plan(W: int, N: int, S: int, sms: int):
     return w_item, max(1, min(blocks, -(-items // warps)))
 
 
+def _launch_wloop(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype):
+    what = fn.__name__
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype)
+    dev = ids2d.device
+    w_item, grid = wloop_plan(W, N, S, _cuda.sm_count(dev))
+    rows = (torch.empty if w_item >= W else torch.zeros)((Ci, N), dtype=torch.float32, device=dev)
+    cols = torch.zeros((Cj, S), dtype=torch.float32, device=dev)
+    args = (ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
+            rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S, WLOOP_THREADS, grid, w_item,
+            MERGE_MIN)
+    if block_dtype == torch.bfloat16:
+        code = _cuda.lib().thallo_fused_pair_wloop_persistent_bf16(*args, _cuda.stream(ids2d))
+    else:
+        code = _cuda.lib().thallo_fused_pair_wloop_persistent(*args, _cuda.stream(ids2d))
+    _cuda.check(code, what)
+    fn.launches += 1
+    return rows, cols
+
+
 def fused_pair_apply_wloop(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """The same contract as fused_pair_apply, for wide levels: a persistent
     kernel over (element tile, w-range) items, a warp per item (3 x 9 with
     a [9, S] accumulator within PERSISTENT_MAX_SMEM; every other shape goes
     to fused_pair_apply_wloop_chunked).  CPU tensors take the plain
-    version; CUDA tensors launch a kernel."""
+    version; CUDA tensors with bf16 blocks go to fused_pair_apply_wloop_bf16,
+    with f32 blocks they launch a kernel."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    if blocks_wm.dtype == torch.bfloat16:
+        return fused_pair_apply_wloop_bf16(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    if not persistent_fits(Ci, Cj, S):
+        return fused_pair_apply_wloop_chunked(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_wloop(fused_pair_apply_wloop, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
+                         torch.float32)
+
+
+def fused_pair_apply_wloop_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply_wloop on bf16 blocks: the bf16 instantiation of the
+    persistent W-loop kernel (csrc/fused_pair_wloop.cu), or, for a pair it
+    is not specialised for or an accumulator beyond its shared memory,
+    fused_pair_bf16_atomics.  CPU tensors take the plain version."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     if not persistent_fits(Ci, Cj, S):
-        return fused_pair_apply_wloop_chunked(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
-    W, N, blocks = _checked("fused_pair_apply_wloop", ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
-                            torch.float32)
-    dev = ids2d.device
-    w_item, grid = wloop_plan(W, N, S, _cuda.sm_count(dev))
-    rows = (torch.empty if w_item >= W else torch.zeros)((Ci, N), dtype=torch.float32, device=dev)
-    cols = torch.zeros((Cj, S), dtype=torch.float32, device=dev)
-    code = _cuda.lib().thallo_fused_pair_wloop_persistent(
-        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(), rows.data_ptr(),
-        cols.data_ptr(), W, N, Ci, Cj, S, WLOOP_THREADS, grid, w_item, MERGE_MIN,
-        _cuda.stream(ids2d))
-    _cuda.check(code, "fused_pair_apply_wloop")
-    fused_pair_apply_wloop.launches += 1
-    return rows, cols
+        return fused_pair_bf16_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_wloop(fused_pair_apply_wloop_bf16, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
+                         torch.bfloat16)
 
 
 def fused_pair_apply_wloop_chunked(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
@@ -277,14 +349,14 @@ def fused_pair_apply_wloop_chunked(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     return rows, cols
 
 
-for _fn in (fused_pair_apply_wloop, fused_pair_apply_wloop_chunked):
+for _fn in (fused_pair_apply_wloop, fused_pair_apply_wloop_bf16, fused_pair_apply_wloop_chunked):
     _fn.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# bf16 block storage: the measurement scripts' kernels
+# bf16 blocks: the first bf16 body and the measurement scripts' kernels
 # ---------------------------------------------------------------------------
-_MICRO, _ROWS_ONLY, _SMEM, _PARTIALS = range(4)  # csrc/fused_pair_variants.cu kMode
+_ATOMICS, _ROWS_ONLY, _SMEM, _PARTIALS = range(4)  # csrc/fused_pair_variants.cu kMode
 
 
 def _bf16_launch(fn, mode, ids2d, blocks_wm, pcol, prow, Ci, Cj, S):
@@ -316,12 +388,28 @@ def _bf16_launch(fn, mode, ids2d, blocks_wm, pcol, prow, Ci, Cj, S):
     return rows, cols
 
 
-def fused_pair_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """fused_pair_apply reading bf16 blocks (scripts/tpu_fused_pair_micro.py)
-    -> (rows, cols); cols by one global atomic per value."""
+def fused_pair_bf16_atomics(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply on bf16 blocks by one thread per element and one
+    global atomic per cols value (the first bf16 body): any Ci <= 8,
+    Cj <= 16 and S; the shapes the bf16 persistent kernels do not take.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
-    return _bf16_launch(fused_pair_bf16, _MICRO, ids2d, blocks_wm, pcol, prow, Ci, Cj, S)
+    return _bf16_launch(fused_pair_bf16_atomics, _ATOMICS, ids2d, blocks_wm, pcol, prow, Ci, Cj, S)
+
+
+def fused_pair_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """The micro script's pair (scripts/tpu_fused_pair_micro.py) on bf16
+    blocks -> (rows, cols): the bf16 persistent kernel, as
+    fused_pair_apply_bf16 launches it but counted here, or, for a shape it
+    does not take, fused_pair_bf16_atomics.  CPU tensors take the plain
+    version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    if not persistent_fits(Ci, Cj, S):
+        return fused_pair_bf16_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_persistent(fused_pair_bf16, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, True,
+                              torch.bfloat16)
 
 
 def fused_pair_v1_rows(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
@@ -349,5 +437,6 @@ def fused_pair_v3_partials(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
                         Ci, Cj, S)
 
 
-for _fn in (fused_pair_bf16, fused_pair_v1_rows, fused_pair_v2_smem, fused_pair_v3_partials):
+for _fn in (fused_pair_bf16_atomics, fused_pair_bf16, fused_pair_v1_rows, fused_pair_v2_smem,
+            fused_pair_v3_partials):
     _fn.launches = 0

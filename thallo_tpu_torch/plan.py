@@ -17,6 +17,7 @@ import torch
 from . import reorder
 from .lower import Collection, LoweredGroup, inline_computed
 from .solver.gn import (
+    BLOCK_DTYPES,
     SOLVER_PARAMETER_DEFAULTS,
     CompiledSolver,
     GroupPlan,
@@ -38,7 +39,6 @@ _KNOWN_OPTIONS = {"use_autoscheduler", "lin_iter_hint", "solver_parameters",
 _UNPORTED_OPTIONS = {
     "use_autoscheduler": (0, "the autoscheduler"),
     "linear_solver": ("pcg", "direct and Schur solves"),
-    "block_dtype": (None, "bf16 block storage"),
     "steps_per_dispatch": (1, "multi-step dispatch"),
     "trace_dir": (None, "profiler traces"),
     "profile_compile": (False, "compile profiling"),
@@ -93,6 +93,9 @@ class Plan:
         if options.get("jacobi_scaling", "ONCE_PER_SOLVE") not in (
                 "ONCE_PER_SOLVE", "EVERY_ITERATION", "NONE"):
             raise ValueError("invalid jacobi_scaling")
+        if options.get("block_dtype") not in BLOCK_DTYPES:
+            raise ValueError(f"block_dtype={options['block_dtype']!r}: expected one of "
+                             f"{sorted(BLOCK_DTYPES, key=str)}")
         for name, (default, what) in _UNPORTED_OPTIONS.items():
             if options.get(name, default) != default:
                 raise NotImplementedError(f"{name}={options[name]!r}: {what} is not ported yet")

@@ -28,8 +28,9 @@ equal what JAX's ``build_group_bsr`` builds.  A col pair with a transpose
 partner runs both directions through one fused kernel launch per level
 (the kernel ``fused_pair_route`` names for the level's shape: the
 persistent ``fused_pair_apply`` or the W-loop kernel for wide, short
-levels); a col pair without one gathers p by its col table
-and multiplies.  Not ported: segment-keyed tables of affine maps that
+levels; under ``block_dtype="bf16"`` their bf16 instantiations, and
+``fused_pair_bf16_atomics`` for the other shapes); a col pair without one
+gathers p by its col table and multiplies.  Not ported: segment-keyed tables of affine maps that
 are not a full repeat (they raise NotImplementedError; ROADMAP queue 1,
 item 5).
 """
@@ -44,8 +45,10 @@ import torch
 
 from ..ops import structured
 from ..ops.fullrepeat import fullrepeat_setup
-from ..ops.fusedpair import (fused_pair_apply, fused_pair_apply_atomics, fused_pair_apply_wloop,
-                             fused_pair_apply_wloop_chunked, fused_pair_route)
+from ..ops.fusedpair import (fused_pair_apply, fused_pair_apply_atomics, fused_pair_apply_bf16,
+                             fused_pair_apply_wloop, fused_pair_apply_wloop_bf16,
+                             fused_pair_apply_wloop_chunked, fused_pair_bf16_atomics,
+                             fused_pair_route)
 from ..ops.ohsetup import oh_setup_products, setup_slabs
 
 # padding budget of the rank-keyed tables: sum N_t*W_t <= MAX_WASTE*R + MAX_PAD_EXTRA
@@ -371,13 +374,20 @@ def _slab_entry(bsr, kind, key, offs):
     return (offs[key], bsr.slot_channels[key])
 
 
-def _setup_levels(bsr, base, specs, rT, Jall, offs, blocks):
+def _stored(blk, block_dtype):
+    """A cross block as stored: cast after it is made in f32, as JAX's
+    ``blk.astype(block_dtype)`` (thallo_tpu/solver/blocksparse.py:905-906)."""
+    return blk if block_dtype is None else blk.to(block_dtype)
+
+
+def _setup_levels(bsr, base, specs, rT, Jall, offs, blocks, block_dtype):
     """Setup of a rank-keyed table: the per-observation slabs of every
     spec (one payload [F, R], each cross pair's slab once), one gather of
     it per level, the aggregated rows summed into full element order
     (overflow levels by one index_add_) and each col pair's w-major
-    blocks [W*Ci*Cj, N_t] from its level's gather.  Returns the
-    aggregated [A, N] in the order of the non-cross specs."""
+    blocks [W*Ci*Cj, N_t] from its level's gather (cast to block_dtype
+    where given).  Returns the aggregated [A, N] in the order of the
+    non-cross specs."""
     recipe, A = [], 0
     for kind, key, width in specs:
         if kind != "pair" or bsr.pairs[key][2] == "diag":
@@ -406,20 +416,22 @@ def _setup_levels(bsr, base, specs, rT, Jall, offs, blocks):
         else:
             deferred.append((bsr.row_sels[t], gsum))
         for key, off, width in level_pairs.get(t, ()):
-            blocks[key] = g[off:off + width].transpose(0, 1).reshape(W * width, N_t)
+            blocks[key] = _stored(
+                g[off:off + width].transpose(0, 1).reshape(W * width, N_t), block_dtype)
     if deferred:
         agg.index_add_(1, torch.cat([s for s, _ in deferred]),
                        torch.cat([v for _, v in deferred], 1))
     return agg
 
 
-def bsr_setup(bsr: GroupBsr, rT, jTs):
+def bsr_setup(bsr: GroupBsr, rT, jTs, block_dtype=None):
     """Once per nonlinear iteration: JᵀF, diag(JᵀJ) and every pair's
     blocks.  rT [rc, R], jTs per slot [rc, C, R] (channel-major, as
     point_jacobians_cm makes them).  Returns (jtr, d2, blocks): jtr/d2
     map image -> [*imshape], blocks map pair idx -> [Ci*Cj, N] (diag) or
     [W*Ci*Cj, N_t] w-major (col pairs, per level; transpose pairs store
-    nothing)."""
+    nothing).  block_dtype (None or torch.bfloat16): the storage of the
+    cross blocks; diag blocks, jtr and d2 stay f32."""
     rc, R = rT.shape
     rT = rT.contiguous()
     jtr_out: Dict[str, torch.Tensor] = {}
@@ -473,7 +485,8 @@ def bsr_setup(bsr: GroupBsr, rT, jTs):
         agg_specs = [sp for sp in specs
                      if sp[0] != "pair" or bsr.pairs[sp[1]][2] == "diag"]
         if not bsr.full_repeat[base]:
-            scatter_slabs(_setup_levels(bsr, base, specs, rT, Jall, offs, blocks), agg_specs)
+            scatter_slabs(_setup_levels(bsr, base, specs, rT, Jall, offs, blocks, block_dtype),
+                          agg_specs)
             continue
         N_t, W = bsr.perms[base].shape
         recipe, cross_keys = [], []
@@ -489,15 +502,16 @@ def bsr_setup(bsr: GroupBsr, rT, jTs):
         agg, crosses = fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=tuple(recipe))
         scatter_slabs(agg, agg_specs)
         for key, blk in zip(cross_keys, crosses):
-            blocks[key] = blk
+            blocks[key] = _stored(blk, block_dtype)
     return jtr_out, d2_out, blocks
 
 
 def bsr_apply(bsr: GroupBsr, blocks, p):
     """JᵀJ·p for this group from the assembled blocks.  Diagonal pairs are
     a per-element block matvec; each col pair and its transpose partner
-    run through one fused kernel launch per level; a col pair without a
-    partner gathers p by its col table.  Overflow levels' row
+    run through one fused kernel launch per level (bf16 cross blocks
+    as they are stored: the kernels read them); a col pair without a
+    partner gathers p by its col table (its blocks upcast to f32 first).  Overflow levels' row
     contributions are merged into one index_add_ per slot (duplicate ids
     across levels accumulate).  p: dict image -> [*imshape].  Returns dict
     image -> [*imshape] contribution."""
@@ -531,17 +545,23 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
             prow = prow.index_select(1, sel)  # [Ci, N_t]: the overflow elements
         pcol = pT[bsr.slot_images[j]]
         if p_idx in partnered:
-            fn = {"fused_pair_apply": fused_pair_apply,
-                  "fused_pair_apply_atomics": fused_pair_apply_atomics,
-                  "fused_pair_apply_wloop": fused_pair_apply_wloop,
-                  "fused_pair_apply_wloop_chunked": fused_pair_apply_wloop_chunked,
-                  }[fused_pair_route(W, N_t, Ci, Cj, pcol.shape[1])]
+            route = fused_pair_route(W, N_t, Ci, Cj, pcol.shape[1])
+            if blocks[p_idx].dtype == torch.bfloat16:  # the bf16 instantiations
+                fn = {"fused_pair_apply": fused_pair_apply_bf16,
+                      "fused_pair_apply_wloop": fused_pair_apply_wloop_bf16,
+                      }.get(route, fused_pair_bf16_atomics)
+            else:
+                fn = {"fused_pair_apply": fused_pair_apply,
+                      "fused_pair_apply_atomics": fused_pair_apply_atomics,
+                      "fused_pair_apply_wloop": fused_pair_apply_wloop,
+                      "fused_pair_apply_wloop_chunked": fused_pair_apply_wloop_chunked,
+                      }[route]
             rows, cols = fn(ids, blocks[p_idx], pcol, prow, Ci=Ci, Cj=Cj, S=pcol.shape[1])
             add(i, rows, sel)
             add(j, cols)
             continue
         pg = pcol.index_select(1, ids.reshape(-1)).view(Cj, W, N_t)
-        B = blocks[p_idx].view(W, Ci, Cj, N_t)
+        B = blocks[p_idx].view(W, Ci, Cj, N_t).to(pg.dtype)  # bf16 storage: upcast
         add(i, (B * pg.transpose(0, 1)[:, None]).sum((0, 2)), sel)
     out: Dict[str, torch.Tensor] = {}
     for i in list(acc) + [k for k in deferred if k not in acc]:

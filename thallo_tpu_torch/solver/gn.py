@@ -27,9 +27,13 @@ through ``torch.where`` (JAX exits its ``while_loop`` instead; the
 results are the same).  Routing is f32 everywhere, so the zeta test
 needs no noise floor.
 
+``block_dtype="bf16"`` stores the block-sparse cross blocks as bf16 (as
+JAX's ``.astype(block_dtype)``); the fused-pair kernels read them as
+such, everything else upcasts, and all arithmetic stays f32.
+
 Not ported yet (NotImplementedError at plan time): the dense JᵀJ path
 (<= 4096 unknowns), direct/Schur solves, the INLINE and LINEARIZE
-schedules, Exclude masks, bf16 block storage and double precision.
+schedules, Exclude masks and double precision.
 """
 from __future__ import annotations
 
@@ -47,6 +51,10 @@ from .blocksparse import bsr_apply, bsr_setup
 DENSE_JTJ_MAX_UNKNOWNS = 4096  # thallo_tpu/schedule.py: smaller problems go dense
 # schedules that store the per-point Jacobians and apply JᵀJ·p from them
 MATERIALIZED_J = (JTJpSchedule.PRECOMPUTE_J, JTJpSchedule.APPLY_SEPARATELY)
+# the block_dtype option (thallo_tpu/solver/gn.py:232-233): None keeps every
+# JᵀJ block f32; "bf16" stores the block-sparse cross blocks as bf16 (diag
+# blocks, -JᵀF and diag(JᵀJ) stay f32)
+BLOCK_DTYPES = {None: None, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +212,7 @@ class CompiledSolver:
         self.use_preconditioner = spec.use_preconditioner
         self.guarded_invert_type = options.get("guarded_invert_type", "CERES")
         self.jacobi_scaling = options.get("jacobi_scaling", "ONCE_PER_SOLVE")
+        self.block_dtype = BLOCK_DTYPES[options.get("block_dtype")]
         self.precond_kind = options.get("preconditioner", "auto")
         if self.precond_kind not in ("auto", "block_jacobi", "jacobi"):
             raise ValueError("preconditioner must be 'auto', 'block_jacobi' or 'jacobi'")
@@ -284,7 +293,7 @@ class CompiledSolver:
             g = gp.group
             r, jacs = g.point_jacobians_cm(U, inputs, c)
             if c["bsr"] is not None:
-                jtr_d, d2_d, blocks = bsr_setup(c["bsr"], r, jacs)
+                jtr_d, d2_d, blocks = bsr_setup(c["bsr"], r, jacs, self.block_dtype)
                 jac_store[str(gi)] = {"bsr": blocks}
                 for name, v in jtr_d.items():
                     mjtf[name] = mjtf[name] - v
