@@ -33,10 +33,12 @@ its seconds; any failure exits non-zero):
      (fused_pair_apply_wloop), the first W-loop body
      (fused_pair_apply_wloop_chunked), and the persistent kernel without
      its cols side (the rows-only floor); on the same values as bf16
-     blocks (block_dtype="bf16") four ways: the bf16 persistent kernel
+     blocks (block_dtype="bf16") six ways: the bf16 persistent kernel
      (fused_pair_apply_bf16), the bf16 W-loop kernel
      (fused_pair_apply_wloop_bf16), the first bf16 body
-     (fused_pair_bf16_atomics) and the bf16 rows-only floor.  The
+     (fused_pair_bf16_atomics), the bf16 rows-only floor and the cluster
+     kernel of the variants v2 and v3 (fused_pair_v2_smem,
+     fused_pair_v3_partials; at the skewed levels their hot camera).  The
      loop-floor kernel is held against torch.add.  The segment sum is also held
      against index_add_ on the
      skewed scene's camera map (one segment with half the rows), on a
@@ -65,11 +67,12 @@ its seconds; any failure exits non-zero):
   8. the measurement scripts (scripts/torch_fused_pair_micro.py,
      torch_fused_variants.py, torch_loop_floor.py, torch_redesign_sweep.py)
      run through their main() with few launches per timing: the bf16 fused
-     pair, its three variants, the loop-floor kernel (one tile and 64
-     tiles), the global-atomics fused pair and the four first bodies the
-     redesigns replaced (the chunked W-loop kernel, the global-atomics
-     oh_setup_products, fullrepeat_setup_thread, oh_setup_aggregate_atomics)
-     launched;
+     pair, its three variants (v2 and v3 by the cluster kernel), the
+     loop-floor kernel (one tile and 64 tiles), the global-atomics fused
+     pair and the six first bodies the redesigns replaced (the chunked
+     W-loop kernel, the global-atomics oh_setup_products,
+     fullrepeat_setup_thread, oh_setup_aggregate_atomics, and the first
+     bodies of v2 and v3) launched;
   9. the 1M LM solve, block-sparse JᵀJ under block_dtype="bf16": the bf16
      persistent kernel (fused_pair_apply_bf16), oh_setup_products and
      fullrepeat_setup launched, no f32 or atomics fused pair; costs never
@@ -231,9 +234,11 @@ def nbytes(*ts):
 
 PAIR_KERNELS = ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
                 "fused_pair_apply_wloop_chunked", "fused_pair_rows_floor")
-# the same pair on bf16 blocks (cases tagged <tag>_bf16)
+# the same pair on bf16 blocks (cases tagged <tag>_bf16), with the cluster
+# kernel of the variants v2 and v3 (the skewed levels: its hot camera)
 BF16_PAIR_KERNELS = ("fused_pair_apply_bf16", "fused_pair_apply_wloop_bf16",
-                     "fused_pair_bf16_atomics", "fused_pair_rows_floor")
+                     "fused_pair_bf16_atomics", "fused_pair_rows_floor", "fused_pair_v2_smem",
+                     "fused_pair_v3_partials")
 
 
 def pair_cases(tag, a, S, fusedpair, terms=None):
@@ -442,8 +447,10 @@ def skew_kernel_cases(dev, rng, bsr):
 
 
 def measurement_kernel_cases(dev, rng):
-    """The measurement scripts' kernels: the bf16-block fused pair and its
-    three cols variants at the JAX scripts' ba_1m_pt_cam shape (W 4,
+    """The measurement scripts' kernels: the bf16-block fused pair, its
+    three cols variants (v2 and v3 by the cluster kernel), the first
+    bodies of v2 and v3 (_generic) and the cluster kernel without its
+    cross-cluster step at the JAX scripts' ba_1m_pt_cam shape (W 4,
     N 250 000, S 1024) and a ragged one; the launch-floor probe on one
     [8, 1024] tile and as 64 tiles over [8, 65536]."""
     from thallo_tpu_torch.ops import fusedpair, loopfloor
@@ -459,14 +466,16 @@ def measurement_kernel_cases(dev, rng):
             ids[0, :5] = -1
         a = _pair_args(t, rng, t(ids), S=S, block_dtype=torch.bfloat16)
         for name in ("fused_pair_bf16", "fused_pair_v1_rows", "fused_pair_v2_smem",
-                     "fused_pair_v3_partials"):
-            rows_only = name == "fused_pair_v1_rows"
+                     "fused_pair_v3_partials", "fused_pair_v2_smem_generic",
+                     "fused_pair_v3_partials_generic", "fused_pair_cluster_noflush"):
+            rows_only = name in ("fused_pair_v1_rows", "fused_pair_cluster_noflush")
             cases.append((name, tag,
                           lambda a=a, S=S, fn=getattr(fusedpair, name), ro=rows_only:
                           (fn(*a, Ci=3, Cj=9, S=S),) if ro else fn(*a, Ci=3, Cj=9, S=S),
                           lambda a=a, S=S, ro=rows_only: fusedpair.fused_pair_apply_reference(
                               *a, Ci=3, Cj=9, S=S)[:1 if ro else 2],
-                          None, nbytes(*a), (2 if rows_only else 4) * W * N * 27, None))
+                          None, nbytes(*a), (2 if name == "fused_pair_v1_rows" else 4) * W * N * 27,
+                          None))
     for tag, tiles in (("tile1", 1), ("grid64", 64)):
         x = t(rng.normal(size=(loopfloor.ROWS, 1024 * tiles)).astype(np.float32))
         cases.append(("loop_floor_add_one", tag,
@@ -493,6 +502,8 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("fused_pair_v1_rows", "ba1m"): "fused_pair_v1_rows",
           ("fused_pair_v2_smem", "ba1m"): "fused_pair_v2_smem",
           ("fused_pair_v3_partials", "ba1m"): "fused_pair_v3_partials",
+          ("fused_pair_v2_smem_generic", "ba1m"): "fused_pair_v2_smem_generic",
+          ("fused_pair_v3_partials_generic", "ba1m"): "fused_pair_v3_partials_generic",
           ("loop_floor_add_one", "tile1"): "loop_floor_add_one",
           ("loop_floor_add_one", "grid64"): "loop_floor_add_one_grid64",
           ("fused_pair_apply_bf16", "ba1m_bf16"): "fused_pair_apply_bf16",
@@ -537,10 +548,14 @@ KERNELS = {
                                     "thallo_tpu/ops/fusedpair.py:385", "skew bf16 block-sparse"),
     "fused_pair_v1_rows": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
                            "scripts/tpu_fused_variants.py:56", "measurement"),
-    "fused_pair_v2_smem": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+    "fused_pair_v2_smem": ("thallo_tpu_torch/csrc/fused_pair_cluster.cu",
                            "scripts/tpu_fused_variants.py:80", "measurement"),
-    "fused_pair_v3_partials": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+    "fused_pair_v3_partials": ("thallo_tpu_torch/csrc/fused_pair_cluster.cu",
                                "scripts/tpu_fused_variants.py:121", "measurement"),
+    "fused_pair_v2_smem_generic": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+                                   "scripts/tpu_fused_variants.py:80", "measurement"),
+    "fused_pair_v3_partials_generic": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+                                       "scripts/tpu_fused_variants.py:121", "measurement"),
     "loop_floor_add_one": ("thallo_tpu_torch/csrc/loop_floor.cu",
                            "scripts/tpu_loop_floor.py:36", "measurement"),
     "loop_floor_add_one_grid64": ("thallo_tpu_torch/csrc/loop_floor.cu",
@@ -571,6 +586,9 @@ def counters():
             "fused_pair_v1_rows": fusedpair.fused_pair_v1_rows,
             "fused_pair_v2_smem": fusedpair.fused_pair_v2_smem,
             "fused_pair_v3_partials": fusedpair.fused_pair_v3_partials,
+            "fused_pair_v2_smem_generic": fusedpair.fused_pair_v2_smem_generic,
+            "fused_pair_v3_partials_generic": fusedpair.fused_pair_v3_partials_generic,
+            "fused_pair_cluster_noflush": fusedpair.fused_pair_cluster_noflush,
             "loop_floor_add_one": loopfloor.add_one}
 
 
@@ -803,8 +821,8 @@ def phase_ba_1m_bf16(ba, tt, scene, f32_final):
     costs, _, launches, _ = solve_1m(ba, tt, scene, label, (
         "fused_pair_apply_bf16", "oh_setup_products", "fullrepeat_setup"), block_dtype="bf16")
     stray = [n for n in ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
-                         "fused_pair_apply_wloop_chunked", "fused_pair_bf16_atomics")
-             if launches[n]]
+                         "fused_pair_apply_wloop_chunked", "fused_pair_bf16_atomics",
+                         "fused_pair_v2_smem", "fused_pair_v3_partials") if launches[n]]
     if stray:
         raise AssertionError(f"{label}: launched {stray}, not the bf16 persistent kernel")
     never_rising(label, costs)

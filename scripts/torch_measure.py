@@ -5,6 +5,7 @@ the card's name and power limit, per-launch times of a callable run n
 times eagerly and captured in one CUDA graph, and the skewed 1M BA
 scene's real fused-pair tables.  Import only; nothing runs on import.
 """
+import contextlib
 import functools
 import json
 import subprocess
@@ -130,6 +131,17 @@ def pair_operands(rng, ids, Ci, Cj, S):
     return (ids, blocks.cuda().bfloat16(),
             torch.from_numpy(rng.normal(size=(Cj, S)).astype(np.float32)).cuda(),
             torch.from_numpy(rng.normal(size=(Ci, N)).astype(np.float32)).cuda())
+
+
+@contextlib.contextmanager
+def kept(module, *names):
+    """Restores module.<names> when the block ends."""
+    saved = {n: getattr(module, n) for n in names}
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            setattr(module, n, v)
 
 
 def emit(rec, out):

@@ -56,19 +56,29 @@ Groups (all by default):
           over THREADS x BLOCKS_PER_SM (at most 512 threads: the
           two-element form's bound) and MERGE_MIN, the bf16 W-loop kernel
           over WLOOP_THREADS x WLOOP_BLOCKS_PER_SM.
+  variants  the variants v2 and v3 of scripts/tpu_fused_variants.py on bf16
+          blocks at the uniform 1M BA shape (W 4, N 250 000, S 1024,
+          random ids): the cluster kernel (v2_smem: a global atomic per
+          nonzero entry per cluster; v3_partials: a slab per cluster,
+          summed by torch.sum; noflush: nothing leaves the cluster), their
+          first bodies (the _generic routes) and the micro's pair
+          (fused_pair_bf16, a global atomic flush per block), each line
+          with the cluster kernel's grid and its
+          cudaOccupancyMaxActiveClusters.  --sweep: the cluster kernel over
+          CLUSTER_SIZE (C 2, 4, 8, and 16 where the card grants non-portable
+          clusters) x CLUSTER_THREADS x CLUSTER_BLOCKS_PER_SM.
 One JSON line per timing: ms per call over n calls eager and in one CUDA
 graph (CUDA events; a replayed graph finds everything below 50 MB warm
 in L2), and the error against the plain torch version.  Needs CUDA.
 """
 import argparse
-import contextlib
 import sys
 
 import numpy as np
 import torch
 
-from torch_measure import (SKEW_1M, card, emit, max_rel_err, per_launch_ms, random_ids,
-                           skew_camera_ids, skew_tables)
+from torch_measure import (SKEW_1M, card, emit, kept, max_rel_err, pair_operands, per_launch_ms,
+                           random_ids, skew_camera_ids, skew_tables)
 
 PAIR_KERNELS = [("persistent", "fused_pair_apply"), ("atomics", "fused_pair_apply_atomics"),
                 ("wloop", "fused_pair_apply_wloop"), ("rows_floor", "fused_pair_rows_floor")]
@@ -97,6 +107,14 @@ FR_SWEEP = (((32, 4), (64, 2), (64, 3), (64, 4), (96, 2), (128, 1), (128, 2), (2
 # (THREADS or WLOOP_THREADS, BLOCKS_PER_SM or WLOOP_BLOCKS_PER_SM) of the
 # bf16 kernels
 BF16_SWEEP = ((256, 2), (256, 4), (512, 1), (512, 2), (512, 3))
+# (CLUSTER_SIZE, CLUSTER_THREADS, CLUSTER_BLOCKS_PER_SM) of the cluster kernel
+CLUSTER_SWEEP = tuple((c, t, b) for c in (2, 4, 8, 16) for t in (256, 512) for b in (1, 2, 3))
+VARIANT_KERNELS = [("v2_smem", "fused_pair_v2_smem"), ("v3_partials", "fused_pair_v3_partials"),
+                   ("noflush", "fused_pair_cluster_noflush"),
+                   ("v2_smem_generic", "fused_pair_v2_smem_generic"),
+                   ("v3_partials_generic", "fused_pair_v3_partials_generic"),
+                   ("v0_bf16", "fused_pair_bf16")]
+CLUSTER_MODES = {"v2_smem": 1, "v3_partials": 2, "noflush": 0}  # fusedpair._FLUSH_*
 # (AGG_THREADS, AGG_BLOCKS_PER_SM), then AGG_MERGE_MIN (33: never merge)
 AGG_SWEEP = (((256, 4), (512, 2), (512, 4), (1024, 1), (1024, 2)), (4, 8, 33))
 
@@ -108,17 +126,6 @@ def f32_operands(rng, ids, Ci, Cj, S):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
 
     return ids, t(W * Ci * Cj, N), t(Cj, S), t(Ci, N)
-
-
-@contextlib.contextmanager
-def kept(module, *names):
-    """Restores module.<names> when the block ends."""
-    saved = {n: getattr(module, n) for n in names}
-    try:
-        yield
-    finally:
-        for n, v in saved.items():
-            setattr(module, n, v)
 
 
 def sweep_pairs(args, smi, out):
@@ -403,8 +410,61 @@ def sweep_bf16(args, smi, out):
                     timed(route + "_bf16", bf16_fn, MERGE_MIN=fusedpair.MERGE_MIN)
 
 
+def sweep_variants(args, smi, out):
+    from thallo_tpu_torch.ops import fusedpair
+
+    rng = np.random.default_rng(7)
+    kw = dict(Ci=3, Cj=9, S=1024)
+    ids = random_ids(rng, 4, 250_000, kw["S"])
+    W, N = ids.shape
+    ops = pair_operands(rng, ids, **kw)
+    ref = fusedpair.fused_pair_apply_reference(*ops, **kw)
+    names = ("CLUSTER_SIZE", "CLUSTER_THREADS", "CLUSTER_BLOCKS_PER_SM")
+
+    def timed(kernel, fname):
+        fn = getattr(fusedpair, fname)
+        got = fn(*ops, **kw)
+        err = max_rel_err((got,), ref[:1]) if kernel == "noflush" else max_rel_err(got, ref)
+        eager, graph = per_launch_ms(lambda: fn(*ops, **kw), args.n)
+        extra = {}
+        if kernel in CLUSTER_MODES:
+            mode = CLUSTER_MODES[kernel]
+            extra = {n: getattr(fusedpair, n) for n in names}
+            extra["threads"], extra["grid"], extra["n_slabs"] = fusedpair.cluster_grid(
+                ops[0].device, N, kw["S"], mode)
+            extra["max_active_clusters"] = fusedpair.max_active_clusters(
+                ops[0].device, kw["S"], extra["threads"], fusedpair.CLUSTER_SIZE,
+                fusedpair.bf16_elems(N), mode)
+        emit({"name": "ba_1m_pt_cam", "kernel": kernel, "W": W, "N": N, "eager_ms": eager,
+              "graph_ms": graph, "rel_err": err, "card": smi, **extra}, out)
+
+    for kernel, fname in VARIANT_KERNELS:
+        timed(kernel, fname)
+    if not args.sweep:
+        return
+    with kept(fusedpair, *names):
+        for setting in CLUSTER_SWEEP:
+            for n, v in zip(names, setting):
+                setattr(fusedpair, n, v)
+            why = None
+            try:  # above 8 blocks only where the card grants non-portable clusters
+                granted = fusedpair.max_active_clusters(ops[0].device, kw["S"], setting[1],
+                                                        setting[0], fusedpair.bf16_elems(N)) > 0
+            except RuntimeError as exc:
+                if setting[0] <= 8:
+                    raise
+                granted, why = False, str(exc)
+            if not granted:
+                emit({"name": "ba_1m_pt_cam", "kernel": "cluster", "granted": False,
+                      "error": why, **dict(zip(names, setting)), "card": smi}, out)
+                continue
+            for kernel in CLUSTER_MODES:
+                timed(kernel, dict(VARIANT_KERNELS)[kernel])
+
+
 GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum,
-          "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate, "bf16": sweep_bf16}
+          "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate, "bf16": sweep_bf16,
+          "variants": sweep_variants}
 
 
 def main(argv=None):

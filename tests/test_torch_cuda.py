@@ -679,3 +679,171 @@ def test_skewed_setup_and_apply_cuda_matches_cpu(cuda):
     for got, ref in zip(out["cuda"], out["cpu"]):
         for k in ref:
             close(got[k], ref[k], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the variants v2 and v3 of scripts/tpu_fused_variants.py: the cluster
+# kernel (csrc/fused_pair_cluster.cu) and their first bodies (_generic)
+# ---------------------------------------------------------------------------
+VARIANTS = ["fused_pair_v2_smem", "fused_pair_v3_partials"]
+VARIANT_ROUTES = VARIANTS + [n + "_generic" for n in VARIANTS]
+# every wrapper whose count the variants' tests watch
+WATCHED = VARIANT_ROUTES + ["fused_pair_cluster_noflush", "fused_pair_bf16",
+                            "fused_pair_bf16_atomics", "fused_pair_apply",
+                            "fused_pair_apply_bf16"]
+# FUSED_SHAPES (ragged N, odd and even), the uniform 1M BA shape and the
+# JAX script's skew_level_w8
+VARIANT_SHAPES = FUSED_SHAPES + [(4, 250_000, 1024), (8, 16384, 256)]
+
+
+def _launched(n0):
+    """The watched wrappers' launches since the counts n0."""
+    return {n: getattr(fusedpair, n).launches - k for n, k in zip(WATCHED, n0)}
+
+
+def _counts():
+    return [getattr(fusedpair, n).launches for n in WATCHED]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VARIANT_ROUTES)
+@pytest.mark.parametrize("W,N,S", VARIANT_SHAPES)
+def test_fused_pair_variants_cuda_match_plain(cuda, name, W, N, S):
+    """The cluster kernel (v2: a global atomic per nonzero entry per
+    cluster; v3: a slab per cluster, summed by torch.sum) and both first
+    bodies against the plain version on the same bf16 values: f32 on both
+    sides, only the order of sums differs.  Exactly one launch, of the
+    wrapper called."""
+    args = _bf16_args(cuda, *fused_inputs(W, N, S))
+    n0 = _counts()
+    rows, cols = getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {n: int(n == name) for n in WATCHED}
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,S", VARIANT_SHAPES)
+def test_fused_pair_cluster_noflush_cuda_matches_plain(cuda, W, N, S):
+    """The cluster kernel without its cross-cluster step (a measurement):
+    its rows, one launch."""
+    args = _bf16_args(cuda, *fused_inputs(W, N, S))
+    n0 = _counts()
+    rows = fusedpair.fused_pair_cluster_noflush(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {n: int(n == "fused_pair_cluster_noflush") for n in WATCHED}
+    close(rows.cpu(), fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)[0].cpu(),
+          CUDA_TOL)
+
+
+@pytest.fixture
+def cluster_size():
+    kept = fusedpair.CLUSTER_SIZE
+    yield
+    fusedpair.CLUSTER_SIZE = kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 4, 8, 16])
+@pytest.mark.parametrize("name", VARIANTS)
+def test_fused_pair_variants_cluster_sizes_cuda_match_plain(cuda, cluster_size, C, name):
+    """Other cluster sizes (1: each block its own cluster, a per-block
+    flush; 16: a non-portable size, which the H100 grants), at a ragged
+    odd N."""
+    fusedpair.CLUSTER_SIZE = C
+    args = _bf16_args(cuda, *fused_inputs(3, 4097, 500))
+    rows, cols = getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=500)
+    torch.cuda.synchronize()
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=500)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VARIANTS)
+@pytest.mark.parametrize("Ci,Cj,W,N,S", [(2, 5, 4, 1001, 300), (8, 16, 3, 777, 1024)])
+def test_fused_pair_variants_generic_route_cuda_matches_plain(cuda, name, Ci, Cj, W, N, S):
+    """Pairs the cluster kernel is not specialised for go to the variant's
+    first body (its count moves, the cluster kernel's does not); a 3 x 9
+    accumulator beyond both kernels' shared memory raises."""
+    rng = np.random.default_rng(9)
+    ids = rng.integers(-2, S + 3, (W, N)).astype(np.int32)
+    args = _bf16_args(cuda, ids, rng.normal(size=(W * Ci * Cj, N)).astype(np.float32),
+                      rng.normal(size=(Cj, S)).astype(np.float32),
+                      rng.normal(size=(Ci, N)).astype(np.float32))
+    assert fusedpair.variant_route(name, Ci, Cj, S) == name + "_generic"
+    n0 = _counts()
+    rows, cols = getattr(fusedpair, name)(*args, Ci=Ci, Cj=Cj, S=S)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {n: int(n == name + "_generic") for n in WATCHED}
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+    big = _bf16_args(cuda, *fused_inputs(2, 100, 3200))
+    with pytest.raises(ValueError, match="no kernel"):
+        getattr(fusedpair, name)(*big, Ci=CI, Cj=CJ, S=3200)
+
+
+@pytest.fixture(scope="module")
+def skew_1m_tables():
+    """The skewed 1M BA scene's level-0 and widest col tables (ids [W, N_t]
+    on the card, after the residual sort), as its plan builds them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+
+    ins, _ = ba.skewed_inputs(n_cameras=1024, n_points=250_000, target_obs=1_000_000, seed=0)
+    plan = tt.load_energy(ba.ENERGY).plan({"C": 1024, "P": 250_000, "O": len(ins["oToC"])},
+                                          solver="levenberg_marquardt", device="cuda")
+    plan.init(ins)
+    bsr = plan._prep["consts"][0]["bsr"]
+    cols = [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
+    return {"level0": cols[0], "widest": cols[-1]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VARIANT_ROUTES)
+@pytest.mark.parametrize("level", ["level0", "widest"])
+def test_fused_pair_variants_skew_1m_cuda_match_plain(cuda, skew_1m_tables, name, level):
+    """The skewed 1M scene's tables, where the hot camera sums ~1e6 terms
+    into one output: rows to CUDA_TOL, cols to 4 x 2^-24 sqrt(n) x the sum
+    of each output's terms' magnitudes (_close_hot_cols)."""
+    ids = skew_1m_tables[level]
+    W, N = ids.shape
+    rng = np.random.default_rng(10)
+    args = _bf16_args(cuda, ids.cpu().numpy(),
+                      rng.normal(size=(W * CI * CJ, N)).astype(np.float32),
+                      rng.normal(size=(CJ, 1024)).astype(np.float32),
+                      rng.normal(size=(CI, N)).astype(np.float32))
+    n0 = _counts()
+    rows, cols = getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=1024)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {n: int(n == name) for n in WATCHED}
+    close(rows.cpu(), fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=1024)[0].cpu(),
+          CUDA_TOL)
+    _close_hot_cols(cols, args, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,counted,dtype", [
+    ("fused_pair_apply", "fused_pair_apply", torch.float32),
+    ("fused_pair_apply", "fused_pair_apply_bf16", torch.bfloat16),
+    ("fused_pair_apply_bf16", "fused_pair_apply_bf16", torch.bfloat16)])
+def test_solver_fused_pair_keeps_its_kernel(cuda, entry, counted, dtype):
+    """The solver's fused pair still launches csrc/fused_pair.cu's
+    persistent kernel in f32 and bf16: its count moves, the cluster
+    kernel's and the variants' do not."""
+    ids, blocks, pcol, prow = fused_inputs(4, 4096, 1024)
+    args = _bf16_args(cuda, ids, blocks, pcol, prow)
+    if dtype == torch.float32:
+        args[1] = args[1].float()
+    n0 = _counts()
+    rows, cols = getattr(fusedpair, entry)(*args, Ci=CI, Cj=CJ, S=1024)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {n: int(n == counted) for n in WATCHED}
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=1024)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)

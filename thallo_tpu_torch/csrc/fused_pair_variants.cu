@@ -4,7 +4,10 @@
 // fused_pair_wloop.cu do not take, and the first port of
 // scripts/tpu_fused_pair_micro.py's `fused_pair_kernel`, whose pair now runs
 // the bf16 persistent kernel); modes 1-3 replace the Pallas kernels of
-// scripts/tpu_fused_variants.py, make_v1/v2/v3.
+// scripts/tpu_fused_variants.py, make_v1/v2/v3 (modes 2 and 3 are the
+// first bodies of v2 and v3, kept as fused_pair_v2_smem_generic and
+// fused_pair_v3_partials_generic for the shapes the cluster kernel of
+// fused_pair_cluster.cu does not take).
 // The contract is that of csrc/fused_pair.cu (thallo_tpu_torch/ops/
 // fusedpair.py), with blocks read as bf16 and every other value, and all
 // arithmetic, in f32 (the JAX scripts' bf16 rounding of pcol and z fed the

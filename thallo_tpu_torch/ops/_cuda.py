@@ -36,6 +36,7 @@ SM_SMEM = 227 * 1024  # shared memory the blocks resident on one H100 SM share
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thallo_tpu_torch"
 
 P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+IP = ctypes.POINTER(ctypes.c_int)
 # exported symbol -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     "thallo_fused_pair_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
@@ -53,6 +54,8 @@ SIGNATURES = {
     "thallo_fused_pair_wloop_persistent_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_oh_setup_products_persistent": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    "thallo_fused_pair_cluster": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P),
+    "thallo_fused_pair_cluster_occupancy": (I, I, I, I, I, IP),
     "thallo_loop_floor_add_one": (P, P, I, P),
 }
 

@@ -61,16 +61,31 @@ thread per element, cols by global atomics: the first bf16 body).
 The measurement scripts' kernels (``scripts/tpu_fused_pair_micro.py``,
 ``scripts/tpu_fused_variants.py``) are the same pair on bf16 blocks:
 ``fused_pair_bf16`` (the micro's pair: the bf16 persistent kernel, counted
-on its own), and in ``csrc/fused_pair_variants.cu`` ``fused_pair_v1_rows``
-(rows only), ``fused_pair_v2_smem`` (cols in a shared accumulator per
-block, one global atomic per nonzero entry) and ``fused_pair_v3_partials``
-(per-block cols slabs [G, Cj, S], summed outside the kernel).  The plain
-version of every kernel here is ``fused_pair_apply_reference``, which
-reads bf16 blocks as f32.  ``scripts/torch_fused_pair_micro.py`` and
+on its own); ``fused_pair_v1_rows`` (rows only, ``csrc/fused_pair_variants.cu``);
+``fused_pair_v2_smem`` (make_v2: one cols accumulator carried across the
+grid) and ``fused_pair_v3_partials`` (make_v3: cols partials summed
+outside the kernel).  For the pairs the persistent kernels take, v2 and
+v3 launch the cluster kernel (``csrc/fused_pair_cluster.cu``): the bf16
+persistent body, launched as clusters of ``CLUSTER_SIZE`` blocks whose
+shared accumulators are summed through distributed shared memory, then
+added to cols by one global atomic per nonzero entry per cluster (v2) or
+stored as one slab per cluster and summed by ``torch.sum`` (v3)
+(``variant_route``; ``cluster_plan`` sizes the grid).  Other shapes take
+their first bodies, ``fused_pair_v2_smem_generic`` and
+``fused_pair_v3_partials_generic`` (``csrc/fused_pair_variants.cu``,
+modes 2 and 3: a shared accumulator per block, flushed by global atomics
+or as [G, Cj, S] slabs).  ``fused_pair_cluster_noflush`` runs the cluster
+kernel without its last step (nothing leaves the cluster): a
+measurement, no route.  The plain version of every kernel here is
+``fused_pair_apply_reference``, which reads bf16 blocks as f32.
+``scripts/torch_fused_pair_micro.py`` and
 ``scripts/torch_fused_variants.py`` time the scripts' kernels; no solver
 path runs them.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -420,23 +435,188 @@ def fused_pair_v1_rows(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
                         Ci, Cj, S)[0]
 
 
-def fused_pair_v2_smem(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """Variant v2: cols summed in a shared [Cj, S] accumulator per block,
-    one global atomic per nonzero entry -> (rows, cols)."""
+def fused_pair_v2_smem_generic(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """Variant v2's first body: cols summed in a shared [Cj, S]
+    accumulator per block of about two per SM, one global atomic per
+    nonzero entry per block -> (rows, cols); any Ci <= 8, Cj <= 16 whose
+    accumulator fits _cuda.MAX_DYNAMIC_SMEM."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
-    return _bf16_launch(fused_pair_v2_smem, _SMEM, ids2d, blocks_wm, pcol, prow, Ci, Cj, S)
+    return _bf16_launch(fused_pair_v2_smem_generic, _SMEM, ids2d, blocks_wm, pcol, prow, Ci, Cj,
+                        S)
 
 
-def fused_pair_v3_partials(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """Variant v3: per-block cols slabs [G, Cj, S] written without atomics
-    and summed outside the kernel -> (rows, cols)."""
+def fused_pair_v3_partials_generic(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """Variant v3's first body: per-block cols slabs [G, Cj, S] written
+    without atomics and summed outside the kernel -> (rows, cols); the
+    shapes of fused_pair_v2_smem_generic."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
-    return _bf16_launch(fused_pair_v3_partials, _PARTIALS, ids2d, blocks_wm, pcol, prow,
+    return _bf16_launch(fused_pair_v3_partials_generic, _PARTIALS, ids2d, blocks_wm, pcol, prow,
                         Ci, Cj, S)
 
 
-for _fn in (fused_pair_bf16_atomics, fused_pair_bf16, fused_pair_v1_rows, fused_pair_v2_smem,
-            fused_pair_v3_partials):
+for _fn in (fused_pair_bf16_atomics, fused_pair_bf16, fused_pair_v1_rows,
+            fused_pair_v2_smem_generic, fused_pair_v3_partials_generic):
+    _fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the cluster kernel of variants v2 and v3 (csrc/fused_pair_cluster.cu)
+# ---------------------------------------------------------------------------
+_NO_FLUSH, _FLUSH_ATOMICS, _FLUSH_SLABS = range(3)  # csrc/fused_pair_cluster.cu Flush
+# blocks per cluster, threads per block, and blocks per SM the grid aims
+# at (at most what cudaOccupancyMaxActiveClusters allows at those threads
+# and the [9, S] accumulator).  H100 sweep at the uniform 1M shape
+# (scripts/torch_redesign_sweep.py --only variants --sweep, C 2-16 x 256,
+# 512 threads x 1-3 blocks per SM): v2 / v3 0.0495 / 0.0520 ms at C 2,
+# 512 x 2; 0.0500 / 0.0552 at C 4; at C 8 and 16 0.078 / 0.079, as slow
+# as one block per SM (C 2, 512 x 1: 0.0709) though the occupancy query
+# holds 30 clusters of 8 (240 blocks); 256 threads 0.072 and worse
+CLUSTER_SIZE = 2
+CLUSTER_THREADS = 512
+CLUSTER_BLOCKS_PER_SM = 2
+VARIANTS = ("fused_pair_v2_smem", "fused_pair_v3_partials")
+
+
+def variant_route(name: str, Ci: int, Cj: int, S: int) -> str:
+    """The kernel variant `name` (fused_pair_v2_smem or
+    fused_pair_v3_partials) launches on a CUDA tensor: `name` itself (the
+    cluster kernel) where persistent_fits(Ci, Cj, S); else its first body,
+    name + "_generic", where that takes the pair and its [Cj, S] f32
+    accumulator fits _cuda.MAX_DYNAMIC_SMEM; raises ValueError for a shape
+    neither takes."""
+    if name not in VARIANTS:
+        raise ValueError(f"variant_route: unknown variant {name!r}")
+    if persistent_fits(Ci, Cj, S):
+        return name
+    if 1 <= Ci <= MAX_CI and 1 <= Cj <= MAX_CJ and 1 <= S and Cj * S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
+        return name + "_generic"
+    raise ValueError(f"{name}: no kernel for Ci={Ci}, Cj={Cj}, S={S} (the cluster kernel takes "
+                     f"{sorted(PERSISTENT_PAIRS)} with Cj*S*4 <= {PERSISTENT_MAX_SMEM}, the "
+                     f"generic body Ci <= {MAX_CI}, Cj <= {MAX_CJ}, Cj*S*4 <= "
+                     f"{_cuda.MAX_DYNAMIC_SMEM})")
+
+
+def cluster_plan(N: int, elems: int, threads: int, C: int, max_clusters: int):
+    """(grid, n_slabs) of the cluster kernel at N elements, elems a thread
+    and threads a block: as many clusters of C blocks as max_clusters
+    allows, no more than the element tiles fill (at least one); the grid
+    is clusters x C blocks, and v3 writes one slab per cluster."""
+    if min(elems, threads, C, max_clusters) < 1 or N < 0:
+        raise ValueError(f"cluster_plan: N={N}, elems={elems}, threads={threads}, C={C}, "
+                         f"max_clusters={max_clusters}")
+    tiles = -(-N // (threads * elems))
+    clusters = max(1, min(max_clusters, -(-tiles // C)))
+    return clusters * C, clusters
+
+
+@functools.lru_cache(maxsize=None)
+def max_active_clusters(device, S, threads, C, elems, mode=_FLUSH_ATOMICS) -> int:
+    """Clusters of C blocks of the cluster kernel's instantiation (elems,
+    mode) that the card holds at once (cudaOccupancyMaxActiveClusters;
+    cached).  0 where none fits; raises where the card refuses the query
+    (e.g. C > 8 without non-portable cluster sizes)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        code = _cuda.lib().thallo_fused_pair_cluster_occupancy(S, threads, C, elems, mode,
+                                                               ctypes.byref(n))
+    _cuda.check(code, f"cudaOccupancyMaxActiveClusters (S={S}, threads={threads}, C={C})")
+    return n.value
+
+
+def cluster_threads(N: int, elems: int, aim_blocks: int) -> int:
+    """Threads a block of the cluster kernel: CLUSTER_THREADS, unless its
+    block-sized tiles of N elements would give fewer than half of the
+    aim_blocks blocks a tile; then the fewest warps (at least 2) whose
+    tiles spread N over aim_blocks blocks, so a short level still reaches
+    most SMs."""
+    per_block = CLUSTER_THREADS * elems
+    if 2 * -(-N // per_block) >= aim_blocks:
+        return CLUSTER_THREADS
+    return min(CLUSTER_THREADS, max(64, 32 * -(-N // (32 * elems * aim_blocks))))
+
+
+def cluster_grid(device, N: int, S: int, mode: int = _FLUSH_ATOMICS):
+    """(threads, grid, n_slabs) of a launch of the cluster kernel at N
+    elements and the current CLUSTER_* constants: CLUSTER_BLOCKS_PER_SM
+    blocks per SM in clusters of CLUSTER_SIZE, at most the clusters the
+    card holds at once (raises where it holds none)."""
+    elems, C = bf16_elems(N), CLUSTER_SIZE
+    aim = -(-CLUSTER_BLOCKS_PER_SM * _cuda.sm_count(device) // C)
+    threads = cluster_threads(N, elems, aim * C)
+    occupancy = max_active_clusters(device, S, threads, C, elems, mode)
+    if occupancy < 1:
+        raise RuntimeError(f"no cluster of {C} blocks of {threads} threads and a "
+                           f"{9 * S * 4}-byte accumulator fits the card")
+    return (threads, *cluster_plan(N, elems, threads, C, min(aim, occupancy)))
+
+
+def _launch_cluster(fn, mode, ids2d, blocks_wm, pcol, prow, Ci, Cj, S):
+    what = fn.__name__
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, torch.bfloat16)
+    if not persistent_fits(Ci, Cj, S):
+        raise ValueError(f"{what}: no cluster kernel for Ci={Ci}, Cj={Cj}, S={S}")
+    dev = ids2d.device
+    threads, grid, n_slabs = cluster_grid(dev, N, S, mode)
+    n_pad = -(-(Cj * S) // 4) * 4
+    rows = torch.empty((Ci, N), dtype=torch.float32, device=dev)
+    out = None
+    if mode == _FLUSH_ATOMICS:
+        out = torch.zeros((Cj, S), dtype=torch.float32, device=dev)
+    elif mode == _FLUSH_SLABS:
+        out = torch.empty((n_slabs, n_pad), dtype=torch.float32, device=dev)
+    code = _cuda.lib().thallo_fused_pair_cluster(
+        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(), rows.data_ptr(),
+        None if out is None else out.data_ptr(), W, N, Ci, Cj, S, threads, grid, CLUSTER_SIZE,
+        MERGE_MIN, bf16_elems(N), mode, _cuda.stream(ids2d))
+    _cuda.check(code, what)
+    fn.launches += 1
+    if mode == _FLUSH_SLABS:  # the slabs summed outside the kernel, as make_v3's jnp.sum
+        out = torch.sum(out, 0)[:Cj * S].view(Cj, S)
+    return rows, out
+
+
+def fused_pair_v2_smem(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """Variant v2 (make_v2: one cols accumulator carried across the grid)
+    -> (rows, cols): the cluster kernel, whose clusters sum their blocks'
+    shared accumulators through distributed shared memory and add the sum
+    to cols by one global atomic per nonzero entry; shapes it does not
+    take go to fused_pair_v2_smem_generic (variant_route).  CPU tensors
+    take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    if variant_route("fused_pair_v2_smem", Ci, Cj, S) != "fused_pair_v2_smem":
+        return fused_pair_v2_smem_generic(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_cluster(fused_pair_v2_smem, _FLUSH_ATOMICS, ids2d, blocks_wm, pcol, prow, Ci,
+                           Cj, S)
+
+
+def fused_pair_v3_partials(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """Variant v3 (make_v3: cols partials summed outside the kernel) ->
+    (rows, cols): the cluster kernel, each cluster storing its reduced
+    accumulator as one slab without atomics, the slabs summed by
+    torch.sum; shapes it does not take go to
+    fused_pair_v3_partials_generic (variant_route).  CPU tensors take the
+    plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    if variant_route("fused_pair_v3_partials", Ci, Cj, S) != "fused_pair_v3_partials":
+        return fused_pair_v3_partials_generic(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_cluster(fused_pair_v3_partials, _FLUSH_SLABS, ids2d, blocks_wm, pcol, prow, Ci,
+                           Cj, S)
+
+
+def fused_pair_cluster_noflush(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """rows [Ci, N] alone, by the cluster kernel with its cols summed in
+    each cluster but never stored (a measurement of the body and the
+    in-cluster sum without the cross-cluster step; the cluster kernel's
+    shapes only)."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)[0]
+    return _launch_cluster(fused_pair_cluster_noflush, _NO_FLUSH, ids2d, blocks_wm, pcol, prow,
+                           Ci, Cj, S)[0]
+
+
+for _fn in (fused_pair_v2_smem, fused_pair_v3_partials, fused_pair_cluster_noflush):
     _fn.launches = 0
