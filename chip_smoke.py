@@ -47,7 +47,10 @@ its seconds; any failure exits non-zero):
      plain versions): per-step unknowns and costs agree; then the small
      skewed scene (``skewed_inputs(16, 1400, 5600)``: point levels
      W = 8, 24, 273), under scalar and block Jacobi: each level launches
-     the kernel fused_pair_route names for it;
+     the kernel fused_pair_route names for it; then the grid path:
+     image_warping 64 x 64 with an excluded 16 x 16 square, 3 LM steps
+     through run_steps on the card and on the CPU: unknowns and costs
+     agree, the excluded unknowns never move (bit for bit);
   4. the 1M LM solve, block-sparse materialized JᵀJ: its three kernels
      launched, costs finite, final cost <= 1e-2 x initial;
   5. the 1M LM solve under PRECOMPUTE_J (``J.set_materialize(True)``),
@@ -80,7 +83,18 @@ its seconds; any failure exits non-zero):
  10. the skewed 1M scene under block_dtype="bf16" for BF16_SKEW_STEPS LM
      steps: each level launches the bf16 instantiation of the kernel
      fused_pair_route names for it (the W-loop one at every wide level);
-     costs never rising.
+     costs never rising;
+ 11. image_warping at 512 x 512 (JAX's bench.py configuration), GN, 16
+     PCG iterations, LINEARIZE over stencil rolls (no
+     hand-written kernel: the JAX package runs no Pallas kernel there
+     either): plan.warmup(), run_steps(1) three times, run_steps(7),
+     plan.final_cost; every unknown finite, the costs after steps 1-3
+     and 10 within GRID_TRAJ_RTOL of the JAX package's f32 trajectory
+     (GRID_JAX_COSTS; f32 rounding alone moves it by percents); after
+     step 3, the cost, -JᵀF, diag(JᵀJ) and JᵀJ·p on the card against
+     the port's CPU path at the same unknowns (GRID_LINEAR_RTOL); logs
+     the step median of steps 2-10 and the device kernels per step and
+     per PCG iteration.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -135,6 +149,46 @@ SKEW_1M = (1024, 250_000, 1_000_000)  # cameras, points, target observations
 SKEW_SMALL = (16, 1400, 5600)
 N_STEPS_1M = 10
 BF16_SKEW_STEPS = 3  # phase 10: enough to launch every level's kernel
+# phase 3, the grid path on a small scene: image_warping 64 x 64 with an
+# excluded 16 x 16 square, LM, card against the port's CPU path, held to
+# STEP_U_TOL-style bounds (GRID_U_TOL x max|U| per image, costs
+# GRID_COST_TOL); the port's own CPU steps move by at most 8.5e-5 of
+# max|Angle| when its unknowns are moved by 1e-7 x max|U| (three seeds:
+# scripts/torch_grid_trajectory.py --package torch --device cpu --size 64
+# --mask 24:40 --steps 3 --solver levenberg_marquardt --perturb SEED),
+# inside GRID_U_TOL
+GRID_SMALL = 64
+GRID_MASK = (slice(24, 40), slice(24, 40))
+GRID_SMALL_STEPS = 3
+GRID_U_TOL = 1e-4
+GRID_COST_TOL = 1e-3
+# phase 11: image_warping at 512 x 512, GN, lIterations 16, 10 steps (JAX's
+# bench.py configuration, synthetic_inputs(512, 512, w_fit=100.0,
+# w_reg=0.01)), against the JAX package's f32 trajectory on a CPU, costs
+# after steps 0-10 (GRID_JAX_COSTS; GRID_JAX_F64_COSTS: the same in f64,
+# logged beside it):
+#   JAX_PLATFORMS=cpu python3 scripts/torch_grid_trajectory.py --package jax [--double]
+# f32 rounding moves this trajectory a lot: JAX's own f32 run lies 1.9e-2,
+# 8.4e-3, 2.5e-2 and 4.4e-3 from its f64 run after steps 1, 2, 3 and 10.
+# Ten f32 runs of the port's CPU path (1-8 threads, unknowns moved by
+# 1e-7 x max|U|; --package torch --device cpu [--perturb SEED]) lie at most
+# 4.3e-3, 1.04e-2, 1.87e-2 and 1.14e-2 from JAX's f32 run there, and up to
+# 2.8e-2 at steps 4-9.  GRID_TRAJ_RTOL is about twice those (step 10:
+# twice the worst of steps 4-10), so it catches a wrong step, not
+# rounding; GRID_LINEAR_RTOL holds what rounding does not move (the cost,
+# -JᵀF, diag(JᵀJ) and JᵀJ·p at the same unknowns, card vs the port's CPU
+# path, max|diff| / max|ref|), and the initial cost against JAX's.
+GRID_SIZE = 512
+GRID_L_ITERATIONS = 16
+GRID_STEPS = 10
+GRID_JAX_COSTS = (2966286.0, 1107.7957763671875, 909.3623657226562, 866.0934448242188,
+                  827.853271484375, 817.5474243164062, 800.853759765625, 793.07470703125,
+                  765.5115356445312, 770.9002685546875, 758.538818359375)
+GRID_JAX_F64_COSTS = (2966286.093314577, 1086.7743789304482, 901.8160334220377,
+                      844.6820533678567, 810.9208239041382, 800.145728766788, 784.374971477801,
+                      775.5058966841228, 756.201589398889, 751.8364308316061, 755.228738909175)
+GRID_TRAJ_RTOL = {1: 1e-2, 2: 2e-2, 3: 4e-2, GRID_STEPS: 6e-2}
+GRID_LINEAR_RTOL = 1e-5
 # device_ms: calls per captured CUDA graph, replays per timing
 GRAPH_CALLS = 10
 GRAPH_REPLAYS = 5
@@ -465,17 +519,19 @@ def measurement_kernel_cases(dev, rng):
             ids[:, -7:] = S + 3
             ids[0, :5] = -1
         a = _pair_args(t, rng, t(ids), S=S, block_dtype=torch.bfloat16)
-        for name in ("fused_pair_bf16", "fused_pair_v1_rows", "fused_pair_v2_smem",
-                     "fused_pair_v3_partials", "fused_pair_v2_smem_generic",
+        for name in ("fused_pair_bf16", "fused_pair_v1_rows", "fused_pair_v1_rows_generic",
+                     "fused_pair_v2_smem", "fused_pair_v3_partials", "fused_pair_v2_smem_generic",
                      "fused_pair_v3_partials_generic", "fused_pair_cluster_noflush"):
-            rows_only = name in ("fused_pair_v1_rows", "fused_pair_cluster_noflush")
+            rows_only = name in ("fused_pair_v1_rows", "fused_pair_v1_rows_generic",
+                                 "fused_pair_cluster_noflush")
             cases.append((name, tag,
                           lambda a=a, S=S, fn=getattr(fusedpair, name), ro=rows_only:
                           (fn(*a, Ci=3, Cj=9, S=S),) if ro else fn(*a, Ci=3, Cj=9, S=S),
                           lambda a=a, S=S, ro=rows_only: fusedpair.fused_pair_apply_reference(
                               *a, Ci=3, Cj=9, S=S)[:1 if ro else 2],
-                          None, nbytes(*a), (2 if name == "fused_pair_v1_rows" else 4) * W * N * 27,
-                          None))
+                          None, nbytes(*a) - (nbytes(a[3]) if name.startswith("fused_pair_v1")
+                                              else 0),
+                          (2 if name.startswith("fused_pair_v1") else 4) * W * N * 27, None))
     for tag, tiles in (("tile1", 1), ("grid64", 64)):
         x = t(rng.normal(size=(loopfloor.ROWS, 1024 * tiles)).astype(np.float32))
         cases.append(("loop_floor_add_one", tag,
@@ -500,6 +556,7 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("segment_sum", "ba1m"): "segment_sum",
           ("fused_pair_bf16", "ba1m"): "fused_pair_bf16",
           ("fused_pair_v1_rows", "ba1m"): "fused_pair_v1_rows",
+          ("fused_pair_v1_rows_generic", "ba1m"): "fused_pair_v1_rows_generic",
           ("fused_pair_v2_smem", "ba1m"): "fused_pair_v2_smem",
           ("fused_pair_v3_partials", "ba1m"): "fused_pair_v3_partials",
           ("fused_pair_v2_smem_generic", "ba1m"): "fused_pair_v2_smem_generic",
@@ -546,8 +603,10 @@ KERNELS = {
                               "thallo_tpu/ops/fusedpair.py:349", "bf16 block-sparse"),
     "fused_pair_apply_wloop_bf16": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
                                     "thallo_tpu/ops/fusedpair.py:385", "skew bf16 block-sparse"),
-    "fused_pair_v1_rows": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+    "fused_pair_v1_rows": ("thallo_tpu_torch/csrc/fused_pair_rows.cu",
                            "scripts/tpu_fused_variants.py:56", "measurement"),
+    "fused_pair_v1_rows_generic": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
+                                   "scripts/tpu_fused_variants.py:56", "measurement"),
     "fused_pair_v2_smem": ("thallo_tpu_torch/csrc/fused_pair_cluster.cu",
                            "scripts/tpu_fused_variants.py:80", "measurement"),
     "fused_pair_v3_partials": ("thallo_tpu_torch/csrc/fused_pair_cluster.cu",
@@ -584,6 +643,7 @@ def counters():
             "fused_pair_apply_bf16": fusedpair.fused_pair_apply_bf16,
             "fused_pair_apply_wloop_bf16": fusedpair.fused_pair_apply_wloop_bf16,
             "fused_pair_v1_rows": fusedpair.fused_pair_v1_rows,
+            "fused_pair_v1_rows_generic": fusedpair.fused_pair_v1_rows_generic,
             "fused_pair_v2_smem": fusedpair.fused_pair_v2_smem,
             "fused_pair_v3_partials": fusedpair.fused_pair_v3_partials,
             "fused_pair_v2_smem_generic": fusedpair.fused_pair_v2_smem_generic,
@@ -694,6 +754,124 @@ def phase_small_scene(ba, tt):
     check_steps("small scene cuda vs cpu", cg, Ug, cc, Uc)
     if not cg[-1] <= 1e-2 * cg[0]:
         raise AssertionError("small scene did not converge on the card")
+
+
+def phase_small_grid():
+    """image_warping 64 x 64 with an excluded square, 3 LM steps through
+    run_steps on the card and on the CPU: unknowns and costs agree, the
+    excluded unknowns never move (bit for bit)."""
+    from torch_grid_profile import make_grid_plan
+
+    runs = {}
+    for device in ("cuda", "cpu"):
+        plan = make_grid_plan(GRID_SMALL, device, solver="levenberg_marquardt", mask=GRID_MASK)
+        U0 = {k: v.cpu().numpy() for k, v in plan.unknowns().items()}
+        costs, Us = [plan.final_cost], []
+        for _ in range(GRID_SMALL_STEPS):
+            plan.run_steps(1)
+            costs.append(plan.final_cost)
+            Us.append({k: v.cpu().numpy() for k, v in plan.unknowns().items()})
+        runs[device] = (costs, Us, U0)
+    (cg, Ug, U0), (cc, Uc, _) = runs["cuda"], runs["cpu"]
+    log(f"grid {GRID_SMALL}x{GRID_SMALL} masked LM costs cuda {cg}")
+    log(f"grid {GRID_SMALL}x{GRID_SMALL} masked LM costs cpu  {cc}")
+    check_steps(f"grid {GRID_SMALL}x{GRID_SMALL} masked LM cuda vs cpu", cg, Ug, cc, Uc,
+                GRID_U_TOL, GRID_COST_TOL)
+    for k, U in enumerate(Ug):
+        for name, u in U.items():
+            if not np.array_equal(u[GRID_MASK], U0[name][GRID_MASK]):
+                raise AssertionError(f"grid masked LM, step {k + 1}: excluded {name} moved")
+    if np.array_equal(Ug[-1]["Offset"], U0["Offset"]):
+        raise AssertionError("grid masked LM: the unknowns never moved")
+
+
+def grid_linear_parts(plan, p):
+    """(cost, -JᵀF, diag(JᵀJ), JᵀJ·p) of plan at its current unknowns, as
+    numpy: the solver's setup and one JᵀJ·p application, state untouched."""
+    comp, prep, ins = plan.compiled, plan._prep, plan._step_inputs()
+    st = comp.solve_setup(plan._U, plan._lm, ins, plan._sp(), prep)
+    jtjp = comp.make_jtjp(plan._U, ins, prep["consts"], st["masks"], st["jac_store"])
+    dev = plan._U[next(iter(plan._U))].device
+    Ap = jtjp({k: torch.from_numpy(v).to(dev) for k, v in p.items()})
+    as_np = lambda t: {k: v.cpu().numpy() for k, v in t.items()}  # noqa: E731
+    return plan.final_cost, as_np(st["r0"]), as_np(st["rawdiag"]), as_np(Ap)
+
+
+def phase_grid_512():
+    """image_warping 512 x 512, GN, GRID_L_ITERATIONS PCG iterations:
+    plan.warmup(), run_steps(1) three times (cost read after each), then
+    run_steps(7) as one batch with no host read, plan.final_cost; every
+    unknown finite, each checked step's cost within its
+    GRID_TRAJ_RTOL of JAX's f32 trajectory.  After step 3 the grid path's
+    linear algebra at full width (cost, -JᵀF, diag(JᵀJ), JᵀJ·p of a
+    seeded p) against the port's CPU path on the same unknowns, within
+    GRID_LINEAR_RTOL: this part is not sensitive to rounding.  Logs the
+    step times and the device kernels per step and per PCG iteration."""
+    from torch_grid_profile import launch_split, make_grid_plan
+
+    label = f"grid {GRID_SIZE}x{GRID_SIZE} GN"
+    t0 = time.perf_counter()
+    plan = make_grid_plan(GRID_SIZE, "cuda", l_iterations=GRID_L_ITERATIONS, n_iter=GRID_STEPS)
+    torch.cuda.synchronize()
+    log(f"{label}: init {time.perf_counter() - t0:.3f} s, initial cost {plan.final_cost!r}")
+    t0 = time.perf_counter()
+    plan.warmup()
+    log(f"{label}: warmup {time.perf_counter() - t0:.3f} s")
+    costs, step_s = [plan.final_cost], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        plan.run_steps(1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        costs.append(plan.final_cost)
+
+    rng = np.random.default_rng(11)
+    p = {k: rng.normal(size=tuple(v.shape)).astype(np.float32) for k, v in plan._U.items()}
+    got = grid_linear_parts(plan, p)
+    cpu_plan = make_grid_plan(GRID_SIZE, "cpu", l_iterations=GRID_L_ITERATIONS)
+    cpu_plan._U = {k: v.cpu() for k, v in plan._U.items()}
+    ref = grid_linear_parts(cpu_plan, p)
+    del cpu_plan
+    rel = abs(got[0] - ref[0]) / abs(ref[0])
+    log(f"{label}, step 3, card vs CPU: cost {got[0]!r} vs {ref[0]!r}, rel {rel:.3e}")
+    if not rel <= GRID_LINEAR_RTOL:
+        raise AssertionError(f"{label}: cost at step 3, card {got[0]} vs CPU {ref[0]}")
+    for what, a, b in zip(("-JᵀF", "diag(JᵀJ)", "JᵀJ·p"), got[1:], ref[1:]):
+        for name in b:
+            err = float(np.abs(a[name] - b[name]).max())
+            scale = float(np.abs(b[name]).max())
+            log(f"{label}, step 3, card vs CPU: {what} {name} max|diff| {err:.3e} "
+                f"= {err / scale:.3e} x max|ref|")
+            if not err <= GRID_LINEAR_RTOL * scale:
+                raise AssertionError(f"{label}: {what} of {name} at step 3, card vs CPU, "
+                                     f"{err} > {GRID_LINEAR_RTOL} x {scale}")
+
+    t0 = time.perf_counter()
+    n = plan.run_steps(GRID_STEPS - 3)
+    torch.cuda.synchronize()
+    batch = time.perf_counter() - t0
+    costs.append(plan.final_cost)
+    if n != GRID_STEPS - 3 or plan.num_iterations != GRID_STEPS:
+        raise AssertionError(f"{label}: run_steps ran {n} steps, {plan.num_iterations} in all")
+    per_step = step_s[1:] + [batch / n] * n
+    log(f"{label} costs after steps 0-3 and {GRID_STEPS}: {costs}")
+    log(f"{label} step times: steps 1-3 {[round(t * 1e3, 2) for t in step_s]} ms, steps 4-"
+        f"{GRID_STEPS} one run_steps({n}) batch {batch * 1e3:.2f} ms; median of steps 2-"
+        f"{GRID_STEPS} {float(np.median(per_step)) * 1e3:.2f} ms")
+    for name, U in plan.unknowns().items():
+        if not bool(torch.isfinite(U).all()):
+            raise AssertionError(f"{label}: non-finite unknowns {name}")
+    got = dict(zip((0, 1, 2, 3, GRID_STEPS), costs))
+    for k, tol in ((0, GRID_LINEAR_RTOL),) + tuple(GRID_TRAJ_RTOL.items()):
+        ref_k, f64_k = GRID_JAX_COSTS[k], GRID_JAX_F64_COSTS[k]
+        rel = abs(got[k] - ref_k) / abs(ref_k)
+        log(f"{label} step {k}: cost {got[k]!r} vs JAX {ref_k!r}, rel {rel:.3e} (limit {tol}); "
+            f"vs JAX in f64 {f64_k!r}, rel {abs(got[k] - f64_k) / f64_k:.3e}")
+        if not (np.isfinite(got[k]) and rel <= tol):
+            raise AssertionError(f"{label}, step {k}: cost {got[k]} vs JAX {ref_k}")
+    full, per_iter, rest = launch_split(plan)
+    log(f"{label} device kernels: {full} a step, {per_iter:.1f} a PCG iteration, "
+        f"{rest:.1f} setup + update; LINEARIZE applies JᵀJ·p from the setup's point Jacobians")
 
 
 def check_steps(what, costs, Us, ref_costs, ref_Us, u_tol=STEP_U_TOL,
@@ -1010,6 +1188,7 @@ def main():
     t0 = time.perf_counter()
     phase_small_scene(ba, tt)
     phase_small_skew(ba, tt)
+    phase_small_grid()
     log(f"phase 3 small scenes cuda vs cpu: {time.perf_counter() - t0:.2f} s")
 
     runs = {}
@@ -1050,6 +1229,12 @@ def main():
                                                    n_steps=BF16_SKEW_STEPS)
     torch.cuda.synchronize()
     log(f"phase 10 skewed BA 1M LM solve, block_dtype=bf16, {BF16_SKEW_STEPS} steps: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_grid_512()
+    torch.cuda.synchronize()
+    log(f"phase 11 image_warping {GRID_SIZE}x{GRID_SIZE} GN through run_steps: "
         f"{time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8)

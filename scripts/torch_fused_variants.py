@@ -8,7 +8,9 @@ The forms of the bf16-block fused pair:
                 block and flushed by one global atomic per nonzero entry
                 per block (fused_pair_bf16, the micro script's pair: the
                 bf16 persistent kernel of csrc/fused_pair.cu)
-  v1_rows_only  no cols output (csrc/fused_pair_variants.cu)
+  v1_rows_only  no cols output: the rows kernel (csrc/fused_pair_rows.cu)
+  v1_rows_only_generic
+                its first body (csrc/fused_pair_variants.cu mode 1)
   v2_smem       the cluster kernel (csrc/fused_pair_cluster.cu): the
                 blocks of a cluster sum their shared accumulators through
                 distributed shared memory, one global atomic per nonzero
@@ -43,6 +45,7 @@ from torch_measure import (JAX_CASES, card, emit, kept, max_rel_err, pair_operan
                            per_launch_ms, random_ids, skew_tables)
 
 VARIANTS = [("v0_atomics", "fused_pair_bf16"), ("v1_rows_only", "fused_pair_v1_rows"),
+            ("v1_rows_only_generic", "fused_pair_v1_rows_generic"),
             ("v2_smem", "fused_pair_v2_smem"), ("v3_partials", "fused_pair_v3_partials"),
             ("v2_smem_generic", "fused_pair_v2_smem_generic"),
             ("v3_partials_generic", "fused_pair_v3_partials_generic")]
@@ -89,7 +92,7 @@ def main(argv=None):
             for vname, fname in VARIANTS:
                 fn = getattr(fusedpair, fname)
                 got = fn(*ops, **kw)
-                err = max_rel_err((got,) if vname == "v1_rows_only" else got, ref)
+                err = max_rel_err((got,) if vname.startswith("v1_") else got, ref)
                 eager, graph[vname] = per_launch_ms(lambda: fn(*ops, **kw), args.n)
                 emit({"name": name, "variant": vname, "W": ids.shape[0], "N": ids.shape[1],
                       "S": S, "eager_ms": eager, "graph_ms": graph[vname], "rel_err": err,

@@ -67,6 +67,14 @@ Groups (all by default):
           cudaOccupancyMaxActiveClusters.  --sweep: the cluster kernel over
           CLUSTER_SIZE (C 2, 4, 8, and 16 where the card grants non-portable
           clusters) x CLUSTER_THREADS x CLUSTER_BLOCKS_PER_SM.
+  v1      the variant v1 of scripts/tpu_fused_variants.py (make_v1, rows
+          only) on bf16 blocks at the uniform 1M BA shape (W 4, N 250 000,
+          S 1024, random ids) and the skewed 1M scene's level-0 table: the
+          rows kernel (fused_pair_v1_rows, csrc/fused_pair_rows.cu), its
+          first body (fused_pair_v1_rows_generic) and the bf16 persistent
+          kernel without its cols side (rows_floor_bf16, the design it
+          started from).  --sweep: the rows kernel over (V1_THREADS,
+          V1_BLOCKS_PER_SM).
 One JSON line per timing: ms per call over n calls eager and in one CUDA
 graph (CUDA events; a replayed graph finds everything below 50 MB warm
 in L2), and the error against the plain torch version.  Needs CUDA.
@@ -115,6 +123,8 @@ VARIANT_KERNELS = [("v2_smem", "fused_pair_v2_smem"), ("v3_partials", "fused_pai
                    ("v3_partials_generic", "fused_pair_v3_partials_generic"),
                    ("v0_bf16", "fused_pair_bf16")]
 CLUSTER_MODES = {"v2_smem": 1, "v3_partials": 2, "noflush": 0}  # fusedpair._FLUSH_*
+# (V1_THREADS, V1_BLOCKS_PER_SM; 0: one tile a block)
+V1_SWEEP = ((128, 0), (256, 0), (512, 0), (256, 2), (512, 2), (1024, 1))
 # (AGG_THREADS, AGG_BLOCKS_PER_SM), then AGG_MERGE_MIN (33: never merge)
 AGG_SWEEP = (((256, 4), (512, 2), (512, 4), (1024, 1), (1024, 2)), (4, 8, 33))
 
@@ -462,9 +472,42 @@ def sweep_variants(args, smi, out):
                 timed(kernel, dict(VARIANT_KERNELS)[kernel])
 
 
+def sweep_v1(args, smi, out):
+    from thallo_tpu_torch.ops import fusedpair
+
+    rng = np.random.default_rng(8)
+    kw = dict(Ci=3, Cj=9, S=1024)
+    cases = [("ba_1m_pt_cam", random_ids(rng, 4, 250_000, kw["S"]))] + skew_tables((0,))
+    names = ("V1_THREADS", "V1_BLOCKS_PER_SM")
+    for name, ids in cases:
+        W, N = ids.shape
+        ops = pair_operands(rng, ids, **kw)
+        ref = fusedpair.fused_pair_apply_reference(*ops, **kw)[:1]
+
+        def timed(kernel, fname, **extra):
+            fn = getattr(fusedpair, fname)
+            err = max_rel_err((fn(*ops, **kw),), ref)
+            eager, graph = per_launch_ms(lambda: fn(*ops, **kw), args.n)
+            emit({"name": name, "kernel": kernel, "W": W, "N": N, "eager_ms": eager,
+                  "graph_ms": graph, "rel_err": err, "card": smi, **extra}, out)
+
+        timed("v1_rows", "fused_pair_v1_rows", **{n: getattr(fusedpair, n) for n in names},
+              elems=fusedpair.v1_elems(N))
+        timed("v1_rows_generic", "fused_pair_v1_rows_generic")
+        timed("rows_floor_bf16", "fused_pair_rows_floor", elems=fusedpair.bf16_elems(N))
+        if not args.sweep:
+            continue
+        with kept(fusedpair, *names):
+            for setting in V1_SWEEP:
+                for n, v in zip(names, setting):
+                    setattr(fusedpair, n, v)
+                timed("v1_rows", "fused_pair_v1_rows", **dict(zip(names, setting)),
+                      elems=fusedpair.v1_elems(N))
+
+
 GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum,
           "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate, "bf16": sweep_bf16,
-          "variants": sweep_variants}
+          "variants": sweep_variants, "v1": sweep_v1}
 
 
 def main(argv=None):

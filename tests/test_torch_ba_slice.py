@@ -278,30 +278,73 @@ def test_cuda_device_needs_a_gpu():
 
 
 def test_unported_paths_raise():
-    small, _ = ba.synthetic_inputs(n_cameras=4, n_points=64, obs_per_point=3)
-    dims = {"C": 4, "P": 64, "O": len(small["oToC"])}
-    with pytest.raises(NotImplementedError, match="dense"):
-        tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device="cpu")
-    grid = """
-W, H = Dims("W", "H")
-Inputs(X=Unknown(float, (W, H), 0), A=Array(float, (W, H), 1))
-x, y = W(), H()
-r = Residuals(fit=X(x, y) - A(x, y), reg=X(x, y) - X(x + 1, y))
-"""
-    with pytest.raises(NotImplementedError, match="stencil"):
-        tt.load_energy(grid).plan({"W": 80, "H": 80}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Schur"):
+    """What the port does not run yet raises at plan time, naming its
+    ROADMAP item: Schur solves, the autoscheduler, multi-step dispatch,
+    and the matrix-free schedules on graph groups.  (Small scenes on the
+    dense JᵀJ and stencil groups are ported: test_torch_grid.py and
+    test_torch_plan_api.py.)"""
+    with pytest.raises(NotImplementedError, match="Schur.*item 3"):
         _port_plan(linear_solver="schur_pcg")
-    # the matrix-free schedules other than PRECOMPUTE_J / APPLY_SEPARATELY:
-    # a graph group reaches LINEARIZE from a directive that materializes
-    # neither J, JᵀJ nor Jp (here JtF), INLINE only from a group plan
-    # built directly
+    with pytest.raises(NotImplementedError, match="autoscheduler.*item 8"):
+        _port_plan(use_autoscheduler=1)
+    with pytest.raises(NotImplementedError, match="multi-step dispatch.*item 2a"):
+        _port_plan(steps_per_dispatch=4)
+    # the matrix-free schedules on a graph group: LINEARIZE from a
+    # directive that materializes neither J, JᵀJ nor Jp (here JtF), INLINE
+    # only from a group plan built directly
     inputs, dims = _scene()
     linearize = ba.ENERGY + "\nr.snavely_reprojection_error.JtF.set_materialize(True)\n"
-    with pytest.raises(NotImplementedError, match="schedule linearize"):
+    with pytest.raises(NotImplementedError, match="schedule linearize on a graph group.*item 4a"):
         tt.load_energy(linearize).plan(dims, solver="levenberg_marquardt", device="cpu")
     spec = tt.load_energy(ba.ENERGY)
     g = spec.plan(dims, solver="levenberg_marquardt", device="cpu").compiled.groups[0]
-    with pytest.raises(NotImplementedError, match="schedule inline"):
+    with pytest.raises(NotImplementedError, match="schedule inline on a graph group.*item 4a"):
         CompiledSolver(spec, [GroupPlan(g.name, g.group, tt.JTJpSchedule.INLINE)], True,
                        torch.float32, {}, torch.device("cpu"))
+
+
+# the BA energy with some cameras held fixed by an Exclude mask
+EXCLUDED_CAMERAS = ba.ENERGY.replace(
+    "    oToP=Sparse((O,), (P,), 4),\n)",
+    "    oToP=Sparse((O,), (P,), 4),\n    Fixed=Array(float, (C,), 5),\n)\n"
+    "cameras.Exclude(Not(eq(Fixed(C()), 0)))")
+
+
+def test_exclude_mask_on_block_sparse_group_matches_jax():
+    """Exclude masks on a graph group (JAX's _mask_jacs_cm before the
+    block-sparse setup): cameras 0 and 5 fixed.  -JᵀF, diag and JᵀJ·p at
+    SETUP_TOL, 2 LM steps at the step bounds, and the fixed cameras
+    unchanged bit for bit."""
+    assert "Exclude" in EXCLUDED_CAMERAS
+    inputs, dims = _scene()
+    fixed = np.zeros(N_CAM, np.float32)
+    fixed[[0, 5]] = 1.0
+    inputs = dict(inputs, Fixed=fixed)
+    rng = np.random.default_rng(4)
+    out = []
+    for pkg, opts, conv in ((tl, {}, jax.numpy.asarray),
+                            (tt, {"device": "cpu"}, torch.from_numpy)):
+        plan = pkg.load_energy(EXCLUDED_CAMERAS).plan(dims, solver="levenberg_marquardt", **opts)
+        plan.init({k: np.copy(v) for k, v in inputs.items()})
+        comp = plan.compiled
+        st = comp.solve_setup(plan._U, plan._lm, plan._step_inputs(), plan._sp(), plan._prep)
+        p = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in plan._U.items()}
+        jtjp = comp.make_jtjp(plan._U, plan._step_inputs(), plan._prep["consts"], st["masks"],
+                              st["jac_store"])
+        rec = [_np(st["r0"]), _np(st["rawdiag"]), _np(jtjp({k: conv(v) for k, v in p.items()}))]
+        costs, Us = [], []
+        for _ in range(2):
+            plan.step()
+            costs.append(plan.cost())
+            Us.append(_np(plan._U))
+        out.append((rec, costs, Us))
+        rng = np.random.default_rng(4)
+    (jr, jc, jU), (tr, tc, tU) = out
+    for got, ref in zip(tr, jr):
+        for k in ref:
+            _close(got[k], ref[k], SETUP_TOL)
+    assert not tr[0]["cameras"][[0, 5]].any()
+    _check_steps(tc, tU, jc, jU)
+    for U in tU:
+        assert np.array_equal(U["cameras"][[0, 5]], inputs["cameras"][[0, 5]])
+        assert not np.array_equal(U["cameras"], inputs["cameras"])

@@ -688,9 +688,10 @@ def test_skewed_setup_and_apply_cuda_matches_cpu(cuda):
 VARIANTS = ["fused_pair_v2_smem", "fused_pair_v3_partials"]
 VARIANT_ROUTES = VARIANTS + [n + "_generic" for n in VARIANTS]
 # every wrapper whose count the variants' tests watch
-WATCHED = VARIANT_ROUTES + ["fused_pair_cluster_noflush", "fused_pair_bf16",
-                            "fused_pair_bf16_atomics", "fused_pair_apply",
-                            "fused_pair_apply_bf16"]
+V1_ROUTES = ["fused_pair_v1_rows", "fused_pair_v1_rows_generic"]
+WATCHED = VARIANT_ROUTES + V1_ROUTES + ["fused_pair_cluster_noflush", "fused_pair_bf16",
+                                        "fused_pair_bf16_atomics", "fused_pair_apply",
+                                        "fused_pair_apply_bf16"]
 # FUSED_SHAPES (ragged N, odd and even), the uniform 1M BA shape and the
 # JAX script's skew_level_w8
 VARIANT_SHAPES = FUSED_SHAPES + [(4, 250_000, 1024), (8, 16384, 256)]
@@ -847,3 +848,120 @@ def test_solver_fused_pair_keeps_its_kernel(cuda, entry, counted, dtype):
     r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=1024)
     close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
     close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the variant v1 of scripts/tpu_fused_variants.py (make_v1, rows only): the
+# rows kernel (csrc/fused_pair_rows.cu) and its first body (_generic)
+# ---------------------------------------------------------------------------
+# FUSED_SHAPES, the uniform 1M BA shape, an even N that is no multiple of 4
+# (two elements a thread), an odd N (one), and a wide S
+V1_SHAPES = FUSED_SHAPES + [(4, 250_000, 1024), (4, 1002, 64), (3, 4097, 500), (2, 1000, 3000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", V1_ROUTES)
+@pytest.mark.parametrize("W,N,S", V1_SHAPES)
+def test_fused_pair_v1_rows_cuda_matches_plain(cuda, name, W, N, S):
+    """The rows kernel and v1's first body against the plain version's rows
+    on the same bf16 values (out-of-range and negative ids included): f32
+    on both sides.  Exactly one launch, of the wrapper called."""
+    args = _bf16_args(cuda, *fused_inputs(W, N, S))
+    n0 = _counts()
+    rows = getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {n: int(n == name) for n in WATCHED}
+    close(rows.cpu(), fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)[0].cpu(),
+          CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ci,Cj,W,N,S", [(2, 5, 4, 1001, 300), (8, 16, 3, 777, 1024)])
+def test_fused_pair_v1_rows_generic_route_cuda_matches_plain(cuda, Ci, Cj, W, N, S):
+    """Pairs the rows kernel is not specialised for go to v1's first body:
+    its count moves, the rows kernel's does not."""
+    rng = np.random.default_rng(9)
+    ids = rng.integers(-2, S + 3, (W, N)).astype(np.int32)
+    args = _bf16_args(cuda, ids, rng.normal(size=(W * Ci * Cj, N)).astype(np.float32),
+                      rng.normal(size=(Cj, S)).astype(np.float32),
+                      rng.normal(size=(Ci, N)).astype(np.float32))
+    n0 = _counts()
+    rows = fusedpair.fused_pair_v1_rows(*args, Ci=Ci, Cj=Cj, S=S)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {n: int(n == "fused_pair_v1_rows_generic") for n in WATCHED}
+    close(rows.cpu(), fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)[0].cpu(),
+          CUDA_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the grid path (image_warping) and the dense JᵀJ path on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_grid_run_steps_makes_no_host_sync(cuda):
+    """A GN run_steps batch of image_warping (64 x 64, an excluded square,
+    LINEARIZE) under
+    torch.cuda.set_sync_debug_mode("error"): no step reads anything back
+    from the card (GN has no device-side stop flag to read).  warmup()
+    runs first, outside the mode; the excluded unknowns do not move."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+    from torch_grid_profile import make_grid_plan
+
+    mask = (slice(24, 40), slice(24, 40))
+    plan = make_grid_plan(64, cuda, mask=mask)
+    assert plan.compiled.groups[0].schedule.value == "linearize"
+    U0 = {k: v.clone() for k, v in plan.unknowns().items()}
+    plan.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert plan.run_steps(3) == 3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for k, v in plan.unknowns().items():
+        assert bool(torch.isfinite(v).all())
+        assert torch.equal(v[mask], U0[k][mask])
+    assert not torch.equal(plan.unknowns()["Offset"], U0["Offset"])
+
+
+@pytest.mark.cuda
+def test_dense_step_matmuls_run_in_full_f32(cuda, monkeypatch):
+    """The dense JᵀJ path (the 4-camera BA scene, 228 unknowns) with TF32
+    allowed process-wide: every matmul of an LM step runs with
+    torch.backends.cuda.matmul.allow_tf32 off, the global setting is back
+    after the step, and the step agrees with one taken with TF32 off to
+    the card's run-to-run f32 noise (two such steps differ by ~5e-5 of an
+    entry, measured; TF32's 10-bit mantissa would move JᵀJ by ~1e-3)."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+    from thallo_tpu_torch.solver import gn
+
+    ins, _ = ba.synthetic_inputs(n_cameras=4, n_points=64, obs_per_point=3)
+    dims = {"C": 4, "P": 64, "O": len(ins["oToC"])}
+    seen, real = [], torch.matmul
+
+    def spy(a, b):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(a, b)
+
+    kept = torch.backends.cuda.matmul.allow_tf32
+    steps = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=cuda)
+            plan.init({k: np.copy(v) for k, v in ins.items()})
+            assert plan.compiled._is_dense(plan.compiled.groups[0])
+            monkeypatch.setattr(gn.torch, "matmul", spy)
+            plan.step()
+            monkeypatch.setattr(gn.torch, "matmul", real)
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+            steps[tf32] = {k: v.cpu() for k, v in plan.unknowns().items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = kept
+    assert seen and not any(seen)
+    for k in steps[False]:
+        close(steps[True][k], steps[False][k], 1e-4)

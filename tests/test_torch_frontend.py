@@ -12,7 +12,7 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 SHARED = ["typesys.py", "dims.py", "expr.py", "inputs.py", "spec.py", "lib_env.py",
-          "models/bundle_adjustment.py"]
+          "models/bundle_adjustment.py", "models/image_warping.py"]
 # every Python file of the port, and the smoke run that drives it on the card
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "thallo_tpu_torch").rglob("*.py"))
 PORT_FILES.append("chip_smoke.py")

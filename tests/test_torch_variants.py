@@ -1,10 +1,12 @@
-"""The variants v2 and v3 of scripts/tpu_fused_variants.py in the port,
-on the CPU: their plain versions against the script's own per-program
-arithmetic (`_common`, run on jnp arrays: make_v2 and make_v3 build
-Pallas calls for the TPU without an interpret mode), the grid planning
-of their cluster kernel (csrc/fused_pair_cluster.cu), and which kernel
-each variant takes at which shape.  The kernels themselves are held
-against the plain versions on the card in test_torch_cuda.py."""
+"""The variants v1, v2 and v3 of scripts/tpu_fused_variants.py in the
+port, on the CPU: v1's plain version against make_v1 itself in TPU
+interpret mode, v2's and v3's against the script's own per-program
+arithmetic (`_common`, run on jnp arrays: make_v2 and make_v3 carry
+scratch and revisited outputs that the interpret mode does not run),
+the grid planning of their cluster kernel (csrc/fused_pair_cluster.cu),
+and which kernel each variant takes at which shape.  The kernels
+themselves are held against the plain versions on the card in
+test_torch_cuda.py."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -82,8 +84,28 @@ def test_variant_plain_matches_jax_script(name, W, N, S):
     close(cols, jc, JAX_BF16_TOL)
 
 
+@pytest.mark.parametrize("W,N,S", SCRIPT_SHAPES)
+def test_v1_plain_matches_jax_script(W, N, S):
+    """fused_pair_v1_rows's plain version against the script's make_v1,
+    its Pallas kernel run in TPU interpret mode (programs of N_BLK
+    elements, the last one ragged) on the same bf16 blocks: JAX_BF16_TOL;
+    make_v1's cols output is zeros."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    script = _load_script("tpu_fused_variants")
+    ids, blocks, pcol, prow = fused_inputs(W, N, S)
+    blocks = bf16_round(blocks)
+    rows = fusedpair.fused_pair_v1_rows(*_torch(ids, blocks, pcol, prow), Ci=CI, Cj=CJ, S=S)
+    with pltpu.force_tpu_interpret_mode():
+        jr, jc = script.make_v1(CI, CJ, W, S, N_BLK)(
+            jnp.asarray(ids), jnp.asarray(blocks, jnp.bfloat16), jnp.asarray(pcol),
+            jnp.asarray(prow))
+    close(rows, np.asarray(jr), JAX_BF16_TOL)
+    assert not np.asarray(jc).any()
+
+
 @pytest.mark.parametrize("name", ["fused_pair_v2_smem_generic", "fused_pair_v3_partials_generic",
-                                  "fused_pair_cluster_noflush"])
+                                  "fused_pair_cluster_noflush", "fused_pair_v1_rows_generic"])
 @pytest.mark.parametrize("W,N,S", FUSED_SHAPES)
 def test_variant_other_wrappers_plain_match_oracle(name, W, N, S):
     """The first bodies' wrappers and the cluster kernel's measurement
@@ -92,7 +114,7 @@ def test_variant_other_wrappers_plain_match_oracle(name, W, N, S):
     blocks = bf16_round(blocks)
     out = getattr(fusedpair, name)(*_torch(ids, blocks, pcol, prow), Ci=CI, Cj=CJ, S=S)
     r_ref, c_ref = fused_oracle(ids, blocks, pcol, prow, S)
-    if name == "fused_pair_cluster_noflush":
+    if name in ("fused_pair_cluster_noflush", "fused_pair_v1_rows_generic"):
         close(out, r_ref, ORACLE_TOL)
         return
     close(out[0], r_ref, ORACLE_TOL)
@@ -161,14 +183,39 @@ def test_variant_route_refuses(name, Ci, Cj, S):
         fusedpair.variant_route(name, Ci, Cj, S)
 
 
+@pytest.mark.parametrize("Ci,Cj,S,suffix", [
+    (3, 9, 1024, ""), (3, 9, 1, ""), (3, 9, 50_000, ""),  # any S: pcol in shared memory or not
+    (2, 5, 300, "_generic"), (8, 16, 50_000, "_generic"), (3, 3, 64, "_generic")])
+def test_variant_route_v1(Ci, Cj, S, suffix):
+    """v1: the rows kernel for the 3 x 9 pair at any S (it needs no
+    accumulator); its first body for the other pairs up to 8 x 16."""
+    assert fusedpair.variant_route("fused_pair_v1_rows", Ci, Cj, S) == "fused_pair_v1_rows" + suffix
+
+
+@pytest.mark.parametrize("Ci,Cj,S", [(9, 9, 64), (3, 17, 64), (3, 9, 0), (0, 9, 64)])
+def test_variant_route_v1_refuses(Ci, Cj, S):
+    with pytest.raises(ValueError, match="no kernel"):
+        fusedpair.variant_route("fused_pair_v1_rows", Ci, Cj, S)
+
+
+@pytest.mark.parametrize("N,elems", [
+    (250_000, 2), (1000, 2), (1002, 2), (2, 2), (70_845, 1), (4097, 1), (777, 1), (3, 1),
+    (1, 1), (0, 2)])
+def test_v1_elems(N, elems):
+    """Two elements a thread where every block plane starts 4-byte aligned
+    (N even), else one."""
+    assert fusedpair.v1_elems(N) == elems
+
+
 def test_variant_route_unknown_name():
     with pytest.raises(ValueError, match="unknown variant"):
-        fusedpair.variant_route("fused_pair_v1_rows", 3, 9, 1024)
+        fusedpair.variant_route("fused_pair_v4", 3, 9, 1024)
 
 
 def test_variant_wrappers_on_cpu_take_the_plain_version():
     """On CPU tensors no wrapper counts a launch, whatever the shape."""
-    names = VARIANTS + [n + "_generic" for n in VARIANTS] + ["fused_pair_cluster_noflush"]
+    names = (list(VARIANTS) + [n + "_generic" for n in VARIANTS]
+             + ["fused_pair_cluster_noflush", "fused_pair_v1_rows", "fused_pair_v1_rows_generic"])
     n0 = [getattr(fusedpair, n).launches for n in names]
     rng = np.random.default_rng(3)
     ids = rng.integers(0, 64, (2, 300)).astype(np.int32)

@@ -1,26 +1,33 @@
-"""Lowering of graph residual groups to torch (counterpart of
-``thallo_tpu/lower.py``, graph subset).
+"""Lowering of residual groups to torch (counterpart of
+``thallo_tpu/lower.py``).
 
 A group iterates its external domains; every image access becomes a
-slot whose flat element indices are evaluated once, on the host, from
-the concrete sparse maps.  The residual is evaluated CHANNEL-MAJOR:
-each unknown slot is gathered as ``[C, R]`` by ``index_select`` and every
-DAG op runs elementwise over the R residual points, so the batch axis is
-written out and no ``vmap`` is needed.  Point Jacobians come from
-``torch.func.vjp``, one cotangent pass per residual channel.
+slot.  A stencil access (a grid offset over the image's own axes, e.g.
+``X(x + 1, y)``) is gathered by ``torch.roll`` of the image with torus
+wrap, as the JAX package's ``_roll_plan`` does, and scattered by the roll
+back; every other access gathers by flat element indices evaluated once,
+on the host, from the concrete sparse maps.  ``InBounds`` and index
+values become [R] f32 arrays at ``prepared_consts`` (JAX's barrs and
+iarrs).  The residual is evaluated CHANNEL-MAJOR: each unknown slot is
+``[C, R]`` and every DAG op runs elementwise over the R residual points,
+so the batch axis is written out and no ``vmap`` is needed.  Point
+Jacobians come from ``torch.func.vjp`` (one cotangent per residual
+channel) or ``torch.func.jvp`` (one tangent per unknown channel, batched
+by ``torch.func.vmap``), by JAX's rule: reverse mode where 2 * rc is below
+the unknown channels.
 
 The materialized-J schedules (PRECOMPUTE_J, APPLY_SEPARATELY) also need the
 slot gather and its transpose, the scatter-add of per-point values into
-the slot's image.  ``scatter_slot`` routes it as thallo_tpu's
+the slot's image.  ``scatter_slot`` routes a gathered slot as thallo_tpu's
 ``_scatter`` does (``lower.py:706-747``): through the destination-tiled
 segment sum (ops/segsum.py) when ``THALLO_SEGSUM=tiled`` built a plan for
 the slot at init; else, for a small image gathered from a large domain
 (S <= 1024 and R > 4S), through ``oh_setup_aggregate`` (ops/ohsetup.py);
 else through ``index_add_``, the counterpart of ``jax.ops.segment_sum``.
 
-Not ported yet (they raise NotImplementedError at plan time): grid
-stencils (roll plans), contractions (``Sum``), bounds and index-value
-leaves, materialized computed arrays and sampled images.
+Not ported yet (they raise NotImplementedError at plan time, ROADMAP
+queue 1, item 6): contractions (``Sum``), materialized computed arrays
+and sampled images.
 """
 from __future__ import annotations
 
@@ -334,11 +341,14 @@ class _IndexEnv:
 # the lowered group
 # ---------------------------------------------------------------------------
 class LoweredGroup:
-    """A graph residual group compiled against concrete dim sizes.
+    """A residual group compiled against concrete dim sizes.
 
-    Solver-facing API (see solver/gn.py):
+    Solver-facing API (see solver/gn.py), channel-major:
       residuals_cm(X, inputs, consts)        -> [rc, R]
       point_jacobians_cm(X, inputs, consts)  -> (r [rc, R], [rc, C_i, R] per slot)
+      gather_slot / scatter_slot             -> [C, R] / image-shaped [*dims, F]
+    and the JAX package's row-major views residuals -> [R, rc],
+    point_jacobians -> (r [R, rc], [R, rc, C_i] per slot).
     """
 
     def __init__(self, name: str, exprs: List[Exp], spec, sizes: Dict[str, int], dtype,
@@ -367,21 +377,23 @@ class LoweredGroup:
         missing = [what for what, present in (
             ("contractions (Sum)", self.con_domains),
             ("materialized computed arrays", self.mslots),
-            ("bounds checks (InBounds)", col.bounds),
-            ("index values", col.ivals),
             ("sampled images", col.sampled),
         ) if present]
         if missing:
             raise NotImplementedError(
                 f"residual group {name!r} uses {', '.join(missing)}, which "
-                "thallo_tpu_torch does not lower yet")
+                "thallo_tpu_torch does not lower yet (ROADMAP queue 1, item 6)")
+        # stencil slots: gathered by torch.roll of the image (torus wrap)
+        self._rolls = [self._roll_plan(s) for s in self.uslots]
+        self._crolls = [self._roll_plan(s) for s in self.cslots]
         self._F = self._build_local_fn()
 
     # -- slot index machinery ----------------------------------------------
     def _roll_plan(self, slot: SlotSpec):
         """If this slot is a pure grid-offset access over distinct external
         domains matching the image's axes, return (ext_axis_per_image_axis,
-        shifts) — a stencil access (the JAX package lowers it to a roll)."""
+        shifts): a stencil access, gathered by a roll of the image and
+        scattered by the roll back (thallo_tpu/lower.py:578)."""
         if slot.dep_cons:
             return None
         im = slot.image
@@ -400,11 +412,10 @@ class LoweredGroup:
         return used, shifts
 
     @property
-    def supports_cm(self) -> bool:
-        """Pure graph group: every unknown access is a real gather (no
-        stencil slot), the shape the channel-major pipeline and the
-        block-sparse tables accept."""
-        return not any(self._roll_plan(s) is not None for s in self.uslots)
+    def has_gathers(self) -> bool:
+        """A graph group: some unknown slot is a real gather, not a stencil
+        roll (the JAX package's default_schedule test)."""
+        return any(rp is None for rp in self._rolls)
 
     def _sparse_arrays(self, inputs):
         out = {}
@@ -414,10 +425,14 @@ class LoweredGroup:
                 out[sm.name] = arr.reshape(-1, len(sm.out_dims))
         return out
 
-    def _slot_flat_indices(self, slot: SlotSpec, inputs):
-        """[R] int32 flat element indices of the slot's image (host)."""
+    def _env(self, inputs):
         axes = {d: i for i, d in enumerate(self.ext_domains)}
-        env = _IndexEnv(axes, self.ext_shape, self._sparse_arrays(inputs))
+        return _IndexEnv(axes, self.ext_shape, self._sparse_arrays(inputs))
+
+    def _slot_flat_indices(self, slot: SlotSpec, inputs):
+        """[R] int32 flat element indices of the slot's image (host); a
+        stencil slot's wrap around the torus, as its roll does."""
+        env = self._env(inputs)
         im = slot.image
         flat = None
         for j, c in enumerate(slot.comps):
@@ -426,23 +441,48 @@ class LoweredGroup:
             flat = v if flat is None else flat * n + v
         return np.array(np.broadcast_to(flat, self.ext_shape), dtype=np.int32).reshape(-1)
 
+    def _bounds_value(self, b: BoundsAccess, env):
+        """[R] f32 0/1: the InBounds test of every grid point (host)."""
+        ok = None
+        for c, dm in zip(b.comps, b.dims):
+            v = env.eval(c)
+            cond = (v >= b.expand) & (v < dm.size - b.expand)
+            ok = cond if ok is None else (ok & cond)
+        return np.broadcast_to(ok, self.ext_shape).reshape(-1).astype(np.float32)
+
+    def _ival_value(self, iv: IndexValue, env):
+        """[R] f32: an index expression's value at every grid point (host)."""
+        return np.broadcast_to(env.eval(iv.comp), self.ext_shape).reshape(-1).astype(np.float32)
+
     # -- per-solve constants -------------------------------------------------
     def prepared_consts(self, inputs, device, want_bsr=False):
         """Everything non-differentiated, computed once per init: slot
-        index tables (host -> device once), channel-major const-slot
-        values, params — and, when the schedule materializes JᵀJ, the
-        static block-sparse tables (solver/blocksparse.py); otherwise the
-        scatter route of each slot: a segment-sum plan ("stables", with
+        index tables of the gathered slots (host -> device once; None for
+        stencil slots), channel-major const-slot values, InBounds and
+        index-value arrays ([R] f32 each, JAX's barrs/iarrs), params, and,
+        when the schedule materializes JᵀJ, the static block-sparse tables
+        (solver/blocksparse.py); otherwise the scatter route of each
+        gathered slot: a segment-sum plan ("stables", with
         THALLO_SEGSUM=tiled, read here as thallo_tpu reads it) or the
         int32 ids of a small image for the aggregation kernel."""
         idx = [self._slot_flat_indices(s, inputs) for s in self.uslots]
         cvals = []
-        for s in self.cslots:
+        for s, rp in zip(self.cslots, self._crolls):
             im = s.image
-            img = inputs[im.name].reshape(-1, im.channels)
+            img = inputs[im.name].reshape(tuple(d.size for d in im.dims) + (im.channels,))
+            if rp is not None:
+                cvals.append(self._roll_gather(img.movedim(-1, 0), rp))
+                continue
             flat = torch.from_numpy(self._slot_flat_indices(s, inputs)).to(
                 device=img.device, dtype=torch.long)
-            cvals.append(img.index_select(0, flat).T.contiguous())  # [C, R]
+            cvals.append(img.reshape(-1, im.channels).index_select(0, flat).T.contiguous())
+        env = self._env(inputs)
+
+        def upload(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=self.dtype)
+
+        barrs = [upload(self._bounds_value(b, env)) for b in self.col.bounds.values()]
+        iarrs = [upload(self._ival_value(v, env)) for v in self.col.ivals.values()]
         params = {p.name: inputs[p.name] for p in self.col.params.values()}
         bsr = None
         stables, agg_ids = {}, {}
@@ -453,6 +493,8 @@ class LoweredGroup:
         else:
             tiled = os.environ.get("THALLO_SEGSUM") == "tiled"
             for i, flat in enumerate(idx):
+                if self._rolls[i] is not None:
+                    continue  # the roll back, not a segment sum
                 S = self.slot_size(i)
                 plan = build_plan(flat, S, device=device) if tiled else None
                 if plan is not None:
@@ -460,10 +502,14 @@ class LoweredGroup:
                 elif S <= ONEHOT_MAX_SEGMENTS and self.R > 4 * S:
                     agg_ids[i] = torch.from_numpy(flat).to(device)
         return {
+            "device": torch.device(device),
             "bsr": bsr,
-            "slot_idx": [torch.from_numpy(i).to(device=device, dtype=torch.long)
-                         for i in idx],
+            "slot_idx": [None if rp is not None else
+                         torch.from_numpy(i).to(device=device, dtype=torch.long)
+                         for i, rp in zip(idx, self._rolls)],
             "cvals": cvals,
+            "barrs": barrs,
+            "iarrs": iarrs,
             "params": params,
             "stables": stables,
             "agg_ids": agg_ids,
@@ -481,6 +527,8 @@ class LoweredGroup:
         ops = _make_ops(self.dtype)
         ukeys = {s.key: i for i, s in enumerate(self.uslots)}
         ckeys = {s.key: i for i, s in enumerate(self.cslots)}
+        bkeys = {k: i for i, k in enumerate(self.col.bounds.keys())}
+        ikeys = {k: i for i, k in enumerate(self.col.ivals.keys())}
         exprs = self.exprs
         R = self.R
         const_cache = {}
@@ -492,7 +540,8 @@ class LoweredGroup:
                 t = const_cache[key] = torch.tensor(value, dtype=self.dtype, device=device)
             return t
 
-        def F(uvals, cvals, params, device):
+        def F(uvals, consts):
+            cvals, device = consts["cvals"], consts["device"]
             cache = {}
 
             def ev(e: Exp):
@@ -509,8 +558,12 @@ class LoweredGroup:
                         r = uvals[ukeys[k]][e.channel]
                     else:
                         r = cvals[ckeys[k]][e.channel]
+                elif isinstance(e, BoundsAccess):
+                    r = consts["barrs"][bkeys[("bounds", e.comps, e.dims, e.expand)]]
+                elif isinstance(e, IndexValue):
+                    r = consts["iarrs"][ikeys[("ival", e.comp)]]
                 elif isinstance(e, ParamValue):
-                    r = params[e.param.name]
+                    r = consts["params"][e.param.name]
                 else:
                     raise TypeError(f"unhandled node {e!r}")
                 cache[id(e)] = r
@@ -520,27 +573,81 @@ class LoweredGroup:
 
         return F
 
-    # -- channel-major evaluation (graph groups) -----------------------------
+    # -- gathers and their transposes -----------------------------------------
+    def _roll_gather(self, img_cm, rp):
+        """[C, R] values of a stencil slot from its image channel-major,
+        img_cm [C, *dims]: roll by -offset along each shifted image axis
+        (torus wrap), image axes into external-domain order, broadcast over
+        the external axes the slot does not use (thallo_tpu's _apply_roll
+        and _place_axes)."""
+        used, shifts = rp
+        dims = [1 + j for j, off in enumerate(shifts) if off]
+        v = torch.roll(img_cm, [-shifts[d - 1] for d in dims], dims) if dims else img_cm
+        v = v.permute(0, *[1 + int(a) for a in np.argsort(used)])
+        present = set(used)
+        for a in range(len(self.ext_shape)):
+            if a not in present:
+                v = v.unsqueeze(1 + a)
+        C = v.shape[0]
+        return v.expand((C,) + self.ext_shape).reshape(C, self.R)
+
+    def _roll_scatter(self, valsT, rp):
+        """Transpose of _roll_gather: [F, R] -> image-shaped [*dims, F]
+        (sum over the unused external axes, image axes back in order, the
+        roll back: thallo_tpu's _scatter of a stencil slot)."""
+        used, shifts = rp
+        nd = len(self.ext_shape)
+        v = valsT.reshape((valsT.shape[0],) + self.ext_shape)
+        extra = tuple(1 + a for a in range(nd) if a not in used)
+        if extra:
+            v = v.sum(extra)
+        v = v.permute(0, *[1 + int(k) for k in np.argsort(np.argsort(used))])
+        dims = [1 + j for j, off in enumerate(shifts) if off]
+        if dims:
+            v = torch.roll(v, [shifts[d - 1] for d in dims], dims)
+        return v.movedim(0, -1)
+
     def gather_all_cm(self, X, consts):
-        """[C_i, R] per unknown slot: minor-axis gathers of [C, N] sources."""
-        out = []
-        for s, flat in zip(self.uslots, consts["slot_idx"]):
-            src = X[s.image.name].reshape(-1, s.image.channels).T
-            out.append(src.index_select(1, flat))
+        """[C_i, R] per unknown slot: stencil slots by rolls of the image,
+        laid out channel-major once per image, the others by minor-axis
+        gathers of [C, N] sources."""
+        out, cm = [], {}
+        for i, s in enumerate(self.uslots):
+            name = s.image.name
+            rp = self._rolls[i]
+            if rp is None:
+                src = X[name].reshape(-1, s.image.channels).T
+                out.append(src.index_select(1, consts["slot_idx"][i]))
+                continue
+            if name not in cm:
+                cm[name] = X[name].movedim(-1, 0).contiguous()
+            out.append(self._roll_gather(cm[name], rp))
         return out
 
     def gather_slot(self, i: int, X, consts):
         """[C, R] channel-major values of unknown slot i (X may be any
         image-shaped tree over the unknowns, e.g. a PCG direction)."""
-        s = self.uslots[i]
-        return X[s.image.name].reshape(-1, s.image.channels).T.index_select(
-            1, consts["slot_idx"][i])
+        img = X[self.uslots[i].image.name]
+        rp = self._rolls[i]
+        if rp is not None:
+            return self._roll_gather(img.movedim(-1, 0), rp)
+        # the array's own channel count: a mask is gathered through an
+        # unknown's slot with one channel
+        return img.reshape(-1, img.shape[-1]).T.index_select(1, consts["slot_idx"][i])
+
+    def gather_mask(self, i: int, mask, consts):
+        """[R] values of a channelless mask [*dims] at unknown slot i."""
+        return self.gather_slot(i, {self.uslots[i].image.name: mask[..., None]}, consts)[0]
 
     def scatter_slot(self, i: int, valsT, consts):
         """Transpose of gather_slot: per-point values [F, R] summed into
-        slot i's image, returned image-shaped [*dims, F].  Routed as
-        thallo_tpu's _scatter: segment-sum plan, else the aggregation
-        kernel for a small image, else index_add_."""
+        slot i's image, returned image-shaped [*dims, F].  A stencil slot
+        rolls back; the others route as thallo_tpu's _scatter: segment-sum
+        plan, else the aggregation kernel for a small image, else
+        index_add_."""
+        rp = self._rolls[i]
+        if rp is not None:
+            return self._roll_scatter(valsT, rp)
         F = valsT.shape[0]
         N = self.slot_size(i)
         stable = consts["stables"].get(i)
@@ -556,25 +663,74 @@ class LoweredGroup:
             out = outT.T
         return out.reshape(tuple(d.size for d in self.uslots[i].image.dims) + (F,))
 
-    def _eval_cm(self, uvalsT, consts):
-        device = consts["slot_idx"][0].device if consts["slot_idx"] else None
-        return self._F(uvalsT, consts["cvals"], consts["params"], device)
-
+    # -- residuals and point Jacobians ------------------------------------------
     def residuals_cm(self, X, inputs, consts):
         """r(U): [rc, R] channel-major."""
-        return self._eval_cm(self.gather_all_cm(X, consts), consts)
+        return self._F(self.gather_all_cm(X, consts), consts)
+
+    def residuals(self, X, inputs, consts):
+        """r(U): [R, rc], thallo_tpu's layout (a view of residuals_cm)."""
+        return self.residuals_cm(X, inputs, consts).T
+
+    def _use_rev_mode(self, total_channels: int) -> bool:
+        """Forward mode costs one tangent pass per unknown channel, reverse
+        one (~2x-priced) cotangent pass per residual channel
+        (thallo_tpu/lower.py:1185).  THALLO_JAC_MODE=fwd/rev overrides."""
+        mode = os.environ.get("THALLO_JAC_MODE", "auto")
+        if mode == "auto":
+            return 2 * self.rc < total_channels
+        return mode == "rev"
 
     def point_jacobians_cm(self, X, inputs, consts):
-        """(r [rc, R], jacsT list of [rc, C_i, R]): one reverse-mode VJP per
-        residual channel (the mode JAX picks for BA, 2*rc < unknown channels;
-        the other mode computes the same Jacobians)."""
+        """(r [rc, R], jacsT list of [rc, C_i, R]).  Reverse mode (2*rc
+        below the unknown channels, e.g. BA): one torch.func.vjp cotangent
+        per residual channel.  Forward mode (grid energies such as
+        image_warping): one torch.func.jvp tangent per unknown channel, the
+        tangents batched by torch.func.vmap so the primal runs once."""
         uvalsT = self.gather_all_cm(X, consts)
-        r, vjp_fn = torch.func.vjp(lambda uv: self._eval_cm(uv, consts), uvalsT)
-        rows = []
-        for c in range(self.rc):
-            ct = torch.zeros_like(r)
-            ct[c] = 1.0
-            rows.append(vjp_fn(ct)[0])  # list of [C_i, R]
-        jacsT = [torch.stack([rows[c][i] for c in range(self.rc)])
-                 for i in range(len(self.uslots))]
-        return r.detach(), jacsT
+
+        def f(uv):
+            return self._F(uv, consts)
+
+        if self._use_rev_mode(sum(s.image.channels for s in self.uslots)):
+            r, vjp_fn = torch.func.vjp(f, uvalsT)
+            rows = []
+            for c in range(self.rc):
+                ct = torch.zeros_like(r)
+                ct[c] = 1.0
+                rows.append(vjp_fn(ct)[0])  # list of [C_i, R]
+            jacsT = [torch.stack([rows[c][i] for c in range(self.rc)])
+                     for i in range(len(self.uslots))]
+            return r.detach(), jacsT
+        chans = [(i, c) for i, s in enumerate(self.uslots) for c in range(s.image.channels)]
+        tangents = []
+        for i, v in enumerate(uvalsT):
+            t = torch.zeros((len(chans),) + tuple(v.shape), dtype=v.dtype, device=v.device)
+            for k, (si, c) in enumerate(chans):
+                if si == i:
+                    t[k, c] = 1.0
+            tangents.append(t)
+        cols = torch.func.vmap(lambda t: torch.func.jvp(f, (uvalsT,), (t,))[1])(tangents)
+        jacsT, k = [], 0
+        for s in self.uslots:
+            C = s.image.channels
+            jacsT.append(cols[k:k + C].transpose(0, 1))  # [rc, C, R]
+            k += C
+        return f(uvalsT), jacsT
+
+    def point_jacobians(self, X, inputs, consts):
+        """(r [R, rc], jacs list of [R, rc, C_i]): thallo_tpu's layout."""
+        r, jacsT = self.point_jacobians_cm(X, inputs, consts)
+        return r.T, [J.permute(2, 0, 1) for J in jacsT]
+
+
+def lower_pointwise(exprs: List[Exp], spec, sizes, dtype, name="expr"):
+    """Lower standalone expressions (the Exclude guards) over their own
+    external domains (thallo_tpu/lower.py:1785); returns (group,
+    evaluate(consts, X) -> [*ext_shape, rc])."""
+    g = LoweredGroup(name, exprs, spec, sizes, dtype)
+
+    def evaluate(consts, X=None):
+        return g.residuals_cm(X, None, consts).T.reshape(g.ext_shape + (g.rc,))
+
+    return g, evaluate

@@ -57,6 +57,7 @@ SIGNATURES = {
     "thallo_fused_pair_cluster": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_cluster_occupancy": (I, I, I, I, I, IP),
     "thallo_loop_floor_add_one": (P, P, I, P),
+    "thallo_fused_pair_rows": (P, P, P, P, I, I, I, I, I, I, I, I, P),
 }
 
 _lib = None

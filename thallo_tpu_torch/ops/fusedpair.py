@@ -61,7 +61,11 @@ thread per element, cols by global atomics: the first bf16 body).
 The measurement scripts' kernels (``scripts/tpu_fused_pair_micro.py``,
 ``scripts/tpu_fused_variants.py``) are the same pair on bf16 blocks:
 ``fused_pair_bf16`` (the micro's pair: the bf16 persistent kernel, counted
-on its own); ``fused_pair_v1_rows`` (rows only, ``csrc/fused_pair_variants.cu``);
+on its own); ``fused_pair_v1_rows`` (make_v1, rows only: for 3 x 9 the
+rows kernel of ``csrc/fused_pair_rows.cu``, two elements a thread with
+the block rows streamed by ``__ldcs``; other pairs take its
+first body, ``fused_pair_v1_rows_generic``, ``csrc/fused_pair_variants.cu``
+mode 1, one thread per element);
 ``fused_pair_v2_smem`` (make_v2: one cols accumulator carried across the
 grid) and ``fused_pair_v3_partials`` (make_v3: cols partials summed
 outside the kernel).  For the pairs the persistent kernels take, v2 and
@@ -427,11 +431,52 @@ def fused_pair_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
                               torch.bfloat16)
 
 
+# the rows kernel of make_v1 (csrc/fused_pair_rows.cu): threads a block and
+# blocks per SM of a persistent grid (0: one tile a block).  The kernel
+# takes two elements a thread (one where N is odd), pcol through the
+# read-only cache and the block rows by __ldcs: the fastest of the forms
+# tried (PERF.md, PR 9's findings), at 1024 threads x 1 block per SM
+# (scripts/torch_redesign_sweep.py --only v1 --sweep)
+V1_THREADS = 1024
+V1_BLOCKS_PER_SM = 1
+
+
+def v1_elems(N: int) -> int:
+    """Elements a thread of the rows kernel at N elements: two where N is
+    even (every block plane then starts 4-byte aligned), else one."""
+    return 2 if N % 2 == 0 else 1
+
+
 def fused_pair_v1_rows(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """Variant v1: rows only -> rows [Ci, N]."""
+    """Variant v1 (make_v1: rows only) -> rows [Ci, N]: the rows kernel
+    (csrc/fused_pair_rows.cu) for the 3 x 9 pair, any S; other pairs go
+    to fused_pair_v1_rows_generic (variant_route).  CPU tensors take the
+    plain version."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)[0]
-    return _bf16_launch(fused_pair_v1_rows, _ROWS_ONLY, ids2d, blocks_wm, pcol, prow,
+    if variant_route("fused_pair_v1_rows", Ci, Cj, S) != "fused_pair_v1_rows":
+        return fused_pair_v1_rows_generic(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    W, N, blocks = _checked("fused_pair_v1_rows", ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
+                            torch.bfloat16)
+    dev = ids2d.device
+    elems = v1_elems(N)
+    tiles = -(-N // (V1_THREADS * elems))
+    grid = V1_BLOCKS_PER_SM * _cuda.sm_count(dev) if V1_BLOCKS_PER_SM else tiles
+    rows = torch.empty((Ci, N), dtype=torch.float32, device=dev)
+    code = _cuda.lib().thallo_fused_pair_rows(
+        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), rows.data_ptr(), W, N, Ci, Cj, S,
+        V1_THREADS, max(1, grid), elems, _cuda.stream(ids2d))
+    _cuda.check(code, "fused_pair_v1_rows")
+    fused_pair_v1_rows.launches += 1
+    return rows
+
+
+def fused_pair_v1_rows_generic(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """Variant v1's first body: one thread per element, any Ci <= 8,
+    Cj <= 16 and S -> rows [Ci, N].  CPU tensors take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)[0]
+    return _bf16_launch(fused_pair_v1_rows_generic, _ROWS_ONLY, ids2d, blocks_wm, pcol, prow,
                         Ci, Cj, S)[0]
 
 
@@ -457,7 +502,8 @@ def fused_pair_v3_partials_generic(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
 
 
 for _fn in (fused_pair_bf16_atomics, fused_pair_bf16, fused_pair_v1_rows,
-            fused_pair_v2_smem_generic, fused_pair_v3_partials_generic):
+            fused_pair_v1_rows_generic, fused_pair_v2_smem_generic,
+            fused_pair_v3_partials_generic):
     _fn.launches = 0
 
 
@@ -476,21 +522,31 @@ _NO_FLUSH, _FLUSH_ATOMICS, _FLUSH_SLABS = range(3)  # csrc/fused_pair_cluster.cu
 CLUSTER_SIZE = 2
 CLUSTER_THREADS = 512
 CLUSTER_BLOCKS_PER_SM = 2
-VARIANTS = ("fused_pair_v2_smem", "fused_pair_v3_partials")
+VARIANTS = ("fused_pair_v1_rows", "fused_pair_v2_smem", "fused_pair_v3_partials")
 
 
 def variant_route(name: str, Ci: int, Cj: int, S: int) -> str:
-    """The kernel variant `name` (fused_pair_v2_smem or
-    fused_pair_v3_partials) launches on a CUDA tensor: `name` itself (the
-    cluster kernel) where persistent_fits(Ci, Cj, S); else its first body,
-    name + "_generic", where that takes the pair and its [Cj, S] f32
-    accumulator fits _cuda.MAX_DYNAMIC_SMEM; raises ValueError for a shape
-    neither takes."""
+    """The kernel variant `name` (fused_pair_v1_rows, fused_pair_v2_smem or
+    fused_pair_v3_partials) launches on a CUDA tensor.  v1: itself (the
+    rows kernel) for the 3 x 9 pair at any S, else its first body,
+    name + "_generic", for any Ci <= 8, Cj <= 16.  v2, v3: themselves (the
+    cluster kernel) where persistent_fits(Ci, Cj, S); else their first
+    bodies where those take the pair and its [Cj, S] f32 accumulator fits
+    _cuda.MAX_DYNAMIC_SMEM.  Raises ValueError for a shape neither takes."""
     if name not in VARIANTS:
         raise ValueError(f"variant_route: unknown variant {name!r}")
+    pair_ok = 1 <= Ci <= MAX_CI and 1 <= Cj <= MAX_CJ and 1 <= S
+    if name == "fused_pair_v1_rows":
+        if (Ci, Cj) in PERSISTENT_PAIRS and S >= 1:
+            return name
+        if pair_ok:
+            return name + "_generic"
+        raise ValueError(f"{name}: no kernel for Ci={Ci}, Cj={Cj}, S={S} (the rows kernel "
+                         f"takes {sorted(PERSISTENT_PAIRS)}, the generic body Ci <= {MAX_CI}, "
+                         f"Cj <= {MAX_CJ})")
     if persistent_fits(Ci, Cj, S):
         return name
-    if 1 <= Ci <= MAX_CI and 1 <= Cj <= MAX_CJ and 1 <= S and Cj * S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
+    if pair_ok and Cj * S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
         return name + "_generic"
     raise ValueError(f"{name}: no kernel for Ci={Ci}, Cj={Cj}, S={S} (the cluster kernel takes "
                      f"{sorted(PERSISTENT_PAIRS)} with Cj*S*4 <= {PERSISTENT_MAX_SMEM}, the "

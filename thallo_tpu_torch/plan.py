@@ -37,11 +37,11 @@ _KNOWN_OPTIONS = {"use_autoscheduler", "lin_iter_hint", "solver_parameters",
 # options of thallo_tpu's Plan whose non-default values need a part of the
 # JAX package that is not ported yet
 _UNPORTED_OPTIONS = {
-    "use_autoscheduler": (0, "the autoscheduler"),
-    "linear_solver": ("pcg", "direct and Schur solves"),
-    "steps_per_dispatch": (1, "multi-step dispatch"),
-    "trace_dir": (None, "profiler traces"),
-    "profile_compile": (False, "compile profiling"),
+    "use_autoscheduler": (0, "the autoscheduler (ROADMAP queue 1, item 8)"),
+    "linear_solver": ("pcg", "direct and Schur solves (ROADMAP queue 1, item 3)"),
+    "steps_per_dispatch": (1, "multi-step dispatch (ROADMAP queue 1, item 2a)"),
+    "trace_dir": (None, "profiler traces (ROADMAP queue 1, item 9)"),
+    "profile_compile": (False, "compile profiling (ROADMAP queue 1, item 9)"),
 }
 
 
@@ -53,7 +53,7 @@ def default_schedule(g: LoweredGroup) -> JTJpSchedule:
     """thallo_tpu/schedule.py default: graph groups (any slot needing a
     real gather) materialize JᵀJ block-sparse; stencil groups run
     matrix-free."""
-    if g.uslots and any(g._roll_plan(s) is None for s in g.uslots):
+    if g.uslots and g.has_gathers:
         return JTJpSchedule.PRECOMPUTE_JTJ
     return JTJpSchedule.LINEARIZE
 
@@ -100,7 +100,8 @@ class Plan:
             if options.get(name, default) != default:
                 raise NotImplementedError(f"{name}={options[name]!r}: {what} is not ported yet")
         if spec.double_precision:
-            raise NotImplementedError("double_precision is not ported yet: the port runs in f32")
+            raise NotImplementedError("double_precision is not ported yet: the port runs in f32 "
+                                      "(ROADMAP queue 1, item 6)")
         self.device = _resolve_device(options.get("device", "cuda"))
         self.dtype = torch.float32
 
@@ -131,6 +132,7 @@ class Plan:
         # disables (also THALLO_SORT_RESIDUALS=0)
         self.sort_residuals = options.get("sort_residuals", "auto")
         self._residual_perms = {}
+        self._raw_inputs0 = None
         self._inputs = None
         self._U = None
         self._lm = None
@@ -236,7 +238,9 @@ class Plan:
         """Init-time residual-domain sort (thallo_tpu/plan.py:439-473):
         relabel order-free graph domains so the largest unstructured
         sparse map is sorted.  The residual multiset, and so every cost
-        and product, is unchanged up to summation order."""
+        and product, is unchanged up to summation order.  The raw user
+        inputs are kept for update_inputs."""
+        self._raw_inputs0 = dict(inputs)
         self._residual_perms = {}
         if not self.sort_residuals or os.environ.get("THALLO_SORT_RESIDUALS", "1") == "0":
             return inputs
@@ -282,6 +286,31 @@ class Plan:
     def _step_inputs(self):
         return self._const_inputs
 
+    def update_inputs(self, inputs: Dict[str, np.ndarray]):
+        """Update non-unknown inputs (const arrays, params, sparse maps)
+        between nonlinear iterations, keeping the unknowns and the trust
+        region (thallo_tpu/plan.py:554).  The update merges over the raw
+        (pre-sort) user inputs and the residual sort applies again; the
+        init-time preparation is rebuilt; LM's previous cost becomes the
+        cost under the new inputs."""
+        if self._inputs is None:
+            raise RuntimeError("update_inputs before init()")
+        unknown_names = {im.name for im in self.spec.unknowns}
+        bad = sorted(set(inputs) & unknown_names)
+        if bad:
+            raise ValueError(
+                f"update_inputs cannot rebind unknowns {bad}; use init() "
+                "or load_state() to reset unknown values")
+        merged = dict(self._raw_inputs0)
+        merged.update(inputs)
+        normalized = self._normalize_inputs(self._maybe_sort_residuals(merged))
+        self._inputs = {k: (self._inputs[k] if k in unknown_names else v)
+                        for k, v in normalized.items()}
+        self._const_inputs = {k: v for k, v in self._inputs.items() if k not in unknown_names}
+        self._prep = self.compiled.prepare(self._inputs)
+        if self._lm is not None and self.compiled.uses_lambda:
+            self._lm = self._lm._replace(prev_cost=self._scalar(self.cost()))
+
     # -- stepping ----------------------------------------------------------------
     def step(self) -> bool:
         """One nonlinear iteration.  Returns True while the solve should
@@ -308,12 +337,55 @@ class Plan:
             return False
         return True
 
+    def run_steps(self, n: int) -> int:
+        """n nonlinear iterations back to back (at most the nIterations
+        left) with no host read between them (thallo_tpu/plan.py:674).
+        LM reads its stop flag once, after the batch: as in thallo_tpu, a
+        stop set by a step inside the batch does not end it, the steps
+        after it run (and may accept), and only the last step's flag ends
+        the solve.  Returns the number of steps run."""
+        if self._finished or n <= 0:
+            return 0
+        n = min(n, max(int(self.solver_parameters["nIterations"]) - self._iter, 0))
+        if n <= 0:
+            self._finished = True
+            return 0
+        U, lm = self._U, self._lm
+        cin, sp, prep = self._step_inputs(), self._sp(), self._prep
+        for _ in range(n):
+            U, lm, stop, _ = self.compiled.nonlinear_step(U, lm, cin, sp, prep)
+        self._U, self._lm = U, lm
+        self._iter += n
+        if self.compiled.uses_lambda and bool(stop):
+            self._finished = True
+        if self._iter >= int(self.solver_parameters["nIterations"]):
+            self._finished = True
+        return n
+
+    def warmup(self) -> None:
+        """One throwaway step (and cost) on copies of the state, so the
+        first real step pays no kernel build, no first-call set-up of the
+        torch ops and no allocator growth (thallo_tpu/plan.py:761); the
+        solver state is unchanged."""
+        if self._inputs is None:
+            raise RuntimeError("call init() first")
+        U = {k: v.clone() for k, v in self._U.items()}
+        self.compiled.cost(U, self._step_inputs(), self._prep["consts"])
+        self.compiled.nonlinear_step(U, self._lm, self._step_inputs(), self._sp(), self._prep)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def solve(self, inputs: Optional[Dict] = None) -> float:
-        """Full solve: (init +) steps until done.  Returns the final cost."""
+        """Full solve: (init +) steps until done.  Returns the final cost.
+        GN (no device-side stop) runs its steps as one run_steps batch
+        unless a host check per step is asked for, as thallo_tpu does."""
         if inputs is not None:
             self.init(inputs)
         if self._inputs is None:
             raise RuntimeError("call init() first")
+        if not self.compiled.uses_lambda and not self.debug_check_finite and \
+                float(self.solver_parameters["max_solver_time_in_seconds"]) == 0:
+            self.run_steps(int(self.solver_parameters["nIterations"]))
         while self.step():
             pass
         final = self.cost()
@@ -380,6 +452,10 @@ class Plan:
             )
             self._iter = int(z["iter"])
             self._finished = bool(z["finished"])
+
+    @property
+    def final_cost(self):
+        return self.cost()
 
     @property
     def num_iterations(self):

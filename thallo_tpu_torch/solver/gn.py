@@ -1,21 +1,41 @@
 """Gauss-Newton / Levenberg-Marquardt outer loop with a preconditioned-
-conjugate-gradient inner loop (counterpart of ``thallo_tpu/solver/gn.py``,
-graph groups).
+conjugate-gradient inner loop (counterpart of ``thallo_tpu/solver/gn.py``).
 
-Each group runs one of two schedules of JᵀJ·p:
+Each group runs one of these schedules of JᵀJ·p (``make_jtjp``):
 
-* materialized JᵀJ (PRECOMPUTE_JTJ, the default for graph groups above
-  the dense threshold): block-sparse tables and blocks from the setup
+* materialized JᵀJ, block-sparse (PRECOMPUTE_JTJ, the default for graph
+  groups above the dense threshold): tables and blocks from the setup
   (solver/blocksparse.py), block-Jacobi preconditioner;
+* materialized JᵀJ, dense (PRECOMPUTE_JTJ at <= 4096 unknowns, any
+  group): J by ``torch.func.jacfwd`` over the flattened unknowns, then
+  A = JᵀJ and A·p by ``torch.matmul`` in full f32 (``_matmul_f32``: a
+  global TF32 setting cannot leak in);
 * materialized J (PRECOMPUTE_J, from ``r.<name>.J.set_materialize(True)``,
   and APPLY_SEPARATELY, from ``r.<name>.Jp.set_materialize(True)``): the
   per-point Jacobians are stored at setup, JᵀF and diag(JᵀJ) (partial²
   per access, as thallo_tpu) are scattered from them, and every PCG
   iteration gathers p, forms J·p and scatters Jᵀ(J·p) (lower.py's
-  ``scatter_slot``).  Eager torch materializes J·p between the two passes
-  in both schedules, so APPLY_SEPARATELY's split (JAX's optimization
-  barrier) is what PRECOMPUTE_J runs too.  No diag-pair blocks exist, so
-  the preconditioner stays scalar Jacobi, as in thallo_tpu.
+  ``scatter_slot``; a stencil slot's scatter is the roll back).  Eager
+  torch materializes J·p between the two passes in both schedules, so
+  APPLY_SEPARATELY's split (JAX's optimization barrier) is what
+  PRECOMPUTE_J runs too.  No diag-pair blocks exist, so the
+  preconditioner stays scalar Jacobi, as in thallo_tpu;
+* LINEARIZE (the default for stencil groups) linearizes once per
+  nonlinear step and applies J·p and Jᵀ(J·p) every PCG iteration.  In
+  eager torch that linearization is the per-point Jacobians that
+  ``jtf_and_diag`` computes anyway, so LINEARIZE applies JᵀJ·p from them
+  as the materialized-J schedules do: about a hundred launches an
+  iteration at image_warping 512², against six hundred for
+  ``torch.func.jvp`` and ``vjp`` of the residual;
+* INLINE (matrix-free): ``jvp`` and ``vjp`` of the residual anew every
+  iteration.  Graph groups under LINEARIZE or INLINE raise at plan time
+  (ROADMAP queue 1, item 4a).
+
+Exclude masks (``Offset.Exclude(...)``) zero the excluded unknowns'
+Jacobian columns in the setup, mask p on entry to and JᵀJ·p on exit
+from ``apply_jtjp``, and mask the PCG's delta, as thallo_tpu does: an
+excluded unknown never moves.  A mask whose expression reads no unknown
+is evaluated once at ``prepare``.
 
 Numerics follow the JAX solver step for step: -JᵀF and diag(JᵀJ),
 Ceres-style LM damping with Jacobi scaling,
@@ -31,9 +51,8 @@ needs no noise floor.
 JAX's ``.astype(block_dtype)``); the fused-pair kernels read them as
 such, everything else upcasts, and all arithmetic stays f32.
 
-Not ported yet (NotImplementedError at plan time): the dense JᵀJ path
-(<= 4096 unknowns), direct/Schur solves, the INLINE and LINEARIZE
-schedules, Exclude masks and double precision.
+Not ported yet (NotImplementedError at plan time): direct/Schur solves,
+INLINE and LINEARIZE on graph groups, and double precision.
 """
 from __future__ import annotations
 
@@ -44,13 +63,18 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..lower import LoweredGroup
+from ..lower import LoweredGroup, lower_pointwise
 from ..spec import JTJpSchedule
 from .blocksparse import bsr_apply, bsr_setup
 
 DENSE_JTJ_MAX_UNKNOWNS = 4096  # thallo_tpu/schedule.py: smaller problems go dense
 # schedules that store the per-point Jacobians and apply JᵀJ·p from them
 MATERIALIZED_J = (JTJpSchedule.PRECOMPUTE_J, JTJpSchedule.APPLY_SEPARATELY)
+MATERIALIZED_JTJ = (JTJpSchedule.PRECOMPUTE_JTJ, JTJpSchedule.PRECOMPUTE_J_THEN_JTJ)
+MATRIX_FREE = (JTJpSchedule.LINEARIZE, JTJpSchedule.INLINE)
+# schedules whose JᵀJ·p is applied from the per-point Jacobians that the
+# setup stores (LINEARIZE: eager torch's linearization of a stencil group)
+POINT_JACOBIAN_APPLY = MATERIALIZED_J + (JTJpSchedule.LINEARIZE,)
 # the block_dtype option (thallo_tpu/solver/gn.py:232-233): None keeps every
 # JᵀJ block f32; "bf16" stores the block-sparse cross blocks as bf16 (diag
 # blocks, -JᵀF and diag(JᵀJ) stay f32)
@@ -94,6 +118,28 @@ def tree_dot(a, b):
 
 def tree_where(c, a, b):
     return {k: torch.where(c, a[k], b[k]) for k in a}
+
+
+def apply_masks(t, masks):
+    """t times the active mask ([*dims], 1 where the unknown may move) of
+    each image that has one; images without an Exclude pass unchanged."""
+    if not masks:
+        return t
+    return {k: v * masks[k][..., None] if k in masks else v for k, v in t.items()}
+
+
+def _matmul_f32(a, b):
+    """torch.matmul in full f32 (no TF32 on the card) whatever the
+    process-wide torch.backends.cuda.matmul.allow_tf32; the flag is
+    restored after.  (torch.get_float32_matmul_precision is not read: it
+    raises once the caller has mixed the legacy and the newer TF32 API.)"""
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_tf32
+    flags.allow_tf32 = False
+    try:
+        return torch.matmul(a, b)
+    finally:
+        flags.allow_tf32 = prev
 
 
 def _cm_small_inv(M, C):
@@ -198,9 +244,10 @@ class GroupPlan:
 class CompiledSolver:
     """Lowered groups + the step for one problem at fixed dim sizes.
 
-    Methods keep thallo_tpu's names and signatures (the masks/twin_consts
-    arguments included, unused here), so a parity test calls the same
-    function on both packages."""
+    Methods keep thallo_tpu's names and signatures (the twin_consts
+    argument included, unused here), so a parity test calls the same
+    function on both packages.  ``masks`` maps each image with an Exclude
+    to its active mask [*dims]; images without one are absent."""
 
     def __init__(self, spec, groups: List[GroupPlan], uses_lambda: bool, dtype,
                  options, device):
@@ -216,23 +263,19 @@ class CompiledSolver:
         self.precond_kind = options.get("preconditioner", "auto")
         if self.precond_kind not in ("auto", "block_jacobi", "jacobi"):
             raise ValueError("preconditioner must be 'auto', 'block_jacobi' or 'jacobi'")
-        excluded = [im.name for im in spec.unknowns if im.exclude_expr is not None]
-        if excluded:
-            raise NotImplementedError(f"Exclude masks on {excluded} are not ported yet")
+        # Exclude guards, lowered over their own domains (thallo_tpu's
+        # _exclude_fns, gn.py:250-257)
+        sizes = {d.name: d.size for d in spec.dims}
+        self._exclude_fns = {
+            im.name: lower_pointwise([im.exclude_expr], spec, sizes, dtype,
+                                     name=f"exclude_{im.name}")
+            for im in spec.unknowns if im.exclude_expr is not None}
         for gp in groups:
-            if not gp.group.supports_cm:
+            if gp.group.has_gathers and gp.schedule in MATRIX_FREE:
                 raise NotImplementedError(
-                    f"group {gp.name!r} has stencil (grid-offset) accesses; the "
-                    "matrix-free grid path is not ported yet")
-            if not self._wants_bsr(gp) and gp.schedule not in MATERIALIZED_J:
-                _, total = self.unknown_layout()
-                why = (f"schedule {gp.schedule.value}"
-                       if gp.schedule is not JTJpSchedule.PRECOMPUTE_JTJ
-                       else f"{total} unknowns <= {DENSE_JTJ_MAX_UNKNOWNS} (dense JᵀJ)")
-                raise NotImplementedError(
-                    f"group {gp.name!r}: {why} is not ported yet; only the "
-                    "block-sparse materialized JᵀJ and the materialized-J "
-                    "schedules (PRECOMPUTE_J, APPLY_SEPARATELY) are")
+                    f"group {gp.name!r}: schedule {gp.schedule.value} on a graph group (slots "
+                    "gathered through sparse maps, not stencil rolls) is not ported yet "
+                    "(ROADMAP queue 1, item 4a)")
 
     # -- layout ------------------------------------------------------------
     def unknown_layout(self):
@@ -245,26 +288,89 @@ class CompiledSolver:
             total += int(np.prod([d.size for d in im.dims])) * im.channels
         return offsets, total
 
+    def flatten_U(self, t):
+        return torch.cat([t[im.name].reshape(-1) for im in self.spec.unknowns])
+
+    def unflatten_U(self, v):
+        out, o = {}, 0
+        for im in self.spec.unknowns:
+            shape = tuple(d.size for d in im.dims) + (im.channels,)
+            n = int(np.prod(shape))
+            out[im.name] = v[o:o + n].reshape(shape)
+            o += n
+        return out
+
     def _wants_bsr(self, gp):
         """Whether this group materializes JᵀJ as block-sparse tables
         (graph groups above the dense threshold)."""
-        if gp.schedule not in (JTJpSchedule.PRECOMPUTE_JTJ,
-                               JTJpSchedule.PRECOMPUTE_J_THEN_JTJ):
+        if gp.schedule not in MATERIALIZED_JTJ:
             return False
         if gp.force_sparse:
             return True
         return self.unknown_layout()[1] > DENSE_JTJ_MAX_UNKNOWNS
 
+    def _is_dense(self, gp):
+        """A materialized-JᵀJ group at <= DENSE_JTJ_MAX_UNKNOWNS unknowns:
+        JᵀJ as one dense matrix (thallo_tpu/solver/gn.py:643-651)."""
+        return gp.schedule in MATERIALIZED_JTJ and not self._wants_bsr(gp)
+
     def prepare(self, inputs):
         """Input-only precomputation, once per init: slot index tables,
-        const-slot values, and per group the block-sparse tables or the
-        scatter routes of the materialized-J schedules."""
-        return {
+        const-slot values, bounds and index-value arrays, per group the
+        block-sparse tables or the scatter routes of the materialized-J
+        schedules; the Exclude guards' constants and the masks of guards
+        that read no unknown (evaluated here once, not every step)."""
+        ex_consts = {name: g.prepared_consts(inputs, self.device)
+                     for name, (g, _) in self._exclude_fns.items()}
+        prep = {
             "consts": [gp.group.prepared_consts(inputs, self.device,
                                                 want_bsr=self._wants_bsr(gp))
                        for gp in self.groups],
             "twin_consts": [None] * len(self.groups),
+            "exclude_consts": ex_consts,
         }
+        prep["masks_static"] = {
+            im.name: self._eval_mask(im, ex_consts, {})
+            for im in self.spec.unknowns
+            if im.name in self._exclude_fns and not self._exclude_fns[im.name][0].uslots}
+        return prep
+
+    # -- masks -----------------------------------------------------------------
+    def _eval_mask(self, im, ex_consts, U):
+        """[*dims] active mask of unknown image im: 0 where its Exclude
+        guard is nonzero (thallo_tpu gn.py:385-402, the guard's domains
+        mapped onto the image's dim order)."""
+        g, fn = self._exclude_fns[im.name]
+        v = fn(ex_consts[im.name], U)  # [*ext_shape, 1]
+        ext_dims = [d.dim for d in g.ext_domains]
+        if len(ext_dims) == len(im.dims) and all(any(dd is d for dd in ext_dims)
+                                                 for d in im.dims):
+            perm = [next(i for i, dd in enumerate(ext_dims) if dd is d) for d in im.dims]
+            v = v.permute(*perm, v.ndim - 1)
+        shape = tuple(d.size for d in im.dims)
+        v = v.reshape(shape)
+        return torch.where(v != 0, torch.zeros_like(v), torch.ones_like(v))
+
+    def masks(self, inputs, U, static=None, ex_consts=None):
+        """Active masks of the images with an Exclude: static ones from
+        prepare, the rest (guards that read unknowns) from U."""
+        out = dict(static or {})
+        for im in self.spec.unknowns:
+            if im.name in self._exclude_fns and im.name not in out:
+                out[im.name] = self._eval_mask(im, ex_consts, U)
+        return out
+
+    def _mask_jacs_cm(self, g, jacsT, masks, consts):
+        """Zero the Jacobian columns of excluded unknowns (thallo_tpu's
+        _mask_jacs_cm): each slot's [rc, C, R] times its image's mask
+        gathered at the slot."""
+        if not masks:
+            return jacsT
+        out = []
+        for i, slot in enumerate(g.uslots):
+            m = masks.get(slot.image.name)
+            out.append(jacsT[i] if m is None else jacsT[i] * g.gather_mask(i, m, consts))
+        return out
 
     # -- residuals / cost ---------------------------------------------------
     def cost(self, U, inputs, consts):
@@ -283,15 +389,20 @@ class CompiledSolver:
     def jtf_and_diag(self, U, inputs, consts, masks, jac_store, twin_consts=None):
         """Returns (minus_jtf, diag, jac_store).  Block-sparse groups store
         their assembled blocks under jac_store[str(gi)]["bsr"]; the
-        materialized-J groups store the per-point Jacobians under
-        jac_store[str(gi)]["jacs"] and scatter Jᵀr and diag = partial² per access (thallo_tpu's
+        materialized-J and LINEARIZE groups store the per-point Jacobians
+        under jac_store[str(gi)]["jacs"].  Every other group scatters Jᵀr and
+        diag = partial² per access from its point Jacobians (thallo_tpu's
         semantics: two accesses of one residual aliasing one element add
-        a² + b², not (a+b)²)."""
+        a² + b², not (a+b)²).  Excluded unknowns' columns are zeroed
+        first."""
         mjtf = self._zeros_like_unknowns()
         diag = self._zeros_like_unknowns()
         for gi, (gp, c) in enumerate(zip(self.groups, consts)):
             g = gp.group
+            if not g.uslots:
+                continue
             r, jacs = g.point_jacobians_cm(U, inputs, c)
+            jacs = self._mask_jacs_cm(g, jacs, masks, c)
             if c["bsr"] is not None:
                 jtr_d, d2_d, blocks = bsr_setup(c["bsr"], r, jacs, self.block_dtype)
                 jac_store[str(gi)] = {"bsr": blocks}
@@ -300,7 +411,8 @@ class CompiledSolver:
                 for name, v in d2_d.items():
                     diag[name] = diag[name] + v
                 continue
-            jac_store[str(gi)] = {"jacs": tuple(jacs)}
+            if gp.schedule in POINT_JACOBIAN_APPLY:
+                jac_store[str(gi)] = {"jacs": tuple(jacs)}
             for i, slot in enumerate(g.uslots):
                 J = jacs[i]  # [rc, C, R]
                 C = J.shape[1]
@@ -313,34 +425,86 @@ class CompiledSolver:
         return mjtf, diag, jac_store
 
     def make_jtjp(self, U, inputs, consts, masks, jac_store, twin_consts=None):
-        """Ap(p) = sum_g J_gᵀ J_g p: from the blocks assembled this step
-        (block-sparse groups) or the stored per-point Jacobians
-        (materialized-J groups: gather p, J·p, scatter Jᵀ(J·p))."""
-        pairs, jac_groups = [], []
+        """Ap(p) = sum_g J_gᵀ J_g p for the current linearization point,
+        honoring each group's schedule (thallo_tpu/solver/gn.py:608-716):
+        the blocks assembled this step (block-sparse groups), a dense JᵀJ
+        (<= DENSE_JTJ_MAX_UNKNOWNS), jvp then vjp anew (INLINE), or the
+        per-point Jacobians stored this step (materialized J and
+        LINEARIZE: gather p, J·p, scatter Jᵀ(J·p)).  p is masked on entry
+        and Ap on exit."""
+        pairs, jac_groups, dense_mats, inline = [], [], [], []
+
+        def residual_fn(g, c):
+            return lambda X: g.residuals_cm(X, inputs, c)
+
         for gi, gp in enumerate(self.groups):
-            entry = jac_store[str(gi)]
+            g, c = gp.group, consts[gi]
+            if not g.uslots:
+                continue
+            entry = jac_store.get(str(gi), {})
             if "bsr" in entry:
-                pairs.append((consts[gi]["bsr"], entry["bsr"]))
-            else:
-                jac_groups.append((gp.group, consts[gi], entry["jacs"]))
+                pairs.append((c["bsr"], entry["bsr"]))
+            elif gp.schedule in POINT_JACOBIAN_APPLY:
+                jac_groups.append((g, c, entry["jacs"]))
+            elif self._is_dense(gp):
+                _, J = self.dense_jacobian(U, inputs, consts, masks, [gi])
+                dense_mats.append(_matmul_f32(J.T, J))
+            else:  # INLINE
+                inline.append(residual_fn(g, c))
+
+        def add(Ap, contrib):
+            for name, v in contrib.items():
+                Ap[name] = Ap[name] + v
 
         def apply_jtjp(p):
+            pm = apply_masks(p, masks)
             Ap = tree_zeros_like(p)
             for bsr, blocks in pairs:
-                for name, v in bsr_apply(bsr, blocks, p).items():
-                    Ap[name] = Ap[name] + v
+                add(Ap, bsr_apply(bsr, blocks, pm))
+            if dense_mats:
+                pflat = self.flatten_U(pm)
+                acc = None
+                for A in dense_mats:
+                    v = _matmul_f32(A, pflat)
+                    acc = v if acc is None else acc + v
+                add(Ap, self.unflatten_U(acc))
+            for res_fn in inline:
+                _, Jp = torch.func.jvp(res_fn, (U,), (pm,))
+                add(Ap, torch.func.vjp(res_fn, U)[1](Jp)[0])
             for g, c, jacs in jac_groups:
                 Jp = None  # [rc, R]: sum over slots of J_slot · p_slot
                 for i in range(len(g.uslots)):
-                    term = (jacs[i] * g.gather_slot(i, p, c)[None]).sum(1)
+                    term = (jacs[i] * g.gather_slot(i, pm, c)[None]).sum(1)
                     Jp = term if Jp is None else Jp + term
                 for i, slot in enumerate(g.uslots):
                     contrib = (jacs[i] * Jp[:, None]).sum(0)  # [C, R]
-                    name = slot.image.name
-                    Ap[name] = Ap[name] + g.scatter_slot(i, contrib, c)
-            return Ap
+                    add(Ap, {slot.image.name: g.scatter_slot(i, contrib, c)})
+            return apply_masks(Ap, masks)
 
         return apply_jtjp
+
+    def dense_jacobian(self, U, inputs, consts, masks, group_indices=None):
+        """J as a dense [n_residual_values, n_unknowns] matrix, rows in
+        thallo_tpu's order (point-major, then residual channel), by
+        torch.func.jacfwd over the flattened unknowns; excluded unknowns'
+        columns zeroed.  Returns (r_all, J) (thallo_tpu gn.py:749-780)."""
+        sel = range(len(self.groups)) if group_indices is None else group_indices
+        u0 = self.flatten_U(U)
+        mflat = None
+        if masks:
+            mflat = self.flatten_U(apply_masks(
+                {k: torch.ones_like(v) for k, v in U.items()}, masks))
+        rows, jmats = [], []
+        for gi in sel:
+            g, c = self.groups[gi].group, consts[gi]
+
+            def res_flat(u, g=g, c=c):
+                return g.residuals_cm(self.unflatten_U(u), inputs, c).T.reshape(-1)
+
+            J = torch.func.jacfwd(res_flat)(u0)
+            rows.append(res_flat(u0))
+            jmats.append(J if mflat is None else J * mflat[None, :])
+        return torch.cat(rows), torch.cat(jmats)
 
     def model_cost(self, U, inputs, consts, delta):
         """0.5 |r + J delta|^2 through a forward-mode JVP."""
@@ -368,8 +532,9 @@ class CompiledSolver:
         """Phase 1: r0 = -JᵀF, diag(JᵀJ), preconditioner, LM damping and
         the block-sparse JᵀJ assembly."""
         consts = prep["consts"]
+        masks = self.masks(inputs, U, prep.get("masks_static"), prep.get("exclude_consts"))
         jac_store = {}
-        mjtf, rawdiag, jac_store = self.jtf_and_diag(U, inputs, consts, None, jac_store)
+        mjtf, rawdiag, jac_store = self.jtf_and_diag(U, inputs, consts, masks, jac_store)
         if self.uses_lambda:
             ssq = rawdiag if lm.n_iter == 0 else lm.ssq
             radius = lm.trust_region_radius
@@ -394,7 +559,7 @@ class CompiledSolver:
         if self.precond_kind in ("auto", "block_jacobi") and self.use_preconditioner:
             pre_block = self._block_preconditioner(consts, jac_store, rawdiag, CtC, lm)
         return {
-            "masks": None,
+            "masks": masks,
             "jac_store": jac_store,
             "r0": mjtf,
             "pre": pre,
@@ -533,7 +698,7 @@ class CompiledSolver:
             alpha_num = torch.where(active, beta_num, alpha_num)
             Q0 = torch.where(active, Q1, Q0)
             stop = stop | stop_q
-        return delta
+        return apply_masks(delta, state["masks"])
 
     def finish_step(self, U, lm: LMState, state, delta, inputs, sp: SolverParams, prep):
         """Phase 3: X += delta (+ LM model cost, accept/revert, radius)."""
