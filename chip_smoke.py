@@ -94,7 +94,30 @@ its seconds; any failure exits non-zero):
      step 3, the cost, -JᵀF, diag(JᵀJ) and JᵀJ·p on the card against
      the port's CPU path at the same unknowns (GRID_LINEAR_RTOL); logs
      the step median of steps 2-10 and the device kernels per step and
-     per PCG iteration.
+     per PCG iteration;
+ 12. the Schur-complement solves on small scenes, card vs CPU, 5 LM
+     steps: linear_solver="schur_pcg" and "schur_dense" on test_schur's
+     8-camera scene (``synthetic_inputs(8, 64, 4, seed=3)``) and on the
+     small skewed scene, step 1 within phase 3's bounds (the skewed
+     block-Jacobi ones there), steps 1-5 within SCHUR_TRAJ, costs never
+     rising, a fused-pair kernel launched; schur_dense's first step
+     against linear_solver="direct" on the card within EXACT_TOL;
+ 13. the uniform 1M LM solve under schur_pcg (SCHUR_L_ITERATIONS PCG
+     iterations on the reduced camera system, 10 steps):
+     fused_pair_apply, oh_setup_products and fullrepeat_setup launched,
+     costs never rising, final cost <= 1e-2 x initial; then schur_dense
+     (the 9216-DOF camera system assembled and solved by LU,
+     schur_dense_max=16384) for SCHUR_DENSE_STEPS steps, costs never
+     rising, the assembly and the solve timed apart;
+ 14. the skewed 1M LM solve under schur_pcg, 10 steps: fused_pair_apply,
+     fused_pair_apply_wloop and oh_setup_products launched, costs never
+     rising; then, printed and not gated, the time to target cost on
+     the uniform 1M scene by bench.py's rule (bench_ba_time_to_target:
+     q_tolerance and function_tolerance 0, target c0 - 0.95 (c0 - the
+     cost after 25 steps), a cold restart, one warm step, a cold
+     restart, then steps until the cost reaches the target) for pcg and
+     schur_pcg at lIterations 4 and 16 and schur_dense, and in the same
+     timed runs the time to TTT_COMMON x the initial cost.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -149,6 +172,37 @@ SKEW_1M = (1024, 250_000, 1_000_000)  # cameras, points, target observations
 SKEW_SMALL = (16, 1400, 5600)
 N_STEPS_1M = 10
 BF16_SKEW_STEPS = 3  # phase 10: enough to launch every level's kernel
+# phases 12-14: the Schur-complement solves.  Phase 12's scene is
+# tests/test_schur.py's test_schur_dense_matches_direct_on_ba scene;
+# EXACT_TOL is that test's bound on schur_dense's first step against the
+# direct solve (both exact solvers, x max|U|).
+SCHUR_SMALL = (8, 64, 4, 3)  # cameras, points, observations per point, seed
+SCHUR_SMALL_STEPS = 5
+EXACT_TOL = 5e-5
+# Step 1, card vs CPU, is held to phase 3's bounds (STEP_U_TOL /
+# STEP_COST_RTOL; SKEW_BLOCK_* on the skewed scene).  The later steps of
+# an exact (or nearly exact) reduced solve near convergence drift further
+# along BA's flat directions, and an accept on one device against a
+# reject on the other splits the LM trajectories.
+# scripts/torch_skew_small_spread.py --scene schur_small|skewed
+# --linear-solver schur_pcg|schur_dense, 3 card runs against the CPU on an
+# H100: on this uniform scene (seed 3) at most 6.7e-5 of max|U| and 4.9e-3
+# of the cost over 5 steps; on the skewed scene (seed 0) 2.4e-3 and
+# 2.0e-2 (other seeds of the skewed scene, under schur_dense, up to 4.5e-2
+# and costs 99x apart: seed 4 stalls on rejected steps in every run).
+# SCHUR_TRAJ holds steps 1-5 at about twice those.
+SCHUR_TRAJ = {"small": (2e-4, 1e-2), "small skewed": (5e-3, 5e-2)}  # (x max|U|, cost)
+SCHUR_L_ITERATIONS = 16  # bench.py's lIterations for BA 1M
+SCHUR_DENSE_STEPS = 3
+SCHUR_DENSE_MAX = 16384  # bench.py:467-468: the 1M camera system has 9216 DOF
+# time to target (bench.py:94-137): (linear_solver, lIterations)
+TTT_VARIANTS = (("pcg", 4), ("pcg", 16), ("schur_pcg", 4), ("schur_pcg", 16),
+                ("schur_dense", 1))
+TTT_STEPS = 25
+# bench.py's target (95% of the variant's own 25-step decrease) falls
+# inside the first LM step of every variant on the uniform 1M scene, so
+# each timed run also reports a target common to all variants
+TTT_COMMON = 1e-6  # x initial cost
 # phase 3, the grid path on a small scene: image_warping 64 x 64 with an
 # excluded 16 x 16 square, LM, card against the port's CPU path, held to
 # STEP_U_TOL-style bounds (GRID_U_TOL x max|U| per image, costs
@@ -1088,6 +1142,195 @@ def phase_skew_1m(ba, tt, scene, block_dtype=None, n_steps=N_STEPS_1M):
     return launches
 
 
+def phase_schur_small(ba, tt, device="cuda", ref_device="cpu"):
+    """Phase 12: schur_pcg and schur_dense on `device` against
+    `ref_device`, on the small uniform and skewed scenes; schur_dense's
+    first step against the direct solve on `device`."""
+    C, P, W, seed = SCHUR_SMALL
+    inputs, _ = ba.synthetic_inputs(n_cameras=C, n_points=P, obs_per_point=W, seed=seed)
+    small = (inputs, {"C": C, "P": P, "O": len(inputs["oToC"])})
+    skew = make_skew_scene(ba, *SKEW_SMALL)
+    fns = counters()
+    for label, (inputs, dims), u_tol, c_tol in (
+            ("small", small, STEP_U_TOL, STEP_COST_RTOL),
+            ("small skewed", skew, SKEW_BLOCK_U_TOL, SKEW_BLOCK_COST_RTOL)):
+        traj_u, traj_c = SCHUR_TRAJ[label]
+        for ls in ("schur_pcg", "schur_dense"):
+            runs = {}
+            for dev in (device, ref_device):
+                plan = ba_plan(ba, tt, inputs, dims, dev, SCHUR_SMALL_STEPS, linear_solver=ls)
+                for fn in fns.values():
+                    fn.launches = 0
+                costs = [plan.init({k: np.copy(v) for k, v in inputs.items()})]
+                Us = []
+                for _ in range(SCHUR_SMALL_STEPS):
+                    plan.step()
+                    costs.append(plan.cost())
+                    Us.append({k: v.cpu().numpy() for k, v in plan.unknowns().items()})
+                runs[dev] = (costs, Us, {n: fn.launches for n, fn in fns.items()})
+            (cg, Ug, lg), (cc, Uc, _) = runs[device], runs[ref_device]
+            log(f"{label} scene {ls} costs {device} {cg}")
+            log(f"{label} scene {ls} costs {ref_device} {cc}")
+            routes = set(level_routes(plan._prep["consts"][0]["bsr"]).values())
+            log(f"{label} scene {ls} fused-pair launches on {device} "
+                f"{({n: lg[n] for n in routes})}")
+            if device == "cuda" and not all(lg[n] > 0 for n in routes):
+                raise AssertionError(f"{label} scene {ls}: a routed fused-pair kernel never "
+                                     "launched")
+            check_steps(f"{label} scene {ls} {device} vs {ref_device}, step 1", cg[:2], Ug[:1],
+                        cc[:2], Uc[:1], u_tol, c_tol)
+            check_steps(f"{label} scene {ls} {device} vs {ref_device}", cg, Ug, cc, Uc,
+                        traj_u, traj_c)
+            never_rising(f"{label} scene {ls} {device}", cg)
+    inputs, dims = small
+    first = {}
+    for ls in ("schur_dense", "direct"):
+        plan = ba_plan(ba, tt, inputs, dims, device, 1, linear_solver=ls)
+        plan.init({k: np.copy(v) for k, v in inputs.items()})
+        plan.step()
+        first[ls] = {k: v.cpu().numpy() for k, v in plan.unknowns().items()}
+    for name, ref in first["direct"].items():
+        err = np.abs(first["schur_dense"][name] - ref).max()
+        log(f"small scene schur_dense vs direct, step 1, {name}: max|dU| {err!r} "
+            f"(max|U| {np.abs(ref).max()!r})")
+        if not err <= EXACT_TOL * np.abs(ref).max():
+            raise AssertionError(f"small scene: schur_dense step 1 differs from direct in {name}")
+
+
+@contextlib.contextmanager
+def timed_calls(cls, name, sync):
+    """cls.name behind a hook that records the seconds of each call,
+    synchronized before and after; yields the list of seconds."""
+    real, seconds = getattr(cls, name), []
+
+    def hook(self, *args, **kwargs):
+        sync()
+        t0 = time.perf_counter()
+        out = real(self, *args, **kwargs)
+        sync()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    setattr(cls, name, hook)
+    try:
+        yield seconds
+    finally:
+        setattr(cls, name, real)
+
+
+@contextlib.contextmanager
+def solve_residuals(cls):
+    """cls._dense_solve behind a hook that records |S x - b| / |b| of each
+    solve in full f32; yields the list."""
+    real, out = cls._dense_solve, []
+
+    def hook(self, S, b):
+        x = real(self, S, b)
+        out.append(float(torch.linalg.vector_norm(S @ x - b) / torch.linalg.vector_norm(b)))
+        return x
+
+    cls._dense_solve = hook
+    try:
+        yield out
+    finally:
+        cls._dense_solve = real
+
+
+SCHUR_1M_KERNELS = ("fused_pair_apply", "oh_setup_products", "fullrepeat_setup")
+
+
+def phase_schur_1m(ba, tt, scene):
+    """Phase 13: the uniform 1M scene under schur_pcg, then schur_dense."""
+    from thallo_tpu_torch.solver.gn import CompiledSolver
+
+    label = "1M schur_pcg"
+    costs, _, launches, _ = solve_1m(ba, tt, scene, label, SCHUR_1M_KERNELS,
+                                     linear_solver="schur_pcg",
+                                     solver_parameters={"lIterations": SCHUR_L_ITERATIONS})
+    never_rising(label, costs)
+    if not costs[-1] <= 1e-2 * costs[0]:
+        raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
+    label = "1M schur_dense"
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls(CompiledSolver, "_schur_dense_matrix", torch.cuda.synchronize) as t_S, \
+            timed_calls(CompiledSolver, "_dense_solve", torch.cuda.synchronize) as t_solve, \
+            solve_residuals(CompiledSolver) as res:
+        costs, _, _, _ = solve_1m(ba, tt, scene, label, SCHUR_1M_KERNELS,
+                                  n_steps=SCHUR_DENSE_STEPS, linear_solver="schur_dense",
+                                  schur_dense_max=SCHUR_DENSE_MAX)
+    never_rising(label, costs)
+    log(f"{label}: S assembly {[round(t * 1e3, 2) for t in t_S]} ms, LU solve "
+        f"{[round(t * 1e3, 2) for t in t_solve]} ms per step; |S x - b| / |b| {res}; peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches
+
+
+def phase_schur_skew_1m(ba, tt, scene):
+    """Phase 14: the skewed 1M scene under schur_pcg."""
+    label = "1M skew schur_pcg"
+    costs, _, launches, _ = solve_1m(
+        ba, tt, scene, label, ("fused_pair_apply", "fused_pair_apply_wloop", "oh_setup_products"),
+        linear_solver="schur_pcg", solver_parameters={"lIterations": SCHUR_L_ITERATIONS})
+    never_rising(label, costs)
+    log(f"{label}: final / initial cost {costs[-1] / costs[0]!r}")
+    return launches
+
+
+def cold_restart(plan, c0):
+    """bench.py's _cold_restart: the initial unknowns, iteration 0, the
+    initial trust radius and previous cost."""
+    plan.reset_unknowns()
+    plan._lm = plan._lm._replace(
+        trust_region_radius=plan._scalar(plan.solver_parameters["trust_region_radius"]),
+        prev_cost=plan._scalar(c0), n_iter=0,
+        finished=torch.zeros((), dtype=torch.bool, device=plan.device))
+
+
+def time_to_target(ba, tt, scene, linear_solver, l_iterations, device="cuda"):
+    """bench.py's bench_ba_time_to_target on the port, its timed run
+    going on to TTT_COMMON x the initial cost: (target, common target,
+    converged cost, [(seconds, cost) after each timed step])."""
+    inputs, dims = scene
+    options = {"schur_dense_max": SCHUR_DENSE_MAX} if linear_solver == "schur_dense" else {}
+    plan = ba_plan(ba, tt, inputs, dims, device, 10_000, linear_solver=linear_solver,
+                   **options)
+    plan.set_solver_parameter("lIterations", l_iterations)
+    plan.set_solver_parameter("q_tolerance", 0.0)
+    plan.set_solver_parameter("function_tolerance", 0.0)
+    c0 = plan.init({k: np.copy(v) for k, v in inputs.items()})
+    plan.run_steps(TTT_STEPS)
+    converged = plan.cost()
+    target = c0 - 0.95 * (c0 - converged)
+    cold_restart(plan, c0)
+    plan.step()  # warm: the first step's allocations
+    cold_restart(plan, c0)
+    common, trace = TTT_COMMON * c0, []
+    t0 = time.perf_counter()
+    for _ in range(TTT_STEPS):
+        if not plan.step():
+            break
+        trace.append((time.perf_counter() - t0, plan.cost()))
+        if trace[-1][1] <= min(target, common):
+            break
+    return target, common, converged, trace
+
+
+def phase_time_to_target(ba, tt, scene, device="cuda"):
+    def reached(trace, limit):
+        return next((f"{s!r} s in {k + 1} steps" for k, (s, c) in enumerate(trace)
+                     if c <= limit), f"not reached in {len(trace)} steps")
+
+    for linear_solver, l_iterations in TTT_VARIANTS:
+        target, common, converged, trace = time_to_target(ba, tt, scene, linear_solver,
+                                                          l_iterations, device)
+        steps = np.diff([0.0] + [s for s, _ in trace]) * 1e3
+        log(f"time to target, uniform {scene[1]['C']}x{scene[1]['P']}, {linear_solver} "
+            f"lIterations {l_iterations}: bench.py's target {target!r}: "
+            f"{reached(trace, target)}; {TTT_COMMON} x initial cost {common!r}: "
+            f"{reached(trace, common)}; timed steps {np.round(steps, 2).tolist()} ms, costs "
+            f"{[c for _, c in trace]}; converged cost {converged!r} after {TTT_STEPS} steps")
+
+
 def phase_measurement_scripts():
     """The four measurement scripts through their main(), counts set to 0
     just before and read just after; returns launches per record entry."""
@@ -1235,6 +1478,23 @@ def main():
     phase_grid_512()
     torch.cuda.synchronize()
     log(f"phase 11 image_warping {GRID_SIZE}x{GRID_SIZE} GN through run_steps: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_schur_small(ba, tt)
+    torch.cuda.synchronize()
+    log(f"phase 12 Schur solves on small scenes, cuda vs cpu: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_schur_1m(ba, tt, scene)
+    torch.cuda.synchronize()
+    log(f"phase 13 BA 1M LM solve, schur_pcg and schur_dense: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_schur_skew_1m(ba, tt, skew_scene)
+    phase_time_to_target(ba, tt, scene)
+    torch.cuda.synchronize()
+    log(f"phase 14 skewed BA 1M LM solve, schur_pcg; time to target: "
         f"{time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8)

@@ -6,6 +6,8 @@ on the GPU.
                                         [--schedule precompute_j|apply_separately]
                                         [--segsum tiled] [--skew OBSERVATIONS]
                                         [--block-dtype bf16]
+                                        [--linear-solver schur_pcg|schur_dense]
+                                        [--l-iterations N]
 
 Builds the uniform BA scene (models/bundle_adjustment.synthetic_inputs,
 seed 0; with --skew, skewed_inputs with that target observation count:
@@ -17,7 +19,10 @@ or with --schedule the materialized-J schedule that the energy text's
 sets THALLO_SEGSUM=tiled before init, so the scatters of those schedules
 run through the segment-sum kernel; --block-dtype bf16 plans with
 ``block_dtype="bf16"`` (the cross blocks stored as bf16, read by the
-fused-pair kernels' bf16 instantiations).  It runs two LM steps to warm up,
+fused-pair kernels' bf16 instantiations); --linear-solver plans with that
+``linear_solver`` (schur_dense with ``schur_dense_max=16384``, enough for
+the 9216-DOF camera system of 1024 cameras) and --l-iterations sets
+lIterations (default 10).  It runs two LM steps to warm up,
 then measures a step two ways:
 
 * phases: solve_setup / linear_solve / finish_step called one at a time,
@@ -43,7 +48,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 SCHEDULES = {"precompute_j": "J", "apply_separately": "Jp"}
 
 
-def make_plan(n_cameras, n_points, obs, device, schedule=None, skew=None, block_dtype=None):
+def make_plan(n_cameras, n_points, obs, device, schedule=None, skew=None, block_dtype=None,
+              linear_solver="pcg", l_iterations=10):
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
@@ -57,9 +63,12 @@ def make_plan(n_cameras, n_points, obs, device, schedule=None, skew=None, block_
     text = ba.ENERGY
     if schedule:
         text += f"\nr.snavely_reprojection_error.{SCHEDULES[schedule]}.set_materialize(True)\n"
+    options = {"schur_dense_max": 16384} if linear_solver == "schur_dense" else {}
     plan = tt.load_energy(text).plan(dims, solver="levenberg_marquardt", device=device,
-                                     block_dtype=block_dtype)
+                                     block_dtype=block_dtype, linear_solver=linear_solver,
+                                     **options)
     plan.set_solver_parameter("nIterations", 1000)
+    plan.set_solver_parameter("lIterations", l_iterations)
     plan.init(inputs)
     return plan
 
@@ -127,6 +136,9 @@ def main():
     ap.add_argument("--schedule", choices=sorted(SCHEDULES))
     ap.add_argument("--segsum", choices=["tiled"])
     ap.add_argument("--block-dtype", choices=["bf16"])
+    ap.add_argument("--linear-solver", choices=["pcg", "schur_pcg", "schur_dense"],
+                    default="pcg")
+    ap.add_argument("--l-iterations", type=int, default=10)
     ap.add_argument("--skew", type=int, metavar="OBSERVATIONS",
                     help="the degree-skewed scene with this target observation count")
     args = ap.parse_args()
@@ -146,9 +158,10 @@ def main():
     say(f"device {torch.cuda.get_device_name(0)}; BA {args.cameras} cameras x "
         f"{args.points} points, {scene}; schedule "
         f"{args.schedule or 'block-sparse JtJ'}; THALLO_SEGSUM={args.segsum or 'unset'}; "
-        f"block_dtype={args.block_dtype}")
+        f"block_dtype={args.block_dtype}; linear_solver={args.linear_solver}, lIterations "
+        f"{args.l_iterations}")
     plan = make_plan(args.cameras, args.points, args.obs, "cuda", args.schedule, args.skew,
-                     args.block_dtype)
+                     args.block_dtype, args.linear_solver, args.l_iterations)
     for _ in range(2):
         plan.step()
     torch.cuda.synchronize()

@@ -279,12 +279,11 @@ def test_cuda_device_needs_a_gpu():
 
 def test_unported_paths_raise():
     """What the port does not run yet raises at plan time, naming its
-    ROADMAP item: Schur solves, the autoscheduler, multi-step dispatch,
-    and the matrix-free schedules on graph groups.  (Small scenes on the
-    dense JᵀJ and stencil groups are ported: test_torch_grid.py and
-    test_torch_plan_api.py.)"""
-    with pytest.raises(NotImplementedError, match="Schur.*item 3"):
-        _port_plan(linear_solver="schur_pcg")
+    ROADMAP item: the autoscheduler, multi-step dispatch, and the
+    matrix-free schedules on graph groups.  (Small scenes on the dense
+    JᵀJ and stencil groups are ported: test_torch_grid.py and
+    test_torch_plan_api.py; the Schur and direct solves:
+    test_torch_schur.py.)"""
     with pytest.raises(NotImplementedError, match="autoscheduler.*item 8"):
         _port_plan(use_autoscheduler=1)
     with pytest.raises(NotImplementedError, match="multi-step dispatch.*item 2a"):

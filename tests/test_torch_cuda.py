@@ -306,6 +306,18 @@ def test_bf16_step_makes_no_host_sync(cuda):
     assert fusedpair.fused_pair_apply_wloop_bf16.launches > n0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("linear_solver", ["schur_pcg", "schur_dense"])
+def test_schur_step_makes_no_host_sync(cuda, linear_solver):
+    """The same under the Schur solves: the reduced PCG (two damped
+    block-sparse applies an iteration through the fused-pair kernel), or
+    the assembled 144 x 144 camera system and its solve_ex, read nothing
+    back from the card."""
+    n0 = fusedpair.fused_pair_apply_wloop.launches + fusedpair.fused_pair_apply.launches
+    _step_makes_no_host_sync(cuda, linear_solver=linear_solver)
+    assert fusedpair.fused_pair_apply_wloop.launches + fusedpair.fused_pair_apply.launches > n0
+
+
 def _step_makes_no_host_sync(cuda, **options):
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
@@ -963,5 +975,50 @@ def test_dense_step_matmuls_run_in_full_f32(cuda, monkeypatch):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = kept
     assert seen and not any(seen)
+    for k in steps[False]:
+        close(steps[True][k], steps[False][k], 1e-4)
+
+
+@pytest.mark.cuda
+def test_direct_solve_matmuls_run_in_full_f32(cuda, monkeypatch):
+    """linear_solver="direct" (JᵀJ and Jᵀr of the dense Jacobian) with
+    TF32 allowed process-wide: every matmul of an LM step runs with
+    torch.backends.cuda.matmul.allow_tf32 off, the global setting is back
+    after the step, and the step agrees with one taken with TF32 off to
+    the card's run-to-run f32 noise (as the dense JᵀJ path above)."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+    from thallo_tpu_torch.solver import gn
+
+    ins, _ = ba.synthetic_inputs(n_cameras=4, n_points=64, obs_per_point=3)
+    dims = {"C": 4, "P": 64, "O": len(ins["oToC"])}
+    seen, real, direct = [], torch.matmul, gn.CompiledSolver._direct_solve
+    calls = []
+
+    def spy(a, b):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(a, b)
+
+    def counted(self, *args):
+        calls.append(1)
+        return direct(self, *args)
+
+    kept = torch.backends.cuda.matmul.allow_tf32
+    steps = {}
+    monkeypatch.setattr(gn.CompiledSolver, "_direct_solve", counted)
+    try:
+        for tf32 in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=cuda,
+                                                  linear_solver="direct")
+            plan.init({k: np.copy(v) for k, v in ins.items()})
+            monkeypatch.setattr(gn.torch, "matmul", spy)
+            plan.step()
+            monkeypatch.setattr(gn.torch, "matmul", real)
+            assert torch.backends.cuda.matmul.allow_tf32 == tf32
+            steps[tf32] = {k: v.cpu() for k, v in plan.unknowns().items()}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = kept
+    assert len(calls) == 2 and seen and not any(seen)
     for k in steps[False]:
         close(steps[True][k], steps[False][k], 1e-4)

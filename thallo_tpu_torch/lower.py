@@ -455,7 +455,7 @@ class LoweredGroup:
         return np.broadcast_to(env.eval(iv.comp), self.ext_shape).reshape(-1).astype(np.float32)
 
     # -- per-solve constants -------------------------------------------------
-    def prepared_consts(self, inputs, device, want_bsr=False):
+    def prepared_consts(self, inputs, device, want_bsr=False, onehot_exclude=()):
         """Everything non-differentiated, computed once per init: slot
         index tables of the gathered slots (host -> device once; None for
         stencil slots), channel-major const-slot values, InBounds and
@@ -464,7 +464,9 @@ class LoweredGroup:
         (solver/blocksparse.py); otherwise the scatter route of each
         gathered slot: a segment-sum plan ("stables", with
         THALLO_SEGSUM=tiled, read here as thallo_tpu reads it) or the
-        int32 ids of a small image for the aggregation kernel."""
+        int32 ids of a small image for the aggregation kernel.
+        onehot_exclude: image names that build row tables instead of
+        one-hot rows (an image that schur_dense eliminates)."""
         idx = [self._slot_flat_indices(s, inputs) for s in self.uslots]
         cvals = []
         for s, rp in zip(self.cslots, self._crolls):
@@ -489,7 +491,7 @@ class LoweredGroup:
         if want_bsr:
             from .solver.blocksparse import build_group_bsr
 
-            bsr = build_group_bsr(self, idx, self.dtype, device)
+            bsr = build_group_bsr(self, idx, self.dtype, device, onehot_exclude)
         else:
             tiled = os.environ.get("THALLO_SEGSUM") == "tiled"
             for i, flat in enumerate(idx):

@@ -38,7 +38,6 @@ _KNOWN_OPTIONS = {"use_autoscheduler", "lin_iter_hint", "solver_parameters",
 # JAX package that is not ported yet
 _UNPORTED_OPTIONS = {
     "use_autoscheduler": (0, "the autoscheduler (ROADMAP queue 1, item 8)"),
-    "linear_solver": ("pcg", "direct and Schur solves (ROADMAP queue 1, item 3)"),
     "steps_per_dispatch": (1, "multi-step dispatch (ROADMAP queue 1, item 2a)"),
     "trace_dir": (None, "profiler traces (ROADMAP queue 1, item 9)"),
     "profile_compile": (False, "compile profiling (ROADMAP queue 1, item 9)"),

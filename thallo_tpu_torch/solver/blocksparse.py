@@ -30,9 +30,12 @@ partner runs both directions through one fused kernel launch per level
 persistent ``fused_pair_apply`` or the W-loop kernel for wide, short
 levels; under ``block_dtype="bf16"`` their bf16 instantiations, and
 ``fused_pair_bf16_atomics`` for the other shapes); a col pair without one
-gathers p by its col table and multiplies.  Not ported: segment-keyed tables of affine maps that
-are not a full repeat (they raise NotImplementedError; ROADMAP queue 1,
-item 5).
+gathers p by its col table and multiplies.  An image that
+``linear_solver="schur_dense"`` is told to eliminate builds row tables
+instead of one-hot rows and keeps its col blocks (``onehot_exclude``):
+the dense Schur assembly reads its couplings from them.  Not ported:
+segment-keyed tables of affine maps that are not a full repeat (they
+raise NotImplementedError; ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -222,11 +225,14 @@ def _rank_keyed_tables(idx: np.ndarray, N: int, R: int, max_waste: float,
     return out
 
 
-def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
+def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
+                    onehot_exclude=()) -> GroupBsr:
     """Build the static tables from the slots' concrete flat indices
     (host side, once per init).  idxs[i] is slot i's [R] element index.
     THALLO_ONEHOT_ROWS and THALLO_TRANSPOSE_ROWS are read here, as
-    thallo_tpu reads them."""
+    thallo_tpu reads them.  Slots of an image in onehot_exclude build row
+    tables and keep their col blocks (schur_dense eliminates through
+    them)."""
     jslots = group.uslots
     R = group.R
     slot_N = [int(np.prod([d.size for d in s.image.dims])) for s in jslots]
@@ -234,6 +240,7 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
 
     oh_max = int(os.environ.get("THALLO_ONEHOT_ROWS", "1024"))
     onehot = [0 < oh_max and slot_N[i] <= oh_max and R >= 4 * slot_N[i]
+              and jslots[i].image.name not in onehot_exclude
               for i in range(nslots)]
     for i in range(nslots):
         for j in range(nslots):
@@ -248,7 +255,7 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device) -> GroupBsr:
     def _transpose_ok(i, j):
         if onehot[i]:
             return True
-        if slot_N[i] > tr_max or onehot[j]:
+        if slot_N[i] > tr_max or onehot[j] or jslots[i].image.name in onehot_exclude:
             return False
         return (slot_N[i], i) < (slot_N[j], j)
 

@@ -51,8 +51,22 @@ needs no noise floor.
 JAX's ``.astype(block_dtype)``); the fused-pair kernels read them as
 such, everything else upcasts, and all arithmetic stays f32.
 
-Not ported yet (NotImplementedError at plan time): direct/Schur solves,
-INLINE and LINEARIZE on graph groups, and double precision.
+The linear solve of each step is PCG on the full system (the default),
+or, by the plan option ``linear_solver`` (thallo_tpu/solver/gn.py:
+211-229, 1032-1530): ``"schur_pcg"`` eliminates an unknown image whose
+JᵀJ self-coupling is block-diagonal (BA points) and runs the same PCG on
+the reduced keep system S = A_kk - A_ke A_ee⁻¹ A_ek, applied implicitly
+through two damped block-sparse applies an iteration (so through the
+fused-pair kernels); ``"schur_dense"`` assembles S densely from the
+block-sparse blocks and solves it exactly (LU under LM; under GN, whose
+S carries BA's gauge null space, the minimum-norm solution, as JAX's
+``lstsq``); ``"direct"`` solves the dense damped normal equations from
+the dense Jacobian.  ``schur_eliminate`` names the eliminated images
+(default: the eligible image with the most elements) and
+``schur_dense_max`` caps the kept system's DOF.
+
+Not ported yet (NotImplementedError at plan time): INLINE and LINEARIZE
+on graph groups, and double precision.
 """
 from __future__ import annotations
 
@@ -260,6 +274,17 @@ class CompiledSolver:
         self.guarded_invert_type = options.get("guarded_invert_type", "CERES")
         self.jacobi_scaling = options.get("jacobi_scaling", "ONCE_PER_SOLVE")
         self.block_dtype = BLOCK_DTYPES[options.get("block_dtype")]
+        # linear_solver (thallo_tpu/solver/gn.py:211-229): "direct" solves
+        # the dense normal equations; "schur_pcg"/"schur_dense" eliminate
+        # the schur_eliminate images (default: auto-pick) and solve the
+        # reduced system by PCG or densely (at most schur_dense_max DOF)
+        ls = options.get("linear_solver", "pcg")
+        self.direct_solve = ls == "direct"
+        self.schur = ls in ("schur_pcg", "schur_dense")
+        self.schur_dense = ls == "schur_dense"
+        self.schur_dense_max = int(options.get("schur_dense_max", 8192))
+        se = options.get("schur_eliminate")
+        self.schur_eliminate = list(se) if se else None
         self.precond_kind = options.get("preconditioner", "auto")
         if self.precond_kind not in ("auto", "block_jacobi", "jacobi"):
             raise ValueError("preconditioner must be 'auto', 'block_jacobi' or 'jacobi'")
@@ -302,12 +327,21 @@ class CompiledSolver:
 
     def _wants_bsr(self, gp):
         """Whether this group materializes JᵀJ as block-sparse tables
-        (graph groups above the dense threshold)."""
+        (graph groups above the dense threshold; any size under a Schur
+        solve, which eliminates through the diag-pair blocks)."""
         if gp.schedule not in MATERIALIZED_JTJ:
             return False
-        if gp.force_sparse:
+        if gp.force_sparse or self.schur:
             return True
         return self.unknown_layout()[1] > DENSE_JTJ_MAX_UNKNOWNS
+
+    def _onehot_exclude(self):
+        """Images that must build row tables, not one-hot rows: the ones
+        named to be eliminated (schur_dense reads an eliminated image's
+        couplings from its row tables)."""
+        if self.schur and self.schur_eliminate:
+            return tuple(self.schur_eliminate)
+        return ()
 
     def _is_dense(self, gp):
         """A materialized-JᵀJ group at <= DENSE_JTJ_MAX_UNKNOWNS unknowns:
@@ -324,7 +358,8 @@ class CompiledSolver:
                      for name, (g, _) in self._exclude_fns.items()}
         prep = {
             "consts": [gp.group.prepared_consts(inputs, self.device,
-                                                want_bsr=self._wants_bsr(gp))
+                                                want_bsr=self._wants_bsr(gp),
+                                                onehot_exclude=self._onehot_exclude())
                        for gp in self.groups],
             "twin_consts": [None] * len(self.groups),
             "exclude_consts": ex_consts,
@@ -577,9 +612,9 @@ class CompiledSolver:
         B = self._diag_pair_blocks(consts, jac_store)
         return self._invert_damped_blocks(B, rawdiag, CtC)
 
-    def _diag_pair_blocks(self, consts, jac_store):
-        """The block diagonal of the groups' JᵀJ per unknown image,
-        channel-major [C*C, N]."""
+    def _diag_pair_blocks(self, consts, jac_store, names=None):
+        """The block diagonal of the groups' JᵀJ per unknown image (those
+        in `names`, when given), channel-major [C*C, N]."""
         B = {}
         for gi in range(len(self.groups)):
             bsr = consts[gi]["bsr"]
@@ -592,12 +627,17 @@ class CompiledSolver:
                 name = bsr.slot_images[pr[0]]
                 if bsr.slot_images[pr[1]] != name:
                     continue  # cross-image aliasing: off the block diagonal
+                if names is not None and name not in names:
+                    continue
                 B[name] = B[name] + blocks[p_idx] if name in B else blocks[p_idx]
         return B
 
-    def _invert_damped_blocks(self, B, rawdiag, CtC):
-        """Invert per-element CxC blocks after damping their diagonals (LM
-        adds diag(CtC); GN applies the CERES guarded transform)."""
+    def _invert_damped_blocks(self, B, rawdiag, CtC, guard_gn=True):
+        """Invert per-element CxC blocks after damping their diagonals: LM
+        adds diag(CtC) (the exact damped blocks, which the Schur
+        elimination needs too); GN applies the CERES guarded transform
+        (guard_gn: the preconditioner) or inverts the undamped blocks (the
+        Schur elimination)."""
         out = {}
         for name, blk in B.items():
             C = int(round(blk.shape[0] ** 0.5))
@@ -608,8 +648,10 @@ class CompiledSolver:
             extra = torch.clamp(raw - bdiag, min=0.0)  # other groups' diag
             if self.uses_lambda:
                 new_diag = bdiag + extra + CtC[name].reshape(N, C).T
-            else:
+            elif guard_gn:
                 new_diag = torch.square(1.0 + torch.sqrt(torch.clamp(bdiag + extra, min=0.0)))
+            else:
+                new_diag = bdiag + extra
             M = blk.clone()
             M[diag_ix] = new_diag
             # Jacobi equilibration: untouched elements carry ~1e24 damping,
@@ -647,23 +689,39 @@ class CompiledSolver:
         return out
 
     def linear_solve(self, U, state, inputs, sp: SolverParams, prep):
-        """Phase 2: PCG, lIterations iterations, frozen once `stop` is set."""
-        consts = prep["consts"]
-        r0, CtC = state["r0"], state["CtC"]
-        b = r0
-        p = self.precond_apply(state, r0)
-        r = r0
-        alpha_num = tree_dot(r0, p)
-        delta = tree_zeros_like(r0)
-        Q0 = torch.zeros((), dtype=self.dtype, device=self.device)
-        stop = torch.zeros((), dtype=torch.bool, device=self.device)
-        apply_jtjp = self.make_jtjp(U, inputs, consts, state["masks"], state["jac_store"])
+        """Phase 2: the damped normal equations -> masked delta, by the
+        plan's linear_solver (thallo_tpu gn.py:1499-1530): PCG on the full
+        system, PCG or a dense solve on the Schur-reduced system, or the
+        dense direct solve."""
+        consts, masks, CtC = prep["consts"], state["masks"], state["CtC"]
+        if self.direct_solve:
+            return apply_masks(self._direct_solve(U, state, inputs, consts), masks)
+        apply_jtjp = self.make_jtjp(U, inputs, consts, masks, state["jac_store"])
 
         def damped(pvec):
             Ap = apply_jtjp(pvec)
             if self.uses_lambda:
                 Ap = tree_add(Ap, tree_mul(CtC, pvec))
             return Ap
+
+        if self.schur:
+            delta = self._linear_solve_schur(state, sp, damped, consts)
+        else:
+            delta = self._pcg(damped, lambda r: self.precond_apply(state, r), state["r0"], sp)
+        return apply_masks(delta, masks)
+
+    def _pcg(self, A, precond, b, sp: SolverParams):
+        """PCG on A(delta) = b from delta = 0: lIterations iterations with
+        no host read, frozen through torch.where once the device-side
+        `stop` flag is set (JAX exits its while_loop instead; the results
+        are the same).  LM resets the residual every residual_reset_period
+        iterations and stops on the Q/zeta test."""
+        p = precond(b)
+        r = b
+        alpha_num = tree_dot(b, p)
+        delta = tree_zeros_like(b)
+        Q0 = torch.zeros((), dtype=self.dtype, device=self.device)
+        stop = torch.zeros((), dtype=torch.bool, device=self.device)
 
         def safe_div(num, den):
             if self.uses_lambda:
@@ -673,14 +731,14 @@ class CompiledSolver:
                                torch.zeros_like(num))
 
         for i in range(sp.lIterations):
-            Ap = damped(p)
+            Ap = A(p)
             alpha = safe_div(alpha_num, tree_dot(p, Ap))
             delta_n = tree_axpy(alpha, p, delta)
             if self.uses_lambda and (i + 1) % sp.residual_reset_period == 0:
-                r_n = tree_sub(b, damped(delta_n))  # residual reset: r = b - A delta
+                r_n = tree_sub(b, A(delta_n))  # residual reset: r = b - A delta
             else:
                 r_n = tree_axpy(-alpha, Ap, r)
-            z = self.precond_apply(state, r_n)
+            z = precond(r_n)
             beta_num = tree_dot(z, r_n)
             if self.uses_lambda:
                 Q1 = 0.5 * tree_dot(delta_n, tree_add(r_n, b))
@@ -698,7 +756,325 @@ class CompiledSolver:
             alpha_num = torch.where(active, beta_num, alpha_num)
             Q0 = torch.where(active, Q1, Q0)
             stop = stop | stop_q
-        return apply_masks(delta, state["masks"])
+        return delta
+
+    def _direct_solve(self, U, state, inputs, consts):
+        """The dense direct solve (thallo_tpu gn.py:1515-1530): J from
+        dense_jacobian, (JᵀJ + diag(CtC)) delta = -Jᵀr in full f32, with
+        identity rows for excluded unknowns so the system stays regular.
+        solve_ex runs no info check (no host read): a singular system
+        gives a non-finite delta, as jnp.linalg.solve's."""
+        masks = state["masks"]
+        r_all, J = self.dense_jacobian(U, inputs, consts, masks)
+        A = _matmul_f32(J.T, J)
+        mflat = self.flatten_U(apply_masks({k: torch.ones_like(v) for k, v in U.items()},
+                                           masks))
+        if self.uses_lambda:
+            A = A + torch.diag(self.flatten_U(state["CtC"]))
+        A = A + torch.diag(1.0 - mflat)
+        g = _matmul_f32(J.T, r_all)
+        return self.unflatten_U(torch.linalg.solve_ex(A, -g).result)
+
+    # -- Schur-complement reduced solves ---------------------------------------
+    def _schur_partition(self, consts, jac_store):
+        """(keep, elim) unknown-image names (thallo_tpu gn.py:1032-1107),
+        from the tables alone (no device value): an eliminated image's
+        JᵀJ self-coupling must be exactly block-diagonal (every group
+        that reads it is block-sparse, with only "diag" self-pairs; BA
+        points), it must not run in one-hot row mode under schur_dense,
+        and eliminated images must not couple to each other.
+        schur_eliminate overrides the pick of the eligible image with the
+        most elements."""
+        elements = {im.name: int(np.prod([d.size for d in im.dims]))
+                    for im in self.spec.unknowns}
+        touched_non_bsr, self_offdiag, has_diag_blocks, onehot_imgs = set(), set(), set(), set()
+        cross = {}
+        for gi, gp in enumerate(self.groups):
+            g = gp.group
+            if not g.uslots:
+                continue
+            bsr = consts[gi]["bsr"]
+            if bsr is None or "bsr" not in jac_store.get(str(gi), {}):
+                touched_non_bsr.update(s.image.name for s in g.uslots)
+                continue
+            for pr in bsr.pairs:
+                a, b = bsr.slot_images[pr[0]], bsr.slot_images[pr[1]]
+                if a == b:
+                    (has_diag_blocks if pr[2] == "diag" else self_offdiag).add(a)
+                else:
+                    cross.setdefault(a, set()).add(b)
+            onehot_imgs.update(bsr.slot_images[i] for i, x in enumerate(bsr.oh_idxs)
+                               if x is not None)
+        eligible = [n for n in elements
+                    if n in has_diag_blocks and n not in self_offdiag
+                    and n not in touched_non_bsr
+                    and not (self.schur_dense and n in onehot_imgs)]
+        if self.schur_eliminate is not None:
+            elim = list(self.schur_eliminate)
+            bad = [n for n in elim if n not in eligible]
+            if bad:
+                raise ValueError(
+                    f"schur_eliminate images {bad} are not block-diagonal-"
+                    f"eliminable (eligible: {eligible}); each must be "
+                    "referenced only by block-sparse groups with purely "
+                    "diagonal self-coupling")
+        else:
+            if not eligible:
+                raise ValueError(
+                    "linear_solver='schur_pcg' found no eliminable unknown "
+                    "image (needs a graph unknown whose J^T J self-coupling "
+                    "is block-diagonal, e.g. BA points)")
+            elim = [max(eligible, key=lambda n: elements[n])]
+        for a in elim:
+            coupled = cross.get(a, set()) & set(elim)
+            if coupled:
+                raise ValueError(
+                    f"schur_eliminate images couple to each other: {a} <-> "
+                    f"{sorted(coupled)}; the eliminated block must stay "
+                    "block-diagonal")
+        keep = [n for n in elements if n not in elim]
+        if not keep:
+            raise ValueError("schur_pcg must keep at least one unknown image")
+        return keep, elim
+
+    def _linear_solve_schur(self, state, sp, damped, consts):
+        """The reduced keep system S = A_kk - A_ke A_ee⁻¹ A_ek (A: the
+        damped JᵀJ; thallo_tpu gn.py:1374-1478), then back-substitution
+        δ_e = A_ee⁻¹ (b_e - A_ek δ_k).  A_ee⁻¹ is the eliminated images'
+        block diagonal inverted (LM: damped; GN: undamped, unguarded).
+        schur_pcg applies S implicitly, two damped applies and one block
+        apply an iteration, in the PCG of the full system with the keep
+        images' block Jacobi; schur_dense assembles S and solves it."""
+        jac_store = state["jac_store"]
+        keep, elim = self._schur_partition(consts, jac_store)
+        Einv = self._invert_damped_blocks(
+            self._diag_pair_blocks(consts, jac_store, names=set(elim)),
+            state["rawdiag"], state["CtC"], guard_gn=False)
+        bfull = state["r0"]
+
+        def pad(part):
+            return {k: part[k] if k in part else torch.zeros_like(v) for k, v in bfull.items()}
+
+        def einv(t):
+            return {k: self._block_apply(Einv[k], t[k]) for k in elim}
+
+        def keep_of(t):
+            return {k: t[k] for k in keep}
+
+        # reduced right-hand side: b_k - A_ke A_ee⁻¹ b_e
+        b = tree_sub(keep_of(bfull), keep_of(damped(pad(einv(bfull)))))
+        if self.schur_dense:
+            S = self._schur_dense_matrix(state, consts, keep, elim, Einv)
+            flat = self._dense_solve(S, torch.cat([b[n].reshape(-1) for n in keep]))
+            delta_k, o = {}, 0
+            for n in keep:
+                delta_k[n] = flat[o:o + b[n].numel()].reshape(b[n].shape)
+                o += b[n].numel()
+        else:
+            def S_apply(xk):
+                t = damped(pad(xk))
+                return tree_sub(keep_of(t), keep_of(damped(pad(einv(t)))))
+
+            # the keep images' (block) Jacobi: precond_apply reads r's images only
+            delta_k = self._pcg(S_apply, lambda r: self.precond_apply(state, r), b, sp)
+        w = damped(pad(delta_k))
+        return pad({**delta_k, **einv(tree_sub(bfull, w))})
+
+    def _dense_solve(self, S, b):
+        """S x = b for the assembled Schur complement: LU under LM
+        (solve_ex: no info check, no host read); under GN, whose S is
+        singular to working precision (BA's gauge null space), the
+        minimum-norm least-squares solution that JAX's lstsq gives, from
+        the eigendecomposition of the symmetric S with lstsq's cutoff
+        (|λ| >= eps(f32) · K · max|λ|)."""
+        if self.uses_lambda:
+            return torch.linalg.solve_ex(S, b).result
+        lam, V = torch.linalg.eigh(S)
+        mag = lam.abs()
+        ok = (mag > 0) & (mag >= torch.finfo(S.dtype).eps * S.shape[0] * mag.max())
+        inv = torch.where(ok, 1.0 / torch.where(ok, lam, torch.ones_like(lam)),
+                          torch.zeros_like(lam))
+        return _matmul_f32(V, inv * _matmul_f32(V.T, b))
+
+    def _schur_dense_matrix(self, state, consts, keep, elim, Einv):
+        """S = A_kk - A_ke A_ee⁻¹ A_ek assembled densely, [K, K] over the
+        keep images' flattened unknowns (thallo_tpu gn.py:1109-1353), from
+        the blocks the setup made this step (bf16 cross blocks upcast):
+        the keep-keep cross blocks, one-hot "transpose" pairs read from
+        their partner's blocks; the correction of each eliminated element
+        p, -B_uᵀ A_pp⁻¹ B_v summed at the keep-element pair (cols_u[., p],
+        cols_v[., p]) for each two of its keep couplings u, v (levels
+        aligned on the smaller level's lanes); and the keep block diagonal
+        with the exact damping and identity rows for excluded elements.
+        Every col block is stored w-major [W*Ci*Cj, N_t] in the port."""
+        dtype, dev = self.dtype, self.device
+        jac_store, masks = state["jac_store"], state["masks"]
+        elements = {im.name: (int(np.prod([d.size for d in im.dims])), im.channels)
+                    for im in self.spec.unknowns}
+        offs, K = {}, 0
+        for n in keep:
+            offs[n] = K
+            K += elements[n][0] * elements[n][1]
+        if K > self.schur_dense_max:
+            raise ValueError(
+                f"linear_solver='schur_dense': kept system has {K} DOF > "
+                f"schur_dense_max={self.schur_dense_max}; use schur_pcg "
+                "or raise the plan option schur_dense_max")
+
+        kk_diag = {}                          # keep image -> [C*C, N]
+        kk_cross = []                         # (a, b, vals [M, Ca, Cb], ia [M], ib [M])
+        couplings = {e: [] for e in elim}     # elim -> [(B [Ce, Ck, D, N_t], cols, keep, sel)]
+        for gi, gp in enumerate(self.groups):
+            if not gp.group.uslots:
+                continue
+            bsr = consts[gi]["bsr"]
+            entry = jac_store.get(str(gi), {})
+            if bsr is None or "bsr" not in entry:
+                raise ValueError(
+                    "linear_solver='schur_dense' requires every residual "
+                    f"group on the block-sparse path; group {gp.name} is "
+                    "not (schedule it with JtJ.set_sparse(True))")
+            blocks = entry["bsr"]
+            for p_idx, pr in enumerate(bsr.pairs):
+                i, j = pr[0], pr[1]
+                a, b2 = bsr.slot_images[i], bsr.slot_images[j]
+                Ca, Cb = bsr.slot_channels[i], bsr.slot_channels[j]
+                Na = elements[a][0]
+                if pr[2] == "transpose":
+                    # the partner (j, i) col pair's blocks, B_ij = B_jiᵀ,
+                    # laid out on the partner's row table
+                    if a in elim:
+                        raise ValueError(
+                            f"schur_dense cannot eliminate {a!r}: it runs "
+                            "in one-hot row mode (small image); set "
+                            "THALLO_ONEHOT_ROWS=0 or eliminate the large "
+                            "image instead")
+                    if b2 in elim:
+                        continue  # the partner pair carries this coupling
+                    ct = bsr.col_gathers[bsr.pairs[pr[3]][3]][0]
+                    W, Nt = bsr.cols[ct].shape
+                    sel = bsr.row_sels[bsr.col_row[ct]]
+                    rows_b = sel if sel is not None else torch.arange(Nt, device=dev)
+                    vals = blocks[pr[3]].to(dtype).reshape(W, Cb, Ca, Nt).permute(0, 3, 2, 1)
+                    kk_cross.append((a, b2, vals.reshape(W * Nt, Ca, Cb),
+                                     bsr.cols[ct].reshape(-1),
+                                     rows_b[None, :].expand(W, Nt).reshape(-1)))
+                    continue
+                blk = blocks[p_idx].to(dtype)
+                if pr[2] == "diag":
+                    cols, sel = None, None
+                    B = blk.reshape(Ca, Cb, 1, Na)
+                else:
+                    ct = bsr.col_gathers[pr[3]][0]
+                    cols = bsr.cols[ct]  # [W, N_t]
+                    sel = bsr.row_sels[bsr.col_row[ct]]
+                    W, Nt = cols.shape
+                    B = blk.reshape(W, Ca, Cb, Nt).permute(1, 2, 0, 3)  # [Ca, Cb, W, N_t]
+                if a in elim:
+                    if b2 in keep:
+                        cu = cols if cols is not None else torch.arange(Na, device=dev)[None, :]
+                        couplings[a].append((B, cu, b2, sel))
+                    continue  # elim-elim: the (damped, inverted) Einv
+                if b2 in elim:
+                    continue  # the transpose of an elim-keep pair
+                if a == b2 and pr[2] == "diag":
+                    kk_diag[a] = kk_diag[a] + blk if a in kk_diag else blk
+                    continue
+                W, Nt = B.shape[2], B.shape[3]
+                rows_a = sel if sel is not None else torch.arange(Nt, device=dev)
+                ia = rows_a[None, :].expand(W, Nt).reshape(-1)
+                ib = cols.reshape(-1) if cols is not None else rows_a
+                kk_cross.append((a, b2, B.permute(2, 3, 0, 1).reshape(W * Nt, Ca, Cb), ia, ib))
+
+        S = torch.zeros((K, K), dtype=dtype, device=dev)
+
+        def block_view(a, bname):
+            """S's (a, bname) block as [Na, Ca, Nb, Cb]."""
+            (Na, Ca), (Nb, Cb) = elements[a], elements[bname]
+            return S[offs[a]:offs[a] + Na * Ca,
+                     offs[bname]:offs[bname] + Nb * Cb].view(Na, Ca, Nb, Cb)
+
+        def segment_blocks(a, bname, vals, ia, ib):
+            """vals [M, Ca*Cb] summed at element pair (ia, ib): [Na, Nb,
+            Ca*Cb] (jax.ops.segment_sum's counterpart, index_add_)."""
+            Na, Nb = elements[a][0], elements[bname][0]
+            seg = torch.zeros((Na * Nb, vals.shape[1]), dtype=dtype, device=dev)
+            seg.index_add_(0, ia.long() * Nb + ib.long(), vals)
+            return seg.view(Na, Nb, elements[a][1], elements[bname][1])
+
+        for (a, bname, vals, ia, ib) in kk_cross:
+            block_view(a, bname).add_(
+                segment_blocks(a, bname, vals.reshape(vals.shape[0], -1), ia, ib)
+                .permute(0, 2, 1, 3))
+
+        # the correction -A_ke A_ee⁻¹ A_ek, one (u, v) coupling pair at a
+        # time on the smaller level's lanes; an element outside either
+        # level has no observation in its rank range, so masked lanes
+        # are exactly the empty products
+        for e in elim:
+            cps = couplings[e]
+            if not cps:
+                continue
+            Ne, Ce = elements[e]
+            G3 = Einv[e].reshape(Ce, Ce, Ne)
+            GB = []
+            for (B, _c, _k, sel) in cps:
+                Gl = G3 if sel is None else G3.index_select(2, sel)
+                GB.append(sum(Gl[:, c, None, None, :] * B[c][None] for c in range(Ce)))
+            for (Bu, colsu, ku, selu) in cps:
+                for (_Bv, colsv, kv, selv), GBv in zip(cps, GB):
+                    valid = None
+                    if selu is None and selv is None:
+                        Bu_c, cu_c, GBv_c, cv_c = Bu, colsu, GBv, colsv
+                    else:
+                        u_fine = selv is None or (selu is not None
+                                                  and Bu.shape[3] <= GBv.shape[3])
+                        fine_sel, coarse_sel = (selu, selv) if u_fine else (selv, selu)
+                        if coarse_sel is None:
+                            pos = fine_sel
+                        else:
+                            pos = torch.searchsorted(coarse_sel, fine_sel).clamp_(
+                                0, coarse_sel.shape[0] - 1)
+                            valid = coarse_sel.index_select(0, pos) == fine_sel
+                        if u_fine:
+                            Bu_c, cu_c = Bu, colsu
+                            GBv_c, cv_c = GBv.index_select(3, pos), colsv.index_select(1, pos)
+                        else:
+                            Bu_c, cu_c = Bu.index_select(3, pos), colsu.index_select(1, pos)
+                            GBv_c, cv_c = GBv, colsv
+                    if valid is not None:
+                        GBv_c = GBv_c * valid.to(dtype)
+                    Cku, Ckv, Dv, Nc = Bu_c.shape[1], GBv_c.shape[1], GBv_c.shape[2], \
+                        GBv_c.shape[3]
+                    Nb = elements[kv][0]
+                    acc = torch.zeros((elements[ku][0] * Nb, Cku * Ckv), dtype=dtype, device=dev)
+                    cv_l = cv_c.long()
+                    for du in range(Bu_c.shape[2]):
+                        T = sum(Bu_c[c, :, du, None, None, :] * GBv_c[c, None]
+                                for c in range(Ce))  # [Cku, Ckv, Dv, Nc]
+                        ids = cu_c[du].long()[None, :] * Nb + cv_l
+                        acc.index_add_(0, ids.reshape(-1),
+                                       T.permute(2, 3, 0, 1).reshape(Dv * Nc, Cku * Ckv))
+                    block_view(ku, kv).sub_(
+                        acc.view(elements[ku][0], Nb, Cku, Ckv).permute(0, 2, 1, 3))
+
+        # the keep block diagonal, its exact damping (as
+        # _invert_damped_blocks) and identity rows for excluded elements
+        for n in keep:
+            Nn, Cn = elements[n]
+            bd = kk_diag.get(n)
+            bd = torch.zeros((Cn * Cn, Nn), dtype=dtype, device=dev) if bd is None else bd.clone()
+            diag_ix = torch.arange(Cn, device=dev) * (Cn + 1)
+            bdiag = bd[diag_ix]
+            raw = state["rawdiag"][n].reshape(Nn, Cn).T
+            nd = bdiag + torch.clamp(raw - bdiag, min=0.0)
+            if self.uses_lambda:
+                nd = nd + state["CtC"][n].reshape(Nn, Cn).T
+            if n in masks:
+                nd = nd + (1.0 - masks[n].reshape(-1))[None, :]
+            bd[diag_ix] = nd
+            torch.diagonal(block_view(n, n), dim1=0, dim2=2).add_(bd.view(Cn, Cn, Nn))
+        return S
 
     def finish_step(self, U, lm: LMState, state, delta, inputs, sp: SolverParams, prep):
         """Phase 3: X += delta (+ LM model cost, accept/revert, radius)."""
