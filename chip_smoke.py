@@ -20,11 +20,14 @@ its seconds; any failure exits non-zero):
      a ragged one and W = 9; oh_setup_aggregate and its first body
      (oh_setup_aggregate_atomics) at the uniform and the skewed camera
      ids; the measurement scripts' kernels at the JAX scripts' BA-1M
-     shape) and at a small ragged shape with out-of-range ids or padded
-     plan lanes; kernel, plain and library times in ms, each
-     kernel and library call twice: `ms` over 20 eager calls (host and
-     device) and `device_ms` over the same call captured 10 times in one
-     CUDA graph and replayed (the device alone; everything under 50 MB is
+     shape; fused_pair_apply_atomics at ARAP 256²'s (3, 3) levels, the
+     record's shape; every kernel phases 15 and 17 launch on a
+     block-sparse plan, at the shapes, recipes and tables of one step of
+     that plan on the card: model_kernel_cases) and at a small ragged
+     shape with out-of-range ids or padded plan lanes; kernel, plain and
+     library times in ms, each kernel and library call twice: `ms` over
+     20 eager calls (host and device) and `device_ms` over the same call
+     captured 10 times in one CUDA graph and replayed (the device alone; everything under 50 MB is
      warm in L2 there, as the solver's caller finds pcol and the plans,
      while the 108 MB of blocks stay cold).  At every fused-pair shape
      (uniform W = 4, the skewed levels) the pair is timed five ways: the
@@ -117,13 +120,37 @@ its seconds; any failure exits non-zero):
      cost after 25 steps), a cold restart, one warm step, a cold
      restart, then steps until the cost reaches the target) for pcg and
      schur_pcg at lIterations 4 and 16 and schur_dense, and in the same
-     timed runs the time to TTT_COMMON x the initial cost.
+     timed runs the time to TTT_COMMON x the initial cost;
+ 15. the eleven copied models (thallo_tpu_torch/models/cases.py's
+     CASES; the five graph models above the 4096-unknown dense threshold,
+     on block-sparse tables, the rest at tests/test_models*.py's sizes),
+     then image_warping 72² and 16² with JᵀJ materialized (a pure-stencil
+     group without tables: its stored point Jacobians, the dense JᵀJ), on
+     the card and on the CPU, MODEL_STEPS steps with the Q-ratio stop off:
+     unknowns and costs agree at phase 3's bounds (MODEL_TOL where
+     measured wider), each block-sparse plan's routed kernels launched,
+     sparse_bundle_fusion's kernels logged;
+ 16. ARAP at side 256 (bench.py:306-330), GN, lIterations 10, in the
+     generator's direction-grouped edge order and shuffled: warmup(),
+     run_steps(1) three times, run_steps(7); costs after steps 1-3 and 10
+     within ARAP_TRAJ_RTOL of the JAX package's f32 trajectory
+     (ARAP_JAX_COSTS) and of the other order's; after step 3 the linear
+     parts card vs CPU (GRID_LINEAR_RTOL); fused_pair_apply_atomics
+     launched (the reg group's two (3, 3) col pairs) and no other fused
+     pair; logs the step median, its launches per step and per PCG
+     iteration, and the marginal cost of a PCG iteration (lIterations 10
+     against 110);
+ 17. the io readers: examples/data/sample_scene.bal.txt (io/bal.py) as
+     bundle adjustment and sample_mesh.ply (io/ply.py) as ARAP, card vs
+     CPU as in phase 15.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
 Needs CUDA: exits 1 without printing a result when none is available.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON record (each kernel's launches on
+the run named beside it, and on each run of phases 15-17 that launched
+it), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 import collections
 import contextlib
@@ -243,6 +270,50 @@ GRID_JAX_F64_COSTS = (2966286.093314577, 1086.7743789304482, 901.8160334220377,
                       775.5058966841228, 756.201589398889, 751.8364308316061, 755.228738909175)
 GRID_TRAJ_RTOL = {1: 1e-2, 2: 2e-2, 3: 4e-2, GRID_STEPS: 6e-2}
 GRID_LINEAR_RTOL = 1e-5
+# phase 15: the eleven copied models (thallo_tpu_torch/models/cases.py's
+# CASES: the graph models above the 4096-unknown dense threshold, the rest
+# at tests/test_models*.py's sizes) and image_warping's two table-less
+# materialized-JᵀJ cases (72² above the dense threshold, 16² below it),
+# MODEL_STEPS steps with the Q-ratio stop off, card vs the port's CPU path
+# at phase 3's bounds; below MODEL_COST_FLOOR x the initial cost a cost is
+# f32 noise (procrustes reaches ~1e-13 from 38.5)
+MODEL_STEPS = 3
+MODEL_COST_FLOOR = 1e-10
+# shape_and_shading's nine lighting coefficients (one element broadcast
+# over the depth image) move 7.1e-4 of max|ell| card vs CPU on an H100
+# (5.7e-4 between the JAX package's and the port's CPU runs,
+# tests/test_torch_models.py) while the costs agree to 4e-6; every other
+# model stays within 2.0e-5 of max|U| (ARAP 48²).  (x max|U|, cost) bounds
+# of the models that need their own, about twice the measured spread:
+MODEL_TOL = {"shape_and_shading": (2e-3, STEP_COST_RTOL)}
+TABLELESS_IW = ((72, "set_materialize"), (16, "set_sparse"))
+# phase 16: ARAP at side 256 (bench.py:306-330: 65 536 vertices, 261 120
+# directed edges, 393 216 unknowns), GN, lIterations 10, in the generator's
+# direction-grouped edge order and in shuffle_edges(seed=0)'s; the JAX
+# package's f32 trajectories on a CPU, costs after steps 0-10:
+#   JAX_PLATFORMS=cpu python3 scripts/torch_model_trajectory.py --package jax [--shuffle]
+# Eight f32 runs of the port's CPU path with the unknowns moved by 1e-7 x
+# max|U| (--package torch --device cpu --perturb 1..4 [--shuffle]) lie at
+# most 3.9e-6, 6.6e-6, 8.1e-6 and 7.4e-3 from JAX's run after steps 1, 2,
+# 3 and 10 (GN on this mesh is not monotone: f32 rounding grows over the
+# steps); ARAP_TRAJ_RTOL is about twice those.  The two edge orders are
+# held to each other at the same bounds.
+ARAP_SIDE = 256
+ARAP_L_ITERATIONS = 10
+ARAP_STEPS = 10
+ARAP_JAX_COSTS = {
+    "grouped": (120.0, 22.74494743347168, 33.3541374206543, 30.199676513671875,
+                17.662031173706055, 11.359360694885254, 11.627789497375488, 10.826089859008789,
+                9.262274742126465, 12.03388786315918, 9.044187545776367),
+    "shuffled": (120.0, 22.744949340820312, 33.354129791259766, 30.199623107910156,
+                 17.662052154541016, 11.359400749206543, 11.62772274017334, 10.826399803161621,
+                 9.262551307678223, 12.02984619140625, 9.037223815917969)}
+ARAP_TRAJ_RTOL = {1: 1e-5, 2: 2e-5, 3: 2e-5, ARAP_STEPS: 2e-2}
+# the marginal cost of one PCG iteration (bench.py:306-330's metric): step
+# times at lIterations 10 and 110, ARAP_MARGINAL_STEPS steps each after one
+# warm step, (t_110 - t_10) / 100
+ARAP_MARGINAL = (10, 110)
+ARAP_MARGINAL_STEPS = 3
 # device_ms: calls per captured CUDA graph, replays per timing
 GRAPH_CALLS = 10
 GRAPH_REPLAYS = 5
@@ -597,7 +668,7 @@ def measurement_kernel_cases(dev, rng):
 
 # (kernel, case tag) -> the name of its entry in the kernels record
 RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
-          ("fused_pair_apply_atomics", "ba1m"): "fused_pair_apply_atomics",
+          ("fused_pair_apply_atomics", "arap256"): "fused_pair_apply_atomics",
           ("segment_sum", "ba1m_cameras"): "segment_sum_cameras",
           ("fused_pair_apply_wloop", "skew_tail"): "fused_pair_apply_wloop",
           ("fused_pair_apply_wloop_chunked", "skew_tail"): "fused_pair_apply_wloop_chunked",
@@ -628,7 +699,7 @@ KERNELS = {
     "fused_pair_apply": ("thallo_tpu_torch/csrc/fused_pair.cu",
                          "thallo_tpu/ops/fusedpair.py:349", "block-sparse"),
     "fused_pair_apply_atomics": ("thallo_tpu_torch/csrc/fused_pair.cu",
-                                 "thallo_tpu/ops/fusedpair.py:349", "measurement"),
+                                 "thallo_tpu/ops/fusedpair.py:349", "arap256 grouped"),
     "fused_pair_apply_wloop": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
                                "thallo_tpu/ops/fusedpair.py:385", "skew block-sparse"),
     "fused_pair_apply_wloop_chunked": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
@@ -839,7 +910,7 @@ def phase_small_grid():
         raise AssertionError("grid masked LM: the unknowns never moved")
 
 
-def grid_linear_parts(plan, p):
+def linear_parts(plan, p):
     """(cost, -JᵀF, diag(JᵀJ), JᵀJ·p) of plan at its current unknowns, as
     numpy: the solver's setup and one JᵀJ·p application, state untouched."""
     comp, prep, ins = plan.compiled, plan._prep, plan._step_inputs()
@@ -881,10 +952,10 @@ def phase_grid_512():
 
     rng = np.random.default_rng(11)
     p = {k: rng.normal(size=tuple(v.shape)).astype(np.float32) for k, v in plan._U.items()}
-    got = grid_linear_parts(plan, p)
+    got = linear_parts(plan, p)
     cpu_plan = make_grid_plan(GRID_SIZE, "cpu", l_iterations=GRID_L_ITERATIONS)
     cpu_plan._U = {k: v.cpu() for k, v in plan._U.items()}
-    ref = grid_linear_parts(cpu_plan, p)
+    ref = linear_parts(cpu_plan, p)
     del cpu_plan
     rel = abs(got[0] - ref[0]) / abs(ref[0])
     log(f"{label}, step 3, card vs CPU: cost {got[0]!r} vs {ref[0]!r}, rel {rel:.3e}")
@@ -929,14 +1000,14 @@ def phase_grid_512():
 
 
 def check_steps(what, costs, Us, ref_costs, ref_Us, u_tol=STEP_U_TOL,
-                cost_rtol=STEP_COST_RTOL):
-    """Costs within cost_rtol and unknowns within u_tol x max|U| of the
-    reference, step by step (as far as both lists go)."""
-    rel = [max(float(np.abs(u[n] - ref[n]).max() / np.abs(ref[n]).max()) for n in ref)
-           for u, ref in zip(Us, ref_Us)]
+                cost_rtol=STEP_COST_RTOL, cost_atol=0.0):
+    """Costs within cost_rtol (plus cost_atol) and unknowns within u_tol x
+    max|U| of the reference, step by step (as far as both lists go)."""
+    rel = [max(float(np.abs(u[n] - ref[n]).max() / max(np.abs(ref[n]).max(), 1e-30))
+               for n in ref) for u, ref in zip(Us, ref_Us)]
     log(f"{what}: max|dU|/max|U| per step {rel}")
     for k, (a, b) in enumerate(zip(costs, ref_costs)):
-        if not (np.isfinite(a) and abs(a - b) <= cost_rtol * abs(b)):
+        if not (np.isfinite(a) and abs(a - b) <= cost_rtol * abs(b) + cost_atol):
             raise AssertionError(f"{what}, step {k}: cost {a} vs {b}")
     for k, (u, ref) in enumerate(zip(Us, ref_Us)):
         for name in ref:
@@ -1362,6 +1433,412 @@ def phase_measurement_scripts():
     return launches
 
 
+def arap_kernel_cases(dev, rng, bsr):
+    """fused_pair_apply_atomics (and, for the record, its plain version)
+    at the level shapes of ARAP 256²'s reg group: each (3, 3) col pair's
+    table ([4, 65 536] element ids) with seeded blocks, pcol and prow."""
+    from thallo_tpu_torch.ops import fusedpair
+
+    S = ARAP_SIDE * ARAP_SIDE
+    cases = []
+    levels = [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
+    log("ARAP 256² reg levels (W, N_t): " + ", ".join(str(tuple(c.shape)) for c in levels))
+    for k, ids in enumerate(levels):
+        W, N = ids.shape
+        a = _pair_args(lambda x: torch.from_numpy(x).to(dev), rng, ids, Ci=3, Cj=3, S=S)
+        cases.append(("fused_pair_apply_atomics", "arap256" if k == 0 else f"arap256_{k}",
+                      lambda a=a: fusedpair.fused_pair_apply_atomics(*a, Ci=3, Cj=3, S=S),
+                      lambda a=a: fusedpair.fused_pair_apply_reference(*a, Ci=3, Cj=3, S=S),
+                      None, nbytes(*a), 4 * W * N * 9, None))
+    return cases
+
+
+# the kernel wrappers the block-sparse solver calls (f32 blocks), by their
+# names in solver/blocksparse.py
+SOLVER_KERNELS = ("oh_setup_products", "fullrepeat_setup", "fused_pair_apply",
+                  "fused_pair_apply_atomics", "fused_pair_apply_wloop",
+                  "fused_pair_apply_wloop_chunked")
+
+
+def path_calls(plan):
+    """The solver's kernel calls in one step of `plan`: [(kernel, args,
+    kwargs)], each (kernel, table, recipe and shape) once, in the order of
+    the first call."""
+    from thallo_tpu_torch.solver import blocksparse
+
+    calls = {}
+
+    def record(name):
+        def key(*args, **kwargs):
+            table = args[2] if name == "oh_setup_products" else args[0]
+            k = (name, table.data_ptr() if name != "fullrepeat_setup" else None,
+                 tuple(tuple(a.shape) for a in args), tuple(sorted(kwargs.items())))
+            calls.setdefault(k, (name, args, kwargs))
+        return key
+
+    with contextlib.ExitStack() as stack:
+        for name in SOLVER_KERNELS:
+            stack.enter_context(tally(blocksparse, name, record(name)))
+        plan.step()
+        if torch.device(plan.compiled.device).type == "cuda":
+            torch.cuda.synchronize()
+    return list(calls.values())
+
+
+def _recipe_outputs(recipe):
+    """The output rows of an oh_setup_products or fullrepeat_setup recipe."""
+    return sum(e[2] if e[0] in ("jtr", "d2") else e[2] * e[4] for e in recipe)
+
+
+def path_kernel_cases(dev, rng, tag, calls):
+    """Cases of the kernels `calls` (path_calls) launched, at their shapes,
+    recipes and tables (ids as the path gave them), on seeded normal values
+    of the same shapes; each held to KERNEL_TOL x max|ref|."""
+    from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup
+
+    def normal(x):
+        return torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+
+    cases, seen = [], collections.Counter()
+    for name, args, kw in calls:
+        seen[name] += 1
+        ctag = f"{tag}_{seen[name] - 1}"
+        if name == "oh_setup_products":
+            a = (normal(args[0]), normal(args[1]), args[2])
+            rc, R = a[0].shape
+            fn, ref = ohsetup.oh_setup_products, ohsetup.oh_setup_products_reference
+            cases.append((name, ctag, lambda a=a, fn=fn, kw=kw: (fn(*a, **kw),),
+                          lambda a=a, ref=ref, kw=kw: (ref(*a, **kw),), None, nbytes(*a),
+                          _recipe_outputs(kw["recipe"]) * rc * 2 * R, None))
+        elif name == "fullrepeat_setup":
+            a = (normal(args[0]), normal(args[1]))
+            rc, R = a[0].shape
+
+            def run(fn, a=a, kw=kw):
+                agg, crosses = fn(*a, **kw)
+                return (agg, *crosses)
+
+            cases.append((name, ctag, lambda run=run: run(fullrepeat.fullrepeat_setup),
+                          lambda run=run: run(fullrepeat.fullrepeat_setup_reference), None,
+                          nbytes(*a), _recipe_outputs(kw["recipe"]) * rc * 2 * R, None))
+        else:
+            a = (args[0], normal(args[1]), normal(args[2]), normal(args[3]))
+            W, N = a[0].shape
+            cases.append((name, ctag, lambda a=a, fn=getattr(fusedpair, name), kw=kw: fn(*a, **kw),
+                          lambda a=a, kw=kw: fusedpair.fused_pair_apply_reference(*a, **kw),
+                          None, nbytes(*a), 4 * W * N * kw["Ci"] * kw["Cj"], None))
+        log(f"{name}[{ctag}] from the path: " + ", ".join(
+            f"{tuple(x.shape)}" for x in args) + f", {kw}")
+    return cases
+
+
+def model_kernel_cases(dev, rng, tt):
+    """The kernels phases 15 and 17 launch, at the shapes, recipes and
+    tables of their plans on the card (one step each): the graph models
+    above the dense threshold and the io samples."""
+    from thallo_tpu_torch.models.cases import CASES
+
+    makes = {f"{name}_big": (lambda d, name=name: model_plan(tt, name, d, True))
+             for name in sorted(CASES) if CASES[name][1] is not None}
+    makes.update({"io_" + label.split()[0].split(".")[0]: make
+                  for label, make in io_plans(tt).items()})
+    cases = []
+    for tag, make in makes.items():
+        cases += path_kernel_cases(dev, rng, tag, path_calls(make("cuda")))
+    return cases
+
+
+def arap_plan(tt, side, order, device, n_iter=ARAP_STEPS, l_iterations=ARAP_L_ITERATIONS,
+              inputs=None):
+    """A GN plan of ARAP (models/arap_mesh_deformation.py) at `side`, edges
+    in the generator's order ("grouped") or shuffle_edges(seed=0)'s
+    ("shuffled"), or of the given (inputs, dims); initialised."""
+    from thallo_tpu_torch.models import arap_mesh_deformation as arap
+
+    if inputs is None:
+        ins = arap.synthetic_inputs(side=side)
+        if order == "shuffled":
+            ins = arap.shuffle_edges(ins, seed=0)
+        inputs = (ins, {"N": side * side, "E": len(ins["V0"])})
+    ins, dims = inputs
+    plan = tt.load_energy(arap.ENERGY).plan(dims, solver="gauss_newton", device=device)
+    plan.set_solver_parameter("nIterations", n_iter)
+    plan.set_solver_parameter("lIterations", l_iterations)
+    plan.init({k: np.copy(v) for k, v in ins.items()})
+    return plan
+
+
+def bsr_kernels(plan):
+    """The kernels a plan's block-sparse tables launch on the card: each
+    col level's fused_pair_route kernel, oh_setup_products for one-hot
+    rows, fullrepeat_setup for full-repeat tables."""
+    out = set()
+    for c in plan._prep["consts"]:
+        bsr = c["bsr"]
+        if bsr is None:
+            continue
+        out |= set(level_routes(bsr).values())
+        if any(x is not None for x in bsr.oh_idxs):
+            out.add("oh_setup_products")
+        if any(bsr.full_repeat):
+            out.add("fullrepeat_setup")
+    return out
+
+
+def card_vs_cpu(label, make, steps, u_tol=STEP_U_TOL, cost_rtol=STEP_COST_RTOL):
+    """`steps` steps of make(device) on the card and on the CPU, each read
+    after the step; the card's kernel counts set to 0 just before its run
+    and read just after.  Holds unknowns and costs card vs CPU (costs below
+    MODEL_COST_FLOOR x the initial cost are noise); returns (card launches,
+    card costs, the card plan)."""
+    fns = counters()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        plan = make(device)
+        for fn in fns.values():
+            fn.launches = 0
+        costs, Us = [plan.final_cost], []
+        for _ in range(steps):
+            plan.step()
+            costs.append(plan.final_cost)
+            Us.append({k: v.cpu().numpy() for k, v in plan.unknowns().items()})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        runs[device] = (costs, Us, {n: fn.launches for n, fn in fns.items()}, plan)
+    (cg, Ug, lg, plan), (cc, Uc, _, _) = runs["cuda"], runs["cpu"]
+    launched = {n: k for n, k in lg.items() if k}
+    log(f"{label} costs cuda {cg}")
+    log(f"{label} costs cpu  {cc}")
+    log(f"{label} card launches {launched}")
+    check_steps(f"{label} cuda vs cpu", cg, Ug, cc, Uc, u_tol, cost_rtol,
+                MODEL_COST_FLOOR * abs(cc[0]))
+    if not cg[-1] < cg[0]:
+        raise AssertionError(f"{label}: the cost did not fall on the card")
+    return lg, cg, plan
+
+
+def model_plan(tt, name, device, big):
+    """The port's plan of thallo_tpu_torch/models/cases.py's CASES[name],
+    Q-ratio stop off, initialised."""
+    from thallo_tpu_torch.models.cases import model_case
+
+    m, inputs, dims, solver, l_iterations = model_case(name, big)
+    plan = tt.load_energy(m.ENERGY).plan(dims, solver=solver, device=device)
+    plan.set_solver_parameter("lIterations", l_iterations)
+    plan.set_solver_parameter("q_tolerance", -1.0)
+    plan.set_solver_parameter("nIterations", MODEL_STEPS)
+    plan.init({k: np.copy(v) for k, v in inputs.items()})
+    return plan
+
+
+def iw_tableless_plan(tt, n, directive, device):
+    """image_warping at n x n with JᵀJ.<directive>(True) on every residual
+    (a pure-stencil group without tables: JAX's J-block path above the
+    dense threshold, the dense JᵀJ below), 20 PCG iterations, the Q-ratio
+    stop off."""
+    from thallo_tpu_torch.models import image_warping as iw
+
+    names = [nr.name for nr in tt.load_energy(iw.ENERGY).energy]
+    text = iw.ENERGY + "".join(f"\nr.{k}.JtJ.{directive}(True)" for k in names) + "\n"
+    plan = tt.load_energy(text).plan({"W": n, "H": n}, solver="levenberg_marquardt",
+                                     device=device)
+    plan.set_solver_parameter("lIterations", 20)
+    plan.set_solver_parameter("q_tolerance", -1.0)
+    plan.set_solver_parameter("nIterations", MODEL_STEPS)
+    plan.init(iw.synthetic_inputs(n, n))
+    if plan._prep["consts"][0]["bsr"] is not None:
+        raise AssertionError(f"image_warping {n}² {directive}: a stencil group built tables")
+    return plan
+
+
+def phase_models(tt):
+    """Phase 15: every copied model, then image_warping's table-less
+    materialized-JᵀJ cases, card vs CPU; each block-sparse plan's routed
+    kernels must have launched, and sparse_bundle_fusion must have
+    launched one kernel at least.  Returns the card launches per run."""
+    from thallo_tpu_torch.models.cases import CASES
+
+    runs = {}
+    for name in sorted(CASES):
+        big = CASES[name][1] is not None
+        u_tol, c_tol = MODEL_TOL.get(name, (STEP_U_TOL, STEP_COST_RTOL))
+        label = f"model {name}" + (" (above the dense threshold)" if big else "")
+        t0 = time.perf_counter()
+        lg, _, plan = card_vs_cpu(label, lambda d: model_plan(tt, name, d, big), MODEL_STEPS,
+                                  u_tol, c_tol)
+        want = bsr_kernels(plan)
+        log(f"{label}: block-sparse kernels {sorted(want)}, {time.perf_counter() - t0:.2f} s")
+        missing = [n for n in want if lg[n] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: routed kernels never launched: {missing}")
+        if name == "sparse_bundle_fusion" and not any(lg.values()):
+            raise AssertionError(f"{label}: no kernel launched")
+        runs[f"model {name}"] = lg
+    for n, directive in TABLELESS_IW:
+        lg, _, _ = card_vs_cpu(f"image_warping {n}² JtJ.{directive}",
+                               lambda d: iw_tableless_plan(tt, n, directive, d), MODEL_STEPS,
+                               GRID_U_TOL, GRID_COST_TOL)
+        runs[f"image_warping {n}² {directive}"] = lg
+    return runs
+
+
+def phase_arap_256(tt):
+    """Phase 16: ARAP 256², GN, lIterations ARAP_L_ITERATIONS, in both edge
+    orders: warmup(), run_steps(1) three times, run_steps(7); the costs
+    after steps 0-3 and 10 within ARAP_TRAJ_RTOL of the JAX package's f32
+    trajectory and of the other order's; after step 3 the cost, -JᵀF,
+    diag(JᵀJ) and JᵀJ·p of a seeded p against the port's CPU path at the
+    same unknowns (GRID_LINEAR_RTOL); fused_pair_apply_atomics launched
+    (and no other fused-pair kernel).  Logs the step median of steps 2-10,
+    its launches per step and per PCG iteration, and the marginal cost of
+    one PCG iteration.  Returns the launches of each order's 10 steps."""
+    fns = counters()
+    runs, traj = {}, {}
+    for order in ("grouped", "shuffled"):
+        label = f"ARAP {ARAP_SIDE}² GN {order}"
+        t0 = time.perf_counter()
+        n_iter = ARAP_STEPS + 2 * (1 + ARAP_MARGINAL_STEPS)
+        plan = arap_plan(tt, ARAP_SIDE, order, "cuda", n_iter)
+        torch.cuda.synchronize()
+        log(f"{label}: init {time.perf_counter() - t0:.3f} s, initial cost {plan.final_cost!r}, "
+            f"residual sort {sorted(plan._residual_perms)}")
+        t0 = time.perf_counter()
+        plan.warmup()
+        log(f"{label}: warmup {time.perf_counter() - t0:.3f} s")
+        for fn in fns.values():
+            fn.launches = 0
+        costs, step_s = [plan.final_cost], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            plan.run_steps(1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            costs.append(plan.final_cost)
+        rng = np.random.default_rng(13)
+        p = {k: rng.normal(size=tuple(v.shape)).astype(np.float32) for k, v in plan._U.items()}
+        solve_launches = {n: fn.launches for n, fn in fns.items()}
+        got = linear_parts(plan, p)
+        cpu_plan = arap_plan(tt, ARAP_SIDE, order, "cpu")
+        cpu_plan._U = {k: v.cpu() for k, v in plan._U.items()}
+        ref = linear_parts(cpu_plan, p)
+        del cpu_plan
+        for n, fn in fns.items():
+            fn.launches = solve_launches[n]  # the check's own apply is not the solve's
+        rel = abs(got[0] - ref[0]) / abs(ref[0])
+        log(f"{label}, step 3, card vs CPU: cost {got[0]!r} vs {ref[0]!r}, rel {rel:.3e}")
+        if not rel <= GRID_LINEAR_RTOL:
+            raise AssertionError(f"{label}: cost at step 3, card {got[0]} vs CPU {ref[0]}")
+        for what, a, b in zip(("-JᵀF", "diag(JᵀJ)", "JᵀJ·p"), got[1:], ref[1:]):
+            for name in b:
+                err = float(np.abs(a[name] - b[name]).max())
+                scale = float(np.abs(b[name]).max())
+                log(f"{label}, step 3, card vs CPU: {what} {name} max|diff| {err:.3e} "
+                    f"= {err / scale:.3e} x max|ref|")
+                if not err <= GRID_LINEAR_RTOL * scale:
+                    raise AssertionError(f"{label}: {what} of {name} at step 3, card vs CPU, "
+                                         f"{err} > {GRID_LINEAR_RTOL} x {scale}")
+        t0 = time.perf_counter()
+        n = plan.run_steps(ARAP_STEPS - 3)
+        torch.cuda.synchronize()
+        batch = time.perf_counter() - t0
+        costs.append(plan.final_cost)
+        launches = {name: fn.launches for name, fn in fns.items()}
+        runs[f"arap256 {order}"] = launches
+        if n != ARAP_STEPS - 3 or plan.num_iterations != ARAP_STEPS:
+            raise AssertionError(f"{label}: run_steps ran {n} steps, {plan.num_iterations} in all")
+        per_step = step_s[1:] + [batch / n] * n
+        atomics = launches["fused_pair_apply_atomics"]
+        log(f"{label} costs after steps 0-3 and {ARAP_STEPS}: {costs}")
+        log(f"{label} step times: steps 1-3 {[round(t * 1e3, 2) for t in step_s]} ms, steps 4-"
+            f"{ARAP_STEPS} one run_steps({n}) batch {batch * 1e3:.2f} ms; median of steps 2-"
+            f"{ARAP_STEPS} {float(np.median(per_step)) * 1e3:.2f} ms")
+        log(f"{label} launches over {ARAP_STEPS} steps {({k: v for k, v in launches.items() if v})}"
+            f"; fused_pair_apply_atomics {atomics / ARAP_STEPS:.1f} a step, "
+            f"{atomics / (ARAP_STEPS * ARAP_L_ITERATIONS):.2f} a PCG iteration")
+        stray = [k for k, v in launches.items() if v and k != "fused_pair_apply_atomics"
+                 and k.startswith("fused_pair")]
+        if atomics <= 0 or stray:
+            raise AssertionError(f"{label}: fused_pair_apply_atomics launched {atomics} times, "
+                                 f"other fused-pair kernels {stray}")
+        for name, U in plan.unknowns().items():
+            if not bool(torch.isfinite(U).all()):
+                raise AssertionError(f"{label}: non-finite unknowns {name}")
+        traj[order] = dict(zip((0, 1, 2, 3, ARAP_STEPS), costs))
+        for k, tol in ((0, GRID_LINEAR_RTOL),) + tuple(ARAP_TRAJ_RTOL.items()):
+            ref_k = ARAP_JAX_COSTS[order][k]
+            rel = abs(traj[order][k] - ref_k) / abs(ref_k)
+            log(f"{label} step {k}: cost {traj[order][k]!r} vs JAX {ref_k!r}, rel {rel:.3e} "
+                f"(limit {tol})")
+            if not (np.isfinite(traj[order][k]) and rel <= tol):
+                raise AssertionError(f"{label}, step {k}: cost {traj[order][k]} vs JAX {ref_k}")
+        # the marginal PCG iteration (bench.py:306-330): whole steps at two
+        # lIterations, one warm step before each timed batch
+        times, counts = {}, {}
+        for li in ARAP_MARGINAL:
+            plan.set_solver_parameter("lIterations", li)
+            plan.run_steps(1)
+            torch.cuda.synchronize()
+            n0 = fns["fused_pair_apply_atomics"].launches
+            t0 = time.perf_counter()
+            plan.run_steps(ARAP_MARGINAL_STEPS)
+            torch.cuda.synchronize()
+            times[li] = (time.perf_counter() - t0) / ARAP_MARGINAL_STEPS
+            counts[li] = (fns["fused_pair_apply_atomics"].launches - n0) / ARAP_MARGINAL_STEPS
+        lo, hi = ARAP_MARGINAL
+        log(f"{label} marginal PCG iteration: step {times[lo] * 1e3:.3f} ms at lIterations {lo}, "
+            f"{times[hi] * 1e3:.3f} ms at {hi}: {(times[hi] - times[lo]) / (hi - lo) * 1e3:.4f} "
+            f"ms an iteration, fused_pair_apply_atomics "
+            f"{(counts[hi] - counts[lo]) / (hi - lo):.2f} launches an iteration")
+    for k, tol in ARAP_TRAJ_RTOL.items():
+        a, b = traj["shuffled"][k], traj["grouped"][k]
+        rel = abs(a - b) / abs(b)
+        log(f"ARAP {ARAP_SIDE}² GN step {k}: shuffled {a!r} vs grouped {b!r}, rel {rel:.3e}")
+        if not rel <= tol:
+            raise AssertionError(f"ARAP {ARAP_SIDE}², step {k}: the edge orders differ: {a} vs {b}")
+    return runs
+
+
+def io_plans(tt):
+    """label -> make(device): the committed samples read by the port's io
+    readers, as plans: examples/data/sample_scene.bal.txt as bundle
+    adjustment (LM, lIterations 10) and sample_mesh.ply as ARAP (GN,
+    tests/test_io.py's pull), MODEL_STEPS steps, the Q-ratio stop off."""
+    from thallo_tpu_torch import io
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+
+    data = Path(__file__).resolve().parent / "examples" / "data"
+    bal = io.bal_to_inputs(str(data / "sample_scene.bal.txt"))
+    verts, faces, _ = io.load_ply(str(data / "sample_mesh.ply"))
+    pull = {0: verts[0] + np.array([0, 0, 0.5], np.float32), len(verts) - 1: verts[-1]}
+    mesh = io.mesh_to_arap_inputs(verts, faces, constraints=pull)
+
+    def bal_plan(device):
+        plan = ba_plan(ba, tt, *bal, device, MODEL_STEPS)
+        plan.set_solver_parameter("q_tolerance", -1.0)
+        plan.init({k: np.copy(v) for k, v in bal[0].items()})
+        return plan
+
+    def ply_plan(device):
+        plan = arap_plan(tt, None, None, device, MODEL_STEPS, inputs=mesh)
+        plan.set_solver_parameter("q_tolerance", -1.0)
+        return plan
+
+    return {"sample_scene.bal.txt (BA)": bal_plan, "sample_mesh.ply (ARAP)": ply_plan}
+
+
+def phase_io(tt):
+    """Phase 17: io_plans' samples solved card vs CPU; each block-sparse
+    plan's routed kernels must have launched."""
+    runs = {}
+    for label, make in io_plans(tt).items():
+        lg, _, plan = card_vs_cpu(f"io: {label}", make, MODEL_STEPS)
+        missing = [n for n in bsr_kernels(plan) if lg[n] <= 0]
+        if missing:
+            raise AssertionError(f"io: {label}: routed kernels never launched: {missing}")
+        runs[f"io {label.split()[0]}"] = lg
+    return runs
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1400,6 +1877,9 @@ def main():
     cases = kernel_cases(dev, rng, scene[0], skew_scene[0]["oToC"])
     cases += skew_kernel_cases(dev, rng, skew_tables(ba, tt, skew_scene))
     cases += measurement_kernel_cases(dev, rng)
+    arap_reg = arap_plan(tt, ARAP_SIDE, "grouped", "cuda")._prep["consts"][1]["bsr"]
+    cases += arap_kernel_cases(dev, rng, arap_reg)
+    cases += model_kernel_cases(dev, rng, tt)
     for name, tag, kern, plain, lib, in_bytes, flops, terms in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -1497,9 +1977,27 @@ def main():
     log(f"phase 14 skewed BA 1M LM solve, schur_pcg; time to target: "
         f"{time.perf_counter() - t0:.2f} s")
 
-    # launches on the run named beside each kernel (a solve, or phase 8)
+    t0 = time.perf_counter()
+    model_runs = phase_models(tt)
+    torch.cuda.synchronize()
+    log(f"phase 15 the copied models, cuda vs cpu: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    model_runs.update(phase_arap_256(tt))
+    torch.cuda.synchronize()
+    log(f"phase 16 ARAP {ARAP_SIDE}² GN, both edge orders: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    model_runs.update(phase_io(tt))
+    torch.cuda.synchronize()
+    log(f"phase 17 the io readers' samples, cuda vs cpu: {time.perf_counter() - t0:.2f} s")
+    runs.update(model_runs)
+
+    # launches on the run named beside each kernel (a solve, or phase 8),
+    # and on each run of phases 15-17 that launched it
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep, "path": path,
-                "launches": runs[path][name], **record[name]}
+                "launches": runs[path][name], **record[name],
+                "model_runs": {run: n[name] for run, n in model_runs.items() if n.get(name)}}
                for name, (src, rep, path) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_all:.2f} s")
     print(json.dumps({"kernels": kernels}))

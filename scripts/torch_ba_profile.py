@@ -1,5 +1,5 @@
-"""Where one bundle-adjustment LM step of thallo_tpu_torch spends its time
-on the GPU.
+"""Where one bundle-adjustment LM step (or one ARAP GN step) of
+thallo_tpu_torch spends its time on the GPU.
 
     python3 scripts/torch_ba_profile.py [--cameras 1024] [--points 250000]
                                         [--obs 4] [--out FILE]
@@ -8,6 +8,8 @@ on the GPU.
                                         [--block-dtype bf16]
                                         [--linear-solver schur_pcg|schur_dense]
                                         [--l-iterations N]
+    python3 scripts/torch_ba_profile.py --model arap [--side 256] [--shuffle]
+                                        [--l-iterations N] [--out FILE]
 
 Builds the uniform BA scene (models/bundle_adjustment.synthetic_inputs,
 seed 0; with --skew, skewed_inputs with that target observation count:
@@ -22,7 +24,10 @@ run through the segment-sum kernel; --block-dtype bf16 plans with
 fused-pair kernels' bf16 instantiations); --linear-solver plans with that
 ``linear_solver`` (schur_dense with ``schur_dense_max=16384``, enough for
 the 9216-DOF camera system of 1024 cameras) and --l-iterations sets
-lIterations (default 10).  It runs two LM steps to warm up,
+lIterations (default 10).  --model arap builds ARAP mesh deformation
+instead (models/arap_mesh_deformation.synthetic_inputs(side), bench.py's
+graph row at side 256; --shuffle: shuffle_edges(seed=0)'s edge order)
+and a GN plan of it.  It runs two steps to warm up,
 then measures a step two ways:
 
 * phases: solve_setup / linear_solve / finish_step called one at a time,
@@ -67,6 +72,21 @@ def make_plan(n_cameras, n_points, obs, device, schedule=None, skew=None, block_
     plan = tt.load_energy(text).plan(dims, solver="levenberg_marquardt", device=device,
                                      block_dtype=block_dtype, linear_solver=linear_solver,
                                      **options)
+    plan.set_solver_parameter("nIterations", 1000)
+    plan.set_solver_parameter("lIterations", l_iterations)
+    plan.init(inputs)
+    return plan
+
+
+def make_arap_plan(side, device, shuffle=False, l_iterations=10):
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import arap_mesh_deformation as arap
+
+    inputs = arap.synthetic_inputs(side=side)
+    if shuffle:
+        inputs = arap.shuffle_edges(inputs, seed=0)
+    plan = tt.load_energy(arap.ENERGY).plan({"N": side * side, "E": len(inputs["V0"])},
+                                            solver="gauss_newton", device=device)
     plan.set_solver_parameter("nIterations", 1000)
     plan.set_solver_parameter("lIterations", l_iterations)
     plan.init(inputs)
@@ -129,6 +149,9 @@ def profile_step(plan, activities, sync):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=["ba", "arap"], default="ba")
+    ap.add_argument("--side", type=int, default=256, help="ARAP's side")
+    ap.add_argument("--shuffle", action="store_true", help="ARAP: shuffled edge order")
     ap.add_argument("--cameras", type=int, default=1024)
     ap.add_argument("--points", type=int, default=250_000)
     ap.add_argument("--obs", type=int, default=4)
@@ -153,15 +176,21 @@ def main():
         print(s, flush=True)
         lines.append(s)
 
-    scene = (f"skewed, target {args.skew} obs" if args.skew
-             else f"{args.obs} obs per point")
-    say(f"device {torch.cuda.get_device_name(0)}; BA {args.cameras} cameras x "
-        f"{args.points} points, {scene}; schedule "
-        f"{args.schedule or 'block-sparse JtJ'}; THALLO_SEGSUM={args.segsum or 'unset'}; "
-        f"block_dtype={args.block_dtype}; linear_solver={args.linear_solver}, lIterations "
-        f"{args.l_iterations}")
-    plan = make_plan(args.cameras, args.points, args.obs, "cuda", args.schedule, args.skew,
-                     args.block_dtype, args.linear_solver, args.l_iterations)
+    if args.model == "arap":
+        say(f"device {torch.cuda.get_device_name(0)}; ARAP side {args.side}, "
+            f"{'shuffled' if args.shuffle else 'direction-grouped'} edges, GN, lIterations "
+            f"{args.l_iterations}")
+        plan = make_arap_plan(args.side, "cuda", args.shuffle, args.l_iterations)
+    else:
+        scene = (f"skewed, target {args.skew} obs" if args.skew
+                 else f"{args.obs} obs per point")
+        say(f"device {torch.cuda.get_device_name(0)}; BA {args.cameras} cameras x "
+            f"{args.points} points, {scene}; schedule "
+            f"{args.schedule or 'block-sparse JtJ'}; THALLO_SEGSUM={args.segsum or 'unset'}; "
+            f"block_dtype={args.block_dtype}; linear_solver={args.linear_solver}, lIterations "
+            f"{args.l_iterations}")
+        plan = make_plan(args.cameras, args.points, args.obs, "cuda", args.schedule, args.skew,
+                         args.block_dtype, args.linear_solver, args.l_iterations)
     for _ in range(2):
         plan.step()
     torch.cuda.synchronize()

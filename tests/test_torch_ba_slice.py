@@ -347,3 +347,63 @@ def test_exclude_mask_on_block_sparse_group_matches_jax():
     for U in tU:
         assert np.array_equal(U["cameras"][[0, 5]], inputs["cameras"][[0, 5]])
         assert not np.array_equal(U["cameras"], inputs["cameras"])
+
+
+# a graph scene whose unknown image has far more elements than residuals:
+# 70 000 two-channel elements, 120 edges, so the edge group's rank-keyed
+# tables exceed the padding budget (N > 4 R + 65 536) and its node group
+# is a pure stencil; neither builds tables in either package
+BUDGET_ENERGY = """
+N, E = Dims("N", "E")
+Inputs(X=Unknown(float2, (N,), 0), A=Array(float2, (E,), 1), B=Array(float2, (N,), 2),
+       V0=Sparse((E,), (N,), 3), V1=Sparse((E,), (N,), 4))
+e, n = E(), N()
+r = Residuals(edge=X(V0(e)) - 0.5 * X(V1(e)) * X(V1(e)) - A(e), fit=0.5 * (X(n) - B(n)))
+"""
+BUDGET_N, BUDGET_E = 70_000, 120
+# the same linear parts in both packages (measured: equal); the LM steps
+# differ by PCG summation order alone: 2.0e-5 of the cost at step 1
+BUDGET_COST_RTOL = 1e-4
+
+
+def test_tables_over_the_padding_budget_take_the_j_block_path():
+    """Both groups of BUDGET_ENERGY run from their stored point Jacobians
+    (JAX's J-block path, thallo_tpu/solver/gn.py:689-713) under scalar
+    Jacobi: -JᵀF, diag(JᵀJ) and JᵀJ·p of a seeded p within SETUP_TOL of
+    JAX's, 3 LM steps' costs within BUDGET_COST_RTOL, the edge scatter by
+    index_add_ through the slot's gather indices."""
+    rng = np.random.default_rng(0)
+    ins = {"X": rng.normal(size=(BUDGET_N, 2)).astype(np.float32),
+           "A": rng.normal(size=(BUDGET_E, 2)).astype(np.float32),
+           "B": rng.normal(size=(BUDGET_N, 2)).astype(np.float32),
+           "V0": rng.integers(0, BUDGET_N, BUDGET_E).astype(np.int32),
+           "V1": rng.integers(0, BUDGET_N, BUDGET_E).astype(np.int32)}
+    p = {"X": rng.normal(size=(BUDGET_N, 2)).astype(np.float32)}
+    out = []
+    for pkg in (tl, tt):
+        plan = pkg.load_energy(BUDGET_ENERGY).plan(
+            {"N": BUDGET_N, "E": BUDGET_E}, solver="levenberg_marquardt",
+            **({"device": "cpu"} if pkg is tt else {}))
+        plan.set_solver_parameter("q_tolerance", -1.0)
+        plan.init({k: np.copy(v) for k, v in ins.items()})
+        comp, prep = plan.compiled, plan._prep
+        st = comp.solve_setup(plan._U, plan._lm, plan._step_inputs(), plan._sp(), prep)
+        jtjp = comp.make_jtjp(plan._U, plan._step_inputs(), prep["consts"], st["masks"],
+                              st["jac_store"])
+        conv = jax.numpy.asarray if pkg is tl else torch.from_numpy
+        parts = [_np(st["r0"]), _np(st["rawdiag"]), _np(jtjp({"X": conv(p["X"])}))]
+        costs = [plan.cost()]
+        for _ in range(3):
+            plan.step()
+            costs.append(plan.cost())
+        out.append((parts, costs, plan))
+    (jparts, jcosts, _), (tparts, tcosts, plan) = out
+    assert [c["bsr"] for c in plan._prep["consts"]] == [None, None]
+    assert all(plan.compiled._stores_jacs(gp, c)
+               for gp, c in zip(plan.compiled.groups, plan._prep["consts"]))
+    assert not plan._prep["consts"][0]["agg_ids"]  # 70 000 elements: index_add_
+    for a, b in zip(tparts, jparts):
+        _close(a["X"], b["X"], SETUP_TOL)
+    for k, (a, b) in enumerate(zip(tcosts, jcosts)):
+        assert np.isfinite(a) and abs(a - b) <= BUDGET_COST_RTOL * abs(b), (k, a, b)
+    assert tcosts[-1] < 0.01 * tcosts[0]

@@ -966,7 +966,7 @@ def test_dense_step_matmuls_run_in_full_f32(cuda, monkeypatch):
             torch.backends.cuda.matmul.allow_tf32 = tf32
             plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=cuda)
             plan.init({k: np.copy(v) for k, v in ins.items()})
-            assert plan.compiled._is_dense(plan.compiled.groups[0])
+            assert plan.compiled._is_dense(plan.compiled.groups[0], plan._prep["consts"][0])
             monkeypatch.setattr(gn.torch, "matmul", spy)
             plan.step()
             monkeypatch.setattr(gn.torch, "matmul", real)
@@ -1022,3 +1022,205 @@ def test_direct_solve_matmuls_run_in_full_f32(cuda, monkeypatch):
     assert len(calls) == 2 and seen and not any(seen)
     for k in steps[False]:
         close(steps[True][k], steps[False][k], 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the graph models: ARAP's (3, 3) levels on fused_pair_apply_atomics
+# ---------------------------------------------------------------------------
+def _arap_plan(cuda, side, shuffle=False):
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import arap_mesh_deformation as arap
+
+    ins = arap.synthetic_inputs(side=side)
+    if shuffle:
+        ins = arap.shuffle_edges(ins, seed=0)
+    plan = tt.load_energy(arap.ENERGY).plan({"N": side * side, "E": len(ins["V0"])},
+                                            solver="gauss_newton", device=cuda)
+    plan.set_solver_parameter("lIterations", 10)
+    plan.init(ins)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,shuffle", [(256, False), (256, True), (48, False)])
+def test_fused_pair_atomics_arap_levels_cuda_match_plain(cuda, side, shuffle):
+    """fused_pair_apply_atomics at the level shapes ARAP's reg group gives
+    it: each (3, 3) col pair's table ([4, side²] element ids of the
+    generator's or the shuffled edge order, S = side² cols) with seeded
+    blocks, pcol and prow; exactly one launch a call, CUDA_TOL."""
+    bsr = _arap_plan(cuda, side, shuffle)._prep["consts"][1]["bsr"]
+    S = side * side
+    rng = np.random.default_rng(side)
+    levels = [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
+    assert [tuple(ids.shape) for ids in levels] == [(4, S)] * 2
+    for ids in levels:
+        W, N = ids.shape
+        args = (ids, *(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+                       for s in ((W * 9, N), (3, S), (3, N))))
+        assert fusedpair.fused_pair_route(W, N, 3, 3, S) == "fused_pair_apply_atomics"
+        n0 = fusedpair.fused_pair_apply_atomics.launches
+        rows, cols = fusedpair.fused_pair_apply_atomics(*args, Ci=3, Cj=3, S=S)
+        torch.cuda.synchronize()
+        assert fusedpair.fused_pair_apply_atomics.launches == n0 + 1
+        r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=3, Cj=3, S=S)
+        close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+        close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+def test_arap_run_steps_makes_no_host_sync(cuda):
+    """A GN run_steps batch of ARAP at side 48 (13 824 unknowns: its reg
+    group on rank-keyed tables through fused_pair_apply_atomics, its fit
+    group from stored point Jacobians) under
+    torch.cuda.set_sync_debug_mode("error"): no step reads anything back
+    from the card.  warmup() runs first, outside the mode."""
+    plan = _arap_plan(cuda, 48)
+    plan.warmup()
+    torch.cuda.synchronize()
+    n0 = fusedpair.fused_pair_apply_atomics.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert plan.run_steps(3) == 3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    # 2 col pairs x 10 PCG iterations x 3 steps
+    assert fusedpair.fused_pair_apply_atomics.launches - n0 == 60
+    for v in plan.unknowns().values():
+        assert bool(torch.isfinite(v).all())
+    assert plan.final_cost < 120.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ci,Cj", [(3, 3), (9, 3), (3, 9), (16, 16), (1, 1)])
+@pytest.mark.parametrize("W,N,S", [(4, 1600, 1600), (3, 777, 500)])
+def test_fused_pair_atomics_channel_counts_cuda_match_plain(cuda, Ci, Cj, W, N, S):
+    """The atomics body at the graph models' pairs (ARAP's 3 x 3, the
+    embedded graph's 9-channel rotation rows against 3-channel offsets)
+    and at its limits: one launch, CUDA_TOL; 17 row channels raise."""
+    rng = np.random.default_rng(Ci * 100 + Cj)
+    ids = rng.integers(0, S, (W, N)).astype(np.int32)
+    ids[:, -7:] = S + 3
+    ids[0, :5] = -1
+    args = (torch.from_numpy(ids).to(cuda),
+            *(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+              for s in ((W * Ci * Cj, N), (Cj, S), (Ci, N))))
+    n0 = fusedpair.fused_pair_apply_atomics.launches
+    rows, cols = fusedpair.fused_pair_apply_atomics(*args, Ci=Ci, Cj=Cj, S=S)
+    torch.cuda.synchronize()
+    assert fusedpair.fused_pair_apply_atomics.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+    big = (args[0], torch.zeros((W * 17 * Cj, N), device=cuda), args[2],
+           torch.zeros((17, N), device=cuda))
+    with pytest.raises(ValueError, match="outside"):
+        fusedpair.fused_pair_apply_atomics(*big, Ci=17, Cj=Cj, S=S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ci,route", [(fusedpair.MAX_CI, "fused_pair_apply_wloop_chunked"),
+                                      (fusedpair.MAX_CI + 1, "fused_pair_apply_atomics")])
+def test_wide_level_routes_by_row_channels_cuda(cuda, Ci, route):
+    """A wide level (W = 9) of a pair with Ci row channels, as a vertex of
+    degree 9 gives the embedded graph's rotation rows: the kernel
+    fused_pair_route names takes it (the chunked W-loop kernel up to
+    MAX_CI, the atomics body beyond), one launch, CUDA_TOL."""
+    W, N, Cj, S = 9, 1001, 3, 64
+    assert fusedpair.fused_pair_route(W, N, Ci, Cj, S) == route
+    rng = np.random.default_rng(Ci)
+    ids = rng.integers(0, S, (W, N)).astype(np.int32)
+    ids[:, -7:] = S + 3
+    args = (torch.from_numpy(ids).to(cuda),
+            *(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+              for s in ((W * Ci * Cj, N), (Cj, S), (Ci, N))))
+    fn = getattr(fusedpair, route)
+    n0 = fn.launches
+    rows, cols = fn(*args, Ci=Ci, Cj=Cj, S=S)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+# the kernel wrappers the block-sparse solver calls on f32 blocks
+PATH_KERNELS = ("oh_setup_products", "fullrepeat_setup", "fused_pair_apply",
+                "fused_pair_apply_atomics", "fused_pair_apply_wloop",
+                "fused_pair_apply_wloop_chunked")
+
+
+def _path_plan(cuda, which):
+    import thallo_tpu_torch as tt
+
+    if which == "sparse_bundle_fusion":
+        from thallo_tpu_torch.models.cases import model_case
+
+        m, ins, dims, solver, _ = model_case(which, big=True)
+        plan = tt.load_energy(m.ENERGY).plan(dims, solver=solver, device=cuda)
+    else:
+        from pathlib import Path
+
+        from thallo_tpu_torch import io
+        from thallo_tpu_torch.models import arap_mesh_deformation as arap
+
+        data = Path(__file__).resolve().parent.parent / "examples" / "data"
+        verts, faces, _ = io.load_ply(str(data / "sample_mesh.ply"))
+        pull = {0: verts[0] + np.array([0, 0, 0.5], np.float32), len(verts) - 1: verts[-1]}
+        ins, dims = io.mesh_to_arap_inputs(verts, faces, constraints=pull)
+        plan = tt.load_energy(arap.ENERGY).plan(dims, solver="gauss_newton", device=cuda)
+    plan.init(ins)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,want", [
+    ("sparse_bundle_fusion", {"oh_setup_products", "fused_pair_apply_wloop_chunked"}),
+    ("sample_mesh_ply", {"oh_setup_products", "fused_pair_apply_atomics"})])
+def test_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
+    """Every kernel one solver step launches on sparse_bundle_fusion at 800
+    frames x 16 correspondences (its frames' one-hot recipe, its [16, 800]
+    (3, 3) col levels) and on the committed PLY mesh as ARAP, at the
+    shapes, recipes and tables of that step, on seeded values: one launch
+    a call, CUDA_TOL."""
+    from thallo_tpu_torch.solver import blocksparse
+
+    plan = _path_plan(cuda, which)
+    calls = {}
+    for name in PATH_KERNELS:
+        def record(*a, real=getattr(blocksparse, name), name=name, **k):
+            table = a[2] if name == "oh_setup_products" else a[0]
+            calls.setdefault((name, table.data_ptr(), tuple(sorted(k.items()))), (name, a, k))
+            return real(*a, **k)
+        monkeypatch.setattr(blocksparse, name, record)
+    plan.step()
+    monkeypatch.undo()
+    assert {c[0] for c in calls.values()} == want
+    rng = np.random.default_rng(5)
+
+    def normal(x):
+        return torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(cuda)
+
+    for name, a, k in calls.values():
+        if name == "oh_setup_products":
+            args = (normal(a[0]), normal(a[1]), a[2])
+            refs = (ohsetup.oh_setup_products_reference(*args, **k),)
+        elif name == "fullrepeat_setup":
+            args = (normal(a[0]), normal(a[1]))
+            agg, crosses = fullrepeat.fullrepeat_setup_reference(*args, **k)
+            refs = (agg, *crosses)
+        else:
+            args = (a[0], normal(a[1]), normal(a[2]), normal(a[3]))
+            refs = fusedpair.fused_pair_apply_reference(*args, **k)
+        fn = getattr(ohsetup if name == "oh_setup_products" else
+                     fullrepeat if name == "fullrepeat_setup" else fusedpair, name)
+        n0 = fn.launches
+        out = fn(*args, **k)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1, name
+        if name == "oh_setup_products":
+            out = (out,)
+        elif name == "fullrepeat_setup":
+            out = (out[0], *out[1])
+        for got, ref in zip(out, refs):
+            close(got.cpu(), ref.cpu(), CUDA_TOL)

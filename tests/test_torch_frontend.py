@@ -12,7 +12,13 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 SHARED = ["typesys.py", "dims.py", "expr.py", "inputs.py", "spec.py", "lib_env.py",
-          "models/bundle_adjustment.py", "models/image_warping.py"]
+          "models/bundle_adjustment.py", "models/image_warping.py",
+          "models/procrustes_alignment.py", "models/poisson_image_editing.py",
+          "models/volumetric_mesh_deformation.py", "models/shape_from_shading.py",
+          "models/intrinsic_image_decomposition.py", "models/shape_and_shading.py",
+          "models/arap_mesh_deformation.py", "models/embedded_mesh_deformation.py",
+          "models/robust_nonrigid_alignment.py", "models/cotangent_mesh_smoothing.py",
+          "models/sparse_bundle_fusion.py", "io/bal.py", "io/ply.py", "io/image.py"]
 # every Python file of the port, and the smoke run that drives it on the card
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "thallo_tpu_torch").rglob("*.py"))
 PORT_FILES.append("chip_smoke.py")
@@ -119,6 +125,7 @@ def test_imports_with_jax_blocked():
         "import thallo_tpu_torch.ops.fullrepeat, thallo_tpu_torch.ops._cuda\n"
         "import thallo_tpu_torch.ops.segsum, thallo_tpu_torch.ops.loopfloor\n"
         "import thallo_tpu_torch.ops.structured, thallo_tpu_torch.reorder\n"
+        "import thallo_tpu_torch.io, thallo_tpu_torch.models\n"
         "from thallo_tpu_torch.models import bundle_adjustment as ba\n"
         "spec = thallo_tpu_torch.load_energy(ba.ENERGY)\n"
         "assert not any(m in ('jax', 'thallo_tpu') or m.startswith(('jax.', 'thallo_tpu.'))\n"

@@ -326,6 +326,82 @@ def test_point_jacobians_match_jax(monkeypatch, mode):
         _close(a, b, SETUP_TOL)
 
 
+def test_broadcast_slot_forward_jacobians_match_jax(monkeypatch):
+    """Forward-mode point Jacobians of slots broadcast over an external
+    axis they do not use: procrustes_alignment's Angle(u) and
+    Translation(u) (U = 1) over N = 64 points gather as stride-0 views,
+    of which torch.func.jvp cannot make a dual unless the primals are
+    made contiguous first.  Against JAX's at unknowns off the rest pose:
+    SETUP_TOL x max|ref|."""
+    from thallo_tpu.models import procrustes_alignment as jpa
+    from thallo_tpu_torch.models import procrustes_alignment as tpa
+
+    monkeypatch.setenv("THALLO_JAC_MODE", "fwd")
+    ins, _ = jpa.synthetic_inputs(N=64)
+    rng = np.random.default_rng(2)
+    ins["Angle"] = rng.normal(size=ins["Angle"].shape).astype(np.float32)
+    ins["Translation"] = rng.normal(size=ins["Translation"].shape).astype(np.float32)
+    out = []
+    for pkg, model in ((tl, jpa), (tt, tpa)):
+        plan = pkg.load_energy(model.ENERGY).plan(
+            {"N": 64, "U": 1}, **({"device": "cpu"} if pkg is tt else {}))
+        plan.init({k: np.copy(v) for k, v in ins.items()})
+        g = plan.compiled.groups[0].group
+        r, jacs = g.point_jacobians(plan._U, plan._step_inputs(), plan._prep["consts"][0])
+        out.append((np.asarray(r), [np.asarray(J) for J in jacs]))
+    (rj, Jj), (rt, Jt) = out
+    assert not g._use_rev_mode(6) and all(rp is not None for rp in g._rolls)
+    _close(rt, rj, SETUP_TOL)
+    assert len(Jt) == len(Jj) == 2
+    for a, b in zip(Jt, Jj):
+        _close(a, b, SETUP_TOL)
+
+
+def _iw_tableless_run(pkg, model, n, directive):
+    """image_warping at n x n with `directive` (set_materialize or
+    set_sparse) of JᵀJ on every residual: 3 LM steps, 20 PCG iterations,
+    the Q-ratio stop at 0 (ROADMAP queue 1, item 2b's runs)."""
+    names = [nr.name for nr in pkg.load_energy(model.ENERGY).energy]
+    text = model.ENERGY + "".join(f"\nr.{k}.JtJ.{directive}(True)" for k in names) + "\n"
+    plan = pkg.load_energy(text).plan({"W": n, "H": n}, solver="levenberg_marquardt",
+                                      **({"device": "cpu"} if pkg is tt else {}))
+    plan.set_solver_parameter("lIterations", 20)
+    plan.set_solver_parameter("q_tolerance", 0.0)
+    costs = [float(plan.init(model.synthetic_inputs(n, n)))]
+    for _ in range(3):
+        plan.step()
+        costs.append(float(plan.cost()))
+    return costs, plan
+
+
+# the two packages' costs at every step agree to 8.9e-7 (measured)
+TABLELESS_COST_RTOL = 1e-5
+
+
+@pytest.mark.parametrize("n,directive,route", [(72, "set_materialize", "stored"),
+                                               (16, "set_sparse", "dense")])
+def test_materialized_jtj_of_a_stencil_group_takes_jax_route(n, directive, route):
+    """A pure-stencil group told to materialize JᵀJ (or to make it sparse)
+    builds no block-sparse tables, as JAX's build_group_bsr refuses them:
+    above the 4096-unknown dense threshold (72², 15 552 unknowns) it
+    applies JᵀJ·p from its stored point Jacobians (JAX's J-block path),
+    at or below it (16², 768) through the dense JᵀJ, under scalar Jacobi
+    either way.  The 3 LM steps match JAX's costs (JAX: 50475.4 -> 11.1952
+    -> 9.30201 -> 8.62531 at 72², 2373.59 -> ... -> 0.585288 at 16²)."""
+    jc, _ = _iw_tableless_run(tl, jiw, n, directive)
+    tc, plan = _iw_tableless_run(tt, tiw, n, directive)
+    comp = plan.compiled
+    gp = comp.groups[0]
+    assert len(comp.groups) == 1 and gp.schedule.value == "precompute_jtj"
+    assert comp._wants_bsr(gp) and plan._prep["consts"][0]["bsr"] is None
+    c = plan._prep["consts"][0]
+    assert comp._is_dense(gp, c) == (route == "dense")
+    assert comp._stores_jacs(gp, c) == (route == "stored")
+    for k, (a, b) in enumerate(zip(tc, jc)):
+        assert np.isfinite(a) and abs(a - b) <= TABLELESS_COST_RTOL * abs(b), (k, a, b)
+    assert tc[-1] < 1e-3 * tc[0]
+
+
 def test_grid_plan_cuda_needs_a_gpu():
     """A grid plan on device="cuda" (the default) raises without a GPU, as
     a BA plan does: nothing falls back to the CPU."""

@@ -187,8 +187,13 @@ def test_wloop_plan(W, N, sms):
     (24, 333, 3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36 + 1, "fused_pair_apply_wloop_chunked"),
     (24, 333, 3, 9, 96 * 1024 // 4 + 1, "fused_pair_apply_atomics"),
     (4, 333, 3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36 + 1, "fused_pair_apply_atomics"),
-    (24, 333, 9, 3, 64, "fused_pair_apply_wloop_chunked"),
+    (24, 333, 3, 3, 64, "fused_pair_apply_wloop_chunked"),
     (4, 333, 9, 3, 64, "fused_pair_apply_atomics"),
+    # wide levels of more row channels than the chunked kernel's MAX_CI
+    # (a 9-channel rotation row of a vertex of degree >= 9)
+    (9, 1001, fusedpair.MAX_CI, 3, 64, "fused_pair_apply_wloop_chunked"),
+    (9, 1001, fusedpair.MAX_CI + 1, 3, 64, "fused_pair_apply_atomics"),
+    (24, 333, 9, 3, 64, "fused_pair_apply_atomics"),
 ])
 def test_fused_pair_route_levels(W, N_t, Ci, Cj, S, route):
     assert fusedpair.fused_pair_route(W, N_t, Ci, Cj, S) == route

@@ -184,13 +184,12 @@ def test_update_inputs_between_steps_matches_jax():
         tp.update_inputs({"X": x0})
 
 
-def test_update_inputs_sparse_map_matches_jax(monkeypatch):
+def test_update_inputs_sparse_map_matches_jax():
     """A sparse map rewired mid-solve (test_solver_options.py's case: all
     edges onto node 0): the block-sparse tables are rebuilt and the solve
-    ends where JAX's does.  THALLO_AFFINE=0 in both packages: the rewired
-    map is affine-structured, and the segment-keyed row tables JAX builds
-    for it are not ported yet (ROADMAP queue 1, item 5)."""
-    monkeypatch.setenv("THALLO_AFFINE", "0")
+    ends where JAX's does.  The rewired map is affine-structured: JAX keys
+    its row table by segment, the port builds rank-keyed level tables for
+    it (the same JᵀJ)."""
     rng = np.random.RandomState(1)
     Nn, Ee = 16, 40
     v0 = rng.randint(0, Nn, size=Ee).astype(np.int32)
@@ -270,7 +269,7 @@ def test_dense_jtj_on_the_small_ba_scene_matches_jax():
     jp, tp = _plans(tba.ENERGY, dims, "levenberg_marquardt")
     for p in (jp, tp):
         p.init({k: np.copy(v) for k, v in ins.items()})
-    assert tp.compiled._is_dense(tp.compiled.groups[0])
+    assert tp.compiled._is_dense(tp.compiled.groups[0], tp._prep["consts"][0])
     rng = np.random.default_rng(2)
     p = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in tp._U.items()}
     out = []

@@ -483,6 +483,29 @@ r = Residuals(fit=X(x, y) - A(x, y),
     _both_raise(run, "no eliminable unknown")
 
 
+@pytest.mark.parametrize("linear_solver", ["schur_pcg", "schur_dense"])
+def test_schur_rejects_a_group_without_tables(linear_solver):
+    """procrustes_alignment's one group is pure stencil (Angle(u),
+    Translation(u) broadcast over the points): it builds no block-sparse
+    tables in either package (JAX's build_group_bsr,
+    thallo_tpu/solver/blocksparse.py:381-383), so no image is eliminable
+    and both packages refuse the Schur solve with JAX's message."""
+    from thallo_tpu.models import procrustes_alignment as jpa
+
+    ins, _ = jpa.synthetic_inputs(N=64)
+
+    def run(pkg):
+        opts = {"device": "cpu"} if pkg is tt else {}
+        plan = pkg.load_energy(jpa.ENERGY).plan({"N": 64, "U": 1}, solver="levenberg_marquardt",
+                                                linear_solver=linear_solver, **opts)
+        plan.init({k: np.copy(v) for k, v in ins.items()})
+        if pkg is tt:
+            assert plan._prep["consts"][0]["bsr"] is None
+        plan.step()
+
+    _both_raise(run, "no eliminable unknown")
+
+
 def test_schur_dense_size_gate():
     ins, sizes = _ba(n_cameras=8, n_points=64, obs_per_point=4, seed=3)
 

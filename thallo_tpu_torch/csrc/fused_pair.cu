@@ -38,10 +38,14 @@
 //   false compiles the cols side out: the rows-only floor of the design.
 //
 // fused_pair_atomics_kernel  (thallo_fused_pair_atomics)
-//   Any (Ci, Cj) up to 8 x 16 and any S: one thread per element, rows
-//   owned, cols by one global atomic per (w, n, cj).  Takes the shapes
-//   the persistent kernel does not (an accumulator beyond the shared
-//   memory, another pair).
+//   Any (Ci, Cj) up to 16 x 16 and any S: one thread per element, rows
+//   owned, cols by one global atomic per (w, n, cj).  Instantiated for Ci
+//   up to 4, 8 and 16 by Cj up to 4 and 16, so the unrolled products of a
+//   small pair carry few predicated-off iterations while a thread still
+//   starts all its pcol gathers at once.  Takes the shapes the persistent
+//   kernel does not (an accumulator beyond the shared memory, another
+//   pair: the graph models' 3 x 3 pairs and the embedded graph's
+//   9-channel rotation rows against 3-channel offsets).
 //
 // add_cols (the warp merge) lives in block_accum.cuh, shared with the
 // W-loop kernel and oh_aggregate.cu; pair_slot (one slot's loads and
@@ -57,12 +61,13 @@
 
 namespace {
 
-constexpr int kMaxCi = 8;   // ops/fusedpair.py MAX_CI
-constexpr int kMaxCj = 16;  // ops/fusedpair.py MAX_CJ
+constexpr int kMaxCj = 16;         // ops/fusedpair.py MAX_CJ
+constexpr int kAtomicsMaxCi = 16;  // ops/fusedpair.py ATOMICS_MAX_CI
 constexpr int kThreads = 256;      // the atomics kernel's block
 constexpr int kMaxThreads = 1024;  // the persistent kernel's largest block
 constexpr int kMaxSmem = 112 * 1024;  // ops/fusedpair.py PERSISTENT_MAX_SMEM
 
+template <int kCiMax, int kCjMax>
 __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
                                           const float* __restrict__ blocks,
                                           const float* __restrict__ pcol,
@@ -75,10 +80,10 @@ __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
   const size_t Nz = static_cast<size_t>(N);
   const size_t F = static_cast<size_t>(Ci) * Cj;
 
-  float pr[kMaxCi];
-  float acc[kMaxCi];
+  float pr[kCiMax];
+  float acc[kCiMax];
 #pragma unroll
-  for (int ci = 0; ci < kMaxCi; ++ci) {
+  for (int ci = 0; ci < kCiMax; ++ci) {
     pr[ci] = ci < Ci ? prow[ci * Nz + n] : 0.f;
     acc[ci] = 0.f;
   }
@@ -87,18 +92,18 @@ __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
     const int id = ids[static_cast<size_t>(w) * Nz + n];
     if (id < 0 || id >= S) continue;  // padded / out-of-range: dropped
     const float* b = blocks + static_cast<size_t>(w) * F * Nz + n;
-    float pc[kMaxCj];
-    float z[kMaxCj];
+    float pc[kCjMax];
+    float z[kCjMax];
 #pragma unroll
-    for (int cj = 0; cj < kMaxCj; ++cj) {
+    for (int cj = 0; cj < kCjMax; ++cj) {
       pc[cj] = cj < Cj ? __ldg(pcol + static_cast<size_t>(cj) * S + id) : 0.f;
       z[cj] = 0.f;
     }
 #pragma unroll
-    for (int ci = 0; ci < kMaxCi; ++ci) {
+    for (int ci = 0; ci < kCiMax; ++ci) {
       if (ci < Ci) {
 #pragma unroll
-        for (int cj = 0; cj < kMaxCj; ++cj) {
+        for (int cj = 0; cj < kCjMax; ++cj) {
           if (cj < Cj) {
             const float bv = __ldg(b + static_cast<size_t>(ci * Cj + cj) * Nz);
             acc[ci] = fmaf(bv, pc[cj], acc[ci]);
@@ -108,15 +113,25 @@ __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
       }
     }
 #pragma unroll
-    for (int cj = 0; cj < kMaxCj; ++cj) {
+    for (int cj = 0; cj < kCjMax; ++cj) {
       if (cj < Cj) atomicAdd(cols + static_cast<size_t>(cj) * S + id, z[cj]);
     }
   }
 
 #pragma unroll
-  for (int ci = 0; ci < kMaxCi; ++ci) {
+  for (int ci = 0; ci < kCiMax; ++ci) {
     if (ci < Ci) rows[ci * Nz + n] = acc[ci];
   }
+}
+
+using AtomicsKernel = void (*)(const int*, const float*, const float*, const float*, float*,
+                               float*, int, int, int, int, int);
+
+// the instantiation for Ci <= kCiMax and this Cj
+template <int kCiMax>
+AtomicsKernel atomics_kernel_for(int Cj) {
+  return Cj <= 4 ? fused_pair_atomics_kernel<kCiMax, 4>
+                 : fused_pair_atomics_kernel<kCiMax, kMaxCj>;
 }
 
 template <typename T, int kCi, int kCj, int kElems, bool kCols>
@@ -258,12 +273,15 @@ extern "C" int thallo_fused_pair_atomics(const void* ids, const void* blocks,
                                          const void* pcol, const void* prow,
                                          void* rows, void* cols, int W, int N,
                                          int Ci, int Cj, int S, void* stream) {
-  if (Ci < 1 || Ci > kMaxCi || Cj < 1 || Cj > kMaxCj) {
+  if (Ci < 1 || Ci > kAtomicsMaxCi || Cj < 1 || Cj > kMaxCj) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N > 0) {
     const int grid = (N + kThreads - 1) / kThreads;
-    fused_pair_atomics_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+    const AtomicsKernel kernel = Ci <= 4   ? atomics_kernel_for<4>(Cj)
+                                 : Ci <= 8 ? atomics_kernel_for<8>(Cj)
+                                           : atomics_kernel_for<kAtomicsMaxCi>(Cj);
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(ids), static_cast<const float*>(blocks),
         static_cast<const float*>(pcol), static_cast<const float*>(prow),
         static_cast<float*>(rows), static_cast<float*>(cols), W, N, Ci, Cj, S);

@@ -461,7 +461,8 @@ class LoweredGroup:
         stencil slots), channel-major const-slot values, InBounds and
         index-value arrays ([R] f32 each, JAX's barrs/iarrs), params, and,
         when the schedule materializes JᵀJ, the static block-sparse tables
-        (solver/blocksparse.py); otherwise the scatter route of each
+        (solver/blocksparse.py); without tables (another schedule, or
+        tables that build_group_bsr refuses) the scatter route of each
         gathered slot: a segment-sum plan ("stables", with
         THALLO_SEGSUM=tiled, read here as thallo_tpu reads it) or the
         int32 ids of a small image for the aggregation kernel.
@@ -492,7 +493,7 @@ class LoweredGroup:
             from .solver.blocksparse import build_group_bsr
 
             bsr = build_group_bsr(self, idx, self.dtype, device, onehot_exclude)
-        else:
+        if bsr is None:  # no tables: the group scatters its stored point Jacobians
             tiled = os.environ.get("THALLO_SEGSUM") == "tiled"
             for i, flat in enumerate(idx):
                 if self._rolls[i] is not None:
@@ -712,6 +713,9 @@ class LoweredGroup:
                 if si == i:
                     t[k, c] = 1.0
             tangents.append(t)
+        # a slot broadcast over external axes it does not use is a stride-0
+        # view, of which jvp cannot make a dual: contiguous primals
+        uvalsT = [v.contiguous() for v in uvalsT]
         cols = torch.func.vmap(lambda t: torch.func.jvp(f, (uvalsT,), (t,))[1])(tangents)
         jacsT, k = [], 0
         for s in self.uslots:

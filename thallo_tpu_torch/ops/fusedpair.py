@@ -96,6 +96,9 @@ import torch
 from . import _cuda
 
 MAX_CI, MAX_CJ = 8, 16  # csrc/fused_pair*.cu register-array bounds
+# the atomics body's row slots (csrc/fused_pair.cu kAtomicsMaxCi): up to
+# a 9-channel rotation matrix (embedded_mesh_deformation)
+ATOMICS_MAX_CI = 16
 # the persistent kernel (csrc/fused_pair.cu): the pairs it is instantiated
 # for, and the largest [Cj, S] f32 accumulator it takes (kMaxSmem there):
 # two blocks still fit an SM's shared memory
@@ -151,13 +154,13 @@ def fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     return rows, cols
 
 
-def _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype):
+def _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, max_ci=MAX_CI):
     """Validate a CUDA launch's operands; returns (W, N, blocks [W*Ci*Cj, N])."""
     if ids2d.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ids2d.device}")
-    if not (1 <= Ci <= MAX_CI and 1 <= Cj <= MAX_CJ and S >= 1):
+    if not (1 <= Ci <= max_ci and 1 <= Cj <= MAX_CJ and S >= 1):
         raise ValueError(f"{what}: Ci={Ci}, Cj={Cj}, S={S} outside "
-                         f"[1, {MAX_CI}] x [1, {MAX_CJ}] x [1, inf)")
+                         f"[1, {max_ci}] x [1, {MAX_CJ}] x [1, inf)")
     W, N = ids2d.shape
     dev = ids2d.device
     blocks = blocks_wm.reshape(W * Ci * Cj, N)
@@ -179,13 +182,13 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int) -> str:
     name of its wrapper: "fused_pair_apply" (persistent) or
     "fused_pair_apply_wloop" for the specialised pairs, by the level's
     shape; "fused_pair_apply_wloop_chunked" for other wide levels whose
-    S fits the chunked kernel's accumulator; else
-    "fused_pair_apply_atomics"."""
+    S fits the chunked kernel's accumulator and whose Ci its register
+    arrays take (MAX_CI); else "fused_pair_apply_atomics"."""
     wide = W >= WLOOP_MIN_W
     if persistent_fits(Ci, Cj, S):
         return "fused_pair_apply" if not wide and N_t >= PERSISTENT_MIN_N \
             else "fused_pair_apply_wloop"
-    if wide and S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
+    if wide and Ci <= MAX_CI and S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
         return "fused_pair_apply_wloop_chunked"
     return "fused_pair_apply_atomics"
 
@@ -258,12 +261,13 @@ def fused_pair_rows_floor(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
 
 def fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """The contract of fused_pair_apply by one thread per element and one
-    global atomic per cols value: any Ci <= 8, Cj <= 16 and S.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    global atomic per cols value: any Ci <= ATOMICS_MAX_CI, Cj <= 16 and
+    S.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     W, N, blocks = _checked("fused_pair_apply_atomics", ids2d, blocks_wm, pcol, prow, Ci, Cj,
-                            S, torch.float32)
+                            S, torch.float32, ATOMICS_MAX_CI)
     rows = torch.empty((Ci, N), dtype=torch.float32, device=ids2d.device)
     cols = torch.zeros((Cj, S), dtype=torch.float32, device=ids2d.device)
     code = _cuda.lib().thallo_fused_pair_atomics(

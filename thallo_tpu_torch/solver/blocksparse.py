@@ -15,7 +15,8 @@ table build (plan init) as the JAX package chooses:
   ``n*W + w`` is entry (n, w) of the table and the setup reads contiguous
   windows (ops/fullrepeat.py);
 * **rank-keyed level tables** for every other map (degree skew, unsorted
-  maps): level 0 is an [N, W0] table over the first W0 incidences of
+  maps, affine maps that are not a full repeat, which the JAX package
+  keys by segment): level 0 is an [N, W0] table over the first W0 incidences of
   every element, and each overflow level covers incidence ranks
   [T, T+W) of the N_t elements whose degree exceeds T, with its element
   ids in ``row_sels``.  The setup gathers one channel-major payload per
@@ -24,7 +25,10 @@ table build (plan init) as the JAX package chooses:
   overflow levels' row contributions with one ``index_add_`` per slot.
 
 The tables (perms, masks, cols, row_sels, row_starts, oh_idxs, pairs)
-equal what JAX's ``build_group_bsr`` builds.  A col pair with a transpose
+equal what JAX's ``build_group_bsr`` builds, but for two TPU workarounds
+left out: affine maps get rank-keyed tables, not segment-keyed ones, and
+a col pair takes a transpose partner at any element count (JAX stops at
+8192 by default).  A col pair with a transpose
 partner runs both directions through one fused kernel launch per level
 (the kernel ``fused_pair_route`` names for the level's shape: the
 persistent ``fused_pair_apply`` or the W-loop kernel for wide, short
@@ -33,9 +37,9 @@ levels; under ``block_dtype="bf16"`` their bf16 instantiations, and
 gathers p by its col table and multiplies.  An image that
 ``linear_solver="schur_dense"`` is told to eliminate builds row tables
 instead of one-hot rows and keeps its col blocks (``onehot_exclude``):
-the dense Schur assembly reads its couplings from them.  Not ported:
-segment-keyed tables of affine maps that are not a full repeat (they
-raise NotImplementedError; ROADMAP queue 1, item 5).
+the dense Schur assembly reads its couplings from them.  A pure-stencil
+group, and a group whose tables exceed the padding budget, build none
+(``build_group_bsr`` returns None, as JAX's does).
 """
 from __future__ import annotations
 
@@ -226,15 +230,21 @@ def _rank_keyed_tables(idx: np.ndarray, N: int, R: int, max_waste: float,
 
 
 def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
-                    onehot_exclude=()) -> GroupBsr:
+                    onehot_exclude=()) -> Optional[GroupBsr]:
     """Build the static tables from the slots' concrete flat indices
     (host side, once per init).  idxs[i] is slot i's [R] element index.
     THALLO_ONEHOT_ROWS and THALLO_TRANSPOSE_ROWS are read here, as
-    thallo_tpu reads them.  Slots of an image in onehot_exclude build row
+    thallo_tpu reads them (the latter without JAX's default cap).  Slots of an image in onehot_exclude build row
     tables and keep their col blocks (schur_dense eliminates through
-    them)."""
+    them).  Returns None where JAX's ``build_group_bsr`` does
+    (thallo_tpu/solver/blocksparse.py:381-383, :468-470): for a
+    pure-stencil group, and when an index array's rank-keyed tables
+    exceed the padding budget; the solver then runs the group from its
+    stored point Jacobians."""
     jslots = group.uslots
     R = group.R
+    if not jslots or R == 0 or all(rp is not None for rp in group._rolls):
+        return None
     slot_N = [int(np.prod([d.size for d in s.image.dims])) for s in jslots]
     nslots = len(jslots)
 
@@ -250,12 +260,20 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
                 continue  # diag pair: pure aggregation, no table needed
             k = i if slot_N[i] > slot_N[j] else j  # demote the larger
             onehot[k] = False
-    tr_max = int(os.environ.get("THALLO_TRANSPOSE_ROWS", "8192"))
+    # JAX caps the transposed slot at 8192 elements by default: on the TPU
+    # the transpose side is a one-hot MXU aggregation whose cost grows with
+    # the slot's N (thallo_tpu/solver/blocksparse.py:416-428).  On the GPU
+    # it is the fused-pair kernel's cols scatter, in the same pass over the
+    # blocks as the rows, at any N; so the port transposes at any N unless
+    # THALLO_TRANSPOSE_ROWS sets a cap (0: none)
+    tr_env = os.environ.get("THALLO_TRANSPOSE_ROWS")
+    tr_max = None if tr_env is None else int(tr_env)
 
     def _transpose_ok(i, j):
         if onehot[i]:
             return True
-        if slot_N[i] > tr_max or onehot[j] or jslots[i].image.name in onehot_exclude:
+        if (tr_max is not None and slot_N[i] > tr_max) or onehot[j] \
+                or jslots[i].image.name in onehot_exclude:
             return False
         return (slot_N[i], i) < (slot_N[j], j)
 
@@ -272,23 +290,18 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
         key = idxs[i].tobytes()
         if key not in key_to_row:
             idx, N, base = idxs[i], slot_N[i], len(tables)
-            if _seg_keyed(idx, N, R):
-                W = _repeat_width(idx, N)
-                if W < 2:
-                    raise NotImplementedError(
-                        f"slot {s!r}: its index array is affine-structured but not a "
-                        "full repeat; thallo_tpu keys its row table by segment, which "
-                        "is not ported yet (ROADMAP queue 1, item 5)")
+            W = _repeat_width(idx, N) if _seg_keyed(idx, N, R) else 0
+            if W >= 2:
                 tables.append({"perm": np.arange(R, dtype=np.int32).reshape(N, W),
                                "mask": np.ones((N, W), np.float32), "sel": None,
                                "start": None, "full": True})
                 row_base_of.append(base)
             else:
+                # every other map, affine ones included (JAX keys those by
+                # segment, a TPU gather workaround)
                 levels = _rank_keyed_tables(idx, N, R, MAX_WASTE, MAX_PAD_EXTRA)
                 if levels is None:
-                    raise NotImplementedError(
-                        f"slot {s!r}: {N} elements exceed the row-table padding budget; "
-                        "thallo_tpu falls back to its J-block path, which is not ported")
+                    return None  # N alone exceeds the padding budget
                 for t in levels:
                     tables.append({**t, "full": False})
                     row_base_of.append(base)

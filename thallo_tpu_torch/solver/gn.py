@@ -5,7 +5,11 @@ Each group runs one of these schedules of JᵀJ·p (``make_jtjp``):
 
 * materialized JᵀJ, block-sparse (PRECOMPUTE_JTJ, the default for graph
   groups above the dense threshold): tables and blocks from the setup
-  (solver/blocksparse.py), block-Jacobi preconditioner;
+  (solver/blocksparse.py), block-Jacobi preconditioner.  A group the
+  tables refuse, as JAX's ``build_group_bsr`` does (a pure-stencil group,
+  or tables over the padding budget), takes JAX's J-block path instead:
+  its point Jacobians are stored and applied as under PRECOMPUTE_J below,
+  under scalar Jacobi (the dense JᵀJ at <= 4096 unknowns);
 * materialized JᵀJ, dense (PRECOMPUTE_JTJ at <= 4096 unknowns, any
   group): J by ``torch.func.jacfwd`` over the flattened unknowns, then
   A = JᵀJ and A·p by ``torch.matmul`` in full f32 (``_matmul_f32``: a
@@ -343,10 +347,22 @@ class CompiledSolver:
             return tuple(self.schur_eliminate)
         return ()
 
-    def _is_dense(self, gp):
-        """A materialized-JᵀJ group at <= DENSE_JTJ_MAX_UNKNOWNS unknowns:
-        JᵀJ as one dense matrix (thallo_tpu/solver/gn.py:643-651)."""
-        return gp.schedule in MATERIALIZED_JTJ and not self._wants_bsr(gp)
+    def _is_dense(self, gp, c):
+        """A materialized-JᵀJ group at <= DENSE_JTJ_MAX_UNKNOWNS unknowns
+        whose tables (c, its prepared consts) were not built: JᵀJ as one
+        dense matrix (thallo_tpu/solver/gn.py:643-651)."""
+        return c["bsr"] is None and gp.schedule in MATERIALIZED_JTJ and \
+            self.unknown_layout()[1] <= DENSE_JTJ_MAX_UNKNOWNS
+
+    def _stores_jacs(self, gp, c):
+        """Whether a group whose tables (c, its prepared consts) were not
+        built applies JᵀJ·p from the point Jacobians its setup stores: the
+        materialized-J schedules, LINEARIZE, and a materialized-JᵀJ group
+        above the dense threshold (a pure-stencil group, or tables over the
+        padding budget: JAX's J-block path, ``block_groups``,
+        thallo_tpu/solver/gn.py:652-653, 689-713)."""
+        return c["bsr"] is None and (gp.schedule in POINT_JACOBIAN_APPLY or (
+            gp.schedule in MATERIALIZED_JTJ and not self._is_dense(gp, c)))
 
     def prepare(self, inputs):
         """Input-only precomputation, once per init: slot index tables,
@@ -446,7 +462,7 @@ class CompiledSolver:
                 for name, v in d2_d.items():
                     diag[name] = diag[name] + v
                 continue
-            if gp.schedule in POINT_JACOBIAN_APPLY:
+            if self._stores_jacs(gp, c):
                 jac_store[str(gi)] = {"jacs": tuple(jacs)}
             for i, slot in enumerate(g.uslots):
                 J = jacs[i]  # [rc, C, R]
@@ -464,9 +480,9 @@ class CompiledSolver:
         honoring each group's schedule (thallo_tpu/solver/gn.py:608-716):
         the blocks assembled this step (block-sparse groups), a dense JᵀJ
         (<= DENSE_JTJ_MAX_UNKNOWNS), jvp then vjp anew (INLINE), or the
-        per-point Jacobians stored this step (materialized J and
-        LINEARIZE: gather p, J·p, scatter Jᵀ(J·p)).  p is masked on entry
-        and Ap on exit."""
+        per-point Jacobians stored this step (materialized J, LINEARIZE,
+        and a materialized-JᵀJ group whose tables were not built: gather
+        p, J·p, scatter Jᵀ(J·p)).  p is masked on entry and Ap on exit."""
         pairs, jac_groups, dense_mats, inline = [], [], [], []
 
         def residual_fn(g, c):
@@ -479,9 +495,9 @@ class CompiledSolver:
             entry = jac_store.get(str(gi), {})
             if "bsr" in entry:
                 pairs.append((c["bsr"], entry["bsr"]))
-            elif gp.schedule in POINT_JACOBIAN_APPLY:
+            elif self._stores_jacs(gp, c):
                 jac_groups.append((g, c, entry["jacs"]))
-            elif self._is_dense(gp):
+            elif self._is_dense(gp, c):
                 _, J = self.dense_jacobian(U, inputs, consts, masks, [gi])
                 dense_mats.append(_matmul_f32(J.T, J))
             else:  # INLINE
