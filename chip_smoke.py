@@ -21,9 +21,13 @@ its seconds; any failure exits non-zero):
      (oh_setup_aggregate_atomics) at the uniform and the skewed camera
      ids; the measurement scripts' kernels at the JAX scripts' BA-1M
      shape; fused_pair_apply_atomics at ARAP 256²'s (3, 3) levels, the
-     record's shape; every kernel phases 15 and 17 launch on a
-     block-sparse plan, at the shapes, recipes and tables of one step of
-     that plan on the card: model_kernel_cases) and at a small ragged
+     record's shape; fused_pair_bf16_atomics at wide levels of 9 and 16
+     row channels (BF16_WIDE); every kernel phases 15 and 17 launch, at
+     the shapes, recipes and tables of one step of that plan on the card:
+     model_kernel_cases, the block-sparse plans and the aggregation kernel
+     of the contraction and sampled-image models' stored-Jacobian
+     scatters, bundle_fusion above the dense threshold (CASES' larger
+     size) and embedded deformation under block_dtype="bf16") and at a small ragged
      shape with out-of-range ids or padded plan lanes; kernel, plain and
      library times in ms, each kernel and library call twice: `ms` over
      20 eager calls (host and device) and `device_ms` over the same call
@@ -121,9 +125,10 @@ its seconds; any failure exits non-zero):
      restart, then steps until the cost reaches the target) for pcg and
      schur_pcg at lIterations 4 and 16 and schur_dense, and in the same
      timed runs the time to TTT_COMMON x the initial cost;
- 15. the eleven copied models (thallo_tpu_torch/models/cases.py's
+ 15. the sixteen copied models (thallo_tpu_torch/models/cases.py's
      CASES; the five graph models above the 4096-unknown dense threshold,
-     on block-sparse tables, the rest at tests/test_models*.py's sizes),
+     on block-sparse tables, the rest, the five contraction and
+     sampled-image models among them, at tests/test_models*.py's sizes),
      then image_warping 72² and 16² with JᵀJ materialized (a pure-stencil
      group without tables: its stored point Jacobians, the dense JᵀJ), on
      the card and on the CPU, MODEL_STEPS steps with the Q-ratio stop off:
@@ -142,7 +147,20 @@ its seconds; any failure exits non-zero):
      against 110);
  17. the io readers: examples/data/sample_scene.bal.txt (io/bal.py) as
      bundle adjustment and sample_mesh.ply (io/ply.py) as ARAP, card vs
-     CPU as in phase 15.
+     CPU as in phase 15;
+ 18. deconvolution at 512² with the reference's 15 x 15 kernel
+     (make_spec(k_half=7), synthetic_inputs(512, 512, k_half=7): 262 144
+     unknowns, 225 taps a pixel), GN, nIterations 6, lIterations 40
+     (examples/deconvolution.py): the contraction blocked as JAX blocks it
+     (FULL_CON_BLOCK); at the initial unknowns the cost, -JᵀF, diag(JᵀJ)
+     and JᵀJ·p card vs the port's CPU path (GRID_LINEAR_RTOL); warmup(),
+     run_steps(1) per step, the costs within FULL_TRAJ_RTOL of JAX's
+     trajectory; logs the step median, the peak memory beside the
+     unblocked fiber, one profiled step's device busy time and the blocked
+     contraction's share of it;
+ 19. optical_flow at 512² (synthetic_inputs(512, 512, shift=(0.75,
+     -0.4))), LM, lIterations 15, 10 steps, the Q-ratio stop off: the same
+     checks and logs.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -217,7 +235,10 @@ EXACT_TOL = 5e-5
 # of the cost over 5 steps; on the skewed scene (seed 0) 2.4e-3 and
 # 2.0e-2 (other seeds of the skewed scene, under schur_dense, up to 4.5e-2
 # and costs 99x apart: seed 4 stalls on rejected steps in every run).
-# SCHUR_TRAJ holds steps 1-5 at about twice those.
+# SCHUR_TRAJ holds steps 1-5 at about twice those.  (16 more card runs on
+# the skewed scene under schur_dense, --seeds 1 --runs 16, reach 4.9e-3 and
+# 4.6e-2, and one smoke run failed at 5.2e-2 of the cost: PERF.md's Open
+# questions.)
 SCHUR_TRAJ = {"small": (2e-4, 1e-2), "small skewed": (5e-3, 5e-2)}  # (x max|U|, cost)
 SCHUR_L_ITERATIONS = 16  # bench.py's lIterations for BA 1M
 SCHUR_DENSE_STEPS = 3
@@ -283,9 +304,20 @@ MODEL_COST_FLOOR = 1e-10
 # over the depth image) move 7.1e-4 of max|ell| card vs CPU on an H100
 # (5.7e-4 between the JAX package's and the port's CPU runs,
 # tests/test_torch_models.py) while the costs agree to 4e-6; every other
-# model stays within 2.0e-5 of max|U| (ARAP 48²).  (x max|U|, cost) bounds
-# of the models that need their own, about twice the measured spread:
-MODEL_TOL = {"shape_and_shading": (2e-3, STEP_COST_RTOL)}
+# model stays within 2.0e-5 of max|U| (ARAP 48²) but deconvolution at
+# 16² (a 5 x 5 kernel, GN, 40 PCG iterations): card vs CPU on an H100 its
+# unknowns after step 1 lie 5.7e-6 to 2.6e-5 of max|X| in 30 of 32 runs,
+# 2.0e-4 and 2.2e-4 in two, the costs within 2.2e-6 (scripts/
+# torch_model_trajectory.py --model deconvolution --steps 3 --q-tolerance
+# -1 --device cuda --against-cpu 8, then 24); with index_add_ in place of
+# the aggregation kernel (--library-scatter, 24 runs) up to 8.8e-5.  Both
+# scatters sum in a varying order, and 40 PCG iterations carry that into
+# the directions the cost barely sees (the CPU's own unknowns, moved by
+# 1e-7 x max|X|, move 9.1e-6 after step 1: --device cpu --perturb 1..4).
+# (x max|U|, cost) bounds of the models that need their own, about twice
+# the measured spread:
+MODEL_TOL = {"shape_and_shading": (2e-3, STEP_COST_RTOL),
+             "deconvolution": (5e-4, STEP_COST_RTOL)}
 TABLELESS_IW = ((72, "set_materialize"), (16, "set_sparse"))
 # phase 16: ARAP at side 256 (bench.py:306-330: 65 536 vertices, 261 120
 # directed edges, 393 216 unknowns), GN, lIterations 10, in the generator's
@@ -315,6 +347,61 @@ ARAP_TRAJ_RTOL = {1: 1e-5, 2: 2e-5, 3: 2e-5, ARAP_STEPS: 2e-2}
 ARAP_MARGINAL = (10, 110)
 ARAP_MARGINAL_STEPS = 3
 # device_ms: calls per captured CUDA graph, replays per timing
+# phase 2: the bf16 atomics body at wide levels of more than 8 row
+# channels (a 9-channel rotation row, and its register arrays' bound),
+# W = 12 slots of 16 384 elements into as many columns
+BF16_WIDE = ((9, 3), (16, 3))
+BF16_WIDE_W = 12
+BF16_WIDE_N = 16384
+# phases 18-19: the full-width paths of scripts/torch_model_trajectory.py's
+# FULL at FULL_SIZE² (full_case): deconvolution with the reference's 15 x
+# 15 kernel, GN, nIterations 6, lIterations 40; optical_flow, LM,
+# lIterations 15, 10 steps, the Q-ratio stop off.  The JAX package's
+# trajectories on a CPU, costs after steps 0-6 and 0-10, in f32 and in f64:
+#   JAX_PLATFORMS=cpu python3 scripts/torch_model_trajectory.py --package jax \
+#       --model deconvolution|optical_flow --size 512 [--double]
+FULL_SIZE = 512
+FULL_JAX_F32_COSTS = {
+    "deconvolution": (4875.7255859375, 3876.90771484375, 3867.614990234375, 3867.407958984375,
+                      3867.39990234375, 3867.3994140625, 3867.39892578125),
+    "optical_flow": (364.9801330566406, 238.2515869140625, 195.87356567382812,
+                     122.36415100097656, 99.61210632324219, 57.517765045166016,
+                     46.98200988769531, 26.593042373657227, 21.80677604675293,
+                     12.948247909545898, 10.695005416870117),
+}
+FULL_JAX_F64_COSTS = {
+    "deconvolution": None,
+    "optical_flow": (364.9801688681707, 238.02641760471565, 195.76259720392127,
+                     122.16250728396625, 99.46254381104737, 57.36349824577858,
+                     46.85785640027336, 26.4989873806219, 21.728335273806515,
+                     12.89731503919717, 10.651467008937326),
+}
+# the run each phase holds the card's costs to: JAX's f32 run for
+# deconvolution; for optical_flow JAX's f64 run, since JAX's f32 run lies
+# 9.5e-4, 5.7e-4, 1.7e-3, ... 4.1e-3 from it after steps 1-10, while every
+# f32 run of the port lies within 4.8e-6 of it (below)
+FULL_REFERENCE = {"deconvolution": "f32", "optical_flow": "f64"}
+# JAX's contraction blocking at 512² with Kd = 15 (thallo_tpu/lower.py:494-565):
+# the unblocked fiber, X and K over 225 taps at 262 144 pixels, is 472 MB,
+# over the 128 MiB THALLO_CON_BLOCK_BYTES: blocks of 3 of the 15 k_0, 5 of them
+FULL_CON_BLOCK = ("Kd", 3, 5)
+# the cost after each step within FULL_TRAJ_RTOL[model][step] of the
+# reference run: about twice the port's own f32 spread, the largest distance
+# from it of f32 runs of the port, some with the unknowns moved by 1e-7 x
+# max(max|U|, 1) (--perturb SEED):
+#   python3 scripts/torch_model_trajectory.py --package torch --device cuda|cpu \
+#       --model deconvolution|optical_flow --size 512 --perturb SEED
+# deconvolution: six runs on the card (seeds 1-3) lie at most 0, 1.3e-7,
+# 3.2e-7, 6.3e-8, 1.3e-7, 6.3e-8, 6.3e-8 from JAX's f32 run after steps 0-6
+# (one f32 ulp of these costs is 6.3e-8; the energy is quadratic, so GN lands
+# near its minimum in the first step).  optical_flow: eight runs on a CPU
+# (seeds 1-4) and the card's lie at most 6.9e-8, 2.4e-7, 1.1e-7, 7.6e-7,
+# 6.6e-7, 2.2e-6, 2.1e-6, 4.1e-6, 3.9e-6, 4.5e-6, 4.8e-6 from JAX's f64 run
+# after steps 0-10.
+FULL_TRAJ_RTOL = {"deconvolution": (7e-7,) * 7,
+                  "optical_flow": (2e-7, 5e-7, 5e-7, 2e-6, 2e-6, 5e-6, 5e-6, 1e-5, 1e-5, 1e-5,
+                                   1e-5)}
+
 GRAPH_CALLS = 10
 GRAPH_REPLAYS = 5
 # launches per timing when phase 8 drives the measurement scripts
@@ -814,9 +901,9 @@ def skew_tables(ba, tt, scene):
     return plan._prep["consts"][0]["bsr"]
 
 
-def level_routes(bsr):
+def level_routes(bsr, bf16=False):
     """(W, N_t) of each col level of a plan's tables -> the fused-pair
-    kernel fused_pair_route names for it."""
+    kernel fused_pair_route names for it (bf16: on bf16 blocks)."""
     from thallo_tpu_torch.ops import fusedpair
 
     out = {}
@@ -825,7 +912,7 @@ def level_routes(bsr):
             W, N_t = bsr.cols[bsr.col_gathers[pr[3]][0]].shape
             S = int(np.prod(bsr.image_shapes[bsr.slot_images[pr[1]]][:-1]))
             out[W, N_t] = fusedpair.fused_pair_route(
-                W, N_t, bsr.slot_channels[pr[0]], bsr.slot_channels[pr[1]], S)
+                W, N_t, bsr.slot_channels[pr[0]], bsr.slot_channels[pr[1]], S, bf16=bf16)
     return out
 
 
@@ -1171,12 +1258,6 @@ def phase_apply_separately_tiled(ba, tt, scene, ref):
     return launches
 
 
-# the bf16 instantiation of each kernel fused_pair_route names (the rest:
-# fused_pair_bf16_atomics)
-BF16_ROUTES = {"fused_pair_apply": "fused_pair_apply_bf16",
-               "fused_pair_apply_wloop": "fused_pair_apply_wloop_bf16"}
-
-
 def phase_skew_1m(ba, tt, scene, block_dtype=None, n_steps=N_STEPS_1M):
     """The skewed 1M solve: level tables after the residual sort; under
     block_dtype="bf16" each level through the bf16 kernel of its route
@@ -1196,10 +1277,7 @@ def phase_skew_1m(ba, tt, scene, block_dtype=None, n_steps=N_STEPS_1M):
                                             n_steps=n_steps, block_dtype=block_dtype)
     if "O" not in plan._residual_perms:
         raise AssertionError(f"{label}: the residual sort was not applied")
-    routes = level_routes(plan._prep["consts"][0]["bsr"])
-    if block_dtype:
-        routes = {shape: BF16_ROUTES.get(name, "fused_pair_bf16_atomics")
-                  for shape, name in routes.items()}
+    routes = level_routes(plan._prep["consts"][0]["bsr"], bf16=bool(block_dtype))
     log(f"{label} point levels (W, N_t) -> kernel {routes}")
     missing = [(shape, name) for shape, name in routes.items() if by_shape[name][shape] <= 0]
     if missing:
@@ -1453,24 +1531,53 @@ def arap_kernel_cases(dev, rng, bsr):
     return cases
 
 
-# the kernel wrappers the block-sparse solver calls (f32 blocks), by their
-# names in solver/blocksparse.py
+def bf16_wide_cases(dev, rng):
+    """fused_pair_bf16_atomics at wide levels of more than 8 row channels,
+    Ci x Cj of BF16_WIDE (bf16 blocks of a level that fused_pair_route
+    sends there: W = BF16_WIDE_W), against the plain version."""
+    from thallo_tpu_torch.ops import fusedpair
+
+    cases = []
+    W, N, S = BF16_WIDE_W, BF16_WIDE_N, BF16_WIDE_N
+    for Ci, Cj in BF16_WIDE:
+        route = fusedpair.fused_pair_route(W, N, Ci, Cj, S, bf16=True)
+        if route != "fused_pair_bf16_atomics":
+            raise AssertionError(f"bf16 ({Ci}, {Cj}) level routes to {route}")
+        ids = torch.from_numpy(rng.integers(0, S, size=(W, N)).astype(np.int32)).to(dev)
+        a = _pair_args(lambda x: torch.from_numpy(x).to(dev), rng, ids, Ci=Ci, Cj=Cj, S=S,
+                       block_dtype=torch.bfloat16)
+        cases.append(("fused_pair_bf16_atomics", f"wide_{Ci}x{Cj}",
+                      lambda a=a, Ci=Ci, Cj=Cj: fusedpair.fused_pair_bf16_atomics(
+                          *a, Ci=Ci, Cj=Cj, S=S),
+                      lambda a=a, Ci=Ci, Cj=Cj: fusedpair.fused_pair_apply_reference(
+                          *a, Ci=Ci, Cj=Cj, S=S),
+                      None, nbytes(*a), 4 * W * N * Ci * Cj, None))
+    return cases
+
+
+# the kernel wrappers the block-sparse solver calls, by their names in
+# solver/blocksparse.py
 SOLVER_KERNELS = ("oh_setup_products", "fullrepeat_setup", "fused_pair_apply",
                   "fused_pair_apply_atomics", "fused_pair_apply_wloop",
-                  "fused_pair_apply_wloop_chunked")
+                  "fused_pair_apply_wloop_chunked", "fused_pair_apply_bf16",
+                  "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics")
 
 
 def path_calls(plan):
     """The solver's kernel calls in one step of `plan`: [(kernel, args,
     kwargs)], each (kernel, table, recipe and shape) once, in the order of
-    the first call."""
+    the first call: the block-sparse setup's and apply's, and the
+    aggregation kernel of lower.py's scatters (materialized J, stored
+    point Jacobians)."""
+    from thallo_tpu_torch import lower
     from thallo_tpu_torch.solver import blocksparse
 
     calls = {}
 
     def record(name):
         def key(*args, **kwargs):
-            table = args[2] if name == "oh_setup_products" else args[0]
+            table = args[2] if name == "oh_setup_products" else \
+                args[1] if name == "oh_setup_aggregate" else args[0]
             k = (name, table.data_ptr() if name != "fullrepeat_setup" else None,
                  tuple(tuple(a.shape) for a in args), tuple(sorted(kwargs.items())))
             calls.setdefault(k, (name, args, kwargs))
@@ -1479,6 +1586,7 @@ def path_calls(plan):
     with contextlib.ExitStack() as stack:
         for name in SOLVER_KERNELS:
             stack.enter_context(tally(blocksparse, name, record(name)))
+        stack.enter_context(tally(lower, "oh_setup_aggregate", record("oh_setup_aggregate")))
         plan.step()
         if torch.device(plan.compiled.device).type == "cuda":
             torch.cuda.synchronize()
@@ -1497,7 +1605,8 @@ def path_kernel_cases(dev, rng, tag, calls):
     from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup
 
     def normal(x):
-        return torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(dev)
+        return torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(
+            device=dev, dtype=x.dtype)
 
     cases, seen = [], collections.Counter()
     for name, args, kw in calls:
@@ -1510,6 +1619,15 @@ def path_kernel_cases(dev, rng, tag, calls):
             cases.append((name, ctag, lambda a=a, fn=fn, kw=kw: (fn(*a, **kw),),
                           lambda a=a, ref=ref, kw=kw: (ref(*a, **kw),), None, nbytes(*a),
                           _recipe_outputs(kw["recipe"]) * rc * 2 * R, None))
+        elif name == "oh_setup_aggregate":
+            a = (normal(args[0]), args[1])
+            F, R = a[0].shape
+            N = kw["N"]
+            cases.append((name, ctag, lambda a=a, N=N: (ohsetup.oh_setup_aggregate(*a, N=N),),
+                          lambda a=a, N=N: (ohsetup.oh_setup_aggregate_reference(*a, N=N),),
+                          lambda a=a, N=N: (torch.zeros((a[0].shape[0], N), device=dev)
+                                            .index_add_(1, a[1].long(), a[0]),),
+                          nbytes(*a), F * R, None))
         elif name == "fullrepeat_setup":
             a = (normal(args[0]), normal(args[1]))
             rc, R = a[0].shape
@@ -1535,16 +1653,30 @@ def path_kernel_cases(dev, rng, tag, calls):
 def model_kernel_cases(dev, rng, tt):
     """The kernels phases 15 and 17 launch, at the shapes, recipes and
     tables of their plans on the card (one step each): the graph models
-    above the dense threshold and the io samples."""
-    from thallo_tpu_torch.models.cases import CASES
+    above the dense threshold, the contraction and sampled-image models
+    (their stored-Jacobian scatters through the aggregation kernel),
+    bundle_fusion above the dense threshold (its one-hot camera slots),
+    embedded deformation under
+    block_dtype="bf16" (its 9-channel rotation rows through
+    fused_pair_bf16_atomics) and the io samples."""
+    from thallo_tpu_torch.models.cases import CASES, ITEM6_MODELS
 
     makes = {f"{name}_big": (lambda d, name=name: model_plan(tt, name, d, True))
              for name in sorted(CASES) if CASES[name][1] is not None}
+    makes.update({name: (lambda d, name=name: model_plan(tt, name, d, False))
+                  for name in ITEM6_MODELS})
+    makes["embedded_bf16"] = lambda d: model_plan(tt, "embedded_mesh_deformation", d, True,
+                                                  block_dtype="bf16")
     makes.update({"io_" + label.split()[0].split(".")[0]: make
                   for label, make in io_plans(tt).items()})
     cases = []
     for tag, make in makes.items():
-        cases += path_kernel_cases(dev, rng, tag, path_calls(make("cuda")))
+        calls = path_calls(make("cuda"))
+        if tag == "embedded_bf16" and not any(
+                n == "fused_pair_bf16_atomics" and kw["Ci"] == 9 for n, _, kw in calls):
+            raise AssertionError("embedded deformation under block_dtype=bf16: its 9-channel "
+                                 "rotation rows did not run on fused_pair_bf16_atomics")
+        cases += path_kernel_cases(dev, rng, tag, calls)
     return cases
 
 
@@ -1617,15 +1749,17 @@ def card_vs_cpu(label, make, steps, u_tol=STEP_U_TOL, cost_rtol=STEP_COST_RTOL):
     return lg, cg, plan
 
 
-def model_plan(tt, name, device, big):
+def model_plan(tt, name, device, big, **options):
     """The port's plan of thallo_tpu_torch/models/cases.py's CASES[name],
-    Q-ratio stop off, initialised."""
-    from thallo_tpu_torch.models.cases import model_case
+    Q-ratio stop off (but for the cases of KEEP_Q_STOP), initialised."""
+    from thallo_tpu_torch.models.cases import KEEP_Q_STOP, case_energy, model_case
 
     m, inputs, dims, solver, l_iterations = model_case(name, big)
-    plan = tt.load_energy(m.ENERGY).plan(dims, solver=solver, device=device)
+    plan = tt.load_energy(case_energy(name, m)).plan(dims, solver=solver, device=device,
+                                                     **options)
     plan.set_solver_parameter("lIterations", l_iterations)
-    plan.set_solver_parameter("q_tolerance", -1.0)
+    if name not in KEEP_Q_STOP:
+        plan.set_solver_parameter("q_tolerance", -1.0)
     plan.set_solver_parameter("nIterations", MODEL_STEPS)
     plan.init({k: np.copy(v) for k, v in inputs.items()})
     return plan
@@ -1656,11 +1790,11 @@ def phase_models(tt):
     materialized-JᵀJ cases, card vs CPU; each block-sparse plan's routed
     kernels must have launched, and sparse_bundle_fusion must have
     launched one kernel at least.  Returns the card launches per run."""
-    from thallo_tpu_torch.models.cases import CASES
+    from thallo_tpu_torch.models.cases import CASES, GRAPH_MODELS
 
     runs = {}
     for name in sorted(CASES):
-        big = CASES[name][1] is not None
+        big = name in GRAPH_MODELS
         u_tol, c_tol = MODEL_TOL.get(name, (STEP_U_TOL, STEP_COST_RTOL))
         label = f"model {name}" + (" (above the dense threshold)" if big else "")
         t0 = time.perf_counter()
@@ -1839,6 +1973,189 @@ def phase_io(tt):
     return runs
 
 
+def full_plan(tt, name, device):
+    """The port's plan of FULL[name] (scripts/torch_model_trajectory.py) at
+    FULL_SIZE², initialised; and its step count."""
+    from torch_model_trajectory import full_case
+    from thallo_tpu_torch import models
+
+    text, inputs, dims, solver, l_iterations, steps, q_tol = full_case(name, FULL_SIZE, models)
+    plan = tt.load_energy(text).plan(dims, solver=solver, device=device)
+    plan.set_solver_parameter("nIterations", steps)
+    plan.set_solver_parameter("lIterations", l_iterations)
+    if q_tol is not None:
+        plan.set_solver_parameter("q_tolerance", q_tol)
+    plan.init(inputs)
+    return plan, steps
+
+
+def blocked_busy(events):
+    """Device busy seconds of the kernels that start inside a
+    "thallo::blocked" range (the blocked contraction's setup and JᵀJ·p,
+    solver/gn.py), as the profiler projects the range onto the device."""
+    from torch_ba_profile import device_events
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "thallo::blocked"
+                   and e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in device_events(events))
+    inside = [k for k in kernels if any(a <= k[0] < b for a, b in spans)]
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in inside:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy * 1e-6
+
+
+def phase_full_width(tt, name):
+    """Phases 18 (deconvolution) and 19 (optical_flow) at FULL_SIZE²:
+    plan.warmup(), then run_steps(1) per step with the cost read after
+    each; every unknown finite; the costs within FULL_TRAJ_RTOL of JAX's
+    trajectory (FULL_REFERENCE: f32 or f64); the blocked contraction at JAX's
+    FULL_CON_BLOCK (deconvolution); at the initial unknowns the cost, -JᵀF,
+    diag(JᵀJ) and JᵀJ·p of a seeded p on the card against the port's CPU
+    path, within GRID_LINEAR_RTOL.  Logs the step
+    times and their median, the peak memory the steps allocated beside
+    the unblocked fiber, and one profiled step's device busy time (the
+    blocked contraction's share)."""
+    from torch_ba_profile import busy_seconds
+    from torch_grid_profile import _step_copy
+
+    label = f"{name} {FULL_SIZE}²"
+    t0 = time.perf_counter()
+    plan, steps = full_plan(tt, name, "cuda")
+    torch.cuda.synchronize()
+    log(f"{label}: init {time.perf_counter() - t0:.3f} s, initial cost {plan.final_cost!r}, "
+        f"groups {[(gp.name, gp.schedule.value) for gp in plan.compiled.groups]}")
+    blocked = [gp.group.con_block for gp in plan.compiled.groups
+               if gp.group.con_block is not None]
+    if name == "deconvolution":
+        got = [(cb[0].dim.name, cb[1], cb[2]) for cb in blocked]
+        log(f"{label}: contraction blocking {got}; JAX's {FULL_CON_BLOCK}")
+        if got != [FULL_CON_BLOCK]:
+            raise AssertionError(f"{label}: con_block {got}, JAX's {FULL_CON_BLOCK}")
+        fiber = plan.compiled.groups[0].group.R * sum(
+            int(np.prod([d.dim.size for d in s.dep_cons])) * s.image.channels * 4
+            for s in plan.compiled.groups[0].group.uslots + plan.compiled.groups[0].group.cslots
+            if s.dep_cons)
+    # the linear parts at the initial unknowns, card vs the CPU path (later
+    # -JᵀF is the small difference of large terms: deconvolution's energy
+    # is quadratic, its first GN step lands near the minimum)
+    rng = np.random.default_rng(11)
+    p = {k: rng.normal(size=tuple(v.shape)).astype(np.float32) for k, v in plan._U.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = linear_parts(plan, p)
+    torch.cuda.synchronize()
+    log(f"{label}: peak memory of the setup and one JᵀJ·p "
+        f"{(torch.cuda.max_memory_allocated() - base) / 1e6:.1f} MB")
+    t0 = time.perf_counter()
+    cpu_plan, _ = full_plan(tt, name, "cpu")
+    want = linear_parts(cpu_plan, p)
+    del cpu_plan
+    log(f"{label}: the CPU path's linear parts {time.perf_counter() - t0:.2f} s")
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    log(f"{label}, step 0, card vs CPU: cost {got[0]!r} vs {want[0]!r}, rel {rel:.3e}")
+    if not rel <= GRID_LINEAR_RTOL:
+        raise AssertionError(f"{label}: cost, card {got[0]} vs CPU {want[0]}")
+    for what, a, b in zip(("-JᵀF", "diag(JᵀJ)", "JᵀJ·p"), got[1:], want[1:]):
+        for k in b:
+            err = float(np.abs(a[k] - b[k]).max())
+            scale = float(np.abs(b[k]).max())
+            log(f"{label}, card vs CPU: {what} {k} max|diff| {err:.3e} = "
+                f"{err / scale:.3e} x max|ref|")
+            if not err <= GRID_LINEAR_RTOL * scale:
+                raise AssertionError(f"{label}: {what} of {k}, card vs CPU, "
+                                     f"{err} > {GRID_LINEAR_RTOL} x {scale}")
+    del got, want
+
+    t0 = time.perf_counter()
+    plan.warmup()
+    log(f"{label}: warmup {time.perf_counter() - t0:.3f} s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    costs, step_s = [plan.final_cost], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        plan.run_steps(1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        costs.append(plan.final_cost)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"{label} costs after steps 0-{steps}: {costs}")
+    log(f"{label} step times {[round(t * 1e3, 2) for t in step_s]} ms, median of steps 2-"
+        f"{steps} {float(np.median(step_s[1:])) * 1e3:.2f} ms")
+    log(f"{label}: peak memory the steps allocated {peak / 1e6:.1f} MB"
+        + (f" (the unblocked fiber: {fiber / 1e6:.1f} MB)" if name == "deconvolution" else ""))
+    for k, U in plan.unknowns().items():
+        if not bool(torch.isfinite(U).all()):
+            raise AssertionError(f"{label}: non-finite unknowns {k}")
+    which = FULL_REFERENCE[name]
+    refs = {"f32": FULL_JAX_F32_COSTS[name], "f64": FULL_JAX_F64_COSTS[name]}
+    ref, tols = refs[which], FULL_TRAJ_RTOL[name]
+    for k in range(steps + 1):
+        rel = abs(costs[k] - ref[k]) / abs(ref[k])
+        others = ", ".join(f"JAX in {w} {r[k]!r}, rel {abs(costs[k] - r[k]) / abs(r[k]):.3e}"
+                           for w, r in refs.items() if w != which and r is not None)
+        log(f"{label} step {k}: cost {costs[k]!r} vs JAX in {which} {ref[k]!r}, rel {rel:.3e} "
+            f"(limit {tols[k]})" + (f"; vs {others}" if others else ""))
+        if not (np.isfinite(costs[k]) and rel <= tols[k]):
+            raise AssertionError(f"{label}, step {k}: cost {costs[k]} vs JAX in {which} {ref[k]}")
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _step_copy(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    busy = busy_seconds(events)
+    log(f"{label}: profiled step wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, "
+        f"idle share {1 - busy / wall:.3f}"
+        + (f", blocked contraction {blocked_busy(events) * 1e3:.2f} ms of it" if blocked else ""))
+
+
+
+def run_kernel_cases(cases):
+    """Each case's kernel against its plain version (and a library call,
+    where there is one) on the card, with the times of each; returns the
+    RECORD entries."""
+    record = {}
+    for name, tag, kern, plain, lib, in_bytes, flops, terms in cases:
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = compare(f"{name}[{tag}]", got, ref, terms() if terms else None)
+        ms, dev_ms = timed_ms(kern, 20), device_ms(kern)
+        plain_ms = timed_ms(plain, 5)
+        lib_ms = lib_dev_ms = None
+        if lib is not None:
+            lib_ms, lib_dev_ms = timed_ms(lib, 20), device_ms(lib)
+        moved = in_bytes + nbytes(*got)
+        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        lib_txt = (f", library {lib_ms:.4f} ms (device {lib_dev_ms:.4f})"
+                   if lib is not None else "")
+        log(f"{name}[{tag}]: max|err| {err:.3e}, kernel {ms:.4f} ms (device {dev_ms:.4f}), "
+            f"plain {plain_ms:.4f} ms{lib_txt}, bound {bound_ms:.4f} ms "
+            f"({moved / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP)")
+        if (name, tag) in RECORD:
+            record[RECORD[name, tag]] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                                         "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                         "bound_by": "bytes" if bytes_ms >= ops_ms
+                                         else "operations",
+                                         "library_ms": lib_ms,
+                                         "library_device_ms": lib_dev_ms}
+    return record
+
+
 def main():
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1873,38 +2190,15 @@ def main():
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
-    record = {}
     cases = kernel_cases(dev, rng, scene[0], skew_scene[0]["oToC"])
     cases += skew_kernel_cases(dev, rng, skew_tables(ba, tt, skew_scene))
     cases += measurement_kernel_cases(dev, rng)
     arap_reg = arap_plan(tt, ARAP_SIDE, "grouped", "cuda")._prep["consts"][1]["bsr"]
     cases += arap_kernel_cases(dev, rng, arap_reg)
+    cases += bf16_wide_cases(dev, rng)
     cases += model_kernel_cases(dev, rng, tt)
-    for name, tag, kern, plain, lib, in_bytes, flops, terms in cases:
-        got, ref = kern(), plain()
-        torch.cuda.synchronize()
-        err = compare(f"{name}[{tag}]", got, ref, terms() if terms else None)
-        ms, dev_ms = timed_ms(kern, 20), device_ms(kern)
-        plain_ms = timed_ms(plain, 5)
-        lib_ms = lib_dev_ms = None
-        if lib is not None:
-            lib_ms, lib_dev_ms = timed_ms(lib, 20), device_ms(lib)
-        moved = in_bytes + nbytes(*got)
-        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-        bound_ms = max(bytes_ms, ops_ms)
-        lib_txt = (f", library {lib_ms:.4f} ms (device {lib_dev_ms:.4f})"
-                   if lib is not None else "")
-        log(f"{name}[{tag}]: max|err| {err:.3e}, kernel {ms:.4f} ms (device {dev_ms:.4f}), "
-            f"plain {plain_ms:.4f} ms{lib_txt}, bound {bound_ms:.4f} ms "
-            f"({moved / 1e6:.1f} MB, {flops / 1e6:.1f} MFLOP)")
-        if (name, tag) in RECORD:
-            record[RECORD[name, tag]] = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                         "bound_by": "bytes" if bytes_ms >= ops_ms
-                                         else "operations",
-                                         "library_ms": lib_ms,
-                                         "library_device_ms": lib_dev_ms}
-    del cases, got, ref
+    record = run_kernel_cases(cases)
+    del cases
     torch.cuda.synchronize()
     log(f"phase 2 kernels vs plain: {time.perf_counter() - t0:.2f} s")
 
@@ -1992,6 +2286,13 @@ def main():
     torch.cuda.synchronize()
     log(f"phase 17 the io readers' samples, cuda vs cpu: {time.perf_counter() - t0:.2f} s")
     runs.update(model_runs)
+
+    for k, name in ((18, "deconvolution"), (19, "optical_flow")):
+        t0 = time.perf_counter()
+        phase_full_width(tt, name)
+        torch.cuda.synchronize()
+        log(f"phase {k} {name} {FULL_SIZE}², the full-width path: "
+            f"{time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8),
     # and on each run of phases 15-17 that launched it

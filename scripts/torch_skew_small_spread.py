@@ -5,6 +5,7 @@ behind chip_smoke.py's phase-3 and phase-12 limits for that scene.
     python3 scripts/torch_skew_small_spread.py [--seeds 8] [--runs 3] [--out FILE]
                                                [--linear-solver schur_pcg|schur_dense]
                                                [--scene skewed|schur_small]
+                                               [--device cuda|cpu]
 
 For each seed, ``skewed_inputs(16, 1400, 5600, seed)`` (with --scene
 schur_small: ``synthetic_inputs(8, 64, 4, seed)``, chip_smoke.py's
@@ -14,12 +15,17 @@ order each run), under scalar Jacobi and block Jacobi
 (``preconditioner="auto"``), with the plan's ``linear_solver`` (default
 pcg).  One JSON line per (seed, preconditioner, card run): the largest
 max|dU|/max|U| and |dcost|/cost over the steps, card against CPU.  A
-last line holds the largest of each per preconditioner.  Needs CUDA.
+last line holds the largest of each per preconditioner.  Needs CUDA,
+but for --device cpu: the repeated runs are then CPU runs too, at 1, 2,
+4 and 8 torch threads in turn, held against a first CPU run at the
+default thread count (how far the CPU's own rounding moves the
+trajectory).
 """
 import argparse
 import sys
 
 import numpy as np
+import torch
 
 from torch_measure import card, emit
 
@@ -49,8 +55,11 @@ def main(argv=None):
     ap.add_argument("--linear-solver", choices=["pcg", "schur_pcg", "schur_dense"],
                     default="pcg")
     ap.add_argument("--scene", choices=["skewed", "schur_small"], default="skewed")
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="device of the repeated runs")
     args = ap.parse_args(argv)
-    smi = card()
+    smi = card() if args.device == "cuda" else "cpu"
+    threads = torch.get_num_threads()
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
@@ -69,8 +78,11 @@ def main(argv=None):
                 ref_costs, ref_Us = solve(tt, ba, inputs, dims, "cpu", precond,
                                           args.linear_solver)
                 for run in range(args.runs):
-                    costs, Us = solve(tt, ba, inputs, dims, "cuda", precond,
+                    if args.device == "cpu":
+                        torch.set_num_threads((1, 2, 4, 8)[run % 4])
+                    costs, Us = solve(tt, ba, inputs, dims, args.device, precond,
                                       args.linear_solver)
+                    torch.set_num_threads(threads)
                     du = max(float(np.abs(u[n] - r[n]).max() / np.abs(r[n]).max())
                              for u, r in zip(Us, ref_Us) for n in r)
                     dc = max(abs(a - b) / abs(b) for a, b in zip(costs, ref_costs))
@@ -78,13 +90,13 @@ def main(argv=None):
                     w[0], w[1] = max(w[0], du), max(w[1], dc)
                     emit({"seed": seed, "scene": args.scene,
                           "linear_solver": args.linear_solver,
-                          "preconditioner": precond, "run": run,
+                          "device": args.device, "preconditioner": precond, "run": run,
                           "observations": dims["O"], "max_rel_dU": du, "max_rel_dcost": dc,
-                          "cpu_costs": ref_costs, "card_costs": costs, "card": smi}, out)
+                          "cpu_costs": ref_costs, "run_costs": costs, "card": smi}, out)
         emit({"largest": {p: {"max_rel_dU": w[0], "max_rel_dcost": w[1]}
                           for p, w in worst.items()},
               "scene": args.scene, "linear_solver": args.linear_solver,
-              "seeds": args.seeds, "runs": args.runs, "card": smi}, out)
+              "device": args.device, "seeds": args.seeds, "runs": args.runs, "card": smi}, out)
     finally:
         if out is not None:
             out.close()

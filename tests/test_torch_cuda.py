@@ -1224,3 +1224,112 @@ def test_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
             out = (out[0], *out[1])
         for got, ref in zip(out, refs):
             close(got.cpu(), ref.cpu(), CUDA_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ci,Cj", [(9, 3), (16, 3)])
+def test_fused_pair_bf16_atomics_wide_rows_cuda_match_plain(cuda, Ci, Cj):
+    """The bf16 atomics body at more than 8 row channels (instantiated per
+    (Ci, Cj) bound, as the f32 one): a wide level (W = 12) that
+    fused_pair_route(bf16=True) sends there, one launch, CUDA_TOL on the
+    same bf16 values; 17 row channels raise."""
+    W, N, S = 12, 1001, 500
+    assert fusedpair.fused_pair_route(W, N, Ci, Cj, S, bf16=True) == "fused_pair_bf16_atomics"
+    rng = np.random.default_rng(Ci)
+    ids = rng.integers(0, S, (W, N)).astype(np.int32)
+    ids[:, -7:] = S + 3
+    args = (torch.from_numpy(ids).to(cuda),
+            torch.from_numpy(bf16_round(rng.normal(size=(W * Ci * Cj, N)).astype(np.float32)))
+            .to(cuda).bfloat16(),
+            *(torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(cuda)
+              for s in ((Cj, S), (Ci, N))))
+    n0 = fusedpair.fused_pair_bf16_atomics.launches
+    rows, cols = fusedpair.fused_pair_bf16_atomics(*args, Ci=Ci, Cj=Cj, S=S)
+    torch.cuda.synchronize()
+    assert fusedpair.fused_pair_bf16_atomics.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+    big = (args[0], torch.zeros((W * 17 * Cj, N), device=cuda).bfloat16(), args[2],
+           torch.zeros((17, N), device=cuda))
+    with pytest.raises(ValueError, match="outside"):
+        fusedpair.fused_pair_bf16_atomics(*big, Ci=17, Cj=Cj, S=S)
+
+
+def _item6_plan(cuda, which):
+    """A plan of chip_smoke.py's phase-2 model cases of the contractions and
+    sampled images, initialised on the card."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models.cases import case_energy, model_case
+
+    if which == "embedded_bf16":
+        name = "embedded_mesh_deformation"
+        m, ins, dims, solver, _ = model_case(name, big=True)
+        plan = tt.load_energy(case_energy(name, m)).plan(dims, solver=solver, device=cuda,
+                                                         block_dtype="bf16")
+    else:  # "<name>_big": CASES' size above the dense threshold
+        name = which.removesuffix("_big")
+        m, ins, dims, solver, _ = model_case(name, big=which.endswith("_big"))
+        plan = tt.load_energy(case_energy(name, m)).plan(dims, solver=solver, device=cuda)
+    plan.init(ins)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,want", [
+    ("deconvolution", {"oh_setup_aggregate"}),
+    ("spatially_varying_deconvolution", {"oh_setup_aggregate"}),
+    ("face_fitting", {"oh_setup_aggregate"}),
+    ("bundle_fusion", {"oh_setup_aggregate"}),
+    ("bundle_fusion_big", {"oh_setup_products", "fused_pair_apply_atomics"}),
+    ("embedded_bf16", {"fused_pair_bf16_atomics"})])
+def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
+    """Every kernel one solver step launches on the contraction and
+    sampled-image models at tests/test_models2.py's sizes (their stored
+    point Jacobians' scatters through the aggregation kernel),
+    bundle_fusion at 700 frames (one-hot camera rows) and embedded
+    deformation under block_dtype="bf16" (its 9-channel rotation rows on
+    the bf16 atomics body), at that step's shapes, recipes and tables on
+    seeded values: one launch a call, CUDA_TOL."""
+    from thallo_tpu_torch import lower
+    from thallo_tpu_torch.solver import blocksparse
+
+    plan = _item6_plan(cuda, which)
+    calls = {}
+    names = PATH_KERNELS + ("fused_pair_bf16_atomics",)
+    for mod, name in [(blocksparse, n) for n in names] + [(lower, "oh_setup_aggregate")]:
+        def record(*a, real=getattr(mod, name), name=name, **k):
+            table = a[2] if name == "oh_setup_products" else a[1] \
+                if name == "oh_setup_aggregate" else a[0]
+            calls.setdefault((name, table.data_ptr(), tuple(a_.shape for a_ in a),
+                              tuple(sorted(k.items()))), (name, a, k))
+            return real(*a, **k)
+        monkeypatch.setattr(mod, name, record)
+    plan.step()
+    monkeypatch.undo()
+    assert {c[0] for c in calls.values()} == want
+    rng = np.random.default_rng(7)
+
+    def normal(x):
+        return torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(
+            device=cuda, dtype=x.dtype)
+
+    for name, a, k in calls.values():
+        if name == "oh_setup_products":
+            args = (normal(a[0]), normal(a[1]), a[2])
+            refs = (ohsetup.oh_setup_products_reference(*args, **k),)
+            fn = ohsetup.oh_setup_products
+        elif name == "oh_setup_aggregate":
+            args = (normal(a[0]), a[1])
+            refs = (ohsetup.oh_setup_aggregate_reference(*args, **k),)
+            fn = ohsetup.oh_setup_aggregate
+        else:
+            args = (a[0], normal(a[1]), normal(a[2]), normal(a[3]))
+            refs = fusedpair.fused_pair_apply_reference(*args, **k)
+            fn = getattr(fusedpair, name)
+        n0 = fn.launches
+        out = fn(*args, **k)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1, name
+        for got, ref in zip(out if isinstance(out, tuple) else (out,), refs):
+            close(got.cpu(), ref.cpu(), CUDA_TOL)

@@ -14,11 +14,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import thallo_tpu_torch as tt  # noqa: E402
-from tests.test_torch_models import CASES, assert_matches_jax  # noqa: E402
+from tests.test_torch_models import assert_matches_jax  # noqa: E402
+from thallo_tpu_torch.models.cases import GRAPH_MODELS  # noqa: E402
 from thallo_tpu_torch.models import arap_mesh_deformation as tarap  # noqa: E402
 from thallo_tpu_torch.ops.fusedpair import fused_pair_route  # noqa: E402
 
-GRAPH_MODELS = sorted(n for n, case in CASES.items() if case[1] is not None)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -54,9 +54,12 @@ storage): ``fused_pair_apply`` and ``fused_pair_apply_wloop`` take
 and ``fused_pair_apply_wloop_bf16``, the bf16 instantiations of the two
 persistent kernels (block values widened to f32 on load, every other
 operand f32; the persistent one takes ``BF16_ELEMS`` neighbouring
-elements per thread where N is even, read as one ``__nv_bfloat162``).  Shapes those do not take go to
-``fused_pair_bf16_atomics`` (``csrc/fused_pair_variants.cu`` mode 0, one
-thread per element, cols by global atomics: the first bf16 body).
+elements per thread where N is even, read as one ``__nv_bfloat162``).
+Shapes those do not take go to ``fused_pair_bf16_atomics``
+(``csrc/fused_pair_variants.cu`` mode 0, one thread per element, cols by
+global atomics: the first bf16 body; instantiated per (Ci, Cj) bound as
+the f32 atomics body, so it takes Ci up to ``ATOMICS_MAX_CI`` too).
+``fused_pair_route(..., bf16=True)`` names the bf16 kernel of a level.
 
 The measurement scripts' kernels (``scripts/tpu_fused_pair_micro.py``,
 ``scripts/tpu_fused_variants.py``) are the same pair on bf16 blocks:
@@ -177,20 +180,30 @@ def persistent_fits(Ci: int, Cj: int, S: int) -> bool:
     return (Ci, Cj) in PERSISTENT_PAIRS and Cj * S * 4 <= PERSISTENT_MAX_SMEM
 
 
-def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int) -> str:
+# a level's f32 route -> its kernel on bf16 blocks (every other route:
+# fused_pair_bf16_atomics)
+BF16_ROUTES = {"fused_pair_apply": "fused_pair_apply_bf16",
+               "fused_pair_apply_wloop": "fused_pair_apply_wloop_bf16"}
+
+
+def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = False) -> str:
     """The kernel a level of W x N_t elements takes on the card, by the
     name of its wrapper: "fused_pair_apply" (persistent) or
     "fused_pair_apply_wloop" for the specialised pairs, by the level's
     shape; "fused_pair_apply_wloop_chunked" for other wide levels whose
     S fits the chunked kernel's accumulator and whose Ci its register
-    arrays take (MAX_CI); else "fused_pair_apply_atomics"."""
+    arrays take (MAX_CI); else "fused_pair_apply_atomics".  bf16: the
+    level's kernel on bf16 blocks (BF16_ROUTES, else
+    "fused_pair_bf16_atomics", which takes Ci up to ATOMICS_MAX_CI)."""
     wide = W >= WLOOP_MIN_W
     if persistent_fits(Ci, Cj, S):
-        return "fused_pair_apply" if not wide and N_t >= PERSISTENT_MIN_N \
+        route = "fused_pair_apply" if not wide and N_t >= PERSISTENT_MIN_N \
             else "fused_pair_apply_wloop"
-    if wide and Ci <= MAX_CI and S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
-        return "fused_pair_apply_wloop_chunked"
-    return "fused_pair_apply_atomics"
+    elif wide and Ci <= MAX_CI and S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
+        route = "fused_pair_apply_wloop_chunked"
+    else:
+        route = "fused_pair_apply_atomics"
+    return BF16_ROUTES.get(route, "fused_pair_bf16_atomics") if bf16 else route
 
 
 def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols,
@@ -384,7 +397,8 @@ _ATOMICS, _ROWS_ONLY, _SMEM, _PARTIALS = range(4)  # csrc/fused_pair_variants.cu
 
 def _bf16_launch(fn, mode, ids2d, blocks_wm, pcol, prow, Ci, Cj, S):
     what = fn.__name__
-    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, torch.bfloat16)
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, torch.bfloat16,
+                            ATOMICS_MAX_CI if mode == _ATOMICS else MAX_CI)
     dev = ids2d.device
     if mode >= _SMEM and Cj * S * 4 > _cuda.MAX_DYNAMIC_SMEM:
         raise ValueError(f"{what}: Cj*S={Cj * S} exceeds the "
@@ -413,8 +427,9 @@ def _bf16_launch(fn, mode, ids2d, blocks_wm, pcol, prow, Ci, Cj, S):
 
 def fused_pair_bf16_atomics(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """fused_pair_apply on bf16 blocks by one thread per element and one
-    global atomic per cols value (the first bf16 body): any Ci <= 8,
-    Cj <= 16 and S; the shapes the bf16 persistent kernels do not take.
+    global atomic per cols value (the first bf16 body): any
+    Ci <= ATOMICS_MAX_CI, Cj <= 16 and S; the shapes the bf16 persistent
+    kernels do not take.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)

@@ -49,10 +49,11 @@ def make_plan(spec: ProblemSpec, dim_sizes, solver="gauss_newton", **options):
 
 
 def default_schedule(g: LoweredGroup) -> JTJpSchedule:
-    """thallo_tpu/schedule.py default: graph groups (any slot needing a
-    real gather) materialize JᵀJ block-sparse; stencil groups run
-    matrix-free."""
-    if g.uslots and g.has_gathers:
+    """thallo_tpu/schedule.py:473-486: graph groups (any slot needing a
+    real gather) without contractions materialize JᵀJ block-sparse;
+    stencil and contraction groups run matrix-free."""
+    if (g.uslots and not g.con_domains and all(not s.dep_cons for s in g.uslots)
+            and g.has_gathers):
         return JTJpSchedule.PRECOMPUTE_JTJ
     return JTJpSchedule.LINEARIZE
 
@@ -163,8 +164,19 @@ class Plan:
             exprs = [e for nr in nrs for e in nr.exprs]
             name = "_".join(nr.name for nr in nrs) if len(nrs) > 1 else name
             dorder = next((nr._reorder for nr in nrs if nr._reorder), None)
+            # split(domain, B) directives: contraction blocking
+            con_splits = {sp[0]: sp[1] for nr in nrs for sp in getattr(nr, "_splits", [])
+                          if isinstance(sp, tuple)}
             lg = LoweredGroup(name, exprs, spec, self.dim_sizes, self.dtype,
-                              domain_order=dorder)
+                              domain_order=dorder, con_splits=con_splits)
+            if lg.mslots and not lg.ca_jac_ok:
+                # a computed-array access inside a contraction fiber: JAX
+                # differentiates the force-inlined twin of the group
+                # (thallo_tpu/plan.py:337-350); the port plans that twin, whose
+                # residuals are the same values
+                lg = LoweredGroup(name, inline_computed(exprs, force=True), spec,
+                                  self.dim_sizes, self.dtype, domain_order=dorder,
+                                  con_splits=con_splits)
             user_directed = any(any(nr._materialize.values()) or any(nr._sparse_mat.values())
                                 for nr in nrs)
             schedule = nrs[0].get_schedule() if user_directed else default_schedule(lg)

@@ -240,10 +240,13 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
     (thallo_tpu/solver/blocksparse.py:381-383, :468-470): for a
     pure-stencil group, and when an index array's rank-keyed tables
     exceed the padding budget; the solver then runs the group from its
-    stored point Jacobians."""
-    jslots = group.uslots
+    stored point Jacobians.  The slots are the group's jac slots (the
+    unknown slots, then the composed slots of materialized computed
+    arrays); a group with contractions builds none."""
+    jslots = group.jac_slots
     R = group.R
-    if not jslots or R == 0 or all(rp is not None for rp in group._rolls):
+    if not jslots or R == 0 or group.con_domains or any(s.dep_cons for s in jslots) \
+            or all(rp is not None for rp in group._rolls):
         return None
     slot_N = [int(np.prod([d.size for d in s.image.dims])) for s in jslots]
     nslots = len(jslots)
@@ -565,17 +568,15 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
             prow = prow.index_select(1, sel)  # [Ci, N_t]: the overflow elements
         pcol = pT[bsr.slot_images[j]]
         if p_idx in partnered:
-            route = fused_pair_route(W, N_t, Ci, Cj, pcol.shape[1])
-            if blocks[p_idx].dtype == torch.bfloat16:  # the bf16 instantiations
-                fn = {"fused_pair_apply": fused_pair_apply_bf16,
-                      "fused_pair_apply_wloop": fused_pair_apply_wloop_bf16,
-                      }.get(route, fused_pair_bf16_atomics)
-            else:
-                fn = {"fused_pair_apply": fused_pair_apply,
-                      "fused_pair_apply_atomics": fused_pair_apply_atomics,
-                      "fused_pair_apply_wloop": fused_pair_apply_wloop,
-                      "fused_pair_apply_wloop_chunked": fused_pair_apply_wloop_chunked,
-                      }[route]
+            route = fused_pair_route(W, N_t, Ci, Cj, pcol.shape[1],
+                                     bf16=blocks[p_idx].dtype == torch.bfloat16)
+            fn = {"fused_pair_apply": fused_pair_apply,
+                  "fused_pair_apply_atomics": fused_pair_apply_atomics,
+                  "fused_pair_apply_wloop": fused_pair_apply_wloop,
+                  "fused_pair_apply_wloop_chunked": fused_pair_apply_wloop_chunked,
+                  "fused_pair_apply_bf16": fused_pair_apply_bf16,
+                  "fused_pair_apply_wloop_bf16": fused_pair_apply_wloop_bf16,
+                  "fused_pair_bf16_atomics": fused_pair_bf16_atomics}[route]
             rows, cols = fn(ids, blocks[p_idx], pcol, prow, Ci=Ci, Cj=Cj, S=pcol.shape[1])
             add(i, rows, sel)
             add(j, cols)

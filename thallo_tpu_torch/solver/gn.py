@@ -33,7 +33,18 @@ Each group runs one of these schedules of JᵀJ·p (``make_jtjp``):
   ``torch.func.jvp`` and ``vjp`` of the residual;
 * INLINE (matrix-free): ``jvp`` and ``vjp`` of the residual anew every
   iteration.  Graph groups under LINEARIZE or INLINE raise at plan time
-  (ROADMAP queue 1, item 4a).
+  (ROADMAP queue 1, item 4a), but for contraction groups, which JAX runs
+  matrix-free: they apply JᵀJ·p from their point Jacobians over the
+  contracted slots ([rc, C, R, *dep]) as LINEARIZE does;
+* contraction blocking (a group with a ``con_block``, JAX's
+  ``gn.py:517-525, 629-634``): −JᵀF and diag(JᵀJ) from
+  ``blocked_jtf_diag`` and JᵀJ·p from ``blocked_jtjp`` every iteration,
+  whatever the schedule, one contraction block's fiber at a time.
+
+A group with materialized computed arrays takes its Jacobians over its
+jac slots (the unknown slots and the composed ones, JAX's
+``gn.py:550-556``): the block-sparse setup, the stored point Jacobians
+and the scatters all run over ``g.jac_slots``.
 
 Exclude masks (``Offset.Exclude(...)``) zero the excluded unknowns'
 Jacobian columns in the setup, mask p on entry to and JᵀJ·p on exit
@@ -70,7 +81,7 @@ the dense Jacobian.  ``schur_eliminate`` names the eliminated images
 ``schur_dense_max`` caps the kept system's DOF.
 
 Not ported yet (NotImplementedError at plan time): INLINE and LINEARIZE
-on graph groups, and double precision.
+on graph groups without contractions, and double precision.
 """
 from __future__ import annotations
 
@@ -144,6 +155,11 @@ def apply_masks(t, masks):
     if not masks:
         return t
     return {k: v * masks[k][..., None] if k in masks else v for k, v in t.items()}
+
+
+def _per_point(t, like):
+    """[rc, R] per-point values against a Jacobian [rc, C, R, *dep]."""
+    return t.reshape(t.shape[:1] + (1,) + t.shape[1:] + (1,) * (like.ndim - 3))
 
 
 def _matmul_f32(a, b):
@@ -300,7 +316,7 @@ class CompiledSolver:
                                      name=f"exclude_{im.name}")
             for im in spec.unknowns if im.exclude_expr is not None}
         for gp in groups:
-            if gp.group.has_gathers and gp.schedule in MATRIX_FREE:
+            if gp.group.has_gathers and gp.schedule in MATRIX_FREE and not gp.group.con_domains:
                 raise NotImplementedError(
                     f"group {gp.name!r}: schedule {gp.schedule.value} on a graph group (slots "
                     "gathered through sparse maps, not stencil rolls) is not ported yet "
@@ -418,7 +434,7 @@ class CompiledSolver:
         if not masks:
             return jacsT
         out = []
-        for i, slot in enumerate(g.uslots):
+        for i, slot in enumerate(g.jac_slots):
             m = masks.get(slot.image.name)
             out.append(jacsT[i] if m is None else jacsT[i] * g.gather_mask(i, m, consts))
         return out
@@ -450,7 +466,16 @@ class CompiledSolver:
         diag = self._zeros_like_unknowns()
         for gi, (gp, c) in enumerate(zip(self.groups, consts)):
             g = gp.group
-            if not g.uslots:
+            if g.con_block is not None:
+                with record_function("thallo::blocked"):
+                    _, jtr_d, d2_d, store = g.blocked_jtf_diag(U, inputs, c)
+                jac_store[str(gi)] = {"blocked": store}
+                for name, v in jtr_d.items():
+                    mjtf[name] = mjtf[name] - v
+                for name, v in d2_d.items():
+                    diag[name] = diag[name] + v
+                continue
+            if not g.jac_slots:
                 continue
             r, jacs = g.point_jacobians_cm(U, inputs, c)
             jacs = self._mask_jacs_cm(g, jacs, masks, c)
@@ -464,11 +489,11 @@ class CompiledSolver:
                 continue
             if self._stores_jacs(gp, c):
                 jac_store[str(gi)] = {"jacs": tuple(jacs)}
-            for i, slot in enumerate(g.uslots):
-                J = jacs[i]  # [rc, C, R]
+            for i, slot in enumerate(g.jac_slots):
+                J = jacs[i]  # [rc, C, R, *dep]
                 C = J.shape[1]
                 # Jᵀr and partial² stacked, so one scatter carries both
-                parts = torch.cat([(J * r[:, None]).sum(0), (J * J).sum(0)])
+                parts = torch.cat([(J * _per_point(r, J)).sum(0), (J * J).sum(0)])
                 both = g.scatter_slot(i, parts, c)  # [*dims, 2C]
                 name = slot.image.name
                 mjtf[name] = mjtf[name] - both[..., :C]
@@ -483,17 +508,19 @@ class CompiledSolver:
         per-point Jacobians stored this step (materialized J, LINEARIZE,
         and a materialized-JᵀJ group whose tables were not built: gather
         p, J·p, scatter Jᵀ(J·p)).  p is masked on entry and Ap on exit."""
-        pairs, jac_groups, dense_mats, inline = [], [], [], []
+        pairs, jac_groups, dense_mats, inline, blocked = [], [], [], [], []
 
         def residual_fn(g, c):
             return lambda X: g.residuals_cm(X, inputs, c)
 
         for gi, gp in enumerate(self.groups):
             g, c = gp.group, consts[gi]
-            if not g.uslots:
+            if not g.jac_slots:
                 continue
             entry = jac_store.get(str(gi), {})
-            if "bsr" in entry:
+            if "blocked" in entry:
+                blocked.append((g, c, entry["blocked"]))
+            elif "bsr" in entry:
                 pairs.append((c["bsr"], entry["bsr"]))
             elif self._stores_jacs(gp, c):
                 jac_groups.append((g, c, entry["jacs"]))
@@ -522,13 +549,17 @@ class CompiledSolver:
             for res_fn in inline:
                 _, Jp = torch.func.jvp(res_fn, (U,), (pm,))
                 add(Ap, torch.func.vjp(res_fn, U)[1](Jp)[0])
+            for g, c, store in blocked:
+                with record_function("thallo::blocked"):
+                    add(Ap, g.blocked_jtjp(store, pm, c))
             for g, c, jacs in jac_groups:
                 Jp = None  # [rc, R]: sum over slots of J_slot · p_slot
-                for i in range(len(g.uslots)):
+                for i in range(len(g.jac_slots)):
                     term = (jacs[i] * g.gather_slot(i, pm, c)[None]).sum(1)
+                    term = term.reshape(term.shape[0], g.R, -1).sum(-1)  # contracted axes
                     Jp = term if Jp is None else Jp + term
-                for i, slot in enumerate(g.uslots):
-                    contrib = (jacs[i] * Jp[:, None]).sum(0)  # [C, R]
+                for i, slot in enumerate(g.jac_slots):
+                    contrib = (jacs[i] * _per_point(Jp, jacs[i])).sum(0)  # [C, R, *dep]
                     add(Ap, {slot.image.name: g.scatter_slot(i, contrib, c)})
             return apply_masks(Ap, masks)
 
@@ -807,7 +838,7 @@ class CompiledSolver:
         cross = {}
         for gi, gp in enumerate(self.groups):
             g = gp.group
-            if not g.uslots:
+            if not g.jac_slots:
                 continue
             bsr = consts[gi]["bsr"]
             if bsr is None or "bsr" not in jac_store.get(str(gi), {}):
@@ -941,7 +972,7 @@ class CompiledSolver:
         kk_cross = []                         # (a, b, vals [M, Ca, Cb], ia [M], ib [M])
         couplings = {e: [] for e in elim}     # elim -> [(B [Ce, Ck, D, N_t], cols, keep, sel)]
         for gi, gp in enumerate(self.groups):
-            if not gp.group.uslots:
+            if not gp.group.jac_slots:
                 continue
             bsr = consts[gi]["bsr"]
             entry = jac_store.get(str(gi), {})
