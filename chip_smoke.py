@@ -106,9 +106,10 @@ its seconds; any failure exits non-zero):
      steps: linear_solver="schur_pcg" and "schur_dense" on test_schur's
      8-camera scene (``synthetic_inputs(8, 64, 4, seed=3)``) and on the
      small skewed scene, step 1 within phase 3's bounds (the skewed
-     block-Jacobi ones there), steps 1-5 within SCHUR_TRAJ, costs never
-     rising, a fused-pair kernel launched; schur_dense's first step
-     against linear_solver="direct" on the card within EXACT_TOL;
+     block-Jacobi ones there), steps 1-5 within SCHUR_TRAJ plus
+     SCHUR_COST_FLOOR x the initial cost, costs never rising, a
+     fused-pair kernel launched; schur_dense's first step against
+     linear_solver="direct" on the card within EXACT_TOL;
  13. the uniform 1M LM solve under schur_pcg (SCHUR_L_ITERATIONS PCG
      iterations on the reduced camera system, 10 steps):
      fused_pair_apply, oh_setup_products and fullrepeat_setup launched,
@@ -160,7 +161,31 @@ its seconds; any failure exits non-zero):
      contraction's share of it;
  19. optical_flow at 512² (synthetic_inputs(512, 512, shift=(0.75,
      -0.4))), LM, lIterations 15, 10 steps, the Q-ratio stop off: the same
-     checks and logs.
+     checks and logs;
+ 20. double_precision at full width: (a) the uniform 1M LM solve, 10
+     steps, through the f64 oh_setup_products, fullrepeat_setup and
+     persistent fused pair (each launched, no f32 kernel), costs never
+     rising, final <= 1e-2 x initial beside phases 4 and 9, the step
+     median and peak memory, the linear parts at the initial unknowns card
+     vs the port's CPU path in f64 (F64_LINEAR_RTOL); (b) ARAP 256² GN in
+     f64 through fused_pair_apply_atomics_f64, its costs against JAX's f64
+     run (ARAP_JAX_F64_COSTS, ARAP_F64_RTOL); (c) phase 12's small skewed
+     schur_dense scene in f64 card vs CPU, the split far below
+     SCHUR_COST_FLOOR; (d) the uniform 1M LM solve under PRECOMPUTE_J in
+     f64, 10 steps, its camera scatters through oh_setup_aggregate_f64,
+     its first 3 steps against the f64 block-sparse solve (F64_CROSS);
+     (e) a parity check at test size: deconvolution 16² and face_fitting
+     in f64 card vs CPU through oh_setup_aggregate_f64 (F64_MODELS).
+     Phase 2 holds each f64 instantiation against its plain f64 version
+     at the shapes, recipes and tables of (a), (b) and (d), taken from
+     one step of each plan (F64_KERNEL_TOL);
+ 21. Plan.jacobian: the small BA scene and image_warping 64² with its
+     excluded square, COO card vs CPU; at the uniform 1M scene Jᵀr from
+     the COO against the solver's -JᵀF (JAC_TOL), the COO's size logged;
+ 22. the drivers (thallo_tpu_torch/examples): run_model on a grid, a
+     graph and a BA model, every gallery row (synthetic and the BAL and
+     PLY samples) with its cost falling, get_performance_summary() at
+     timing levels 1 and 2.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -185,6 +210,11 @@ import torch
 SEED = 0
 # phase 2: f32 on both sides; only the order of (atomic) sums differs
 KERNEL_TOL = 1e-5
+# the f64 instantiations against their plain f64 versions: an f64 sum of
+# n terms in another order moves by about 2^-53 sqrt(n) x their
+# magnitudes; the hot outputs here sum ~1000 terms (a camera of the
+# uniform 1M scene), 1e-12 x max|ref| is ~100x that and 1e7x below f32
+F64_KERNEL_TOL = 1e-12
 # ... except on the skewed scene, whose hot camera sums up to ~1e6 terms
 # into one output: an f32 sum of n terms in another order moves by about
 # 2^-24 sqrt(n/3) x the sum of their magnitudes (measured: 19 on the
@@ -240,6 +270,21 @@ EXACT_TOL = 5e-5
 # 4.6e-2, and one smoke run failed at 5.2e-2 of the cost: PERF.md's Open
 # questions.)
 SCHUR_TRAJ = {"small": (2e-4, 1e-2), "small skewed": (5e-3, 5e-2)}  # (x max|U|, cost)
+# Near convergence the relative cost check reads rounding: an accept on
+# one device against a reject on the other leaves the two LM runs at
+# costs 5e-2 apart relative but 3e-7 of the initial cost apart (an
+# earlier failed smoke run: 0.00333 against 0.00316, c0 10710).  Each step's cost
+# is held to SCHUR_TRAJ's relative bound plus SCHUR_COST_FLOOR x the CPU
+# run's initial cost.  Measured, 16 card runs against the CPU per
+# preconditioner (scripts/torch_skew_small_spread.py --seeds 1 --runs 16
+# --linear-solver schur_dense, H100 80GB HBM3, 700 W): in f32 the runs
+# split by up to 5.06e-2 of the cost (one run of 32 beyond SCHUR_TRAJ's
+# 5e-2) and by at most 1.95e-7 x c0; with --double by 2.5e-11 of the cost
+# and 6.8e-15 x c0, so the f32 split is rounding, not a wrong step
+# (phase 20(c) repeats that witness).  The floor is twice the largest f32
+# split seen (3e-7 x c0) and below 1e-6: a step that moves the cost by
+# more than 6e-7 of c0 still fails.
+SCHUR_COST_FLOOR = 6e-7
 SCHUR_L_ITERATIONS = 16  # bench.py's lIterations for BA 1M
 SCHUR_DENSE_STEPS = 3
 SCHUR_DENSE_MAX = 16384  # bench.py:467-468: the 1M camera system has 9216 DOF
@@ -404,6 +449,59 @@ FULL_TRAJ_RTOL = {"deconvolution": (7e-7,) * 7,
 
 GRAPH_CALLS = 10
 GRAPH_REPLAYS = 5
+# phase 20: double_precision at full width.  (a) the uniform 1M scene,
+# LM, N_STEPS_1M steps through the f64 kernels; its cost, -JᵀF,
+# diag(JᵀJ) and JᵀJ·p at the initial unknowns card vs the port's CPU path
+# in f64 within F64_LINEAR_RTOL x max|ref| (f64 sums in another order,
+# ~1e3 terms an output: ~1e-14; f32's bound, GRID_LINEAR_RTOL, is 1e-5).
+F64_LINEAR_RTOL = 1e-10
+# (b) ARAP 256², GN, lIterations 10, grouped edges, 10 steps in f64
+# against the JAX package's f64 run on the CPU (JAX_PLATFORMS=cpu python3
+# scripts/torch_model_trajectory.py --package jax --double).  The port's
+# CPU f64 run (--package torch --device cpu --double) lies 1.2e-15 from
+# it after step 1 and 4.8e-12 after step 10; the card adds the atomics'
+# order, f64 rounding that GN's non-monotone steps carry (in f32 the
+# spread grows 7e4x over 10 steps, ARAP_TRAJ_RTOL's comment).
+# ARAP_F64_RTOL is 1e4x (steps 1-3) and 2e5x (step 10) tighter than
+# ARAP_TRAJ_RTOL.
+ARAP_JAX_F64_COSTS = (120.00000000000003, 22.744906967880866, 33.35416161534259,
+                      30.1997468788424, 17.66217228275138, 11.359371052231765,
+                      11.627720659161726, 10.826394839890815, 9.262477938571031,
+                      12.030994423985176, 9.039287210758314)
+ARAP_F64_RTOL = {1: 1e-9, 2: 1e-9, 3: 1e-9, ARAP_STEPS: 1e-7}
+# (d) phase 5 in f64 at full width: the uniform 1M LM solve under
+# PRECOMPUTE_J (stored point Jacobians, scalar Jacobi), N_STEPS_1M steps,
+# its camera scatters through oh_setup_aggregate_f64; its first
+# CROSS_STEPS steps against the f64 block-sparse solve under the same
+# preconditioner within F64_CROSS (unknowns x max|U|, cost).  The two
+# apply the same JᵀJ·p and differ only in summation order: in f32 phase 5
+# holds them to (STEP_U_TOL, STEP_COST_RTOL) = (1e-4, 1e-2) and they part
+# by up to 6.9e-6 of max|U| after step 3; f64 rounding is 2^-29 of f32's,
+# so ~1e-14 is expected: 1e-9 leaves room for 1e5 of that and is 1e5x
+# (unknowns) and 1e7x (cost) tighter than f32's.  Measured on an H100:
+# 2.2e-16, 1.3e-14, 1.4e-14 of max|U| and <= 6.5e-15 of the cost.
+F64_CROSS = (1e-9, 1e-9)
+# (e) the test-size models whose stored-Jacobian scatters take
+# oh_setup_aggregate_f64, card vs CPU in f64 for MODEL_STEPS steps, a
+# parity check beside (d): (unknowns x max|U|, cost).
+# f32 holds them at (5e-4, 1e-2) and (1e-4, 1e-2) (MODEL_TOL, phase 3).
+# deconvolution's 40 PCG iterations past convergence carry the atomics'
+# order furthest: 8 card runs against the CPU in f64
+# (scripts/torch_model_trajectory.py --model deconvolution --steps 3
+# --q-tolerance -1 --device cuda --against-cpu 8 --double, H100) reach
+# 5.8e-6 of max|X| and 1.8e-8 of the cost; its bound is twice that, 40x
+# (unknowns) and 2.5e5x (cost) tighter than f32's.  face_fitting, 5.5e-16
+# of max|U| (one run): 1e-8.
+F64_MODELS = {"deconvolution": (1.2e-5, 4e-8), "face_fitting": (1e-8, 1e-8)}
+# phase 21: Plan.jacobian.  COO card vs CPU (the same rows and cols, the
+# values f32 by another AD order) and Jᵀr from the 1M COO (index_add_)
+# against the solver's -JᵀF, each within JAC_TOL x max|ref| (f32 sums of
+# ~1e3 terms a camera in two orders)
+JAC_TOL = 1e-5
+# phase 22: the drivers on the card (run_model's grid, graph and BA rows;
+# every gallery row; the timer's summary at timing levels 1 and 2)
+RUN_MODELS = ("poisson_image_editing", "arap_mesh_deformation", "bundle_adjustment")
+DRIVER_STEPS = 8
 # launches per timing when phase 8 drives the measurement scripts
 SCRIPT_LAUNCHES = 10
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM and f32 outside
@@ -411,6 +509,7 @@ SCRIPT_LAUNCHES = 10
 # input read once, each output written once) and its f32 operations over them
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+F64_FLOP_PER_S = 34e12  # f64 outside the tensor cores (the same data sheet)
 ENERGY_SUFFIX = "\nr.snavely_reprojection_error.{}.set_materialize(True)\n"
 
 
@@ -452,8 +551,8 @@ def device_ms(fn):
     return us / 1e3 / GRAPH_CALLS
 
 
-def compare(name, got, ref, terms=None):
-    """max|got - ref| over all outputs; fails above KERNEL_TOL * max|ref|,
+def compare(name, got, ref, terms=None, tol=KERNEL_TOL):
+    """max|got - ref| over all outputs; fails above tol (KERNEL_TOL) * max|ref|,
     or, given terms = (each output's sum of |terms|, its number of terms),
     where an output differs by more than KERNEL_SUM_TOL sqrt(n) x its
     sum of |terms|.  A third entry of terms, a tolerance, holds only the
@@ -476,8 +575,8 @@ def compare(name, got, ref, terms=None):
                 raise AssertionError(f"{name}: an output is off by {excess:.3e} more than "
                                      f"{KERNEL_SUM_TOL:.2e} sqrt(n) x the sum of its terms' "
                                      "magnitudes")
-    if terms is None and err > KERNEL_TOL * scale:
-        raise AssertionError(f"{name}: max|err| {err:.3e} > {KERNEL_TOL} * {scale:.3e}")
+    if terms is None and err > tol * scale:
+        raise AssertionError(f"{name}: max|err| {err:.3e} > {tol} * {scale:.3e}")
     return err
 
 
@@ -777,7 +876,14 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("loop_floor_add_one", "grid64"): "loop_floor_add_one_grid64",
           ("fused_pair_apply_bf16", "ba1m_bf16"): "fused_pair_apply_bf16",
           ("fused_pair_apply_wloop_bf16", "skew_tail_bf16"): "fused_pair_apply_wloop_bf16",
-          ("fused_pair_bf16_atomics", "ba1m_bf16"): "fused_pair_bf16_atomics"}
+          ("fused_pair_bf16_atomics", "ba1m_bf16"): "fused_pair_bf16_atomics",
+          # the f64 paths' first call of each kernel (f64_kernel_cases)
+          ("fused_pair_apply_f64", "ba1m_f64_0"): "fused_pair_apply_f64",
+          ("fused_pair_apply_atomics_f64", "arap256_f64_0"): "fused_pair_apply_atomics_f64",
+          ("oh_setup_products_f64", "ba1m_f64_0"): "oh_setup_products_f64",
+          ("fullrepeat_setup_f64", "ba1m_f64_0"): "fullrepeat_setup_f64",
+          # its PCG iteration's [9, 1M] -> 1024 scatter (_0: the setup's [18, 1M])
+          ("oh_setup_aggregate_f64", "ba1m_pj_f64_1"): "oh_setup_aggregate_f64"}
 
 # record entry -> (source, the TPU kernel it replaces: file:line of its
 # pallas_call or kernel body, the smoke solve or phase whose launches it
@@ -831,6 +937,17 @@ KERNELS = {
                            "scripts/tpu_loop_floor.py:36", "measurement"),
     "loop_floor_add_one_grid64": ("thallo_tpu_torch/csrc/loop_floor.cu",
                                   "scripts/tpu_loop_floor.py:36", "measurement"),
+    # the f64 instantiations (double_precision), phase 20's runs
+    "fused_pair_apply_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                             "thallo_tpu/ops/fusedpair.py:349", "f64 block-sparse"),
+    "fused_pair_apply_atomics_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                                     "thallo_tpu/ops/fusedpair.py:349", "arap256 f64"),
+    "oh_setup_products_f64": ("thallo_tpu_torch/csrc/oh_setup.cu",
+                              "thallo_tpu/ops/ohsetup.py:192", "f64 block-sparse"),
+    "fullrepeat_setup_f64": ("thallo_tpu_torch/csrc/fullrepeat.cu",
+                             "thallo_tpu/ops/fullrepeat.py:178", "f64 block-sparse"),
+    "oh_setup_aggregate_f64": ("thallo_tpu_torch/csrc/oh_aggregate.cu",
+                               "thallo_tpu/ops/ohsetup.py:236", "f64 precompute_j"),
 }
 
 
@@ -861,15 +978,20 @@ def counters():
             "fused_pair_v2_smem_generic": fusedpair.fused_pair_v2_smem_generic,
             "fused_pair_v3_partials_generic": fusedpair.fused_pair_v3_partials_generic,
             "fused_pair_cluster_noflush": fusedpair.fused_pair_cluster_noflush,
-            "loop_floor_add_one": loopfloor.add_one}
+            "loop_floor_add_one": loopfloor.add_one,
+            "fused_pair_apply_f64": fusedpair.fused_pair_apply_f64,
+            "fused_pair_apply_atomics_f64": fusedpair.fused_pair_apply_atomics_f64,
+            "oh_setup_products_f64": ohsetup.oh_setup_products_f64,
+            "fullrepeat_setup_f64": fullrepeat.fullrepeat_setup_f64,
+            "oh_setup_aggregate_f64": ohsetup.oh_setup_aggregate_f64}
 
 
-def ba_plan(ba, tt, inputs, dims, device, n_iter, schedule=None, **options):
+def ba_plan(ba, tt, inputs, dims, device, n_iter, schedule=None, double=False, **options):
     """An LM plan of the BA energy, with `schedule` ("J" or "Jp") set to
-    materialize in the energy text."""
+    materialize in the energy text; double: under double_precision."""
     text = ba.ENERGY + (ENERGY_SUFFIX.format(schedule) if schedule else "")
-    plan = tt.load_energy(text).plan(dims, solver="levenberg_marquardt", device=device,
-                                     **options)
+    spec = tt.load_energy(text, tt.ProblemSpec(double_precision=double))
+    plan = spec.plan(dims, solver="levenberg_marquardt", device=device, **options)
     plan.set_solver_parameter("nIterations", n_iter)
     return plan
 
@@ -1219,7 +1341,7 @@ def phase_ba_1m_bf16(ba, tt, scene, f32_final):
     if not costs[-1] <= 1e-2 * costs[0]:
         raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
     log(f"{label}: final cost {costs[-1]!r} (f32 blocks, phase 4: {f32_final!r})")
-    return launches
+    return launches, costs[-1]
 
 
 def phase_precompute_j(ba, tt, scene):
@@ -1329,7 +1451,7 @@ def phase_schur_small(ba, tt, device="cuda", ref_device="cpu"):
             check_steps(f"{label} scene {ls} {device} vs {ref_device}, step 1", cg[:2], Ug[:1],
                         cc[:2], Uc[:1], u_tol, c_tol)
             check_steps(f"{label} scene {ls} {device} vs {ref_device}", cg, Ug, cc, Uc,
-                        traj_u, traj_c)
+                        traj_u, traj_c, SCHUR_COST_FLOOR * abs(cc[0]))
             never_rising(f"{label} scene {ls} {device}", cg)
     inputs, dims = small
     first = {}
@@ -1531,6 +1653,39 @@ def arap_kernel_cases(dev, rng, bsr):
     return cases
 
 
+def f64_kernel_cases(dev, rng, ba, tt, scene):
+    """The f64 instantiations (double_precision) at the shapes, recipes and
+    tables phase 20 gives them, from one step of each of its full-width
+    f64 plans on the card (path_calls): the uniform 1M scene's camera-side
+    products, point-side full-repeat setup and persistent fused pair; its
+    PRECOMPUTE_J schedule's camera scatters (the aggregation kernel);
+    ARAP 256²'s (3, 3) col levels on the atomics body.  Each against its
+    plain f64 version within F64_KERNEL_TOL x max|ref|: f64 on both
+    sides, only the order of the (atomic) sums differs."""
+    inputs, dims = scene
+
+    def ba_1m(schedule=None, **options):
+        plan = ba_plan(ba, tt, inputs, dims, "cuda", 1, schedule, double=True, **options)
+        plan.init({k: np.copy(v) for k, v in inputs.items()})
+        return plan
+
+    makes = {"ba1m_f64": (ba_1m, {"oh_setup_products_f64", "fullrepeat_setup_f64",
+                                  "fused_pair_apply_f64"}),
+             "ba1m_pj_f64": (lambda: ba_1m("J", preconditioner="jacobi"),
+                             {"oh_setup_aggregate_f64"}),
+             "arap256_f64": (lambda: arap_plan(tt, ARAP_SIDE, "grouped", "cuda", double=True),
+                             {"fused_pair_apply_atomics_f64"})}
+    cases = []
+    for tag, (make, want) in makes.items():
+        got = path_kernel_cases(dev, rng, tag, path_calls(make()))
+        names = {c[0] for c in got}
+        if names != want:
+            raise AssertionError(f"{tag}: the f64 path launched {sorted(names)}, "
+                                 f"not {sorted(want)}")
+        cases += got
+    return cases
+
+
 def bf16_wide_cases(dev, rng):
     """fused_pair_bf16_atomics at wide levels of more than 8 row channels,
     Ci x Cj of BF16_WIDE (bf16 blocks of a level that fused_pair_route
@@ -1560,7 +1715,8 @@ def bf16_wide_cases(dev, rng):
 SOLVER_KERNELS = ("oh_setup_products", "fullrepeat_setup", "fused_pair_apply",
                   "fused_pair_apply_atomics", "fused_pair_apply_wloop",
                   "fused_pair_apply_wloop_chunked", "fused_pair_apply_bf16",
-                  "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics")
+                  "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics",
+                  "fused_pair_apply_f64", "fused_pair_apply_atomics_f64")
 
 
 def path_calls(plan):
@@ -1601,33 +1757,42 @@ def _recipe_outputs(recipe):
 def path_kernel_cases(dev, rng, tag, calls):
     """Cases of the kernels `calls` (path_calls) launched, at their shapes,
     recipes and tables (ids as the path gave them), on seeded normal values
-    of the same shapes; each held to KERNEL_TOL x max|ref|."""
+    of the same shapes and dtypes; each held to KERNEL_TOL x max|ref|.  An
+    f64 call (double_precision) is a case of the f64 instantiation, the
+    kernel its wrapper launched, held to F64_KERNEL_TOL."""
     from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup
 
     def normal(x):
-        return torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(
-            device=dev, dtype=x.dtype)
+        v = rng.normal(size=tuple(x.shape))
+        if x.dtype != torch.float64:
+            v = v.astype(np.float32)
+        return torch.from_numpy(v).to(device=dev, dtype=x.dtype)
 
     cases, seen = [], collections.Counter()
     for name, args, kw in calls:
-        seen[name] += 1
-        ctag = f"{tag}_{seen[name] - 1}"
+        f64 = any(x.dtype == torch.float64 for x in args)
+        tol = (F64_KERNEL_TOL,) if f64 else ()
+        kname = name + "_f64" if f64 and not name.endswith("_f64") else name
+        seen[kname] += 1
+        ctag = f"{tag}_{seen[kname] - 1}"
         if name == "oh_setup_products":
             a = (normal(args[0]), normal(args[1]), args[2])
             rc, R = a[0].shape
-            fn, ref = ohsetup.oh_setup_products, ohsetup.oh_setup_products_reference
-            cases.append((name, ctag, lambda a=a, fn=fn, kw=kw: (fn(*a, **kw),),
+            fn, ref = getattr(ohsetup, kname), ohsetup.oh_setup_products_reference
+            cases.append((kname, ctag, lambda a=a, fn=fn, kw=kw: (fn(*a, **kw),),
                           lambda a=a, ref=ref, kw=kw: (ref(*a, **kw),), None, nbytes(*a),
-                          _recipe_outputs(kw["recipe"]) * rc * 2 * R, None))
+                          _recipe_outputs(kw["recipe"]) * rc * 2 * R, None, *tol))
         elif name == "oh_setup_aggregate":
             a = (normal(args[0]), args[1])
             F, R = a[0].shape
             N = kw["N"]
-            cases.append((name, ctag, lambda a=a, N=N: (ohsetup.oh_setup_aggregate(*a, N=N),),
+            cases.append((kname, ctag,
+                          lambda a=a, N=N, fn=getattr(ohsetup, kname): (fn(*a, N=N),),
                           lambda a=a, N=N: (ohsetup.oh_setup_aggregate_reference(*a, N=N),),
-                          lambda a=a, N=N: (torch.zeros((a[0].shape[0], N), device=dev)
+                          lambda a=a, N=N: (torch.zeros((a[0].shape[0], N), dtype=a[0].dtype,
+                                                        device=dev)
                                             .index_add_(1, a[1].long(), a[0]),),
-                          nbytes(*a), F * R, None))
+                          nbytes(*a), F * R, None, *tol))
         elif name == "fullrepeat_setup":
             a = (normal(args[0]), normal(args[1]))
             rc, R = a[0].shape
@@ -1636,16 +1801,16 @@ def path_kernel_cases(dev, rng, tag, calls):
                 agg, crosses = fn(*a, **kw)
                 return (agg, *crosses)
 
-            cases.append((name, ctag, lambda run=run: run(fullrepeat.fullrepeat_setup),
+            cases.append((kname, ctag, lambda run=run, fn=getattr(fullrepeat, kname): run(fn),
                           lambda run=run: run(fullrepeat.fullrepeat_setup_reference), None,
-                          nbytes(*a), _recipe_outputs(kw["recipe"]) * rc * 2 * R, None))
+                          nbytes(*a), _recipe_outputs(kw["recipe"]) * rc * 2 * R, None, *tol))
         else:
             a = (args[0], normal(args[1]), normal(args[2]), normal(args[3]))
             W, N = a[0].shape
             cases.append((name, ctag, lambda a=a, fn=getattr(fusedpair, name), kw=kw: fn(*a, **kw),
                           lambda a=a, kw=kw: fusedpair.fused_pair_apply_reference(*a, **kw),
-                          None, nbytes(*a), 4 * W * N * kw["Ci"] * kw["Cj"], None))
-        log(f"{name}[{ctag}] from the path: " + ", ".join(
+                          None, nbytes(*a), 4 * W * N * kw["Ci"] * kw["Cj"], None, *tol))
+        log(f"{kname}[{ctag}] from the path: " + ", ".join(
             f"{tuple(x.shape)}" for x in args) + f", {kw}")
     return cases
 
@@ -1681,10 +1846,11 @@ def model_kernel_cases(dev, rng, tt):
 
 
 def arap_plan(tt, side, order, device, n_iter=ARAP_STEPS, l_iterations=ARAP_L_ITERATIONS,
-              inputs=None):
+              inputs=None, double=False):
     """A GN plan of ARAP (models/arap_mesh_deformation.py) at `side`, edges
     in the generator's order ("grouped") or shuffle_edges(seed=0)'s
-    ("shuffled"), or of the given (inputs, dims); initialised."""
+    ("shuffled"), or of the given (inputs, dims); initialised; double:
+    under double_precision."""
     from thallo_tpu_torch.models import arap_mesh_deformation as arap
 
     if inputs is None:
@@ -1693,7 +1859,8 @@ def arap_plan(tt, side, order, device, n_iter=ARAP_STEPS, l_iterations=ARAP_L_IT
             ins = arap.shuffle_edges(ins, seed=0)
         inputs = (ins, {"N": side * side, "E": len(ins["V0"])})
     ins, dims = inputs
-    plan = tt.load_energy(arap.ENERGY).plan(dims, solver="gauss_newton", device=device)
+    plan = tt.load_energy(arap.ENERGY, tt.ProblemSpec(double_precision=double)).plan(
+        dims, solver="gauss_newton", device=device)
     plan.set_solver_parameter("nIterations", n_iter)
     plan.set_solver_parameter("lIterations", l_iterations)
     plan.init({k: np.copy(v) for k, v in ins.items()})
@@ -1749,14 +1916,15 @@ def card_vs_cpu(label, make, steps, u_tol=STEP_U_TOL, cost_rtol=STEP_COST_RTOL):
     return lg, cg, plan
 
 
-def model_plan(tt, name, device, big, **options):
+def model_plan(tt, name, device, big, double=False, **options):
     """The port's plan of thallo_tpu_torch/models/cases.py's CASES[name],
-    Q-ratio stop off (but for the cases of KEEP_Q_STOP), initialised."""
+    Q-ratio stop off (but for the cases of KEEP_Q_STOP), initialised;
+    double: under double_precision."""
     from thallo_tpu_torch.models.cases import KEEP_Q_STOP, case_energy, model_case
 
     m, inputs, dims, solver, l_iterations = model_case(name, big)
-    plan = tt.load_energy(case_energy(name, m)).plan(dims, solver=solver, device=device,
-                                                     **options)
+    spec = tt.load_energy(case_energy(name, m), tt.ProblemSpec(double_precision=double))
+    plan = spec.plan(dims, solver=solver, device=device, **options)
     plan.set_solver_parameter("lIterations", l_iterations)
     if name not in KEEP_Q_STOP:
         plan.set_solver_parameter("q_tolerance", -1.0)
@@ -2124,22 +2292,270 @@ def phase_full_width(tt, name):
 
 
 
+def phase_f64_1m(ba, tt, scene, f32_final, bf16_final):
+    """Phase 20(a): the uniform 1M LM solve under double_precision through
+    the f64 oh_setup_products, fullrepeat_setup and persistent fused pair
+    (no f32 kernel launched); costs never rising, final <= 1e-2 x initial,
+    logged beside phases 4 and 9; the linear parts at the initial
+    unknowns card vs CPU in f64.  Returns the launches."""
+    label = "1M block-sparse f64"
+    torch.cuda.reset_peak_memory_stats()
+    costs, _, launches, plan = solve_1m(ba, tt, scene, label, (
+        "fused_pair_apply_f64", "oh_setup_products_f64", "fullrepeat_setup_f64"), double=True)
+    peak = torch.cuda.max_memory_allocated()
+    stray = [n for n, k in launches.items() if k and not n.endswith("_f64")]
+    if stray:
+        raise AssertionError(f"{label}: f32 kernels launched: {stray}")
+    if any(v.dtype != torch.float64 for v in plan.unknowns().values()):
+        raise AssertionError(f"{label}: unknowns not f64")
+    never_rising(label, costs)
+    if not costs[-1] <= 1e-2 * costs[0]:
+        raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
+    log(f"{label}: final cost {costs[-1]!r} (f32, phase 4: {f32_final!r}; bf16 blocks, "
+        f"phase 9: {bf16_final!r}); peak memory allocated {peak / 2 ** 20:.1f} MiB")
+    del plan
+    inputs, dims = scene
+    rng = np.random.default_rng(17)
+    p = {"cameras": rng.normal(size=(dims["C"], 9)), "points": rng.normal(size=(dims["P"], 3))}
+    parts = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        plan = ba_plan(ba, tt, inputs, dims, dev, 1, double=True)
+        plan.init({k: np.copy(v) for k, v in inputs.items()})
+        parts[dev] = linear_parts(plan, p)
+        del plan
+        log(f"{label}: linear parts on {dev} {time.perf_counter() - t0:.2f} s")
+    got, ref = parts["cuda"], parts["cpu"]
+    rel = abs(got[0] - ref[0]) / abs(ref[0])
+    log(f"{label}, initial unknowns, card vs CPU: cost rel {rel:.3e}")
+    if not rel <= F64_LINEAR_RTOL:
+        raise AssertionError(f"{label}: initial cost card {got[0]} vs CPU {ref[0]}")
+    for what, a, b in zip(("-JᵀF", "diag(JᵀJ)", "JᵀJ·p"), got[1:], ref[1:]):
+        for name in b:
+            err, scale = float(np.abs(a[name] - b[name]).max()), float(np.abs(b[name]).max())
+            log(f"{label}, card vs CPU: {what} {name} {err / scale:.3e} x max|ref|")
+            if not (a[name].dtype == np.float64 and err <= F64_LINEAR_RTOL * scale):
+                raise AssertionError(f"{label}: {what} of {name}, card vs CPU, {err} > "
+                                     f"{F64_LINEAR_RTOL} x {scale}")
+    return launches
+
+
+def phase_arap_f64(tt):
+    """Phase 20(b): ARAP 256² GN under double_precision, grouped edges,
+    warmup() and ARAP_STEPS run_steps(1): the reg group's two (3, 3) col
+    pairs through fused_pair_apply_atomics_f64 (no other fused pair); the
+    costs within ARAP_F64_RTOL of JAX's f64 run.  Returns the launches."""
+    label = f"ARAP {ARAP_SIDE}² GN f64"
+    fns = counters()
+    plan = arap_plan(tt, ARAP_SIDE, "grouped", "cuda", double=True)
+    plan.warmup()
+    for fn in fns.values():
+        fn.launches = 0
+    costs, step_s = [plan.final_cost], []
+    for _ in range(ARAP_STEPS):
+        t0 = time.perf_counter()
+        plan.run_steps(1)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        costs.append(plan.final_cost)
+    launches = {n: fn.launches for n, fn in fns.items()}
+    atomics = launches["fused_pair_apply_atomics_f64"]
+    stray = [n for n, k in launches.items() if k and n != "fused_pair_apply_atomics_f64"
+             and n.startswith("fused_pair")]
+    log(f"{label} costs {costs}; launches {({n: k for n, k in launches.items() if k})}; "
+        f"median step of 2-{ARAP_STEPS} {float(np.median(step_s[1:])) * 1e3:.2f} ms")
+    if atomics <= 0 or stray:
+        raise AssertionError(f"{label}: fused_pair_apply_atomics_f64 launched {atomics} times, "
+                             f"other fused-pair kernels {stray}")
+    for k, tol in ARAP_F64_RTOL.items():
+        ref = ARAP_JAX_F64_COSTS[k]
+        rel = abs(costs[k] - ref) / abs(ref)
+        log(f"{label} step {k}: cost {costs[k]!r} vs JAX f64 {ref!r}, rel {rel:.3e} "
+            f"(limit {tol})")
+        if not (np.isfinite(costs[k]) and rel <= tol):
+            raise AssertionError(f"{label}, step {k}: cost {costs[k]} vs JAX f64 {ref}")
+    return launches
+
+
+def phase_schur_skew_f64(ba, tt):
+    """Phase 20(c): phase 12's small skewed scene under schur_dense in f64,
+    card vs CPU, SCHUR_SMALL_STEPS steps: the witness for
+    SCHUR_COST_FLOOR.  The steps within phase 12's f32 bounds over 1e3
+    (SCHUR_F64), and the largest cost split below SCHUR_COST_FLOOR / 1e3
+    x c0: in f64 the two devices take the same steps."""
+    inputs, dims = make_skew_scene(ba, *SKEW_SMALL)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        plan = ba_plan(ba, tt, inputs, dims, dev, SCHUR_SMALL_STEPS, double=True,
+                       linear_solver="schur_dense")
+        costs = [plan.init({k: np.copy(v) for k, v in inputs.items()})]
+        Us = []
+        for _ in range(SCHUR_SMALL_STEPS):
+            plan.step()
+            costs.append(plan.cost())
+            Us.append({k: v.cpu().numpy() for k, v in plan.unknowns().items()})
+        runs[dev] = (costs, Us)
+    (cg, Ug), (cc, Uc) = runs["cuda"], runs["cpu"]
+    label = "small skewed scene schur_dense f64 cuda vs cpu"
+    split = max(abs(a - b) for a, b in zip(cg, cc)) / abs(cc[0])
+    log(f"{label}: costs cuda {cg}, cpu {cc}; largest split {split:.3e} x c0 "
+        f"(f32 floor {SCHUR_COST_FLOOR:g})")
+    u_tol, c_tol = (x / 1e3 for x in SCHUR_TRAJ["small skewed"])
+    check_steps(label, cg, Ug, cc, Uc, u_tol, c_tol)
+    never_rising(label, cg)
+    if not split <= SCHUR_COST_FLOOR / 1e3:
+        raise AssertionError(f"{label}: the f64 runs split by {split:.3e} x c0")
+
+
+def phase_f64_models(tt):
+    """Phase 20(e): F64_MODELS at their test sizes card vs CPU in f64,
+    their scatters through oh_setup_aggregate_f64 and no f32 kernel."""
+    for name, (u_tol, c_tol) in F64_MODELS.items():
+        label = f"model {name} f64"
+        lg, _, plan = card_vs_cpu(label, lambda d, name=name: model_plan(tt, name, d, False,
+                                                                        double=True),
+                                  MODEL_STEPS, u_tol, c_tol)
+        stray = [n for n, k in lg.items() if k and not n.endswith("_f64")]
+        if lg["oh_setup_aggregate_f64"] <= 0 or stray:
+            raise AssertionError(f"{label}: oh_setup_aggregate_f64 launched "
+                                 f"{lg['oh_setup_aggregate_f64']} times, f32 kernels {stray}")
+
+
+def phase_precompute_j_f64(ba, tt, scene, f32_final):
+    """Phase 20(d): phase 5 in f64: the uniform 1M LM solve under
+    PRECOMPUTE_J through oh_setup_aggregate_f64 (no f32 kernel), costs
+    never rising, its first CROSS_STEPS steps against the f64
+    block-sparse solve (jacobi) within F64_CROSS; the final cost logged
+    beside phase 5's.  Returns the launches."""
+    label = "1M PRECOMPUTE_J f64"
+    costs, Us, launches, _ = solve_1m(ba, tt, scene, label, ("oh_setup_aggregate_f64",),
+                                      schedule="J", keep_unknowns=CROSS_STEPS,
+                                      preconditioner="jacobi", double=True)
+    stray = [n for n, k in launches.items() if k and not n.endswith("_f64")]
+    if stray:
+        raise AssertionError(f"{label}: f32 kernels launched: {stray}")
+    never_rising(label, costs)
+    log(f"{label}: final cost {costs[-1]!r} (f32, phase 5: {f32_final!r})")
+    ref_costs, ref_Us, _, _ = solve_1m(ba, tt, scene, "1M block-sparse f64, jacobi",
+                                       ("fused_pair_apply_f64",), n_steps=CROSS_STEPS,
+                                       keep_unknowns=CROSS_STEPS, preconditioner="jacobi",
+                                       double=True)
+    check_steps(f"{label} vs block-sparse f64 (jacobi)", costs[:CROSS_STEPS + 1], Us,
+                ref_costs, ref_Us, *F64_CROSS)
+    return launches
+
+
+def _coo(plan):
+    r, rows, cols, vals, shape = plan.jacobian()
+    return {"r": r.cpu(), "rows": rows.cpu(), "cols": cols.cpu(), "vals": vals.cpu(),
+            "shape": shape}
+
+
+def phase_jacobian(ba, tt, scene):
+    """Phase 21: Plan.jacobian.  The small BA scene (dense JᵀJ) and
+    image_warping 64² with its excluded square: COO card vs CPU (the same
+    rows, cols and shape; values and residuals within JAC_TOL).  The
+    uniform 1M scene: Jᵀr from the card's COO by index_add_ against the
+    solver's -JᵀF (its block-sparse setup) within JAC_TOL x max|ref|; the
+    COO's entries and bytes logged."""
+    from torch_grid_profile import make_grid_plan
+
+    C, P, W, seed = SCHUR_SMALL
+    small, _ = ba.synthetic_inputs(n_cameras=C, n_points=P, obs_per_point=W, seed=seed)
+    sdims = {"C": C, "P": P, "O": len(small["oToC"])}
+
+    def small_plan(dev):
+        plan = ba_plan(ba, tt, small, sdims, dev, 1)
+        plan.init({k: np.copy(v) for k, v in small.items()})
+        return plan
+
+    makes = {"small BA": small_plan,
+             f"image_warping {GRID_SMALL}² masked":
+                 lambda dev: make_grid_plan(GRID_SMALL, dev, mask=GRID_MASK)}
+    for label, make in makes.items():
+        got, ref = _coo(make("cuda")), _coo(make("cpu"))
+        if got["shape"] != ref["shape"] or not all(torch.equal(got[k], ref[k])
+                                                   for k in ("rows", "cols")):
+            raise AssertionError(f"jacobian {label}: card and CPU COO index differently")
+        for k in ("vals", "r"):
+            err = float((got[k] - ref[k]).abs().max())
+            scale = float(ref[k].abs().max())
+            log(f"jacobian {label}: {k} card vs CPU {err / scale:.3e} x max|ref|, "
+                f"{got['vals'].numel()} entries, shape {got['shape']}")
+            if not err <= JAC_TOL * scale:
+                raise AssertionError(f"jacobian {label}: {k} card vs CPU {err} > "
+                                     f"{JAC_TOL} x {scale}")
+    inputs, dims = scene
+    plan = ba_plan(ba, tt, inputs, dims, "cuda", 1)
+    plan.init({k: np.copy(v) for k, v in inputs.items()})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r, rows, cols, vals, (n_rows, n_cols) = plan.jacobian()
+    torch.cuda.synchronize()
+    t_coo = time.perf_counter() - t0
+    jtr = torch.zeros(n_cols, dtype=vals.dtype, device=vals.device).index_add_(
+        0, cols, vals * r[rows])
+    comp, ins, consts = plan.compiled, plan._step_inputs(), plan._prep["consts"]
+    masks = comp.masks(ins, plan._U, plan._prep.get("masks_static"),
+                       plan._prep.get("exclude_consts"))
+    ref = -comp.flatten_U(comp.jtf_and_diag(plan._U, ins, consts, masks, {})[0])
+    err, scale = float((jtr - ref).abs().max()), float(ref.abs().max())
+    log(f"jacobian 1M: {vals.numel()} entries ({n_rows} x {n_cols}), "
+        f"{nbytes(r, rows, cols, vals) / 2 ** 20:.1f} MiB, built in {t_coo:.3f} s; Jᵀr vs "
+        f"-JᵀF {err / scale:.3e} x max|ref|")
+    if not err <= JAC_TOL * scale:
+        raise AssertionError(f"jacobian 1M: Jᵀr from the COO vs -JᵀF {err} > {JAC_TOL} x {scale}")
+
+
+def phase_drivers(tt):
+    """Phase 22: the drivers on the card: run_model on RUN_MODELS, every
+    gallery row (synthetic and file) with its cost falling, and the
+    timer's summary of an image_warping solve at timing levels 1 and 2."""
+    from thallo_tpu_torch.examples import gallery, run_model
+    from thallo_tpu_torch.models import image_warping as iw
+
+    for model in RUN_MODELS:
+        out = run_model.main([model, "--device", "cuda", "--iters", str(DRIVER_STEPS),
+                              "--verbosity", "0"])
+        if not out["final_cost"] < out["initial_cost"]:
+            raise AssertionError(f"run_model {model}: cost {out['initial_cost']} -> "
+                                 f"{out['final_cost']}")
+    rows = gallery.main(["--device", "cuda"])  # raises if a row failed
+    falling = [r[0] for r in rows if r[4] < r[3]]
+    log(f"gallery: {len(falling)} of {len(rows)} rows with a falling cost")
+    if len(falling) != len(rows):
+        raise AssertionError(f"gallery: costs not falling in {set(r[0] for r in rows) - set(falling)}")
+    for level in (1, 2):
+        plan = tt.load_energy(iw.ENERGY).plan({"W": 64, "H": 64}, solver="levenberg_marquardt",
+                                              device="cuda", timing_level=level)
+        plan.set_solver_parameter("nIterations", DRIVER_STEPS)
+        plan.init(iw.synthetic_inputs(64, 64))
+        plan.solve()
+        summary = plan.get_performance_summary()
+        want = {"Total", "Nonlinear Iteration"} | (
+            {"Nonlinear Setup", "Linear Solve", "Nonlinear Finish"} if level >= 2 else set())
+        if not want <= set(summary.stats):
+            raise AssertionError(f"timing_level {level}: events {sorted(summary.stats)}")
+        log(f"image_warping 64² LM, timing_level {level}:\n{summary.markdown()}")
+
+
 def run_kernel_cases(cases):
     """Each case's kernel against its plain version (and a library call,
     where there is one) on the card, with the times of each; returns the
     RECORD entries."""
     record = {}
-    for name, tag, kern, plain, lib, in_bytes, flops, terms in cases:
+    for name, tag, kern, plain, lib, in_bytes, flops, terms, *tol in cases:
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        err = compare(f"{name}[{tag}]", got, ref, terms() if terms else None)
+        err = compare(f"{name}[{tag}]", got, ref, terms() if terms else None, *tol)
         ms, dev_ms = timed_ms(kern, 20), device_ms(kern)
         plain_ms = timed_ms(plain, 5)
         lib_ms = lib_dev_ms = None
         if lib is not None:
             lib_ms, lib_dev_ms = timed_ms(lib, 20), device_ms(lib)
         moved = in_bytes + nbytes(*got)
-        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+        peak = F64_FLOP_PER_S if got[0].dtype == torch.float64 else F32_FLOP_PER_S
+        bytes_ms, ops_ms = moved / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         lib_txt = (f", library {lib_ms:.4f} ms (device {lib_dev_ms:.4f})"
                    if lib is not None else "")
@@ -2197,6 +2613,7 @@ def main():
     cases += arap_kernel_cases(dev, rng, arap_reg)
     cases += bf16_wide_cases(dev, rng)
     cases += model_kernel_cases(dev, rng, tt)
+    cases += f64_kernel_cases(dev, rng, ba, tt, scene)
     record = run_kernel_cases(cases)
     del cases
     torch.cuda.synchronize()
@@ -2236,7 +2653,7 @@ def main():
     log(f"phase 8 measurement scripts: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
-    runs["bf16 block-sparse"] = phase_ba_1m_bf16(ba, tt, scene, f32_final)
+    runs["bf16 block-sparse"], bf16_final = phase_ba_1m_bf16(ba, tt, scene, f32_final)
     torch.cuda.synchronize()
     log(f"phase 9 BA 1M LM solve, block-sparse JᵀJ, block_dtype=bf16: "
         f"{time.perf_counter() - t0:.2f} s")
@@ -2293,6 +2710,27 @@ def main():
         torch.cuda.synchronize()
         log(f"phase {k} {name} {FULL_SIZE}², the full-width path: "
             f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    runs["f64 block-sparse"] = phase_f64_1m(ba, tt, scene, f32_final, bf16_final)
+    runs["arap256 f64"] = phase_arap_f64(tt)
+    phase_schur_skew_f64(ba, tt)
+    runs["f64 precompute_j"] = phase_precompute_j_f64(ba, tt, scene, ref[0][-1])
+    phase_f64_models(tt)
+    torch.cuda.synchronize()
+    log(f"phase 20 double_precision: BA 1M (block-sparse and PRECOMPUTE_J), ARAP "
+        f"{ARAP_SIDE}², the small skewed schur_dense scene, the aggregation models at "
+        f"test size: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_jacobian(ba, tt, scene)
+    torch.cuda.synchronize()
+    log(f"phase 21 Plan.jacobian: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_drivers(tt)
+    torch.cuda.synchronize()
+    log(f"phase 22 the drivers: {time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8),
     # and on each run of phases 15-17 that launched it

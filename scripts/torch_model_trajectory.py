@@ -106,6 +106,8 @@ def run(package, args, perturb=None):
         import thallo_tpu_torch as pkg
         from thallo_tpu_torch import models
         options = {"device": args.device}
+        if args.double:
+            spec = pkg.ProblemSpec(double_precision=True)
     q_tol, steps = args.q_tolerance, args.steps
     if args.size:
         text, inputs, dims, solver, l_iterations, full_steps, full_q = full_case(
@@ -182,7 +184,8 @@ def main(argv=None):
     ap.add_argument("--q-tolerance", type=float)
     ap.add_argument("--perturb", type=int, metavar="SEED")
     ap.add_argument("--device", default="cuda", help="the port's device")
-    ap.add_argument("--double", action="store_true", help="the JAX package in f64")
+    ap.add_argument("--double", action="store_true",
+                    help="double_precision (either package: f64 throughout)")
     ap.add_argument("--against-cpu", type=int, metavar="N",
                     help="the port N times on --device against once on the CPU")
     ap.add_argument("--eager", action="store_true", help="JAX's steps under disable_jit")

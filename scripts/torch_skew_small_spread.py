@@ -5,7 +5,7 @@ behind chip_smoke.py's phase-3 and phase-12 limits for that scene.
     python3 scripts/torch_skew_small_spread.py [--seeds 8] [--runs 3] [--out FILE]
                                                [--linear-solver schur_pcg|schur_dense]
                                                [--scene skewed|schur_small]
-                                               [--device cuda|cpu]
+                                               [--device cuda|cpu] [--double]
 
 For each seed, ``skewed_inputs(16, 1400, 5600, seed)`` (with --scene
 schur_small: ``synthetic_inputs(8, 64, 4, seed)``, chip_smoke.py's
@@ -14,8 +14,11 @@ and --runs times on the card (the kernels; their atomics sum in another
 order each run), under scalar Jacobi and block Jacobi
 (``preconditioner="auto"``), with the plan's ``linear_solver`` (default
 pcg).  One JSON line per (seed, preconditioner, card run): the largest
-max|dU|/max|U| and |dcost|/cost over the steps, card against CPU.  A
-last line holds the largest of each per preconditioner.  Needs CUDA,
+max|dU|/max|U|, |dcost|/cost and |dcost|/c0 (c0: the CPU run's initial
+cost, the scale of chip_smoke.py's SCHUR_COST_FLOOR) over the steps, card
+against CPU.  A last line holds the largest of each per preconditioner.
+--double runs both sides under double_precision (f64 throughout: the
+kernels' f64 instantiations on the card).  Needs CUDA,
 but for --device cpu: the repeated runs are then CPU runs too, at 1, 2,
 4 and 8 torch threads in turn, held against a first CPU run at the
 default thread count (how far the CPU's own rounding moves the
@@ -34,10 +37,11 @@ SCHUR_SMALL = (8, 64, 4)  # cameras, points, observations per point
 STEPS = 5
 
 
-def solve(tt, ba, inputs, dims, device, precond, linear_solver="pcg"):
+def solve(tt, ba, inputs, dims, device, precond, linear_solver="pcg", double=False):
     """(costs after init and each step, unknowns after each step)."""
-    plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=device,
-                                          preconditioner=precond, linear_solver=linear_solver)
+    spec = tt.load_energy(ba.ENERGY, tt.ProblemSpec(double_precision=double))
+    plan = spec.plan(dims, solver="levenberg_marquardt", device=device, preconditioner=precond,
+                     linear_solver=linear_solver)
     plan.set_solver_parameter("nIterations", STEPS)
     costs, Us = [plan.init({k: np.copy(v) for k, v in inputs.items()})], []
     for _ in range(STEPS):
@@ -57,6 +61,7 @@ def main(argv=None):
     ap.add_argument("--scene", choices=["skewed", "schur_small"], default="skewed")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="device of the repeated runs")
+    ap.add_argument("--double", action="store_true", help="double_precision on both sides")
     args = ap.parse_args(argv)
     smi = card() if args.device == "cuda" else "cpu"
     threads = torch.get_num_threads()
@@ -76,26 +81,29 @@ def main(argv=None):
             dims = {"C": C, "P": P, "O": len(inputs["oToC"])}
             for precond in ("jacobi", "auto"):
                 ref_costs, ref_Us = solve(tt, ba, inputs, dims, "cpu", precond,
-                                          args.linear_solver)
+                                          args.linear_solver, args.double)
                 for run in range(args.runs):
                     if args.device == "cpu":
                         torch.set_num_threads((1, 2, 4, 8)[run % 4])
                     costs, Us = solve(tt, ba, inputs, dims, args.device, precond,
-                                      args.linear_solver)
+                                      args.linear_solver, args.double)
                     torch.set_num_threads(threads)
                     du = max(float(np.abs(u[n] - r[n]).max() / np.abs(r[n]).max())
                              for u, r in zip(Us, ref_Us) for n in r)
                     dc = max(abs(a - b) / abs(b) for a, b in zip(costs, ref_costs))
-                    w = worst.setdefault(precond, [0.0, 0.0])
-                    w[0], w[1] = max(w[0], du), max(w[1], dc)
+                    dc0 = max(abs(a - b) for a, b in zip(costs, ref_costs)) / ref_costs[0]
+                    w = worst.setdefault(precond, [0.0, 0.0, 0.0])
+                    w[0], w[1], w[2] = max(w[0], du), max(w[1], dc), max(w[2], dc0)
                     emit({"seed": seed, "scene": args.scene,
                           "linear_solver": args.linear_solver,
-                          "device": args.device, "preconditioner": precond, "run": run,
+                          "device": args.device, "double": args.double,
+                          "preconditioner": precond, "run": run,
                           "observations": dims["O"], "max_rel_dU": du, "max_rel_dcost": dc,
-                          "cpu_costs": ref_costs, "run_costs": costs, "card": smi}, out)
-        emit({"largest": {p: {"max_rel_dU": w[0], "max_rel_dcost": w[1]}
-                          for p, w in worst.items()},
-              "scene": args.scene, "linear_solver": args.linear_solver,
+                          "max_dcost_over_c0": dc0, "cpu_costs": ref_costs,
+                          "run_costs": costs, "card": smi}, out)
+        emit({"largest": {p: {"max_rel_dU": w[0], "max_rel_dcost": w[1],
+                              "max_dcost_over_c0": w[2]} for p, w in worst.items()},
+              "scene": args.scene, "linear_solver": args.linear_solver, "double": args.double,
               "device": args.device, "seeds": args.seeds, "runs": args.runs, "card": smi}, out)
     finally:
         if out is not None:

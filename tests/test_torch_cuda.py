@@ -318,14 +318,14 @@ def test_schur_step_makes_no_host_sync(cuda, linear_solver):
     assert fusedpair.fused_pair_apply_wloop.launches + fusedpair.fused_pair_apply.launches > n0
 
 
-def _step_makes_no_host_sync(cuda, **options):
+def _step_makes_no_host_sync(cuda, double=False, **options):
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
     ins, _ = ba.synthetic_inputs(n_cameras=16, n_points=1400, obs_per_point=4)
     dims = {"C": 16, "P": 1400, "O": len(ins["oToC"])}
-    plan = tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt", device=cuda,
-                                          **options)
+    spec = tt.load_energy(ba.ENERGY, tt.ProblemSpec(double_precision=double))
+    plan = spec.plan(dims, solver="levenberg_marquardt", device=cuda, **options)
     plan.init({k: np.copy(v) for k, v in ins.items()})
     plan.step()
     comp = plan.compiled
@@ -1333,3 +1333,155 @@ def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
         assert fn.launches == n0 + 1, name
         for got, ref in zip(out if isinstance(out, tuple) else (out,), refs):
             close(got.cpu(), ref.cpu(), CUDA_TOL)
+
+
+# ---------------------------------------------------------------------------
+# f64 instantiations (double_precision): f64 on both sides, only the order
+# of the (atomic) sums differs, so each output lies within a few ulps of
+# f64 times the square root of its terms; 1e-12 x max|ref| holds that with
+# room at these shapes (an f32 kernel would miss it by 1e4)
+# ---------------------------------------------------------------------------
+CUDA_F64_TOL = 1e-12
+
+
+def _f64(cuda, arrays):
+    return [torch.from_numpy(a.astype(np.float64) if a.dtype.kind == "f" else a).to(cuda)
+            for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_pair_apply", "fused_pair_apply_f64",
+                                  "fused_pair_apply_atomics", "fused_pair_apply_atomics_f64"])
+@pytest.mark.parametrize("W,N,S", PAIR_SHAPES + [(4, 1000, 1600)])
+def test_fused_pair_f64_cuda_matches_plain(cuda, name, W, N, S):
+    """Each f64 instantiation launches once on its own count and agrees
+    with the plain f64 version; the persistent one raises where its f64
+    accumulator does not fit it (S = 1600: 115 200 bytes), and the f32
+    entry points raise on f64 operands (fused_pair_route names the f64
+    kernel), each without a launch."""
+    args = _f64(cuda, fused_inputs(W, N, S))
+    names = ("fused_pair_apply", "fused_pair_apply_f64", "fused_pair_apply_atomics",
+             "fused_pair_apply_atomics_f64")
+    n0 = {n: getattr(fusedpair, n).launches for n in names}
+    fn = getattr(fusedpair, name)
+    if not name.endswith("_f64") or not (name == "fused_pair_apply_atomics_f64" or
+                                         fusedpair.persistent_fits(CI, CJ, S, 8)):
+        with pytest.raises(NotImplementedError if not name.endswith("_f64") else ValueError):
+            fn(*args, Ci=CI, Cj=CJ, S=S)
+        assert {n: getattr(fusedpair, n).launches for n in names} == n0
+        return
+    rows, cols = fn(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert {n: getattr(fusedpair, n).launches - n0[n] for n in names} == {
+        n: int(n == name) for n in names}
+    assert rows.dtype == cols.dtype == torch.float64
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_F64_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ci,Cj", [(3, 3), (9, 3), (16, 16)])
+def test_fused_pair_atomics_f64_pairs_cuda_match_plain(cuda, Ci, Cj):
+    """The f64 atomics body at ARAP's (3, 3), the embedded graph's (9, 3)
+    and the largest pair, with out-of-range ids."""
+    W, N, S = 4, 1600, 1600
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, S, (W, N)).astype(np.int32)
+    ids[:, -7:] = S + 3
+    arrays = (ids, rng.normal(size=(W * Ci * Cj, N)), rng.normal(size=(Cj, S)),
+              rng.normal(size=(Ci, N)))
+    args = _f64(cuda, arrays)
+    rows, cols = fusedpair.fused_pair_apply_atomics_f64(*args, Ci=Ci, Cj=Cj, S=S)
+    torch.cuda.synchronize()
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_F64_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,S", [(12, 2000, 64), (24, 333, 300), (2, 40000, 1024)])
+def test_fused_pair_f64_route_cuda_matches_plain(cuda, W, N, S):
+    """fused_pair_route's f64 route: wide levels (the W-loop kernel's in
+    f32) and short ones take the f64 atomics body, a long narrow level the
+    f64 persistent kernel; the route's wrapper launches once and agrees."""
+    route = fusedpair.fused_pair_route(W, N, CI, CJ, S, dtype=torch.float64)
+    assert route == ("fused_pair_apply_f64" if (W, N) == (2, 40000)
+                     else "fused_pair_apply_atomics_f64")
+    args = _f64(cuda, fused_inputs(W, N, S))
+    fn = getattr(fusedpair, route)
+    n0 = fn.launches
+    rows, cols = fn(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_F64_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_pair_apply_wloop", "fused_pair_apply_wloop_chunked",
+                                  "fused_pair_rows_floor", "fused_pair_bf16_atomics"])
+def test_kernels_without_f64_refuse_it_on_cuda(cuda, name):
+    """A kernel with no f64 instantiation raises on f64 operands; it casts
+    nothing down and runs no plain version."""
+    args = _f64(cuda, fused_inputs(12, 2000, 64))
+    with pytest.raises(NotImplementedError, match="f64"):
+        getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.5])
+@pytest.mark.parametrize("R,N", OH_SHAPES + [(20000, 1024)])
+def test_oh_products_f64_cuda_matches_plain(cuda, share, R, N):
+    rT, Jall, ids = _f64(cuda, oh_inputs(R, N))
+    ids = torch.from_numpy(hot_ids(ids.cpu().numpy()[None], share)[0]).to(cuda)
+    n0 = ohsetup.oh_setup_products_f64.launches
+    out = ohsetup.oh_setup_products(rT, Jall, ids, N=N, recipe=OH_RECIPE)
+    torch.cuda.synchronize()
+    assert ohsetup.oh_setup_products_f64.launches == n0 + 1
+    assert out.dtype == torch.float64
+    ref = ohsetup.oh_setup_products_reference(rT, Jall, ids, N=N, recipe=OH_RECIPE)
+    close(out.cpu(), ref.cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("recipe", [FR_RECIPE, FR_RECIPE2], ids=["one_cross", "two_cross"])
+@pytest.mark.parametrize("N_t,W", FR_CUDA_SHAPES[:3] + [(77, 8), (100_003, 4)])
+def test_fullrepeat_f64_cuda_matches_plain(cuda, recipe, N_t, W):
+    """The f64 tile kernel: 16-byte copies (N_t*W even) and 8-byte ones
+    (odd), W even (double2 reads) and odd."""
+    recipe, (rT, Jall) = _fr_case(N_t, W, recipe)
+    rT, Jall = rT.double(), Jall.double()
+    n0 = fullrepeat.fullrepeat_setup_f64.launches
+    agg, crosses = fullrepeat.fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    torch.cuda.synchronize()
+    assert fullrepeat.fullrepeat_setup_f64.launches == n0 + 1
+    ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    for got, ref in zip([agg, *crosses], [ragg, *rcross]):
+        assert got.dtype == torch.float64
+        close(got.cpu(), ref.cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", AGG_SHAPES + [(6161, 1024)])
+def test_oh_aggregate_f64_cuda_matches_plain(cuda, R, N):
+    parts, ids = _f64(cuda, agg_inputs(R, N))
+    n0 = ohsetup.oh_setup_aggregate_f64.launches
+    out = ohsetup.oh_setup_aggregate(parts, ids, N=N)
+    torch.cuda.synchronize()
+    assert ohsetup.oh_setup_aggregate_f64.launches == n0 + 1
+    assert out.dtype == torch.float64
+    close(out.cpu(), ohsetup.oh_setup_aggregate_reference(parts, ids, N=N).cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+def test_double_step_makes_no_host_sync(cuda):
+    """One LM step of the small BA scene under double_precision, in f64
+    throughout (the f64 oh_setup_products, fullrepeat_setup and fused
+    pair), reads nothing back from the card."""
+    n0 = fusedpair.fused_pair_apply_f64.launches + \
+        fusedpair.fused_pair_apply_atomics_f64.launches
+    _step_makes_no_host_sync(cuda, double=True)
+    assert fusedpair.fused_pair_apply_f64.launches + \
+        fusedpair.fused_pair_apply_atomics_f64.launches > n0

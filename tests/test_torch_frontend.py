@@ -136,6 +136,32 @@ def test_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
+DRIVERS = sorted("thallo_tpu_torch." + str(q.relative_to(ROOT / "thallo_tpu_torch"))[:-3]
+                 .replace("/", ".").removesuffix(".__init__")
+                 for d in ("utils", "examples")
+                 for q in (ROOT / "thallo_tpu_torch" / d).glob("*.py"))
+
+
+@pytest.mark.parametrize("module", DRIVERS)
+def test_driver_imports_with_jax_blocked(module):
+    """The drivers (utils/, examples/) import with jax and thallo_tpu
+    blocked, and pull neither in; run_model's main also solves a small
+    model on the CPU that way."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['thallo_tpu'] = None\n"
+        f"import importlib; mod = importlib.import_module({module!r})\n"
+        + ("mod.main(['procrustes_alignment', '--device', 'cpu', '--iters', '2',"
+           " '--verbosity', '0'])\n" if module.endswith("run_model") else "")
+        + "assert not any(m in ('jax', 'thallo_tpu') or m.startswith(('jax.', 'thallo_tpu.'))\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_spec_plans_with_its_own_package():
     """spec.py's lazy `from .plan import make_plan` lands on the port."""
     import thallo_tpu_torch as tt

@@ -3,7 +3,10 @@
 // oh_aggregate.cu).  Where some id has merge_min lanes of a warp, the
 // lanes of each id sum their z vectors by shuffles first, so a hot id
 // costs the warp one shared addition per channel instead of up to 32
-// serialised ones.  Internal linkage: each source that includes it
+// serialised ones.  Templated on the value type V: float, or double for
+// the f64 instantiations (__shfl_sync and atomicAdd take both on sm_90).
+// fma_v is a fused multiply-add at V's precision, for the kernels
+// templated on V.  Internal linkage: each source that includes it
 // compiles its own copy.
 #pragma once
 
@@ -13,11 +16,14 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+__device__ __forceinline__ float fma_v(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_v(double a, double b, double c) { return fma(a, b, c); }
+
 // One element's z vector into the block's accumulator.  Every lane of the
 // warp calls this together (ok = false on a lane with nothing to add).
-template <int kCj>
-__device__ __forceinline__ void add_cols(float* __restrict__ acc_cols, int S, int id, bool ok,
-                                         float (&z)[kCj], int lane, int merge_min) {
+template <int kCj, typename V>
+__device__ __forceinline__ void add_cols(V* __restrict__ acc_cols, int S, int id, bool ok,
+                                         V (&z)[kCj], int lane, int merge_min) {
   // lanes with nothing to add get keys of their own
   const unsigned peers = __match_any_sync(kFull, ok ? id : -1 - lane);
   if (__any_sync(kFull, __popc(peers) >= merge_min)) {
@@ -33,7 +39,7 @@ __device__ __forceinline__ void add_cols(float* __restrict__ acc_cols, int S, in
       const int src = next ? next - 1 : lane;
 #pragma unroll
       for (int cj = 0; cj < kCj; ++cj) {
-        const float t = __shfl_sync(kFull, z[cj], src);
+        const V t = __shfl_sync(kFull, z[cj], src);
         if (next) z[cj] += t;
       }
       higher &= ~__ballot_sync(kFull, rank & 1);

@@ -34,10 +34,20 @@
 //     kind 2 diag   agg[f0 + a*Cb+b]    = sum_w sum_c Ja[c, a] * Jb[c, b]
 //     kind 3 cross  cross[f0 + w*Ca*Cb + a*Cb + b] = sum_c Ja_w[c, a] * Jb_w[c, b]
 //
+// f64 (the solver's double_precision): the tile kernel is templated on
+// the value type V of the inputs, the stage and the outputs
+// (thallo_fullrepeat_setup_tiles_f64: V = double; the first body stays
+// f32).  A 16-byte cp.async then carries 2 values (every row 16-byte
+// aligned where N_t*W is even, else 8-byte copies), a lane reads an
+// element's W observations as double2 vectors where W is even, and
+// ops/fullrepeat.py plans the tiles at 8 bytes a value.
+//
 // Both kernels write every agg and cross row at every element.
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+#include "block_accum.cuh"  // fma_v
 
 namespace {
 
@@ -49,9 +59,20 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// one value: 4 bytes for a float, 8 for a double
+__device__ __forceinline__ void cp_async1(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async1(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -65,6 +86,21 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // the W observations of one element on one window row (p 16-byte aligned
 // for W % 4 == 0, 8-byte aligned for W == 2)
+template <int W>
+__device__ __forceinline__ void load_obs(const double* p, double (&v)[W]) {
+  if constexpr (W % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < W / 2; ++i) {
+      const double2 q = reinterpret_cast<const double2*>(p)[i];
+      v[2 * i] = q.x;
+      v[2 * i + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < W; ++w) v[w] = p[w];
+  }
+}
+
 template <int W>
 __device__ __forceinline__ void load_obs(const float* p, float (&v)[W]) {
   if constexpr (W % 4 == 0) {
@@ -87,42 +123,46 @@ __device__ __forceinline__ void load_obs(const float* p, float (&v)[W]) {
 }
 
 // Copies tile `tile`'s window of X = [rT; J] into st [RK, T*W] (rows past
-// the level's last observation are left as they were).
-__device__ __forceinline__ void stage_tile(float* st, const float* __restrict__ rT,
-                                           const float* __restrict__ J, int rc, int RK,
-                                           size_t RW, int TW, int tile) {
+// the level's last observation are left as they were).  kQ values make
+// 16 bytes.
+template <typename V>
+__device__ __forceinline__ void stage_tile(V* st, const V* __restrict__ rT,
+                                           const V* __restrict__ J, int rc, int RK, size_t RW,
+                                           int TW, int tile) {
+  constexpr int kQ = 16 / sizeof(V);
   const size_t o0 = static_cast<size_t>(tile) * TW;
   const int cnt = static_cast<int>(RW - o0 < static_cast<size_t>(TW) ? RW - o0 : TW);
-  if (RW % 4 == 0) {  // every row and tile starts 16-byte aligned; cnt % 4 == 0
-    const int q_row = TW / 4;
+  if (RW % kQ == 0) {  // every row and tile starts 16-byte aligned; cnt % kQ == 0
+    const int q_row = TW / kQ;
     for (int i = threadIdx.x; i < RK * q_row; i += blockDim.x) {
       const int k = i / q_row;
       const int q = i - k * q_row;
-      if (4 * q < cnt) {
-        const float* src = (k < rc ? rT + k * RW : J + (k - rc) * RW) + o0 + 4 * q;
-        cp_async16(st + k * TW + 4 * q, src);
+      if (kQ * q < cnt) {
+        const V* src = (k < rc ? rT + k * RW : J + (k - rc) * RW) + o0 + kQ * q;
+        cp_async16(st + k * TW + kQ * q, src);
       }
     }
   } else {
     for (int i = threadIdx.x; i < RK * TW; i += blockDim.x) {
       const int k = i / TW;
       const int o = i - k * TW;
-      if (o < cnt) cp_async4(st + i, (k < rc ? rT + k * RW : J + (k - rc) * RW) + o0 + o);
+      if (o < cnt) cp_async1(st + i, (k < rc ? rT + k * RW : J + (k - rc) * RW) + o0 + o);
     }
   }
 }
 
-template <int W>
+template <typename V, int W>
 __global__ void __launch_bounds__(kMaxTileThreads)
-    fullrepeat_tile_kernel(const float* __restrict__ rT, const float* __restrict__ J,
+    fullrepeat_tile_kernel(const V* __restrict__ rT, const V* __restrict__ J,
                            const int4* __restrict__ groups_g, const int4* __restrict__ chans_g,
-                           float* __restrict__ agg, float* __restrict__ cross, int n_groups,
+                           V* __restrict__ agg, V* __restrict__ cross, int n_groups,
                            int n_chans, int rc, int Kall, int N_t, int T, int stages) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* smem = reinterpret_cast<V*>(smem_raw);
   const int RK = rc + Kall;
   const int TW = T * W;
-  const size_t stage_floats = static_cast<size_t>(RK) * TW;
-  int4* groups = reinterpret_cast<int4*>(smem + stages * stage_floats);
+  const size_t stage_values = static_cast<size_t>(RK) * TW;
+  int4* groups = reinterpret_cast<int4*>(smem + stages * stage_values);
   int4* chans = groups + n_groups;
   for (int i = threadIdx.x; i < n_groups; i += blockDim.x) groups[i] = groups_g[i];
   for (int i = threadIdx.x; i < n_chans; i += blockDim.x) chans[i] = chans_g[i];
@@ -135,9 +175,9 @@ __global__ void __launch_bounds__(kMaxTileThreads)
   cp_async_commit();
   for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
     const int next = tile + gridDim.x;
-    const float* cur = smem + (stages == 2 ? (it & 1) : 0) * stage_floats;
+    const V* cur = smem + (stages == 2 ? (it & 1) : 0) * stage_values;
     if (stages == 2) {
-      if (next < n_tiles) stage_tile(smem + ((it + 1) & 1) * stage_floats, rT, J, rc, RK, RW,
+      if (next < n_tiles) stage_tile(smem + ((it + 1) & 1) * stage_values, rT, J, rc, RK, RW,
                                      TW, next);
       cp_async_commit();
       cp_async_wait<1>();
@@ -153,23 +193,23 @@ __global__ void __launch_bounds__(kMaxTileThreads)
       const int n = item - g * T;
       const int e = tile * T + n;
       const int4 gr = groups[g];
-      float xa[kMaxRc][W];
+      V xa[kMaxRc][W];
 #pragma unroll
       for (int c = 0; c < kMaxRc; ++c) {
         if (c < rc) load_obs<W>(cur + (gr.x + c * gr.y) * TW + n * W, xa[c]);
       }
       for (int j = gr.z; j < gr.w; ++j) {
         const int4 ch = chans[j];
-        float s[W];
+        V s[W];
 #pragma unroll
-        for (int w = 0; w < W; ++w) s[w] = 0.f;
+        for (int w = 0; w < W; ++w) s[w] = V(0);
 #pragma unroll
         for (int c = 0; c < kMaxRc; ++c) {
           if (c < rc) {
-            float xb[W];
+            V xb[W];
             load_obs<W>(cur + (ch.x + c * ch.y) * TW + n * W, xb);
 #pragma unroll
-            for (int w = 0; w < W; ++w) s[w] = fmaf(xa[c][w], xb[w], s[w]);
+            for (int w = 0; w < W; ++w) s[w] = fma_v(xa[c][w], xb[w], s[w]);
           }
         }
         if (e >= N_t) continue;
@@ -177,7 +217,7 @@ __global__ void __launch_bounds__(kMaxTileThreads)
 #pragma unroll
           for (int w = 0; w < W; ++w) cross[static_cast<size_t>(ch.z + w * ch.w) * Nz + e] = s[w];
         } else {
-          float t = 0.f;
+          V t = V(0);
 #pragma unroll
           for (int w = 0; w < W; ++w) t += s[w];
           agg[static_cast<size_t>(ch.z) * Nz + e] = t;
@@ -193,20 +233,18 @@ __global__ void __launch_bounds__(kMaxTileThreads)
   }
 }
 
-template <int W>
-cudaError_t launch_tiles(const float* rT, const float* J, const int4* groups, const int4* chans,
-                         float* agg, float* cross, int n_groups, int n_chans, int rc, int Kall,
-                         int N_t, int T, int stages, int threads, int grid, size_t smem,
-                         cudaStream_t stream) {
+template <typename V, int W>
+cudaError_t launch_tiles(const V* rT, const V* J, const int4* groups, const int4* chans, V* agg,
+                         V* cross, int n_groups, int n_chans, int rc, int Kall, int N_t, int T,
+                         int stages, int threads, int grid, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fullrepeat_tile_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fullrepeat_tile_kernel<V, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  fullrepeat_tile_kernel<W><<<grid, threads, smem, stream>>>(rT, J, groups, chans, agg, cross,
-                                                             n_groups, n_chans, rc, Kall, N_t, T,
-                                                             stages);
+  fullrepeat_tile_kernel<V, W><<<grid, threads, smem, stream>>>(
+      rT, J, groups, chans, agg, cross, n_groups, n_chans, rc, Kall, N_t, T, stages);
   return cudaGetLastError();
 }
 
@@ -272,6 +310,44 @@ __global__ void fullrepeat_thread_kernel(const float* __restrict__ rT,
   }
 }
 
+template <typename V>
+int setup_tiles(const void* rT, const void* Jall, const void* groups, const void* chans, void* agg,
+                void* cross, int n_groups, int n_chans, int rc, int Kall, int W, int N_t, int T,
+                int stages, int threads, int grid, void* stream) {
+  if (W < 2 || W > 8 || rc < 1 || rc > kMaxRc || Kall < 0 || N_t < 0 || T < 32 || T % 32 != 0 ||
+      (stages != 1 && stages != 2) || threads < 32 || threads > kMaxTileThreads ||
+      threads % 32 != 0 || grid < 1 || n_groups < 0 || n_chans < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (N_t == 0 || n_groups == 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = static_cast<size_t>(stages) * (rc + Kall) * T * W * sizeof(V) +
+                      static_cast<size_t>(n_groups + n_chans) * sizeof(int4);
+  const auto* r = static_cast<const V*>(rT);
+  const auto* j = static_cast<const V*>(Jall);
+  const auto* g = static_cast<const int4*>(groups);
+  const auto* c = static_cast<const int4*>(chans);
+  auto* a = static_cast<V*>(agg);
+  auto* x = static_cast<V*>(cross);
+  auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (W) {
+#define THALLO_FR_CASE(w)                                                                        \
+  case w:                                                                                        \
+    err = launch_tiles<V, w>(r, j, g, c, a, x, n_groups, n_chans, rc, Kall, N_t, T, stages,    \
+                             threads, grid, smem, s);                                            \
+    break;
+    THALLO_FR_CASE(2)
+    THALLO_FR_CASE(3)
+    THALLO_FR_CASE(4)
+    THALLO_FR_CASE(5)
+    THALLO_FR_CASE(6)
+    THALLO_FR_CASE(7)
+    THALLO_FR_CASE(8)
+#undef THALLO_FR_CASE
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // The tile kernel.  groups [n_groups, 4] int32 (a0, sa, j0, j1), chans
@@ -284,38 +360,18 @@ extern "C" int thallo_fullrepeat_setup_tiles(const void* rT, const void* Jall, c
                                              int n_groups, int n_chans, int rc, int Kall, int W,
                                              int N_t, int T, int stages, int threads, int grid,
                                              void* stream) {
-  if (W < 2 || W > 8 || rc < 1 || rc > kMaxRc || Kall < 0 || N_t < 0 || T < 32 || T % 32 != 0 ||
-      (stages != 1 && stages != 2) || threads < 32 || threads > kMaxTileThreads ||
-      threads % 32 != 0 || grid < 1 || n_groups < 0 || n_chans < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (N_t == 0 || n_groups == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(stages) * (rc + Kall) * T * W * sizeof(float) +
-                      static_cast<size_t>(n_groups + n_chans) * sizeof(int4);
-  const auto* r = static_cast<const float*>(rT);
-  const auto* j = static_cast<const float*>(Jall);
-  const auto* g = static_cast<const int4*>(groups);
-  const auto* c = static_cast<const int4*>(chans);
-  auto* a = static_cast<float*>(agg);
-  auto* x = static_cast<float*>(cross);
-  auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (W) {
-#define THALLO_FR_CASE(w)                                                                        \
-  case w:                                                                                        \
-    err = launch_tiles<w>(r, j, g, c, a, x, n_groups, n_chans, rc, Kall, N_t, T, stages,       \
-                          threads, grid, smem, s);                                               \
-    break;
-    THALLO_FR_CASE(2)
-    THALLO_FR_CASE(3)
-    THALLO_FR_CASE(4)
-    THALLO_FR_CASE(5)
-    THALLO_FR_CASE(6)
-    THALLO_FR_CASE(7)
-    THALLO_FR_CASE(8)
-#undef THALLO_FR_CASE
-  }
-  return static_cast<int>(err);
+  return setup_tiles<float>(rT, Jall, groups, chans, agg, cross, n_groups, n_chans, rc, Kall, W,
+                            N_t, T, stages, threads, grid, stream);
+}
+
+// The tile kernel in f64: rT, Jall, agg and cross double.
+extern "C" int thallo_fullrepeat_setup_tiles_f64(const void* rT, const void* Jall,
+                                                 const void* groups, const void* chans, void* agg,
+                                                 void* cross, int n_groups, int n_chans, int rc,
+                                                 int Kall, int W, int N_t, int T, int stages,
+                                                 int threads, int grid, void* stream) {
+  return setup_tiles<double>(rT, Jall, groups, chans, agg, cross, n_groups, n_chans, rc, Kall,
+                             W, N_t, T, stages, threads, grid, stream);
 }
 
 extern "C" int thallo_fullrepeat_setup_thread(const void* rT, const void* Jall,

@@ -47,6 +47,14 @@
 //   pair: the graph models' 3 x 3 pairs and the embedded graph's
 //   9-channel rotation rows against 3-channel offsets).
 //
+// f64 (the solver's double_precision): both kernels are templated on the
+// value type V of pcol, prow, rows, cols and the shared accumulator.
+// thallo_fused_pair_persistent_f64 is the persistent kernel with T = V =
+// double (one double a lane; the [9, S] accumulator is 72 KB at S =
+// 1024, within kMaxSmem up to S = 1592), thallo_fused_pair_atomics_f64
+// the atomics kernel with V = double (atomicAdd on double is native on
+// sm_90).  Registers and shared memory double; every sum is an f64 sum.
+//
 // add_cols (the warp merge) lives in block_accum.cuh, shared with the
 // W-loop kernel and oh_aggregate.cu; pair_slot (one slot's loads and
 // products) in fused_pair_slot.cuh, shared with the W-loop kernel.  The
@@ -67,37 +75,37 @@ constexpr int kThreads = 256;      // the atomics kernel's block
 constexpr int kMaxThreads = 1024;  // the persistent kernel's largest block
 constexpr int kMaxSmem = 112 * 1024;  // ops/fusedpair.py PERSISTENT_MAX_SMEM
 
-template <int kCiMax, int kCjMax>
+template <typename V, int kCiMax, int kCjMax>
 __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
-                                          const float* __restrict__ blocks,
-                                          const float* __restrict__ pcol,
-                                          const float* __restrict__ prow,
-                                          float* __restrict__ rows,
-                                          float* __restrict__ cols,
+                                          const V* __restrict__ blocks,
+                                          const V* __restrict__ pcol,
+                                          const V* __restrict__ prow,
+                                          V* __restrict__ rows,
+                                          V* __restrict__ cols,
                                           int W, int N, int Ci, int Cj, int S) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const size_t Nz = static_cast<size_t>(N);
   const size_t F = static_cast<size_t>(Ci) * Cj;
 
-  float pr[kCiMax];
-  float acc[kCiMax];
+  V pr[kCiMax];
+  V acc[kCiMax];
 #pragma unroll
   for (int ci = 0; ci < kCiMax; ++ci) {
-    pr[ci] = ci < Ci ? prow[ci * Nz + n] : 0.f;
-    acc[ci] = 0.f;
+    pr[ci] = ci < Ci ? prow[ci * Nz + n] : V(0);
+    acc[ci] = V(0);
   }
 
   for (int w = 0; w < W; ++w) {
     const int id = ids[static_cast<size_t>(w) * Nz + n];
     if (id < 0 || id >= S) continue;  // padded / out-of-range: dropped
-    const float* b = blocks + static_cast<size_t>(w) * F * Nz + n;
-    float pc[kCjMax];
-    float z[kCjMax];
+    const V* b = blocks + static_cast<size_t>(w) * F * Nz + n;
+    V pc[kCjMax];
+    V z[kCjMax];
 #pragma unroll
     for (int cj = 0; cj < kCjMax; ++cj) {
-      pc[cj] = cj < Cj ? __ldg(pcol + static_cast<size_t>(cj) * S + id) : 0.f;
-      z[cj] = 0.f;
+      pc[cj] = cj < Cj ? __ldg(pcol + static_cast<size_t>(cj) * S + id) : V(0);
+      z[cj] = V(0);
     }
 #pragma unroll
     for (int ci = 0; ci < kCiMax; ++ci) {
@@ -105,9 +113,9 @@ __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
 #pragma unroll
         for (int cj = 0; cj < kCjMax; ++cj) {
           if (cj < Cj) {
-            const float bv = __ldg(b + static_cast<size_t>(ci * Cj + cj) * Nz);
-            acc[ci] = fmaf(bv, pc[cj], acc[ci]);
-            z[cj] = fmaf(bv, pr[ci], z[cj]);
+            const V bv = __ldg(b + static_cast<size_t>(ci * Cj + cj) * Nz);
+            acc[ci] = fma_v(bv, pc[cj], acc[ci]);
+            z[cj] = fma_v(bv, pr[ci], z[cj]);
           }
         }
       }
@@ -124,27 +132,46 @@ __global__ void fused_pair_atomics_kernel(const int* __restrict__ ids,
   }
 }
 
-using AtomicsKernel = void (*)(const int*, const float*, const float*, const float*, float*,
-                               float*, int, int, int, int, int);
+template <typename V>
+using AtomicsKernel = void (*)(const int*, const V*, const V*, const V*, V*, V*, int, int, int,
+                               int, int);
 
 // the instantiation for Ci <= kCiMax and this Cj
-template <int kCiMax>
-AtomicsKernel atomics_kernel_for(int Cj) {
-  return Cj <= 4 ? fused_pair_atomics_kernel<kCiMax, 4>
-                 : fused_pair_atomics_kernel<kCiMax, kMaxCj>;
+template <typename V, int kCiMax>
+AtomicsKernel<V> atomics_kernel_for(int Cj) {
+  return Cj <= 4 ? fused_pair_atomics_kernel<V, kCiMax, 4>
+                 : fused_pair_atomics_kernel<V, kCiMax, kMaxCj>;
 }
 
-template <typename T, int kCi, int kCj, int kElems, bool kCols>
+template <typename V>
+cudaError_t launch_atomics(const void* ids, const void* blocks, const void* pcol,
+                           const void* prow, void* rows, void* cols, int W, int N, int Ci,
+                           int Cj, int S, void* stream) {
+  if (Ci < 1 || Ci > kAtomicsMaxCi || Cj < 1 || Cj > kMaxCj) return cudaErrorInvalidValue;
+  if (N > 0) {
+    const int grid = (N + kThreads - 1) / kThreads;
+    const AtomicsKernel<V> kernel = Ci <= 4   ? atomics_kernel_for<V, 4>(Cj)
+                                    : Ci <= 8 ? atomics_kernel_for<V, 8>(Cj)
+                                              : atomics_kernel_for<V, kAtomicsMaxCi>(Cj);
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(ids), static_cast<const V*>(blocks),
+        static_cast<const V*>(pcol), static_cast<const V*>(prow), static_cast<V*>(rows),
+        static_cast<V*>(cols), W, N, Ci, Cj, S);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, typename V, int kCi, int kCj, int kElems, bool kCols>
 __global__ void __launch_bounds__(kMaxThreads / kElems)
     fused_pair_persistent_kernel(const int* __restrict__ ids, const T* __restrict__ blocks,
-                                 const float* __restrict__ pcol,
-                                 const float* __restrict__ prow, float* __restrict__ rows,
-                                 float* __restrict__ cols, int W, int N, int S, int n_tiles,
-                                 int merge_min) {
-  extern __shared__ float acc_cols[];  // [kCj, S]
+                                 const V* __restrict__ pcol, const V* __restrict__ prow,
+                                 V* __restrict__ rows, V* __restrict__ cols, int W, int N, int S,
+                                 int n_tiles, int merge_min) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* acc_cols = reinterpret_cast<V*>(smem_raw);  // [kCj, S]
   const int n_acc = kCj * S;
   if (kCols) {
-    for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_cols[i] = 0.f;
+    for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_cols[i] = V(0);
     __syncthreads();
   }
   const size_t Nz = static_cast<size_t>(N);
@@ -155,18 +182,18 @@ __global__ void __launch_bounds__(kMaxThreads / kElems)
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int n0 = (tile * blockDim.x + threadIdx.x) * kElems;
     const bool live = n0 < N;  // kElems = 2 only for an even N: both or neither
-    float pr[kElems][kCi];
-    float acc[kElems][kCi];
+    V pr[kElems][kCi];
+    V acc[kElems][kCi];
 #pragma unroll
     for (int e = 0; e < kElems; ++e) {
 #pragma unroll
       for (int ci = 0; ci < kCi; ++ci) {
-        pr[e][ci] = live ? __ldg(prow + ci * Nz + n0 + e) : 0.f;
-        acc[e][ci] = 0.f;
+        pr[e][ci] = live ? __ldg(prow + ci * Nz + n0 + e) : V(0);
+        acc[e][ci] = V(0);
       }
     }
     for (int w = 0; w < W; ++w) {
-      float z[kElems][kCj];
+      V z[kElems][kCj];
       int id[kElems];
       bool ok[kElems];
       pair_slot<T, kCi, kCj, kElems, kCols>(ids, blocks, pcol, S, Nz, w, n0, live, pr, acc, z,
@@ -189,18 +216,18 @@ __global__ void __launch_bounds__(kMaxThreads / kElems)
   if (kCols) {
     __syncthreads();
     for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
-      const float v = acc_cols[i];
-      if (v != 0.f) atomicAdd(cols + i, v);
+      const V v = acc_cols[i];
+      if (v != V(0)) atomicAdd(cols + i, v);
     }
   }
 }
 
-template <typename T, int kElems, bool kCols>
+template <typename T, typename V, int kElems, bool kCols>
 cudaError_t launch_persistent(const void* ids, const void* blocks, const void* pcol,
                               const void* prow, void* rows, void* cols, int W, int N, int S,
                               int threads, int grid, int merge_min, cudaStream_t stream) {
-  auto kernel = fused_pair_persistent_kernel<T, 3, 9, kElems, kCols>;
-  const size_t smem = kCols ? static_cast<size_t>(9) * S * sizeof(float) : 0;
+  auto kernel = fused_pair_persistent_kernel<T, V, 3, 9, kElems, kCols>;
+  const size_t smem = kCols ? static_cast<size_t>(9) * S * sizeof(V) : 0;
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(smem));
@@ -208,17 +235,17 @@ cudaError_t launch_persistent(const void* ids, const void* blocks, const void* p
   const int per_tile = threads * kElems;
   const int n_tiles = (N + per_tile - 1) / per_tile;
   kernel<<<grid < n_tiles ? grid : n_tiles, threads, smem, stream>>>(
-      static_cast<const int*>(ids), static_cast<const T*>(blocks),
-      static_cast<const float*>(pcol), static_cast<const float*>(prow),
-      static_cast<float*>(rows), static_cast<float*>(cols), W, N, S, n_tiles, merge_min);
+      static_cast<const int*>(ids), static_cast<const T*>(blocks), static_cast<const V*>(pcol),
+      static_cast<const V*>(prow), static_cast<V*>(rows), static_cast<V*>(cols), W, N, S,
+      n_tiles, merge_min);
   return cudaGetLastError();
 }
 
 bool persistent_args_ok(int Ci, int Cj, int S, int threads, int grid, int merge_min,
-                        int max_threads) {
+                        int max_threads, size_t value_bytes) {
   return Ci == 3 && Cj == 9 && S >= 1 && grid >= 1 && merge_min >= 2 && threads >= 32 &&
          threads <= max_threads && threads % 32 == 0 &&
-         static_cast<size_t>(Cj) * S * sizeof(float) <= kMaxSmem;
+         static_cast<size_t>(Cj) * S * value_bytes <= kMaxSmem;
 }
 
 }  // namespace
@@ -231,17 +258,38 @@ extern "C" int thallo_fused_pair_persistent(const void* ids, const void* blocks,
                                             void* cols, int W, int N, int Ci, int Cj, int S,
                                             int threads, int grid, int merge_min,
                                             void* stream) {
-  if (!persistent_args_ok(Ci, Cj, S, threads, grid, merge_min, kMaxThreads)) {
+  if (!persistent_args_ok(Ci, Cj, S, threads, grid, merge_min, kMaxThreads, sizeof(float))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N <= 0) return static_cast<int>(cudaGetLastError());
   auto s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       cols != nullptr
-          ? launch_persistent<float, 1, true>(ids, blocks, pcol, prow, rows, cols, W, N, S,
-                                              threads, grid, merge_min, s)
-          : launch_persistent<float, 1, false>(ids, blocks, pcol, prow, rows, cols, W, N, S,
-                                               threads, grid, merge_min, s);
+          ? launch_persistent<float, float, 1, true>(ids, blocks, pcol, prow, rows, cols, W, N,
+                                                     S, threads, grid, merge_min, s)
+          : launch_persistent<float, float, 1, false>(ids, blocks, pcol, prow, rows, cols, W,
+                                                      N, S, threads, grid, merge_min, s);
+  return static_cast<int>(err);
+}
+
+// The persistent kernel in f64: blocks, pcol, prow, rows and cols double
+// (one element a thread); cols null: rows only.
+extern "C" int thallo_fused_pair_persistent_f64(const void* ids, const void* blocks,
+                                                const void* pcol, const void* prow, void* rows,
+                                                void* cols, int W, int N, int Ci, int Cj, int S,
+                                                int threads, int grid, int merge_min,
+                                                void* stream) {
+  if (!persistent_args_ok(Ci, Cj, S, threads, grid, merge_min, kMaxThreads, sizeof(double))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (N <= 0) return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cols != nullptr
+          ? launch_persistent<double, double, 1, true>(ids, blocks, pcol, prow, rows, cols, W,
+                                                       N, S, threads, grid, merge_min, s)
+          : launch_persistent<double, double, 1, false>(ids, blocks, pcol, prow, rows, cols, W,
+                                                        N, S, threads, grid, merge_min, s);
   return static_cast<int>(err);
 }
 
@@ -254,7 +302,8 @@ extern "C" int thallo_fused_pair_persistent_bf16(const void* ids, const void* bl
                                                  int S, int threads, int grid, int merge_min,
                                                  int elems, void* stream) {
   if ((elems != 1 && elems != 2) || (elems == 2 && N % 2 != 0) ||
-      !persistent_args_ok(Ci, Cj, S, threads, grid, merge_min, kMaxThreads / elems)) {
+      !persistent_args_ok(Ci, Cj, S, threads, grid, merge_min, kMaxThreads / elems,
+                          sizeof(float))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (N <= 0) return static_cast<int>(cudaGetLastError());
@@ -262,10 +311,11 @@ extern "C" int thallo_fused_pair_persistent_bf16(const void* ids, const void* bl
   const bool c = cols != nullptr;
   using bf16 = __nv_bfloat16;
   const cudaError_t err =
-      elems == 2 ? (c ? launch_persistent<bf16, 2, true> : launch_persistent<bf16, 2, false>)(
-                       ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, merge_min, s)
-                 : (c ? launch_persistent<bf16, 1, true> : launch_persistent<bf16, 1, false>)(
-                       ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, merge_min, s);
+      elems == 2
+          ? (c ? launch_persistent<bf16, float, 2, true> : launch_persistent<bf16, float, 2, false>)(
+                ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, merge_min, s)
+          : (c ? launch_persistent<bf16, float, 1, true> : launch_persistent<bf16, float, 1, false>)(
+                ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, merge_min, s);
   return static_cast<int>(err);
 }
 
@@ -273,18 +323,15 @@ extern "C" int thallo_fused_pair_atomics(const void* ids, const void* blocks,
                                          const void* pcol, const void* prow,
                                          void* rows, void* cols, int W, int N,
                                          int Ci, int Cj, int S, void* stream) {
-  if (Ci < 1 || Ci > kAtomicsMaxCi || Cj < 1 || Cj > kMaxCj) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (N > 0) {
-    const int grid = (N + kThreads - 1) / kThreads;
-    const AtomicsKernel kernel = Ci <= 4   ? atomics_kernel_for<4>(Cj)
-                                 : Ci <= 8 ? atomics_kernel_for<8>(Cj)
-                                           : atomics_kernel_for<kAtomicsMaxCi>(Cj);
-    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(ids), static_cast<const float*>(blocks),
-        static_cast<const float*>(pcol), static_cast<const float*>(prow),
-        static_cast<float*>(rows), static_cast<float*>(cols), W, N, Ci, Cj, S);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_atomics<float>(ids, blocks, pcol, prow, rows, cols, W, N, Ci, Cj, S, stream));
+}
+
+// The atomics kernel in f64: every operand but ids double.
+extern "C" int thallo_fused_pair_atomics_f64(const void* ids, const void* blocks,
+                                             const void* pcol, const void* prow, void* rows,
+                                             void* cols, int W, int N, int Ci, int Cj, int S,
+                                             void* stream) {
+  return static_cast<int>(
+      launch_atomics<double>(ids, blocks, pcol, prow, rows, cols, W, N, Ci, Cj, S, stream));
 }

@@ -4,8 +4,10 @@
 // stored type T and streamed past the caches that hold pcol and ids
 // (__ldcs): float, or __nv_bfloat16 through the intrinsics only, one
 // value or two neighbouring ones as one __nv_bfloat162 (4 bytes a lane, a
-// 128-byte warp load).  Everything else, and all arithmetic, is f32.
-// Internal linkage: each source that includes it compiles its own copy.
+// 128-byte warp load).  Everything else, and all arithmetic, is at the
+// value type V: f32, or f64 for the f64 instantiation (T = V = double,
+// one double a lane, a 256-byte warp load).  Internal linkage: each
+// source that includes it compiles its own copy.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -13,9 +15,13 @@
 
 #include <cstddef>
 
+#include "block_accum.cuh"  // fma_v
+
 namespace {
 
 __device__ __forceinline__ void load_block(const float* p, float (&v)[1]) { v[0] = __ldcs(p); }
+
+__device__ __forceinline__ void load_block(const double* p, double (&v)[1]) { v[0] = __ldcs(p); }
 
 __device__ __forceinline__ void load_block(const __nv_bfloat16* p, float (&v)[1]) {
   v[0] = __bfloat162float(__ldcs(p));
@@ -40,13 +46,13 @@ __device__ __forceinline__ void load_ids(const int* p, int (&id)[2]) {
 // w of the w-major blocks [W, kCi*kCj, N]: each element's id, whether it
 // lies in [0, S) (ok), its rows added to acc and its z vector (zero where
 // not ok; padded / out-of-range entries contribute nothing).
-template <typename T, int kCi, int kCj, int kElems, bool kCols>
+template <typename T, int kCi, int kCj, int kElems, bool kCols, typename V>
 __device__ __forceinline__ void pair_slot(const int* __restrict__ ids,
                                           const T* __restrict__ blocks,
-                                          const float* __restrict__ pcol, int S, size_t Nz,
+                                          const V* __restrict__ pcol, int S, size_t Nz,
                                           int w, int n0, bool live,
-                                          const float (&pr)[kElems][kCi],
-                                          float (&acc)[kElems][kCi], float (&z)[kElems][kCj],
+                                          const V (&pr)[kElems][kCi],
+                                          V (&acc)[kElems][kCi], V (&z)[kElems][kCj],
                                           int (&id)[kElems], bool (&ok)[kElems]) {
   constexpr int kF = kCi * kCj;
   if (live) {
@@ -61,15 +67,15 @@ __device__ __forceinline__ void pair_slot(const int* __restrict__ ids,
     ok[e] = static_cast<unsigned>(id[e]) < static_cast<unsigned>(S);
     any = any || ok[e];
 #pragma unroll
-    for (int cj = 0; cj < kCj; ++cj) z[e][cj] = 0.f;
+    for (int cj = 0; cj < kCj; ++cj) z[e][cj] = V(0);
   }
   if (!any) return;  // no block read for a slot without a valid entry
-  float pc[kElems][kCj];
+  V pc[kElems][kCj];
 #pragma unroll
   for (int e = 0; e < kElems; ++e) {
 #pragma unroll
     for (int cj = 0; cj < kCj; ++cj) {
-      pc[e][cj] = ok[e] ? __ldg(pcol + static_cast<size_t>(cj) * S + id[e]) : 0.f;
+      pc[e][cj] = ok[e] ? __ldg(pcol + static_cast<size_t>(cj) * S + id[e]) : V(0);
     }
   }
   const T* b = blocks + static_cast<size_t>(w) * kF * Nz + n0;
@@ -77,13 +83,13 @@ __device__ __forceinline__ void pair_slot(const int* __restrict__ ids,
   for (int ci = 0; ci < kCi; ++ci) {
 #pragma unroll
     for (int cj = 0; cj < kCj; ++cj) {
-      float v[kElems];
+      V v[kElems];
       load_block(b + static_cast<size_t>(ci * kCj + cj) * Nz, v);
 #pragma unroll
       for (int e = 0; e < kElems; ++e) {
-        const float bv = ok[e] ? v[e] : 0.f;
-        acc[e][ci] = fmaf(bv, pc[e][cj], acc[e][ci]);
-        if (kCols) z[e][cj] = fmaf(bv, pr[e][ci], z[e][cj]);
+        const V bv = ok[e] ? v[e] : V(0);
+        acc[e][ci] = fma_v(bv, pc[e][cj], acc[e][ci]);
+        if (kCols) z[e][cj] = fma_v(bv, pr[e][ci], z[e][cj]);
       }
     }
   }

@@ -30,6 +30,12 @@
 //   into out with one global atomic.  N up to kMaxSmem / 4.  The caller
 //   zeroes out.
 //
+// f64 (the solver's double_precision): the shared-memory kernel is
+// templated on the value type V of parts, the accumulator and out
+// (thallo_oh_setup_aggregate_smem_f64: V = double; a quad's 4 values of a
+// channel are two 16-byte double2 loads; ops/ohsetup.py plans the
+// accumulator rows at 8 bytes a value).  The first body stays f32.
+//
 // The kernels allocate nothing.
 #include <cuda_runtime.h>
 
@@ -73,14 +79,33 @@ __global__ void oh_aggregate_kernel(const float* __restrict__ parts,
   }
 }
 
+// A whole quad's 4 values of one channel row, streamed: one float4, or
+// two double2 (row 16-byte aligned).
+__device__ __forceinline__ void load4(const float* row, int q, float (&v)[4]) {
+  const float4 t = __ldcs(reinterpret_cast<const float4*>(row) + q);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const double* row, int q, double (&v)[4]) {
+  const double2 a = __ldcs(reinterpret_cast<const double2*>(row) + 2 * q);
+  const double2 b = __ldcs(reinterpret_cast<const double2*>(row) + 2 * q + 1);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
 // The 4 ids and the nb (<= kBatch) channel values of quad q (rows 4q ..
 // 4q + 3) from channel rows pf; kVec: R % 4 == 0, so every channel row is
 // 16-byte aligned and every quad whole.  Past the rows: id -1, values 0.
-template <bool kVec>
-__device__ __forceinline__ void load_quad(const float* __restrict__ pf,
+template <bool kVec, typename V>
+__device__ __forceinline__ void load_quad(const V* __restrict__ pf,
                                           const int* __restrict__ ids, size_t Rz, int R,
                                           int n_quads, int q, int nb, int (&id)[4],
-                                          float (&v)[kBatch][4]) {
+                                          V (&v)[kBatch][4]) {
   const bool in = q < n_quads;
   if (kVec && in) {
     const int4 t = __ldcs(reinterpret_cast<const int4*>(ids) + q);
@@ -94,18 +119,14 @@ __device__ __forceinline__ void load_quad(const float* __restrict__ pf,
   }
 #pragma unroll
   for (int cj = 0; cj < kBatch; ++cj) {
-    const float* row = pf + static_cast<size_t>(cj) * Rz;
+    const V* row = pf + static_cast<size_t>(cj) * Rz;
     const bool have = in && cj < nb;
     if (kVec && have) {
-      const float4 t = __ldcs(reinterpret_cast<const float4*>(row) + q);
-      v[cj][0] = t.x;
-      v[cj][1] = t.y;
-      v[cj][2] = t.z;
-      v[cj][3] = t.w;
+      load4(row, q, v[cj]);
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        v[cj][k] = have && 4 * q + k < R ? __ldcs(row + 4 * q + k) : 0.f;
+        v[cj][k] = have && 4 * q + k < R ? __ldcs(row + 4 * q + k) : V(0);
       }
     }
   }
@@ -113,11 +134,12 @@ __device__ __forceinline__ void load_quad(const float* __restrict__ pf,
 
 // A quad's 4 rows into the accumulator, row by row, each through the warp
 // merge.  Every lane of the warp calls this together.
-__device__ __forceinline__ void add_quad(float* acc, int N, const int (&id)[4],
-                                         const float (&v)[kBatch][4], int lane, int merge_min) {
+template <typename V>
+__device__ __forceinline__ void add_quad(V* acc, int N, const int (&id)[4],
+                                         const V (&v)[kBatch][4], int lane, int merge_min) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    float z[kBatch];
+    V z[kBatch];
 #pragma unroll
     for (int cj = 0; cj < kBatch; ++cj) z[cj] = v[cj][k];
     add_cols<kBatch>(acc, N, id[k], static_cast<unsigned>(id[k]) < static_cast<unsigned>(N), z,
@@ -125,17 +147,20 @@ __device__ __forceinline__ void add_quad(float* acc, int N, const int (&id)[4],
   }
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kMaxAggThreads)
-    oh_aggregate_smem_kernel(const float* __restrict__ parts, const int* __restrict__ ids,
-                             float* __restrict__ out, int F, int R, int N, int chunk,
-                             int acc_rows, int merge_min) {
-  extern __shared__ float acc[];  // [acc_rows, N]
+// f64: at most half the threads, so that a thread's kBatch x 4 doubles
+// stay in registers (128 a thread; at 64, 520 bytes spilled)
+template <bool kVec, typename V>
+__global__ void __launch_bounds__(kMaxAggThreads * sizeof(float) / sizeof(V))
+    oh_aggregate_smem_kernel(const V* __restrict__ parts, const int* __restrict__ ids,
+                             V* __restrict__ out, int F, int R, int N, int chunk, int acc_rows,
+                             int merge_min) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* acc = reinterpret_cast<V*>(smem_raw);  // [acc_rows, N]
   const int lane = threadIdx.x & 31;
   const int f0 = blockIdx.y * chunk;
   const int fc = min(chunk, F - f0);
   const size_t n_acc = static_cast<size_t>(acc_rows) * N;
-  for (size_t i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.f;
+  for (size_t i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = V(0);
   __syncthreads();
 
   const size_t Rz = static_cast<size_t>(R);
@@ -146,7 +171,7 @@ __global__ void __launch_bounds__(kMaxAggThreads)
        base += gridDim.x * blockDim.x) {
     for (int fb = 0; fb < fc; fb += kBatch) {
       int id[4];
-      float v[kBatch][4];
+      V v[kBatch][4];
       load_quad<kVec>(parts + static_cast<size_t>(f0 + fb) * Rz, ids, Rz, R, n_quads,
                       base + lane, min(kBatch, fc - fb), id, v);
       add_quad(acc + static_cast<size_t>(fb) * N, N, id, v, lane, merge_min);
@@ -154,28 +179,46 @@ __global__ void __launch_bounds__(kMaxAggThreads)
   }
   __syncthreads();
 
-  float* dst = out + static_cast<size_t>(f0) * N;
+  V* dst = out + static_cast<size_t>(f0) * N;
   for (size_t i = threadIdx.x; i < static_cast<size_t>(fc) * N; i += blockDim.x) {
-    const float a = acc[i];
-    if (a != 0.f) atomicAdd(dst + i, a);
+    const V a = acc[i];
+    if (a != V(0)) atomicAdd(dst + i, a);
   }
 }
 
-template <bool kVec>
-cudaError_t launch_smem(const float* parts, const int* ids, float* out, int F, int R, int N,
-                        int chunk, int acc_rows, int merge_min, int threads, int grid,
-                        cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(acc_rows) * N * sizeof(float);
+template <bool kVec, typename V>
+cudaError_t launch_smem(const V* parts, const int* ids, V* out, int F, int R, int N, int chunk,
+                        int acc_rows, int merge_min, int threads, int grid, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(acc_rows) * N * sizeof(V);
   if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(oh_aggregate_smem_kernel<kVec>,
+    const cudaError_t err = cudaFuncSetAttribute(oh_aggregate_smem_kernel<kVec, V>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 blocks(grid, (F + chunk - 1) / chunk);
-  oh_aggregate_smem_kernel<kVec><<<blocks, threads, smem, stream>>>(parts, ids, out, F, R, N,
-                                                                   chunk, acc_rows, merge_min);
+  oh_aggregate_smem_kernel<kVec, V><<<blocks, threads, smem, stream>>>(
+      parts, ids, out, F, R, N, chunk, acc_rows, merge_min);
   return cudaGetLastError();
+}
+
+template <typename V>
+int aggregate_smem(const void* parts, const void* ids, void* out, int F, int R, int N, int chunk,
+                   int acc_rows, int merge_min, int threads, int grid, void* stream) {
+  if (F < 1 || R < 0 || N < 1 || chunk < 1 || acc_rows < chunk || acc_rows % kBatch != 0 ||
+      threads < 32 || threads > static_cast<int>(kMaxAggThreads * sizeof(float) / sizeof(V)) ||
+      threads % 32 != 0 || grid < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* p = static_cast<const V*>(parts);
+  const auto* id = static_cast<const int*>(ids);
+  auto* o = static_cast<V*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      R % 4 == 0
+          ? launch_smem<true>(p, id, o, F, R, N, chunk, acc_rows, merge_min, threads, grid, s)
+          : launch_smem<false>(p, id, o, F, R, N, chunk, acc_rows, merge_min, threads, grid, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -189,19 +232,17 @@ extern "C" int thallo_oh_setup_aggregate_smem(const void* parts, const void* ids
                                               int F, int R, int N, int chunk, int acc_rows,
                                               int merge_min, int threads, int grid,
                                               void* stream) {
-  if (F < 1 || R < 0 || N < 1 || chunk < 1 || acc_rows < chunk || acc_rows % kBatch != 0 ||
-      threads < 32 || threads > kMaxAggThreads || threads % 32 != 0 || grid < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const auto* p = static_cast<const float*>(parts);
-  const auto* id = static_cast<const int*>(ids);
-  auto* o = static_cast<float*>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      R % 4 == 0
-          ? launch_smem<true>(p, id, o, F, R, N, chunk, acc_rows, merge_min, threads, grid, s)
-          : launch_smem<false>(p, id, o, F, R, N, chunk, acc_rows, merge_min, threads, grid, s);
-  return static_cast<int>(err);
+  return aggregate_smem<float>(parts, ids, out, F, R, N, chunk, acc_rows, merge_min, threads,
+                               grid, stream);
+}
+
+// The same in f64: parts and out double.
+extern "C" int thallo_oh_setup_aggregate_smem_f64(const void* parts, const void* ids, void* out,
+                                                  int F, int R, int N, int chunk, int acc_rows,
+                                                  int merge_min, int threads, int grid,
+                                                  void* stream) {
+  return aggregate_smem<double>(parts, ids, out, F, R, N, chunk, acc_rows, merge_min, threads,
+                                grid, stream);
 }
 
 extern "C" int thallo_oh_setup_aggregate_atomics(const void* parts, const void* ids, void* out,

@@ -40,14 +40,20 @@
 //   kind 1 d2    out[f0+ch]       += sum_c J[offa + c*Ca + ch]^2
 //   kind 2 pair  out[f0 + a*Cb+b] += sum_c J[offa + c*Ca + a] * J[offb + c*Cb + b]
 //
+// f64 (the solver's double_precision): the shared-memory kernel and the
+// slab sum are templated on the value type V of every operand, the stage
+// and the accumulator (thallo_oh_setup_products_persistent_f64: V =
+// double; shared memory per block doubles, so ops/ohsetup.py plans fewer
+// threads and smaller chunks for it).
+//
 // The first body's caller zeroes out; the kernels allocate nothing.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-namespace {
+#include "block_accum.cuh"  // kFull, fma_v
 
-constexpr unsigned kFull = 0xffffffffu;
+namespace {
 
 __global__ void oh_setup_products_kernel(const float* __restrict__ rT,
                                          const float* __restrict__ J,
@@ -98,22 +104,28 @@ __global__ void oh_setup_products_kernel(const float* __restrict__ rT,
 constexpr int kMaxThreads = 1024;
 constexpr int kStageLd = 33;  // a warp's stage row: 32 observations + 1 (no bank conflicts)
 
-__global__ void __launch_bounds__(kMaxThreads)
-    oh_products_persistent_kernel(const float* __restrict__ rT, const float* __restrict__ J,
+// The minimum of 1 block per SM lets ptxas use up to 64 registers: without
+// it the template's instances were compiled to 32 and ran 14% slower (f32
+// at BA-1M: 0.2352 ms against 0.2025 with it; the non-template kernel it
+// replaces had 59: scripts/torch_kernels_ab.py, H100)
+template <typename V>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    oh_products_persistent_kernel(const V* __restrict__ rT, const V* __restrict__ J,
                                   const int4* __restrict__ chan, const int* __restrict__ ids,
-                                  float* __restrict__ slab, int n_ch, int chunk, int stride,
+                                  V* __restrict__ slab, int n_ch, int chunk, int stride,
                                   int rc, int K, int R, int N) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* smem = reinterpret_cast<V*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int ch0 = blockIdx.y * chunk;
   const int cc = min(chunk, n_ch - ch0);
   const int RK = rc + K;
-  float* acc = smem;                                            // [N, stride]
-  float* st = smem + static_cast<size_t>(N) * stride + warp * RK * kStageLd;  // [RK, 33]
+  V* acc = smem;                                                // [N, stride]
+  V* st = smem + static_cast<size_t>(N) * stride + warp * RK * kStageLd;  // [RK, 33]
   const size_t n_acc = static_cast<size_t>(N) * stride;
-  for (size_t i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = 0.f;
+  for (size_t i = threadIdx.x; i < n_acc; i += blockDim.x) acc[i] = V(0);
   __syncthreads();
 
   // lane j forms channel ch0 + j: the stage offsets of its two operands
@@ -147,11 +159,11 @@ __global__ void __launch_bounds__(kMaxThreads)
       leaders &= leaders - 1u;
       unsigned members = __shfl_sync(kFull, peers, o);
       const int gid = __shfl_sync(kFull, id, o);
-      float v = 0.f;
+      V v = V(0);
       while (members != 0u) {
         const int m = __ffs(members) - 1;
         members &= members - 1u;
-        for (int c = 0; c < rc; ++c) v = fmaf(st[a + c * sa + m], st[b + c * sb + m], v);
+        for (int c = 0; c < rc; ++c) v = fma_v(st[a + c * sa + m], st[b + c * sb + m], v);
       }
       if (lane < cc) atomicAdd(acc + static_cast<size_t>(gid) * stride + lane, v);
     }
@@ -173,20 +185,21 @@ constexpr int kSlabSlices = 8;  // partials each column's sum is split over
 // out[dest[r][0]][n] (and out[dest[r][1]][n] where that mirror row is not
 // -1) = sum_g part[g][r][n] for part [G, rows, N], g ascending within each
 // of kSlabSlices slices and the slices in order: the same bits every run.
+template <typename V>
 __global__ void __launch_bounds__(kSlabCols * kSlabSlices)
-    slab_sum_kernel(const float* __restrict__ part, int G, int rows, int N,
-                    const int* __restrict__ dest, float* __restrict__ out) {
-  __shared__ float red[kSlabSlices][kSlabCols + 1];
+    slab_sum_kernel(const V* __restrict__ part, int G, int rows, int N,
+                    const int* __restrict__ dest, V* __restrict__ out) {
+  __shared__ V red[kSlabSlices][kSlabCols + 1];
   const size_t M = static_cast<size_t>(rows) * N;
   const size_t m = static_cast<size_t>(blockIdx.x) * kSlabCols + threadIdx.x;
-  float s = 0.f;
+  V s = V(0);
   if (m < M) {
     for (int g = threadIdx.y; g < G; g += kSlabSlices) s += __ldcs(part + g * M + m);
   }
   red[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y != 0 || m >= M) return;
-  float t = red[0][threadIdx.x];
+  V t = red[0][threadIdx.x];
 #pragma unroll
   for (int k = 1; k < kSlabSlices; ++k) t += red[k][threadIdx.x];
   const int r = static_cast<int>(m / N);
@@ -196,13 +209,43 @@ __global__ void __launch_bounds__(kSlabCols * kSlabSlices)
   if (mirror >= 0) out[static_cast<size_t>(mirror) * N + n] = t;
 }
 
-cudaError_t launch_slab_sum(const float* part, int G, int rows, int N, const int* dest,
-                                   float* out, cudaStream_t stream) {
+template <typename V>
+cudaError_t launch_slab_sum(const V* part, int G, int rows, int N, const int* dest, V* out,
+                            cudaStream_t stream) {
   const size_t M = static_cast<size_t>(rows) * N;
   if (M == 0) return cudaGetLastError();
   const unsigned grid = static_cast<unsigned>((M + kSlabCols - 1) / kSlabCols);
-  slab_sum_kernel<<<grid, dim3(kSlabCols, kSlabSlices), 0, stream>>>(part, G, rows, N, dest, out);
+  slab_sum_kernel<V><<<grid, dim3(kSlabCols, kSlabSlices), 0, stream>>>(part, G, rows, N, dest,
+                                                                         out);
   return cudaGetLastError();
+}
+
+template <typename V>
+int launch_products(const void* rT, const void* Jall, const void* ids, const void* chan,
+                    const void* dest, void* out, void* slab, int n_ch, int chunk, int stride,
+                    int rc, int K, int R, int N, int threads, int grid, void* stream) {
+  if (n_ch < 1 || chunk < 1 || chunk > 32 || stride < chunk || stride % 2 == 0 || rc < 1 ||
+      K < 1 || R < 0 || N < 1 || grid < 1 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || slab == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = (static_cast<size_t>(N) * stride +
+                       static_cast<size_t>(threads / 32) * (rc + K) * kStageLd) * sizeof(V);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(oh_products_persistent_kernel<V>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  oh_products_persistent_kernel<V><<<dim3(grid, (n_ch + chunk - 1) / chunk), threads, smem, s>>>(
+      static_cast<const V*>(rT), static_cast<const V*>(Jall), static_cast<const int4*>(chan),
+      static_cast<const int*>(ids), static_cast<V*>(slab), n_ch, chunk, stride, rc, K, R, N);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_slab_sum(static_cast<const V*>(slab), grid, n_ch, N,
+                                          static_cast<const int*>(dest), static_cast<V*>(out),
+                                          s));
 }
 
 }  // namespace
@@ -220,29 +263,19 @@ extern "C" int thallo_oh_setup_products_persistent(const void* rT, const void* J
                                                    int n_ch, int chunk, int stride, int rc, int K,
                                                    int R, int N, int threads, int grid,
                                                    void* stream) {
-  if (n_ch < 1 || chunk < 1 || chunk > 32 || stride < chunk || stride % 2 == 0 || rc < 1 ||
-      K < 1 || R < 0 || N < 1 || grid < 1 || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || slab == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = (static_cast<size_t>(N) * stride +
-                       static_cast<size_t>(threads / 32) * (rc + K) * kStageLd) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(oh_products_persistent_kernel,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  auto s = static_cast<cudaStream_t>(stream);
-  oh_products_persistent_kernel<<<dim3(grid, (n_ch + chunk - 1) / chunk), threads, smem, s>>>(
-      static_cast<const float*>(rT), static_cast<const float*>(Jall),
-      static_cast<const int4*>(chan), static_cast<const int*>(ids), static_cast<float*>(slab),
-      n_ch, chunk, stride, rc, K, R, N);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_slab_sum(static_cast<const float*>(slab), grid, n_ch, N,
-                                          static_cast<const int*>(dest),
-                                          static_cast<float*>(out), s));
+  return launch_products<float>(rT, Jall, ids, chan, dest, out, slab, n_ch, chunk, stride, rc,
+                                K, R, N, threads, grid, stream);
+}
+
+// The same in f64: rT, Jall, slab and out double.
+extern "C" int thallo_oh_setup_products_persistent_f64(const void* rT, const void* Jall,
+                                                       const void* ids, const void* chan,
+                                                       const void* dest, void* out, void* slab,
+                                                       int n_ch, int chunk, int stride, int rc,
+                                                       int K, int R, int N, int threads, int grid,
+                                                       void* stream) {
+  return launch_products<double>(rT, Jall, ids, chan, dest, out, slab, n_ch, chunk, stride, rc,
+                                 K, R, N, threads, grid, stream);
 }
 
 extern "C" int thallo_oh_setup_products(const void* rT, const void* Jall,

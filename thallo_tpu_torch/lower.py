@@ -705,6 +705,10 @@ class LoweredGroup:
             bsr = build_group_bsr(self, idx, self.dtype, device, onehot_exclude)
         if bsr is None:  # no tables: the group scatters its stored point Jacobians
             tiled = os.environ.get("THALLO_SEGSUM") == "tiled"
+            if tiled and self.dtype == torch.float64 and torch.device(device).type == "cuda":
+                raise NotImplementedError(
+                    "THALLO_SEGSUM=tiled under double_precision on the card: segment_sum has "
+                    "no f64 instantiation (ROADMAP queue 2, item 7)")
             for i, flat in enumerate(idx):
                 if self._rolls[i] is not None or flat is None:
                     continue  # the roll back, or a blocked scatter

@@ -14,6 +14,11 @@ Every exported launcher takes device pointers and the CUDA stream as
 ``c_void_p``, launches on that stream without synchronising, allocates
 nothing, and returns ``cudaGetLastError()``; ``check`` turns a non-zero
 code into an exception.
+
+The solver's ``double_precision`` runs f64 instantiations of the kernels
+its default schedules launch (the ``*_f64`` exports: the same sources,
+templated on the value type).  A kernel without one refuses an f64
+tensor with NotImplementedError (``require``), naming ``F64_TODO``.
 """
 from __future__ import annotations
 
@@ -58,7 +63,15 @@ SIGNATURES = {
     "thallo_fused_pair_cluster_occupancy": (I, I, I, I, I, IP),
     "thallo_loop_floor_add_one": (P, P, I, P),
     "thallo_fused_pair_rows": (P, P, P, P, I, I, I, I, I, I, I, I, P),
+    # f64 instantiations (double_precision)
+    "thallo_fused_pair_persistent_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
+    "thallo_fused_pair_atomics_f64": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_oh_setup_products_persistent_f64": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    "thallo_fullrepeat_setup_tiles_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
+    "thallo_oh_setup_aggregate_smem_f64": (P, P, P, I, I, I, I, I, I, I, I, P),
 }
+# where the kernels without an f64 instantiation wait
+F64_TODO = "ROADMAP queue 2, item 7"
 
 _lib = None
 
@@ -153,9 +166,14 @@ def check(code: int, what: str) -> None:
 
 
 def require(t: torch.Tensor, name: str, shape, dtype, device) -> None:
-    """Wrapper-side validation before a pointer crosses into C."""
+    """Wrapper-side validation before a pointer crosses into C.  An f64
+    tensor where the kernel takes another type raises NotImplementedError:
+    that kernel has no f64 instantiation (F64_TODO); no f64 value is cast
+    down on the card."""
     if t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype == torch.float64 and dtype != torch.float64:
+        raise NotImplementedError(f"{name}: this kernel has no f64 instantiation ({F64_TODO})")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):

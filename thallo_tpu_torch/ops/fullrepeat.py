@@ -42,6 +42,13 @@ at BA-1M) plus the outputs (123 MB).  Two kernels compute it
 
 No atomics in either, so the sums are deterministic.  The TPU kernel's
 bf16 split is not carried over.
+
+**f64** (the solver's ``double_precision``): ``fullrepeat_setup`` hands
+f64 windows to ``fullrepeat_setup_f64``, the f64 instantiation of the tile
+kernel (16-byte ``cp.async`` copies of 2 values; tiles planned at 8 bytes
+a value: BA's point level takes T = 64 with two windows).  The first body
+has no f64 instantiation: a shape without an f64 plan raises
+NotImplementedError (``_cuda.F64_TODO``).
 """
 from __future__ import annotations
 
@@ -63,10 +70,11 @@ MIN_W, MAX_W, MAX_RC, MAX_KALL = 2, 8, 8, 128
 
 
 def fullrepeat_setup_reference(rT_win, Jall_win, *, W, N_t, recipe):
-    """Plain torch version (f32) on [*, N_t, W] views of the windows."""
+    """Plain torch version, in rT_win's dtype (f32 or f64), on [*, N_t, W]
+    views of the windows."""
     rc = rT_win.shape[0]
-    r = rT_win.to(torch.float32).reshape(rc, N_t, W)
-    J = Jall_win.to(torch.float32).reshape(-1, N_t, W)
+    r = rT_win.reshape(rc, N_t, W)
+    J = Jall_win.to(rT_win.dtype).reshape(-1, N_t, W)
     agg, crosses = [], []
     for ent in recipe:
         kind = ent[0]
@@ -86,7 +94,7 @@ def fullrepeat_setup_reference(rT_win, Jall_win, *, W, N_t, recipe):
     if agg:
         agg = torch.cat(agg)
     else:
-        agg = torch.zeros((1, N_t), dtype=torch.float32, device=rT_win.device)
+        agg = torch.zeros((1, N_t), dtype=rT_win.dtype, device=rT_win.device)
     return agg, crosses
 
 
@@ -174,23 +182,24 @@ def _channels(recipe, rc, W):
     return tuple(groups), tuple(chans), F, tuple(widths)
 
 
-def tile_smem(rc, Kall, W, T, stages, n_groups, n_chans) -> int:
+def tile_smem(rc, Kall, W, T, stages, n_groups, n_chans, itemsize=4) -> int:
     """Shared memory of a tile-kernel block (csrc/fullrepeat.cu): the input
-    windows and the group and channel tables."""
-    return stages * (rc + Kall) * T * W * 4 + (n_groups + n_chans) * 16
+    windows (itemsize bytes a value) and the group and channel tables."""
+    return stages * (rc + Kall) * T * W * itemsize + (n_groups + n_chans) * 16
 
 
 @functools.lru_cache(maxsize=64)
 def fullrepeat_plan(recipe, W: int, Kall: int, rc: int, tile: int = FULLREPEAT_TILE,
                     blocks_per_sm: int = FULLREPEAT_BLOCKS_PER_SM,
-                    threads: int = FULLREPEAT_THREADS) -> Optional[FullrepeatPlan]:
+                    threads: int = FULLREPEAT_THREADS,
+                    itemsize: int = 4) -> Optional[FullrepeatPlan]:
     """The tile kernel's plan for a recipe at (W, Kall, rc): `blocks_per_sm`
     blocks to an SM if they fit, else fewer; two windows (double-buffered)
     if they fit, else one; the largest tile of at most `tile` elements (a
     multiple of 32) that fits; threads: one per (element, group) item, at most
     `threads`.  None outside 2 <= W <= 8, rc <= 8, Kall <= 128 (those
-    shapes take fullrepeat_setup_thread).  Pure Python, cached per static
-    recipe."""
+    shapes take fullrepeat_setup_thread).  itemsize: 4, or 8 for the f64
+    instantiation.  Pure Python, cached per static recipe."""
     if not (MIN_W <= W <= MAX_W and 1 <= rc <= MAX_RC and Kall <= MAX_KALL):
         return None
     groups, chans, F_agg, widths = _channels(recipe, rc, W)
@@ -198,7 +207,7 @@ def fullrepeat_plan(recipe, W: int, Kall: int, rc: int, tile: int = FULLREPEAT_T
         budget = _cuda.SM_SMEM // bps - 1024  # a block reserves 1 KB
         for stages in (2, 1):
             for T in range(tile, 31, -32):
-                smem = tile_smem(rc, Kall, W, T, stages, len(groups), len(chans))
+                smem = tile_smem(rc, Kall, W, T, stages, len(groups), len(chans), itemsize)
                 if smem <= budget:
                     return FullrepeatPlan(groups, chans, F_agg, widths, T, stages,
                                           min(threads, T * max(len(groups), 1)), bps, smem)
@@ -211,16 +220,18 @@ def fullrepeat_grid(plan: FullrepeatPlan, N_t: int, sms: int) -> int:
 
 
 def fullrepeat_setup_planned(rT_win, Jall_win, *, W, N_t, recipe, **plan_kw):
-    """What the tile kernel computes, from its plan alone, in plain torch:
-    every channel's product at every element, written to its agg row (and
-    mirror) or its W cross rows; rows no channel writes stay NaN."""
+    """What the tile kernel computes, from its plan alone, in plain torch
+    (in rT_win's dtype): every channel's product at every element, written
+    to its agg row (and mirror) or its W cross rows; rows no channel
+    writes stay NaN."""
     rc, Kall = rT_win.shape[0], Jall_win.shape[0]
     plan = fullrepeat_plan(tuple(recipe), W, Kall, rc, **plan_kw)
-    X = torch.cat([rT_win, Jall_win]).to(torch.float32).reshape(rc + Kall, N_t, W)
+    dt = rT_win.dtype
+    X = torch.cat([rT_win, Jall_win.to(dt)]).reshape(rc + Kall, N_t, W)
     dev = rT_win.device
-    agg = torch.full((max(plan.F_agg, 1), N_t), float("nan"), dtype=torch.float32, device=dev)
-    cross = torch.full((max(sum(plan.cross_widths), 1), N_t), float("nan"),
-                       dtype=torch.float32, device=dev)
+    agg = torch.full((max(plan.F_agg, 1), N_t), float("nan"), dtype=dt, device=dev)
+    cross = torch.full((max(sum(plan.cross_widths), 1), N_t), float("nan"), dtype=dt,
+                       device=dev)
     c = torch.arange(rc, device=dev)
     for a0, sa, j0, j1 in plan.groups:
         xa = X[a0 + sa * c]  # [rc, N_t, W]
@@ -235,21 +246,20 @@ def fullrepeat_setup_planned(rT_win, Jall_win, *, W, N_t, recipe, **plan_kw):
     return agg, list(torch.split(cross, plan.cross_widths)) if plan.cross_widths else []
 
 
-def _checked(what, rT_win, Jall_win, W, N_t):
+def _checked(what, rT_win, Jall_win, W, N_t, dt=torch.float32):
     if rT_win.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {rT_win.device}")
     rc, Kall, dev = rT_win.shape[0], Jall_win.shape[0], rT_win.device
-    _cuda.require(rT_win, "rT_win", (rc, N_t * W), torch.float32, dev)
-    _cuda.require(Jall_win, "Jall_win", (Kall, N_t * W), torch.float32, dev)
+    _cuda.require(rT_win, "rT_win", (rc, N_t * W), dt, dev)
+    _cuda.require(Jall_win, "Jall_win", (Kall, N_t * W), dt, dev)
     return rc, Kall, dev
 
 
-def _outputs(F_agg, cross_widths, N_t, dev):
+def _outputs(F_agg, cross_widths, N_t, dev, dt=torch.float32):
     """agg and cross for a kernel that writes every row (a recipe without
     agg entries returns one row of zeros, as the plain version does)."""
-    agg = (torch.empty if F_agg else torch.zeros)((max(F_agg, 1), N_t), dtype=torch.float32,
-                                                  device=dev)
-    cross = torch.empty((max(sum(cross_widths), 1), N_t), dtype=torch.float32, device=dev)
+    agg = (torch.empty if F_agg else torch.zeros)((max(F_agg, 1), N_t), dtype=dt, device=dev)
+    cross = torch.empty((max(sum(cross_widths), 1), N_t), dtype=dt, device=dev)
     return agg, cross
 
 
@@ -262,25 +272,50 @@ def fullrepeat_setup(rT_win, Jall_win, *, W, N_t, recipe):
     -> (agg [F_agg, N_t], [cross_k [W*Ca*Cb, N_t]]) f32.  CPU tensors take
     the plain version; CUDA tensors launch the tile kernel, or, where
     fullrepeat_plan has no plan for the shape, go to
-    fullrepeat_setup_thread."""
+    fullrepeat_setup_thread; f64 windows go to fullrepeat_setup_f64."""
     if rT_win.device.type == "cpu":
         return fullrepeat_setup_reference(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
+    if rT_win.dtype == torch.float64:
+        return fullrepeat_setup_f64(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
     rc, Kall, dev = _checked("fullrepeat_setup", rT_win, Jall_win, W, N_t)
     _recipe_rows(recipe, rc, Kall, W)
     plan = fullrepeat_plan(tuple(recipe), W, Kall, rc, FULLREPEAT_TILE,
                            FULLREPEAT_BLOCKS_PER_SM, FULLREPEAT_THREADS)
     if plan is None:
         return fullrepeat_setup_thread(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
-    agg, cross = _outputs(plan.F_agg, plan.cross_widths, N_t, dev)
+    return _launch_tiles(fullrepeat_setup, rT_win, Jall_win, W, N_t, plan)
+
+
+def fullrepeat_setup_f64(rT_win, Jall_win, *, W, N_t, recipe):
+    """fullrepeat_setup in f64 (windows f64 -> agg, crosses f64): the f64
+    instantiation of the tile kernel.  CPU tensors take the plain version;
+    a shape without an f64 plan raises NotImplementedError (the first body
+    is f32 only)."""
+    if rT_win.device.type == "cpu":
+        return fullrepeat_setup_reference(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
+    rc, Kall, dev = _checked("fullrepeat_setup_f64", rT_win, Jall_win, W, N_t, torch.float64)
+    _recipe_rows(recipe, rc, Kall, W)
+    plan = fullrepeat_plan(tuple(recipe), W, Kall, rc, FULLREPEAT_TILE,
+                           FULLREPEAT_BLOCKS_PER_SM, FULLREPEAT_THREADS, 8)
+    if plan is None:
+        raise NotImplementedError(f"fullrepeat_setup_f64: no tile plan at W={W}, rc={rc}, "
+                                  f"Kall={Kall}; the f64 first body waits ({_cuda.F64_TODO})")
+    return _launch_tiles(fullrepeat_setup_f64, rT_win, Jall_win, W, N_t, plan)
+
+
+def _launch_tiles(fn, rT_win, Jall_win, W, N_t, plan):
+    rc, Kall, dev, dt = rT_win.shape[0], Jall_win.shape[0], rT_win.device, rT_win.dtype
+    agg, cross = _outputs(plan.F_agg, plan.cross_widths, N_t, dev, dt)
     groups = _cuda.recipe_tensor(plan.groups, dev)
     chans = _cuda.recipe_tensor(plan.chans, dev)
-    code = _cuda.lib().thallo_fullrepeat_setup_tiles(
-        rT_win.data_ptr(), Jall_win.data_ptr(), groups.data_ptr(), chans.data_ptr(),
-        agg.data_ptr(), cross.data_ptr(), len(plan.groups), len(plan.chans), rc, Kall, W,
-        N_t, plan.T, plan.stages, plan.threads, fullrepeat_grid(plan, N_t, _cuda.sm_count(dev)),
-        _cuda.stream(rT_win))
-    _cuda.check(code, "fullrepeat_setup")
-    fullrepeat_setup.launches += 1
+    launch = (_cuda.lib().thallo_fullrepeat_setup_tiles_f64 if dt == torch.float64
+              else _cuda.lib().thallo_fullrepeat_setup_tiles)
+    code = launch(rT_win.data_ptr(), Jall_win.data_ptr(), groups.data_ptr(), chans.data_ptr(),
+                  agg.data_ptr(), cross.data_ptr(), len(plan.groups), len(plan.chans), rc, Kall,
+                  W, N_t, plan.T, plan.stages, plan.threads,
+                  fullrepeat_grid(plan, N_t, _cuda.sm_count(dev)), _cuda.stream(rT_win))
+    _cuda.check(code, fn.__name__)
+    fn.launches += 1
     return agg, _split(cross, plan.cross_widths)
 
 
@@ -302,5 +337,5 @@ def fullrepeat_setup_thread(rT_win, Jall_win, *, W, N_t, recipe):
     return agg, _split(cross, cross_widths)
 
 
-for _fn in (fullrepeat_setup, fullrepeat_setup_thread):
+for _fn in (fullrepeat_setup, fullrepeat_setup_f64, fullrepeat_setup_thread):
     _fn.launches = 0

@@ -45,7 +45,8 @@ solver takes (``solver/blocksparse.py``), from its shape alone.
 compiled out: the time below which no design of the cols side can bring
 ``fused_pair_apply`` (``chip_smoke.py`` times it; no solver path runs it).
 Unlike the TPU kernel there is no one-hot, no id decomposition and no
-bf16 rounding of pcol or z: all arithmetic is f32.  Atomics make the
+bf16 rounding of pcol or z: all arithmetic is f32 (f64 in the f64
+instantiations below).  Atomics make the
 cols sums' order vary from run to run.
 
 **bf16 blocks** (the solver's ``block_dtype="bf16"``, JAX's bf16 block
@@ -60,6 +61,21 @@ Shapes those do not take go to ``fused_pair_bf16_atomics``
 global atomics: the first bf16 body; instantiated per (Ci, Cj) bound as
 the f32 atomics body, so it takes Ci up to ``ATOMICS_MAX_CI`` too).
 ``fused_pair_route(..., bf16=True)`` names the bf16 kernel of a level.
+
+**f64** (the solver's ``double_precision``: blocks, pcol and prow f64):
+``fused_pair_apply_f64`` and ``fused_pair_apply_atomics_f64``, the f64
+instantiations of the persistent kernel and of the atomics body
+(``csrc/fused_pair.cu``, every sum f64).  ``fused_pair_route(...,
+dtype=torch.float64)`` is the one place that picks between them: the
+persistent f64 kernel where the f32 route would take the persistent
+kernel and the [9, S] f64 accumulator (72 KB at S = 1024) fits
+``PERSISTENT_MAX_SMEM``; the f64 atomics body for every other f64 level,
+the wide levels the W-loop kernels take in f32 among them: a named
+route, not a fallback.  ``fused_pair_apply_f64`` raises where its
+accumulator does not fit.  The f32 wrappers, the W-loop kernels, the
+first bf16 body and the measurement scripts' kernels have no f64
+instantiation and raise NotImplementedError on an f64 tensor
+(``_cuda.F64_TODO``).
 
 The measurement scripts' kernels (``scripts/tpu_fused_pair_micro.py``,
 ``scripts/tpu_fused_variants.py``) are the same pair on bf16 blocks:
@@ -143,21 +159,24 @@ def bf16_elems(N: int) -> int:
 
 
 def fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """Plain torch version (f32; bf16 blocks are read as f32): the CPU
-    path and the card-side oracle of every kernel here."""
+    """Plain torch version, in pcol's dtype (f32 or f64; bf16 blocks are
+    read at that dtype): the CPU path and the card-side oracle of every
+    kernel here."""
     W, N = ids2d.shape
-    B = blocks_wm.reshape(W, Ci, Cj, N).to(torch.float32)
+    dt = pcol.dtype
+    B = blocks_wm.reshape(W, Ci, Cj, N).to(dt)
     ok = (ids2d >= 0) & (ids2d < S)
     idx = torch.where(ok, ids2d, torch.zeros_like(ids2d)).long()
-    pc = pcol.to(torch.float32)[:, idx] * ok  # [Cj, W, N]
+    pc = pcol[:, idx] * ok  # [Cj, W, N]
     rows = (B * pc.permute(1, 0, 2)[:, None]).sum(dim=(0, 2))  # [Ci, N]
-    z = (B * prow.to(torch.float32)[None, :, None, :]).sum(dim=1) * ok[:, None]  # [W, Cj, N]
-    cols = torch.zeros((Cj, S), dtype=torch.float32, device=pcol.device)
+    z = (B * prow.to(dt)[None, :, None, :]).sum(dim=1) * ok[:, None]  # [W, Cj, N]
+    cols = torch.zeros((Cj, S), dtype=dt, device=pcol.device)
     cols.index_add_(1, idx.reshape(-1), z.permute(1, 0, 2).reshape(Cj, W * N))
     return rows, cols
 
 
-def _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, max_ci=MAX_CI):
+def _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, max_ci=MAX_CI,
+             value_dtype=torch.float32):
     """Validate a CUDA launch's operands; returns (W, N, blocks [W*Ci*Cj, N])."""
     if ids2d.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ids2d.device}")
@@ -169,15 +188,16 @@ def _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, max_ci=
     blocks = blocks_wm.reshape(W * Ci * Cj, N)
     _cuda.require(ids2d, "ids2d", (W, N), torch.int32, dev)
     _cuda.require(blocks, "blocks_wm", (W * Ci * Cj, N), block_dtype, dev)
-    _cuda.require(pcol, "pcol", (Cj, S), torch.float32, dev)
-    _cuda.require(prow, "prow", (Ci, N), torch.float32, dev)
+    _cuda.require(pcol, "pcol", (Cj, S), value_dtype, dev)
+    _cuda.require(prow, "prow", (Ci, N), value_dtype, dev)
     return W, N, blocks
 
 
-def persistent_fits(Ci: int, Cj: int, S: int) -> bool:
+def persistent_fits(Ci: int, Cj: int, S: int, itemsize: int = 4) -> bool:
     """A pair the persistent kernels are specialised for, with its [Cj, S]
-    f32 accumulator within their shared-memory limit."""
-    return (Ci, Cj) in PERSISTENT_PAIRS and Cj * S * 4 <= PERSISTENT_MAX_SMEM
+    accumulator (itemsize bytes a value: 4, or 8 in f64) within their
+    shared-memory limit."""
+    return (Ci, Cj) in PERSISTENT_PAIRS and Cj * S * itemsize <= PERSISTENT_MAX_SMEM
 
 
 # a level's f32 route -> its kernel on bf16 blocks (every other route:
@@ -186,7 +206,8 @@ BF16_ROUTES = {"fused_pair_apply": "fused_pair_apply_bf16",
                "fused_pair_apply_wloop": "fused_pair_apply_wloop_bf16"}
 
 
-def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = False) -> str:
+def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = False,
+                     dtype: torch.dtype = torch.float32) -> str:
     """The kernel a level of W x N_t elements takes on the card, by the
     name of its wrapper: "fused_pair_apply" (persistent) or
     "fused_pair_apply_wloop" for the specialised pairs, by the level's
@@ -194,8 +215,17 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = Fa
     S fits the chunked kernel's accumulator and whose Ci its register
     arrays take (MAX_CI); else "fused_pair_apply_atomics".  bf16: the
     level's kernel on bf16 blocks (BF16_ROUTES, else
-    "fused_pair_bf16_atomics", which takes Ci up to ATOMICS_MAX_CI)."""
+    "fused_pair_bf16_atomics", which takes Ci up to ATOMICS_MAX_CI).
+    dtype float64 (the values' dtype) with f64 blocks: "fused_pair_apply_f64"
+    where the f32 route is the persistent kernel and the f64 accumulator
+    fits, else "fused_pair_apply_atomics_f64" (Ci up to ATOMICS_MAX_CI).
+    bf16 blocks keep their bf16 routes under f64 values: the CPU's plain
+    version runs them, the card's kernels refuse f64 values (a plan
+    refuses the combination on the card)."""
     wide = W >= WLOOP_MIN_W
+    if dtype == torch.float64 and not bf16:
+        persistent = persistent_fits(Ci, Cj, S, 8) and not wide and N_t >= PERSISTENT_MIN_N
+        return "fused_pair_apply_f64" if persistent else "fused_pair_apply_atomics_f64"
     if persistent_fits(Ci, Cj, S):
         route = "fused_pair_apply" if not wide and N_t >= PERSISTENT_MIN_N \
             else "fused_pair_apply_wloop"
@@ -209,21 +239,26 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = Fa
 def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols,
                        block_dtype=torch.float32):
     what = fn.__name__
-    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype)
-    if not persistent_fits(Ci, Cj, S):
+    vdt = torch.float64 if block_dtype == torch.float64 else torch.float32
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype,
+                            value_dtype=vdt)
+    itemsize = torch.finfo(vdt).bits // 8
+    if not persistent_fits(Ci, Cj, S, itemsize):
         raise ValueError(f"{what}: no persistent kernel for Ci={Ci}, Cj={Cj}, S={S}")
     dev = ids2d.device
-    rows = torch.empty((Ci, N), dtype=torch.float32, device=dev)
-    cols = torch.zeros((Cj, S), dtype=torch.float32, device=dev) if with_cols else None
+    rows = torch.empty((Ci, N), dtype=vdt, device=dev)
+    cols = torch.zeros((Cj, S), dtype=vdt, device=dev) if with_cols else None
     # blocks resident on an SM: BLOCKS_PER_SM, fewer where the accumulator
     # leaves no room for as many
-    per_sm = _cuda.blocks_per_sm(Cj * S * 4 if with_cols else 0, BLOCKS_PER_SM)
+    per_sm = _cuda.blocks_per_sm(Cj * S * itemsize if with_cols else 0, BLOCKS_PER_SM)
     args = (ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
             rows.data_ptr(), cols.data_ptr() if with_cols else None, W, N, Ci, Cj, S, THREADS,
             per_sm * _cuda.sm_count(dev), MERGE_MIN)
     if block_dtype == torch.bfloat16:
         code = _cuda.lib().thallo_fused_pair_persistent_bf16(*args, bf16_elems(N),
                                                              _cuda.stream(ids2d))
+    elif block_dtype == torch.float64:
+        code = _cuda.lib().thallo_fused_pair_persistent_f64(*args, _cuda.stream(ids2d))
     else:
         code = _cuda.lib().thallo_fused_pair_persistent(*args, _cuda.stream(ids2d))
     _cuda.check(code, what)
@@ -238,7 +273,8 @@ def fused_pair_apply(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     CPU tensors take the plain version; CUDA tensors with bf16 blocks go to
     fused_pair_apply_bf16; with f32 blocks they launch the f32 persistent
     kernel, or, for a pair it is not specialised for or an accumulator
-    beyond its shared memory, go to fused_pair_apply_atomics."""
+    beyond its shared memory, go to fused_pair_apply_atomics (f64
+    operands raise: fused_pair_route names their kernel)."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     if blocks_wm.dtype == torch.bfloat16:
@@ -261,6 +297,19 @@ def fused_pair_apply_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
                               True, torch.bfloat16)
 
 
+def fused_pair_apply_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply in f64 (blocks, pcol, prow f64 -> rows, cols
+    f64): the f64 instantiation of the persistent kernel
+    (csrc/fused_pair.cu); a pair it is not specialised for, or an f64
+    accumulator beyond its shared memory, raises ValueError
+    (fused_pair_route sends those levels to fused_pair_apply_atomics_f64).
+    CPU tensors take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_persistent(fused_pair_apply_f64, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
+                              True, torch.float64)
+
+
 def fused_pair_rows_floor(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """rows [Ci, N] alone, by the persistent kernel (f32 or bf16 blocks)
     with its cols side compiled out (a measurement; the persistent route's
@@ -276,23 +325,40 @@ def fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """The contract of fused_pair_apply by one thread per element and one
     global atomic per cols value: any Ci <= ATOMICS_MAX_CI, Cj <= 16 and
     S.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    kernel (f64 operands raise: fused_pair_apply_atomics_f64 is theirs)."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
-    W, N, blocks = _checked("fused_pair_apply_atomics", ids2d, blocks_wm, pcol, prow, Ci, Cj,
-                            S, torch.float32, ATOMICS_MAX_CI)
-    rows = torch.empty((Ci, N), dtype=torch.float32, device=ids2d.device)
-    cols = torch.zeros((Cj, S), dtype=torch.float32, device=ids2d.device)
-    code = _cuda.lib().thallo_fused_pair_atomics(
-        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
-        rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S, _cuda.stream(ids2d))
-    _cuda.check(code, "fused_pair_apply_atomics")
-    fused_pair_apply_atomics.launches += 1
+    return _launch_atomics(fused_pair_apply_atomics, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
+                           torch.float32)
+
+
+def fused_pair_apply_atomics_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply_atomics in f64: the f64 instantiation of the
+    atomics body (every operand but ids f64, atomicAdd on doubles).  CPU
+    tensors take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_atomics(fused_pair_apply_atomics_f64, ids2d, blocks_wm, pcol, prow, Ci, Cj,
+                           S, torch.float64)
+
+
+def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, dt):
+    what = fn.__name__
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, dt, ATOMICS_MAX_CI,
+                            value_dtype=dt)
+    rows = torch.empty((Ci, N), dtype=dt, device=ids2d.device)
+    cols = torch.zeros((Cj, S), dtype=dt, device=ids2d.device)
+    launch = (_cuda.lib().thallo_fused_pair_atomics_f64 if dt == torch.float64
+              else _cuda.lib().thallo_fused_pair_atomics)
+    code = launch(ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
+                  rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S, _cuda.stream(ids2d))
+    _cuda.check(code, what)
+    fn.launches += 1
     return rows, cols
 
 
-for _fn in (fused_pair_apply, fused_pair_apply_bf16, fused_pair_rows_floor,
-            fused_pair_apply_atomics):
+for _fn in (fused_pair_apply, fused_pair_apply_bf16, fused_pair_apply_f64, fused_pair_rows_floor,
+            fused_pair_apply_atomics, fused_pair_apply_atomics_f64):
     _fn.launches = 0
 
 

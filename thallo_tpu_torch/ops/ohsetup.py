@@ -54,6 +54,17 @@ batch of channel rows fits (N beyond ~6 300), ``oh_setup_aggregate``
 goes to ``oh_setup_aggregate_atomics``, the first body: blocks over runs of rows, 4-byte loads, a shared atomic
 per row and channel, and a global atomic per nonzero accumulator entry
 (N up to ``_cuda.MAX_DYNAMIC_SMEM`` / 4).
+
+**f64** (the solver's ``double_precision``): ``oh_setup_products`` and
+``oh_setup_aggregate`` hand f64 operands to ``oh_setup_products_f64`` and
+``oh_setup_aggregate_f64``, the f64 instantiations of the two
+shared-memory kernels (every stage, accumulator and sum f64).  Their
+plans count 8 bytes a value: the products kernel runs
+``PRODUCTS_THREADS_F64`` threads, so that the warps' stages leave room
+for chunks of channel rows (BA's camera slot: 4 chunks of 16 channels at
+N = 1024, against 2 of 32 in f32).  The first bodies have no f64
+instantiation: a shape without an f64 plan raises NotImplementedError
+(``_cuda.F64_TODO``).
 """
 from __future__ import annotations
 
@@ -79,6 +90,10 @@ PRODUCTS_THREADS = 1024
 PRODUCTS_SMEM = 224 * 1024
 PRODUCTS_BLOCKS_PER_SM = 1
 PRODUCTS_MAX_CHUNK = 32  # a lane per channel of the chunk
+# the f64 instantiation: half the threads, so that the [rc + K, 33] f64
+# stages of its warps leave room for the accumulator's channel rows (not
+# swept; 1024 threads leave BA's camera slot chunks of 7 channels)
+PRODUCTS_THREADS_F64 = 512
 _STAGE_LD = 33  # csrc/oh_setup.cu kStageLd
 
 
@@ -87,8 +102,8 @@ def recipe_width(recipe) -> int:
 
 
 def setup_slabs(rT, Jall, recipe):
-    """The recipe's slabs, stacked channel-major: [F, R] (f32, per
-    observation, before any sum by id)."""
+    """The recipe's slabs, stacked channel-major: [F, R] (per observation,
+    before any sum by id, in the inputs' dtype)."""
     rc, R = rT.shape
     out = []
     for ent in recipe:
@@ -105,10 +120,11 @@ def setup_slabs(rT, Jall, recipe):
 
 
 def oh_setup_products_reference(rT, Jall, ids, *, N, recipe):
-    """Plain torch version (f32): slabs [F, R], then index_add_ by id."""
-    x = setup_slabs(rT.to(torch.float32), Jall.to(torch.float32), recipe)
+    """Plain torch version, in rT's dtype (f32 or f64): slabs [F, R], then
+    index_add_ by id."""
+    x = setup_slabs(rT, Jall.to(rT.dtype), recipe)
     ok = (ids >= 0) & (ids < N)
-    out = torch.zeros((x.shape[0], N), dtype=torch.float32, device=rT.device)
+    out = torch.zeros((x.shape[0], N), dtype=rT.dtype, device=rT.device)
     return out.index_add_(1, ids[ok].long(), x[:, ok])
 
 
@@ -128,18 +144,20 @@ class ProductsPlan(NamedTuple):
     block_smem: int
 
 
-def _smem_bytes(chunk, N, rc, K, threads):
+def _smem_bytes(chunk, N, rc, K, threads, itemsize=4):
     """Shared memory of a products block (csrc/oh_setup.cu launch_products):
-    the [N, chunk | 1] accumulator and a [rc + K, 33] stage per warp."""
-    return (N * (chunk | 1) + threads // 32 * (rc + K) * _STAGE_LD) * 4
+    the [N, chunk | 1] accumulator and a [rc + K, 33] stage per warp, at
+    itemsize bytes a value."""
+    return (N * (chunk | 1) + threads // 32 * (rc + K) * _STAGE_LD) * itemsize
 
 
 @functools.lru_cache(maxsize=64)
 def products_plan(recipe, rc: int, K: int, N: int, threads: int,
-                  smem: int) -> Optional[ProductsPlan]:
+                  smem: int, itemsize: int = 4) -> Optional[ProductsPlan]:
     """The recipe's channels, mirrors and chunks for a block of `threads`
-    observations within `smem` bytes of shared memory; None where not even
-    one channel row fits (those shapes take oh_setup_products_atomics).
+    observations within `smem` bytes of shared memory (itemsize bytes a
+    value: 4, or 8 for the f64 instantiation); None where not even one
+    channel row fits (those shapes take oh_setup_products_atomics in f32).
     Pure Python and cached per static recipe."""
     chan, dest, F = [], [], 0
     for ent in recipe:
@@ -159,14 +177,14 @@ def products_plan(recipe, rc: int, K: int, N: int, threads: int,
                 dest.append((F + a * Cb + b, F + b * Ca + a if sym and b != a else -1))
         F += Ca * Cb
     chunk = min(len(chan), PRODUCTS_MAX_CHUNK)
-    while chunk >= 1 and _smem_bytes(chunk, N, rc, K, threads) > smem:
+    while chunk >= 1 and _smem_bytes(chunk, N, rc, K, threads, itemsize) > smem:
         chunk -= 1
     if chunk < 1:
         return None
     n_chunks = -(-len(chan) // chunk)
     chunk = -(-len(chan) // n_chunks)  # the same work in every chunk
     return ProductsPlan(tuple(chan), tuple(dest), F, chunk, n_chunks, chunk | 1,
-                        _smem_bytes(chunk, N, rc, K, threads))
+                        _smem_bytes(chunk, N, rc, K, threads, itemsize))
 
 
 def products_grid(plan: ProductsPlan, R: int, threads: int, sms: int) -> int:
@@ -180,21 +198,23 @@ def products_grid(plan: ProductsPlan, R: int, threads: int, sms: int) -> int:
 def oh_setup_products_planned(rT, Jall, ids, *, N, recipe, threads=PRODUCTS_THREADS,
                               smem=PRODUCTS_SMEM):
     """The sum the shared-memory kernel computes, from its plan alone, in
-    plain torch: each chunk's channels summed by id into a [chunk, N]
-    accumulator, written to their output rows and mirror rows."""
+    plain torch (in rT's dtype, planned at its itemsize): each chunk's
+    channels summed by id into a [chunk, N] accumulator, written to their
+    output rows and mirror rows."""
     rc, R = rT.shape
-    plan = products_plan(tuple(recipe), rc, Jall.shape[0], N, threads, smem)
-    X = torch.cat([rT, Jall]).to(torch.float32)
+    dt = rT.dtype
+    plan = products_plan(tuple(recipe), rc, Jall.shape[0], N, threads, smem, rT.element_size())
+    X = torch.cat([rT, Jall.to(dt)])
     ok = (ids >= 0) & (ids < N)
     idx = ids[ok].long()
-    out = torch.full((plan.F, N), float("nan"), dtype=torch.float32, device=rT.device)
+    out = torch.full((plan.F, N), float("nan"), dtype=dt, device=rT.device)
     c = torch.arange(rc, device=rT.device)
     for k in range(plan.n_chunks):
         rows = range(k * plan.chunk, min(len(plan.chan), (k + 1) * plan.chunk))
         a = torch.stack([a0 + sa * c for a0, sa, _, _ in (plan.chan[j] for j in rows)])
         b = torch.stack([b0 + sb * c for _, _, b0, sb in (plan.chan[j] for j in rows)])
         v = (X[a][:, :, ok] * X[b][:, :, ok]).sum(1)  # [chunk, R_ok]
-        acc = torch.zeros((len(rows), N), dtype=torch.float32, device=rT.device)
+        acc = torch.zeros((len(rows), N), dtype=dt, device=rT.device)
         acc.index_add_(1, idx, v)
         for i, j in enumerate(rows):
             f, mirror = plan.dest[j]
@@ -224,13 +244,13 @@ def _recipe_rows(recipe, rc, K):
     return tuple(rows), F
 
 
-def _checked(what, rT, Jall, ids):
+def _checked(what, rT, Jall, ids, dt=torch.float32):
     if rT.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {rT.device}")
     rc, R = rT.shape
     K = Jall.shape[0]
-    _cuda.require(rT, "rT", (rc, R), torch.float32, rT.device)
-    _cuda.require(Jall, "Jall", (K, R), torch.float32, rT.device)
+    _cuda.require(rT, "rT", (rc, R), dt, rT.device)
+    _cuda.require(Jall, "Jall", (K, R), dt, rT.device)
     _cuda.require(ids, "ids", (R,), torch.int32, rT.device)
     return rc, R, K
 
@@ -240,26 +260,50 @@ def oh_setup_products(rT, Jall, ids, *, N, recipe):
     tuple of ("jtr", off, C) | ("d2", off, C) | ("pair", offa, Ca, offb, Cb)
     -> [F, N] f32.  CPU tensors take the plain version; CUDA tensors
     launch the shared-memory kernel, or, where products_plan finds no
-    room for one channel row, go to oh_setup_products_atomics."""
+    room for one channel row, go to oh_setup_products_atomics; f64
+    operands go to oh_setup_products_f64."""
     if rT.device.type == "cpu":
         return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
+    if rT.dtype == torch.float64:
+        return oh_setup_products_f64(rT, Jall, ids, N=N, recipe=recipe)
     rc, R, K = _checked("oh_setup_products", rT, Jall, ids)
     _recipe_rows(recipe, rc, K)
     plan = products_plan(tuple(recipe), rc, K, N, PRODUCTS_THREADS, PRODUCTS_SMEM)
     if plan is None:
         return oh_setup_products_atomics(rT, Jall, ids, N=N, recipe=recipe)
-    dev = rT.device
-    grid = products_grid(plan, R, PRODUCTS_THREADS, _cuda.sm_count(dev))
-    slab = torch.empty((grid, len(plan.chan), N), dtype=torch.float32, device=dev)
-    out = torch.empty((plan.F, N), dtype=torch.float32, device=dev)
+    return _launch_products(oh_setup_products, rT, Jall, ids, N, plan, PRODUCTS_THREADS)
+
+
+def oh_setup_products_f64(rT, Jall, ids, *, N, recipe):
+    """oh_setup_products in f64 (rT, Jall f64 -> [F, N] f64): the f64
+    instantiation of the shared-memory kernel, PRODUCTS_THREADS_F64
+    threads a block.  CPU tensors take the plain version; a shape without
+    an f64 plan raises NotImplementedError (the first body is f32 only)."""
+    if rT.device.type == "cpu":
+        return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
+    rc, R, K = _checked("oh_setup_products_f64", rT, Jall, ids, torch.float64)
+    _recipe_rows(recipe, rc, K)
+    plan = products_plan(tuple(recipe), rc, K, N, PRODUCTS_THREADS_F64, PRODUCTS_SMEM, 8)
+    if plan is None:
+        raise NotImplementedError(f"oh_setup_products_f64: no channel row fits at N={N}; the "
+                                  f"f64 first body waits ({_cuda.F64_TODO})")
+    return _launch_products(oh_setup_products_f64, rT, Jall, ids, N, plan, PRODUCTS_THREADS_F64)
+
+
+def _launch_products(fn, rT, Jall, ids, N, plan, threads):
+    (rc, R), K, dev, dt = rT.shape, Jall.shape[0], rT.device, rT.dtype
+    grid = products_grid(plan, R, threads, _cuda.sm_count(dev))
+    slab = torch.empty((grid, len(plan.chan), N), dtype=dt, device=dev)
+    out = torch.empty((plan.F, N), dtype=dt, device=dev)
     chan = _cuda.recipe_tensor(plan.chan, dev)
     dest = _cuda.recipe_tensor(plan.dest, dev)
-    code = _cuda.lib().thallo_oh_setup_products_persistent(
-        rT.data_ptr(), Jall.data_ptr(), ids.data_ptr(), chan.data_ptr(), dest.data_ptr(),
-        out.data_ptr(), slab.data_ptr(), len(plan.chan), plan.chunk,
-        plan.stride, rc, K, R, N, PRODUCTS_THREADS, grid, _cuda.stream(rT))
-    _cuda.check(code, "oh_setup_products")
-    oh_setup_products.launches += 1
+    launch = (_cuda.lib().thallo_oh_setup_products_persistent_f64 if dt == torch.float64
+              else _cuda.lib().thallo_oh_setup_products_persistent)
+    code = launch(rT.data_ptr(), Jall.data_ptr(), ids.data_ptr(), chan.data_ptr(),
+                  dest.data_ptr(), out.data_ptr(), slab.data_ptr(), len(plan.chan), plan.chunk,
+                  plan.stride, rc, K, R, N, threads, grid, _cuda.stream(rT))
+    _cuda.check(code, fn.__name__)
+    fn.launches += 1
     return out
 
 
@@ -281,15 +325,16 @@ def oh_setup_products_atomics(rT, Jall, ids, *, N, recipe):
     return out
 
 
-for _fn in (oh_setup_products, oh_setup_products_atomics):
+for _fn in (oh_setup_products, oh_setup_products_f64, oh_setup_products_atomics):
     _fn.launches = 0
 
 
 def oh_setup_aggregate_reference(parts_cm, ids, *, N):
-    """Plain torch version (f32): index_add_ of the in-range rows."""
+    """Plain torch version, in parts' dtype: index_add_ of the in-range
+    rows."""
     ok = (ids >= 0) & (ids < N)
-    out = torch.zeros((parts_cm.shape[0], N), dtype=torch.float32, device=parts_cm.device)
-    return out.index_add_(1, ids[ok].long(), parts_cm.to(torch.float32)[:, ok])
+    out = torch.zeros((parts_cm.shape[0], N), dtype=parts_cm.dtype, device=parts_cm.device)
+    return out.index_add_(1, ids[ok].long(), parts_cm[:, ok])
 
 
 # the shared-memory aggregation kernel: threads per block, blocks per SM,
@@ -310,6 +355,9 @@ AGG_BLOCKS_PER_SM = 1
 AGG_SMEM = 224 * 1024
 AGG_BATCH = 9
 AGG_MERGE_MIN = 2
+# the f64 instantiation: half the threads (csrc/oh_aggregate.cu's launch
+# bound), so that a thread's 9 x 4 doubles stay in registers (not swept)
+AGG_THREADS_F64 = 512
 
 
 class AggregatePlan(NamedTuple):
@@ -322,18 +370,19 @@ class AggregatePlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def aggregate_plan(F: int, N: int, smem: int = AGG_SMEM) -> Optional[AggregatePlan]:
+def aggregate_plan(F: int, N: int, smem: int = AGG_SMEM,
+                   itemsize: int = 4) -> Optional[AggregatePlan]:
     """The channel chunks of the shared-memory kernel: as few as fit
-    `smem` bytes of [acc_rows, N] f32 accumulator, equal in size; None
-    where not even AGG_BATCH rows fit (those shapes take
-    oh_setup_aggregate_atomics)."""
-    max_rows = smem // (N * 4) // AGG_BATCH * AGG_BATCH
+    `smem` bytes of [acc_rows, N] accumulator (itemsize bytes a value),
+    equal in size; None where not even AGG_BATCH rows fit (those shapes
+    take oh_setup_aggregate_atomics in f32)."""
+    max_rows = smem // (N * itemsize) // AGG_BATCH * AGG_BATCH
     if F < 1 or max_rows < AGG_BATCH:
         return None
     n_chunks = -(-F // max_rows)
     chunk = -(-F // n_chunks)
     acc_rows = -(-chunk // AGG_BATCH) * AGG_BATCH
-    return AggregatePlan(chunk, n_chunks, acc_rows, acc_rows * N * 4)
+    return AggregatePlan(chunk, n_chunks, acc_rows, acc_rows * N * itemsize)
 
 
 def aggregate_grid(plan: AggregatePlan, R: int, threads: int, sms: int) -> int:
@@ -345,27 +394,28 @@ def aggregate_grid(plan: AggregatePlan, R: int, threads: int, sms: int) -> int:
 
 def oh_setup_aggregate_planned(parts_cm, ids, *, N, smem=AGG_SMEM):
     """The sum the shared-memory kernel computes, from its plan alone, in
-    plain torch: each chunk's channels summed by id into an [acc_rows, N]
-    accumulator and its first rows written out; rows no chunk writes stay
-    NaN."""
+    plain torch (in parts' dtype, planned at its itemsize): each chunk's
+    channels summed by id into an [acc_rows, N] accumulator and its first
+    rows written out; rows no chunk writes stay NaN."""
     F = parts_cm.shape[0]
-    plan = aggregate_plan(F, N, smem)
+    dt = parts_cm.dtype
+    plan = aggregate_plan(F, N, smem, parts_cm.element_size())
     ok = (ids >= 0) & (ids < N)
-    out = torch.full((F, N), float("nan"), dtype=torch.float32, device=parts_cm.device)
+    out = torch.full((F, N), float("nan"), dtype=dt, device=parts_cm.device)
     for k in range(plan.n_chunks):
         f0 = k * plan.chunk
         fc = min(plan.chunk, F - f0)
-        acc = torch.zeros((plan.acc_rows, N), dtype=torch.float32, device=parts_cm.device)
-        acc[:fc].index_add_(1, ids[ok].long(), parts_cm[f0:f0 + fc][:, ok].to(torch.float32))
+        acc = torch.zeros((plan.acc_rows, N), dtype=dt, device=parts_cm.device)
+        acc[:fc].index_add_(1, ids[ok].long(), parts_cm[f0:f0 + fc][:, ok])
         out[f0:f0 + fc] = acc[:fc]
     return out
 
 
-def _agg_checked(what, parts_cm, ids):
+def _agg_checked(what, parts_cm, ids, dt=torch.float32):
     if parts_cm.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {parts_cm.device}")
     F, R = parts_cm.shape
-    _cuda.require(parts_cm, "parts_cm", (F, R), torch.float32, parts_cm.device)
+    _cuda.require(parts_cm, "parts_cm", (F, R), dt, parts_cm.device)
     _cuda.require(ids, "ids", (R,), torch.int32, parts_cm.device)
     return F, R, parts_cm.device
 
@@ -374,21 +424,44 @@ def oh_setup_aggregate(parts_cm, ids, *, N):
     """parts_cm [F, R] f32, ids [R] int32 -> [F, N] f32 (out-of-range ids
     drop).  CPU tensors take the plain version; CUDA tensors launch the
     shared-memory kernel, or, where aggregate_plan has no plan for N, go
-    to oh_setup_aggregate_atomics."""
+    to oh_setup_aggregate_atomics; f64 parts go to oh_setup_aggregate_f64."""
     if parts_cm.device.type == "cpu":
         return oh_setup_aggregate_reference(parts_cm, ids, N=N)
+    if parts_cm.dtype == torch.float64:
+        return oh_setup_aggregate_f64(parts_cm, ids, N=N)
     F, R, dev = _agg_checked("oh_setup_aggregate", parts_cm, ids)
     plan = aggregate_plan(F, N, AGG_SMEM)
     if plan is None:
         return oh_setup_aggregate_atomics(parts_cm, ids, N=N)
-    grid = aggregate_grid(plan, R, AGG_THREADS, _cuda.sm_count(dev))
-    out = torch.zeros((F, N), dtype=torch.float32, device=dev)
-    code = _cuda.lib().thallo_oh_setup_aggregate_smem(
-        parts_cm.data_ptr(), ids.data_ptr(), out.data_ptr(), F, R, N, plan.chunk,
-        plan.acc_rows, AGG_MERGE_MIN, AGG_THREADS, grid,
-        _cuda.stream(parts_cm))
-    _cuda.check(code, "oh_setup_aggregate")
-    oh_setup_aggregate.launches += 1
+    return _launch_aggregate(oh_setup_aggregate, parts_cm, ids, N, plan)
+
+
+def oh_setup_aggregate_f64(parts_cm, ids, *, N):
+    """oh_setup_aggregate in f64 (parts f64 -> [F, N] f64): the f64
+    instantiation of the shared-memory kernel.  CPU tensors take the plain
+    version; an N without an f64 plan (beyond ~3 100) raises
+    NotImplementedError (the first body is f32 only)."""
+    if parts_cm.device.type == "cpu":
+        return oh_setup_aggregate_reference(parts_cm, ids, N=N)
+    F, R, dev = _agg_checked("oh_setup_aggregate_f64", parts_cm, ids, torch.float64)
+    plan = aggregate_plan(F, N, AGG_SMEM, 8)
+    if plan is None:
+        raise NotImplementedError(f"oh_setup_aggregate_f64: no accumulator fits at N={N}; the "
+                                  f"f64 first body waits ({_cuda.F64_TODO})")
+    return _launch_aggregate(oh_setup_aggregate_f64, parts_cm, ids, N, plan)
+
+
+def _launch_aggregate(fn, parts_cm, ids, N, plan):
+    (F, R), dev, dt = parts_cm.shape, parts_cm.device, parts_cm.dtype
+    threads = AGG_THREADS_F64 if dt == torch.float64 else AGG_THREADS
+    grid = aggregate_grid(plan, R, threads, _cuda.sm_count(dev))
+    out = torch.zeros((F, N), dtype=dt, device=dev)
+    launch = (_cuda.lib().thallo_oh_setup_aggregate_smem_f64 if dt == torch.float64
+              else _cuda.lib().thallo_oh_setup_aggregate_smem)
+    code = launch(parts_cm.data_ptr(), ids.data_ptr(), out.data_ptr(), F, R, N, plan.chunk,
+                  plan.acc_rows, AGG_MERGE_MIN, threads, grid, _cuda.stream(parts_cm))
+    _cuda.check(code, fn.__name__)
+    fn.launches += 1
     return out
 
 
@@ -410,5 +483,5 @@ def oh_setup_aggregate_atomics(parts_cm, ids, *, N):
     return out
 
 
-for _fn in (oh_setup_aggregate, oh_setup_aggregate_atomics):
+for _fn in (oh_setup_aggregate, oh_setup_aggregate_f64, oh_setup_aggregate_atomics):
     _fn.launches = 0

@@ -283,15 +283,16 @@ def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0
 
 
 def segment_sum_reference(data, plan: SegSumPlan):
-    """Plain torch version (f32): the CPU path and the card-side oracle."""
+    """Plain torch version, in data's dtype (f32, or f64 on the CPU under
+    double_precision): the CPU path and the card-side oracle."""
     M, C = data.shape
     T, TE = plan.gather_idx.shape
-    padded = torch.cat([data.to(torch.float32),
-                        torch.zeros((1, C), dtype=torch.float32, device=data.device)])
-    g = padded.index_select(0, plan.gather_idx.reshape(-1).long()) * plan.mask.reshape(-1, 1)
+    padded = torch.cat([data, torch.zeros((1, C), dtype=data.dtype, device=data.device)])
+    g = padded.index_select(0, plan.gather_idx.reshape(-1).long()) * plan.mask.reshape(-1, 1).to(
+        data.dtype)
     tiles = torch.arange(T, device=data.device)[:, None] * plan.tile_n
     dest = (tiles + plan.rel).reshape(-1).long()
-    out = torch.zeros((T * plan.tile_n, C), dtype=torch.float32, device=data.device)
+    out = torch.zeros((T * plan.tile_n, C), dtype=data.dtype, device=data.device)
     return out.index_add_(0, dest, g)[:plan.num_segments]
 
 
@@ -341,6 +342,8 @@ def segment_sum(data, plan: SegSumPlan):
     plan = plan.compact()
     M, C = data.shape
     S = plan.num_segments
+    if data.dtype == torch.float64:
+        raise NotImplementedError(f"segment_sum: no f64 instantiation ({_cuda.F64_TODO})")
     if data.dtype != torch.float32:
         raise ValueError(f"data: expected torch.float32, got {data.dtype}")
     if data.device != plan.order.device:

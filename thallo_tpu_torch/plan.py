@@ -4,9 +4,24 @@
 A plan lives on one explicit torch device: ``device="cuda"`` (the
 default) raises when CUDA is not available, and ``device="cpu"`` runs
 every kernel's plain torch version.  Nothing picks a device by itself.
+
+``ProblemSpec(double_precision=True)`` makes every array the plan
+allocates or casts f64 (``self.dtype``; index arrays stay integer): on
+the card the kernels run their f64 instantiations.  ``block_dtype="bf16"``
+with it is allowed, as in JAX (bf16 cross blocks, f64 everything else),
+on the CPU; on the card it raises NotImplementedError (no kernel takes
+bf16 blocks with f64 values).
+
+The timer (utils/timer.py) keeps JAX's events: "Total" around
+``solve``, "Nonlinear Iteration" around each step or ``run_steps`` batch,
+"Nonlinear Setup" around ``init``'s cost and, at ``timing_level`` >= 2,
+around each step's three phases ("Nonlinear Setup", "Linear Solve",
+"Nonlinear Finish"), each ended by a device sync as JAX blocks there.
+At the default level the timer reads host clocks only: no sync.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, Optional
@@ -26,6 +41,7 @@ from .solver.gn import (
     tree_zeros_like,
 )
 from .spec import JTJpSchedule, ProblemSpec
+from .utils.timer import PerfSummary, Timer
 
 _KNOWN_OPTIONS = {"use_autoscheduler", "lin_iter_hint", "solver_parameters",
                   "timing_level", "verbosity", "guarded_invert_type",
@@ -34,13 +50,14 @@ _KNOWN_OPTIONS = {"use_autoscheduler", "lin_iter_hint", "solver_parameters",
                   "steps_per_dispatch", "preconditioner", "schur_dense_max",
                   "sort_residuals", "device"}
 
-# options of thallo_tpu's Plan whose non-default values need a part of the
-# JAX package that is not ported yet
+# options of thallo_tpu's Plan whose other values need a part of the JAX
+# package that is not ported yet: the values the port takes
 _UNPORTED_OPTIONS = {
-    "use_autoscheduler": (0, "the autoscheduler (ROADMAP queue 1, item 8)"),
-    "steps_per_dispatch": (1, "multi-step dispatch (ROADMAP queue 1, item 2a)"),
-    "trace_dir": (None, "profiler traces (ROADMAP queue 1, item 9)"),
-    "profile_compile": (False, "compile profiling (ROADMAP queue 1, item 9)"),
+    "use_autoscheduler": ((0,), "the autoscheduler (ROADMAP queue 1, item 8)"),
+    "steps_per_dispatch": ((1,), "multi-step dispatch (ROADMAP queue 1, item 2a)"),
+    "trace_dir": ((None,), "profiler traces (ROADMAP queue 1, item 9)"),
+    "profile_compile": ((False,), "compile profiling (ROADMAP queue 1, item 9)"),
+    "timing_level": ((0, 1, 2), "per-kernel timing (ROADMAP queue 1, item 9)"),
 }
 
 
@@ -96,14 +113,18 @@ class Plan:
         if options.get("block_dtype") not in BLOCK_DTYPES:
             raise ValueError(f"block_dtype={options['block_dtype']!r}: expected one of "
                              f"{sorted(BLOCK_DTYPES, key=str)}")
-        for name, (default, what) in _UNPORTED_OPTIONS.items():
-            if options.get(name, default) != default:
+        for name, (allowed, what) in _UNPORTED_OPTIONS.items():
+            if name in options and options[name] not in allowed:
                 raise NotImplementedError(f"{name}={options[name]!r}: {what} is not ported yet")
-        if spec.double_precision:
-            raise NotImplementedError("double_precision is not ported yet: the port runs in f32 "
-                                      "(ROADMAP queue 1, item 6)")
         self.device = _resolve_device(options.get("device", "cuda"))
-        self.dtype = torch.float32
+        self.dtype = torch.float64 if spec.double_precision else torch.float32
+        if spec.double_precision and BLOCK_DTYPES[options.get("block_dtype")] is not None \
+                and self.device.type == "cuda":
+            raise NotImplementedError(
+                "block_dtype='bf16' with double_precision on the card: no kernel takes bf16 "
+                "blocks with f64 values (ROADMAP queue 2, item 7); the CPU runs it, as JAX")
+        self.timing_level = int(options.get("timing_level", 1))
+        self.timer = Timer()
 
         if isinstance(dim_sizes, (list, tuple)):
             dim_sizes = {d.name: s for d, s in zip(spec.dims, dim_sizes)}
@@ -277,7 +298,8 @@ class Plan:
         self._U = {im.name: self._inputs[im.name].clone() for im in self.spec.unknowns}
         self._const_inputs = {k: v for k, v in self._inputs.items() if k not in self._U}
         self._prep = self.compiled.prepare(self._inputs)
-        c0 = self.cost()
+        with self.timer.event("Nonlinear Setup"):
+            c0 = self.cost()
         sp = self.solver_parameters
         self._lm = LMState(
             trust_region_radius=self._scalar(sp["trust_region_radius"]),
@@ -323,6 +345,18 @@ class Plan:
             self._lm = self._lm._replace(prev_cost=self._scalar(self.cost()))
 
     # -- stepping ----------------------------------------------------------------
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextlib.contextmanager
+    def _timed_phase(self, name):
+        """A step's phase as a timer event ended by a device sync
+        (timing_level >= 2, thallo_tpu/plan.py:636-648)."""
+        with self.timer.event(name):
+            yield
+            self._sync()
+
     def step(self) -> bool:
         """One nonlinear iteration.  Returns True while the solve should
         continue.  LM reads its device-side stop flag once per step."""
@@ -331,8 +365,10 @@ class Plan:
         if self._iter >= int(self.solver_parameters["nIterations"]):
             self._finished = True
             return False
-        U, lm, stop, _ = self.compiled.nonlinear_step(
-            self._U, self._lm, self._step_inputs(), self._sp(), self._prep)
+        phase = self._timed_phase if self.timing_level >= 2 else contextlib.nullcontext
+        with self.timer.event("Nonlinear Iteration"):
+            U, lm, stop, _ = self.compiled.nonlinear_step(self._U, self._lm, self._step_inputs(),
+                                                          self._sp(), self._prep, phase)
         self._U, self._lm = U, lm
         self._iter += 1
         if self.debug_check_finite:
@@ -363,8 +399,9 @@ class Plan:
             return 0
         U, lm = self._U, self._lm
         cin, sp, prep = self._step_inputs(), self._sp(), self._prep
-        for _ in range(n):
-            U, lm, stop, _ = self.compiled.nonlinear_step(U, lm, cin, sp, prep)
+        with self.timer.event("Nonlinear Iteration"):
+            for _ in range(n):
+                U, lm, stop, _ = self.compiled.nonlinear_step(U, lm, cin, sp, prep)
         self._U, self._lm = U, lm
         self._iter += n
         if self.compiled.uses_lambda and bool(stop):
@@ -383,8 +420,7 @@ class Plan:
         U = {k: v.clone() for k, v in self._U.items()}
         self.compiled.cost(U, self._step_inputs(), self._prep["consts"])
         self.compiled.nonlinear_step(U, self._lm, self._step_inputs(), self._sp(), self._prep)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
 
     def solve(self, inputs: Optional[Dict] = None) -> float:
         """Full solve: (init +) steps until done.  Returns the final cost.
@@ -394,11 +430,15 @@ class Plan:
             self.init(inputs)
         if self._inputs is None:
             raise RuntimeError("call init() first")
-        if not self.compiled.uses_lambda and not self.debug_check_finite and \
-                float(self.solver_parameters["max_solver_time_in_seconds"]) == 0:
-            self.run_steps(int(self.solver_parameters["nIterations"]))
-        while self.step():
-            pass
+        with self.timer.event("Total"):
+            if not self.compiled.uses_lambda and not self.debug_check_finite and \
+                    self.timing_level < 2 and \
+                    float(self.solver_parameters["max_solver_time_in_seconds"]) == 0:
+                # timing_level >= 2 wants per-phase stats: step() instead
+                self.run_steps(int(self.solver_parameters["nIterations"]))
+            while self.step():
+                pass
+            self._sync()
         final = self.cost()
         if self.verbosity:
             print(f"[thallo_tpu_torch] final cost: {final:g} after {self._iter} iterations")
@@ -463,6 +503,25 @@ class Plan:
             )
             self._iter = int(z["iter"])
             self._finished = bool(z["finished"])
+
+    def jacobian(self, dense: bool = False):
+        """The Jacobian at the current unknowns (thallo_tpu/plan.py:883-896):
+        COO (residuals, rows, cols, vals, (n_rows, n_cols)) as tensors on
+        the plan's device, or, with dense=True, (residuals, J [n_rows,
+        n_cols]).  Excluded unknowns' columns are zero."""
+        if self._inputs is None:
+            raise RuntimeError("call init() first")
+        comp = self.compiled
+        ins, consts = self._step_inputs(), self._prep["consts"]
+        masks = comp.masks(ins, self._U, self._prep.get("masks_static"),
+                           self._prep.get("exclude_consts"))
+        if dense:
+            return comp.dense_jacobian(self._U, ins, consts, masks)
+        return comp.coo_jacobian(self._U, ins, consts, masks)
+
+    def get_performance_summary(self) -> PerfSummary:
+        """The timer's events (count, min, max, mean, stddev, total in ms)."""
+        return self.timer.summary()
 
     @property
     def final_cost(self):

@@ -52,10 +52,11 @@ import torch
 
 from ..ops import structured
 from ..ops.fullrepeat import fullrepeat_setup
-from ..ops.fusedpair import (fused_pair_apply, fused_pair_apply_atomics, fused_pair_apply_bf16,
-                             fused_pair_apply_wloop, fused_pair_apply_wloop_bf16,
-                             fused_pair_apply_wloop_chunked, fused_pair_bf16_atomics,
-                             fused_pair_route)
+from ..ops.fusedpair import (fused_pair_apply, fused_pair_apply_atomics,
+                             fused_pair_apply_atomics_f64, fused_pair_apply_bf16,
+                             fused_pair_apply_f64, fused_pair_apply_wloop,
+                             fused_pair_apply_wloop_bf16, fused_pair_apply_wloop_chunked,
+                             fused_pair_bf16_atomics, fused_pair_route)
 from ..ops.ohsetup import oh_setup_products, setup_slabs
 
 # padding budget of the rank-keyed tables: sum N_t*W_t <= MAX_WASTE*R + MAX_PAD_EXTRA
@@ -569,9 +570,12 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
         pcol = pT[bsr.slot_images[j]]
         if p_idx in partnered:
             route = fused_pair_route(W, N_t, Ci, Cj, pcol.shape[1],
-                                     bf16=blocks[p_idx].dtype == torch.bfloat16)
+                                     bf16=blocks[p_idx].dtype == torch.bfloat16,
+                                     dtype=pcol.dtype)
             fn = {"fused_pair_apply": fused_pair_apply,
                   "fused_pair_apply_atomics": fused_pair_apply_atomics,
+                  "fused_pair_apply_f64": fused_pair_apply_f64,
+                  "fused_pair_apply_atomics_f64": fused_pair_apply_atomics_f64,
                   "fused_pair_apply_wloop": fused_pair_apply_wloop,
                   "fused_pair_apply_wloop_chunked": fused_pair_apply_wloop_chunked,
                   "fused_pair_apply_bf16": fused_pair_apply_bf16,

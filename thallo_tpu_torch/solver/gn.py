@@ -12,8 +12,9 @@ Each group runs one of these schedules of JᵀJ·p (``make_jtjp``):
   under scalar Jacobi (the dense JᵀJ at <= 4096 unknowns);
 * materialized JᵀJ, dense (PRECOMPUTE_JTJ at <= 4096 unknowns, any
   group): J by ``torch.func.jacfwd`` over the flattened unknowns, then
-  A = JᵀJ and A·p by ``torch.matmul`` in full f32 (``_matmul_f32``: a
-  global TF32 setting cannot leak in);
+  A = JᵀJ and A·p by ``torch.matmul`` at the plan's full precision
+  (``_matmul_full``: a global TF32 setting cannot leak into f32; f64
+  products are f64);
 * materialized J (PRECOMPUTE_J, from ``r.<name>.J.set_materialize(True)``,
   and APPLY_SEPARATELY, from ``r.<name>.Jp.set_materialize(True)``): the
   per-point Jacobians are stored at setup, JᵀF and diag(JᵀJ) (partial²
@@ -59,12 +60,14 @@ residual reset and the Q/zeta early stop, and the trust-region
 accept/revert.  The PCG loop runs ``lIterations`` iterations with no
 host read: once the device-side ``stop`` flag is set, delta/r/p freeze
 through ``torch.where`` (JAX exits its ``while_loop`` instead; the
-results are the same).  Routing is f32 everywhere, so the zeta test
+results are the same).  Routing is at the plan's dtype everywhere (no
+bf16 or f32-accumulated routing, as JAX has), so the zeta test
 needs no noise floor.
 
 ``block_dtype="bf16"`` stores the block-sparse cross blocks as bf16 (as
 JAX's ``.astype(block_dtype)``); the fused-pair kernels read them as
-such, everything else upcasts, and all arithmetic stays f32.
+such, everything else upcasts, and all arithmetic stays at the plan's
+dtype.
 
 The linear solve of each step is PCG on the full system (the default),
 or, by the plan option ``linear_solver`` (thallo_tpu/solver/gn.py:
@@ -80,11 +83,20 @@ the dense Jacobian.  ``schur_eliminate`` names the eliminated images
 (default: the eligible image with the most elements) and
 ``schur_dense_max`` caps the kept system's DOF.
 
+``double_precision`` (the plan's dtype f64) runs every array above in
+f64: the unknowns, LM state, PCG vectors, block-sparse blocks and masks,
+the Schur and direct solves, the dense JᵀJ; the kernels take their f64
+instantiations on the card.
+
+``coo_jacobian`` gives J as COO triplets from the setup's point
+Jacobians and the slots' flat indices (the reference's J dump).
+
 Not ported yet (NotImplementedError at plan time): INLINE and LINEARIZE
-on graph groups without contractions, and double precision.
+on graph groups without contractions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, List, NamedTuple
 
@@ -162,11 +174,13 @@ def _per_point(t, like):
     return t.reshape(t.shape[:1] + (1,) + t.shape[1:] + (1,) * (like.ndim - 3))
 
 
-def _matmul_f32(a, b):
-    """torch.matmul in full f32 (no TF32 on the card) whatever the
-    process-wide torch.backends.cuda.matmul.allow_tf32; the flag is
-    restored after.  (torch.get_float32_matmul_precision is not read: it
-    raises once the caller has mixed the legacy and the newer TF32 API.)"""
+def _matmul_full(a, b):
+    """torch.matmul at its operands' full precision: f32 with no TF32 on
+    the card whatever the process-wide
+    torch.backends.cuda.matmul.allow_tf32 (the flag is restored after), f64
+    as f64 (TF32 never applies to it, and nothing rounds through f32).
+    (torch.get_float32_matmul_precision is not read: it raises once the
+    caller has mixed the legacy and the newer TF32 API.)"""
     flags = torch.backends.cuda.matmul
     prev = flags.allow_tf32
     flags.allow_tf32 = False
@@ -526,7 +540,7 @@ class CompiledSolver:
                 jac_groups.append((g, c, entry["jacs"]))
             elif self._is_dense(gp, c):
                 _, J = self.dense_jacobian(U, inputs, consts, masks, [gi])
-                dense_mats.append(_matmul_f32(J.T, J))
+                dense_mats.append(_matmul_full(J.T, J))
             else:  # INLINE
                 inline.append(residual_fn(g, c))
 
@@ -543,7 +557,7 @@ class CompiledSolver:
                 pflat = self.flatten_U(pm)
                 acc = None
                 for A in dense_mats:
-                    v = _matmul_f32(A, pflat)
+                    v = _matmul_full(A, pflat)
                     acc = v if acc is None else acc + v
                 add(Ap, self.unflatten_U(acc))
             for res_fn in inline:
@@ -587,6 +601,45 @@ class CompiledSolver:
             rows.append(res_flat(u0))
             jmats.append(J if mflat is None else J * mflat[None, :])
         return torch.cat(rows), torch.cat(jmats)
+
+    def coo_jacobian(self, U, inputs, consts, masks):
+        """J as COO (thallo_tpu gn.py:782-821): (residuals, rows, cols,
+        vals, (n_rows, n_cols)).  Rows are numbered across groups, each
+        group's point-major then residual channel (dense_jacobian's
+        order); cols index the flattened unknown vector (unknown_layout).
+        Built from the setup's point Jacobians [rc, C, R, *dep] and each
+        jac slot's flat element indices (stencil slots wrap as their rolls
+        do), excluded unknowns' entries zeroed as in the setup; an entry
+        per (point, residual channel, slot, contracted index, channel),
+        zeros included, as JAX lists them.  Index tensors are int64."""
+        offsets, total = self.unknown_layout()
+        dev = self.device
+        rows_l, cols_l, vals_l, res_l = [], [], [], []
+        row_base = 0
+        for gp, c in zip(self.groups, consts):
+            g = gp.group
+            r, jacs = g.point_jacobians_cm(U, inputs, c)
+            jacs = self._mask_jacs_cm(g, jacs, masks, c)
+            R, rc = g.R, g.rc
+            for i, slot in enumerate(g.jac_slots):
+                J = jacs[i]  # [rc, C, R, *dep]
+                C = J.shape[1]
+                dep = tuple(J.shape[3:])
+                flat = torch.from_numpy(g._slot_flat_indices(slot, inputs).astype(np.int64))
+                flat = flat.to(dev).reshape((R,) + dep)
+                # [R, rc, *dep, C], JAX's layout of a point Jacobian
+                Jr = J.movedim(2, 0).movedim(2, -1)
+                rows = row_base + torch.arange(R * rc, device=dev).reshape(
+                    (R, rc) + (1,) * (len(dep) + 1))
+                cols = offsets[slot.image.name] + flat[:, None, ..., None] * C + \
+                    torch.arange(C, device=dev)
+                rows_l.append(rows.expand(Jr.shape).reshape(-1))
+                cols_l.append(cols.expand(Jr.shape).reshape(-1))
+                vals_l.append(Jr.reshape(-1))
+            res_l.append(r.T.reshape(-1))
+            row_base += R * rc
+        return (torch.cat(res_l), torch.cat(rows_l), torch.cat(cols_l), torch.cat(vals_l),
+                (row_base, total))
 
     def model_cost(self, U, inputs, consts, delta):
         """0.5 |r + J delta|^2 through a forward-mode JVP."""
@@ -813,13 +866,13 @@ class CompiledSolver:
         gives a non-finite delta, as jnp.linalg.solve's."""
         masks = state["masks"]
         r_all, J = self.dense_jacobian(U, inputs, consts, masks)
-        A = _matmul_f32(J.T, J)
+        A = _matmul_full(J.T, J)
         mflat = self.flatten_U(apply_masks({k: torch.ones_like(v) for k, v in U.items()},
                                            masks))
         if self.uses_lambda:
             A = A + torch.diag(self.flatten_U(state["CtC"]))
         A = A + torch.diag(1.0 - mflat)
-        g = _matmul_f32(J.T, r_all)
+        g = _matmul_full(J.T, r_all)
         return self.unflatten_U(torch.linalg.solve_ex(A, -g).result)
 
     # -- Schur-complement reduced solves ---------------------------------------
@@ -941,7 +994,7 @@ class CompiledSolver:
         ok = (mag > 0) & (mag >= torch.finfo(S.dtype).eps * S.shape[0] * mag.max())
         inv = torch.where(ok, 1.0 / torch.where(ok, lam, torch.ones_like(lam)),
                           torch.zeros_like(lam))
-        return _matmul_f32(V, inv * _matmul_f32(V.T, b))
+        return _matmul_full(V, inv * _matmul_full(V.T, b))
 
     def _schur_dense_matrix(self, state, consts, keep, elim, Einv):
         """S = A_kk - A_ke A_ee⁻¹ A_ek assembled densely, [K, K] over the
@@ -1127,14 +1180,17 @@ class CompiledSolver:
         """Phase 3: X += delta (+ LM model cost, accept/revert, radius)."""
         return self._finish_step(U, lm, inputs, prep["consts"], delta, sp, state["ssq"])
 
-    def nonlinear_step(self, U, lm: LMState, inputs, sp: SolverParams, prep):
+    def nonlinear_step(self, U, lm: LMState, inputs, sp: SolverParams, prep,
+                       phase=contextlib.nullcontext):
         """One GN / LM iteration: setup + PCG + update.  The three phases
-        are named ranges in a torch.profiler trace."""
-        with record_function("thallo::setup"):
+        are named ranges in a torch.profiler trace; ``phase(name)`` wraps
+        each of them too, by the timer's event name (the plan's timed
+        phases at timing_level >= 2)."""
+        with record_function("thallo::setup"), phase("Nonlinear Setup"):
             state = self.solve_setup(U, lm, inputs, sp, prep)
-        with record_function("thallo::pcg"):
+        with record_function("thallo::pcg"), phase("Linear Solve"):
             delta = self.linear_solve(U, state, inputs, sp, prep)
-        with record_function("thallo::finish"):
+        with record_function("thallo::finish"), phase("Nonlinear Finish"):
             return self.finish_step(U, lm, state, delta, inputs, sp, prep)
 
     def _finish_step(self, U, lm, inputs, consts, delta, sp, ssq):
