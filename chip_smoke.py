@@ -185,7 +185,27 @@ its seconds; any failure exits non-zero):
  22. the drivers (thallo_tpu_torch/examples): run_model on a grid, a
      graph and a BA model, every gallery row (synthetic and the BAL and
      PLY samples) with its cost falling, get_performance_summary() at
-     timing levels 1 and 2.
+     timing levels 1 and 2;
+ 23. scheduling, each against an empty measurement store of its own in a
+     temporary directory: (a) the uniform 1M LM solve under
+     use_autoscheduler=1 (the heuristic's estimates, resident bytes and
+     choice logged), 10 steps, never rising, final <= 1e-2 x initial, one
+     profiled step; (b) 3 steps each of LINEARIZE (use_autoscheduler=2)
+     and INLINE (exhaustive candidate 1), of INLINE under
+     THALLO_SEGSUM=tiled and of INLINE tiled in f64, against phase 5's
+     PRECOMPUTE_J run (the same scalar Jacobi; SCHED_BA_TRAJ) or phase
+     20(d)'s (F64_CROSS): their camera transposes through
+     oh_setup_aggregate, under tiled every transpose through segment_sum
+     (segment_sum_f64 in f64), tallied by plan; step medians, one profiled
+     step each; (c) ARAP 256² GN, lIterations 10: use_autoscheduler=2
+     against the default plan under scalar Jacobi (ARAP_TRAJ_RTOL), then
+     autoschedule_search over the first SCHED_ARAP_CANDIDATES candidates
+     (every (fit, reg) schedule pair), n_steps 3, each candidate's
+     measured ms beside its estimated bytes and their rank correlation,
+     every candidate's cost held to the reference run of its
+     preconditioner (SCHED_ARAP_RTOL), and use_autoscheduler=1 reading
+     that store picks the measured winner.  Phase 2 holds segment_sum_f64
+     at the uniform scene's two plans.
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -507,6 +527,21 @@ SCRIPT_LAUNCHES = 10
 # published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM and f32 outside
 # the tensor cores; the bound of a kernel is the larger of its bytes (each
 # input read once, each output written once) and its f32 operations over them
+# phase 23: LINEARIZE and INLINE at 1M against phase 5's PRECOMPUTE_J (the
+# same scalar-Jacobi PCG; LINEARIZE runs its arithmetic with the atomics in
+# another order, INLINE forms J·p and Jᵀ(J·p) by jvp and vjp): (x max|U|,
+# of the cost) per step over 3 steps, about twice the spread measured on
+# the H100 (max|dU|/max|U| 2.3e-5, cost 1.1e-5; PERF.md, Findings)
+SCHED_BA_TRAJ = (5e-5, 3e-5)
+SCHED_BA_STEPS = 3
+# phase 23(c): the exhaustive candidates measured at ARAP 256² (the merged
+# groups' 25 (fit, reg) schedule pairs come first), and the bound on each
+# one's cost after its 1 + 3 steps against the run of its preconditioner:
+# phase 16's bound at steps 2-3 (twice the port's f32 spread on this
+# scene); the candidates measured 1.6e-6 at most (PERF.md, Findings)
+SCHED_ARAP_CANDIDATES = 25
+SCHED_ARAP_STEPS = 3
+SCHED_ARAP_RTOL = 2e-5
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12  # f64 outside the tensor cores (the same data sheet)
@@ -883,7 +918,9 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("oh_setup_products_f64", "ba1m_f64_0"): "oh_setup_products_f64",
           ("fullrepeat_setup_f64", "ba1m_f64_0"): "fullrepeat_setup_f64",
           # its PCG iteration's [9, 1M] -> 1024 scatter (_0: the setup's [18, 1M])
-          ("oh_setup_aggregate_f64", "ba1m_pj_f64_1"): "oh_setup_aggregate_f64"}
+          ("oh_setup_aggregate_f64", "ba1m_pj_f64_1"): "oh_setup_aggregate_f64",
+          ("segment_sum_f64", "ba1m_f64"): "segment_sum_f64",
+          ("segment_sum_f64", "ba1m_cameras_f64"): "segment_sum_f64_cameras"}
 
 # record entry -> (source, the TPU kernel it replaces: file:line of its
 # pallas_call or kernel body, the smoke solve or phase whose launches it
@@ -948,6 +985,11 @@ KERNELS = {
                              "thallo_tpu/ops/fullrepeat.py:178", "f64 block-sparse"),
     "oh_setup_aggregate_f64": ("thallo_tpu_torch/csrc/oh_aggregate.cu",
                                "thallo_tpu/ops/ohsetup.py:236", "f64 precompute_j"),
+    # phase 23(b): INLINE's transposes under THALLO_SEGSUM=tiled in f64
+    "segment_sum_f64": ("thallo_tpu_torch/csrc/segsum.cu",
+                        "thallo_tpu/ops/segsum.py:254", "inline f64 tiled"),
+    "segment_sum_f64_cameras": ("thallo_tpu_torch/csrc/segsum.cu",
+                                "thallo_tpu/ops/segsum.py:254", "inline f64 tiled"),
 }
 
 
@@ -983,7 +1025,8 @@ def counters():
             "fused_pair_apply_atomics_f64": fusedpair.fused_pair_apply_atomics_f64,
             "oh_setup_products_f64": ohsetup.oh_setup_products_f64,
             "fullrepeat_setup_f64": fullrepeat.fullrepeat_setup_f64,
-            "oh_setup_aggregate_f64": ohsetup.oh_setup_aggregate_f64}
+            "oh_setup_aggregate_f64": ohsetup.oh_setup_aggregate_f64,
+            "segment_sum_f64": segsum.segment_sum_f64}
 
 
 def ba_plan(ba, tt, inputs, dims, device, n_iter, schedule=None, double=False, **options):
@@ -1227,17 +1270,19 @@ def check_steps(what, costs, Us, ref_costs, ref_Us, u_tol=STEP_U_TOL,
 
 class _Tally:
     """A kernel wrapper behind a hook that adds the launches of each call,
-    read from the wrapper's own count around it, to counts[key(*args,
-    **kwargs)].  ``launches`` passes through to the wrapper's count, which
-    a wrapper reaches by its module-level name."""
+    read from the wrapper's own count around it (or from `counted`'s, the
+    wrapper it hands a dtype to), to counts[key(*args, **kwargs)].
+    ``launches`` passes through to the wrapper's count, which a wrapper
+    reaches by its module-level name."""
 
-    def __init__(self, real, key):
+    def __init__(self, real, key, counted=None):
         self.real, self.key, self.counts = real, key, collections.Counter()
+        self.counted = counted or real
 
     def __call__(self, *args, **kwargs):
-        n0 = self.real.launches
+        n0 = self.counted.launches
         out = self.real(*args, **kwargs)
-        self.counts[self.key(*args, **kwargs)] += self.real.launches - n0
+        self.counts[self.key(*args, **kwargs)] += self.counted.launches - n0
         return out
 
     @property
@@ -1250,11 +1295,11 @@ class _Tally:
 
 
 @contextlib.contextmanager
-def tally(module, name, key):
+def tally(module, name, key, counted=None):
     """``module.name`` (a kernel wrapper) behind a _Tally while the block
     runs; yields its counts."""
     real = getattr(module, name)
-    hook = _Tally(real, key)
+    hook = _Tally(real, key, counted)
     setattr(module, name, hook)
     try:
         yield hook.counts
@@ -1683,6 +1728,25 @@ def f64_kernel_cases(dev, rng, ba, tt, scene):
             raise AssertionError(f"{tag}: the f64 path launched {sorted(names)}, "
                                  f"not {sorted(want)}")
         cases += got
+    # segment_sum_f64, the transposes of phase 23(b)'s INLINE tiled f64
+    # solve: points [1M, 3] -> 250 000 and cameras [1M, 9] -> 1024, plans
+    # from the scene's maps, data the transpose of a channel-major buffer
+    # (what SlotScatter passes)
+    from thallo_tpu_torch.ops import segsum
+
+    for tag, ids, S, C in (("ba1m_f64", np.asarray(inputs["oToP"], np.int32), BA_1M[1], 3),
+                           ("ba1m_cameras_f64", np.asarray(inputs["oToC"], np.int32),
+                            BA_1M[0], 9)):
+        plan = segsum.build_plan(ids, S, device=dev)
+        cm = torch.from_numpy(rng.normal(size=(C, len(ids)))).to(dev)
+        idl = torch.from_numpy(ids).to(dev).long()
+        cases.append(("segment_sum_f64", tag,
+                      lambda d=cm.T, p=plan: (segsum.segment_sum_f64(d, p),),
+                      lambda d=cm.T, p=plan: (segsum.segment_sum_reference(d, p),),
+                      lambda d=cm.T, S=S, C=C, idl=idl: torch.zeros(
+                          (S, C), dtype=torch.float64, device=dev).index_add_(0, idl, d),
+                      nbytes(cm, plan.order, plan.seg_start), len(ids) * C, None,
+                      F64_KERNEL_TOL))
     return cases
 
 
@@ -2442,7 +2506,7 @@ def phase_precompute_j_f64(ba, tt, scene, f32_final):
                                        double=True)
     check_steps(f"{label} vs block-sparse f64 (jacobi)", costs[:CROSS_STEPS + 1], Us,
                 ref_costs, ref_Us, *F64_CROSS)
-    return launches
+    return launches, (costs, Us)
 
 
 def _coo(plan):
@@ -2537,6 +2601,220 @@ def phase_drivers(tt):
         if not want <= set(summary.stats):
             raise AssertionError(f"timing_level {level}: events {sorted(summary.stats)}")
         log(f"image_warping 64² LM, timing_level {level}:\n{summary.markdown()}")
+
+
+def profiled_step(label, plan):
+    """One step on copies of the plan's state under torch.profiler: its
+    wall time, device busy time and idle share, logged; (wall, busy) s."""
+    from torch_ba_profile import busy_seconds
+    from torch_grid_profile import _step_copy
+
+    _step_copy(plan)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _step_copy(plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_seconds(prof.events())
+    log(f"{label}: profiled step wall {wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, "
+        f"idle share {1 - busy / wall:.3f}")
+    return wall, busy
+
+
+@contextlib.contextmanager
+def own_store():
+    """THALLO_MEASUREMENTS at an empty store in a temporary directory while
+    the block runs; yields the directory."""
+    import tempfile
+
+    old = os.environ.get("THALLO_MEASUREMENTS")
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["THALLO_MEASUREMENTS"] = str(Path(d) / "measurements.json")
+        try:
+            yield Path(d)
+        finally:
+            if old is None:
+                del os.environ["THALLO_MEASUREMENTS"]
+            else:
+                os.environ["THALLO_MEASUREMENTS"] = old
+
+
+# the kernels each schedule of the BA group launches on the 1M scene
+SCHED_KERNELS = {"precompute_jtj": ("fused_pair_apply", "oh_setup_products", "fullrepeat_setup"),
+                 "linearize": ("oh_setup_aggregate",), "inline": ("oh_setup_aggregate",),
+                 "precompute_j": ("oh_setup_aggregate",),
+                 "apply_separately": ("oh_setup_aggregate",)}
+
+
+def phase_schedule_ba(ba, tt, scene, ref, ref_f64):
+    """Phase 23(a)-(b) (the module docstring).  Returns the launches of
+    each run."""
+    from thallo_tpu_torch import lower
+    from thallo_tpu_torch.ops import segsum
+
+    runs = {}
+    with own_store():
+        inputs, dims = scene
+        label = "1M heuristic (use_autoscheduler=1)"
+        chosen = ba_plan(ba, tt, inputs, dims, "cuda", 1, use_autoscheduler=1)
+        for line in chosen.schedule_log:
+            log(f"{label}: {line}")
+        schedule = chosen.compiled.groups[0].schedule.value
+        del chosen
+        costs, _, runs["heuristic"], plan = solve_1m(ba, tt, scene, label,
+                                                     SCHED_KERNELS[schedule],
+                                                     use_autoscheduler=1)
+        if plan.compiled.groups[0].schedule.value != schedule:
+            raise AssertionError(f"{label}: planned {schedule}, solved "
+                                 f"{plan.compiled.groups[0].schedule.value}")
+        never_rising(label, costs)
+        if not costs[-1] <= 1e-2 * costs[0]:
+            raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
+        profiled_step(f"{label}, {schedule}", plan)
+        del plan
+
+    variants = (("linearize", "1M LINEARIZE (use_autoscheduler=2)", 2, False, False),
+                ("inline", "1M INLINE (exhaustive candidate 1)", 4, False, False),
+                ("inline tiled", "1M INLINE, THALLO_SEGSUM=tiled", 4, True, False),
+                ("inline f64 tiled", "1M INLINE f64, THALLO_SEGSUM=tiled", 4, True, True))
+    for key, label, mode, tiled, double in variants:
+        want = "segment_sum_f64" if double else "segment_sum" if tiled else "oh_setup_aggregate"
+        if tiled:
+            os.environ["THALLO_SEGSUM"] = "tiled"  # read by plan.init
+        try:
+            with own_store(), tally(lower, "segment_sum", lambda data, plan: plan.num_segments,
+                                    segsum.segment_sum_f64 if double else None) as by_plan, \
+                    tally(lower, "oh_setup_aggregate", lambda parts, ids, N: N) as by_n:
+                costs, Us, launches, plan = solve_1m(
+                    ba, tt, scene, label, (want,), n_steps=SCHED_BA_STEPS,
+                    keep_unknowns=SCHED_BA_STEPS, use_autoscheduler=mode, double=double)
+        finally:
+            os.environ.pop("THALLO_SEGSUM", None)
+        got = plan.compiled.groups[0].schedule.value
+        if got != key.split()[0]:
+            raise AssertionError(f"{label}: schedule {got}")
+        log(f"{label}: segment_sum launches by plan (segments) {dict(by_plan)}, "
+            f"oh_setup_aggregate launches by image size {dict(by_n)}")
+        if tiled:
+            launches[want] = by_plan[dims["P"]]
+            launches[want + "_cameras"] = by_plan[dims["C"]]
+            if min(by_plan[dims["P"]], by_plan[dims["C"]]) <= 0 or sum(by_n.values()):
+                raise AssertionError(f"{label}: not every transpose went through the "
+                                     "segment sum")
+        elif by_n[dims["C"]] <= 0:
+            raise AssertionError(f"{label}: the camera transposes never launched "
+                                 "oh_setup_aggregate")
+        runs[key] = launches
+        never_rising(label, costs)
+        base = ref_f64 if double else ref
+        check_steps(f"{label} vs PRECOMPUTE_J{' f64' if double else ''} (jacobi)",
+                    costs[:SCHED_BA_STEPS + 1], Us, base[0], base[1],
+                    *(F64_CROSS if double else SCHED_BA_TRAJ))
+        profiled_step(label, plan)
+        del plan
+    return runs
+
+
+def arap_sched_plan(tt, inputs, **options):
+    """A GN plan of ARAP 256² (lIterations ARAP_L_ITERATIONS) under `options`,
+    initialized."""
+    from thallo_tpu_torch.models import arap_mesh_deformation as arap
+
+    plan = tt.load_energy(arap.ENERGY).plan({"N": ARAP_SIDE ** 2, "E": len(inputs["V0"])},
+                                            solver="gauss_newton", device="cuda", **options)
+    plan.set_solver_parameter("lIterations", ARAP_L_ITERATIONS)
+    plan.set_solver_parameter("nIterations", 10_000)
+    plan.init({k: np.copy(v) for k, v in inputs.items()})
+    return plan
+
+
+def arap_costs(plan, steps):
+    costs = [plan.final_cost]
+    for _ in range(steps):
+        plan.step()
+        costs.append(plan.cost())
+    return costs
+
+
+def ranks(x):
+    """Ranks of x from 0, ties at their mean rank (Spearman's)."""
+    x = np.asarray(x, np.float64)
+    r = np.empty(len(x))
+    r[np.argsort(x, kind="stable")] = np.arange(len(x))
+    for v in np.unique(x):
+        r[x == v] = r[x == v].mean()
+    return r
+
+
+def phase_schedule_arap(tt):
+    """Phase 23(c) (the module docstring)."""
+    from thallo_tpu_torch.autotune import autoschedule_search
+    from thallo_tpu_torch.models import arap_mesh_deformation as arap
+    from thallo_tpu_torch.schedule import estimate_group_cost
+
+    label = f"ARAP {ARAP_SIDE}² GN"
+    inputs = arap.synthetic_inputs(side=ARAP_SIDE)
+    n = 1 + SCHED_ARAP_STEPS
+    with own_store() as d:
+        lin = arap_sched_plan(tt, inputs, use_autoscheduler=2)
+        scheds = [gp.schedule.value for gp in lin.compiled.groups]
+        lin_costs = arap_costs(lin, n)
+        del lin
+        refs = {"scalar": arap_costs(arap_sched_plan(tt, inputs, preconditioner="jacobi"), n),
+                "block": arap_costs(arap_sched_plan(tt, inputs), n)}
+        log(f"{label} use_autoscheduler=2 {scheds}: costs {lin_costs}; the default plan "
+            f"under scalar Jacobi {refs['scalar']}, block-Jacobi {refs['block']}")
+        if scheds != ["linearize", "linearize"]:
+            raise AssertionError(f"{label} use_autoscheduler=2: schedules {scheds}")
+        for k, tol in ((1, ARAP_TRAJ_RTOL[1]), (2, ARAP_TRAJ_RTOL[2]), (3, ARAP_TRAJ_RTOL[3])):
+            rel = abs(lin_costs[k] - refs["scalar"][k]) / abs(refs["scalar"][k])
+            if not (np.isfinite(lin_costs[k]) and rel <= tol):
+                raise AssertionError(f"{label} LINEARIZE, step {k}: cost {lin_costs[k]} vs "
+                                     f"{refs['scalar'][k]} (rel {rel:.3e} > {tol})")
+
+        t0 = time.perf_counter()
+        best, results = autoschedule_search(
+            arap.make_spec, {"N": ARAP_SIDE ** 2, "E": len(inputs["V0"])},
+            lambda: {k: np.copy(v) for k, v in inputs.items()}, solver="gauss_newton",
+            n_steps=SCHED_ARAP_STEPS, l_iters=ARAP_L_ITERATIONS,
+            max_candidates=SCHED_ARAP_CANDIDATES, log_path=str(d / "schedules.txt"),
+            verbose=False)
+        log(f"{label} autoschedule_search over {len(results)} candidates: "
+            f"{time.perf_counter() - t0:.2f} s")
+        if len(results) != SCHED_ARAP_CANDIDATES:
+            raise AssertionError(f"{label}: {len(results)} candidates measured")
+        est = []
+        for idx, sch, dt, cost in results:
+            groups = tt.load_energy(arap.ENERGY).plan(
+                {"N": ARAP_SIDE ** 2, "E": len(inputs["V0"])}, solver="gauss_newton",
+                device="cuda", use_autoscheduler=3 + idx).compiled.groups
+            est.append(sum(estimate_group_cost(gp, gp.schedule, ARAP_L_ITERATIONS)[0]
+                           for gp in groups))
+            ref = refs["block" if sch[1] == "precompute_jtj" else "scalar"][n]
+            rel = abs(cost - ref) / abs(ref)
+            log(f"{label} candidate {idx} fit={sch[0]} reg={sch[1]}: {dt * 1e3:.3f} ms/step, "
+                f"est {est[-1]:.4g} bytes, cost after {n} steps {cost!r} (rel {rel:.3e} to "
+                f"its preconditioner's run)")
+            if not (np.isfinite(cost) and rel <= SCHED_ARAP_RTOL):
+                raise AssertionError(f"{label} candidate {idx} {sch}: cost {cost} vs {ref}")
+        measured = [r[2] for r in results]
+        rho = float(np.corrcoef(ranks(est), ranks(measured))[0, 1])
+        win = min(results, key=lambda r: r[2])
+        log(f"{label}: estimated vs measured rank correlation (Spearman) {rho:.3f}; measured "
+            f"winner candidate {win[0]} {win[1]} {win[2] * 1e3:.3f} ms/step, estimated best "
+            f"candidate {int(np.argmin(est))} {results[int(np.argmin(est))][1]}")
+        del best
+        heur = tt.load_energy(arap.ENERGY).plan(
+            {"N": ARAP_SIDE ** 2, "E": len(inputs["V0"])}, solver="gauss_newton",
+            device="cuda", use_autoscheduler=1)
+        for line in heur.schedule_log:
+            log(f"{label} use_autoscheduler=1 on the measured store: {line}")
+        picked = [gp.schedule.value for gp in heur.compiled.groups]
+        if picked != list(win[1]):
+            raise AssertionError(f"{label}: the heuristic picked {picked}, the measured winner "
+                                 f"is {win[1]}")
 
 
 def run_kernel_cases(cases):
@@ -2715,7 +2993,7 @@ def main():
     runs["f64 block-sparse"] = phase_f64_1m(ba, tt, scene, f32_final, bf16_final)
     runs["arap256 f64"] = phase_arap_f64(tt)
     phase_schur_skew_f64(ba, tt)
-    runs["f64 precompute_j"] = phase_precompute_j_f64(ba, tt, scene, ref[0][-1])
+    runs["f64 precompute_j"], ref_f64 = phase_precompute_j_f64(ba, tt, scene, ref[0][-1])
     phase_f64_models(tt)
     torch.cuda.synchronize()
     log(f"phase 20 double_precision: BA 1M (block-sparse and PRECOMPUTE_J), ARAP "
@@ -2731,6 +3009,13 @@ def main():
     phase_drivers(tt)
     torch.cuda.synchronize()
     log(f"phase 22 the drivers: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    runs.update(phase_schedule_ba(ba, tt, scene, ref, ref_f64))
+    phase_schedule_arap(tt)
+    torch.cuda.synchronize()
+    log(f"phase 23 scheduling: BA 1M under the heuristic, LINEARIZE and INLINE; ARAP "
+        f"{ARAP_SIDE}²'s measured candidates: {time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8),
     # and on each run of phases 15-17 that launched it

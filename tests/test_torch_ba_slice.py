@@ -18,7 +18,6 @@ import jax  # noqa: E402
 import thallo_tpu as tl  # noqa: E402
 import thallo_tpu_torch as tt  # noqa: E402
 from thallo_tpu.models import bundle_adjustment as ba  # noqa: E402
-from thallo_tpu_torch.solver.gn import CompiledSolver, GroupPlan  # noqa: E402
 
 N_CAM, N_PT, OBS = 16, 1400, 4
 STEPS = 5
@@ -279,27 +278,18 @@ def test_cuda_device_needs_a_gpu():
 
 def test_unported_paths_raise():
     """What the port does not run yet raises at plan time, naming its
-    ROADMAP item: the autoscheduler, multi-step dispatch, and the
-    matrix-free schedules on graph groups.  (Small scenes on the dense
-    JᵀJ and stencil groups are ported: test_torch_grid.py and
-    test_torch_plan_api.py; the Schur and direct solves:
-    test_torch_schur.py.)"""
-    with pytest.raises(NotImplementedError, match="autoscheduler.*item 8"):
-        _port_plan(use_autoscheduler=1)
+    ROADMAP item: multi-step dispatch (item 2a) and the profiling half of
+    the utilities (item 9: traces, compile profiling, per-kernel timing).
+    (The autoscheduler and the matrix-free schedules on graph groups are
+    ported: tests/test_torch_schedule.py, tests/test_torch_matrix_free_graph.py.)"""
     with pytest.raises(NotImplementedError, match="multi-step dispatch.*item 2a"):
         _port_plan(steps_per_dispatch=4)
-    # the matrix-free schedules on a graph group: LINEARIZE from a
-    # directive that materializes neither J, JᵀJ nor Jp (here JtF), INLINE
-    # only from a group plan built directly
-    inputs, dims = _scene()
-    linearize = ba.ENERGY + "\nr.snavely_reprojection_error.JtF.set_materialize(True)\n"
-    with pytest.raises(NotImplementedError, match="schedule linearize on a graph group.*item 4a"):
-        tt.load_energy(linearize).plan(dims, solver="levenberg_marquardt", device="cpu")
-    spec = tt.load_energy(ba.ENERGY)
-    g = spec.plan(dims, solver="levenberg_marquardt", device="cpu").compiled.groups[0]
-    with pytest.raises(NotImplementedError, match="schedule inline on a graph group.*item 4a"):
-        CompiledSolver(spec, [GroupPlan(g.name, g.group, tt.JTJpSchedule.INLINE)], True,
-                       torch.float32, {}, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="profiler traces.*item 9"):
+        _port_plan(trace_dir="traces")
+    with pytest.raises(NotImplementedError, match="compile profiling.*item 9"):
+        _port_plan(profile_compile=True)
+    with pytest.raises(NotImplementedError, match="per-kernel timing.*item 9"):
+        _port_plan(timing_level=3)
 
 
 # the BA energy with some cameras held fixed by an Exclude mask

@@ -1420,6 +1420,68 @@ def test_fused_pair_f64_route_cuda_matches_plain(cuda, W, N, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("double", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("tiled", [False, True], ids=["default", "tiled"])
+@pytest.mark.parametrize("mode", [2, 4], ids=["linearize", "inline"])
+def test_matrix_free_graph_group_cuda_matches_cpu(cuda, monkeypatch, tmp_path, mode, tiled,
+                                                 double):
+    """LINEARIZE (use_autoscheduler=2) and INLINE (exhaustive candidate 1)
+    on small BA's graph group, 2 LM steps on the card against the CPU: the
+    camera transposes launch the aggregation kernel, or, under
+    THALLO_SEGSUM=tiled, every transpose the segment sum (f64: their f64
+    instantiations); INLINE reaches them through torch.func.vjp."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+
+    monkeypatch.setenv("THALLO_MEASUREMENTS", str(tmp_path / "m.json"))
+    monkeypatch.setenv("THALLO_SEGSUM", "tiled" if tiled else "none")
+    ins, _ = ba.synthetic_inputs(n_cameras=16, n_points=1400, obs_per_point=4)
+    dims = {"C": 16, "P": 1400, "O": len(ins["oToC"])}
+    seg = segsum.segment_sum_f64 if double else segsum.segment_sum
+    agg = ohsetup.oh_setup_aggregate_f64 if double else ohsetup.oh_setup_aggregate
+    costs = []
+    for device in ("cuda", "cpu"):
+        plan = tt.load_energy(ba.ENERGY, tt.ProblemSpec(double_precision=double)).plan(
+            dims, solver="levenberg_marquardt", device=device, use_autoscheduler=mode)
+        plan.set_solver_parameter("q_tolerance", -1.0)
+        plan.init({k: np.copy(v) for k, v in ins.items()})
+        n0 = (seg.launches, agg.launches)
+        for _ in range(2):
+            plan.step()
+        costs.append(plan.cost())
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert plan.compiled.groups[0].schedule.value == ("linearize" if mode == 2
+                                                              else "inline")
+            launched = (seg.launches - n0[0], agg.launches - n0[1])
+            assert (launched[0] > 0, launched[1] > 0) == (tiled, not tiled), launched
+    assert abs(costs[0] - costs[1]) <= (1e-10 if double else 1e-4) * costs[1], costs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,ids,S", seg_maps(), ids=[m[0] for m in seg_maps()])
+def test_segsum_f64_cuda_matches_plain(cuda, name, ids, S):
+    """The f64 instantiation over every pairing of level kernels, on
+    row-major and on transposed channel-major data (the staged kernel where
+    the plan has the staged form): f64 out, one launch a call on
+    segment_sum_f64's count (segment_sum sends f64 data there)."""
+    C = 9 if name in ("uniform1", "skew", "cams") else 3
+    data = np.random.default_rng(10).normal(size=(len(ids), C))
+    plan = segsum.build_plan(ids, S, device=cuda)
+    d = torch.from_numpy(data).to(cuda)
+    n0, n32 = segsum.segment_sum_f64.launches, segsum.segment_sum.launches
+    out = segsum.segment_sum(d, plan)
+    strided = segsum.segment_sum_f64(d.T.contiguous().T, plan)
+    torch.cuda.synchronize()
+    assert segsum.segment_sum_f64.launches == n0 + 2
+    assert segsum.segment_sum.launches == n32
+    assert out.dtype == strided.dtype == torch.float64
+    ref = segsum.segment_sum_reference(d, plan).cpu()
+    close(out.cpu(), ref, CUDA_F64_TOL)
+    close(strided.cpu(), ref, CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fused_pair_apply_wloop", "fused_pair_apply_wloop_chunked",
                                   "fused_pair_rows_floor", "fused_pair_bf16_atomics"])
 def test_kernels_without_f64_refuse_it_on_cuda(cuda, name):

@@ -45,6 +45,11 @@
 // order of additions.
 //
 // The caller allocates out and scratch; nothing is zeroed.
+//
+// f64 (the solver's double_precision): every kernel is templated on the
+// value type V of data, the sums, out and scratch (the *_f64 exports: V =
+// double).  The staged tile holds doubles then, and the aligned copy
+// loads 16 bytes a thread as double2.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -59,19 +64,33 @@ constexpr int kStagedThreads = 512;
 // cell offsets of STAGED_MAX_SEGMENTS segments and the lanes (ops/segsum.py)
 constexpr int kMaxSmem = 200 * 1024;
 
-template <bool kUnit>
+// 16 bytes of V: one vector load
+template <typename V>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using T = float4;
+  static constexpr int kN = 4;
+};
+template <>
+struct Vec16<double> {
+  using T = double2;
+  static constexpr int kN = 2;
+};
+
+template <typename V, bool kUnit>
 __global__ void __launch_bounds__(kThreads)
-    run_sum_thread_kernel(const float* __restrict__ data, long long sm, long long sc,
+    run_sum_thread_kernel(const V* __restrict__ data, long long sm, long long sc,
                           const int* __restrict__ order, const int* __restrict__ start,
-                          float* __restrict__ out, int n_runs, int C) {
+                          V* __restrict__ out, int n_runs, int C) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_runs * C) return;
   const int r = i / C;
   const int c = i - r * C;
   const int a = __ldg(start + r);
   const int b = __ldg(start + r + 1);
-  const float* col = data + c * sc;
-  float acc = 0.f;
+  const V* col = data + c * sc;
+  V acc = 0;
 #pragma unroll 4
   for (int e = a; e < b; ++e) {
     const long long g = order ? __ldg(order + e) : e;
@@ -80,32 +99,32 @@ __global__ void __launch_bounds__(kThreads)
   out[i] = acc;
 }
 
-template <int kCh, bool kUnit>
+template <typename V, int kCh, bool kUnit>
 __global__ void __launch_bounds__(kThreads)
-    run_sum_warp_kernel(const float* __restrict__ data, long long sm, long long sc,
+    run_sum_warp_kernel(const V* __restrict__ data, long long sm, long long sc,
                         const int* __restrict__ order, const int* __restrict__ start,
-                        float* __restrict__ out, int n_runs, int C) {
+                        V* __restrict__ out, int n_runs, int C) {
   const int r = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (r >= n_runs) return;  // the whole warp leaves together
   const int lane = threadIdx.x & 31;
   const int c0 = blockIdx.y * kCh;
   const int a = __ldg(start + r);
   const int b = __ldg(start + r + 1);
-  const float* col = data + c0 * sc;
-  float acc[kCh];
+  const V* col = data + c0 * sc;
+  V acc[kCh];
 #pragma unroll
-  for (int k = 0; k < kCh; ++k) acc[k] = 0.f;
+  for (int k = 0; k < kCh; ++k) acc[k] = 0;
 #pragma unroll 2
   for (int e = a + lane; e < b; e += 32) {
     const long long g = order ? __ldg(order + e) : e;
-    const float* row = col + (kUnit ? g : g * sm);
+    const V* row = col + (kUnit ? g : g * sm);
 #pragma unroll
     for (int k = 0; k < kCh; ++k) acc[k] += __ldg(row + k * sc);
   }
-  float mine = 0.f;
+  V mine = 0;
 #pragma unroll
   for (int k = 0; k < kCh; ++k) {
-    float v = acc[k];
+    V v = acc[k];
 #pragma unroll
     for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
     if (lane == k) mine = v;
@@ -118,13 +137,16 @@ __global__ void __launch_bounds__(kThreads)
 // offsets and its lanes' local rows into shared memory, all by coalesced
 // loads; then partial[s, k, c] = the sum of the chunk's rows of segment s,
 // from shared memory alone.
-template <int kCh>
+template <typename V, int kCh>
 __global__ void __launch_bounds__(kStagedThreads)
-    staged_sum_kernel(const float* __restrict__ data, long long sc,
+    staged_sum_kernel(const V* __restrict__ data, long long sc,
                       const int* __restrict__ local, const int* __restrict__ cell_start,
-                      float* __restrict__ partial, int M, int C, int S, int K, int T) {
-  extern __shared__ float tile[];  // [kCh, T + 4]: rows of 16-byte multiples, and
-                                   // the stride spreads a row's channels over the banks
+                      V* __restrict__ partial, int M, int C, int S, int K, int T) {
+  using Vec = typename Vec16<V>::T;
+  constexpr int kN = Vec16<V>::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  V* tile = reinterpret_cast<V*>(smem_raw);  // [kCh, T + 4]: rows of 16-byte multiples,
+                                             // the stride spreads a row's channels over the banks
   const int stride = T + 4;
   int* cells = reinterpret_cast<int*>(tile + kCh * stride);  // [S + 1], from 0
   int* rows = cells + S + 1;                                 // [<= T]
@@ -134,22 +156,22 @@ __global__ void __launch_bounds__(kStagedThreads)
   const int n_rows = min(T, M - r0);
   // each thread first starts its loads of all kCh channels, then stores
   // them: kCh loads in flight per thread, of 16 bytes where a full chunk
-  // is aligned (4 bytes otherwise: the last chunk, an odd channel stride)
-  const float* src = data + c0 * sc + r0;
-  if (n_rows == T && T % 4 == 0 && sc % 4 == 0 &&
-      reinterpret_cast<size_t>(src) % sizeof(float4) == 0) {
-    for (int j = 4 * threadIdx.x; j < T; j += 4 * kStagedThreads) {
-      float4 v[kCh];
+  // is aligned (one value otherwise: the last chunk, an odd channel stride)
+  const V* src = data + c0 * sc + r0;
+  if (n_rows == T && T % kN == 0 && sc % kN == 0 &&
+      reinterpret_cast<size_t>(src) % sizeof(Vec) == 0) {
+    for (int j = kN * threadIdx.x; j < T; j += kN * kStagedThreads) {
+      Vec v[kCh];
 #pragma unroll
       for (int c = 0; c < kCh; ++c) {
-        v[c] = __ldg(reinterpret_cast<const float4*>(src + c * sc + j));
+        v[c] = __ldg(reinterpret_cast<const Vec*>(src + c * sc + j));
       }
 #pragma unroll
-      for (int c = 0; c < kCh; ++c) *reinterpret_cast<float4*>(tile + c * stride + j) = v[c];
+      for (int c = 0; c < kCh; ++c) *reinterpret_cast<Vec*>(tile + c * stride + j) = v[c];
     }
   } else {
     for (int j = threadIdx.x; j < n_rows; j += kStagedThreads) {
-      float v[kCh];
+      V v[kCh];
 #pragma unroll
       for (int c = 0; c < kCh; ++c) v[c] = __ldg(src + c * sc + j);
 #pragma unroll
@@ -169,53 +191,120 @@ __global__ void __launch_bounds__(kStagedThreads)
   for (int i = threadIdx.x; i < S * kCh; i += kStagedThreads) {
     const int s = i / kCh;
     const int c = i - s * kCh;
-    const float* col = tile + c * stride;
-    float acc = 0.f;
+    const V* col = tile + c * stride;
+    V acc = 0;
     for (int e = cells[s]; e < cells[s + 1]; ++e) acc += col[rows[e]];
     partial[(static_cast<size_t>(s) * K + k) * C + c0 + c] = acc;
   }
 }
 
-template <int kCh>
-cudaError_t launch_staged(const float* data, long long sc, const int* local,
-                          const int* cell_start, float* partial, int M, int C, int S, int K,
-                          int T, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(kCh) * (T + 4) + S + 1 + T) * sizeof(float);
+template <typename V, int kCh>
+cudaError_t launch_staged(const V* data, long long sc, const int* local, const int* cell_start,
+                          V* partial, int M, int C, int S, int K, int T, cudaStream_t stream) {
+  // the tile's rows of V, then the cell offsets and the lanes (4 bytes each)
+  const size_t smem =
+      static_cast<size_t>(kCh) * (T + 4) * sizeof(V) + (static_cast<size_t>(S) + 1 + T) * 4;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(staged_sum_kernel<kCh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+    cudaFuncSetAttribute(staged_sum_kernel<V, kCh>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   }
-  staged_sum_kernel<kCh><<<dim3(K, C / kCh), kStagedThreads, smem, stream>>>(
+  staged_sum_kernel<V, kCh><<<dim3(K, C / kCh), kStagedThreads, smem, stream>>>(
       data, sc, local, cell_start, partial, M, C, S, K, T);
   return cudaGetLastError();
 }
 
-template <int kCh, bool kUnit>
-void launch_warp(const float* data, long long sm, long long sc, const int* order,
-                 const int* start, float* out, int n_runs, int C, cudaStream_t stream) {
+template <typename V, int kCh, bool kUnit>
+void launch_warp(const V* data, long long sm, long long sc, const int* order, const int* start,
+                 V* out, int n_runs, int C, cudaStream_t stream) {
   const dim3 grid((n_runs + kWarps - 1) / kWarps, C / kCh);
-  run_sum_warp_kernel<kCh, kUnit><<<grid, kThreads, 0, stream>>>(data, sm, sc, order, start,
-                                                                 out, n_runs, C);
+  run_sum_warp_kernel<V, kCh, kUnit><<<grid, kThreads, 0, stream>>>(data, sm, sc, order, start,
+                                                                    out, n_runs, C);
 }
 
 // one level: out[r, :] = sum of the rows order[start[r] .. start[r+1])
-template <bool kUnit>
-void launch_level(int mode, const float* data, long long sm, long long sc, const int* order,
-                  const int* start, float* out, int n_runs, int C, cudaStream_t stream) {
+template <typename V, bool kUnit>
+void launch_level(int mode, const V* data, long long sm, long long sc, const int* order,
+                  const int* start, V* out, int n_runs, int C, cudaStream_t stream) {
   if (mode == 0) {
     const int grid = (n_runs * C + kThreads - 1) / kThreads;
-    run_sum_thread_kernel<kUnit><<<grid, kThreads, 0, stream>>>(data, sm, sc, order, start,
-                                                                out, n_runs, C);
+    run_sum_thread_kernel<V, kUnit><<<grid, kThreads, 0, stream>>>(data, sm, sc, order, start,
+                                                                   out, n_runs, C);
   } else if (C % 9 == 0) {
-    launch_warp<9, kUnit>(data, sm, sc, order, start, out, n_runs, C, stream);
+    launch_warp<V, 9, kUnit>(data, sm, sc, order, start, out, n_runs, C, stream);
   } else if (C % 4 == 0) {
-    launch_warp<4, kUnit>(data, sm, sc, order, start, out, n_runs, C, stream);
+    launch_warp<V, 4, kUnit>(data, sm, sc, order, start, out, n_runs, C, stream);
   } else if (C % 3 == 0) {
-    launch_warp<3, kUnit>(data, sm, sc, order, start, out, n_runs, C, stream);
+    launch_warp<V, 3, kUnit>(data, sm, sc, order, start, out, n_runs, C, stream);
   } else {
-    launch_warp<1, kUnit>(data, sm, sc, order, start, out, n_runs, C, stream);
+    launch_warp<V, 1, kUnit>(data, sm, sc, order, start, out, n_runs, C, stream);
   }
+}
+
+// P == 0: one level over the S segments (start = seg_start).  P > 0: the
+// P pieces (piece_start) into scratch [P, C], then the segments' pieces
+// (seg_piece) from scratch into out.  mode1/mode2: 0 = thread, 1 = warp.
+template <typename V>
+int segment_sum(const void* data, long long sm, long long sc, const void* order,
+                const void* seg_start, const void* piece_start, const void* seg_piece,
+                void* scratch, void* out, int C, int S, int P, int mode1, int mode2,
+                void* stream) {
+  if (mode1 < 0 || mode1 > 1 || mode2 < 0 || mode2 > 1 || C < 0 || S < 0 || P < 0 ||
+      C > 65535 || (P > 0 && !(piece_start && seg_piece && scratch))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (S > 0 && C > 0) {
+    auto s = static_cast<cudaStream_t>(stream);
+    auto d = static_cast<const V*>(data);
+    auto ord = static_cast<const int*>(order);
+    V* first_out = static_cast<V*>(P > 0 ? scratch : out);
+    const int* first_start = static_cast<const int*>(P > 0 ? piece_start : seg_start);
+    const int first_runs = P > 0 ? P : S;
+    if (sm == 1) {
+      launch_level<V, true>(mode1, d, sm, sc, ord, first_start, first_out, first_runs, C, s);
+    } else {
+      launch_level<V, false>(mode1, d, sm, sc, ord, first_start, first_out, first_runs, C, s);
+    }
+    if (P > 0) {
+      launch_level<V, false>(mode2, static_cast<const V*>(scratch), C, 1, nullptr,
+                             static_cast<const int*>(seg_piece), static_cast<V*>(out), S, C,
+                             s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Channel-major data (row stride 1, channel stride sc) of M rows through
+// shared memory: K chunks of T rows, `local` the chunk-local row of each
+// lane sorted by (chunk, segment), cell_start [K*S + 1] its CSR offsets;
+// scratch [S, K, C]; seg_chunks [S + 1] = s*K, the runs of level 2.
+template <typename V>
+int segment_sum_staged(const void* data, long long sc, const void* local,
+                       const void* cell_start, const void* seg_chunks, void* scratch, void* out,
+                       int M, int C, int S, int K, int T, void* stream) {
+  if (M < 1 || C < 1 || C > 65535 || S < 1 || K < 1 || T < 32 ||
+      static_cast<long long>(K - 1) * T >= M) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  auto d = static_cast<const V*>(data);
+  auto loc = static_cast<const int*>(local);
+  auto cells = static_cast<const int*>(cell_start);
+  auto part = static_cast<V*>(scratch);
+  cudaError_t err;
+  if (C % 9 == 0) {
+    err = launch_staged<V, 9>(d, sc, loc, cells, part, M, C, S, K, T, s);
+  } else if (C % 4 == 0) {
+    err = launch_staged<V, 4>(d, sc, loc, cells, part, M, C, S, K, T, s);
+  } else if (C % 3 == 0) {
+    err = launch_staged<V, 3>(d, sc, loc, cells, part, M, C, S, K, T, s);
+  } else {
+    err = launch_staged<V, 1>(d, sc, loc, cells, part, M, C, S, K, T, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  launch_level<V, false>(1, part, C, 1, nullptr, static_cast<const int*>(seg_chunks),
+                         static_cast<V*>(out), S, C, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -228,60 +317,34 @@ extern "C" int thallo_segment_sum(const void* data, long long sm, long long sc,
                                   const void* piece_start, const void* seg_piece,
                                   void* scratch, void* out, int C, int S, int P, int mode1,
                                   int mode2, void* stream) {
-  if (mode1 < 0 || mode1 > 1 || mode2 < 0 || mode2 > 1 || C < 0 || S < 0 || P < 0 ||
-      C > 65535 || (P > 0 && !(piece_start && seg_piece && scratch))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (S > 0 && C > 0) {
-    auto s = static_cast<cudaStream_t>(stream);
-    auto d = static_cast<const float*>(data);
-    auto ord = static_cast<const int*>(order);
-    float* first_out = static_cast<float*>(P > 0 ? scratch : out);
-    const int* first_start = static_cast<const int*>(P > 0 ? piece_start : seg_start);
-    const int first_runs = P > 0 ? P : S;
-    if (sm == 1) {
-      launch_level<true>(mode1, d, sm, sc, ord, first_start, first_out, first_runs, C, s);
-    } else {
-      launch_level<false>(mode1, d, sm, sc, ord, first_start, first_out, first_runs, C, s);
-    }
-    if (P > 0) {
-      launch_level<false>(mode2, static_cast<const float*>(scratch), C, 1, nullptr,
-                          static_cast<const int*>(seg_piece), static_cast<float*>(out), S, C,
-                          s);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return segment_sum<float>(data, sm, sc, order, seg_start, piece_start, seg_piece, scratch,
+                            out, C, S, P, mode1, mode2, stream);
 }
 
-// Channel-major data (row stride 1, channel stride sc) of M rows through
-// shared memory: K chunks of T rows, `local` the chunk-local row of each
-// lane sorted by (chunk, segment), cell_start [K*S + 1] its CSR offsets;
-// scratch [S, K, C]; seg_chunks [S + 1] = s*K, the runs of level 2.
+// The same in f64: data, scratch and out double.
+extern "C" int thallo_segment_sum_f64(const void* data, long long sm, long long sc,
+                                      const void* order, const void* seg_start,
+                                      const void* piece_start, const void* seg_piece,
+                                      void* scratch, void* out, int C, int S, int P, int mode1,
+                                      int mode2, void* stream) {
+  return segment_sum<double>(data, sm, sc, order, seg_start, piece_start, seg_piece, scratch,
+                             out, C, S, P, mode1, mode2, stream);
+}
+
+// Channel-major data through shared memory (segment_sum_staged above).
 extern "C" int thallo_segment_sum_staged(const void* data, long long sc, const void* local,
                                          const void* cell_start, const void* seg_chunks,
                                          void* scratch, void* out, int M, int C, int S, int K,
                                          int T, void* stream) {
-  if (M < 1 || C < 1 || C > 65535 || S < 1 || K < 1 || T < 32 ||
-      static_cast<long long>(K - 1) * T >= M) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto s = static_cast<cudaStream_t>(stream);
-  auto d = static_cast<const float*>(data);
-  auto loc = static_cast<const int*>(local);
-  auto cells = static_cast<const int*>(cell_start);
-  auto part = static_cast<float*>(scratch);
-  cudaError_t err;
-  if (C % 9 == 0) {
-    err = launch_staged<9>(d, sc, loc, cells, part, M, C, S, K, T, s);
-  } else if (C % 4 == 0) {
-    err = launch_staged<4>(d, sc, loc, cells, part, M, C, S, K, T, s);
-  } else if (C % 3 == 0) {
-    err = launch_staged<3>(d, sc, loc, cells, part, M, C, S, K, T, s);
-  } else {
-    err = launch_staged<1>(d, sc, loc, cells, part, M, C, S, K, T, s);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch_level<false>(1, part, C, 1, nullptr, static_cast<const int*>(seg_chunks),
-                      static_cast<float*>(out), S, C, s);
-  return static_cast<int>(cudaGetLastError());
+  return segment_sum_staged<float>(data, sc, local, cell_start, seg_chunks, scratch, out, M, C,
+                                   S, K, T, stream);
+}
+
+// The same in f64: data, scratch and out double.
+extern "C" int thallo_segment_sum_staged_f64(const void* data, long long sc, const void* local,
+                                             const void* cell_start, const void* seg_chunks,
+                                             void* scratch, void* out, int M, int C, int S,
+                                             int K, int T, void* stream) {
+  return segment_sum_staged<double>(data, sc, local, cell_start, seg_chunks, scratch, out, M,
+                                    C, S, K, T, stream);
 }

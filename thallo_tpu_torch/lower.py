@@ -30,15 +30,19 @@ directive asks to, runs its Sums over blocks of one contracted domain
 (``con_block``), one block's fiber at a time, with its derivatives taken
 through the Sums' values (``blocked_jtf_diag``, ``blocked_jtjp``).
 
-The materialized-J schedules (PRECOMPUTE_J, APPLY_SEPARATELY) also need the
-slot gather and its transpose, the scatter-add of per-point values into
-the slot's image.  ``scatter_slot`` routes a gathered slot as thallo_tpu's
-``_scatter`` does (``lower.py:706-747``): through the destination-tiled
-segment sum (ops/segsum.py) when ``THALLO_SEGSUM=tiled`` built a plan for
-the slot at init; else, for a small image gathered from many points
-(S <= 1024 and more than 4S values), through ``oh_setup_aggregate``
-(ops/ohsetup.py); else through ``index_add_``, the counterpart of
-``jax.ops.segment_sum``.
+The schedules that apply JᵀJ·p from stored point Jacobians (PRECOMPUTE_J,
+APPLY_SEPARATELY, LINEARIZE) also need the slot gather and its transpose,
+the scatter-add of per-point values into the slot's image.
+``scatter_slot`` routes a gathered slot as thallo_tpu's ``_scatter`` does
+(``lower.py:706-747``): through the destination-tiled segment sum
+(ops/segsum.py) when ``THALLO_SEGSUM=tiled`` built a plan for the slot at
+init; else, for a small image gathered from many points (S <= 1024 and
+more than 4S values), through ``oh_setup_aggregate`` (ops/ohsetup.py);
+else through ``index_add_``, the counterpart of ``jax.ops.segment_sum``.
+The residual's own gathers of those slots are ``SlotGather``, whose
+transpose takes the same route (thallo_tpu's ``gather_with_segsum`` and
+``_gather``'s routes, ``lower.py:367-380, 643-690``): the vjp of a graph
+residual under INLINE launches the same kernels.
 """
 from __future__ import annotations
 
@@ -360,6 +364,101 @@ class _IndexEnv:
 
 
 # ---------------------------------------------------------------------------
+# the gather of a graph slot and its transpose (thallo_tpu/lower.py:367-380
+# gather_with_segsum and _gather's routes, :643-690)
+# ---------------------------------------------------------------------------
+class SlotRoute:
+    """A gathered slot's flat indices `idx` [M] (long) into its image of N
+    elements and the route of its transpose: the segment-sum plan `stable`
+    (THALLO_SEGSUM=tiled), else the int32 `ids` of a small image for the
+    aggregation kernel, else neither (index_add_).  An opaque object to
+    torch.func: a tensor inside a tuple argument of a Function may come
+    back wrapped for a transform level (torch 2.11), without the storage a
+    kernel reads."""
+
+    __slots__ = ("idx", "stable", "ids", "N")
+
+    def __init__(self, idx, stable, ids, N):
+        self.idx, self.stable, self.ids, self.N = idx, stable, ids, N
+
+
+def scatter_route(valsT, route: SlotRoute):
+    """valsT [F, M] summed by destination route.idx into [F, N], through
+    the route's kernel (on a CUDA tensor it launches or raises) or
+    index_add_ (the counterpart of jax.ops.segment_sum)."""
+    if route.stable is not None:
+        return segment_sum(valsT.T, route.stable).T
+    if route.ids is not None:
+        return oh_setup_aggregate(valsT.contiguous(), route.ids, N=route.N)
+    out = torch.zeros((valsT.shape[0], route.N), dtype=valsT.dtype, device=valsT.device)
+    return out.index_add_(1, route.idx, valsT)
+
+
+class SlotGather(torch.autograd.Function):
+    """src [C, N] -> src[:, route.idx] [C, M], whose transpose is
+    SlotScatter (scatter_route): the vjp of a graph residual (INLINE's Jᵀ)
+    sums into the unknowns through the port's kernels instead of
+    autograd's index_add_.  The jvp is the gather of the tangent; vmap
+    folds its batch axis into the channels (jacfwd's dense J, a vmapped
+    cotangent)."""
+
+    @staticmethod
+    def forward(src, route):
+        return src.index_select(1, route.idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.route = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return SlotScatter.apply(grad, ctx.route), None
+
+    @staticmethod
+    def jvp(ctx, t_src, _t_route):
+        return SlotGather.apply(t_src, ctx.route)
+
+    @staticmethod
+    def vmap(info, in_dims, src, route):
+        return _fold_batch(SlotGather, in_dims[0], src, route)
+
+
+class SlotScatter(torch.autograd.Function):
+    """valsT [F, M] -> [F, N] by scatter_route, the transpose of
+    SlotGather; a Function of its own, so that under torch.func (grad,
+    vmap) the kernels get the unwrapped tensors they read by pointer."""
+
+    @staticmethod
+    def forward(valsT, route):
+        return scatter_route(valsT, route)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.route = inputs[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return SlotGather.apply(grad, ctx.route), None
+
+    @staticmethod
+    def jvp(ctx, t_vals, _t_route):
+        return SlotScatter.apply(t_vals, ctx.route)
+
+    @staticmethod
+    def vmap(info, in_dims, valsT, route):
+        return _fold_batch(SlotScatter, in_dims[0], valsT, route)
+
+
+def _fold_batch(fn, bdim, x, route):
+    """fn over a vmapped [B, C, K] operand as one call over [B*C, K]."""
+    if bdim is None:
+        return fn.apply(x, route), None
+    x = x.movedim(bdim, 0)
+    B, C, K = x.shape
+    return fn.apply(x.reshape(B * C, K), route).reshape(B, C, -1), 0
+
+
+# ---------------------------------------------------------------------------
 # the lowered group
 # ---------------------------------------------------------------------------
 class LoweredGroup:
@@ -392,9 +491,13 @@ class LoweredGroup:
         col.finalize()
         self.col = col
         self.ext_domains = list(col.ext_domains)
+        discovery = tuple(self.ext_domains)
         if domain_order:
             want = [d for d in domain_order if d in self.ext_domains]
             self.ext_domains = want + [d for d in self.ext_domains if d not in want]
+        self.domain_order = tuple(self.ext_domains)
+        # a non-default order keys its measurements apart (schedule.py)
+        self.reordered = self.domain_order != discovery
         self.con_domains = col.con_domains
         both = set(self.ext_domains) & set(self.con_domains)
         if both:
@@ -703,12 +806,8 @@ class LoweredGroup:
             from .solver.blocksparse import build_group_bsr
 
             bsr = build_group_bsr(self, idx, self.dtype, device, onehot_exclude)
-        if bsr is None:  # no tables: the group scatters its stored point Jacobians
+        if bsr is None:  # no tables: the group scatters per-point values into its images
             tiled = os.environ.get("THALLO_SEGSUM") == "tiled"
-            if tiled and self.dtype == torch.float64 and torch.device(device).type == "cuda":
-                raise NotImplementedError(
-                    "THALLO_SEGSUM=tiled under double_precision on the card: segment_sum has "
-                    "no f64 instantiation (ROADMAP queue 2, item 7)")
             for i, flat in enumerate(idx):
                 if self._rolls[i] is not None or flat is None:
                     continue  # the roll back, or a blocked scatter
@@ -929,7 +1028,7 @@ class LoweredGroup:
             rp = self._rolls[i]
             if rp is None:
                 src = X[name].reshape(-1, s.image.channels).T
-                out.append(src.index_select(1, consts["slot_idx"][i])
+                out.append(SlotGather.apply(src, self._route(i, consts))
                            .reshape((s.image.channels, self.R) + self._dep_shape(s.dep_cons)))
                 continue
             if name not in cm:
@@ -948,7 +1047,7 @@ class LoweredGroup:
         # the array's own channel count: a mask is gathered through an
         # unknown's slot with one channel
         C = img.shape[-1]
-        return img.reshape(-1, C).T.index_select(1, consts["slot_idx"][i]).reshape(
+        return SlotGather.apply(img.reshape(-1, C).T, self._route(i, consts)).reshape(
             (C, self.R) + self._dep_shape(slot.dep_cons))
 
     def gather_mask(self, i: int, mask, consts):
@@ -965,20 +1064,13 @@ class LoweredGroup:
         if rp is not None:
             return self._roll_scatter(valsT, rp)
         F = valsT.shape[0]
-        valsT = valsT.reshape(F, -1)
-        N = self.slot_size(i)
-        stable = consts["stables"].get(i)
-        if stable is not None:
-            out = segment_sum(valsT.T, stable)  # [N, F]
-        else:
-            ids = consts["agg_ids"].get(i)
-            if ids is not None:
-                outT = oh_setup_aggregate(valsT.contiguous(), ids, N=N)
-            else:
-                outT = torch.zeros((F, N), dtype=valsT.dtype, device=valsT.device)
-                outT.index_add_(1, consts["slot_idx"][i], valsT)
-            out = outT.T
+        out = scatter_route(valsT.reshape(F, -1), self._route(i, consts)).T
         return out.reshape(tuple(d.size for d in self.jac_slots[i].image.dims) + (F,))
+
+    def _route(self, i: int, consts) -> SlotRoute:
+        """Gathered jac slot i's gather and the route of its transpose."""
+        return SlotRoute(consts["slot_idx"][i], consts["stables"].get(i),
+                         consts["agg_ids"].get(i), self.slot_size(i))
 
     # -- materialized computed arrays -------------------------------------------
     def _ca_image(self, name, valsT):

@@ -69,6 +69,8 @@ SIGNATURES = {
     "thallo_oh_setup_products_persistent_f64": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fullrepeat_setup_tiles_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
     "thallo_oh_setup_aggregate_smem_f64": (P, P, P, I, I, I, I, I, I, I, I, P),
+    "thallo_segment_sum_f64": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_segment_sum_staged_f64": (P, L, P, P, P, P, P, I, I, I, I, I, P),
 }
 # where the kernels without an f64 instantiation wait
 F64_TODO = "ROADMAP queue 2, item 7"

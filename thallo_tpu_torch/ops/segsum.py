@@ -283,7 +283,7 @@ def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0
 
 
 def segment_sum_reference(data, plan: SegSumPlan):
-    """Plain torch version, in data's dtype (f32, or f64 on the CPU under
+    """Plain torch version, in data's dtype (f32, or f64 under
     double_precision): the CPU path and the card-side oracle."""
     M, C = data.shape
     T, TE = plan.gather_idx.shape
@@ -301,7 +301,7 @@ def _run_sums(rows, start):
     n_runs = start.shape[0] - 1
     runs = (start[1:] - start[:-1]).long()
     dest = torch.repeat_interleave(torch.arange(n_runs, device=rows.device), runs)
-    out = torch.zeros((n_runs, rows.shape[1]), dtype=torch.float32, device=rows.device)
+    out = torch.zeros((n_runs, rows.shape[1]), dtype=rows.dtype, device=rows.device)
     return out.index_add_(0, dest, rows)
 
 
@@ -313,7 +313,7 @@ def segment_sum_staged_reference(data, plan: SegSumPlan):
     K, S = plan.n_chunks, plan.num_segments
     cells = (plan.cell_start[1:] - plan.cell_start[:-1]).long()
     chunk = torch.repeat_interleave(torch.arange(K * S, device=data.device), cells) // S
-    g = data.to(torch.float32).index_select(0, chunk * STAGED_ROWS + plan.local.long())
+    g = data.index_select(0, chunk * STAGED_ROWS + plan.local.long())
     return _run_sums(g, plan.cell_start).view(K, S, -1).sum(0)
 
 
@@ -323,62 +323,80 @@ def segment_sum_compact_reference(data, plan: SegSumPlan):
     the pieces and then over each segment's pieces, or over the segments'
     runs at once."""
     plan = plan.compact()
-    g = data.to(torch.float32).index_select(0, plan.order.long())
+    g = data.index_select(0, plan.order.long())
     if plan.piece_start is None:
         return _run_sums(g, plan.seg_start)
     return _run_sums(_run_sums(g, plan.piece_start), plan.seg_piece)
 
 
 def segment_sum(data, plan: SegSumPlan):
-    """data [M, C] f32 (any non-negative strides) -> [num_segments, C]
-    f32, summed per the plan.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel: the staged one for a plan with the staged
-    form and data of unit row stride, else the sorted runs (a call's two
-    levels count as one launch)."""
+    """data [M, C] f32 (any non-negative strides) -> [num_segments, C] f32,
+    summed per the plan.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel: the staged one for a plan with the staged form and
+    data of unit row stride, else the sorted runs (a call's two levels
+    count as one launch); f64 data goes to segment_sum_f64."""
     if data.device.type == "cpu":
         return segment_sum_reference(data, plan)
+    if data.dtype == torch.float64:
+        return segment_sum_f64(data, plan)
+    return _launch(segment_sum, data, plan, torch.float32)
+
+
+def segment_sum_f64(data, plan: SegSumPlan):
+    """segment_sum in f64 (data f64 -> [num_segments, C] f64): the f64
+    instantiations of the same kernels.  CPU tensors take the plain
+    version."""
+    if data.device.type == "cpu":
+        return segment_sum_reference(data, plan)
+    return _launch(segment_sum_f64, data, plan, torch.float64)
+
+
+def _launch(fn, data, plan, dtype):
     if data.device.type != "cuda":
-        raise ValueError(f"segment_sum: unsupported device {data.device}")
+        raise ValueError(f"{fn.__name__}: unsupported device {data.device}")
     plan = plan.compact()
     M, C = data.shape
     S = plan.num_segments
-    if data.dtype == torch.float64:
-        raise NotImplementedError(f"segment_sum: no f64 instantiation ({_cuda.F64_TODO})")
-    if data.dtype != torch.float32:
-        raise ValueError(f"data: expected torch.float32, got {data.dtype}")
+    if data.dtype != dtype:
+        raise ValueError(f"data: expected {dtype}, got {data.dtype}")
+    f64 = dtype == torch.float64
     if data.device != plan.order.device:
         raise ValueError(f"data: expected a tensor on {plan.order.device}, got {data.device}")
     if min(data.stride()) < 0:
         raise ValueError("data: negative strides are not supported")
     if plan.max_row >= M:
         raise ValueError(f"data: the plan reads row {plan.max_row} of {M}")
-    out = torch.empty((S, C), dtype=torch.float32, device=data.device)
+    out = torch.empty((S, C), dtype=dtype, device=data.device)
+    lib = _cuda.lib()
     if plan.local is not None and data.stride(0) == 1 and M > 1:
         K = plan.n_chunks
         if S * K * C >= 2 ** 31:
             raise ValueError(f"segment_sum: {S} x {K} x {C} cell sums exceed int32 offsets")
-        scratch = torch.empty((S, K, C), dtype=torch.float32, device=data.device)
-        code = _cuda.lib().thallo_segment_sum_staged(
+        scratch = torch.empty((S, K, C), dtype=dtype, device=data.device)
+        staged = lib.thallo_segment_sum_staged_f64 if f64 else lib.thallo_segment_sum_staged
+        code = staged(
             data.data_ptr(), data.stride(1), plan.local.data_ptr(), plan.cell_start.data_ptr(),
             plan.seg_chunks.data_ptr(), scratch.data_ptr(), out.data_ptr(), M, C, S, K,
             STAGED_ROWS, _cuda.stream(data))
-        _cuda.check(code, "segment_sum (staged)")
-        segment_sum.launches += 1
+        _cuda.check(code, f"{fn.__name__} (staged)")
+        fn.launches += 1
         return out
     two = plan.piece_start is not None
     P = plan.piece_start.shape[0] - 1 if two else 0
     if max(S, P) * C >= 2 ** 31:
         raise ValueError(f"segment_sum: {max(S, P)} x {C} outputs exceed int32 offsets")
-    scratch = torch.empty((P, C), dtype=torch.float32, device=data.device) if two else None
-    code = _cuda.lib().thallo_segment_sum(
+    scratch = torch.empty((P, C), dtype=dtype, device=data.device) if two else None
+    runs = lib.thallo_segment_sum_f64 if f64 else lib.thallo_segment_sum
+    code = runs(
         data.data_ptr(), data.stride(0), data.stride(1), plan.order.data_ptr(),
         plan.seg_start.data_ptr(), plan.piece_start.data_ptr() if two else None,
         plan.seg_piece.data_ptr() if two else None,
         scratch.data_ptr() if two else None, out.data_ptr(), C, S, P,
         plan.modes[0], plan.modes[-1], _cuda.stream(data))
-    _cuda.check(code, "segment_sum")
-    segment_sum.launches += 1
+    _cuda.check(code, fn.__name__)
+    fn.launches += 1
     return out
 
 
 segment_sum.launches = 0
+segment_sum_f64.launches = 0

@@ -12,6 +12,16 @@ with it is allowed, as in JAX (bf16 cross blocks, f64 everything else),
 on the CPU; on the card it raises NotImplementedError (no kernel takes
 bf16 blocks with f64 values).
 
+``use_autoscheduler`` (thallo_tpu/plan.py:115-228) picks the groups'
+schedules: 0 (the default) the energy's directives and
+``schedule.default_schedule``; 1 the heuristic of schedule.py (computed
+arrays decided before lowering, measured timings from the store that
+THALLO_MEASUREMENTS names ahead of the bytes model, weighed by
+``lin_iter_hint`` PCG iterations, default lIterations); 2 LINEARIZE
+everywhere; 3 + k the exhaustive candidate k (IndexError past the last;
+autotune.py measures them).  The decisions are kept in
+``schedule_log``.
+
 The timer (utils/timer.py) keeps JAX's events: "Total" around
 ``solve``, "Nonlinear Iteration" around each step or ``run_steps`` batch,
 "Nonlinear Setup" around ``init``'s cost and, at ``timing_level`` >= 2,
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 
 from . import reorder
+from . import schedule as sched
 from .lower import Collection, LoweredGroup, inline_computed
 from .solver.gn import (
     BLOCK_DTYPES,
@@ -53,7 +64,6 @@ _KNOWN_OPTIONS = {"use_autoscheduler", "lin_iter_hint", "solver_parameters",
 # options of thallo_tpu's Plan whose other values need a part of the JAX
 # package that is not ported yet: the values the port takes
 _UNPORTED_OPTIONS = {
-    "use_autoscheduler": ((0,), "the autoscheduler (ROADMAP queue 1, item 8)"),
     "steps_per_dispatch": ((1,), "multi-step dispatch (ROADMAP queue 1, item 2a)"),
     "trace_dir": ((None,), "profiler traces (ROADMAP queue 1, item 9)"),
     "profile_compile": ((False,), "compile profiling (ROADMAP queue 1, item 9)"),
@@ -63,16 +73,6 @@ _UNPORTED_OPTIONS = {
 
 def make_plan(spec: ProblemSpec, dim_sizes, solver="gauss_newton", **options):
     return Plan(spec, dim_sizes, solver, **options)
-
-
-def default_schedule(g: LoweredGroup) -> JTJpSchedule:
-    """thallo_tpu/schedule.py:473-486: graph groups (any slot needing a
-    real gather) without contractions materialize JᵀJ block-sparse;
-    stencil and contraction groups run matrix-free."""
-    if (g.uslots and not g.con_domains and all(not s.dep_cons for s in g.uslots)
-            and g.has_gathers):
-        return JTJpSchedule.PRECOMPUTE_JTJ
-    return JTJpSchedule.LINEARIZE
 
 
 def _resolve_device(device) -> torch.device:
@@ -139,7 +139,10 @@ class Plan:
                     f"plan; build a fresh spec to plan at size {new}")
             d.size = new
 
-        groups = self._build_groups(spec)
+        self.use_autoscheduler = int(options.get("use_autoscheduler", 0) or 0)
+        self.schedule_log = []
+        lin_hint = int(options.get("lin_iter_hint", SOLVER_PARAMETER_DEFAULTS["lIterations"]))
+        groups = self._schedule(spec, self.use_autoscheduler, lin_hint)
         self.compiled = CompiledSolver(spec, groups, uses_lambda, self.dtype, options,
                                        self.device)
         self.group_names = [g.name for g in groups]
@@ -160,9 +163,77 @@ class Plan:
         self._finished = False
         self._iter = 0
 
-    def _build_groups(self, spec):
+    def _schedule(self, spec, auto, lin_hint):
+        """The groups and their schedules by the use_autoscheduler mode
+        (thallo_tpu/plan.py:115-228): 0 the energy's directives and the
+        default schedule; 1 the heuristic (computed arrays decided before
+        lowering, then the schedules, the domain orders, compute_at_output);
+        2 every directive cleared, LINEARIZE everywhere; >= 3 exhaustive
+        candidate auto - 3 (IndexError past the last).  The decisions are
+        kept in schedule_log."""
+        if auto == 1:
+            log = ["heuristic autoschedule:"]
+            # inlining is baked into the lowered groups: decide first
+            sched.select_ca_materialization(spec, log=log)
+            groups = self._build_groups(spec, auto, merge_all=True)
+            log.append(f"({len(groups)} groups)")
+            schedules = sched.heuristic_schedule(groups, lin_hint, log=log)
+            # recorded measurements decide the domain order first, then
+            # the analytic prefix rule
+            dorders = sched.select_measured_domain_orders(groups, schedules, log=log)
+            a_orders = sched.analytic_domain_orders(groups, schedules, log=log)
+            dorders = [m if m is not None else a for m, a in zip(dorders, a_orders)]
+            if any(o is not None for o in dorders):
+                groups = self._build_groups(spec, auto, merge_all=True, domain_orders=dorders)
+            for gp, s in zip(groups, schedules):
+                gp.schedule = s
+            sched.choose_compute_at_output(groups, schedules, log=log)
+            self.schedule_log = log
+            return groups
+        if auto < 3:
+            return self._build_groups(spec, auto, merge_all=True)
+        # merge/split x computed-array powerset x schedule combos x domain orders
+        idx = auto - 3
+        chosen = None
+        for merge_all in (True, False):
+            for ca_bits in range(1 << len(spec.computed)):
+                for b, ca in enumerate(spec.computed):
+                    ca.materialize = bool((ca_bits >> b) & 1)
+                groups = self._build_groups(spec, auto, merge_all=merge_all)
+                combos = sched.enumerate_schedules(groups)
+                dorders = sched.enumerate_domain_orders(groups)
+                total = len(combos) * len(dorders)
+                if idx < total:
+                    combo = combos[idx // len(dorders)]
+                    dorder = dorders[idx % len(dorders)]
+                    if any(o is not None for o in dorder):
+                        groups = self._build_groups(spec, auto, merge_all=merge_all,
+                                                    domain_orders=dorder)
+                    chosen = (groups, combo, merge_all, ca_bits, dorder)
+                    break
+                idx -= total
+            if chosen:
+                break
+        if chosen is None:
+            raise IndexError(f"autoschedule index {auto - 3} exhausted")
+        groups, combo, merge_all, ca_bits, dorder = chosen
+        for gp, s in zip(groups, combo):
+            gp.schedule = s
+        self.schedule_log = [
+            f"exhaustive candidate {auto - 3}: merge={merge_all} ca_bits={ca_bits:b} "
+            + ", ".join(f"{gp.name}={s.value}" for gp, s in zip(groups, combo))
+            + "".join(f" reorder[{gp.name}]=" + ">".join(d.name for d in o)
+                      for gp, o in zip(groups, dorder) if o is not None)]
+        return groups
+
+    def _build_groups(self, spec, auto=0, merge_all=True, domain_orders=None):
         """Group residuals by identical external domains and schedule
-        (thallo_tpu Plan._build_groups, directive mode)."""
+        (thallo_tpu Plan._build_groups).  Explicit energy.merge() requests
+        come first; merge_all=False (the exhaustive split candidates) keeps
+        every named residual its own group.  Under the autoscheduler
+        (auto >= 1) directives are cleared: groups merge by domains alone,
+        start LINEARIZE and take domain_orders (per group, aligned with an
+        identically keyed build) instead of the energy's reorder()."""
         merged_names = {}
         energy = spec.energy
         for mg in energy._merges:
@@ -173,18 +244,25 @@ class Plan:
             tgt = merged_names.get(nr.name, nr.name)
             if tgt != nr.name or tgt in merged_names.values():
                 key = ("merge", tgt)
+            elif not merge_all:
+                key = ("name", nr.name)
             else:
-                key = (self._group_signature(nr),)
+                key = (self._group_signature(nr, ignore_schedule=auto >= 1),)
             if key not in bucket:
                 bucket[key] = (tgt if key[0] == "merge" else nr.name, [])
                 order.append(key)
             bucket[key][1].append(nr)
         groups = []
-        for key in order:
+        for g_idx, key in enumerate(order):
             name, nrs = bucket[key]
             exprs = [e for nr in nrs for e in nr.exprs]
             name = "_".join(nr.name for nr in nrs) if len(nrs) > 1 else name
-            dorder = next((nr._reorder for nr in nrs if nr._reorder), None)
+            if domain_orders is not None and g_idx < len(domain_orders):
+                dorder = domain_orders[g_idx]
+            elif auto == 0:
+                dorder = next((nr._reorder for nr in nrs if nr._reorder), None)
+            else:
+                dorder = None  # the autoscheduler clears directives
             # split(domain, B) directives: contraction blocking
             con_splits = {sp[0]: sp[1] for nr in nrs for sp in getattr(nr, "_splits", [])
                           if isinstance(sp, tuple)}
@@ -200,7 +278,12 @@ class Plan:
                                   con_splits=con_splits)
             user_directed = any(any(nr._materialize.values()) or any(nr._sparse_mat.values())
                                 for nr in nrs)
-            schedule = nrs[0].get_schedule() if user_directed else default_schedule(lg)
+            if auto >= 1:
+                schedule = JTJpSchedule.LINEARIZE
+            elif user_directed:
+                schedule = nrs[0].get_schedule()
+            else:
+                schedule = sched.default_schedule(lg)
             force_sparse = any(nr._sparse_mat.get("JtJ") or nr._sparse_mat.get("J")
                                for nr in nrs)
             groups.append(GroupPlan(name=name, group=lg, schedule=schedule,
@@ -208,13 +291,17 @@ class Plan:
         return groups
 
     @staticmethod
-    def _group_signature(nr):
+    def _group_signature(nr, ignore_schedule=False):
+        """(external-domain ids, schedule knobs): residuals with equal
+        signatures lower into one group; the autoscheduler, which clears
+        directives, merges by domains alone (ignore_schedule)."""
         col = Collection()
         for e in inline_computed(nr.exprs):
             col.walk(e, frozenset())
         doms = tuple(sorted(d.uid for d in col.ext_domains))
-        sched = (nr.get_schedule().value, tuple(sorted(nr._compute_at_output.items())))
-        return (doms, sched)
+        if ignore_schedule:
+            return (doms, ())
+        return (doms, (nr.get_schedule().value, tuple(sorted(nr._compute_at_output.items()))))
 
     # -- parameter API -------------------------------------------------------
     def set_solver_parameter(self, name: str, value):

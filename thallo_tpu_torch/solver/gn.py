@@ -33,10 +33,14 @@ Each group runs one of these schedules of JᵀJ·p (``make_jtjp``):
   iteration at image_warping 512², against six hundred for
   ``torch.func.jvp`` and ``vjp`` of the residual;
 * INLINE (matrix-free): ``jvp`` and ``vjp`` of the residual anew every
-  iteration.  Graph groups under LINEARIZE or INLINE raise at plan time
-  (ROADMAP queue 1, item 4a), but for contraction groups, which JAX runs
-  matrix-free: they apply JᵀJ·p from their point Jacobians over the
-  contracted slots ([rc, C, R, *dep]) as LINEARIZE does;
+  iteration.  A graph group's gathers are lower.py's ``SlotGather``, so
+  the vjp's transposes take ``scatter_slot``'s route (the segment-sum
+  kernel under ``THALLO_SEGSUM=tiled``, the aggregation kernel for a small
+  image such as BA's cameras, else index_add_).  LINEARIZE on a graph
+  group applies JᵀJ·p from the setup's point Jacobians through
+  ``gather_slot``/``scatter_slot``, as on a stencil group.  Contraction
+  groups, which JAX runs matrix-free, apply JᵀJ·p from their point
+  Jacobians over the contracted slots ([rc, C, R, *dep]) under either;
 * contraction blocking (a group with a ``con_block``, JAX's
   ``gn.py:517-525, 629-634``): −JᵀF and diag(JᵀJ) from
   ``blocked_jtf_diag`` and JᵀJ·p from ``blocked_jtjp`` every iteration,
@@ -90,9 +94,6 @@ instantiations on the card.
 
 ``coo_jacobian`` gives J as COO triplets from the setup's point
 Jacobians and the slots' flat indices (the reference's J dump).
-
-Not ported yet (NotImplementedError at plan time): INLINE and LINEARIZE
-on graph groups without contractions.
 """
 from __future__ import annotations
 
@@ -105,16 +106,15 @@ import torch
 from torch.profiler import record_function
 
 from ..lower import LoweredGroup, lower_pointwise
+from ..schedule import DENSE_JTJ_MAX_UNKNOWNS
 from ..spec import JTJpSchedule
 from .blocksparse import bsr_apply, bsr_setup
 
-DENSE_JTJ_MAX_UNKNOWNS = 4096  # thallo_tpu/schedule.py: smaller problems go dense
 # schedules that store the per-point Jacobians and apply JᵀJ·p from them
 MATERIALIZED_J = (JTJpSchedule.PRECOMPUTE_J, JTJpSchedule.APPLY_SEPARATELY)
 MATERIALIZED_JTJ = (JTJpSchedule.PRECOMPUTE_JTJ, JTJpSchedule.PRECOMPUTE_J_THEN_JTJ)
-MATRIX_FREE = (JTJpSchedule.LINEARIZE, JTJpSchedule.INLINE)
 # schedules whose JᵀJ·p is applied from the per-point Jacobians that the
-# setup stores (LINEARIZE: eager torch's linearization of a stencil group)
+# setup stores (LINEARIZE: eager torch's linearization of a group)
 POINT_JACOBIAN_APPLY = MATERIALIZED_J + (JTJpSchedule.LINEARIZE,)
 # the block_dtype option (thallo_tpu/solver/gn.py:232-233): None keeps every
 # JᵀJ block f32; "bf16" stores the block-sparse cross blocks as bf16 (diag
@@ -284,6 +284,8 @@ class GroupPlan:
     # user's set_sparse(True) hint: the block-sparse JᵀJ tables regardless
     # of the dense-size threshold
     force_sparse: bool = False
+    # the autoscheduler's compute_at_output decision (schedule.py), recorded
+    compute_at_output: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -329,12 +331,6 @@ class CompiledSolver:
             im.name: lower_pointwise([im.exclude_expr], spec, sizes, dtype,
                                      name=f"exclude_{im.name}")
             for im in spec.unknowns if im.exclude_expr is not None}
-        for gp in groups:
-            if gp.group.has_gathers and gp.schedule in MATRIX_FREE and not gp.group.con_domains:
-                raise NotImplementedError(
-                    f"group {gp.name!r}: schedule {gp.schedule.value} on a graph group (slots "
-                    "gathered through sparse maps, not stencil rolls) is not ported yet "
-                    "(ROADMAP queue 1, item 4a)")
 
     # -- layout ------------------------------------------------------------
     def unknown_layout(self):
