@@ -24,9 +24,10 @@ its seconds; any failure exits non-zero):
      record's shape; fused_pair_bf16_atomics at wide levels of 9 and 16
      row channels (BF16_WIDE); every kernel phases 15 and 17 launch, at
      the shapes, recipes and tables of one step of that plan on the card:
-     model_kernel_cases, the block-sparse plans and the aggregation kernel
-     of the contraction and sampled-image models' stored-Jacobian
-     scatters, bundle_fusion above the dense threshold (CASES' larger
+     model_kernel_cases, the block-sparse plans and the in-order segment
+     sum of the contraction and sampled-image models' stored-Jacobian
+     scatters, each beside the aggregation kernel and index_add_ on the
+     same values, bundle_fusion above the dense threshold (CASES' larger
      size) and embedded deformation under block_dtype="bf16") and at a small ragged
      shape with out-of-range ids or padded plan lanes; kernel, plain and
      library times in ms, each kernel and library call twice: `ms` over
@@ -205,7 +206,28 @@ its seconds; any failure exits non-zero):
      every candidate's cost held to the reference run of its
      preconditioner (SCHED_ARAP_RTOL), and use_autoscheduler=1 reading
      that store picks the measured winner.  Phase 2 holds segment_sum_f64
-     at the uniform scene's two plans.
+     at the uniform scene's two plans;
+ 24. steps_per_dispatch (a CUDA graph of the guarded step, replayed k
+     times a dispatch) and the profiling: (a) the uniform 1M LM scene,
+     run_steps(5) twice at k = 5 against five eager runs, unknowns and
+     cost after each call within twice the eager runs' spread
+     (DISPATCH_*), ms a step graphed and eager, one graphed dispatch
+     profiled (device busy, idle share); (b) the skewed 1M scene, 4 steps
+     at k = 2 (the W-loop pair inside the capture) against five eager runs
+     by (a)'s rule; (c) ARAP 256² and image_warping 512² GN solve() at
+     k = 10 and eagerly, final costs within phases 16 and 11's bounds of
+     JAX's f32 runs, ms a step; (d) scripts/torch_dispatch_paths.py's
+     paths (every path above at small size and the sixteen models): the
+     graphed run within twice the eager runs' spread of the farthest of
+     them (five eager runs where two differ), a replay under
+     set_sync_debug_mode("error"), and each path that raises for k > 1
+     named; (e) kernel_stats(interior=True) on the uniform 1M plan naming
+     the hand-written kernels (INTERIOR_KERNELS), and a timing_level=3
+     solve of ARAP 256² filling the six probe rows; (f) one 1M step under
+     trace_dir, the trace naming the three phases and a hand-written
+     kernel; (g) roofline() of ARAP 256²'s marginal PCG iteration, eager
+     and graphed (hbm_fraction <= ROOFLINE_MAX); (h) deconvolution 16²:
+     two card runs bit-identical after step 1 (the in-order scatter).
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -542,6 +564,48 @@ SCHED_BA_STEPS = 3
 SCHED_ARAP_CANDIDATES = 25
 SCHED_ARAP_STEPS = 3
 SCHED_ARAP_RTOL = 2e-5
+# phase 24: steps_per_dispatch, a CUDA graph of the guarded step replayed
+# k times a dispatch.  (a) the uniform 1M LM scene, DISPATCH_1M_BATCHES
+# run_steps(DISPATCH_1M_K) calls graphed against DISPATCH_EAGER_RUNS eager
+# runs of the same calls: unknowns and cost after each call within
+# DISPATCH_SPREAD_X times the eager runs' spread there (the largest
+# distance of two of them: the atomics' order, the only thing a graph
+# could change) of every eager run, or within phase 3's card-vs-CPU bounds
+# (STEP_U_TOL, STEP_COST_RTOL; at 1M the cost's DISPATCH_COST_FLOOR),
+# whichever is wider.  A few runs are a noisy reading of the spread (on an
+# H100, scripts/torch_dispatch_paths.py: graphed runs lay 0.8-2.1x and
+# 0.2-3.9x one eager pair's spread in unknowns and cost; at 1M after 5
+# steps up to 1.9x the largest of three eager pairs in unknowns), hence
+# five eager runs.
+# A path whose eager runs agree bit for bit (no atomics) must give the same
+# bits graphed (every such path did there); (b) the skewed 1M scene,
+# DISPATCH_SKEW_STEPS steps at k = 2, by (a)'s rule; (c) ARAP 256² and
+# image_warping 512² GN solve() at k = DISPATCH_GRID_K against phases 16
+# and 11's bounds of JAX's f32 trajectories; (d) each small path of
+# scripts/torch_dispatch_paths.py by (a)'s rule, with DISPATCH_EAGER_RUNS
+# eager runs where its first two differ (against one eager pair, the
+# small skewed scene once read 1.07e-4 of max|U| graphed, over the 1e-4
+# floor, where its eager pairs had lain 7.8e-5 to 1.9e-4 apart); (g) hbm_fraction of ARAP 256²'s marginal PCG iteration at
+# most ROOFLINE_MAX (the traffic model is a lower bound: a share above 1
+# would be a model or timing fault)
+DISPATCH_1M_K = 5
+DISPATCH_1M_BATCHES = 2
+DISPATCH_SPREAD_X = 2.0
+DISPATCH_EAGER_RUNS = 5
+# (a), (b): the costs within the spread or DISPATCH_COST_FLOOR x the
+# initial cost: near convergence the 1M LM cost after 10 steps is bimodal
+# across runs, 4.41-4.58 or 6.04-6.67 from c0 6 972 748 (on an H100 up to
+# 3.1e-7 x c0 apart: eager runs 4.42, 6.35, 4.55 in one call, 4.48-6.67
+# in another, a graphed 6.11 beside eager 4.42-4.53); about twice that,
+# as phase 12's SCHUR_COST_FLOOR (PERF.md, Findings)
+DISPATCH_COST_FLOOR = 6e-7
+DISPATCH_SKEW_STEPS = 4
+DISPATCH_GRID_K = 10
+ROOFLINE_MAX = 1.05
+# (e) the hand-written kernels kernel_stats(interior=True) must name on the
+# uniform 1M step (csrc/: the persistent fused pair, oh_setup_products'
+# persistent body, fullrepeat_setup's tiles)
+INTERIOR_KERNELS = ("fused_pair", "oh_products", "fullrepeat")
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 F64_FLOP_PER_S = 34e12  # f64 outside the tensor cores (the same data sheet)
@@ -1787,8 +1851,8 @@ def path_calls(plan):
     """The solver's kernel calls in one step of `plan`: [(kernel, args,
     kwargs)], each (kernel, table, recipe and shape) once, in the order of
     the first call: the block-sparse setup's and apply's, and the
-    aggregation kernel of lower.py's scatters (materialized J, stored
-    point Jacobians)."""
+    aggregation kernel and the segment sum of lower.py's scatters
+    (materialized J, stored point Jacobians; the tiny ones in order)."""
     from thallo_tpu_torch import lower
     from thallo_tpu_torch.solver import blocksparse
 
@@ -1797,9 +1861,11 @@ def path_calls(plan):
     def record(name):
         def key(*args, **kwargs):
             table = args[2] if name == "oh_setup_products" else \
-                args[1] if name == "oh_setup_aggregate" else args[0]
+                args[1] if name == "oh_setup_aggregate" else \
+                args[1].order if name == "segment_sum" else args[0]
             k = (name, table.data_ptr() if name != "fullrepeat_setup" else None,
-                 tuple(tuple(a.shape) for a in args), tuple(sorted(kwargs.items())))
+                 tuple(tuple(getattr(a, "shape", ())) for a in args),
+                 tuple(sorted(kwargs.items())))
             calls.setdefault(k, (name, args, kwargs))
         return key
 
@@ -1807,6 +1873,7 @@ def path_calls(plan):
         for name in SOLVER_KERNELS:
             stack.enter_context(tally(blocksparse, name, record(name)))
         stack.enter_context(tally(lower, "oh_setup_aggregate", record("oh_setup_aggregate")))
+        stack.enter_context(tally(lower, "segment_sum", record("segment_sum")))
         plan.step()
         if torch.device(plan.compiled.device).type == "cuda":
             torch.cuda.synchronize()
@@ -1824,7 +1891,7 @@ def path_kernel_cases(dev, rng, tag, calls):
     of the same shapes and dtypes; each held to KERNEL_TOL x max|ref|.  An
     f64 call (double_precision) is a case of the f64 instantiation, the
     kernel its wrapper launched, held to F64_KERNEL_TOL."""
-    from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup
+    from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup, segsum
 
     def normal(x):
         v = rng.normal(size=tuple(x.shape))
@@ -1834,7 +1901,7 @@ def path_kernel_cases(dev, rng, tag, calls):
 
     cases, seen = [], collections.Counter()
     for name, args, kw in calls:
-        f64 = any(x.dtype == torch.float64 for x in args)
+        f64 = any(getattr(x, "dtype", None) == torch.float64 for x in args)
         tol = (F64_KERNEL_TOL,) if f64 else ()
         kname = name + "_f64" if f64 and not name.endswith("_f64") else name
         seen[kname] += 1
@@ -1857,6 +1924,29 @@ def path_kernel_cases(dev, rng, tag, calls):
                                                         device=dev)
                                             .index_add_(1, a[1].long(), a[0]),),
                           nbytes(*a), F * R, None, *tol))
+        elif name == "segment_sum":
+            # the in-order plan of a tiny scatter, beside the aggregation
+            # kernel (its route before) and index_add_ on the same values
+            plan = args[1]
+            d = normal(args[0].T).T  # channel-major [F, M], as scatter_route's
+            M, F = d.shape
+            S = plan.num_segments
+            ids = torch.empty(M, dtype=torch.long, device=dev)
+            ids[plan.order.long()] = torch.repeat_interleave(
+                torch.arange(S, device=dev), (plan.seg_start[1:] - plan.seg_start[:-1]).long())
+            fn = getattr(segsum, kname)
+            cases.append((kname, ctag, lambda d=d, p=plan, fn=fn: (fn(d, p),),
+                          lambda d=d, p=plan: (segsum.segment_sum_reference(d, p),),
+                          lambda d=d, ids=ids, S=S: (torch.zeros((S, d.shape[1]), dtype=d.dtype,
+                                                                 device=dev)
+                                                     .index_add_(0, ids, d),),
+                          nbytes(d, plan.order, plan.seg_start), F * M, None, *tol))
+            agg = "oh_setup_aggregate_f64" if f64 else "oh_setup_aggregate"
+            a = (d.T.contiguous(), ids.to(torch.int32))
+            cases.append((agg, ctag + "_same_values",
+                          lambda a=a, S=S, fn=getattr(ohsetup, agg): (fn(*a, N=S).T,),
+                          lambda d=d, p=plan: (segsum.segment_sum_reference(d, p),), None,
+                          nbytes(*a), F * M, None, *tol))
         elif name == "fullrepeat_setup":
             a = (normal(args[0]), normal(args[1]))
             rc, R = a[0].shape
@@ -1875,7 +1965,8 @@ def path_kernel_cases(dev, rng, tag, calls):
                           lambda a=a, kw=kw: fusedpair.fused_pair_apply_reference(*a, **kw),
                           None, nbytes(*a), 4 * W * N * kw["Ci"] * kw["Cj"], None, *tol))
         log(f"{kname}[{ctag}] from the path: " + ", ".join(
-            f"{tuple(x.shape)}" for x in args) + f", {kw}")
+            f"{tuple(x.shape) if torch.is_tensor(x) else type(x).__name__}" for x in args)
+            + f", {kw}")
     return cases
 
 
@@ -1910,11 +2001,11 @@ def model_kernel_cases(dev, rng, tt):
 
 
 def arap_plan(tt, side, order, device, n_iter=ARAP_STEPS, l_iterations=ARAP_L_ITERATIONS,
-              inputs=None, double=False):
+              inputs=None, double=False, **options):
     """A GN plan of ARAP (models/arap_mesh_deformation.py) at `side`, edges
     in the generator's order ("grouped") or shuffle_edges(seed=0)'s
     ("shuffled"), or of the given (inputs, dims); initialised; double:
-    under double_precision."""
+    under double_precision; options: the plan's."""
     from thallo_tpu_torch.models import arap_mesh_deformation as arap
 
     if inputs is None:
@@ -1924,7 +2015,7 @@ def arap_plan(tt, side, order, device, n_iter=ARAP_STEPS, l_iterations=ARAP_L_IT
         inputs = (ins, {"N": side * side, "E": len(ins["V0"])})
     ins, dims = inputs
     plan = tt.load_energy(arap.ENERGY, tt.ProblemSpec(double_precision=double)).plan(
-        dims, solver="gauss_newton", device=device)
+        dims, solver="gauss_newton", device=device, **options)
     plan.set_solver_parameter("nIterations", n_iter)
     plan.set_solver_parameter("lIterations", l_iterations)
     plan.init({k: np.copy(v) for k, v in ins.items()})
@@ -2473,16 +2564,17 @@ def phase_schur_skew_f64(ba, tt):
 
 def phase_f64_models(tt):
     """Phase 20(e): F64_MODELS at their test sizes card vs CPU in f64,
-    their scatters through oh_setup_aggregate_f64 and no f32 kernel."""
+    their tiny scatters through segment_sum_f64's in-order plans and no
+    f32 kernel."""
     for name, (u_tol, c_tol) in F64_MODELS.items():
         label = f"model {name} f64"
         lg, _, plan = card_vs_cpu(label, lambda d, name=name: model_plan(tt, name, d, False,
                                                                         double=True),
                                   MODEL_STEPS, u_tol, c_tol)
         stray = [n for n, k in lg.items() if k and not n.endswith("_f64")]
-        if lg["oh_setup_aggregate_f64"] <= 0 or stray:
-            raise AssertionError(f"{label}: oh_setup_aggregate_f64 launched "
-                                 f"{lg['oh_setup_aggregate_f64']} times, f32 kernels {stray}")
+        if lg["segment_sum_f64"] <= 0 or stray:
+            raise AssertionError(f"{label}: segment_sum_f64 launched "
+                                 f"{lg['segment_sum_f64']} times, f32 kernels {stray}")
 
 
 def phase_precompute_j_f64(ba, tt, scene, f32_final):
@@ -2817,6 +2909,280 @@ def phase_schedule_arap(tt):
                                  f"is {win[1]}")
 
 
+def _state_of(plan):
+    return {k: v.cpu().numpy() for k, v in plan.unknowns().items()}, plan.cost()
+
+
+def _u_rel(a, b):
+    return max(float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-30)) for k in b)
+
+
+def within_spread(spread, got, floors=(STEP_U_TOL, STEP_COST_RTOL)):
+    """Phase 24's rule (DISPATCH_SPREAD_X): the graphed run's distance
+    `got` = (unknowns, cost) from an eager run against the eager runs'
+    `spread`, each limit at least its floor; the limits."""
+    if spread == (0.0, 0.0):
+        return got == (0.0, 0.0), (0.0, 0.0)
+    lim = tuple(max(DISPATCH_SPREAD_X * s, f) for s, f in zip(spread, floors))
+    return got[0] <= lim[0] and got[1] <= lim[1], lim
+
+
+def _batches(plan, sizes):
+    """run_steps(n) for each n of sizes, each ended by a sync: [(ms a step
+    of the batch, unknowns, cost)]."""
+    out = []
+    for n in sizes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan.run_steps(n)
+        torch.cuda.synchronize()
+        out.append(((time.perf_counter() - t0) / n * 1e3, *_state_of(plan)))
+    return out
+
+
+def graphed_dispatch_busy(label, plan):
+    """One dispatch of the plan's step graph (steps_per_dispatch replays,
+    on copies of its state) under torch.profiler: host wall, device busy,
+    idle share, logged; and the replays' device time by CUDA events."""
+    from torch_ba_profile import busy_seconds, device_events
+
+    k = plan.steps_per_dispatch
+    graph = plan._step_graph()
+    ran = torch.zeros((), dtype=torch.int64, device="cuda")
+    graph.run(plan._U, plan._lm, ran, k)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph.run(plan._U, plan._lm, ran, k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_seconds(prof.events())
+    launches = len(device_events(prof.events())) / k
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    graph.run(plan._U, plan._lm, ran, k)
+    end.record()
+    torch.cuda.synchronize()
+    bare = time.perf_counter() - t0
+    log(f"{label}: one graphed dispatch of {k} steps under the profiler: wall "
+        f"{wall * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms, idle share "
+        f"{1 - busy / wall:.3f}, {launches:.0f} device kernels and copies a replayed step; "
+        f"unprofiled: wall {bare * 1e3:.2f} ms ({bare / k * 1e3:.2f} a "
+        f"step), CUDA events around the replays {start.elapsed_time(end):.2f} ms, idle share "
+        f"against the profiled busy time {max(0.0, 1 - busy / bare):.3f}")
+    return wall, busy
+
+
+def dispatch_vs_eager(label, make, sizes, k, profile=True):
+    """DISPATCH_EAGER_RUNS eager plans and one at steps_per_dispatch=k,
+    each make(k) after warmup(), through the run_steps calls `sizes`: the
+    graphed run after each call within_spread of every eager run (the
+    spread: the largest distance of two eager runs there), ms a step by
+    call logged; one graphed dispatch profiled.  Returns (the last eager
+    plan, the wrapper launches counted during each warmup())."""
+    fns = counters()
+    runs, warm = {}, {}
+    eager_names = [f"eager {i + 1}" for i in range(DISPATCH_EAGER_RUNS)]
+    for name, kk in [(n, 1) for n in eager_names] + [("graphed", k)]:
+        plan = make(kk)
+        c0 = plan.cost()
+        n0 = {n: fn.launches for n, fn in fns.items()}
+        t0 = time.perf_counter()
+        plan.warmup()  # k > 1: the capture, and the eager throwaway step
+        torch.cuda.synchronize()
+        warm[name] = {n: fn.launches - n0[n] for n, fn in fns.items()}
+        log(f"{label} {name}: warmup {time.perf_counter() - t0:.3f} s")
+        runs[name] = _batches(plan, sizes)
+        log(f"{label} {name}: ms a step by call {[round(r[0], 2) for r in runs[name]]}, "
+            f"costs {[r[2] for r in runs[name]]}")
+        if kk > 1 and profile:
+            graphed_dispatch_busy(label, plan)
+        if kk == 1:
+            eager = plan
+        del plan
+
+    def dist(a, b):  # (max|dU| / max|U|, |d cost| / the initial cost)
+        return _u_rel(a[1], b[1]), abs(a[2] - b[2]) / abs(c0)
+
+    for j in range(len(sizes)):
+        eager_j = [runs[n][j] for n in eager_names]
+        pairs = [dist(a, b) for i, a in enumerate(eager_j) for b in eager_j[i + 1:]]
+        spread = (max(p[0] for p in pairs), max(p[1] for p in pairs))
+        got = [dist(runs["graphed"][j], e) for e in eager_j]
+        far = (max(g[0] for g in got), max(g[1] for g in got))
+        ok, (lu, lc) = within_spread(spread, far, (STEP_U_TOL, DISPATCH_COST_FLOOR))
+        log(f"{label} after call {j + 1}: eager runs' spread (largest of "
+            f"{len(pairs)} pairs) max|dU|/max|U| {spread[0]:.3e}, cost {spread[1]:.3e} x c0; "
+            f"graphed vs the farthest eager run {far[0]:.3e}, {far[1]:.3e} (limits {lu:.3e}, "
+            f"{lc:.3e}); costs eager {[e[2] for e in eager_j]}, graphed "
+            f"{runs['graphed'][j][2]!r}, c0 {c0!r}")
+        if not (np.isfinite(runs["graphed"][j][2]) and ok):
+            raise AssertionError(f"{label}, call {j + 1}: graphed run off the eager runs")
+    return eager, warm
+
+
+def phase_dispatch_1m(ba, tt, scene, skew_scene):
+    """Phase 24(a), (b), (e), (f) (the module docstring)."""
+    import tempfile
+
+    def make(scene):
+        inputs, dims = scene
+
+        def plan_at(k):
+            plan = ba_plan(ba, tt, inputs, dims, "cuda", 100, steps_per_dispatch=k)
+            plan.init({n: np.copy(v) for n, v in inputs.items()})
+            return plan
+        return plan_at
+
+    eager, _ = dispatch_vs_eager(f"1M LM steps_per_dispatch={DISPATCH_1M_K}", make(scene),
+                                 [DISPATCH_1M_K] * DISPATCH_1M_BATCHES, DISPATCH_1M_K)
+    if eager._finished:  # an LM stop: (e) and (f) step it again from the start
+        eager.reset_unknowns()
+
+    # (e) the production step's own kernels, and (f) one traced step
+    eager.kernel_stats(interior=True)
+    rows = {k: v for k, v in eager.get_performance_summary().stats.items()
+            if k.startswith("interior:")}
+    for k, v in rows.items():
+        log(f"1M kernel_stats(interior=True) {k}: {v['total_ms']:.4f} ms")
+    missing = [n for n in INTERIOR_KERNELS if not any(n in k for k in rows)]
+    if missing:
+        raise AssertionError(f"1M kernel_stats(interior=True): no row names {missing}")
+    with tempfile.TemporaryDirectory() as d:
+        eager.trace_dir = d
+        eager.set_solver_parameter("nIterations", eager.num_iterations + 1)
+        eager.solve()
+        files = list(Path(d).glob("*.json"))
+        names = {e.get("name", "") for f in files for e in json.loads(f.read_text())
+                 .get("traceEvents", [])}
+        log(f"1M trace_dir: {[f.name for f in files]}, "
+            f"{sum(f.stat().st_size for f in files)} bytes, {len(names)} event names")
+        want = {"thallo::setup", "thallo::pcg", "thallo::finish"}
+        if len(files) != 1 or not want <= names or \
+                not any(n in e for e in names for n in INTERIOR_KERNELS):
+            raise AssertionError(f"1M trace_dir: {len(files)} files, phases "
+                                 f"{sorted(want & names)}, no hand-written kernel named")
+    del eager
+
+    # (b) the skewed scene: its level tables and W-loop pair inside the capture
+    label = f"skewed 1M LM steps_per_dispatch=2, {DISPATCH_SKEW_STEPS} steps"
+    _, warm = dispatch_vs_eager(label, make(skew_scene), [DISPATCH_SKEW_STEPS], 2,
+                                profile=False)
+    wloop = {n: w["fused_pair_apply_wloop"] for n, w in warm.items()}
+    log(f"{label}: fused_pair_apply_wloop launches in warmup() {wloop}")
+    # warmup(): one eager step; at k = 2 also the graph's warm-up step and
+    # the capture, each one step's launches
+    if not 0 < 3 * wloop["eager 1"] == wloop["graphed"]:
+        raise AssertionError(f"{label}: the W-loop pair is not in the captured step")
+
+
+def phase_dispatch_grid(tt):
+    """Phase 24(c), (e)'s probe rows and (g) (the module docstring)."""
+    from torch_grid_profile import make_grid_plan
+
+    from thallo_tpu_torch.utils.roofline import roofline
+
+    cases = {"ARAP": (lambda k: arap_plan(tt, ARAP_SIDE, "grouped", "cuda",
+                                          steps_per_dispatch=k),
+                      ARAP_JAX_COSTS["grouped"][ARAP_STEPS], ARAP_TRAJ_RTOL[ARAP_STEPS]),
+             "image_warping": (lambda k: make_grid_plan(GRID_SIZE, "cuda",
+                                                        l_iterations=GRID_L_ITERATIONS,
+                                                        n_iter=GRID_STEPS,
+                                                        steps_per_dispatch=k),
+                               GRID_JAX_COSTS[GRID_STEPS], GRID_TRAJ_RTOL[GRID_STEPS])}
+    for name, (make, ref, tol) in cases.items():
+        label = f"{name} GN solve() at steps_per_dispatch={DISPATCH_GRID_K}"
+        ms = {}
+        for k in (1, DISPATCH_GRID_K):
+            plan = make(k)
+            plan.warmup()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = plan.solve()
+            ms[k] = (time.perf_counter() - t0) / plan.num_iterations * 1e3
+            rel = abs(final - ref) / abs(ref)
+            log(f"{label}, k={k}: {ms[k]:.2f} ms a step over {plan.num_iterations} steps "
+                f"(solve() / steps), final cost {final!r} vs JAX {ref!r}, rel {rel:.3e} "
+                f"(limit {tol})")
+            if not (np.isfinite(final) and rel <= tol and plan.num_iterations == GRID_STEPS):
+                raise AssertionError(f"{label}, k={k}: final cost {final} vs JAX {ref}")
+            if k > 1:  # solve() ran its first step eagerly: the replays alone
+                graphed_dispatch_busy(label, plan)
+            del plan
+        log(f"{label}: graphed {ms[DISPATCH_GRID_K]:.2f} ms a step, eager {ms[1]:.2f}")
+
+    # (e) the six probe rows of a timing_level=3 solve
+    plan = arap_plan(tt, ARAP_SIDE, "grouped", "cuda", n_iter=2, timing_level=3)
+    plan.solve()
+    s = plan.get_performance_summary()
+    probes = ("computeCost", "PCGInit1", "PCGStep1", "PCGStep2", "PCGStep3", "PCGLinearUpdate")
+    log("ARAP timing_level=3 probe rows: " + ", ".join(
+        f"{p} {s[p]['mean_ms']:.4f} ms x {s[p]['count']}" for p in probes if s.get(p)))
+    if not all(s.get(p) and s[p]["count"] == 3 for p in probes):
+        raise AssertionError(f"ARAP timing_level=3: rows {sorted(s.stats)}")
+    del plan
+
+    # (g) the marginal PCG iteration as phase 16 measures it, eagerly and
+    # graphed, against the traffic model
+    lo, hi = ARAP_MARGINAL
+    for k in (1, ARAP_MARGINAL_STEPS):
+        plan = arap_plan(tt, ARAP_SIDE, "grouped", "cuda", n_iter=1000, steps_per_dispatch=k)
+        times = {}
+        for li in ARAP_MARGINAL:
+            plan.set_solver_parameter("lIterations", li)
+            plan.run_steps(ARAP_MARGINAL_STEPS)  # warm (k > 1: the capture)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan.run_steps(ARAP_MARGINAL_STEPS)
+            torch.cuda.synchronize()
+            times[li] = (time.perf_counter() - t0) / ARAP_MARGINAL_STEPS
+        marginal = (times[hi] - times[lo]) / (hi - lo)
+        r = roofline(plan, marginal)
+        log(f"ARAP {ARAP_SIDE}² marginal PCG iteration, steps_per_dispatch={k}: "
+            f"{marginal * 1e3:.4f} ms (steps {times[lo] * 1e3:.3f} / {times[hi] * 1e3:.3f} ms at "
+            f"lIterations {lo} / {hi}); roofline {r}")
+        if not 0 < r["hbm_fraction"] <= ROOFLINE_MAX:
+            raise AssertionError(f"ARAP roofline: hbm_fraction {r['hbm_fraction']}")
+        del plan
+
+
+def phase_dispatch_paths_and_determinism(tt):
+    """Phase 24(d) and (h) (the module docstring)."""
+    from torch_dispatch_paths import main as dispatch_paths
+
+    # bundle_fusion's small case steps eagerly in 3-4 s (the other paths in
+    # under 0.5 s); it captured, and matched its eager runs bit for bit
+    for rec in dispatch_paths(["--steps", "2", "--eager-runs", str(DISPATCH_EAGER_RUNS),
+                               "--skip", "model bundle_fusion"]):
+        if "error" in rec:
+            raise AssertionError(f"steps_per_dispatch on {rec['path']}: {rec['error']}")
+        if "raises" in rec:
+            log(f"steps_per_dispatch > 1 raises on {rec['path']}: {rec['raises']} (the capture "
+                f"tried anyway: {rec.get('capture_error', 'captured')})")
+            continue
+        spread, got = tuple(rec["eager_spread"]), tuple(rec["graphed_vs_eager"])
+        ok, lim = within_spread(spread, got)
+        log(f"steps_per_dispatch on {rec['path']}: graphed vs the farthest of "
+            f"{len(rec['eager_ms'])} eager runs {got}, their spread {spread}, limits {lim}; "
+            f"ms a step eager {rec['eager_ms']}, graphed "
+            f"{rec['graphed_ms']:.2f}; a replay read the host {rec['replay_host_reads']} times")
+        if not ok:
+            raise AssertionError(f"steps_per_dispatch on {rec['path']}: graphed vs eager {got}")
+
+    # (h) the in-order scatter: deconvolution 16², two card runs
+    Us = []
+    for _ in range(2):
+        plan = model_plan(tt, "deconvolution", "cuda", False)
+        plan.step()
+        Us.append(plan.unknowns()["X"].cpu())
+    same = bool(torch.equal(Us[0], Us[1]))
+    log(f"deconvolution 16² card vs card after step 1: bit-identical {same}")
+    if not same:
+        raise AssertionError("deconvolution 16²: two card runs differ after step 1")
+
+
 def run_kernel_cases(cases):
     """Each case's kernel against its plain version (and a library call,
     where there is one) on the card, with the times of each; returns the
@@ -3016,6 +3382,14 @@ def main():
     torch.cuda.synchronize()
     log(f"phase 23 scheduling: BA 1M under the heuristic, LINEARIZE and INLINE; ARAP "
         f"{ARAP_SIDE}²'s measured candidates: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_dispatch_1m(ba, tt, scene, skew_scene)
+    phase_dispatch_grid(tt)
+    phase_dispatch_paths_and_determinism(tt)
+    torch.cuda.synchronize()
+    log(f"phase 24 steps_per_dispatch as a CUDA graph of the step; kernel_stats, "
+        f"timing_level 3, trace_dir, roofline: {time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8),
     # and on each run of phases 15-17 that launched it

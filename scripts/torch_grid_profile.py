@@ -37,16 +37,19 @@ from torch_ba_profile import busy_seconds, device_events  # noqa: E402
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
 
-def make_grid_plan(size, device, solver="gauss_newton", l_iterations=16, mask=None, n_iter=10):
+def make_grid_plan(size, device, solver="gauss_newton", l_iterations=16, mask=None, n_iter=10,
+                   **options):
     """An image_warping plan at size x size, initialised; mask: an
-    (x-slice, y-slice) of the Mask input set to 1 (excluded unknowns)."""
+    (x-slice, y-slice) of the Mask input set to 1 (excluded unknowns);
+    options: the plan's."""
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import image_warping as iw
 
     inputs = iw.synthetic_inputs(size, size, w_fit=100.0, w_reg=0.01)
     if mask is not None:
         inputs["Mask"][mask] = 1.0
-    plan = tt.load_energy(iw.ENERGY).plan({"W": size, "H": size}, solver=solver, device=device)
+    plan = tt.load_energy(iw.ENERGY).plan({"W": size, "H": size}, solver=solver, device=device,
+                                          **options)
     plan.set_solver_parameter("nIterations", n_iter)
     plan.set_solver_parameter("lIterations", l_iterations)
     plan.init(inputs)

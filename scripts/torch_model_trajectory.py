@@ -50,11 +50,12 @@ added line has the same differences between the two runs: the spread f32
 rounding alone causes.  --package jax needs the JAX package (on its
 default backend); the port runs on --device.  --against-cpu N runs the
 port once on the CPU and N times on --device, each followed by a line of
-its differences from the CPU run: the spread card against CPU that
-chip_smoke.py's phase 15 holds; with --library-scatter the stored
-Jacobians' scatters take index_add_ in place of the aggregation kernel
-(both sum in a varying order on the card: whether the spread is the
-kernel's or the summation order's).  --eager runs the JAX package's steps
+its differences from the CPU run and whether its unknowns equal the
+first device run's bit for bit: the spread card against CPU that
+chip_smoke.py's phase 15 holds.  The stored Jacobians' small-image
+scatters take their fixed-order segment sum (lower.fixed_order_plan:
+deconvolution's in the CPU's order); with --library-scatter index_add_
+instead (it sums in a varying order on the card).  --eager runs the JAX package's steps
 under jax.disable_jit(); --flush-denormal runs the port with
 torch.set_flush_denormal(True) (XLA's CPU backend flushes denormals to
 zero, torch's does not).
@@ -192,12 +193,14 @@ def main(argv=None):
     ap.add_argument("--flush-denormal", action="store_true",
                     help="the port under torch.set_flush_denormal(True)")
     ap.add_argument("--library-scatter", action="store_true",
-                    help="index_add_ in place of the aggregation kernel")
+                    help="index_add_ for the small-image scatters (no fixed-order plan, "
+                    "no aggregation kernel)")
     args = ap.parse_args(argv)
     if args.library_scatter:
         from thallo_tpu_torch import lower
         from thallo_tpu_torch.ops.ohsetup import oh_setup_aggregate_reference
 
+        lower.FIXED_ORDER_MAX_ROWS = 0  # no fixed-order plan: the aggregation route
         lower.oh_setup_aggregate = oh_setup_aggregate_reference
     if args.flush_denormal:
         import torch
@@ -206,10 +209,14 @@ def main(argv=None):
     if args.against_cpu:
         ref = run("torch", argparse.Namespace(**{**vars(args), "device": "cpu"}))
         print(json.dumps(ref[0]), flush=True)
+        first = None
         for _ in range(args.against_cpu):
             other = run("torch", args)
+            first = first or other
+            same = all(np.array_equal(u[k], v[k]) for u, v in zip(first[1], other[1]) for k in u)
             print(json.dumps(other[0]), flush=True)
-            print(json.dumps({"differences": differences(ref, other)}), flush=True)
+            print(json.dumps({"differences": differences(ref, other),
+                              "bit_identical_to_first_run": same}), flush=True)
         return 0
     runs = []
     for package in (("jax", "torch") if args.package == "both" else (args.package,)):

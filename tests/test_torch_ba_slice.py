@@ -276,20 +276,17 @@ def test_cuda_device_needs_a_gpu():
         tt.load_energy(ba.ENERGY).plan(dims, solver="levenberg_marquardt")
 
 
-def test_unported_paths_raise():
-    """What the port does not run yet raises at plan time, naming its
-    ROADMAP item: multi-step dispatch (item 2a) and the profiling half of
-    the utilities (item 9: traces, compile profiling, per-kernel timing).
-    (The autoscheduler and the matrix-free schedules on graph groups are
-    ported: tests/test_torch_schedule.py, tests/test_torch_matrix_free_graph.py.)"""
-    with pytest.raises(NotImplementedError, match="multi-step dispatch.*item 2a"):
-        _port_plan(steps_per_dispatch=4)
-    with pytest.raises(NotImplementedError, match="profiler traces.*item 9"):
-        _port_plan(trace_dir="traces")
-    with pytest.raises(NotImplementedError, match="compile profiling.*item 9"):
-        _port_plan(profile_compile=True)
-    with pytest.raises(NotImplementedError, match="per-kernel timing.*item 9"):
-        _port_plan(timing_level=3)
+def test_unported_paths_raise(tmp_path, capsys):
+    """The options the port refused until it ported them are accepted:
+    multi-step dispatch, profiler traces, compile profiling and per-kernel
+    timing (tests/test_torch_dispatch.py and tests/test_torch_profiling.py
+    check what each does)."""
+    assert _port_plan(steps_per_dispatch=4)[0].steps_per_dispatch == 4
+    assert _port_plan(trace_dir=str(tmp_path))[0].trace_dir == str(tmp_path)
+    assert _port_plan(timing_level=3)[0].timing_level == 3
+    capsys.readouterr()
+    _port_plan(profile_compile=True)
+    assert "cumulative" in capsys.readouterr().out
 
 
 # the BA energy with some cameras held fixed by an Exclude mask

@@ -1277,16 +1277,17 @@ def _item6_plan(cuda, which):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which,want", [
-    ("deconvolution", {"oh_setup_aggregate"}),
-    ("spatially_varying_deconvolution", {"oh_setup_aggregate"}),
-    ("face_fitting", {"oh_setup_aggregate"}),
-    ("bundle_fusion", {"oh_setup_aggregate"}),
+    ("deconvolution", {"segment_sum"}),
+    ("spatially_varying_deconvolution", {"segment_sum"}),
+    ("face_fitting", {"segment_sum"}),
+    ("bundle_fusion", {"segment_sum"}),
     ("bundle_fusion_big", {"oh_setup_products", "fused_pair_apply_atomics"}),
     ("embedded_bf16", {"fused_pair_bf16_atomics"})])
 def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
     """Every kernel one solver step launches on the contraction and
     sampled-image models at tests/test_models2.py's sizes (their stored
-    point Jacobians' scatters through the aggregation kernel),
+    point Jacobians' small-image scatters through the fixed-order segment
+    sum, lower.fixed_order_plan),
     bundle_fusion at 700 frames (one-hot camera rows) and embedded
     deformation under block_dtype="bf16" (its 9-channel rotation rows on
     the bf16 atomics body), at that step's shapes, recipes and tables on
@@ -1297,11 +1298,14 @@ def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
     plan = _item6_plan(cuda, which)
     calls = {}
     names = PATH_KERNELS + ("fused_pair_bf16_atomics",)
-    for mod, name in [(blocksparse, n) for n in names] + [(lower, "oh_setup_aggregate")]:
+    for mod, name in [(blocksparse, n) for n in names] + [(lower, "oh_setup_aggregate"),
+                                                          (lower, "segment_sum")]:
         def record(*a, real=getattr(mod, name), name=name, **k):
             table = a[2] if name == "oh_setup_products" else a[1] \
-                if name == "oh_setup_aggregate" else a[0]
-            calls.setdefault((name, table.data_ptr(), tuple(a_.shape for a_ in a),
+                if name == "oh_setup_aggregate" else a[1].order if name == "segment_sum" \
+                else a[0]
+            calls.setdefault((name, table.data_ptr(),
+                              tuple(getattr(a_, "shape", None) for a_ in a),
                               tuple(sorted(k.items()))), (name, a, k))
             return real(*a, **k)
         monkeypatch.setattr(mod, name, record)
@@ -1323,6 +1327,10 @@ def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
             args = (normal(a[0]), a[1])
             refs = (ohsetup.oh_setup_aggregate_reference(*args, **k),)
             fn = ohsetup.oh_setup_aggregate
+        elif name == "segment_sum":
+            args = (normal(a[0].T).T, a[1])  # channel-major values, as scatter_route's
+            refs = (segsum.segment_sum_reference(*args),)
+            fn = segsum.segment_sum
         else:
             args = (a[0], normal(a[1]), normal(a[2]), normal(a[3]))
             refs = fusedpair.fused_pair_apply_reference(*args, **k)
@@ -1427,8 +1435,9 @@ def test_matrix_free_graph_group_cuda_matches_cpu(cuda, monkeypatch, tmp_path, m
                                                  double):
     """LINEARIZE (use_autoscheduler=2) and INLINE (exhaustive candidate 1)
     on small BA's graph group, 2 LM steps on the card against the CPU: the
-    camera transposes launch the aggregation kernel, or, under
-    THALLO_SEGSUM=tiled, every transpose the segment sum (f64: their f64
+    camera transposes (16 cameras, 5 600 values) launch the segment sum in
+    a fixed order (lower.fixed_order_plan), and under THALLO_SEGSUM=tiled
+    every transpose does; never the aggregation kernel (f64: their f64
     instantiations); INLINE reaches them through torch.func.vjp."""
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
@@ -1454,7 +1463,7 @@ def test_matrix_free_graph_group_cuda_matches_cpu(cuda, monkeypatch, tmp_path, m
             assert plan.compiled.groups[0].schedule.value == ("linearize" if mode == 2
                                                               else "inline")
             launched = (seg.launches - n0[0], agg.launches - n0[1])
-            assert (launched[0] > 0, launched[1] > 0) == (tiled, not tiled), launched
+            assert launched[0] > 0 and launched[1] == 0, launched
     assert abs(costs[0] - costs[1]) <= (1e-10 if double else 1e-4) * costs[1], costs
 
 
@@ -1547,3 +1556,111 @@ def test_double_step_makes_no_host_sync(cuda):
     _step_makes_no_host_sync(cuda, double=True)
     assert fusedpair.fused_pair_apply_f64.launches + \
         fusedpair.fused_pair_apply_atomics_f64.launches > n0
+
+
+def _dispatch_plan(cuda, k, solver="levenberg_marquardt", **options):
+    """The small BA scene (block-sparse, block-Jacobi) under
+    steps_per_dispatch=k on the card, initialised."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+
+    ins, _ = ba.synthetic_inputs(n_cameras=16, n_points=1400, obs_per_point=4)
+    dims = {"C": 16, "P": 1400, "O": len(ins["oToC"])}
+    plan = tt.load_energy(ba.ENERGY).plan(dims, solver=solver, device=cuda,
+                                          steps_per_dispatch=k, **options)
+    plan.set_solver_parameter("nIterations", 100)
+    plan.init({n: np.copy(v) for n, v in ins.items()})
+    return plan
+
+
+@pytest.mark.cuda
+def test_dispatch_takes_the_graph_path(cuda, monkeypatch):
+    """steps_per_dispatch=3: run_steps(6) runs the first step eagerly and
+    the other five as replays of one captured step (two dispatches), and
+    ends where an eager run_steps(6) ends, within the atomics' order
+    (STEP tolerance of phase 3: 1e-4 x max|U|)."""
+    from thallo_tpu_torch import plan as tplan
+
+    replays = []
+    real = tplan._StepGraph.run
+    monkeypatch.setattr(tplan._StepGraph, "run",
+                        lambda self, U, lm, ran, steps: replays.append(steps) or
+                        real(self, U, lm, ran, steps))
+    graphed, eager = _dispatch_plan(cuda, 3), _dispatch_plan(cuda, 1)
+    graphed.warmup()
+    assert graphed._graph is not None
+    assert graphed.run_steps(6) == eager.run_steps(6) == 6
+    assert replays == [5]
+    assert graphed._lm.n_iter == eager._lm.n_iter == 6
+    for n, u in eager.unknowns().items():
+        assert float((graphed.unknowns()[n] - u).abs().max()) <= 1e-4 * float(u.abs().max())
+
+
+@pytest.mark.cuda
+def test_replay_makes_no_host_read(cuda):
+    """A dispatch's replays under torch.cuda.set_sync_debug_mode("error"):
+    copying the state in, k replays and copying it out read nothing back."""
+    plan = _dispatch_plan(cuda, 4)
+    plan.run_steps(4)  # captures
+    graph = plan._step_graph()
+    ran = torch.zeros((), dtype=torch.int64, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        U, lm = graph.run(plan._U, plan._lm, ran, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert int(ran) == 4 and all(bool(torch.isfinite(u).all()) for u in U.values())
+
+
+@pytest.mark.cuda
+def test_set_solver_parameter_drops_the_graph(cuda):
+    """lIterations changed between two run_steps calls of a GN plan: the
+    second call captures anew (the first graph baked 10 PCG iterations in)
+    and matches an eager run of the same calls."""
+    runs = []
+    for k in (2, 1):
+        plan = _dispatch_plan(cuda, k, solver="gauss_newton")
+        plan.set_solver_parameter("lIterations", 10)
+        plan.run_steps(4)
+        first = plan._graph
+        plan.set_solver_parameter("lIterations", 3)
+        assert plan._graph is None
+        plan.run_steps(4)
+        if k == 2:
+            assert first is not None and plan._graph is not None and plan._graph is not first
+        runs.append({n: u.cpu() for n, u in plan.unknowns().items()})
+    for n, u in runs[1].items():
+        assert float((runs[0][n] - u).abs().max()) <= 1e-4 * float(u.abs().max())
+
+
+@pytest.mark.cuda
+def test_in_order_scatter_is_deterministic(cuda):
+    """The tiny scatters' in-order segment sum (deconvolution 16²'s
+    stored-Jacobian scatter, 6 400 values into 256) gives index_add_'s CPU
+    sums bit for bit, and two card runs of the model's first step give the
+    same unknowns bit for bit."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models.cases import case_energy, model_case
+
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 256, size=6400).astype(np.int32)
+    vals = torch.from_numpy(rng.normal(size=(2, 6400)).astype(np.float32))
+    plan = segsum.build_plan(ids, 256, device=cuda, in_order=True)
+    got = segsum.segment_sum(vals.to(cuda).T, plan).T.cpu()
+    assert torch.equal(got, torch.zeros((2, 256)).index_add_(1, torch.from_numpy(ids).long(),
+                                                              vals))
+    m, inputs, dims, solver, l_iterations = model_case("deconvolution")
+    Us = []
+    for _ in range(2):
+        p = tt.load_energy(case_energy("deconvolution", m)).plan(dims, solver=solver,
+                                                                 device=cuda)
+        p.set_solver_parameter("lIterations", l_iterations)
+        p.set_solver_parameter("q_tolerance", -1.0)
+        p.init({n: np.copy(v) for n, v in inputs.items()})
+        n0 = segsum.segment_sum.launches
+        p.step()
+        assert segsum.segment_sum.launches > n0
+        Us.append(p.unknowns()["X"].cpu())
+    assert torch.equal(Us[0], Us[1])

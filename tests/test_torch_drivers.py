@@ -144,11 +144,12 @@ def test_harness_writes_convergence_artifacts(tmp_path):
     assert "solve_time_s" in perf and perf["Nonlinear Iteration"]["count"] == 4
 
 
-@pytest.mark.parametrize("level", [0, 1, 2])
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
 def test_performance_summary_events(level):
     """get_performance_summary() names JAX's events: Total and Nonlinear
     Iteration always, the three phases at timing_level >= 2 (one each a
-    step); the markdown table lists them."""
+    step), the six kernel probes' rows at timing_level 3 (n_probe each,
+    once a solve); the markdown table lists them."""
     from thallo_tpu_torch.models import image_warping as m
 
     plan = tt.load_energy(m.ENERGY).plan({"W": 16, "H": 16}, solver="levenberg_marquardt",
@@ -164,10 +165,13 @@ def test_performance_summary_events(level):
         assert s["Nonlinear Setup"]["count"] == plan.num_iterations + 1  # + init's cost
     else:
         assert all(s.get(p) is None for p in phases)
+    probes = ("computeCost", "PCGInit1", "PCGStep1", "PCGStep2", "PCGStep3", "PCGLinearUpdate")
+    if level >= 3:
+        assert all(s[p]["count"] == 3 for p in probes)
+    else:
+        assert all(s.get(p) is None for p in probes)
     md = s.markdown()
     assert md.startswith("| Event |") and "Nonlinear Iteration" in md
-    with pytest.raises(NotImplementedError, match="timing_level=3"):
-        tt.load_energy(m.ENERGY).plan({"W": 16, "H": 16}, device="cpu", timing_level=3)
 
 
 # ---------------------------------------------------------------------------

@@ -264,10 +264,12 @@ def _counting(monkeypatch, name):
                          ids=lambda s: s.value)
 def test_transposes_take_the_scatter_route(monkeypatch, schedule, tiled):
     """The routes of one PCG iteration's transposes on BA: the cameras (16
-    elements gathered by 5600 observations) through the aggregation
-    kernel's entry point, or, under THALLO_SEGSUM=tiled, both slots
-    through the segment sum's; never both.  INLINE reaches them through
-    the vjp of SlotGather, LINEARIZE through scatter_slot."""
+    elements gathered by 5600 observations) through the segment sum's
+    entry point (lower.fixed_order_plan: at most FIXED_ORDER_MAX_ROWS
+    values), the points through index_add_, or, under THALLO_SEGSUM=tiled,
+    both slots through the segment sum's; never the aggregation kernel's.
+    INLINE reaches them through the vjp of SlotGather, LINEARIZE through
+    scatter_slot."""
     if tiled:
         monkeypatch.setenv("THALLO_SEGSUM", "tiled")
     text, inputs, dims, solver, _ = SCENES["ba"]()
@@ -285,7 +287,7 @@ def test_transposes_take_the_scatter_route(monkeypatch, schedule, tiled):
     if tiled:
         assert agg == [] and sorted(s[1] for s in seg) == [3, 9] and all(s[0] == O for s in seg)
     else:
-        assert seg == [] and agg == [torch.Size([9, O])]
+        assert agg == [] and seg == [torch.Size([O, 9])]
 
 
 def test_double_precision_matrix_free_graph_groups():

@@ -34,11 +34,14 @@ The schedules that apply JᵀJ·p from stored point Jacobians (PRECOMPUTE_J,
 APPLY_SEPARATELY, LINEARIZE) also need the slot gather and its transpose,
 the scatter-add of per-point values into the slot's image.
 ``scatter_slot`` routes a gathered slot as thallo_tpu's ``_scatter`` does
-(``lower.py:706-747``): through the destination-tiled segment sum
-(ops/segsum.py) when ``THALLO_SEGSUM=tiled`` built a plan for the slot at
-init; else, for a small image gathered from many points (S <= 1024 and
-more than 4S values), through ``oh_setup_aggregate`` (ops/ohsetup.py);
-else through ``index_add_``, the counterpart of ``jax.ops.segment_sum``.
+(``lower.py:706-747``): a small image gathered from many points (S <=
+1024 and more than 4S values) through a segment sum of a fixed order
+(ops/segsum.py, ``fixed_order_plan``) when it has at most
+``FIXED_ORDER_MAX_ROWS`` values; else through the destination-tiled
+segment sum when ``THALLO_SEGSUM=tiled`` built a plan for the slot at
+init; else, for a small image, through ``oh_setup_aggregate``
+(ops/ohsetup.py); else through ``index_add_``, the counterpart of
+``jax.ops.segment_sum``.
 The residual's own gathers of those slots are ``SlotGather``, whose
 transpose takes the same route (thallo_tpu's ``gather_with_segsum`` and
 ``_gather``'s routes, ``lower.py:367-380, 643-690``): the vjp of a graph
@@ -71,6 +74,18 @@ from .ops.sampling import (array_bilinear_sample, bilinear_sample, conditional_a
 from .ops.segsum import build_plan, segment_sum
 
 ONEHOT_MAX_SEGMENTS = 1024  # thallo_tpu/ops/segsum.py: small-image scatter bound
+# a small-image scatter of at most FIXED_ORDER_MAX_ROWS values takes a
+# segment-sum plan (ops/segsum.py) whatever THALLO_SEGSUM says: the same
+# order of additions every run, where the aggregation kernel's and
+# index_add_'s atomics add in another order every run.  The plan sums in
+# order (one thread a run, ascending source: the CPU's order, the same
+# bits) when no run is longer than IN_ORDER_MAX_RUN values, else in sorted
+# runs.  On an H100 the route is within 1 us of index_add_ (its launch
+# floor) from [1, 192] -> 4 to [2, 6 400] -> 256 and up to 10x faster at
+# 262 144 values; beyond, the aggregation kernel is the fastest
+# (scripts/torch_fixed_order_scatter.py; PERF.md)
+FIXED_ORDER_MAX_ROWS = 262144
+IN_ORDER_MAX_RUN = 32
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +385,8 @@ class _IndexEnv:
 class SlotRoute:
     """A gathered slot's flat indices `idx` [M] (long) into its image of N
     elements and the route of its transpose: the segment-sum plan `stable`
-    (THALLO_SEGSUM=tiled), else the int32 `ids` of a small image for the
-    aggregation kernel, else neither (index_add_).  An opaque object to
+    (fixed_order_plan's, or THALLO_SEGSUM=tiled's), else the int32 `ids` of
+    a small image for the aggregation kernel, else neither (index_add_).  An opaque object to
     torch.func: a tensor inside a tuple argument of a Function may come
     back wrapped for a transform level (torch 2.11), without the storage a
     kernel reads."""
@@ -380,6 +395,14 @@ class SlotRoute:
 
     def __init__(self, idx, stable, ids, N):
         self.idx, self.stable, self.ids, self.N = idx, stable, ids, N
+
+
+def fixed_order_plan(flat, S, device):
+    """The fixed-order route of a small-image scatter (FIXED_ORDER_MAX_ROWS):
+    ids `flat` into S segments, summed in order where no run is longer
+    than IN_ORDER_MAX_RUN, else in sorted runs."""
+    longest = int(np.bincount(flat, minlength=S).max())
+    return build_plan(flat, S, device=device, in_order=longest <= IN_ORDER_MAX_RUN)
 
 
 def scatter_route(valsT, route: SlotRoute):
@@ -766,9 +789,10 @@ class LoweredGroup:
         materializes JᵀJ, the static block-sparse tables
         (solver/blocksparse.py); without tables (another schedule, or
         tables that build_group_bsr refuses) the scatter route of each
-        gathered slot: a segment-sum plan ("stables", with
-        THALLO_SEGSUM=tiled, read here as thallo_tpu reads it) or the ids
-        of a small image for the aggregation kernel.  A slot, InBounds or
+        gathered slot: a segment-sum plan ("stables": fixed_order_plan's
+        for a small-image scatter of at most FIXED_ORDER_MAX_ROWS values,
+        else with THALLO_SEGSUM=tiled, read here as thallo_tpu reads it)
+        or the ids of a small image for the aggregation kernel.  A slot, InBounds or
         index value over the blocked domain of a con_block is made per
         block (_blocked_operands).  onehot_exclude: image names that build
         row tables instead of one-hot rows (an image that schur_dense
@@ -812,10 +836,14 @@ class LoweredGroup:
                 if self._rolls[i] is not None or flat is None:
                     continue  # the roll back, or a blocked scatter
                 S = self.slot_size(i)
-                plan = build_plan(flat, S, device=device) if tiled else None
+                small = S <= ONEHOT_MAX_SEGMENTS and flat.size > 4 * S
+                if small and flat.size <= FIXED_ORDER_MAX_ROWS:
+                    plan = fixed_order_plan(flat, S, device)
+                else:
+                    plan = build_plan(flat, S, device=device) if tiled else None
                 if plan is not None:
                     stables[i] = plan
-                elif S <= ONEHOT_MAX_SEGMENTS and flat.size > 4 * S:
+                elif small:
                     agg_ids[i] = torch.from_numpy(flat).to(device)
         out = {
             "device": torch.device(device),

@@ -43,7 +43,11 @@ and a run longer than ``piece`` lanes is first cut into pieces of at most
 that many: level 1 sums each piece into a ``[pieces, C]`` scratch, level
 2 sums each segment's pieces (``seg_piece`` [S + 1], CSR over pieces)
 with the same two kernels, so one camera that owns half of a skewed
-scene's observations is spread over the card.  ``data`` may be a strided
+scene's observations is spread over the card.  A plan built ``in_order``
+takes one level of "thread" whatever its runs: each run is summed by one
+thread from 0 in ascending data row, the order in which the CPU's
+``index_add_`` (and this module's plain version) adds, so card and CPU
+give the same bits.  ``data`` may be a strided
 view (the port's channel-major [C, M] buffers transposed); the kernel
 reads through the strides and specialises the unit row stride.
 
@@ -210,15 +214,16 @@ def _fill_staged(plan: SegSumPlan, rows, dests, device) -> None:
     plan.n_chunks = K
 
 
-def _fill_compact(plan: SegSumPlan, rows, dests, device) -> None:
+def _fill_compact(plan: SegSumPlan, rows, dests, device, in_order=False) -> None:
     """Set plan's compact form from the real lanes' data rows and
-    destinations (both sorted by destination, all below num_segments)."""
+    destinations (both sorted by destination, all below num_segments);
+    in_order: one level of the thread kernel, no staged form."""
     S = plan.num_segments
     if len(rows) >= 2 ** 31:
         raise ValueError(f"segment sum: {len(rows)} lanes exceed int32 offsets")
     counts = np.bincount(dests, minlength=S)[:S] if S else np.zeros(0, np.int64)
     seg_start = np.concatenate([[0], np.cumsum(counts)])
-    plan.modes, piece = choose_modes(counts, len(rows))
+    plan.modes, piece = ((THREAD,), 0) if in_order else choose_modes(counts, len(rows))
     plan.piece_start = plan.seg_piece = None
     if len(plan.modes) == 2:
         n_pieces = -(-counts // piece)  # an empty segment has none
@@ -233,7 +238,7 @@ def _fill_compact(plan: SegSumPlan, rows, dests, device) -> None:
     plan.max_row = int(rows.max()) if len(rows) else -1
     plan.local = plan.cell_start = plan.seg_chunks = None
     plan.n_chunks = 0
-    if staged_eligible(counts, len(rows)):
+    if not in_order and staged_eligible(counts, len(rows)):
         _fill_staged(plan, np.asarray(rows), np.asarray(dests), device)
     plan.validate()
 
@@ -243,11 +248,14 @@ def _i32(a, device):
 
 
 def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0,
-               device=None) -> Optional[SegSumPlan]:
+               device=None, in_order: bool = False) -> Optional[SegSumPlan]:
     """Host-side static plan for `ids` (destination per row), the same
     arrays as thallo_tpu's build_plan plus the compact form of the same
     sorted order; None when the padding would exceed `max_waste` times the
-    rows (a degenerate distribution)."""
+    rows (a degenerate distribution).  in_order: the card sums each run
+    with one thread, in ascending data row, as the CPU's index_add_ adds
+    (and the plain version here): the same bits on both, for the short
+    runs lower.fixed_order_plan sends here."""
     ids = np.asarray(ids)
     M = ids.shape[0]
     if M == 0:
@@ -278,7 +286,7 @@ def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0
         num_segments=num_segments,
     )
     kept = sorted_ids < num_segments  # the tiles' tail past num_segments is cut
-    _fill_compact(plan, order[kept], sorted_ids[kept], plan.gather_idx.device)
+    _fill_compact(plan, order[kept], sorted_ids[kept], plan.gather_idx.device, in_order)
     return plan
 
 

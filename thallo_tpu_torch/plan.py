@@ -27,7 +27,19 @@ The timer (utils/timer.py) keeps JAX's events: "Total" around
 "Nonlinear Setup" around ``init``'s cost and, at ``timing_level`` >= 2,
 around each step's three phases ("Nonlinear Setup", "Linear Solve",
 "Nonlinear Finish"), each ended by a device sync as JAX blocks there.
-At the default level the timer reads host clocks only: no sync.
+At the default level the timer reads host clocks only: no sync.  At
+``timing_level`` 3 the first step of a solve adds the per-kernel probe
+rows (``kernel_stats``); ``kernel_stats(interior=True)`` adds the
+production step's own kernels from a torch.profiler trace;
+``trace_dir`` writes a trace of each solve; ``profile_compile`` prints
+cProfile's table of the solver build.
+
+``steps_per_dispatch`` = k > 1 (thallo_tpu/plan.py:674-759): run_steps
+runs its steps as dispatches of k guarded steps (under LM a step after a
+stop changes nothing), then the rest unguarded.  On the card a dispatch
+is k replays of one CUDA graph of the guarded step (``_StepGraph``);
+a step the card cannot capture (``CompiledSolver.uncapturable``) raises
+NotImplementedError at plan time instead.
 """
 from __future__ import annotations
 
@@ -61,14 +73,71 @@ _KNOWN_OPTIONS = {"use_autoscheduler", "lin_iter_hint", "solver_parameters",
                   "steps_per_dispatch", "preconditioner", "schur_dense_max",
                   "sort_residuals", "device"}
 
-# options of thallo_tpu's Plan whose other values need a part of the JAX
-# package that is not ported yet: the values the port takes
-_UNPORTED_OPTIONS = {
-    "steps_per_dispatch": ((1,), "multi-step dispatch (ROADMAP queue 1, item 2a)"),
-    "trace_dir": ((None,), "profiler traces (ROADMAP queue 1, item 9)"),
-    "profile_compile": ((False,), "compile profiling (ROADMAP queue 1, item 9)"),
-    "timing_level": ((0, 1, 2), "per-kernel timing (ROADMAP queue 1, item 9)"),
-}
+
+def _lm_tensors(lm):
+    """The tensor fields of an LMState, in a fixed order (ssq by name)."""
+    return [lm.trust_region_radius, lm.radius_decrease_factor, lm.prev_cost, lm.finished,
+            *(lm.ssq[k] for k in sorted(lm.ssq))]
+
+
+def _clone_lm(lm):
+    return lm._replace(trust_region_radius=lm.trust_region_radius.clone(),
+                       radius_decrease_factor=lm.radius_decrease_factor.clone(),
+                       prev_cost=lm.prev_cost.clone(), finished=lm.finished.clone(),
+                       ssq={k: v.clone() for k, v in lm.ssq.items()})
+
+
+class _StepGraph:
+    """CompiledSolver.guarded_step captured once in a torch.cuda.CUDAGraph
+    over static copies of U and the LM state: the captured body ends by
+    copying its outputs into its inputs, so replays chain, and k steps are
+    k replays with no host read.  One step replayed k times holds one
+    step's memory pool, not k.  Captured at n_iter >= 1 (solve_setup and
+    _finish_step pick the first step's diag(JᵀJ) on the host, by n_iter ==
+    0): the plan runs the first step of a solve eagerly.  The solver
+    parameters (`key`), the const inputs and the prepared tables are baked
+    in, by value or by address: the plan drops the graph when one of them
+    changes.  Capture follows torch's rule: one warm-up step on a side
+    stream first (it builds every kernel and fills the wrappers' caches),
+    on the static copies, so the solver state is not touched."""
+
+    def __init__(self, comp, U, lm, cin, sp, prep):
+        self.key = sp
+        self.U = {k: v.clone() for k, v in U.items()}
+        self.lm = _clone_lm(lm)._replace(n_iter=max(lm.n_iter, 1))
+        self.ran = torch.zeros((), dtype=torch.int64, device=comp.device)
+        args = (comp, cin, sp, prep)
+        side = torch.cuda.Stream(comp.device)
+        side.wait_stream(torch.cuda.current_stream(comp.device))
+        with torch.cuda.stream(side):
+            self._body(*args)
+        torch.cuda.current_stream(comp.device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._body(*args)
+
+    def _body(self, comp, cin, sp, prep):
+        if comp.uses_lambda:
+            self.ran.add_(~self.lm.finished)
+        U2, lm2, _, _ = comp.guarded_step(self.U, self.lm, cin, sp, prep)
+        for k, v in U2.items():
+            self.U[k].copy_(v)
+        for a, b in zip(_lm_tensors(self.lm), _lm_tensors(lm2)):
+            a.copy_(b)
+
+    def run(self, U, lm, ran, steps):
+        """`steps` replays from (U, lm); adds the steps that ran to `ran`
+        and returns new (U, lm), n_iter advanced by `steps`."""
+        for k, v in U.items():
+            self.U[k].copy_(v)
+        for a, b in zip(_lm_tensors(self.lm), _lm_tensors(lm)):
+            a.copy_(b)
+        self.ran.zero_()
+        for _ in range(steps):
+            self.graph.replay()
+        ran.add_(self.ran)
+        U = {k: v.clone() for k, v in self.U.items()}
+        return U, _clone_lm(self.lm)._replace(n_iter=lm.n_iter + steps)
 
 
 def make_plan(spec: ProblemSpec, dim_sizes, solver="gauss_newton", **options):
@@ -113,9 +182,6 @@ class Plan:
         if options.get("block_dtype") not in BLOCK_DTYPES:
             raise ValueError(f"block_dtype={options['block_dtype']!r}: expected one of "
                              f"{sorted(BLOCK_DTYPES, key=str)}")
-        for name, (allowed, what) in _UNPORTED_OPTIONS.items():
-            if name in options and options[name] not in allowed:
-                raise NotImplementedError(f"{name}={options[name]!r}: {what} is not ported yet")
         self.device = _resolve_device(options.get("device", "cuda"))
         self.dtype = torch.float64 if spec.double_precision else torch.float32
         if spec.double_precision and BLOCK_DTYPES[options.get("block_dtype")] is not None \
@@ -125,6 +191,12 @@ class Plan:
                 "blocks with f64 values (ROADMAP queue 2, item 7); the CPU runs it, as JAX")
         self.timing_level = int(options.get("timing_level", 1))
         self.timer = Timer()
+        # k nonlinear steps a dispatch (thallo_tpu/plan.py:674-749): on the
+        # card one CUDA graph of the guarded step, replayed k times
+        self.steps_per_dispatch = int(options.get("steps_per_dispatch", 1))
+        # a torch.profiler trace of each solve, written into this directory
+        self.trace_dir = options.get("trace_dir")
+        self._graph = None
 
         if isinstance(dim_sizes, (list, tuple)):
             dim_sizes = {d.name: s for d, s in zip(spec.dims, dim_sizes)}
@@ -143,8 +215,25 @@ class Plan:
         self.schedule_log = []
         lin_hint = int(options.get("lin_iter_hint", SOLVER_PARAMETER_DEFAULTS["lIterations"]))
         groups = self._schedule(spec, self.use_autoscheduler, lin_hint)
+        prof = None
+        if options.get("profile_compile"):
+            # the build profiled (thallo_tpu/plan.py:229-241): the top 15
+            # by cumulative time
+            import cProfile
+
+            prof = cProfile.Profile()
+            prof.enable()
         self.compiled = CompiledSolver(spec, groups, uses_lambda, self.dtype, options,
                                        self.device)
+        if prof is not None:
+            import pstats
+
+            prof.disable()
+            pstats.Stats(prof).sort_stats("cumulative").print_stats(15)
+        why = self.compiled.uncapturable()
+        if self.steps_per_dispatch > 1 and self.device.type == "cuda" and why:
+            raise NotImplementedError(
+                f"steps_per_dispatch={self.steps_per_dispatch} on the card: {why}")
         self.group_names = [g.name for g in groups]
         self.solver_parameters = dict(SOLVER_PARAMETER_DEFAULTS)
         self.solver_parameters.update(options.get("solver_parameters", {}))
@@ -308,6 +397,7 @@ class Plan:
         if name not in self.solver_parameters:
             raise KeyError(f"unknown solver parameter {name}")
         self.solver_parameters[name] = value
+        self._graph = None  # its parameters are baked in
 
     def get_solver_parameter(self, name: str):
         return self.solver_parameters[name]
@@ -385,6 +475,7 @@ class Plan:
         self._U = {im.name: self._inputs[im.name].clone() for im in self.spec.unknowns}
         self._const_inputs = {k: v for k, v in self._inputs.items() if k not in self._U}
         self._prep = self.compiled.prepare(self._inputs)
+        self._graph = None
         with self.timer.event("Nonlinear Setup"):
             c0 = self.cost()
         sp = self.solver_parameters
@@ -428,6 +519,7 @@ class Plan:
                         for k, v in normalized.items()}
         self._const_inputs = {k: v for k, v in self._inputs.items() if k not in unknown_names}
         self._prep = self.compiled.prepare(self._inputs)
+        self._graph = None
         if self._lm is not None and self.compiled.uses_lambda:
             self._lm = self._lm._replace(prev_cost=self._scalar(self.cost()))
 
@@ -452,6 +544,9 @@ class Plan:
         if self._iter >= int(self.solver_parameters["nIterations"]):
             self._finished = True
             return False
+        if self.timing_level >= 3 and self._iter == 0:
+            # the per-kernel probe rows, once a solve (thallo_tpu/plan.py:628-632)
+            self.kernel_stats()
         phase = self._timed_phase if self.timing_level >= 2 else contextlib.nullcontext
         with self.timer.event("Nonlinear Iteration"):
             U, lm, stop, _ = self.compiled.nonlinear_step(self._U, self._lm, self._step_inputs(),
@@ -473,37 +568,97 @@ class Plan:
 
     def run_steps(self, n: int) -> int:
         """n nonlinear iterations back to back (at most the nIterations
-        left) with no host read between them (thallo_tpu/plan.py:674).
+        left) with no host read between them (thallo_tpu/plan.py:674-714).
         LM reads its stop flag once, after the batch: as in thallo_tpu, a
         stop set by a step inside the batch does not end it, the steps
         after it run (and may accept), and only the last step's flag ends
-        the solve.  Returns the number of steps run."""
+        the solve.  With steps_per_dispatch = k > 1, n // k dispatches of
+        k guarded steps (thallo_tpu's _scan_step: under LM a step after a
+        stop leaves the state as it was, and does not count in n_iter),
+        then the n % k steps left unguarded, as JAX runs them; the count
+        of steps run counts every step.  Returns the number of steps run."""
         if self._finished or n <= 0:
             return 0
         n = min(n, max(int(self.solver_parameters["nIterations"]) - self._iter, 0))
         if n <= 0:
             self._finished = True
             return 0
+        comp = self.compiled
         U, lm = self._U, self._lm
         cin, sp, prep = self._step_inputs(), self._sp(), self._prep
+        k = self.steps_per_dispatch
         with self.timer.event("Nonlinear Iteration"):
-            for _ in range(n):
-                U, lm, stop, _ = self.compiled.nonlinear_step(U, lm, cin, sp, prep)
+            if k > 1:
+                ran = torch.zeros((), dtype=torch.int64, device=self.device)
+                n0 = lm.n_iter
+                U, lm = self._dispatch(U, lm, ran, (n // k) * k)
+                stop = lm.finished
+                for _ in range(n % k):
+                    U, lm, stop, _ = comp.nonlinear_step(U, lm, cin, sp, prep)
+            else:
+                for _ in range(n):
+                    U, lm, stop, _ = comp.nonlinear_step(U, lm, cin, sp, prep)
         self._U, self._lm = U, lm
         self._iter += n
-        if self.compiled.uses_lambda and bool(stop):
-            self._finished = True
+        if comp.uses_lambda:
+            if k > 1:  # the stop flag and the guarded steps that ran: one read
+                stopped, n_ran = torch.stack([stop.to(torch.int64), ran]).tolist()
+                self._lm = lm._replace(n_iter=n0 + n_ran + n % k)
+            else:
+                stopped = bool(stop)
+            if stopped:
+                self._finished = True
         if self._iter >= int(self.solver_parameters["nIterations"]):
             self._finished = True
         return n
 
+    def _dispatch(self, U, lm, ran, steps):
+        """`steps` guarded steps from (U, lm), adding those that ran (not
+        frozen after an LM stop) to the device count `ran`: on the CPU one
+        call of the guarded step each, on the card replays of its CUDA
+        graph after an eager first step of a solve (n_iter == 0)."""
+        comp = self.compiled
+        cin, sp, prep = self._step_inputs(), self._sp(), self._prep
+
+        def eager(U, lm):
+            if comp.uses_lambda:
+                ran.add_(~lm.finished)
+            return comp.guarded_step(U, lm, cin, sp, prep)[:2]
+
+        if self.device.type != "cuda":
+            for _ in range(steps):
+                U, lm = eager(U, lm)
+            return U, lm
+        if steps and lm.n_iter == 0:
+            U, lm = eager(U, lm)
+            steps -= 1
+        if steps:
+            U, lm = self._step_graph().run(U, lm, ran, steps)
+        return U, lm
+
+    def _step_graph(self) -> _StepGraph:
+        """The plan's captured step, made anew when the solver parameters
+        changed (set_solver_parameter, init, update_inputs, load_state and
+        reset_unknowns drop it)."""
+        sp = self._sp()
+        if self._graph is None or self._graph.key != sp:
+            self._graph = None  # the old pool goes before the new capture
+            self._graph = _StepGraph(self.compiled, self._U, self._lm, self._step_inputs(), sp,
+                                     self._prep)
+        return self._graph
+
     def warmup(self) -> None:
         """One throwaway step (and cost) on copies of the state, so the
         first real step pays no kernel build, no first-call set-up of the
-        torch ops and no allocator growth (thallo_tpu/plan.py:761); the
+        torch ops and no allocator growth (thallo_tpu/plan.py:761-787); with
+        steps_per_dispatch > 1 on the card, first the dispatch's graph,
+        captured and replayed once on its copies (the capture empties the
+        allocator's cache, which the throwaway step then refills).  The
         solver state is unchanged."""
         if self._inputs is None:
             raise RuntimeError("call init() first")
+        if self.steps_per_dispatch > 1 and self.device.type == "cuda":
+            self._step_graph().graph.replay()
         U = {k: v.clone() for k, v in self._U.items()}
         self.compiled.cost(U, self._step_inputs(), self._prep["consts"])
         self.compiled.nonlinear_step(U, self._lm, self._step_inputs(), self._sp(), self._prep)
@@ -517,7 +672,8 @@ class Plan:
             self.init(inputs)
         if self._inputs is None:
             raise RuntimeError("call init() first")
-        with self.timer.event("Total"):
+        tracer = self._tracer() if self.trace_dir else contextlib.nullcontext()
+        with tracer, self.timer.event("Total"):
             if not self.compiled.uses_lambda and not self.debug_check_finite and \
                     self.timing_level < 2 and \
                     float(self.solver_parameters["max_solver_time_in_seconds"]) == 0:
@@ -531,6 +687,23 @@ class Plan:
             print(f"[thallo_tpu_torch] final cost: {final:g} after {self._iter} iterations")
         return final
 
+    @contextlib.contextmanager
+    def _tracer(self):
+        """A torch.profiler trace of the block (CPU activity, and CUDA on
+        the card) written into trace_dir as a Chrome trace
+        (thallo_tpu/plan.py:797-800 writes jax.profiler's)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(self.trace_dir, exist_ok=True)
+        with profile(activities=acts) as prof:
+            yield
+            self._sync()
+        prof.export_chrome_trace(os.path.join(
+            self.trace_dir, f"thallo_solve_{os.getpid()}_{time.time_ns()}.json"))
+
     def cost(self) -> float:
         return float(self.compiled.cost(self._U, self._step_inputs(), self._prep["consts"]))
 
@@ -539,6 +712,7 @@ class Plan:
         if self._inputs is None:
             raise RuntimeError("call init() first")
         self._U = {im.name: self._inputs[im.name].clone() for im in self.spec.unknowns}
+        self._graph = None
         self._finished = False
         self._iter = 0
 
@@ -590,6 +764,7 @@ class Plan:
             )
             self._iter = int(z["iter"])
             self._finished = bool(z["finished"])
+        self._graph = None
 
     def jacobian(self, dense: bool = False):
         """The Jacobian at the current unknowns (thallo_tpu/plan.py:883-896):
@@ -608,6 +783,68 @@ class Plan:
 
     def get_performance_summary(self) -> PerfSummary:
         """The timer's events (count, min, max, mean, stddev, total in ms)."""
+        return self.timer.summary()
+
+    def kernel_stats(self, n_probe: int = 3, interior: bool = False) -> PerfSummary:
+        """Per-kernel timing rows (thallo_tpu/plan.py:901-938): each
+        solver-facing kernel of CompiledSolver.kernel_probe_fns (computeCost,
+        PCGInit1, PCGStep1-3, PCGLinearUpdate) runs once to warm up, then
+        n_probe times, each ended by a device sync, into the timer's stats.
+        These are probes of each kernel alone; interior=True gives the
+        production step's own kernels instead (_interior_kernel_stats).
+        Runs on the first step at timing_level 3."""
+        if self._U is None:
+            raise RuntimeError("call init() before kernel_stats()")
+        if interior:
+            return self._interior_kernel_stats()
+        U, lm, ins, sp, prep = self._U, self._lm, self._step_inputs(), self._sp(), self._prep
+        probes = self.compiled.kernel_probe_fns()
+        state = probes["PCGInit1"](U, lm, ins, sp, prep)
+        calls = {
+            "computeCost": lambda f: f(U, ins, prep),
+            "PCGInit1": lambda f: f(U, lm, ins, sp, prep),
+            "PCGStep1": lambda f: f(U, state, ins, sp, prep),
+            "PCGStep2": lambda f: f(state),
+            "PCGStep3": lambda f: f(state),
+            "PCGLinearUpdate": lambda f: f(U, state),
+        }
+        for name, fn in probes.items():
+            calls[name](fn)
+            self._sync()
+            for _ in range(n_probe):
+                with self.timer.event(name):
+                    calls[name](fn)
+                    self._sync()
+        return self.timer.summary()
+
+    def _interior_kernel_stats(self, top_k: int = 20) -> PerfSummary:
+        """The production step's own kernels (thallo_tpu/plan.py:940-980):
+        one step to warm up, then one step under torch.profiler; the device
+        kernels' durations summed by name (on a CPU plan the ops' own CPU
+        time), the top_k pushed as "interior:<name>" rows.  Both steps
+        advance the solve, as JAX's do."""
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        self.step()
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with profile(activities=acts) as prof:
+            self.step()
+            self._sync()
+        durs = {}
+        if cuda:
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA and \
+                        not getattr(e, "is_user_annotation", False) and \
+                        not e.name.startswith("thallo::"):
+                    durs[e.name] = durs.get(e.name, 0.0) + e.time_range.elapsed_us()
+        else:
+            for e in prof.key_averages():
+                if not e.key.startswith("thallo::") and e.self_cpu_time_total > 0:
+                    durs[e.key] = float(e.self_cpu_time_total)
+        for name, us in sorted(durs.items(), key=lambda kv: -kv[1])[:top_k]:
+            short = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+            self.timer.push(f"interior:{short[:48]}", us * 1e-6)
         return self.timer.summary()
 
     @property

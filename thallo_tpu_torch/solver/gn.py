@@ -1189,6 +1189,87 @@ class CompiledSolver:
         with record_function("thallo::finish"), phase("Nonlinear Finish"):
             return self.finish_step(U, lm, state, delta, inputs, sp, prep)
 
+    def guarded_step(self, U, lm: LMState, inputs, sp: SolverParams, prep):
+        """One step of a multi-step dispatch (the body of thallo_tpu's
+        _scan_step, thallo_tpu/plan.py:716-749): GN's plain step; under LM
+        a step taken once lm.finished is set leaves U and every tensor
+        field of lm as they were and returns lm.prev_cost as its cost (JAX's
+        lax.cond frozen branch), by torch.where, with no host read.  n_iter
+        counts the step either way: the plan corrects it by the steps that
+        ran."""
+        U2, lm2, stop, cost = self.nonlinear_step(U, lm, inputs, sp, prep)
+        if not self.uses_lambda:
+            return U2, lm2, stop, cost
+        done = lm.finished
+
+        def keep(old, new):
+            return torch.where(done, old, new)
+
+        lm2 = LMState(
+            trust_region_radius=keep(lm.trust_region_radius, lm2.trust_region_radius),
+            radius_decrease_factor=keep(lm.radius_decrease_factor, lm2.radius_decrease_factor),
+            prev_cost=keep(lm.prev_cost, lm2.prev_cost),
+            n_iter=lm2.n_iter,
+            ssq=tree_where(done, lm.ssq, lm2.ssq),
+            finished=done | lm2.finished,
+        )
+        return tree_where(done, U, U2), lm2, lm2.finished, keep(lm.prev_cost, cost)
+
+    def uncapturable(self):
+        """The part of this plan's step that a CUDA graph cannot hold (it
+        reads the device from the host), named for a NotImplementedError
+        at plan time, or None (steps_per_dispatch > 1 on the card)."""
+        if self.schur_dense and not self.uses_lambda:
+            return ("linear_solver='schur_dense' under Gauss-Newton: torch.linalg.eigh "
+                    "checks its info on the host (ROADMAP queue 1, item 12)")
+        return None
+
+    def kernel_probe_fns(self):
+        """Probes of the solver-facing kernels for the per-kernel timing
+        table (thallo_tpu/solver/gn.py:275-330; Plan.kernel_stats, timing
+        level 3), by the reference's kernel names: each logical kernel
+        alone, on the state of one setup.  PCGStep1, PCGStep2 and PCGStep3
+        apply the preconditioner the PCG applies (block-Jacobi where the
+        plan has one)."""
+        def compute_cost(U, inputs, prep):
+            return self.cost(U, inputs, prep["consts"])
+
+        def pcg_step1(U, state, inputs, sp, prep):
+            # JᵀJ p + damping + the alpha denominator (PCGStep1)
+            apply_jtjp = self.make_jtjp(U, inputs, prep["consts"], state["masks"],
+                                        state["jac_store"], prep["twin_consts"])
+            p0 = self.precond_apply(state, state["r0"])
+            Ap = apply_jtjp(p0)
+            if self.uses_lambda:
+                Ap = tree_add(Ap, tree_mul(state["CtC"], p0))
+            return Ap, tree_dot(p0, Ap)
+
+        def pcg_step2(state):
+            # x/r/z updates + the beta numerator (PCGStep2)
+            r0 = state["r0"]
+            delta = tree_scale(r0, 0.5)
+            r = tree_axpy(-0.5, r0, r0)
+            z = self.precond_apply(state, r)
+            return delta, r, z, tree_dot(z, r)
+
+        def pcg_step3(state):
+            # p = z + beta p (PCGStep3)
+            z = self.precond_apply(state, state["r0"])
+            return tree_axpy(0.25, state["r0"], z)
+
+        def linear_update(U, state):
+            # X += delta (PCGLinearUpdate)
+            return tree_axpy(1.0, state["r0"], U)
+
+        return {
+            "computeCost": compute_cost,
+            "PCGInit1": self.solve_setup,
+            "PCGStep1": pcg_step1,
+            "PCGStep2": pcg_step2,
+            "PCGStep3": pcg_step3,
+            "PCGLinearUpdate": linear_update,
+        }
+
     def _finish_step(self, U, lm, inputs, consts, delta, sp, ssq):
         newU = tree_add(U, delta)
         if not self.uses_lambda:

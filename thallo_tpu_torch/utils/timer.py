@@ -92,8 +92,12 @@ class Timer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t
-            self._stats.setdefault(name, RunningStats()).push(dt)
+            self.push(name, time.perf_counter() - t)
+
+    def push(self, name: str, seconds: float):
+        """A row measured outside an event (a probe's or a profiler's
+        time), into the same stats the events fill."""
+        self._stats.setdefault(name, RunningStats()).push(seconds)
 
     def total_elapsed(self):
         return time.perf_counter() - self._t0
