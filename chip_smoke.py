@@ -209,25 +209,47 @@ its seconds; any failure exits non-zero):
      at the uniform scene's two plans;
  24. steps_per_dispatch (a CUDA graph of the guarded step, replayed k
      times a dispatch) and the profiling: (a) the uniform 1M LM scene,
-     run_steps(5) twice at k = 5 against five eager runs, unknowns and
-     cost after each call within twice the eager runs' spread
-     (DISPATCH_*), ms a step graphed and eager, one graphed dispatch
-     profiled (device busy, idle share); (b) the skewed 1M scene, 4 steps
-     at k = 2 (the W-loop pair inside the capture) against five eager runs
-     by (a)'s rule; (c) ARAP 256² and image_warping 512² GN solve() at
+     run_steps(5) twice at k = 5 against DISPATCH_EAGER_RUNS (twelve)
+     eager runs, unknowns (first call: after it LM's accepts split the
+     runs into two cost modes) and cost (each call) within twice the eager
+     runs' spread (DISPATCH_*), ms a step
+     graphed and eager, one graphed dispatch profiled (device busy, idle
+     share); (b) the skewed 1M scene, 4 steps at k = 2 (the W-loop pair
+     inside the capture) against twelve eager runs by (a)'s rule; (c) ARAP 256² and image_warping 512² GN solve() at
      k = 10 and eagerly, final costs within phases 16 and 11's bounds of
      JAX's f32 runs, ms a step; (d) scripts/torch_dispatch_paths.py's
      paths (every path above at small size and the sixteen models): the
      graphed run within twice the eager runs' spread of the farthest of
-     them (five eager runs where two differ), a replay under
-     set_sync_debug_mode("error"), and each path that raises for k > 1
-     named; (e) kernel_stats(interior=True) on the uniform 1M plan naming
+     them (PATHS_EAGER_RUNS, five, eager runs where two differ or the
+     graphed run differs from them; phase 3's floors), a replay under
+     set_sync_debug_mode("error"), and no path may raise for k > 1 (GN's
+     schur_dense captures: its eigendecomposition leaves cuSOLVER's info
+     on the device, ops/linalg.py); (e) kernel_stats(interior=True) on the uniform 1M plan naming
      the hand-written kernels (INTERIOR_KERNELS), and a timing_level=3
      solve of ARAP 256² filling the six probe rows; (f) one 1M step under
      trace_dir, the trace naming the three phases and a hand-written
      kernel; (g) roofline() of ARAP 256²'s marginal PCG iteration, eager
      and graphed (hbm_fraction <= ROOFLINE_MAX); (h) deconvolution 16²:
-     two card runs bit-identical after step 1 (the in-order scatter).
+     two card runs bit-identical after step 1 (the in-order scatter);
+ 25. the sharded path (thallo_tpu_torch/parallel) on a one-rank NCCL
+     group (tcp://localhost on a free port, destroyed at the end): (a) the
+     uniform 1M LM scene sharded at {"P", "O"}, (b) ARAP 256² GN with
+     edges sorted by owner at {"N", "E"}, each through SHARD_CALLS calls
+     of run_steps(SHARD_K) held after each call against unsharded eager
+     runs by phase 24(a)'s rule and function (hold_vs_eager: BA's unknowns
+     at the first call, as 24(a)'s; two eager runs and bit for bit where
+     all agree bit for bit, else DISPATCH_EAGER_RUNS of them and twice
+     their spread), the collectives
+     of one step (counts and bytes a kind; ARAP's all_reduce bytes at most
+     SHARD_MAX_ALL_REDUCE) and the ms a step sharded and unsharded
+     logged, each block-sparse kernel of the sharded plan launched; (c)
+     the same scenes at steps_per_dispatch = SHARD_K, the NCCL collectives
+     inside the CUDA graph, by the same rule against the same eager runs;
+     (d) is phase 24(d)'s; (e) with two cards or more,
+     scripts/torch_sharded_solve.py --ranks 2 --scene ba, its cost after
+     SHARD_K steps within STEP_COST_RTOL of the range of (a)'s unsharded
+     runs there, else logged as not run (NCCL refuses two ranks on one
+     card).
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -570,38 +592,62 @@ SCHED_ARAP_RTOL = 2e-5
 # runs of the same calls: unknowns and cost after each call within
 # DISPATCH_SPREAD_X times the eager runs' spread there (the largest
 # distance of two of them: the atomics' order, the only thing a graph
-# could change) of every eager run, or within phase 3's card-vs-CPU bounds
-# (STEP_U_TOL, STEP_COST_RTOL; at 1M the cost's DISPATCH_COST_FLOOR),
-# whichever is wider.  A few runs are a noisy reading of the spread (on an
-# H100, scripts/torch_dispatch_paths.py: graphed runs lay 0.8-2.1x and
-# 0.2-3.9x one eager pair's spread in unknowns and cost; at 1M after 5
-# steps up to 1.9x the largest of three eager pairs in unknowns), hence
-# five eager runs.
-# A path whose eager runs agree bit for bit (no atomics) must give the same
-# bits graphed (every such path did there); (b) the skewed 1M scene,
-# DISPATCH_SKEW_STEPS steps at k = 2, by (a)'s rule; (c) ARAP 256² and
-# image_warping 512² GN solve() at k = DISPATCH_GRID_K against phases 16
-# and 11's bounds of JAX's f32 trajectories; (d) each small path of
-# scripts/torch_dispatch_paths.py by (a)'s rule, with DISPATCH_EAGER_RUNS
-# eager runs where its first two differ (against one eager pair, the
-# small skewed scene once read 1.07e-4 of max|U| graphed, over the 1e-4
-# floor, where its eager pairs had lain 7.8e-5 to 1.9e-4 apart); (g) hbm_fraction of ARAP 256²'s marginal PCG iteration at
-# most ROOFLINE_MAX (the traffic model is a lower bound: a share above 1
-# would be a model or timing fault)
+# could change) of every eager run, or within (STEP_U_TOL,
+# DISPATCH_COST_FLOOR), whichever is wider (hold_vs_eager; phase 25 holds
+# its sharded runs by the same function).  A path whose eager runs agree
+# bit for bit (no atomics) must give the same bits graphed; two eager runs
+# then, DISPATCH_EAGER_RUNS where the first two differ or a tested run
+# differs from them.  Near convergence
+# the LM accepts split the 1M runs: after 10 steps the cost falls in one of
+# two modes (~4.5 or ~6.2 from c0 6 972 748) and the unknowns spread
+# widely within each (scripts/torch_lm_modes.py on an H100: 10 of 24 runs
+# in the second mode, eager and graphed alike).  Five eager runs often all
+# missed the mode, or the reach, of one more run with no fault (a graphed
+# run 2.1-2.2x their largest distance, twice in four smoke runs on an
+# H100; the skewed scene 2.1x once); twelve miss a mode with odds of about
+# 0.6^12 + 0.4^12, 0.2%.  Past the split even twelve do not bound the
+# unknowns' distance (a graphed run 1.94x their largest distance after 10
+# steps, with no fault, in the second of two smoke runs on an H100), so
+# the uniform 1M scene's unknowns are held at its first
+# DISPATCH_1M_U_CALLS calls (5 steps, one cost mode; graphed and sharded
+# runs at 0.33-0.43 of the limit there in six smoke runs) and its cost at
+# every call.  (b) the skewed 1M
+# scene, DISPATCH_SKEW_STEPS steps at k = 2, by (a)'s rule; (c) ARAP 256²
+# and image_warping 512² GN solve() at k = DISPATCH_GRID_K against phases
+# 16 and 11's bounds of JAX's f32 trajectories; (d) each small path of
+# scripts/torch_dispatch_paths.py, 2 steps, by (a)'s rule at phase 3's
+# floors (STEP_U_TOL, STEP_COST_RTOL), with PATHS_EAGER_RUNS eager runs
+# where its first two differ or the graphed run differs from them (two
+# eager runs of the small dense-JᵀJ path once agreed bit for bit and the
+# graphed run did not; against one eager pair, the small skewed
+# scene once read 1.07e-4 of max|U| graphed, over the 1e-4 floor, where
+# its eager pairs had lain 7.8e-5 to 1.9e-4 apart); (g) hbm_fraction of
+# ARAP 256²'s marginal PCG iteration at most ROOFLINE_MAX (the traffic
+# model is a lower bound: a share above 1 would be a model or timing
+# fault)
 DISPATCH_1M_K = 5
 DISPATCH_1M_BATCHES = 2
+DISPATCH_1M_U_CALLS = 1
 DISPATCH_SPREAD_X = 2.0
-DISPATCH_EAGER_RUNS = 5
-# (a), (b): the costs within the spread or DISPATCH_COST_FLOOR x the
-# initial cost: near convergence the 1M LM cost after 10 steps is bimodal
-# across runs, 4.41-4.58 or 6.04-6.67 from c0 6 972 748 (on an H100 up to
-# 3.1e-7 x c0 apart: eager runs 4.42, 6.35, 4.55 in one call, 4.48-6.67
-# in another, a graphed 6.11 beside eager 4.42-4.53); about twice that,
-# as phase 12's SCHUR_COST_FLOOR (PERF.md, Findings)
+DISPATCH_EAGER_RUNS = 12
+PATHS_EAGER_RUNS = 5
+# (a), (b), phase 25: the costs within the spread or DISPATCH_COST_FLOOR x
+# the initial cost: the two modes of the 1M cost after 10 steps lie up to
+# 3.1e-7 x c0 apart (on an H100: eager runs 4.42, 6.35, 4.55 in one call,
+# 4.48-6.67 in another, a graphed 6.11 beside eager 4.42-4.53); about
+# twice that, as phase 12's SCHUR_COST_FLOOR (PERF.md, Findings)
 DISPATCH_COST_FLOOR = 6e-7
 DISPATCH_SKEW_STEPS = 4
 DISPATCH_GRID_K = 10
 ROOFLINE_MAX = 1.05
+# phase 25: the sharded path on a one-rank NCCL group (the module
+# docstring): SHARD_CALLS calls of run_steps(SHARD_K), eager sharded and at
+# steps_per_dispatch SHARD_K, by phase 24(a)'s rule
+SHARD_K = 5
+SHARD_CALLS = 2
+# a graph step's all_reduce bytes: the PCG and cost scalars alone
+# (tests/test_distribution.py:232)
+SHARD_MAX_ALL_REDUCE = 4096
 # (e) the hand-written kernels kernel_stats(interior=True) must name on the
 # uniform 1M step (csrc/: the persistent fused pair, oh_setup_products'
 # persistent body, fullrepeat_setup's tiles)
@@ -2975,33 +3021,63 @@ def graphed_dispatch_busy(label, plan):
     return wall, busy
 
 
-def dispatch_vs_eager(label, make, sizes, k, profile=True):
-    """DISPATCH_EAGER_RUNS eager plans and one at steps_per_dispatch=k,
-    each make(k) after warmup(), through the run_steps calls `sizes`: the
-    graphed run after each call within_spread of every eager run (the
-    spread: the largest distance of two eager runs there), ms a step by
-    call logged; one graphed dispatch profiled.  Returns (the last eager
-    plan, the wrapper launches counted during each warmup())."""
+def hold_vs_eager(label, make, sizes, tested, profile=True, u_calls=None):
+    """Phase 24's rule, one for phases 24(a), (b) and 25: eager plans
+    make(1), two, and DISPATCH_EAGER_RUNS of them where the first two
+    differ or a tested run differs from them (bit for bit only where every
+    eager run agrees), and each plan of `tested` ({run: factory}), each
+    after warmup(), through the run_steps calls `sizes`: each tested run after
+    each call within_spread of every eager run (the spread: the largest
+    distance of two eager runs there; floors STEP_U_TOL and
+    DISPATCH_COST_FLOOR); past the first `u_calls` calls (None: every
+    call holds both) the cost alone where the eager runs differ; ms a step
+    by call logged; with `profile`, one dispatch of each graphed tested
+    plan profiled.  Returns (the last eager plan, {run: wrapper launches during its warmup()}, {run:
+    launches during its warmup() and calls (a graph's replays launch
+    through no wrapper: its capture counts)}, {run: [(ms a step, unknowns,
+    cost)] by call}, the initial cost)."""
     fns = counters()
-    runs, warm = {}, {}
-    eager_names = [f"eager {i + 1}" for i in range(DISPATCH_EAGER_RUNS)]
-    for name, kk in [(n, 1) for n in eager_names] + [("graphed", k)]:
-        plan = make(kk)
-        c0 = plan.cost()
+    runs, warm, ran = {}, {}, {}
+
+    def go(name, plan):
         n0 = {n: fn.launches for n, fn in fns.items()}
         t0 = time.perf_counter()
         plan.warmup()  # k > 1: the capture, and the eager throwaway step
         torch.cuda.synchronize()
-        warm[name] = {n: fn.launches - n0[n] for n, fn in fns.items()}
+        n1 = {n: fn.launches for n, fn in fns.items()}
+        warm[name] = {n: n1[n] - n0[n] for n in fns}
         log(f"{label} {name}: warmup {time.perf_counter() - t0:.3f} s")
         runs[name] = _batches(plan, sizes)
-        log(f"{label} {name}: ms a step by call {[round(r[0], 2) for r in runs[name]]}, "
+        ran[name] = {n: fn.launches - n0[n] for n, fn in fns.items() if fn.launches > n0[n]}
+        log(f"{label} {name}: ms a step by call {[round(r[0], 3) for r in runs[name]]}, "
             f"costs {[r[2] for r in runs[name]]}")
-        if kk > 1 and profile:
+
+    def differ(a, b):
+        return any(x[2] != y[2] or _u_rel(x[1], y[1]) != 0.0 for x, y in zip(a, b))
+
+    eager_names = []
+
+    def eager_until(differ_from):
+        nonlocal eager, c0
+        while len(eager_names) < 2 or (len(eager_names) < DISPATCH_EAGER_RUNS and
+                                       any(differ(runs[eager_names[0]], runs[n])
+                                           for n in differ_from())):
+            eager_names.append(f"eager {len(eager_names) + 1}")
+            eager = make(1)
+            c0 = eager.cost()
+            go(eager_names[-1], eager)
+
+    eager = c0 = None
+    eager_until(lambda: eager_names[1:2])
+    for name, factory in tested.items():
+        plan = factory()
+        go(name, plan)
+        if plan.steps_per_dispatch > 1 and profile:
             graphed_dispatch_busy(label, plan)
-        if kk == 1:
-            eager = plan
         del plan
+    # two eager runs of a path with atomics may agree by chance: a tested
+    # run that differs from them calls for the spread of more
+    eager_until(lambda: list(tested))
 
     def dist(a, b):  # (max|dU| / max|U|, |d cost| / the initial cost)
         return _u_rel(a[1], b[1]), abs(a[2] - b[2]) / abs(c0)
@@ -3010,17 +3086,22 @@ def dispatch_vs_eager(label, make, sizes, k, profile=True):
         eager_j = [runs[n][j] for n in eager_names]
         pairs = [dist(a, b) for i, a in enumerate(eager_j) for b in eager_j[i + 1:]]
         spread = (max(p[0] for p in pairs), max(p[1] for p in pairs))
-        got = [dist(runs["graphed"][j], e) for e in eager_j]
-        far = (max(g[0] for g in got), max(g[1] for g in got))
-        ok, (lu, lc) = within_spread(spread, far, (STEP_U_TOL, DISPATCH_COST_FLOOR))
-        log(f"{label} after call {j + 1}: eager runs' spread (largest of "
-            f"{len(pairs)} pairs) max|dU|/max|U| {spread[0]:.3e}, cost {spread[1]:.3e} x c0; "
-            f"graphed vs the farthest eager run {far[0]:.3e}, {far[1]:.3e} (limits {lu:.3e}, "
-            f"{lc:.3e}); costs eager {[e[2] for e in eager_j]}, graphed "
-            f"{runs['graphed'][j][2]!r}, c0 {c0!r}")
-        if not (np.isfinite(runs["graphed"][j][2]) and ok):
-            raise AssertionError(f"{label}, call {j + 1}: graphed run off the eager runs")
-    return eager, warm
+        for name in tested:
+            got = [dist(runs[name][j], e) for e in eager_j]
+            far = (max(g[0] for g in got), max(g[1] for g in got))
+            ok, (lu, lc) = within_spread(spread, far, (STEP_U_TOL, DISPATCH_COST_FLOOR))
+            cost_only = u_calls is not None and j >= u_calls and spread != (0.0, 0.0)
+            if cost_only:
+                ok = far[1] <= lc
+            log(f"{label} {name} after call {j + 1}"
+                f"{' (the cost alone held)' if cost_only else ''}: {len(eager_j)} eager runs' spread "
+                f"(largest of {len(pairs)} pairs) max|dU|/max|U| {spread[0]:.3e}, cost "
+                f"{spread[1]:.3e} x c0; {name} vs the farthest eager run {far[0]:.3e}, "
+                f"{far[1]:.3e} (limits {lu:.3e}, {lc:.3e}); costs eager "
+                f"{[e[2] for e in eager_j]}, {name} {runs[name][j][2]!r}, c0 {c0!r}")
+            if not (np.isfinite(runs[name][j][2]) and ok):
+                raise AssertionError(f"{label}, call {j + 1}: {name} run off the eager runs")
+    return eager, warm, ran, runs, c0
 
 
 def phase_dispatch_1m(ba, tt, scene, skew_scene):
@@ -3036,8 +3117,11 @@ def phase_dispatch_1m(ba, tt, scene, skew_scene):
             return plan
         return plan_at
 
-    eager, _ = dispatch_vs_eager(f"1M LM steps_per_dispatch={DISPATCH_1M_K}", make(scene),
-                                 [DISPATCH_1M_K] * DISPATCH_1M_BATCHES, DISPATCH_1M_K)
+    plan_at = make(scene)
+    eager = hold_vs_eager(f"1M LM steps_per_dispatch={DISPATCH_1M_K}", plan_at,
+                          [DISPATCH_1M_K] * DISPATCH_1M_BATCHES,
+                          {"graphed": lambda: plan_at(DISPATCH_1M_K)},
+                          u_calls=DISPATCH_1M_U_CALLS)[0]
     if eager._finished:  # an LM stop: (e) and (f) step it again from the start
         eager.reset_unknowns()
 
@@ -3068,8 +3152,9 @@ def phase_dispatch_1m(ba, tt, scene, skew_scene):
 
     # (b) the skewed scene: its level tables and W-loop pair inside the capture
     label = f"skewed 1M LM steps_per_dispatch=2, {DISPATCH_SKEW_STEPS} steps"
-    _, warm = dispatch_vs_eager(label, make(skew_scene), [DISPATCH_SKEW_STEPS], 2,
-                                profile=False)
+    skew_at = make(skew_scene)
+    warm = hold_vs_eager(label, skew_at, [DISPATCH_SKEW_STEPS], {"graphed": lambda: skew_at(2)},
+                         profile=False)[1]
     wloop = {n: w["fused_pair_apply_wloop"] for n, w in warm.items()}
     log(f"{label}: fused_pair_apply_wloop launches in warmup() {wloop}")
     # warmup(): one eager step; at k = 2 also the graph's warm-up step and
@@ -3154,14 +3239,11 @@ def phase_dispatch_paths_and_determinism(tt):
 
     # bundle_fusion's small case steps eagerly in 3-4 s (the other paths in
     # under 0.5 s); it captured, and matched its eager runs bit for bit
-    for rec in dispatch_paths(["--steps", "2", "--eager-runs", str(DISPATCH_EAGER_RUNS),
+    for rec in dispatch_paths(["--steps", "2", "--eager-runs", str(PATHS_EAGER_RUNS),
                                "--skip", "model bundle_fusion"]):
-        if "error" in rec:
-            raise AssertionError(f"steps_per_dispatch on {rec['path']}: {rec['error']}")
-        if "raises" in rec:
-            log(f"steps_per_dispatch > 1 raises on {rec['path']}: {rec['raises']} (the capture "
-                f"tried anyway: {rec.get('capture_error', 'captured')})")
-            continue
+        if "error" in rec or "raises" in rec:
+            raise AssertionError(f"steps_per_dispatch on {rec['path']}: "
+                                 f"{rec.get('error') or rec['raises']}")
         spread, got = tuple(rec["eager_spread"]), tuple(rec["graphed_vs_eager"])
         ok, lim = within_spread(spread, got)
         log(f"steps_per_dispatch on {rec['path']}: graphed vs the farthest of "
@@ -3181,6 +3263,99 @@ def phase_dispatch_paths_and_determinism(tt):
     log(f"deconvolution 16² card vs card after step 1: bit-identical {same}")
     if not same:
         raise AssertionError("deconvolution 16²: two card runs differ after step 1")
+
+
+def phase_sharded(ba, tt, scene):
+    """Phase 25 (the module docstring).  Returns {run: kernel launches}
+    of the sharded runs."""
+    import torch.distributed as dist
+
+    from thallo_tpu_torch import parallel
+    from thallo_tpu_torch.models import arap_mesh_deformation as arap
+    from thallo_tpu_torch.parallel.launch import free_port
+
+    if not dist.is_nccl_available():
+        raise AssertionError("phase 25: this torch has no NCCL; the port shards plans on the "
+                             "card over NCCL alone")
+    out, recs, calls = {}, {}, [SHARD_K] * SHARD_CALLS
+    inputs, dims = scene
+    ains = arap.synthetic_inputs(side=ARAP_SIDE)
+    ains, _ = parallel.sort_edges_by_owner(ains, arap.make_spec(), "E", "V0", 1)
+
+    def ba_make(k):
+        plan = ba_plan(ba, tt, inputs, dims, "cuda", 100, steps_per_dispatch=k)
+        plan.init({n: np.copy(v) for n, v in inputs.items()})
+        return plan
+
+    def arap_make(k):
+        return arap_plan(tt, ARAP_SIDE, None, "cuda", n_iter=100,
+                         inputs=(ains, {"N": ARAP_SIDE ** 2, "E": len(ains["V0"])}),
+                         steps_per_dispatch=k)
+
+    def sharded(make, k, dim_axes, name):
+        def factory():
+            plan = make(k)
+            parallel.shard_plan_inputs(plan, parallel.make_mesh(), dim_axes=dim_axes)
+            recs[name] = (parallel.step_collectives(plan), bsr_kernels(plan))
+            return plan
+        return factory
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        for label, make, axes, key in (
+                ("1M LM {P, O}", ba_make, {"P": "x", "O": "x"}, "sharded ba_uniform_1m"),
+                (f"ARAP {ARAP_SIDE}² GN {{N, E}}", arap_make, {"N": "x", "E": "x"},
+                 f"sharded arap_{ARAP_SIDE}")):
+            t0 = time.perf_counter()
+            names = {1: key, SHARD_K: f"{key} k={SHARD_K}"}
+            _, _, ran, runs, c0 = hold_vs_eager(
+                f"phase 25 {label}", make, calls,
+                {names[k]: sharded(make, k, axes, names[k]) for k in names}, profile=False,
+                u_calls=DISPATCH_1M_U_CALLS if key.startswith("sharded ba") else None)
+            eager = [r for n, r in runs.items() if n.startswith("eager")]
+            ms_plain = float(np.mean([r[0] for r in eager[0]]))
+            for k, name in names.items():
+                rec, want = recs[name]
+                st = parallel.collective_stats(rec)
+                ms = float(np.mean([r[0] for r in runs[name]]))
+                log(f"phase 25{'(c)' if k > 1 else ''} {label}, steps_per_dispatch={k}: "
+                    f"collectives of one step {st}; ms a step sharded {ms:.3f}, unsharded "
+                    f"eager {ms_plain:.3f} (mean over the calls); kernel launches "
+                    f"{ran[name]}")
+                missing = sorted(n for n in want if not ran[name].get(n))
+                if missing:
+                    raise AssertionError(f"{label} k={k}: the sharded run launched no {missing}")
+                if key.startswith("sharded arap") and \
+                        st["all_reduce_bytes"] > SHARD_MAX_ALL_REDUCE:
+                    raise AssertionError(f"{label}: {st['all_reduce_bytes']} all_reduce bytes "
+                                         f"a step")
+                out[name] = ran[name]
+            log(f"phase 25 {label}: {len(eager)} unsharded eager runs and two sharded, "
+                f"{time.perf_counter() - t0:.2f} s")
+            if key.startswith("sharded ba"):
+                ba_after_k = [r[0][2] for r in eager]
+        t0 = time.perf_counter()
+        if torch.cuda.device_count() >= 2:
+            from torch_sharded_solve import main as sharded_solve
+
+            r = sharded_solve(["--ranks", "2", "--device", "cuda", "--scene", "ba",
+                               "--steps", str(SHARD_K * SHARD_CALLS)])
+            log(f"phase 25(e) two ranks on two cards: {r}")
+            # after the first SHARD_K steps, before LM's accepts split the
+            # runs: within STEP_COST_RTOL of the range of (a)'s eager runs
+            got = r["costs"][SHARD_K - 1]
+            lo, hi = min(ba_after_k), max(ba_after_k)
+            if not lo * (1 - STEP_COST_RTOL) <= got <= hi * (1 + STEP_COST_RTOL):
+                raise AssertionError(f"phase 25(e): cost {got} after {SHARD_K} steps against "
+                                     f"(a)'s eager {ba_after_k}")
+        else:
+            log("phase 25(e) not run: this machine has one card, and NCCL refuses two ranks "
+                "on one card")
+        log(f"phase 25(e): {time.perf_counter() - t0:.2f} s")
+    finally:
+        dist.destroy_process_group()
+    return out
 
 
 def run_kernel_cases(cases):
@@ -3390,6 +3565,12 @@ def main():
     torch.cuda.synchronize()
     log(f"phase 24 steps_per_dispatch as a CUDA graph of the step; kernel_stats, "
         f"timing_level 3, trace_dir, roofline: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    model_runs.update(phase_sharded(ba, tt, scene))
+    torch.cuda.synchronize()
+    log(f"phase 25 the sharded path on a one-rank NCCL group: "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8),
     # and on each run of phases 15-17 that launched it

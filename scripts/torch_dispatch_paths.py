@@ -9,9 +9,10 @@ For each path: two eager plans (steps_per_dispatch=1) and one with
 steps_per_dispatch=2, each from the same seeded inputs, run_steps(--steps)
 then the unknowns and the cost; the graphed plan first through warmup()
 (the capture).  Where the two eager runs differ (atomics sum in another
-order each run), more eager runs, --eager-runs in all, so that the
-spread is the largest distance of any two of them and not one pair's
-draw.  The run of the graphed plan's step graph is repeated
+order each run), or the graphed run differs from them (two runs of a
+path with atomics may agree by chance), more eager runs, --eager-runs in
+all, so that the spread is the largest distance of any two of them and
+not one pair's draw; bit for bit only where every eager run agrees.  The run of the graphed plan's step graph is repeated
 under torch.cuda.set_sync_debug_mode("error") (a host read there
 raises).  A path whose plan raises NotImplementedError for
 steps_per_dispatch > 1 (CompiledSolver.uncapturable) is reported with
@@ -173,17 +174,23 @@ def check_path(name, make, device, steps, k=2, eager_runs=5):
                     rec["capture_error"] = f"{type(err).__name__}: {str(err).splitlines()[0]}"
             return rec
         runs, rec["eager_ms"], rec["n_iter"] = [], [], []
-        while len(runs) < 2 or (len(runs) < eager_runs and
-                                _dist(runs[0], runs[1]) != (0.0, 0.0)):
-            p = make(device)
-            p.warmup()
-            rec["eager_ms"].append(_run(p, steps, sync))
-            runs.append(_state(p))
-            rec["n_iter"].append(p._lm.n_iter)
-            del p
+
+        def eager_until(differ):
+            while len(runs) < 2 or (len(runs) < eager_runs and differ()):
+                p = make(device)
+                p.warmup()
+                rec["eager_ms"].append(_run(p, steps, sync))
+                runs.append(_state(p))
+                rec["n_iter"].append(p._lm.n_iter)
+                del p
+
+        eager_until(lambda: _dist(runs[0], runs[1]) != (0.0, 0.0))
         graphed.warmup()
         rec["graphed_ms"] = _run(graphed, steps, sync)
         got = _state(graphed)
+        # two eager runs of a path with atomics may agree by chance: a
+        # graphed run that differs from them calls for the spread of more
+        eager_until(lambda: _dist(runs[0], got) != (0.0, 0.0))
         rec["n_iter"].append(graphed._lm.n_iter)
         rec["eager_spread"] = _spread([_dist(a, b) for i, a in enumerate(runs)
                                        for b in runs[i + 1:]])

@@ -1664,3 +1664,35 @@ def test_in_order_scatter_is_deterministic(cuda):
         assert segsum.segment_sum.launches > n0
         Us.append(p.unknowns()["X"].cpu())
     assert torch.equal(Us[0], Us[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,dtype", [(144, torch.float32), (144, torch.float64),
+                                     (512, torch.float32)])
+def test_capturable_eigh_matches_torch_and_captures(cuda, K, dtype):
+    """ops/linalg.eigh (cuSOLVER's batched eigensolver, info on the
+    device) against torch.linalg.eigvalsh in f64 on a seeded S = M Mᵀ, then
+    captured in a CUDA graph and replayed: the eigenvalues within 1e-5 (f32)
+    or 1e-12 (f64) of max λ, S V = V Λ within ten times that, and the replay's
+    eigenvalues within the same bound of the eager call's."""
+    from thallo_tpu_torch.ops import linalg
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    M = torch.randn(K, K, device=cuda, dtype=dtype, generator=g)
+    S = M @ M.T
+    lam, V = linalg.eigh(S)
+    ref = torch.linalg.eigvalsh(S.double()).to(dtype)
+    tol = (1e-5 if dtype == torch.float32 else 1e-12) * float(ref.abs().max())
+    assert float((lam - ref).abs().max()) <= tol
+    assert float((S @ V - V * lam).abs().max()) <= 10 * tol
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        linalg.eigh(S)
+    torch.cuda.current_stream().wait_stream(side)
+    graph, out = torch.cuda.CUDAGraph(), {}
+    with torch.cuda.graph(graph):
+        out["lam"] = linalg.eigh(S)[0]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float((out["lam"] - lam).abs().max()) <= tol

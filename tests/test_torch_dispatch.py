@@ -161,21 +161,50 @@ def test_once_per_solve_across_dispatches():
             np.testing.assert_array_equal(st2[f], st1[f])
 
 
-def test_uncapturable_path_is_named():
-    """A step the card cannot capture names itself (the plan raises
-    NotImplementedError with it for steps_per_dispatch > 1 on the card);
-    on the CPU every path dispatches."""
+def test_schur_dense_gn_is_capturable():
+    """GN's schur_dense captures (its eigendecomposition leaves cuSOLVER's
+    info on the device, ops/linalg.py): uncapturable() is None for it, as
+    for the plain LM and GN plans, and a dispatch of it solves on the CPU.
+    A kept system above SYEV_CAPTURE_MAX rows is named."""
+    from thallo_tpu_torch.ops import linalg
+
     inputs, _ = ba.synthetic_inputs(n_cameras=4, n_points=32, obs_per_point=3)
     dims = {"C": 4, "P": 32, "O": len(inputs["oToC"])}
     plan = tt.load_energy(ba.ENERGY).plan(dims, solver="gauss_newton", device="cpu",
                                           linear_solver="schur_dense", steps_per_dispatch=2)
-    assert "schur_dense" in plan.compiled.uncapturable()
+    assert plan.compiled.uncapturable() is None
     plan.set_solver_parameter("nIterations", 4)
     c0 = plan.init(inputs)
     assert plan.solve() < c0 and plan.num_iterations == 4
     for solver in ("levenberg_marquardt", "gauss_newton"):
         plain = tt.load_energy(ba.ENERGY).plan(dims, solver=solver, device="cpu")
         assert plain.compiled.uncapturable() is None
+    C = linalg.SYEV_CAPTURE_MAX // 9 + 1
+    big = tt.load_energy(ba.ENERGY).plan({"C": C, "P": 2 * C, "O": 96}, solver="gauss_newton",
+                                         device="cpu", linear_solver="schur_dense")
+    assert f"{C * 9} rows" in big.compiled.uncapturable()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gn_dense_solve_is_the_minimum_norm_solution(dtype):
+    """GN's dense Schur solve on a singular S (a rank-deficient Gram
+    matrix, b in its range): the minimum-norm least-squares solution with
+    lstsq's cutoff, held against numpy's pinv in f64 (the cutoff is far
+    from every eigenvalue here, so only rounding separates them: 1e-4 of
+    max|x| in f32, 1e-10 in f64)."""
+    rng = np.random.default_rng(5)
+    K, rank = 36, 29
+    M = rng.standard_normal((K, rank))
+    S = M @ M.T
+    b = S @ rng.standard_normal(K)
+    ins, _ = ba.synthetic_inputs(n_cameras=4, n_points=32, obs_per_point=3)
+    spec = tt.load_energy(ba.ENERGY, tt.ProblemSpec(double_precision=dtype == torch.float64))
+    comp = spec.plan({"C": 4, "P": 32, "O": len(ins["oToC"])}, solver="gauss_newton",
+                     device="cpu", linear_solver="schur_dense").compiled
+    got = comp._dense_solve(torch.tensor(S, dtype=dtype), torch.tensor(b, dtype=dtype))
+    want = np.linalg.pinv(S, rcond=1e-10) @ b
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    assert np.abs(got.numpy() - want).max() <= tol * np.abs(want).max()
 
 
 @pytest.mark.parametrize("shape,in_order", [((1, 6400, 256), True), ((2, 192, 4), False),

@@ -19,9 +19,10 @@ SHARED = ["typesys.py", "dims.py", "expr.py", "inputs.py", "spec.py", "lib_env.p
           "models/arap_mesh_deformation.py", "models/embedded_mesh_deformation.py",
           "models/robust_nonrigid_alignment.py", "models/cotangent_mesh_smoothing.py",
           "models/sparse_bundle_fusion.py", "io/bal.py", "io/ply.py", "io/image.py"]
-# every Python file of the port, and the smoke run that drives it on the card
+# every Python file of the port, the smoke run that drives it on the card,
+# and the sharded solves' workers (fresh rank processes import them)
 PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "thallo_tpu_torch").rglob("*.py"))
-PORT_FILES.append("chip_smoke.py")
+PORT_FILES += ["chip_smoke.py", "scripts/torch_sharded_solve.py"]
 
 
 @pytest.mark.parametrize("rel", SHARED)
@@ -125,7 +126,11 @@ def test_imports_with_jax_blocked():
         "import thallo_tpu_torch.ops.fullrepeat, thallo_tpu_torch.ops._cuda\n"
         "import thallo_tpu_torch.ops.segsum, thallo_tpu_torch.ops.loopfloor\n"
         "import thallo_tpu_torch.ops.structured, thallo_tpu_torch.reorder\n"
-        "import thallo_tpu_torch.io, thallo_tpu_torch.models\n"
+        "import thallo_tpu_torch.io, thallo_tpu_torch.models, thallo_tpu_torch.ops.linalg\n"
+        "import thallo_tpu_torch.parallel, thallo_tpu_torch.parallel.mesh\n"
+        "import thallo_tpu_torch.parallel.comm, thallo_tpu_torch.parallel.multihost\n"
+        "import thallo_tpu_torch.parallel.launch\n"
+        "sys.path.insert(0, 'scripts'); import torch_sharded_solve\n"
         "from thallo_tpu_torch.models import bundle_adjustment as ba\n"
         "spec = thallo_tpu_torch.load_energy(ba.ENERGY)\n"
         "assert not any(m in ('jax', 'thallo_tpu') or m.startswith(('jax.', 'thallo_tpu.'))\n"

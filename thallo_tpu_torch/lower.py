@@ -49,6 +49,7 @@ residual under INLINE launches the same kernels.
 """
 from __future__ import annotations
 
+import copy
 import os
 from typing import Dict, List, Tuple
 
@@ -573,11 +574,36 @@ class LoweredGroup:
         self._rolls = [self._roll_plan(s) for s in self.jac_slots]
         self._crolls = [self._roll_plan(s) for s in self.cslots]
         self._mrolls = [self._roll_plan(s) for s in self.mslots]
+        # every jac slot a roll: JAX builds no block-sparse tables for it
+        self.pure_stencil = all(rp is not None for rp in self._rolls)
         self._F = self._build_local_fn()
         # contraction blocking (thallo_tpu/lower.py:486-492): the Sums run
         # over blocks of one contracted domain, one block's fiber at a time
         self.con_block = self._plan_con_block(con_splits or {})
         self._split_fns = {}
+
+    # external axis -> first index of this rank's block (shard_view)
+    _ext_offsets: Dict[int, int] = {}
+
+    def shard_view(self, axis: int, lo: int, hi: int) -> "LoweredGroup":
+        """This group over the block [lo, hi) of its external axis `axis`
+        (a rank's residual shard under a mesh): R and the grid shrink to the
+        block, index expressions see global indices (the block's offset),
+        and every roll becomes a gather by its torus-wrapped flat indices,
+        so the slots read the whole (gathered) image.  The lowering, the
+        slots and pure_stencil are shared with this group."""
+        g = copy.copy(self)
+        shape = list(self.ext_shape)
+        shape[axis] = hi - lo
+        g.ext_shape = tuple(shape)
+        g.R = int(np.prod(shape))
+        g._ext_offsets = {axis: lo}
+        g._rolls = [None] * len(self._rolls)
+        g._crolls = [None] * len(self._crolls)
+        g._mrolls = [None] * len(self._mrolls)
+        g._F = g._build_local_fn()
+        g._split_fns = {}
+        return g
 
     @property
     def jac_slots(self) -> List[SlotSpec]:
@@ -712,9 +738,10 @@ class LoweredGroup:
 
     def _grid_env(self, deps, sparse, con_block=None, device="cpu"):
         """The index environment over [*ext_shape, *dep_shape] and that shape
-        (thallo_tpu's _slot_axes)."""
+        (thallo_tpu's _slot_axes); a shard's external axis starts at its
+        block's first index (shard_view)."""
         axes = {d: i for i, d in enumerate(self.ext_domains)}
-        offsets = {}
+        offsets = dict(self._ext_offsets)
         for k, d in enumerate(deps):
             axes[d] = len(self.ext_shape) + k
             if con_block is not None and d is con_block[0]:
@@ -778,7 +805,8 @@ class LoweredGroup:
             (C, self.R) + tuple(shape[len(self.ext_shape):]))
 
     # -- per-solve constants -------------------------------------------------
-    def prepared_consts(self, inputs, device, want_bsr=False, onehot_exclude=()):
+    def prepared_consts(self, inputs, device, want_bsr=False, onehot_exclude=(),
+                        row_windows=None):
         """Everything non-differentiated, computed once per init: index
         tables of the gathered jac slots (host -> device once; None for
         stencil slots and for slots over a blocked contracted domain),
@@ -796,7 +824,8 @@ class LoweredGroup:
         index value over the blocked domain of a con_block is made per
         block (_blocked_operands).  onehot_exclude: image names that build
         row tables instead of one-hot rows (an image that schur_dense
-        eliminates)."""
+        eliminates).  row_windows: image name -> the element range [lo, hi)
+        a rank owns, where its row tables may start and end (a shard)."""
         blk = self.con_block[0] if self.con_block is not None else None
         sparse = self._sparse_arrays(inputs)
         jslots = self.jac_slots
@@ -829,7 +858,7 @@ class LoweredGroup:
         if want_bsr:
             from .solver.blocksparse import build_group_bsr
 
-            bsr = build_group_bsr(self, idx, self.dtype, device, onehot_exclude)
+            bsr = build_group_bsr(self, idx, self.dtype, device, onehot_exclude, row_windows)
         if bsr is None:  # no tables: the group scatters per-point values into its images
             tiled = os.environ.get("THALLO_SEGSUM") == "tiled"
             for i, flat in enumerate(idx):

@@ -40,6 +40,15 @@ stop changes nothing), then the rest unguarded.  On the card a dispatch
 is k replays of one CUDA graph of the guarded step (``_StepGraph``);
 a step the card cannot capture (``CompiledSolver.uncapturable``) raises
 NotImplementedError at plan time instead.
+
+Under a mesh (``parallel.shard_plan_inputs``; JAX's ``with mesh:``
+becomes nothing: the plan holds its mesh) every rank runs the same calls
+on its own shard: ``_U`` and ``_inputs`` hold the rank's owned blocks,
+``_prep`` its residual block's tables; ``cost``, ``final_cost`` and
+``get_unknown`` return global values (by collectives, so every rank
+calls them), ``save_state`` gathers and writes from rank 0,
+``load_state`` reads on rank 0 and hands each rank its blocks, and
+``init`` and ``update_inputs`` shard anew.
 """
 from __future__ import annotations
 
@@ -251,6 +260,9 @@ class Plan:
         self._lm = None
         self._finished = False
         self._iter = 0
+        # parallel.shard_plan_inputs: the mesh and dim name -> mesh axis
+        self.mesh = None
+        self._dim_axes = None
 
     def _schedule(self, spec, auto, lin_hint):
         """The groups and their schedules by the use_autoscheduler mode
@@ -468,14 +480,29 @@ class Plan:
         self._residual_perms = perms
         return out
 
+    def _bind(self, inputs):
+        """Normalized global inputs -> _inputs and the prepared tables
+        (under a mesh: this rank's view and its shard's tables)."""
+        if self.mesh is None:
+            self._inputs = inputs
+            self._prep = self.compiled.prepare(inputs)
+        else:
+            from .parallel.mesh import bind_sharded
+
+            self._inputs = bind_sharded(self, inputs)
+        unknown_names = {im.name for im in self.spec.unknowns}
+        self._const_inputs = {k: v for k, v in self._inputs.items() if k not in unknown_names}
+        self._graph = None
+
+    def _global_inputs(self):
+        """The normalized global inputs, anew from the raw user inputs."""
+        return self._normalize_inputs(self._maybe_sort_residuals(dict(self._raw_inputs0)))
+
     def init(self, inputs: Dict[str, np.ndarray]):
         """Bind user arrays and reset solver state.  Returns the initial cost."""
         inputs = self._maybe_sort_residuals(inputs)
-        self._inputs = self._normalize_inputs(inputs)
+        self._bind(self._normalize_inputs(inputs))
         self._U = {im.name: self._inputs[im.name].clone() for im in self.spec.unknowns}
-        self._const_inputs = {k: v for k, v in self._inputs.items() if k not in self._U}
-        self._prep = self.compiled.prepare(self._inputs)
-        self._graph = None
         with self.timer.event("Nonlinear Setup"):
             c0 = self.cost()
         sp = self.solver_parameters
@@ -514,12 +541,9 @@ class Plan:
                 "or load_state() to reset unknown values")
         merged = dict(self._raw_inputs0)
         merged.update(inputs)
-        normalized = self._normalize_inputs(self._maybe_sort_residuals(merged))
-        self._inputs = {k: (self._inputs[k] if k in unknown_names else v)
-                        for k, v in normalized.items()}
-        self._const_inputs = {k: v for k, v in self._inputs.items() if k not in unknown_names}
-        self._prep = self.compiled.prepare(self._inputs)
-        self._graph = None
+        held = {k: self._inputs[k] for k in unknown_names}
+        self._bind(self._normalize_inputs(self._maybe_sort_residuals(merged)))
+        self._inputs.update(held)
         if self._lm is not None and self.compiled.uses_lambda:
             self._lm = self._lm._replace(prev_cost=self._scalar(self.cost()))
 
@@ -561,10 +585,20 @@ class Plan:
             self._finished = True
             return False
         max_t = float(self.solver_parameters["max_solver_time_in_seconds"])
-        if max_t > 0 and time.perf_counter() - self._solve_t0 > max_t:
+        if max_t > 0 and self._out_of_time(max_t):
             self._finished = True
             return False
         return True
+
+    def _out_of_time(self, max_t) -> bool:
+        """The time limit, read on every rank's clock; under a mesh the
+        ranks stop together, when the first of them is out of time."""
+        late = time.perf_counter() - self._solve_t0 > max_t
+        if self.mesh is None:
+            return late
+        from .parallel import comm
+
+        return comm.all_min([int(not late)], self.device)[0] == 0
 
     def run_steps(self, n: int) -> int:
         """n nonlinear iterations back to back (at most the nIterations
@@ -717,10 +751,17 @@ class Plan:
         self._iter = 0
 
     def unknowns(self) -> Dict[str, torch.Tensor]:
+        """The unknowns as the plan holds them (under a mesh: this rank's
+        owned blocks)."""
         return dict(self._U)
 
+    def _whole(self, name, v):
+        ctx = self.compiled.shard_ctx
+        return v if ctx is None else ctx.gather(name, v)
+
     def get_unknown(self, name, squeeze=True):
-        a = self._U[name]
+        """The whole unknown image (under a mesh: gathered, on every rank)."""
+        a = self._whole(name, self._U[name])
         if squeeze and a.shape[-1] == 1:
             a = a[..., 0]
         return a
@@ -731,8 +772,11 @@ class Plan:
         (readable by thallo_tpu's Plan.load_state and by this one)."""
         if self._U is None:
             raise RuntimeError("nothing to save: call init() first")
-        payload = {f"U::{k}": v.cpu().numpy() for k, v in self._U.items()}
-        payload.update({f"ssq::{k}": v.cpu().numpy() for k, v in self._lm.ssq.items()})
+        payload = {f"U::{k}": self._whole(k, v).cpu().numpy() for k, v in self._U.items()}
+        payload.update({f"ssq::{k}": self._whole(k, v).cpu().numpy()
+                        for k, v in self._lm.ssq.items()})
+        if self.mesh is not None and torch.distributed.get_rank() != 0:
+            return  # the ranks gathered with rank 0, which writes
         payload.update(
             iter=np.asarray(self._iter),
             trust_region_radius=self._lm.trust_region_radius.cpu().numpy(),
@@ -748,22 +792,34 @@ class Plan:
         inputs must already be bound via init()."""
         if self._inputs is None:
             raise RuntimeError("bind inputs with init() before load_state()")
-        with np.load(path) as z:
-            def dev(a):
-                return torch.as_tensor(np.asarray(a), dtype=self.dtype).to(self.device)
+        ctx = self.compiled.shard_ctx
+        z = None
+        if ctx is None or torch.distributed.get_rank() == 0:
+            with np.load(path) as f:
+                z = {k: f[k] for k in f.files}
+        if ctx is not None:  # read on rank 0, every rank takes its blocks
+            from .parallel import comm
 
-            self._U = {k[len("U::"):]: dev(z[k]) for k in z.files if k.startswith("U::")}
-            ssq = {k[len("ssq::"):]: dev(z[k]) for k in z.files if k.startswith("ssq::")}
-            self._lm = LMState(
-                trust_region_radius=self._scalar(z["trust_region_radius"]),
-                radius_decrease_factor=self._scalar(z["radius_decrease_factor"]),
-                prev_cost=self._scalar(z["prev_cost"]),
-                n_iter=int(z["n_iter"]),
-                ssq=ssq,
-                finished=torch.tensor(bool(z["finished"]), device=self.device),
-            )
-            self._iter = int(z["iter"])
-            self._finished = bool(z["finished"])
+            z = comm.broadcast_object(z, device=self.device)
+
+        def dev(name, a):
+            t = torch.as_tensor(np.asarray(a), dtype=self.dtype).to(self.device)
+            return t if ctx is None else ctx.shard(name, t).clone()
+
+        self._U = {k[len("U::"):]: dev(k[len("U::"):], v)
+                   for k, v in z.items() if k.startswith("U::")}
+        ssq = {k[len("ssq::"):]: dev(k[len("ssq::"):], v)
+               for k, v in z.items() if k.startswith("ssq::")}
+        self._lm = LMState(
+            trust_region_radius=self._scalar(z["trust_region_radius"]),
+            radius_decrease_factor=self._scalar(z["radius_decrease_factor"]),
+            prev_cost=self._scalar(z["prev_cost"]),
+            n_iter=int(z["n_iter"]),
+            ssq=ssq,
+            finished=torch.tensor(bool(z["finished"]), device=self.device),
+        )
+        self._iter = int(z["iter"])
+        self._finished = bool(z["finished"])
         self._graph = None
 
     def jacobian(self, dense: bool = False):
@@ -773,6 +829,9 @@ class Plan:
         n_cols]).  Excluded unknowns' columns are zero."""
         if self._inputs is None:
             raise RuntimeError("call init() first")
+        if self.mesh is not None:
+            raise NotImplementedError("plan.jacobian() under a mesh (ROADMAP queue 1, "
+                                      "item 10b)")
         comp = self.compiled
         ins, consts = self._step_inputs(), self._prep["consts"]
         masks = comp.masks(ins, self._U, self._prep.get("masks_static"),

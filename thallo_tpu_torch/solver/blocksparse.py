@@ -40,6 +40,15 @@ instead of one-hot rows and keeps its col blocks (``onehot_exclude``):
 the dense Schur assembly reads its couplings from them.  A pure-stencil
 group, and a group whose tables exceed the padding budget, build none
 (``build_group_bsr`` returns None, as JAX's does).
+
+Under a mesh each rank builds the tables of its own residual shard
+(perms hold local residual ids; col tables and one-hot ids hold global
+element ids).  A row table whose index array stays inside the element
+block the rank owns is a **window**: its rows are that block alone
+(``row_win``, JAX's row-block sharding of the tables,
+``thallo_tpu/parallel/mesh.py:55-102``), its overflow ids count from the
+block's start, and its diag blocks and row contributions cover the block;
+``bsr_setup`` and ``bsr_apply`` return full images all the same.
 """
 from __future__ import annotations
 
@@ -89,6 +98,9 @@ class GroupBsr:
     # sorted-run gather reads it, the port's gather reads the perm.
     row_starts: Tuple[Optional[np.ndarray], ...]
     full_repeat: Tuple[bool, ...]        # row table -> full-repeat (ops/fullrepeat.py)
+    # per row table: (first element, elements of the image) of a window,
+    # or None (the table's rows are the whole image)
+    row_win: Tuple[Optional[Tuple[int, int]], ...] = ()
 
     def levels_of(self, base: int) -> Tuple[int, ...]:
         """All row tables sharing this base, base first."""
@@ -96,6 +108,24 @@ class GroupBsr:
 
     def slot_onehot(self, i: int) -> bool:
         return self.slot_row[i] < 0
+
+    def window(self, t: int) -> Optional[Tuple[int, int]]:
+        """(first element, image elements) of row table t's window, or None."""
+        return self.row_win[t] if t < len(self.row_win) else None
+
+    def diag_full(self, p_idx: int, blk: torch.Tensor) -> torch.Tensor:
+        """A diag pair's blocks [Ci*Cj, N] over the whole image (a window's
+        blocks padded with zero blocks)."""
+        row = self.slot_row[self.pairs[p_idx][0]]
+        return blk if row < 0 else _embed(blk, self.window(row))
+
+
+def _embed(v: torch.Tensor, win) -> torch.Tensor:
+    """[F, N_win] values of a window -> [F, N] over the whole image."""
+    if win is None:
+        return v
+    lo, n = win
+    return torch.nn.functional.pad(v, (lo, n - lo - v.shape[1]))
 
 
 def _levels_of(row_base, base: int) -> Tuple[int, ...]:
@@ -231,7 +261,7 @@ def _rank_keyed_tables(idx: np.ndarray, N: int, R: int, max_waste: float,
 
 
 def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
-                    onehot_exclude=()) -> Optional[GroupBsr]:
+                    onehot_exclude=(), row_windows=None) -> Optional[GroupBsr]:
     """Build the static tables from the slots' concrete flat indices
     (host side, once per init).  idxs[i] is slot i's [R] element index.
     THALLO_ONEHOT_ROWS and THALLO_TRANSPOSE_ROWS are read here, as
@@ -243,11 +273,14 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
     exceed the padding budget; the solver then runs the group from its
     stored point Jacobians.  The slots are the group's jac slots (the
     unknown slots, then the composed slots of materialized computed
-    arrays); a group with contractions builds none."""
+    arrays); a group with contractions builds none.  row_windows (image
+    name -> [lo, hi), a rank's owned elements under a mesh): a row table
+    whose every slot's image has that window, narrower than the image, and
+    whose index array lies inside it covers the window's rows alone."""
     jslots = group.jac_slots
     R = group.R
     if not jslots or R == 0 or group.con_domains or any(s.dep_cons for s in jslots) \
-            or all(rp is not None for rp in group._rolls):
+            or group.pure_stencil:
         return None
     slot_N = [int(np.prod([d.size for d in s.image.dims])) for s in jslots]
     nslots = len(jslots)
@@ -287,6 +320,7 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
     tables: List[dict] = []
     row_base_of: List[int] = []
     key_to_row: Dict[bytes, int] = {}
+    wins = [None if row_windows is None else row_windows.get(s.image.name) for s in jslots]
     for i, s in enumerate(jslots):
         if onehot[i]:
             row_of_slot.append(-1)
@@ -294,11 +328,19 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
         key = idxs[i].tobytes()
         if key not in key_to_row:
             idx, N, base = idxs[i], slot_N[i], len(tables)
+            same = [k for k in range(nslots) if not onehot[k] and idxs[k].tobytes() == key]
+            win = wins[i]
+            if win is not None and win[1] - win[0] < N and idx.size \
+                    and all(wins[k] == win for k in same) \
+                    and win[0] <= int(idx.min()) and int(idx.max()) < win[1]:
+                idx, N, win = idx - win[0], win[1] - win[0], (win[0], N)
+            else:
+                win = None
             W = _repeat_width(idx, N) if _seg_keyed(idx, N, R) else 0
             if W >= 2:
                 tables.append({"perm": np.arange(R, dtype=np.int32).reshape(N, W),
                                "mask": np.ones((N, W), np.float32), "sel": None,
-                               "start": None, "full": True})
+                               "start": None, "full": True, "win": win})
                 row_base_of.append(base)
             else:
                 # every other map, affine ones included (JAX keys those by
@@ -307,7 +349,7 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
                 if levels is None:
                     return None  # N alone exceeds the padding budget
                 for t in levels:
-                    tables.append({**t, "full": False})
+                    tables.append({**t, "full": False, "win": win})
                     row_base_of.append(base)
             key_to_row[key] = base
         row_of_slot.append(key_to_row[key])
@@ -372,6 +414,7 @@ def build_group_bsr(group, idxs: List[np.ndarray], dtype, device,
                       for i in range(nslots)),
         row_starts=tuple(t["start"] for t in tables),
         full_repeat=tuple(t["full"] for t in tables),
+        row_win=tuple(t["win"] for t in tables),
     )
 
 
@@ -465,16 +508,16 @@ def bsr_setup(bsr: GroupBsr, rT, jTs, block_dtype=None):
     def add(out, name, v):
         out[name] = out[name] + v if name in out else v
 
-    def scatter_slabs(agg, specs):
+    def scatter_slabs(agg, specs, win=None):
         off = 0
         for kind, key, width in specs:
             v = agg[off:off + width]
             if kind == "pair":
-                blocks[key] = v  # [Ci*Cj, N] diag block
+                blocks[key] = v  # [Ci*Cj, N] diag block (over the window)
             else:
                 name = bsr.slot_images[key]
                 add(jtr_out if kind == "jtr" else d2_out, name,
-                    v.T.reshape(bsr.image_shapes[name]))
+                    _embed(v, win).T.reshape(bsr.image_shapes[name]))
             off += width
 
     # ---- one-hot row slots: segment sum by element id --------------------
@@ -510,7 +553,7 @@ def bsr_setup(bsr: GroupBsr, rT, jTs, block_dtype=None):
                      if sp[0] != "pair" or bsr.pairs[sp[1]][2] == "diag"]
         if not bsr.full_repeat[base]:
             scatter_slabs(_setup_levels(bsr, base, specs, rT, Jall, offs, blocks, block_dtype),
-                          agg_specs)
+                          agg_specs, bsr.window(base))
             continue
         N_t, W = bsr.perms[base].shape
         recipe, cross_keys = [], []
@@ -524,7 +567,7 @@ def bsr_setup(bsr: GroupBsr, rT, jTs, block_dtype=None):
                 recipe.append(("cross",) + ent + (len(cross_keys),))
                 cross_keys.append(key)
         agg, crosses = fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=tuple(recipe))
-        scatter_slabs(agg, agg_specs)
+        scatter_slabs(agg, agg_specs, bsr.window(base))
         for key, blk in zip(cross_keys, crosses):
             blocks[key] = _stored(blk, block_dtype)
     return jtr_out, d2_out, blocks
@@ -537,19 +580,33 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
     as they are stored: the kernels read them); a col pair without a
     partner gathers p by its col table (its blocks upcast to f32 first).  Overflow levels' row
     contributions are merged into one index_add_ per slot (duplicate ids
-    across levels accumulate).  p: dict image -> [*imshape].  Returns dict
-    image -> [*imshape] contribution."""
+    across levels accumulate).  A slot whose row table is a window sums its
+    diag and row contributions over the window, its col contributions over
+    the whole image, and adds the two at the end.  p: dict image ->
+    [*imshape].  Returns dict image -> [*imshape] contribution."""
     pT = {img: p[img].reshape(-1, p[img].shape[-1]).T.contiguous()
           for img in set(bsr.slot_images)}
     partnered = {pr[3] for pr in bsr.pairs if pr[2] == "transpose"}
     acc: Dict[int, torch.Tensor] = {}
+    acc_win: Dict[int, torch.Tensor] = {}  # window slots' diag and row contributions
     deferred: Dict[int, list] = {}
+    win_of = {i: bsr.window(bsr.slot_row[i]) for i in range(len(bsr.slot_images))
+              if not bsr.slot_onehot(i) and bsr.window(bsr.slot_row[i]) is not None}
 
-    def add(i, v, sel=None):
+    def prow_of(i):
+        """[Ci, rows of slot i's table]: p at the table's rows."""
+        v = pT[bsr.slot_images[i]]
+        if i in win_of:
+            lo = win_of[i][0]
+            v = v[:, lo:lo + bsr.perms[bsr.slot_row[i]].shape[0]]
+        return v
+
+    def add(i, v, sel=None, row=True):
         if sel is not None:
             deferred.setdefault(i, []).append((sel, v))
         else:
-            acc[i] = acc[i] + v if i in acc else v
+            a = acc_win if row and i in win_of else acc
+            a[i] = a[i] + v if i in a else v
 
     for p_idx, pr in enumerate(bsr.pairs):
         i, j, kind = pr[0], pr[1], pr[2]
@@ -558,13 +615,13 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
             continue  # computed with its partner col pair
         if kind == "diag":
             B = blocks[p_idx].reshape(Ci, Cj, -1)
-            add(i, (B * pT[bsr.slot_images[j]][None]).sum(1))
+            add(i, (B * prow_of(j)[None]).sum(1))
             continue
         ct = bsr.col_gathers[pr[3]][0]
         ids = bsr.cols[ct]
         W, N_t = ids.shape
         sel = bsr.row_sels[bsr.col_row[ct]]
-        prow = pT[bsr.slot_images[i]]
+        prow = prow_of(i)
         if sel is not None:
             prow = prow.index_select(1, sel)  # [Ci, N_t]: the overflow elements
         pcol = pT[bsr.slot_images[j]]
@@ -581,21 +638,25 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
                   "fused_pair_apply_bf16": fused_pair_apply_bf16,
                   "fused_pair_apply_wloop_bf16": fused_pair_apply_wloop_bf16,
                   "fused_pair_bf16_atomics": fused_pair_bf16_atomics}[route]
-            rows, cols = fn(ids, blocks[p_idx], pcol, prow, Ci=Ci, Cj=Cj, S=pcol.shape[1])
+            rows, cols = fn(ids, blocks[p_idx], pcol, prow.contiguous(), Ci=Ci, Cj=Cj,
+                            S=pcol.shape[1])
             add(i, rows, sel)
-            add(j, cols)
+            add(j, cols, row=False)
             continue
         pg = pcol.index_select(1, ids.reshape(-1)).view(Cj, W, N_t)
         B = blocks[p_idx].view(W, Ci, Cj, N_t).to(pg.dtype)  # bf16 storage: upcast
         add(i, (B * pg.transpose(0, 1)[:, None]).sum((0, 2)), sel)
     out: Dict[str, torch.Tensor] = {}
-    for i in list(acc) + [k for k in deferred if k not in acc]:
-        v = acc.get(i)
+    for i in dict.fromkeys(list(acc) + list(acc_win) + list(deferred)):
+        v = (acc_win if i in win_of else acc).get(i)
         if v is None:
-            v = torch.zeros_like(pT[bsr.slot_images[i]])
+            v = torch.zeros_like(prow_of(i))
         ents = deferred.get(i)
         if ents:
             v = v.index_add(1, torch.cat([s for s, _ in ents]), torch.cat([c for _, c in ents], 1))
+        if i in win_of:
+            v = _embed(v, win_of[i])
+            v = acc[i] + v if i in acc else v
         name = bsr.slot_images[i]
         v = v.T.reshape(bsr.image_shapes[name])
         out[name] = out[name] + v if name in out else v

@@ -107,6 +107,7 @@ from torch.profiler import record_function
 
 from ..lower import LoweredGroup, lower_pointwise
 from ..schedule import DENSE_JTJ_MAX_UNKNOWNS
+from ..ops import linalg
 from ..spec import JTJpSchedule
 from .blocksparse import bsr_apply, bsr_setup
 
@@ -331,6 +332,12 @@ class CompiledSolver:
             im.name: lower_pointwise([im.exclude_expr], spec, sizes, dtype,
                                      name=f"exclude_{im.name}")
             for im in spec.unknowns if im.exclude_expr is not None}
+        # set by parallel.mesh (thallo_tpu/solver/gn.py:243-249): the
+        # rank's owned blocks and the step's collectives (a ShardCtx), with
+        # `groups` the rank's views of the groups and _global_groups the
+        # groups as planned; None without a mesh
+        self.shard_ctx = None
+        self._global_groups = None
 
     # -- layout ------------------------------------------------------------
     def unknown_layout(self):
@@ -398,10 +405,12 @@ class CompiledSolver:
         that read no unknown (evaluated here once, not every step)."""
         ex_consts = {name: g.prepared_consts(inputs, self.device)
                      for name, (g, _) in self._exclude_fns.items()}
+        windows = self.shard_ctx.windows if self.shard_ctx is not None else None
         prep = {
             "consts": [gp.group.prepared_consts(inputs, self.device,
                                                 want_bsr=self._wants_bsr(gp),
-                                                onehot_exclude=self._onehot_exclude())
+                                                onehot_exclude=self._onehot_exclude(),
+                                                row_windows=windows)
                        for gp in self.groups],
             "twin_consts": [None] * len(self.groups),
             "exclude_consts": ex_consts,
@@ -451,12 +460,30 @@ class CompiledSolver:
 
     # -- residuals / cost ---------------------------------------------------
     def cost(self, U, inputs, consts):
-        """0.5 * sum of squared residuals."""
+        """0.5 * sum of squared residuals (under a mesh: U the owned
+        shards; the ranks' parts summed by one all_reduce)."""
+        sh = self.shard_ctx
+        if sh is None:
+            return self._cost_part(U, inputs, consts)
+        return sh.allsum(self._cost_part(sh.gather_tree(U), inputs, consts))[0]
+
+    def _cost_part(self, U, inputs, consts):
+        """0.5 * this rank's sum of squared residuals at the whole U."""
+        sh = self.shard_ctx
         total = torch.zeros((), dtype=self.dtype, device=self.device)
-        for gp, c in zip(self.groups, consts):
+        for gi, (gp, c) in enumerate(zip(self.groups, consts)):
+            if sh is not None and not sh.counts_cost(gi):
+                continue
             r = gp.group.residuals_cm(U, inputs, c)
             total = total + torch.sum(r * r)
         return 0.5 * total
+
+    def _targets(self, gi, whole, part):
+        """Where group gi's per-unknown sums go: `whole` (complete sums:
+        every group without a mesh, an unsharded group under one) or
+        `part` (a sharded group's partial sums)."""
+        sh = self.shard_ctx
+        return part if sh is not None and sh.sharded[gi] else whole
 
     def _zeros_like_unknowns(self):
         return {im.name: torch.zeros(tuple(d.size for d in im.dims) + (im.channels,),
@@ -471,19 +498,32 @@ class CompiledSolver:
         diag = partial² per access from its point Jacobians (thallo_tpu's
         semantics: two accesses of one residual aliasing one element add
         a² + b², not (a+b)²).  Excluded unknowns' columns are zeroed
-        first."""
-        mjtf = self._zeros_like_unknowns()
-        diag = self._zeros_like_unknowns()
+        first.  Under a mesh U is the whole (gathered) U, and the sums
+        come back as the rank's owned shards."""
+        sh = self.shard_ctx
+        if sh is None:
+            mjtf, diag = self._zeros_like_unknowns(), self._zeros_like_unknowns()
+        else:  # complete sums (unsharded groups) apart from partial ones
+            mjtf, diag = {}, {}
+        pj, pd = {}, {}
+
+        def sub(t, name, v):
+            t[name] = t[name] - v if name in t else -v
+
+        def add(t, name, v):
+            t[name] = t[name] + v if name in t else v
+
         for gi, (gp, c) in enumerate(zip(self.groups, consts)):
             g = gp.group
+            tj, td = self._targets(gi, (mjtf, diag), (pj, pd))
             if g.con_block is not None:
                 with record_function("thallo::blocked"):
                     _, jtr_d, d2_d, store = g.blocked_jtf_diag(U, inputs, c)
                 jac_store[str(gi)] = {"blocked": store}
                 for name, v in jtr_d.items():
-                    mjtf[name] = mjtf[name] - v
+                    sub(tj, name, v)
                 for name, v in d2_d.items():
-                    diag[name] = diag[name] + v
+                    add(td, name, v)
                 continue
             if not g.jac_slots:
                 continue
@@ -493,9 +533,9 @@ class CompiledSolver:
                 jtr_d, d2_d, blocks = bsr_setup(c["bsr"], r, jacs, self.block_dtype)
                 jac_store[str(gi)] = {"bsr": blocks}
                 for name, v in jtr_d.items():
-                    mjtf[name] = mjtf[name] - v
+                    sub(tj, name, v)
                 for name, v in d2_d.items():
-                    diag[name] = diag[name] + v
+                    add(td, name, v)
                 continue
             if self._stores_jacs(gp, c):
                 jac_store[str(gi)] = {"jacs": tuple(jacs)}
@@ -506,19 +546,29 @@ class CompiledSolver:
                 parts = torch.cat([(J * _per_point(r, J)).sum(0), (J * J).sum(0)])
                 both = g.scatter_slot(i, parts, c)  # [*dims, 2C]
                 name = slot.image.name
-                mjtf[name] = mjtf[name] - both[..., :C]
-                diag[name] = diag[name] + both[..., C:]
+                sub(tj, name, both[..., :C])
+                add(td, name, both[..., C:])
+        if sh is not None:
+            mjtf, diag = sh.own_tree(pj, mjtf), sh.own_tree(pd, diag)
         return mjtf, diag, jac_store
 
-    def make_jtjp(self, U, inputs, consts, masks, jac_store, twin_consts=None):
+    def make_jtjp(self, U, inputs, consts, masks, jac_store, twin_consts=None,
+                  U_whole=None):
         """Ap(p) = sum_g J_gᵀ J_g p for the current linearization point,
         honoring each group's schedule (thallo_tpu/solver/gn.py:608-716):
         the blocks assembled this step (block-sparse groups), a dense JᵀJ
         (<= DENSE_JTJ_MAX_UNKNOWNS), jvp then vjp anew (INLINE), or the
         per-point Jacobians stored this step (materialized J, LINEARIZE,
         and a materialized-JᵀJ group whose tables were not built: gather
-        p, J·p, scatter Jᵀ(J·p)).  p is masked on entry and Ap on exit."""
+        p, J·p, scatter Jᵀ(J·p)).  p is masked on entry and Ap on exit.
+        Under a mesh U, p and Ap are owned shards: p is gathered, a sharded
+        group's products are partial sums brought to their owners, and a
+        sharded group's dense JᵀJ is summed over the ranks once, here
+        (U_whole: U gathered already)."""
+        sh = self.shard_ctx
         pairs, jac_groups, dense_mats, inline, blocked = [], [], [], [], []
+        if U_whole is None:
+            U_whole = U if sh is None else sh.gather_tree(U)
 
         def residual_fn(g, c):
             return lambda X: g.residuals_cm(X, inputs, c)
@@ -529,26 +579,32 @@ class CompiledSolver:
                 continue
             entry = jac_store.get(str(gi), {})
             if "blocked" in entry:
-                blocked.append((g, c, entry["blocked"]))
+                blocked.append((gi, g, c, entry["blocked"]))
             elif "bsr" in entry:
-                pairs.append((c["bsr"], entry["bsr"]))
+                pairs.append((gi, c["bsr"], entry["bsr"]))
             elif self._stores_jacs(gp, c):
-                jac_groups.append((g, c, entry["jacs"]))
+                jac_groups.append((gi, g, c, entry["jacs"]))
             elif self._is_dense(gp, c):
-                _, J = self.dense_jacobian(U, inputs, consts, masks, [gi])
-                dense_mats.append(_matmul_full(J.T, J))
+                _, J = self.dense_jacobian(U_whole, inputs, consts, masks, [gi])
+                A = _matmul_full(J.T, J)
+                if sh is not None and sh.sharded[gi]:
+                    A = sh.all_reduce(A)
+                dense_mats.append(A)
             else:  # INLINE
-                inline.append(residual_fn(g, c))
+                inline.append((gi, residual_fn(g, c)))
 
         def add(Ap, contrib):
             for name, v in contrib.items():
-                Ap[name] = Ap[name] + v
+                Ap[name] = Ap[name] + v if name in Ap else v
 
         def apply_jtjp(p):
             pm = apply_masks(p, masks)
-            Ap = tree_zeros_like(p)
-            for bsr, blocks in pairs:
-                add(Ap, bsr_apply(bsr, blocks, pm))
+            if sh is None:
+                Ap, part = tree_zeros_like(p), None
+            else:
+                pm, Ap, part = sh.gather_tree(pm), {}, {}
+            for gi, bsr, blocks in pairs:
+                add(self._targets(gi, Ap, part), bsr_apply(bsr, blocks, pm))
             if dense_mats:
                 pflat = self.flatten_U(pm)
                 acc = None
@@ -556,13 +612,13 @@ class CompiledSolver:
                     v = _matmul_full(A, pflat)
                     acc = v if acc is None else acc + v
                 add(Ap, self.unflatten_U(acc))
-            for res_fn in inline:
-                _, Jp = torch.func.jvp(res_fn, (U,), (pm,))
-                add(Ap, torch.func.vjp(res_fn, U)[1](Jp)[0])
-            for g, c, store in blocked:
+            for gi, res_fn in inline:
+                _, Jp = torch.func.jvp(res_fn, (U_whole,), (pm,))
+                add(self._targets(gi, Ap, part), torch.func.vjp(res_fn, U_whole)[1](Jp)[0])
+            for gi, g, c, store in blocked:
                 with record_function("thallo::blocked"):
-                    add(Ap, g.blocked_jtjp(store, pm, c))
-            for g, c, jacs in jac_groups:
+                    add(self._targets(gi, Ap, part), g.blocked_jtjp(store, pm, c))
+            for gi, g, c, jacs in jac_groups:
                 Jp = None  # [rc, R]: sum over slots of J_slot · p_slot
                 for i in range(len(g.jac_slots)):
                     term = (jacs[i] * g.gather_slot(i, pm, c)[None]).sum(1)
@@ -570,7 +626,10 @@ class CompiledSolver:
                     Jp = term if Jp is None else Jp + term
                 for i, slot in enumerate(g.jac_slots):
                     contrib = (jacs[i] * _per_point(Jp, jacs[i])).sum(0)  # [C, R, *dep]
-                    add(Ap, {slot.image.name: g.scatter_slot(i, contrib, c)})
+                    add(self._targets(gi, Ap, part),
+                        {slot.image.name: g.scatter_slot(i, contrib, c)})
+            if sh is not None:
+                Ap = sh.own_tree(part, Ap)
             return apply_masks(Ap, masks)
 
         return apply_jtjp
@@ -638,9 +697,21 @@ class CompiledSolver:
                 (row_base, total))
 
     def model_cost(self, U, inputs, consts, delta):
-        """0.5 |r + J delta|^2 through a forward-mode JVP."""
+        """0.5 |r + J delta|^2 through a forward-mode JVP (under a mesh: U
+        and delta the owned shards)."""
+        sh = self.shard_ctx
+        if sh is None:
+            return self._model_cost_part(U, inputs, consts, delta)
+        return sh.allsum(self._model_cost_part(sh.gather_tree(U), inputs, consts,
+                                               sh.gather_tree(delta)))[0]
+
+    def _model_cost_part(self, U, inputs, consts, delta):
+        """0.5 * this rank's |r + J delta|^2 at the whole U and delta."""
+        sh = self.shard_ctx
         total = torch.zeros((), dtype=self.dtype, device=self.device)
-        for gp, c in zip(self.groups, consts):
+        for gi, (gp, c) in enumerate(zip(self.groups, consts)):
+            if sh is not None and not sh.counts_cost(gi):
+                continue
             g = gp.group
             r, Jd = torch.func.jvp(lambda X: g.residuals_cm(X, inputs, c), (U,), (delta,))
             m = r + Jd
@@ -663,9 +734,12 @@ class CompiledSolver:
         """Phase 1: r0 = -JᵀF, diag(JᵀJ), preconditioner, LM damping and
         the block-sparse JᵀJ assembly."""
         consts = prep["consts"]
-        masks = self.masks(inputs, U, prep.get("masks_static"), prep.get("exclude_consts"))
+        # under a mesh: the whole U for the residuals (the sums come back
+        # owned); a sharded plan has no Exclude, so no masks
+        Uw = U if self.shard_ctx is None else self.shard_ctx.gather_tree(U)
+        masks = self.masks(inputs, Uw, prep.get("masks_static"), prep.get("exclude_consts"))
         jac_store = {}
-        mjtf, rawdiag, jac_store = self.jtf_and_diag(U, inputs, consts, masks, jac_store)
+        mjtf, rawdiag, jac_store = self.jtf_and_diag(Uw, inputs, consts, masks, jac_store)
         if self.uses_lambda:
             ssq = rawdiag if lm.n_iter == 0 else lm.ssq
             radius = lm.trust_region_radius
@@ -698,6 +772,7 @@ class CompiledSolver:
             "CtC": CtC,
             "ssq": ssq,
             "rawdiag": rawdiag,
+            "U_whole": Uw,
         }
 
     # -- block-Jacobi preconditioner -----------------------------------------
@@ -710,13 +785,16 @@ class CompiledSolver:
 
     def _diag_pair_blocks(self, consts, jac_store, names=None):
         """The block diagonal of the groups' JᵀJ per unknown image (those
-        in `names`, when given), channel-major [C*C, N]."""
-        B = {}
+        in `names`, when given), channel-major [C*C, N] (under a mesh: the
+        rank's owned elements, the sharded groups' blocks summed over the
+        ranks)."""
+        B, part = {}, {}
         for gi in range(len(self.groups)):
             bsr = consts[gi]["bsr"]
             if bsr is None:
                 continue
             blocks = jac_store[str(gi)]["bsr"]
+            tgt = self._targets(gi, B, part)
             for p_idx, pr in enumerate(bsr.pairs):
                 if pr[2] != "diag":
                     continue
@@ -725,7 +803,12 @@ class CompiledSolver:
                     continue  # cross-image aliasing: off the block diagonal
                 if names is not None and name not in names:
                     continue
-                B[name] = B[name] + blocks[p_idx] if name in B else blocks[p_idx]
+                blk = bsr.diag_full(p_idx, blocks[p_idx])
+                tgt[name] = tgt[name] + blk if name in tgt else blk
+        sh = self.shard_ctx
+        if sh is not None:
+            B = {k: sh.own_blocks(k, part.get(k), B.get(k)) for k in sh.names
+                 if k in part or k in B}
         return B
 
     def _invert_damped_blocks(self, B, rawdiag, CtC, guard_gn=True):
@@ -792,7 +875,8 @@ class CompiledSolver:
         consts, masks, CtC = prep["consts"], state["masks"], state["CtC"]
         if self.direct_solve:
             return apply_masks(self._direct_solve(U, state, inputs, consts), masks)
-        apply_jtjp = self.make_jtjp(U, inputs, consts, masks, state["jac_store"])
+        apply_jtjp = self.make_jtjp(U, inputs, consts, masks, state["jac_store"],
+                                    U_whole=state["U_whole"])
 
         def damped(pvec):
             Ap = apply_jtjp(pvec)
@@ -812,9 +896,14 @@ class CompiledSolver:
         `stop` flag is set (JAX exits its while_loop instead; the results
         are the same).  LM resets the residual every residual_reset_period
         iterations and stops on the Q/zeta test."""
+        sh = self.shard_ctx
+        if sh is None:
+            dot, allsum = tree_dot, lambda *xs: xs
+        else:  # a rank's part of each dot, the scalars of one point summed at once
+            dot, allsum = sh.local_dot, sh.allsum
         p = precond(b)
         r = b
-        alpha_num = tree_dot(b, p)
+        alpha_num, = allsum(dot(b, p))
         delta = tree_zeros_like(b)
         Q0 = torch.zeros((), dtype=self.dtype, device=self.device)
         stop = torch.zeros((), dtype=torch.bool, device=self.device)
@@ -828,21 +917,23 @@ class CompiledSolver:
 
         for i in range(sp.lIterations):
             Ap = A(p)
-            alpha = safe_div(alpha_num, tree_dot(p, Ap))
+            pAp, = allsum(dot(p, Ap))
+            alpha = safe_div(alpha_num, pAp)
             delta_n = tree_axpy(alpha, p, delta)
             if self.uses_lambda and (i + 1) % sp.residual_reset_period == 0:
                 r_n = tree_sub(b, A(delta_n))  # residual reset: r = b - A delta
             else:
                 r_n = tree_axpy(-alpha, Ap, r)
             z = precond(r_n)
-            beta_num = tree_dot(z, r_n)
             if self.uses_lambda:
-                Q1 = 0.5 * tree_dot(delta_n, tree_add(r_n, b))
+                beta_num, q = allsum(dot(z, r_n), dot(delta_n, tree_add(r_n, b)))
+                Q1 = 0.5 * q
                 zeta = (i + 1) * (Q1 - Q0) / Q1
                 stop_q = ~torch.isfinite(Q1) | ~torch.isfinite(zeta)
                 if sp.q_tolerance >= 0:
                     stop_q = stop_q | (zeta < sp.q_tolerance)
             else:
+                beta_num, = allsum(dot(z, r_n))
                 Q1, stop_q = Q0, torch.zeros_like(stop)
             p_n = tree_add(z, tree_scale(p, safe_div(beta_num, alpha_num)))
             active = ~stop
@@ -982,10 +1073,14 @@ class CompiledSolver:
         singular to working precision (BA's gauge null space), the
         minimum-norm least-squares solution that JAX's lstsq gives, from
         the eigendecomposition of the symmetric S with lstsq's cutoff
-        (|λ| >= eps(f32) · K · max|λ|)."""
+        (|λ| >= eps · K · max|λ|).  ops/linalg.eigh leaves cuSOLVER's info
+        on the device up to SYEV_CAPTURE_MAX rows, so a CUDA graph holds
+        the solve there.  (A Cholesky factor of S + δI does not give this
+        solution: the spectrum of BA's S runs on across the cutoff, and
+        any shift damps the kept directions near it; PERF.md §6.)"""
         if self.uses_lambda:
             return torch.linalg.solve_ex(S, b).result
-        lam, V = torch.linalg.eigh(S)
+        lam, V = linalg.eigh(S)
         mag = lam.abs()
         ok = (mag > 0) & (mag >= torch.finfo(S.dtype).eps * S.shape[0] * mag.max())
         inv = torch.where(ok, 1.0 / torch.where(ok, lam, torch.ones_like(lam)),
@@ -1174,7 +1269,8 @@ class CompiledSolver:
 
     def finish_step(self, U, lm: LMState, state, delta, inputs, sp: SolverParams, prep):
         """Phase 3: X += delta (+ LM model cost, accept/revert, radius)."""
-        return self._finish_step(U, lm, inputs, prep["consts"], delta, sp, state["ssq"])
+        return self._finish_step(U, lm, inputs, prep["consts"], delta, sp, state["ssq"],
+                                 state["U_whole"])
 
     def nonlinear_step(self, U, lm: LMState, inputs, sp: SolverParams, prep,
                        phase=contextlib.nullcontext):
@@ -1218,11 +1314,21 @@ class CompiledSolver:
     def uncapturable(self):
         """The part of this plan's step that a CUDA graph cannot hold (it
         reads the device from the host), named for a NotImplementedError
-        at plan time, or None (steps_per_dispatch > 1 on the card)."""
-        if self.schur_dense and not self.uses_lambda:
-            return ("linear_solver='schur_dense' under Gauss-Newton: torch.linalg.eigh "
-                    "checks its info on the host (ROADMAP queue 1, item 12)")
-        return None
+        at plan time, or None (steps_per_dispatch > 1 on the card): GN's
+        schur_dense when its kept system (the unknowns but those named in
+        schur_eliminate, or but the largest image) exceeds
+        SYEV_CAPTURE_MAX rows."""
+        if not (self.schur_dense and not self.uses_lambda):
+            return None
+        elements = {im.name: int(np.prod([d.size for d in im.dims])) for im in self.spec.unknowns}
+        elim = self.schur_eliminate or [max(elements, key=elements.get)]
+        K = sum(elements[im.name] * im.channels for im in self.spec.unknowns
+                if im.name not in elim)
+        if K <= linalg.SYEV_CAPTURE_MAX:
+            return None
+        return (f"linear_solver='schur_dense' under Gauss-Newton with a kept system of {K} "
+                f"rows: cuSOLVER's eigensolvers read the host above "
+                f"{linalg.SYEV_CAPTURE_MAX} rows (ops/linalg.py)")
 
     def kernel_probe_fns(self):
         """Probes of the solver-facing kernels for the per-kernel timing
@@ -1270,14 +1376,22 @@ class CompiledSolver:
             "PCGLinearUpdate": linear_update,
         }
 
-    def _finish_step(self, U, lm, inputs, consts, delta, sp, ssq):
+    def _finish_step(self, U, lm, inputs, consts, delta, sp, ssq, U_whole=None):
         newU = tree_add(U, delta)
         if not self.uses_lambda:
             nan = torch.full((), float("nan"), dtype=self.dtype, device=self.device)
             return newU, lm._replace(n_iter=lm.n_iter + 1), torch.zeros_like(lm.finished), nan
-        model_cost = self.model_cost(U, inputs, consts, delta)
+        sh = self.shard_ctx
+        if sh is None:
+            model_cost = self.model_cost(U, inputs, consts, delta)
+            new_cost = self.cost(newU, inputs, consts)
+        else:  # both costs' parts summed by one all_reduce
+            Uw = sh.gather_tree(U) if U_whole is None else U_whole
+            dw = sh.gather_tree(delta)
+            model_cost, new_cost = sh.allsum(
+                self._model_cost_part(Uw, inputs, consts, dw),
+                self._cost_part(tree_add(Uw, dw), inputs, consts))
         model_cost_change = lm.prev_cost - model_cost
-        new_cost = self.cost(newU, inputs, consts)
         cost_change = lm.prev_cost - new_cost
         relative_decrease = cost_change / model_cost_change
         accept = (cost_change >= 0) & (relative_decrease > sp.min_relative_decrease)
