@@ -43,7 +43,9 @@ def case(energy, dims, inputs, solver="levenberg_marquardt", options=None, param
     (dim_axes None: no mesh, every rank solves the whole problem) and
     what to return (want: "U1" the unknowns after step 1, "U" after the
     last, "record" one step's collectives, "report" distribution_report,
-    "tables" each GroupBsr's row tables, "times" ms a step)."""
+    "tables" each GroupBsr's row tables, "times" ms a step, "linear" the
+    linear parts at the initial unknowns, "halo" the halo plan, "jac"
+    plan.jacobian() COO and dense at the initial unknowns)."""
     return {"energy": energy, "dims": dict(dims), "inputs": dict(inputs), "solver": solver,
             "options": dict(options or {}), "params": dict(params or {}),
             "dim_axes": dim_axes, "axis_names": tuple(axis_names), "steps": steps,
@@ -94,6 +96,14 @@ def run_case(c, device="cpu"):
                 for bsr in parallel.shard_bsr_tables(plan)]
         out["complete"] = sorted(plan.compiled.shard_ctx.complete)
         out["sharded_groups"] = list(plan.compiled.shard_ctx.sharded)
+        if "halo" in want:
+            out["halo"] = {"log": plan._halo_log, "widths": plan._halo_widths}
+    if "linear" in want:
+        out["linear"] = linear_parts(plan)
+    if "jac" in want:
+        r, rows, cols, vals, shape = plan.jacobian()
+        out["jac"] = {"coo": (_np(r), _np(rows), _np(cols), _np(vals), tuple(shape)),
+                      "dense": tuple(_np(t) for t in plan.jacobian(dense=True))}
     costs, ms = [], []
     k = c["dispatch"]
     n_calls = c["steps"] // k
@@ -115,9 +125,100 @@ def run_case(c, device="cpu"):
     return out
 
 
+def linear_parts(plan, seed=5):
+    """The cost, −JᵀF, diag(JᵀJ) and JᵀJ·p at the plan's unknowns, as
+    whole images (numpy; under a mesh gathered on every rank), p drawn
+    from `seed` (every rank draws the whole and takes its block); the
+    plan's state is unchanged."""
+    comp, prep, ins = plan.compiled, plan._prep, plan._step_inputs()
+    ctx = comp.shard_ctx
+    st = comp.solve_setup(plan._U, plan._lm, ins, plan._sp(), prep)
+    jtjp = comp.make_jtjp(plan._U, ins, prep["consts"], st["masks"], st["jac_store"],
+                          U_whole=st["U_whole"], masks_whole=st["masks_whole"])
+    rng = np.random.RandomState(seed)
+    p = {}
+    for im in plan.spec.unknowns:
+        shape = tuple(d.size for d in im.dims) + (im.channels,)
+        full = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(
+            device=plan.device, dtype=plan.dtype)
+        p[im.name] = full if ctx is None else ctx.shard(im.name, full).clone()
+    Ap = jtjp(p)
+
+    def whole(t):
+        return {k: _np(v if ctx is None else ctx.whole(k, v)) for k, v in t.items()}
+
+    return {"cost": plan.cost(), "mjtf": whole(st["r0"]), "diag": whole(st["rawdiag"]),
+            "jtjp": whole(Ap)}
+
+
 def run_cases(cases, device="cpu"):
     """run_case of each case in turn (one start of the ranks for many)."""
     return [run_case(c, device) for c in cases]
+
+
+def halo_checks(seed=0):
+    """parallel/comm.py's halo exchange on this rank's block of a seeded
+    [8 * n, 5, 3] image split along dim 0 over the world (every rank draws
+    the whole): its values against the torus neighbours' (h = 2), and the
+    adjoint identity <exchange(x), y> = <x, reduce(y)> summed over the
+    ranks.  Returns (max |exchanged - expected|, the two inner products)."""
+    import torch.distributed as dist
+
+    from thallo_tpu_torch.parallel import comm
+
+    n, r, h, B = dist.get_world_size(), dist.get_rank(), 2, 8
+    rng = np.random.RandomState(seed)
+    full = torch.from_numpy(rng.randn(B * n, 5, 3).astype(np.float64))
+    ext_y = torch.from_numpy(rng.randn(n, B + 2 * h, 5, 3).astype(np.float64))[r]
+    lower, upper = (r - 1) % n, (r + 1) % n
+    x = full[r * B:(r + 1) * B]
+    ext = comm.halo_exchange(x, 0, h, lower, upper)
+    want = full[torch.arange(r * B - h, (r + 1) * B + h) % (B * n)]
+    lhs = comm.all_reduce(torch.sum(ext * ext_y).reshape(1))
+    rhs = comm.all_reduce(torch.sum(x * comm.halo_reduce(ext_y, 0, h, lower, upper)).reshape(1))
+    return float((ext - want).abs().max()), float(lhs), float(rhs)
+
+
+def _multihost_join():
+    """Join the job by parallel.multihost.initialize (RANK, WORLD_SIZE and
+    MASTER_PORT from the launcher, run_ranks(..., join=False))."""
+    import os
+
+    from thallo_tpu_torch.parallel import multihost
+
+    rank, n = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    multihost.initialize(f"localhost:{os.environ['MASTER_PORT']}", n, rank, device="cpu")
+
+
+def multihost_grid_solve(steps=3):
+    """tests/mh_worker.py's scene on this rank of a job joined by
+    multihost.initialize: image_warping 32 x 16, GN, lIterations 6,
+    sharded at {"W": "x"} over the world's one-axis mesh; returns the
+    final cost and the halo plan's log."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch import parallel
+    from thallo_tpu_torch.models import image_warping as iw
+    from thallo_tpu_torch.parallel import multihost
+
+    plan = tt.load_energy(iw.ENERGY).plan({"W": 32, "H": 16}, solver="gauss_newton",
+                                          device="cpu")
+    plan.set_solver_parameter("nIterations", steps)
+    plan.set_solver_parameter("lIterations", 6)
+    plan.init(iw.synthetic_inputs(32, 16))
+    parallel.shard_plan_inputs(plan, multihost.global_mesh(("x",)), dim_axes={"W": "x"})
+    return {"cost": plan.solve(), "halo": plan._halo_log}
+
+
+def grid_checks(cases, device="cpu", with_multihost=False):
+    """halo_checks() and run_case of each case, in one start of the ranks;
+    with_multihost: the job joined by multihost.initialize (run_ranks with
+    join=False), and multihost_grid_solve() after the cases."""
+    if with_multihost:
+        _multihost_join()
+    out = {"halo": halo_checks(), "cases": run_cases(cases, device)}
+    if with_multihost:
+        out["multihost"] = multihost_grid_solve()
+    return out
 
 
 CONTRACTION_ENERGY = """
@@ -131,55 +232,28 @@ r = Residuals(conv=T(n) - acc)
 
 def refusals(device="cpu"):
     """What shard_plan_inputs refuses, on this rank: {case: (exception
-    type, message)} for a stencil energy (image_warping), a contraction,
-    linear_solver schur_dense and direct, and a backend that does not suit
-    the plan's device (the process group's backend read as "nccl" for a
-    plan on the CPU)."""
+    type, message)} for a backend that does not suit the plan's device
+    (the process group's backend read as "nccl" for a plan on the CPU)."""
     import torch.distributed as dist
 
     import thallo_tpu_torch as tt
     from thallo_tpu_torch import parallel
     from thallo_tpu_torch.models import bundle_adjustment as ba
-    from thallo_tpu_torch.models import image_warping as iw
 
-    def stencil():
-        plan = tt.load_energy(iw.ENERGY).plan({"W": 16, "H": 8}, device=device)
-        plan.init(iw.synthetic_inputs(16, 8))
-        return plan, {"W": "x"}
-
-    def contraction():
-        rng = np.random.RandomState(0)
-        plan = tt.load_energy(CONTRACTION_ENERGY).plan({"N": 16, "K": 3}, device=device)
-        plan.init({"C": rng.randn(3).astype(np.float32), "R": rng.randn(16).astype(np.float32),
-                   "T": rng.randn(16).astype(np.float32)})
-        return plan, {"N": "x"}
-
-    def ba_with(linear_solver):
-        def make():
-            ins, _ = ba.synthetic_inputs(n_cameras=4, n_points=32, obs_per_point=3)
-            plan = tt.load_energy(ba.ENERGY + BA_SPARSE).plan(
-                {"C": 4, "P": 32, "O": len(ins["oToC"])}, device=device,
-                linear_solver=linear_solver)
-            plan.init(ins)
-            return plan, {"P": "x", "O": "x"}
-        return make
-
-    out = {}
-    for name, make in (("stencil", stencil), ("contraction", contraction),
-                       ("schur_dense", ba_with("schur_dense")), ("direct", ba_with("direct")),
-                       ("backend", ba_with("pcg"))):
-        plan, dim_axes = make()
-        real = dist.get_backend
-        if name == "backend":
-            dist.get_backend = lambda group=None: "nccl"
-        try:
-            parallel.shard_plan_inputs(plan, parallel.make_mesh(), dim_axes=dim_axes)
-            out[name] = None
-        except (NotImplementedError, ValueError) as e:
-            out[name] = (type(e).__name__, str(e))
-        finally:
-            dist.get_backend = real
-    return out
+    ins, _ = ba.synthetic_inputs(n_cameras=4, n_points=32, obs_per_point=3)
+    plan = tt.load_energy(ba.ENERGY + BA_SPARSE).plan(
+        {"C": 4, "P": 32, "O": len(ins["oToC"])}, device=device)
+    plan.init(ins)
+    real = dist.get_backend
+    dist.get_backend = lambda group=None: "nccl"
+    try:
+        parallel.shard_plan_inputs(plan, parallel.make_mesh(), dim_axes={"P": "x", "O": "x"})
+        out = None
+    except (NotImplementedError, ValueError) as e:
+        out = (type(e).__name__, str(e))
+    finally:
+        dist.get_backend = real
+    return {"backend": out}
 
 
 def rebind(device="cpu", steps=2):

@@ -130,6 +130,12 @@ def test_imports_with_jax_blocked():
         "import thallo_tpu_torch.parallel, thallo_tpu_torch.parallel.mesh\n"
         "import thallo_tpu_torch.parallel.comm, thallo_tpu_torch.parallel.multihost\n"
         "import thallo_tpu_torch.parallel.launch\n"
+        "import thallo_tpu_torch.cli, thallo_tpu_torch.capi_bridge\n"
+        "import runpy; runpy.run_module('thallo_tpu_torch.cli', run_name='cli')\n"
+        "import thallo_tpu_torch.capi_bridge as br\n"
+        "h = br.new_state(0, 0, 1, 0, 1)\n"
+        "p = br.problem_define(h, 'thallo_tpu_torch/capi/test/ba_energy.py', 'LM')\n"
+        "assert br.problem_num_dims(p) == 3\n"
         "sys.path.insert(0, 'scripts'); import torch_sharded_solve\n"
         "from thallo_tpu_torch.models import bundle_adjustment as ba\n"
         "spec = thallo_tpu_torch.load_energy(ba.ENERGY)\n"

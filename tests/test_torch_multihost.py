@@ -7,8 +7,8 @@ round trip through load_state on a sharded plan, and a sharded GN solve
 against the single-process cost.
 
 JAX's two-process worker (tests/mh_worker.py) solves image_warping, a grid
-energy, whose sharding waits for ROADMAP queue 1, item 10b; this file
-solves ARAP side 8 (a graph energy) instead.  The bound is mh_worker.py's:
+energy: tests/test_torch_parallel_grid.py holds that solve; this file
+solves ARAP side 8 (a graph energy).  The bound is mh_worker.py's:
 the two processes' f32 sums run in another order than one process's, so
 an unconverged checkpoint's cost may move by ~0.2%.
 """

@@ -322,21 +322,15 @@ def test_weak_scaling_bytes(runs):
     assert np.isclose(r2["final"], r4["final"], rtol=FINAL_RTOL), (r2["final"], r4["final"])
 
 
-@pytest.mark.parametrize("what,kind", [("stencil", "NotImplementedError"),
-                                       ("contraction", "NotImplementedError"),
-                                       ("schur_dense", "NotImplementedError"),
-                                       ("direct", "NotImplementedError"),
-                                       ("backend", "ValueError")])
+@pytest.mark.parametrize("what,kind", [("backend", "ValueError")])
 def test_refusals_name_their_item(runs, what, kind):
-    """What this slice does not shard raises, naming ROADMAP item 10b; a
-    backend that does not suit the plan's device raises ValueError; none
-    runs unsharded in silence."""
+    """A backend that does not suit the plan's device raises ValueError
+    naming both backends; the plan never runs unsharded in silence.
+    (Stencil slots, contractions, Exclude masks, schur_dense, direct and
+    two busy mesh axes shard now: tests/test_torch_parallel_grid.py.)"""
     got = runs["refusals"][what]
     assert got is not None and got[0] == kind, got
-    if kind == "NotImplementedError":
-        assert "item 10b" in got[1], got
-    else:
-        assert "gloo" in got[1] and "nccl" in got[1], got
+    assert "gloo" in got[1] and "nccl" in got[1], got
 
 
 def test_rebinding_shards_anew(runs):

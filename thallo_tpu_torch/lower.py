@@ -582,28 +582,47 @@ class LoweredGroup:
         self.con_block = self._plan_con_block(con_splits or {})
         self._split_fns = {}
 
-    # external axis -> first index of this rank's block (shard_view)
+    # external axis -> first index of this rank's block, and unknown image
+    # name -> its window, ((first element, elements) per image dim): the
+    # halo-extended block a shard's slots read (shard_view)
     _ext_offsets: Dict[int, int] = {}
+    _windows: Dict[str, Tuple[Tuple[int, int], ...]] = {}
 
-    def shard_view(self, axis: int, lo: int, hi: int) -> "LoweredGroup":
-        """This group over the block [lo, hi) of its external axis `axis`
-        (a rank's residual shard under a mesh): R and the grid shrink to the
-        block, index expressions see global indices (the block's offset),
-        and every roll becomes a gather by its torus-wrapped flat indices,
-        so the slots read the whole (gathered) image.  The lowering, the
-        slots and pure_stencil are shared with this group."""
+    def shard_view(self, axis, lo: int = None, hi: int = None,
+                   windows=None) -> "LoweredGroup":
+        """This group over a block of its external domain (a rank's
+        residual shard under a mesh): `axis` an external axis and [lo, hi)
+        its block, or a dict {axis: (lo, hi)} of every split axis.  R and
+        the grid shrink to the block and index expressions see global
+        indices (the block's offsets).  `windows` (image name -> (first
+        element, elements) per image dim) gives the unknown images the
+        slots read as windows, the rank's halo-extended blocks: a stencil
+        slot rolls its window and takes the block, a gathered slot reads
+        the window at its torus-wrapped indices less the window's start.
+        An image without a window is read whole.  The lowering, the slots
+        and pure_stencil are shared with this group."""
+        blocks = dict(axis) if isinstance(axis, dict) else {axis: (lo, hi)}
         g = copy.copy(self)
         shape = list(self.ext_shape)
-        shape[axis] = hi - lo
+        for a, (b0, b1) in blocks.items():
+            shape[a] = b1 - b0
         g.ext_shape = tuple(shape)
         g.R = int(np.prod(shape))
-        g._ext_offsets = {axis: lo}
-        g._rolls = [None] * len(self._rolls)
-        g._crolls = [None] * len(self._crolls)
-        g._mrolls = [None] * len(self._mrolls)
+        g._ext_offsets = {a: b0 for a, (b0, _) in blocks.items()}
+        g._windows = dict(windows or {})
         g._F = g._build_local_fn()
         g._split_fns = {}
         return g
+
+    def _window(self, im):
+        """(first element, elements) per dim of the view of image im this
+        group reads (the whole image unless shard_view gave a window)."""
+        w = self._windows.get(im.name)
+        return w if w is not None else tuple((0, d.size) for d in im.dims)
+
+    def _img_shape(self, im):
+        """The shape of the view of image im this group reads and writes."""
+        return tuple(n for _, n in self._window(im))
 
     @property
     def jac_slots(self) -> List[SlotSpec]:
@@ -761,14 +780,15 @@ class LoweredGroup:
     def _flat(self, slot: SlotSpec, sparse, con_block=None, device="cpu"):
         """(flat element indices of the slot's image, broadcastable to the
         grid; the grid's shape).  A stencil slot wraps around the torus as
-        its roll does; so does any index, as in thallo_tpu."""
+        its roll does; so does any index, as in thallo_tpu.  In a shard's
+        window the indices count from the window's start."""
         env, shape = self._grid_env(slot.dep_cons, sparse, con_block, device)
         im = slot.image
         flat = None
-        for j, c in enumerate(slot.comps):
-            n = im.dims[j].size
-            v = env.eval(c) % n
-            flat = v if flat is None else flat * n + v
+        for c, d, (w0, m) in zip(slot.comps, im.dims, self._window(im)):
+            v = env.eval(c)
+            v = (v - w0 if w0 else v) % d.size
+            flat = v if flat is None else flat * m + v
         return flat, shape
 
     def _slot_flat_indices(self, slot: SlotSpec, inputs):
@@ -841,7 +861,7 @@ class LoweredGroup:
             if blk in s.dep_cons:
                 cvals.append(None)
             elif rp is not None:
-                cvals.append(self._roll_gather(img.movedim(-1, 0), rp))
+                cvals.append(self._roll_gather(img.movedim(-1, 0), rp, s.image))
             else:
                 flat, shape = self._flat(s, sparse)
                 cvals.append(self._gather_grid(img.reshape(-1, s.image.channels).T,
@@ -905,8 +925,9 @@ class LoweredGroup:
         return out
 
     def slot_size(self, i: int) -> int:
-        """Element count of jac slot i's image."""
-        return int(np.prod([d.size for d in self.jac_slots[i].image.dims]))
+        """Element count of jac slot i's image (of the view this group
+        reads)."""
+        return int(np.prod(self._img_shape(self.jac_slots[i].image)))
 
     # -- the local function -------------------------------------------------
     def _build_local_fn(self, con_sizes=None, mode="full"):
@@ -1042,15 +1063,27 @@ class LoweredGroup:
         return F
 
     # -- gathers and their transposes -----------------------------------------
-    def _roll_gather(self, img_cm, rp):
+    def _roll_starts(self, im, rp):
+        """Per image axis: where the residual block starts in the view the
+        group reads of im (0 and the whole axis without a mesh)."""
+        used, _ = rp
+        return [self._ext_offsets.get(a, 0) - w0
+                for a, (w0, _) in zip(used, self._window(im))]
+
+    def _roll_gather(self, img_cm, rp, im):
         """[C, R] values of a stencil slot from its image channel-major,
         img_cm [C, *dims]: roll by -offset along each shifted image axis
-        (torus wrap), image axes into external-domain order, broadcast over
-        the external axes the slot does not use (thallo_tpu's _apply_roll
-        and _place_axes)."""
+        (torus wrap), take the residual block of each axis (a shard: from
+        the window it reads), image axes into external-domain order,
+        broadcast over the external axes the slot does not use
+        (thallo_tpu's _apply_roll and _place_axes)."""
         used, shifts = rp
         dims = [1 + j for j, off in enumerate(shifts) if off]
         v = torch.roll(img_cm, [-shifts[d - 1] for d in dims], dims) if dims else img_cm
+        if self._ext_offsets or self._windows:
+            for j, (a, st) in enumerate(zip(used, self._roll_starts(im, rp))):
+                if st or v.shape[1 + j] != self.ext_shape[a]:
+                    v = v.narrow(1 + j, st, self.ext_shape[a])
         v = v.permute(0, *[1 + int(a) for a in np.argsort(used)])
         present = set(used)
         for a in range(len(self.ext_shape)):
@@ -1059,10 +1092,11 @@ class LoweredGroup:
         C = v.shape[0]
         return v.expand((C,) + self.ext_shape).reshape(C, self.R)
 
-    def _roll_scatter(self, valsT, rp):
-        """Transpose of _roll_gather: [F, R] -> image-shaped [*dims, F]
+    def _roll_scatter(self, valsT, rp, im):
+        """Transpose of _roll_gather: [F, R] -> [*view of the image, F]
         (sum over the unused external axes, image axes back in order, the
-        roll back: thallo_tpu's _scatter of a stencil slot)."""
+        block placed in the view, the roll back: thallo_tpu's _scatter of a
+        stencil slot)."""
         used, shifts = rp
         nd = len(self.ext_shape)
         v = valsT.reshape((valsT.shape[0],) + self.ext_shape)
@@ -1070,6 +1104,11 @@ class LoweredGroup:
         if extra:
             v = v.sum(extra)
         v = v.permute(0, *[1 + int(k) for k in np.argsort(np.argsort(used))])
+        if self._ext_offsets or self._windows:
+            pad = [(st, n - st - v.shape[1 + j]) for j, (st, n) in
+                   enumerate(zip(self._roll_starts(im, rp), self._img_shape(im)))]
+            if any(p for pp in pad for p in pp):
+                v = torch.nn.functional.pad(v, [p for pp in reversed(pad) for p in pp])
         dims = [1 + j for j, off in enumerate(shifts) if off]
         if dims:
             v = torch.roll(v, [shifts[d - 1] for d in dims], dims)
@@ -1090,7 +1129,7 @@ class LoweredGroup:
                 continue
             if name not in cm:
                 cm[name] = X[name].movedim(-1, 0).contiguous()
-            out.append(self._roll_gather(cm[name], rp))
+            out.append(self._roll_gather(cm[name], rp, s.image))
         return out
 
     def gather_slot(self, i: int, X, consts):
@@ -1100,7 +1139,7 @@ class LoweredGroup:
         img = X[slot.image.name]
         rp = self._rolls[i]
         if rp is not None:
-            return self._roll_gather(img.movedim(-1, 0), rp)
+            return self._roll_gather(img.movedim(-1, 0), rp, slot.image)
         # the array's own channel count: a mask is gathered through an
         # unknown's slot with one channel
         C = img.shape[-1]
@@ -1118,11 +1157,12 @@ class LoweredGroup:
         _scatter: segment-sum plan, else the aggregation kernel for a small
         image, else index_add_."""
         rp = self._rolls[i]
+        im = self.jac_slots[i].image
         if rp is not None:
-            return self._roll_scatter(valsT, rp)
+            return self._roll_scatter(valsT, rp, im)
         F = valsT.shape[0]
         out = scatter_route(valsT.reshape(F, -1), self._route(i, consts)).T
-        return out.reshape(tuple(d.size for d in self.jac_slots[i].image.dims) + (F,))
+        return out.reshape(self._img_shape(im) + (F,))
 
     def _route(self, i: int, consts) -> SlotRoute:
         """Gathered jac slot i's gather and the route of its transpose."""
@@ -1147,7 +1187,7 @@ class LoweredGroup:
         """[C, R] of computed-array access i from an array [*dims, C]."""
         rp = self._mrolls[i]
         if rp is not None:
-            return self._roll_gather(img.movedim(-1, 0), rp)
+            return self._roll_gather(img.movedim(-1, 0), rp, self.mslots[i].image)
         return img.reshape(-1, img.shape[-1]).T.index_select(1, consts["mslot_idx"][i])
 
     def gather_mslots(self, arrs, consts):
@@ -1355,7 +1395,7 @@ class LoweredGroup:
         N = self.slot_size(i)
         out = torch.zeros((F, N), dtype=vals.dtype, device=vals.device)
         out.index_add_(1, flat.expand(shape).reshape(-1), vals.reshape(F, -1))
-        return out.T.reshape(tuple(d.size for d in slot.image.dims) + (F,))
+        return out.T.reshape(self._img_shape(slot.image) + (F,))
 
     def blocked_jtf_diag(self, X, inputs, consts):
         """(r [rc, R], Jᵀr dict, diag(JᵀJ) dict, store) with the fiber

@@ -757,7 +757,7 @@ class Plan:
 
     def _whole(self, name, v):
         ctx = self.compiled.shard_ctx
-        return v if ctx is None else ctx.gather(name, v)
+        return v if ctx is None else ctx.whole(name, v)
 
     def get_unknown(self, name, squeeze=True):
         """The whole unknown image (under a mesh: gathered, on every rank)."""
@@ -826,12 +826,14 @@ class Plan:
         """The Jacobian at the current unknowns (thallo_tpu/plan.py:883-896):
         COO (residuals, rows, cols, vals, (n_rows, n_cols)) as tensors on
         the plan's device, or, with dense=True, (residuals, J [n_rows,
-        n_cols]).  Excluded unknowns' columns are zero."""
+        n_cols]).  Excluded unknowns' columns are zero.  Under a mesh
+        every rank gets the unsharded plan's J (a collective)."""
         if self._inputs is None:
             raise RuntimeError("call init() first")
         if self.mesh is not None:
-            raise NotImplementedError("plan.jacobian() under a mesh (ROADMAP queue 1, "
-                                      "item 10b)")
+            from .parallel.mesh import global_jacobian
+
+            return global_jacobian(self, dense)
         comp = self.compiled
         ins, consts = self._step_inputs(), self._prep["consts"]
         masks = comp.masks(ins, self._U, self._prep.get("masks_static"),

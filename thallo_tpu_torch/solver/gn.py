@@ -481,9 +481,14 @@ class CompiledSolver:
     def _targets(self, gi, whole, part):
         """Where group gi's per-unknown sums go: `whole` (complete sums:
         every group without a mesh, an unsharded group under one) or
-        `part` (a sharded group's partial sums)."""
+        `part` (a sharded group's partial sums; zeros where this rank does
+        not count the group, ShardCtx.target)."""
         sh = self.shard_ctx
-        return part if sh is not None and sh.sharded[gi] else whole
+        if sh is None or not sh.sharded[gi]:
+            return whole
+        if isinstance(part, tuple):
+            return tuple(sh.target(gi, t) for t in part)
+        return sh.target(gi, part)
 
     def _zeros_like_unknowns(self):
         return {im.name: torch.zeros(tuple(d.size for d in im.dims) + (im.channels,),
@@ -498,8 +503,9 @@ class CompiledSolver:
         diag = partial² per access from its point Jacobians (thallo_tpu's
         semantics: two accesses of one residual aliasing one element add
         a² + b², not (a+b)²).  Excluded unknowns' columns are zeroed
-        first.  Under a mesh U is the whole (gathered) U, and the sums
-        come back as the rank's owned shards."""
+        first.  Under a mesh U is what the rank's groups read (ShardCtx.
+        gather: halo-extended blocks or whole images), masks over the same,
+        and the sums come back as the rank's owned shards."""
         sh = self.shard_ctx
         if sh is None:
             mjtf, diag = self._zeros_like_unknowns(), self._zeros_like_unknowns()
@@ -553,7 +559,7 @@ class CompiledSolver:
         return mjtf, diag, jac_store
 
     def make_jtjp(self, U, inputs, consts, masks, jac_store, twin_consts=None,
-                  U_whole=None):
+                  U_whole=None, masks_whole=None):
         """Ap(p) = sum_g J_gᵀ J_g p for the current linearization point,
         honoring each group's schedule (thallo_tpu/solver/gn.py:608-716):
         the blocks assembled this step (block-sparse groups), a dense JᵀJ
@@ -561,10 +567,11 @@ class CompiledSolver:
         per-point Jacobians stored this step (materialized J, LINEARIZE,
         and a materialized-JᵀJ group whose tables were not built: gather
         p, J·p, scatter Jᵀ(J·p)).  p is masked on entry and Ap on exit.
-        Under a mesh U, p and Ap are owned shards: p is gathered, a sharded
-        group's products are partial sums brought to their owners, and a
-        sharded group's dense JᵀJ is summed over the ranks once, here
-        (U_whole: U gathered already)."""
+        Under a mesh U, p and Ap are owned shards (masks too: masks_whole
+        are the whole images): p is gathered, a sharded group's products
+        are partial sums brought to their owners, and a sharded group's
+        dense JᵀJ is summed over the ranks once, here (U_whole: U
+        gathered already)."""
         sh = self.shard_ctx
         pairs, jac_groups, dense_mats, inline, blocked = [], [], [], [], []
         if U_whole is None:
@@ -585,10 +592,11 @@ class CompiledSolver:
             elif self._stores_jacs(gp, c):
                 jac_groups.append((gi, g, c, entry["jacs"]))
             elif self._is_dense(gp, c):
-                _, J = self.dense_jacobian(U_whole, inputs, consts, masks, [gi])
+                _, J = self.dense_jacobian(U_whole, inputs, consts,
+                                           masks if masks_whole is None else masks_whole, [gi])
                 A = _matmul_full(J.T, J)
                 if sh is not None and sh.sharded[gi]:
-                    A = sh.all_reduce(A)
+                    A = sh.all_reduce(A if sh.counted[gi] else torch.zeros_like(A))
                 dense_mats.append(A)
             else:  # INLINE
                 inline.append((gi, residual_fn(g, c)))
@@ -734,12 +742,18 @@ class CompiledSolver:
         """Phase 1: r0 = -JᵀF, diag(JᵀJ), preconditioner, LM damping and
         the block-sparse JᵀJ assembly."""
         consts = prep["consts"]
-        # under a mesh: the whole U for the residuals (the sums come back
-        # owned); a sharded plan has no Exclude, so no masks
-        Uw = U if self.shard_ctx is None else self.shard_ctx.gather_tree(U)
-        masks = self.masks(inputs, Uw, prep.get("masks_static"), prep.get("exclude_consts"))
+        # under a mesh: the view of U the residuals read (the sums come
+        # back owned), the masks whole, over that view and owned
+        sh = self.shard_ctx
+        Uw = U if sh is None else sh.gather_tree(U)
+        masks_whole = self.masks(inputs, Uw, prep.get("masks_static"),
+                                 prep.get("exclude_consts"))
+        masks = masks_view = masks_whole
+        if sh is not None:
+            masks_view = {k: sh.window(k, m) for k, m in masks_whole.items()}
+            masks = {k: sh.shard(k, m) for k, m in masks_whole.items()}
         jac_store = {}
-        mjtf, rawdiag, jac_store = self.jtf_and_diag(Uw, inputs, consts, masks, jac_store)
+        mjtf, rawdiag, jac_store = self.jtf_and_diag(Uw, inputs, consts, masks_view, jac_store)
         if self.uses_lambda:
             ssq = rawdiag if lm.n_iter == 0 else lm.ssq
             radius = lm.trust_region_radius
@@ -765,6 +779,7 @@ class CompiledSolver:
             pre_block = self._block_preconditioner(consts, jac_store, rawdiag, CtC, lm)
         return {
             "masks": masks,
+            "masks_whole": masks_whole,
             "jac_store": jac_store,
             "r0": mjtf,
             "pre": pre,
@@ -876,7 +891,8 @@ class CompiledSolver:
         if self.direct_solve:
             return apply_masks(self._direct_solve(U, state, inputs, consts), masks)
         apply_jtjp = self.make_jtjp(U, inputs, consts, masks, state["jac_store"],
-                                    U_whole=state["U_whole"])
+                                    U_whole=state["U_whole"],
+                                    masks_whole=state.get("masks_whole"))
 
         def damped(pvec):
             Ap = apply_jtjp(pvec)
@@ -950,17 +966,33 @@ class CompiledSolver:
         dense_jacobian, (JᵀJ + diag(CtC)) delta = -Jᵀr in full f32, with
         identity rows for excluded unknowns so the system stays regular.
         solve_ex runs no info check (no host read): a singular system
-        gives a non-finite delta, as jnp.linalg.solve's."""
-        masks = state["masks"]
-        r_all, J = self.dense_jacobian(U, inputs, consts, masks)
-        A = _matmul_full(J.T, J)
-        mflat = self.flatten_U(apply_masks({k: torch.ones_like(v) for k, v in U.items()},
+        gives a non-finite delta, as jnp.linalg.solve's.  Under a mesh
+        (every owned image read whole) each rank's groups give their part
+        of JᵀJ and Jᵀr, summed by one all_reduce; every rank solves and
+        keeps its owned part."""
+        sh = self.shard_ctx
+        masks = state.get("masks_whole", state["masks"])
+        Uw, CtC = U, state["CtC"]
+        if sh is None:
+            r_all, J = self.dense_jacobian(U, inputs, consts, masks)
+            A, g = _matmul_full(J.T, J), _matmul_full(J.T, r_all)
+        else:
+            Uw, CtC = state["U_whole"], sh.whole_tree(CtC)
+            sel = [gi for gi in range(len(self.groups)) if sh.counts_cost(gi)]
+            K = self.unknown_layout()[1]
+            Ag = torch.zeros((K, K + 1), dtype=self.dtype, device=self.device)
+            if sel:
+                r_all, J = self.dense_jacobian(Uw, inputs, consts, masks, sel)
+                Ag = torch.cat([_matmul_full(J.T, J), _matmul_full(J.T, r_all)[:, None]], 1)
+            Ag = sh.all_reduce(Ag)
+            A, g = Ag[:, :K], Ag[:, K]
+        mflat = self.flatten_U(apply_masks({k: torch.ones_like(v) for k, v in Uw.items()},
                                            masks))
         if self.uses_lambda:
-            A = A + torch.diag(self.flatten_U(state["CtC"]))
+            A = A + torch.diag(self.flatten_U(CtC))
         A = A + torch.diag(1.0 - mflat)
-        g = _matmul_full(J.T, r_all)
-        return self.unflatten_U(torch.linalg.solve_ex(A, -g).result)
+        delta = self.unflatten_U(torch.linalg.solve_ex(A, -g).result)
+        return delta if sh is None else {k: sh.shard(k, v) for k, v in delta.items()}
 
     # -- Schur-complement reduced solves ---------------------------------------
     def _schur_partition(self, consts, jac_store):
@@ -1051,12 +1083,17 @@ class CompiledSolver:
         # reduced right-hand side: b_k - A_ke A_ee⁻¹ b_e
         b = tree_sub(keep_of(bfull), keep_of(damped(pad(einv(bfull)))))
         if self.schur_dense:
+            # under a mesh S is summed over the ranks and solved on each,
+            # each keeping its owned part
+            sh = self.shard_ctx
             S = self._schur_dense_matrix(state, consts, keep, elim, Einv)
-            flat = self._dense_solve(S, torch.cat([b[n].reshape(-1) for n in keep]))
+            bw = b if sh is None else {n: sh.whole(n, b[n]) for n in keep}
+            flat = self._dense_solve(S, torch.cat([bw[n].reshape(-1) for n in keep]))
             delta_k, o = {}, 0
             for n in keep:
-                delta_k[n] = flat[o:o + b[n].numel()].reshape(b[n].shape)
-                o += b[n].numel()
+                v = flat[o:o + bw[n].numel()].reshape(bw[n].shape)
+                delta_k[n] = v if sh is None else sh.shard(n, v)
+                o += bw[n].numel()
         else:
             def S_apply(xk):
                 t = damped(pad(xk))
@@ -1097,11 +1134,37 @@ class CompiledSolver:
         cols_v[., p]) for each two of its keep couplings u, v (levels
         aligned on the smaller level's lanes); and the keep block diagonal
         with the exact damping and identity rows for excluded elements.
-        Every col block is stored w-major [W*Ci*Cj, N_t] in the port."""
+        Every col block is stored w-major [W*Ci*Cj, N_t] in the port.
+        Under a mesh each rank assembles the part of its counted groups,
+        at global element ids (a window's rows from its start), with the
+        eliminated images' inverse blocks of its owned elements: exact
+        where every eliminated element's residuals lie on its owner rank
+        (local-complete); one all_reduce sums the parts and the keep block
+        diagonals, and each rank adds the damping."""
         dtype, dev = self.dtype, self.device
-        jac_store, masks = state["jac_store"], state["masks"]
+        jac_store = state["jac_store"]
+        masks = state.get("masks_whole", state["masks"])
+        sh = self.shard_ctx
         elements = {im.name: (int(np.prod([d.size for d in im.dims])), im.channels)
                     for im in self.spec.unknowns}
+        if sh is not None:
+            Einv = dict(Einv)
+            for e in elim:
+                if sh.owned.get(e) is None:
+                    if sh.size > 1:
+                        raise ValueError(
+                            f"linear_solver='schur_dense' under a mesh eliminates {e!r}, which "
+                            "is replicated: map one of its dims to the mesh axis of the "
+                            "residuals that read it")
+                    continue
+                if e not in sh.complete or e not in sh.windows:
+                    raise ValueError(
+                        f"linear_solver='schur_dense' under a mesh needs every residual of an "
+                        f"eliminated element of {e!r} on the rank that owns the element: map "
+                        "the residual dim to the same axis and sort the residuals by owner "
+                        "(sort_edges_by_owner)")
+                lo, hi = sh.windows[e]  # the owned elements
+                Einv[e] = torch.nn.functional.pad(Einv[e], (lo, elements[e][0] - hi))
         offs, K = {}, 0
         for n in keep:
             offs[n] = K
@@ -1116,10 +1179,19 @@ class CompiledSolver:
         kk_cross = []                         # (a, b, vals [M, Ca, Cb], ia [M], ib [M])
         couplings = {e: [] for e in elim}     # elim -> [(B [Ce, Ck, D, N_t], cols, keep, sel)]
         for gi, gp in enumerate(self.groups):
-            if not gp.group.jac_slots:
+            if not gp.group.jac_slots or (sh is not None and not sh.counts_cost(gi)):
                 continue
             bsr = consts[gi]["bsr"]
             entry = jac_store.get(str(gi), {})
+
+            def rows_of(t, Nt, bsr=bsr):
+                """Row table t's element ids (global: a window's count
+                from its start), or None for every element in order."""
+                sel, win = bsr.row_sels[t], bsr.window(t)
+                if win is None:
+                    return sel
+                return (sel if sel is not None else torch.arange(Nt, device=dev)) + win[0]
+
             if bsr is None or "bsr" not in entry:
                 raise ValueError(
                     "linear_solver='schur_dense' requires every residual "
@@ -1144,7 +1216,7 @@ class CompiledSolver:
                         continue  # the partner pair carries this coupling
                     ct = bsr.col_gathers[bsr.pairs[pr[3]][3]][0]
                     W, Nt = bsr.cols[ct].shape
-                    sel = bsr.row_sels[bsr.col_row[ct]]
+                    sel = rows_of(bsr.col_row[ct], Nt)
                     rows_b = sel if sel is not None else torch.arange(Nt, device=dev)
                     vals = blocks[pr[3]].to(dtype).reshape(W, Cb, Ca, Nt).permute(0, 3, 2, 1)
                     kk_cross.append((a, b2, vals.reshape(W * Nt, Ca, Cb),
@@ -1154,12 +1226,13 @@ class CompiledSolver:
                 blk = blocks[p_idx].to(dtype)
                 if pr[2] == "diag":
                     cols, sel = None, None
+                    blk = bsr.diag_full(p_idx, blk)
                     B = blk.reshape(Ca, Cb, 1, Na)
                 else:
                     ct = bsr.col_gathers[pr[3]][0]
                     cols = bsr.cols[ct]  # [W, N_t]
-                    sel = bsr.row_sels[bsr.col_row[ct]]
                     W, Nt = cols.shape
+                    sel = rows_of(bsr.col_row[ct], Nt)
                     B = blk.reshape(W, Ca, Cb, Nt).permute(1, 2, 0, 3)  # [Ca, Cb, W, N_t]
                 if a in elim:
                     if b2 in keep:
@@ -1249,22 +1322,43 @@ class CompiledSolver:
                     block_view(ku, kv).sub_(
                         acc.view(elements[ku][0], Nb, Cku, Ckv).permute(0, 2, 1, 3))
 
-        # the keep block diagonal, its exact damping (as
-        # _invert_damped_blocks) and identity rows for excluded elements
+        def damped(n, b, base):
+            """base + the exact damping of keep image n's block diagonal b
+            [Cn, Nn] (as _invert_damped_blocks) + identity rows for
+            excluded elements."""
+            Nn, Cn = elements[n]
+
+            def whole(t):
+                return t if sh is None else sh.whole(n, t)
+
+            nd = base + torch.clamp(whole(state["rawdiag"][n]).reshape(Nn, Cn).T - b, min=0.0)
+            if self.uses_lambda:
+                nd = nd + whole(state["CtC"][n]).reshape(Nn, Cn).T
+            if n in masks:
+                nd = nd + (1.0 - masks[n].reshape(-1))[None, :]
+            return nd
+
+        # the keep block diagonal with its damping; under a mesh the damping
+        # is added once the ranks' parts are summed
+        bdiag = {}
         for n in keep:
             Nn, Cn = elements[n]
             bd = kk_diag.get(n)
             bd = torch.zeros((Cn * Cn, Nn), dtype=dtype, device=dev) if bd is None else bd.clone()
             diag_ix = torch.arange(Cn, device=dev) * (Cn + 1)
-            bdiag = bd[diag_ix]
-            raw = state["rawdiag"][n].reshape(Nn, Cn).T
-            nd = bdiag + torch.clamp(raw - bdiag, min=0.0)
-            if self.uses_lambda:
-                nd = nd + state["CtC"][n].reshape(Nn, Cn).T
-            if n in masks:
-                nd = nd + (1.0 - masks[n].reshape(-1))[None, :]
-            bd[diag_ix] = nd
+            bdiag[n] = bd[diag_ix]
+            if sh is None:
+                bd[diag_ix] = damped(n, bdiag[n], bdiag[n])
             torch.diagonal(block_view(n, n), dim1=0, dim2=2).add_(bd.view(Cn, Cn, Nn))
+        if sh is None:
+            return S
+        flat = sh.all_reduce(torch.cat([S.reshape(-1)] + [bdiag[n].reshape(-1) for n in keep]))
+        S, o = flat[:K * K].view(K, K), K * K
+        for n in keep:
+            b = flat[o:o + bdiag[n].numel()].view(bdiag[n].shape)
+            o += b.numel()
+            d = torch.diagonal(block_view(n, n), dim1=0, dim2=2)  # [Cn, Cn, Nn]
+            torch.diagonal(d, dim1=0, dim2=1).add_(damped(n, b, 0.0).T)
         return S
 
     def finish_step(self, U, lm: LMState, state, delta, inputs, sp: SolverParams, prep):
