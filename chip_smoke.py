@@ -20,8 +20,14 @@ its seconds; any failure exits non-zero):
      a ragged one and W = 9; oh_setup_aggregate and its first body
      (oh_setup_aggregate_atomics) at the uniform and the skewed camera
      ids; the measurement scripts' kernels at the JAX scripts' BA-1M
-     shape; fused_pair_apply_atomics at ARAP 256²'s (3, 3) levels, the
-     record's shape; fused_pair_bf16_atomics at wide levels of 9 and 16
+     shape; the atomics route's two bodies (the slots kernel,
+     fused_pair_apply_atomics[_f64], and the first body,
+     fused_pair_apply_atomics_thread[_f64]) at ARAP 256²'s (3, 3) levels
+     in both edge orders and at every atomics-route call of a path below,
+     f32 and f64; the ring segment sum and the first staged body
+     (segment_sum_per_chunk[_f64], on its own 2048-row plan) at the
+     camera map in f32 and f64, the ring kernel launched twice for the
+     same bits; fused_pair_bf16_atomics at wide levels of 9 and 16
      row channels (BF16_WIDE); every kernel phases 15 and 17 launch, at
      the shapes, recipes and tables of one step of that plan on the card:
      model_kernel_cases, the block-sparse plans and the in-order segment
@@ -35,9 +41,10 @@ its seconds; any failure exits non-zero):
      captured 10 times in one CUDA graph and replayed (the device alone; everything under 50 MB is
      warm in L2 there, as the solver's caller finds pcol and the plans,
      while the 108 MB of blocks stay cold).  At every fused-pair shape
-     (uniform W = 4, the skewed levels) the pair is timed five ways: the
-     persistent kernel (fused_pair_apply), the kept global-atomics body
-     (fused_pair_apply_atomics), the persistent W-loop kernel
+     (uniform W = 4, the skewed levels) the pair is timed six ways: the
+     persistent kernel (fused_pair_apply), the two global-atomics bodies
+     (fused_pair_apply_atomics, the slots kernel, and
+     fused_pair_apply_atomics_thread, the first body), the persistent W-loop kernel
      (fused_pair_apply_wloop), the first W-loop body
      (fused_pair_apply_wloop_chunked), and the persistent kernel without
      its cols side (the rows-only floor); on the same values as bf16
@@ -146,8 +153,8 @@ its seconds; any failure exits non-zero):
      within ARAP_TRAJ_RTOL of the JAX package's f32 trajectory
      (ARAP_JAX_COSTS) and of the other order's; after step 3 the linear
      parts card vs CPU (GRID_LINEAR_RTOL); fused_pair_apply_atomics
-     launched (the reg group's two (3, 3) col pairs) and no other fused
-     pair; logs the step median, its launches per step and per PCG
+     launched (the reg group's two (3, 3) col pairs, the slots kernel)
+     and no other fused pair, each body's launches logged; logs the step median, its launches per step and per PCG
      iteration, and the marginal cost of a PCG iteration (lIterations 10
      against 110);
  17. the io readers: examples/data/sample_scene.bal.txt (io/bal.py) as
@@ -172,7 +179,9 @@ its seconds; any failure exits non-zero):
      rising, final <= 1e-2 x initial beside phases 4 and 9, the step
      median and peak memory, the linear parts at the initial unknowns card
      vs the port's CPU path in f64 (F64_LINEAR_RTOL); (b) ARAP 256² GN in
-     f64 through fused_pair_apply_atomics_f64, its costs against JAX's f64
+     f64 through the f64 atomics body fused_pair_route names (the first
+     body, fused_pair_apply_atomics_thread_f64; each body's launches
+     logged), its costs against JAX's f64
      run (ARAP_JAX_F64_COSTS, ARAP_F64_RTOL); (c) phase 12's small skewed
      schur_dense scene in f64 card vs CPU, the split far below
      SCHUR_COST_FLOOR; (d) the uniform 1M LM solve under PRECOMPUTE_J in
@@ -200,8 +209,9 @@ its seconds; any failure exits non-zero):
      PRECOMPUTE_J run (the same scalar Jacobi; SCHED_BA_TRAJ) or phase
      20(d)'s (F64_CROSS): their camera transposes through
      oh_setup_aggregate, under tiled every transpose through segment_sum
-     (segment_sum_f64 in f64), tallied by plan; step medians, one profiled
-     step each; (c) ARAP 256² GN, lIterations 10: use_autoscheduler=2
+     (segment_sum_f64 in f64), tallied by plan, each body's launches
+     logged (the ring kernel on the camera plans); step medians, one
+     profiled step each; (c) ARAP 256² GN, lIterations 10: use_autoscheduler=2
      against the default plan under scalar Jacobi (ARAP_TRAJ_RTOL), then
      autoschedule_search over the first SCHED_ARAP_CANDIDATES candidates
      (every (fit, reg) schedule pair), n_steps 3, each candidate's
@@ -224,7 +234,8 @@ its seconds; any failure exits non-zero):
      paths (every path above at small size and the sixteen models): the
      graphed run within twice the eager runs' spread of the farthest of
      them (PATHS_EAGER_RUNS, five, eager runs where two differ or the
-     graphed run differs from them; phase 3's floors), a replay under
+     graphed run differs from them, twelve on the small skewed scene and
+     twenty on schur_dense GN; phase 3's floors), a replay under
      set_sync_debug_mode("error"), and no path may raise for k > 1 (GN's
      schur_dense captures: its eigendecomposition leaves cuSOLVER's info
      on the device, ops/linalg.py); (e) kernel_stats(interior=True) on the uniform 1M plan naming
@@ -645,7 +656,14 @@ SCHED_ARAP_RTOL = 2e-5
 # eager runs of the small dense-JᵀJ path once agreed bit for bit and the
 # graphed run did not; against one eager pair, the small skewed
 # scene once read 1.07e-4 of max|U| graphed, over the 1e-4 floor, where
-# its eager pairs had lain 7.8e-5 to 1.9e-4 apart); (g) hbm_fraction of
+# its eager pairs had lain 7.8e-5 to 1.9e-4 apart), PATHS_EAGER_RUNS_AT
+# on the two paths whose spread the floors do not cover: there five eager
+# runs failed the rule against one more eager run, with no fault, in 0.75%
+# to 3.15% of draws on the small skewed scene and 7.8% on schur_dense GN,
+# whose eager costs after 2 steps lie a median 0.004 apart but up to 0.037
+# (scripts/torch_dispatch_spread.py on an H100, 30-40 eager and 6-10 graphed
+# runs a path, graphed runs failing no more often than eager ones); at 12
+# and 20 runs 0-0.5% and 0.1%; (g) hbm_fraction of
 # ARAP 256²'s marginal PCG iteration at most ROOFLINE_MAX (the traffic
 # model is a lower bound: a share above 1 would be a model or timing
 # fault)
@@ -655,6 +673,7 @@ DISPATCH_1M_U_CALLS = 1
 DISPATCH_SPREAD_X = 2.0
 DISPATCH_EAGER_RUNS = 12
 PATHS_EAGER_RUNS = 5
+PATHS_EAGER_RUNS_AT = {"ba skewed level tables LM": DISPATCH_EAGER_RUNS, "ba schur_dense GN": 20}
 # (a), (b), phase 25: the costs within the spread or DISPATCH_COST_FLOOR x
 # the initial cost: the two modes of the 1M cost after 10 steps lie up to
 # 3.1e-7 x c0 apart (on an H100: eager runs 4.42, 6.35, 4.55 in one call,
@@ -775,8 +794,8 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-PAIR_KERNELS = ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
-                "fused_pair_apply_wloop_chunked", "fused_pair_rows_floor")
+PAIR_KERNELS = ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_atomics_thread",
+                "fused_pair_apply_wloop", "fused_pair_apply_wloop_chunked", "fused_pair_rows_floor")
 # the same pair on bf16 blocks (cases tagged <tag>_bf16), with the cluster
 # kernel of the variants v2 and v3 (the skewed levels: its hot camera)
 BF16_PAIR_KERNELS = ("fused_pair_apply_bf16", "fused_pair_apply_wloop_bf16",
@@ -942,7 +961,36 @@ def kernel_cases(dev, rng, scene, skew_oToC):
                               (S, C), device=dev).index_add_(0, idl, d),
                           # the compact form: 4 bytes a lane, the offsets, data once
                           nbytes(cm, plan.order, plan.seg_start), len(ids) * C, terms))
+        if plan.local is not None:  # the staged route: its first body too
+            cases += per_chunk_cases(dev, tag, ids, S, cm)
     return cases
+
+
+def per_chunk_cases(dev, tag, ids, S, cm, tol=()):
+    """The first staged body (segment_sum_per_chunk[_f64]) on channel-major
+    data cm [C, M] by its own plan (PER_CHUNK_ROWS-row chunks), beside the
+    ring kernel's case of the same values; and the ring kernel's second
+    launch, which must give the same bits as its first."""
+    from thallo_tpu_torch.ops import segsum
+
+    f64 = cm.dtype == torch.float64
+    fn = segsum.segment_sum_per_chunk_f64 if f64 else segsum.segment_sum_per_chunk
+    plan = segsum.build_plan(ids, S, device=dev, staged_rows=segsum.PER_CHUNK_ROWS)
+    ring = segsum.build_plan(ids, S, device=dev)
+    d, C = cm.T, cm.shape[0]
+    first, again = segsum.segment_sum(d, ring), segsum.segment_sum(d, ring)
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        raise AssertionError(f"segment_sum[{tag}] (ring): two launches differ by "
+                             f"{float((first - again).abs().max()):.3e}")
+    log(f"segment_sum[{tag}] (ring, {ring.n_blocks} blocks of {ring.staged_rows}-row chunks): "
+        "two launches, the same bits")
+    idl = torch.from_numpy(ids).to(dev).long()
+    return [(fn.__name__, tag, lambda d=d, p=plan, fn=fn: (fn(d, p),),
+             lambda d=d, p=plan: (segsum.segment_sum_reference(d, p),),
+             lambda d=d, S=S, C=C, idl=idl: torch.zeros(
+                 (S, C), dtype=d.dtype, device=dev).index_add_(0, idl, d),
+             nbytes(cm, plan.order, plan.seg_start), len(ids) * C, None, *tol)]
 
 
 def _pair_args(t, rng, ids, Ci=3, Cj=9, S=1024, block_dtype=torch.float32):
@@ -1033,6 +1081,11 @@ def measurement_kernel_cases(dev, rng):
 # (kernel, case tag) -> the name of its entry in the kernels record
 RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("fused_pair_apply_atomics", "arap256"): "fused_pair_apply_atomics",
+          ("fused_pair_apply_atomics_thread", "arap256"): "fused_pair_apply_atomics_thread",
+          ("segment_sum_per_chunk", "ba1m_cameras"): "segment_sum_per_chunk",
+          ("segment_sum_per_chunk_f64", "ba1m_cameras_f64"): "segment_sum_per_chunk_f64",
+          ("fused_pair_apply_atomics_thread_f64", "arap256_f64_0"):
+              "fused_pair_apply_atomics_thread_f64",
           ("segment_sum", "ba1m_cameras"): "segment_sum_cameras",
           ("fused_pair_apply_wloop", "skew_tail"): "fused_pair_apply_wloop",
           ("fused_pair_apply_wloop_chunked", "skew_tail"): "fused_pair_apply_wloop_chunked",
@@ -1073,6 +1126,10 @@ KERNELS = {
                          "thallo_tpu/ops/fusedpair.py:349", "block-sparse"),
     "fused_pair_apply_atomics": ("thallo_tpu_torch/csrc/fused_pair.cu",
                                  "thallo_tpu/ops/fusedpair.py:349", "arap256 grouped"),
+    # the first atomics body: the route of every other atomics level but
+    # the short ones (fusedpair.atomics_keeps_thread)
+    "fused_pair_apply_atomics_thread": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                                        "thallo_tpu/ops/fusedpair.py:349", "measurement"),
     "fused_pair_apply_wloop": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
                                "thallo_tpu/ops/fusedpair.py:385", "skew block-sparse"),
     "fused_pair_apply_wloop_chunked": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
@@ -1093,6 +1150,11 @@ KERNELS = {
                     "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
     "segment_sum_cameras": ("thallo_tpu_torch/csrc/segsum.cu",
                             "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
+    # the first staged body, which the ring kernel replaced on the route
+    "segment_sum_per_chunk": ("thallo_tpu_torch/csrc/segsum.cu",
+                              "thallo_tpu/ops/segsum.py:254", "measurement"),
+    "segment_sum_per_chunk_f64": ("thallo_tpu_torch/csrc/segsum.cu",
+                                  "thallo_tpu/ops/segsum.py:254", "measurement"),
     "fused_pair_bf16": ("thallo_tpu_torch/csrc/fused_pair.cu",
                         "scripts/tpu_fused_pair_micro.py:31", "measurement"),
     "fused_pair_bf16_atomics": ("thallo_tpu_torch/csrc/fused_pair_variants.cu",
@@ -1121,7 +1183,9 @@ KERNELS = {
     "fused_pair_apply_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
                              "thallo_tpu/ops/fusedpair.py:349", "f64 block-sparse"),
     "fused_pair_apply_atomics_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
-                                     "thallo_tpu/ops/fusedpair.py:349", "arap256 f64"),
+                                     "thallo_tpu/ops/fusedpair.py:349", "measurement"),
+    "fused_pair_apply_atomics_thread_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                                            "thallo_tpu/ops/fusedpair.py:349", "arap256 f64"),
     "oh_setup_products_f64": ("thallo_tpu_torch/csrc/oh_setup.cu",
                               "thallo_tpu/ops/ohsetup.py:192", "f64 block-sparse"),
     "fullrepeat_setup_f64": ("thallo_tpu_torch/csrc/fullrepeat.cu",
@@ -1142,6 +1206,7 @@ def counters():
 
     return {"fused_pair_apply": fusedpair.fused_pair_apply,
             "fused_pair_apply_atomics": fusedpair.fused_pair_apply_atomics,
+            "fused_pair_apply_atomics_thread": fusedpair.fused_pair_apply_atomics_thread,
             "fused_pair_rows_floor": fusedpair.fused_pair_rows_floor,
             "fused_pair_apply_wloop": fusedpair.fused_pair_apply_wloop,
             "fused_pair_apply_wloop_chunked": fusedpair.fused_pair_apply_wloop_chunked,
@@ -1152,6 +1217,8 @@ def counters():
             "oh_setup_aggregate": ohsetup.oh_setup_aggregate,
             "oh_setup_aggregate_atomics": ohsetup.oh_setup_aggregate_atomics,
             "segment_sum": segsum.segment_sum,
+            "segment_sum_per_chunk": segsum.segment_sum_per_chunk,
+            "segment_sum_per_chunk_f64": segsum.segment_sum_per_chunk_f64,
             "fused_pair_bf16": fusedpair.fused_pair_bf16,
             "fused_pair_bf16_atomics": fusedpair.fused_pair_bf16_atomics,
             "fused_pair_apply_bf16": fusedpair.fused_pair_apply_bf16,
@@ -1166,6 +1233,7 @@ def counters():
             "loop_floor_add_one": loopfloor.add_one,
             "fused_pair_apply_f64": fusedpair.fused_pair_apply_f64,
             "fused_pair_apply_atomics_f64": fusedpair.fused_pair_apply_atomics_f64,
+            "fused_pair_apply_atomics_thread_f64": fusedpair.fused_pair_apply_atomics_thread_f64,
             "oh_setup_products_f64": ohsetup.oh_setup_products_f64,
             "fullrepeat_setup_f64": fullrepeat.fullrepeat_setup_f64,
             "oh_setup_aggregate_f64": ohsetup.oh_setup_aggregate_f64,
@@ -1862,23 +1930,28 @@ def phase_measurement_scripts():
     return launches
 
 
-def arap_kernel_cases(dev, rng, bsr):
-    """fused_pair_apply_atomics (and, for the record, its plain version)
-    at the level shapes of ARAP 256²'s reg group: each (3, 3) col pair's
-    table ([4, 65 536] element ids) with seeded blocks, pcol and prow."""
+def arap_kernel_cases(dev, rng, bsr, order="grouped"):
+    """The atomics route's two f32 bodies, fused_pair_apply_atomics (the
+    slots kernel, the route's) and fused_pair_apply_atomics_thread (the
+    first body), at the level shapes of ARAP 256²'s reg group in one edge
+    order: each (3, 3) col pair's table ([4, 65 536] element ids) with
+    seeded blocks, pcol and prow."""
     from thallo_tpu_torch.ops import fusedpair
 
     S = ARAP_SIDE * ARAP_SIDE
     cases = []
     levels = [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
-    log("ARAP 256² reg levels (W, N_t): " + ", ".join(str(tuple(c.shape)) for c in levels))
+    log(f"ARAP 256² reg levels, {order} (W, N_t): "
+        + ", ".join(str(tuple(c.shape)) for c in levels))
+    base = "arap256" if order == "grouped" else f"arap256_{order}"
     for k, ids in enumerate(levels):
         W, N = ids.shape
         a = _pair_args(lambda x: torch.from_numpy(x).to(dev), rng, ids, Ci=3, Cj=3, S=S)
-        cases.append(("fused_pair_apply_atomics", "arap256" if k == 0 else f"arap256_{k}",
-                      lambda a=a: fusedpair.fused_pair_apply_atomics(*a, Ci=3, Cj=3, S=S),
-                      lambda a=a: fusedpair.fused_pair_apply_reference(*a, Ci=3, Cj=3, S=S),
-                      None, nbytes(*a), 4 * W * N * 9, None))
+        for name in ATOMICS_BODIES["fused_pair_apply_atomics"]:
+            cases.append((name, base if k == 0 else f"{base}_{k}",
+                          lambda a=a, fn=getattr(fusedpair, name): fn(*a, Ci=3, Cj=3, S=S),
+                          lambda a=a: fusedpair.fused_pair_apply_reference(*a, Ci=3, Cj=3, S=S),
+                          None, nbytes(*a), 4 * W * N * 9, None))
     return cases
 
 
@@ -1898,20 +1971,20 @@ def f64_kernel_cases(dev, rng, ba, tt, scene):
         plan.init({k: np.copy(v) for k, v in inputs.items()})
         return plan
 
-    makes = {"ba1m_f64": (ba_1m, {"oh_setup_products_f64", "fullrepeat_setup_f64",
+    makes = {"ba1m_f64": (ba_1m, {"oh_setup_products", "fullrepeat_setup",
                                   "fused_pair_apply_f64"}),
              "ba1m_pj_f64": (lambda: ba_1m("J", preconditioner="jacobi"),
-                             {"oh_setup_aggregate_f64"}),
+                             {"oh_setup_aggregate"}),
              "arap256_f64": (lambda: arap_plan(tt, ARAP_SIDE, "grouped", "cuda", double=True),
-                             {"fused_pair_apply_atomics_f64"})}
+                             {"fused_pair_apply_atomics_thread_f64"})}
     cases = []
     for tag, (make, want) in makes.items():
-        got = path_kernel_cases(dev, rng, tag, path_calls(make()))
-        names = {c[0] for c in got}
+        calls = path_calls(make())
+        names = {c[0] for c in calls}
         if names != want:
             raise AssertionError(f"{tag}: the f64 path launched {sorted(names)}, "
                                  f"not {sorted(want)}")
-        cases += got
+        cases += path_kernel_cases(dev, rng, tag, calls)
     # segment_sum_f64, the transposes of phase 23(b)'s INLINE tiled f64
     # solve: points [1M, 3] -> 250 000 and cameras [1M, 9] -> 1024, plans
     # from the scene's maps, data the transpose of a channel-major buffer
@@ -1931,6 +2004,8 @@ def f64_kernel_cases(dev, rng, ba, tt, scene):
                           (S, C), dtype=torch.float64, device=dev).index_add_(0, idl, d),
                       nbytes(cm, plan.order, plan.seg_start), len(ids) * C, None,
                       F64_KERNEL_TOL))
+        if plan.local is not None:  # the staged route: its first body too
+            cases += per_chunk_cases(dev, tag, ids, S, cm, (F64_KERNEL_TOL,))
     return cases
 
 
@@ -1964,7 +2039,13 @@ SOLVER_KERNELS = ("oh_setup_products", "fullrepeat_setup", "fused_pair_apply",
                   "fused_pair_apply_atomics", "fused_pair_apply_wloop",
                   "fused_pair_apply_wloop_chunked", "fused_pair_apply_bf16",
                   "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics",
-                  "fused_pair_apply_f64", "fused_pair_apply_atomics_f64")
+                  "fused_pair_apply_f64", "fused_pair_apply_atomics_f64",
+                  "fused_pair_apply_atomics_thread", "fused_pair_apply_atomics_thread_f64")
+# the two bodies of the atomics route (fusedpair.atomics_keeps_thread picks
+# between them): phase 2 runs both at every atomics-route call of a path
+ATOMICS_BODIES = {n: pair for pair in (
+    ("fused_pair_apply_atomics", "fused_pair_apply_atomics_thread"),
+    ("fused_pair_apply_atomics_f64", "fused_pair_apply_atomics_thread_f64")) for n in pair}
 
 
 def path_calls(plan):
@@ -2081,9 +2162,12 @@ def path_kernel_cases(dev, rng, tag, calls):
         else:
             a = (args[0], normal(args[1]), normal(args[2]), normal(args[3]))
             W, N = a[0].shape
-            cases.append((name, ctag, lambda a=a, fn=getattr(fusedpair, name), kw=kw: fn(*a, **kw),
-                          lambda a=a, kw=kw: fusedpair.fused_pair_apply_reference(*a, **kw),
-                          None, nbytes(*a), 4 * W * N * kw["Ci"] * kw["Cj"], None, *tol))
+            # an atomics-route call: the slots kernel and the first body both
+            for body in (name,) + tuple(b for b in ATOMICS_BODIES.get(name, ()) if b != name):
+                cases.append((body, ctag,
+                              lambda a=a, fn=getattr(fusedpair, body), kw=kw: fn(*a, **kw),
+                              lambda a=a, kw=kw: fusedpair.fused_pair_apply_reference(*a, **kw),
+                              None, nbytes(*a), 4 * W * N * kw["Ci"] * kw["Cj"], None, *tol))
         log(f"{kname}[{ctag}] from the path: " + ", ".join(
             f"{tuple(x.shape) if torch.is_tensor(x) else type(x).__name__}" for x in args)
             + f", {kw}")
@@ -2332,6 +2416,8 @@ def phase_arap_256(tt):
         log(f"{label} launches over {ARAP_STEPS} steps {({k: v for k, v in launches.items() if v})}"
             f"; fused_pair_apply_atomics {atomics / ARAP_STEPS:.1f} a step, "
             f"{atomics / (ARAP_STEPS * ARAP_L_ITERATIONS):.2f} a PCG iteration")
+        log(f"{label} atomics bodies: the slots kernel {atomics} launches, the first body "
+            f"{launches['fused_pair_apply_atomics_thread']}")
         stray = [k for k, v in launches.items() if v and k != "fused_pair_apply_atomics"
                  and k.startswith("fused_pair")]
         if atomics <= 0 or stray:
@@ -2618,9 +2704,14 @@ def phase_f64_1m(ba, tt, scene, f32_final, bf16_final):
 def phase_arap_f64(tt):
     """Phase 20(b): ARAP 256² GN under double_precision, grouped edges,
     warmup() and ARAP_STEPS run_steps(1): the reg group's two (3, 3) col
-    pairs through fused_pair_apply_atomics_f64 (no other fused pair); the
-    costs within ARAP_F64_RTOL of JAX's f64 run.  Returns the launches."""
+    pairs through the f64 atomics body fused_pair_route names for them
+    (no other fused pair; each body's launches logged); the costs within
+    ARAP_F64_RTOL of JAX's f64 run.  Returns the launches."""
+    from thallo_tpu_torch.ops import fusedpair
+
     label = f"ARAP {ARAP_SIDE}² GN f64"
+    S = ARAP_SIDE * ARAP_SIDE
+    route = fusedpair.fused_pair_route(4, S, 3, 3, S, dtype=torch.float64)
     fns = counters()
     plan = arap_plan(tt, ARAP_SIDE, "grouped", "cuda", double=True)
     plan.warmup()
@@ -2634,13 +2725,15 @@ def phase_arap_f64(tt):
         step_s.append(time.perf_counter() - t0)
         costs.append(plan.final_cost)
     launches = {n: fn.launches for n, fn in fns.items()}
-    atomics = launches["fused_pair_apply_atomics_f64"]
-    stray = [n for n, k in launches.items() if k and n != "fused_pair_apply_atomics_f64"
-             and n.startswith("fused_pair")]
+    atomics = launches[route]
+    stray = [n for n, k in launches.items() if k and n != route and n.startswith("fused_pair")]
     log(f"{label} costs {costs}; launches {({n: k for n, k in launches.items() if k})}; "
         f"median step of 2-{ARAP_STEPS} {float(np.median(step_s[1:])) * 1e3:.2f} ms")
+    log(f"{label} atomics bodies: the slots kernel "
+        f"{launches['fused_pair_apply_atomics_f64']} launches, the first body "
+        f"{launches['fused_pair_apply_atomics_thread_f64']}")
     if atomics <= 0 or stray:
-        raise AssertionError(f"{label}: fused_pair_apply_atomics_f64 launched {atomics} times, "
+        raise AssertionError(f"{label}: {route} launched {atomics} times, "
                              f"other fused-pair kernels {stray}")
     for k, tol in ARAP_F64_RTOL.items():
         ref = ARAP_JAX_F64_COSTS[k]
@@ -2895,6 +2988,7 @@ def phase_schedule_ba(ba, tt, scene, ref, ref_f64):
         want = "segment_sum_f64" if double else "segment_sum" if tiled else "oh_setup_aggregate"
         if tiled:
             os.environ["THALLO_SEGSUM"] = "tiled"  # read by plan.init
+        bodies0 = dict(segsum.BODY_LAUNCHES)
         try:
             with own_store(), tally(lower, "segment_sum", lambda data, plan: plan.num_segments,
                                     segsum.segment_sum_f64 if double else None) as by_plan, \
@@ -2908,7 +3002,8 @@ def phase_schedule_ba(ba, tt, scene, ref, ref_f64):
         if got != key.split()[0]:
             raise AssertionError(f"{label}: schedule {got}")
         log(f"{label}: segment_sum launches by plan (segments) {dict(by_plan)}, "
-            f"oh_setup_aggregate launches by image size {dict(by_n)}")
+            f"oh_setup_aggregate launches by image size {dict(by_n)}; segment sum bodies "
+            f"{({k: v - bodies0.get(k, 0) for k, v in segsum.BODY_LAUNCHES.items()})}")
         if tiled:
             launches[want] = by_plan[dims["P"]]
             launches[want + "_cameras"] = by_plan[dims["C"]]
@@ -3337,7 +3432,8 @@ def phase_dispatch_paths_and_determinism(tt):
 
     # bundle_fusion's small case steps eagerly in 3-4 s (the other paths in
     # under 0.5 s); it captured, and matched its eager runs bit for bit
-    for rec in dispatch_paths(["--steps", "2", "--eager-runs", str(PATHS_EAGER_RUNS),
+    at = [a for path, n in PATHS_EAGER_RUNS_AT.items() for a in ("--path-eager-runs", path, str(n))]
+    for rec in dispatch_paths(["--steps", "2", "--eager-runs", str(PATHS_EAGER_RUNS), *at,
                                "--skip", "model bundle_fusion"]):
         if "error" in rec or "raises" in rec:
             raise AssertionError(f"steps_per_dispatch on {rec['path']}: "
@@ -3752,8 +3848,9 @@ def main():
     cases = kernel_cases(dev, rng, scene[0], skew_scene[0]["oToC"])
     cases += skew_kernel_cases(dev, rng, skew_tables(ba, tt, skew_scene))
     cases += measurement_kernel_cases(dev, rng)
-    arap_reg = arap_plan(tt, ARAP_SIDE, "grouped", "cuda")._prep["consts"][1]["bsr"]
-    cases += arap_kernel_cases(dev, rng, arap_reg)
+    for order in ("grouped", "shuffled"):
+        arap_reg = arap_plan(tt, ARAP_SIDE, order, "cuda")._prep["consts"][1]["bsr"]
+        cases += arap_kernel_cases(dev, rng, arap_reg, order)
     cases += bf16_wide_cases(dev, rng)
     cases += model_kernel_cases(dev, rng, tt)
     cases += f64_kernel_cases(dev, rng, ba, tt, scene)

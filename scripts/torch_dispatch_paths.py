@@ -3,7 +3,8 @@ at small sizes: which paths the card captures in one CUDA graph, whether a
 replay reads the host, and how far a graphed run lies from eager runs.
 
     python3 scripts/torch_dispatch_paths.py [--skip PATH ...] [--only PATH ...]
-        [--steps 4] [--eager-runs 5] [--repeat 1] [--out FILE]
+        [--steps 4] [--eager-runs 5] [--path-eager-runs PATH N ...] [--repeat 1]
+        [--out FILE]
 
 For each path: two eager plans (steps_per_dispatch=1) and one with
 steps_per_dispatch=2, each from the same seeded inputs, run_steps(--steps)
@@ -11,12 +12,13 @@ then the unknowns and the cost; the graphed plan first through warmup()
 (the capture).  Where the two eager runs differ (atomics sum in another
 order each run), or the graphed run differs from them (two runs of a
 path with atomics may agree by chance), more eager runs, --eager-runs in
-all, so that the spread is the largest distance of any two of them and
-not one pair's draw; bit for bit only where every eager run agrees.  The run of the graphed plan's step graph is repeated
-under torch.cuda.set_sync_debug_mode("error") (a host read there
-raises).  A path whose plan raises NotImplementedError for
-steps_per_dispatch > 1 (CompiledSolver.uncapturable) is reported with
-its reason.  One JSON line a path: the eager runs' spread and the
+all (--path-eager-runs: N for the path named), so that the spread is
+the largest distance of any two of them and not one pair's draw; bit for
+bit only where every eager run agrees.  The run of the graphed plan's
+step graph is repeated under torch.cuda.set_sync_debug_mode("error") (a
+host read there raises).  A path whose plan raises NotImplementedError
+for steps_per_dispatch > 1 (CompiledSolver.uncapturable) is reported
+with its reason.  One JSON line a path: the eager runs' spread and the
 graphed run's distance from the farthest of them (max|dU| / max|U|,
 relative cost), the host ms a step of each (one run_steps batch ended by
 a sync), and an error, if any.  --repeat checks each path that many
@@ -220,6 +222,8 @@ def main(argv=None):
     ap.add_argument("--only", nargs="*", help="only the paths named so")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--eager-runs", type=int, default=5)
+    ap.add_argument("--path-eager-runs", nargs=2, action="append", default=[],
+                    metavar=("PATH", "N"), help="--eager-runs for the path named")
     ap.add_argument("--repeat", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", help="also append the JSON lines to this file")
@@ -229,6 +233,7 @@ def main(argv=None):
         return 1
     import thallo_tpu_torch as tt
 
+    eager_runs = {name: int(n) for name, n in args.path_eager_runs}
     records = []
     with open(args.out, "a") if args.out else contextlib.nullcontext() as out:
         for name, make in paths(tt).items():
@@ -236,7 +241,7 @@ def main(argv=None):
                 continue
             for _ in range(args.repeat):
                 rec = check_path(name, make, args.device, args.steps,
-                                 eager_runs=args.eager_runs)
+                                 eager_runs=eager_runs.get(name, args.eager_runs))
                 records.append(rec)
                 line = json.dumps(rec)
                 print(line, flush=True)

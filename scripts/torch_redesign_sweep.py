@@ -8,7 +8,9 @@ Groups (all by default):
           shape (W 4, N 250 000, random ids) and at the skewed 1M scene's
           real level-0 and level-1 col tables:
             persistent     fused_pair_apply (the persistent kernel)
-            atomics        fused_pair_apply_atomics (a global atomic per cols value)
+            atomics        fused_pair_apply_atomics_thread (the first atomics body:
+                           a global atomic per cols value)
+            atomics_slots  fused_pair_apply_atomics (the slots kernel)
             wloop          fused_pair_apply_wloop
             rows_floor     the persistent kernel without its cols side
           --sweep: the persistent kernel over THREADS x BLOCKS_PER_SM and
@@ -29,10 +31,23 @@ Groups (all by default):
           segments of ~977 scattered rows, 9 channels; the skewed scene's
           real oToC), data channel-major transposed (as the solver passes
           it) and row-major: segment_sum against torch.zeros(...).index_add_.
-          --sweep: the sorted runs alone over TARGET_PIECES, and the staged
-          kernel over STAGED_ROWS, on the skewed map too (which
+          --sweep: the sorted runs alone over TARGET_PIECES, and the first
+          staged body over its chunk (the ring kernel where it fits), on the
+          skewed map too (which
           staged_eligible refuses: a thread sums the hot camera's share of
           a chunk alone).
+  staged  the staged segment sum at the camera map (1024 segments of ~977
+          scattered rows, 9 channels, channel-major transposed data), in
+          f32 and f64: the ring kernel (segment_sum's route), the first
+          staged body (segment_sum_per_chunk[_f64]) on the same plan and on a
+          plan of its own chunk (PER_CHUNK_ROWS), and index_add_; each
+          twice, bit for bit.
+  slots   the atomics route of the fused pair at the shape of ARAP 256²'s
+          (3, 3) col levels (each vertex's four grid neighbours, in grid
+          order and shuffled), in f32 and f64, and at the other shapes the
+          route takes (random ids): the slots kernel
+          (fused_pair_apply_atomics[_f64]) and the first body
+          (fused_pair_apply_atomics_thread[_f64]).
   fullrepeat  fullrepeat_setup at the uniform 1M scene's point level (N_t
           250 000, W 4, rc 2, Kall 24; the solver's recipe: jtr 3, d2 3,
           the 3 x 9 cross pair, the 3 x 3 diag pair): the tile kernel
@@ -88,7 +103,8 @@ import torch
 from torch_measure import (SKEW_1M, card, emit, kept, max_rel_err, pair_operands, per_launch_ms,
                            random_ids, skew_camera_ids, skew_tables)
 
-PAIR_KERNELS = [("persistent", "fused_pair_apply"), ("atomics", "fused_pair_apply_atomics"),
+PAIR_KERNELS = [("persistent", "fused_pair_apply"), ("atomics", "fused_pair_apply_atomics_thread"),
+                ("atomics_slots", "fused_pair_apply_atomics"),
                 ("wloop", "fused_pair_apply_wloop"), ("rows_floor", "fused_pair_rows_floor")]
 WLOOP_KERNELS = [("persistent", "fused_pair_apply"), ("wloop", "fused_pair_apply_wloop"),
                  ("wloop_chunked", "fused_pair_apply_wloop_chunked")]
@@ -348,8 +364,7 @@ def sweep_segsum(args, smi, out):
                 0, idl, data))
             if not args.sweep:
                 continue
-            kept = (segsum.TARGET_PIECES, segsum.STAGED_MAX_SEGMENTS, segsum.STAGED_ROWS,
-                    segsum.STAGED_MAX_SHARE)
+            kept = (segsum.TARGET_PIECES, segsum.STAGED_MAX_SEGMENTS, segsum.STAGED_MAX_SHARE)
             try:
                 segsum.STAGED_MAX_SEGMENTS = 0  # the sorted runs alone
                 for v in PIECES_SWEEP:
@@ -361,14 +376,91 @@ def sweep_segsum(args, smi, out):
                 if layout != "channel_major_T" or S > segsum.STAGED_MAX_SEGMENTS:
                     continue
                 segsum.STAGED_MAX_SHARE = 1  # staged whatever one segment owns
-                for v in STAGED_ROWS_SWEEP:
-                    segsum.STAGED_ROWS = v
-                    swept = segsum.build_plan(ids, S, device="cuda")
-                    timed("segment_sum", lambda: segsum.segment_sum(data, swept),
+                for v in STAGED_ROWS_SWEEP:  # the first staged body; the ring where it fits
+                    swept = segsum.build_plan(ids, S, device="cuda", staged_rows=v)
+                    timed("segment_sum_per_chunk",
+                          lambda: segsum.segment_sum_per_chunk(data, swept),
                           modes=swept.modes, staged=True, STAGED_ROWS=v)
+                    if v <= segsum.STAGED_ROWS:
+                        timed("segment_sum", lambda: segsum.segment_sum(data, swept),
+                              modes=swept.modes, staged=True, STAGED_ROWS=v)
             finally:
-                (segsum.TARGET_PIECES, segsum.STAGED_MAX_SEGMENTS, segsum.STAGED_ROWS,
-                 segsum.STAGED_MAX_SHARE) = kept
+                segsum.TARGET_PIECES, segsum.STAGED_MAX_SEGMENTS, segsum.STAGED_MAX_SHARE = kept
+
+
+# the atomics route's other shapes: (tag, W, N, Ci, Cj, S): a BA pair whose
+# accumulator is beyond the persistent kernel, bundle_fusion's [8, 700],
+# embedded deformation's (9, 3) and a 16 x 16 pair
+SLOTS_SHAPES = (("ba_big_s", 4, 250_000, 3, 9, 4000), ("bundle_fusion", 8, 700, 6, 6, 700),
+                ("embedded", 4, 1600, 9, 3, 400), ("wide_16x16", 3, 5000, 16, 16, 3000))
+
+
+def sweep_staged(args, smi, out):
+    from thallo_tpu_torch.ops import segsum
+
+    rng = np.random.default_rng(7)
+    C, P, _ = SKEW_1M
+    ids = rng.integers(0, C, 4 * P).astype(np.int32)
+    idl = torch.from_numpy(ids).cuda().long()
+    plans = {"ring": segsum.build_plan(ids, C, device="cuda"),
+             "own": segsum.build_plan(ids, C, device="cuda", staged_rows=segsum.PER_CHUNK_ROWS)}
+    for dt in (torch.float32, torch.float64):
+        cm = torch.from_numpy(rng.normal(size=(9, len(ids)))).to("cuda", dt)
+        data = cm.T
+        ref = segsum.segment_sum_reference(data, plans["ring"])
+        first = segsum.segment_sum_per_chunk_f64 if dt == torch.float64 else \
+            segsum.segment_sum_per_chunk
+        calls = [("ring", lambda: segsum.segment_sum(data, plans["ring"]), plans["ring"]),
+                 ("per_chunk", lambda: first(data, plans["ring"]), plans["ring"]),
+                 ("per_chunk_own", lambda: first(data, plans["own"]), plans["own"]),
+                 ("index_add_", lambda: torch.zeros((C, 9), dtype=dt, device="cuda").index_add_(
+                     0, idl, data), None)]
+        for kernel, fn, plan in calls:
+            got = fn()
+            same = bool(torch.equal(got, fn()))
+            eager, graph = per_launch_ms(fn, args.n)
+            emit({"name": "cameras", "kernel": kernel, "dtype": str(dt), "M": len(ids), "S": C,
+                  "C": 9, "T": plan.staged_rows if plan else None,
+                  "blocks": plan.n_blocks if plan else None, "eager_ms": eager,
+                  "graph_ms": graph, "rel_err": max_rel_err((got,), (ref,)),
+                  "same_bits": same, "card": smi}, out)
+
+
+def grid_ids(side, shuffled):
+    """[4, side²] int32 on the card: each vertex's four grid neighbours (-1
+    past the border), the shape of ARAP's 3 x 3 col levels; shuffled: the
+    vertices in a seeded random order (a shuffled edge order's tables)."""
+    n = np.arange(side * side)
+    x, y = n % side, n // side
+    ids = np.stack([np.where(x + 1 < side, n + 1, -1), np.where(x > 0, n - 1, -1),
+                    np.where(y + 1 < side, n + side, -1), np.where(y > 0, n - side, -1)])
+    if shuffled:
+        ids = ids[:, np.random.default_rng(5).permutation(side * side)]
+    return torch.from_numpy(np.ascontiguousarray(ids, dtype=np.int32)).cuda()
+
+
+def sweep_slots(args, smi, out):
+    from thallo_tpu_torch.ops import fusedpair
+
+    rng = np.random.default_rng(8)
+    cases = [(f"grid256_{order}", grid_ids(256, order == "shuffled"), 3, 3, 256 * 256)
+             for order in ("grouped", "shuffled")]
+    cases += [(tag, random_ids(rng, W, N, S), Ci, Cj, S) for tag, W, N, Ci, Cj, S in SLOTS_SHAPES]
+    for name, ids, Ci, Cj, S in cases:
+        W, N = ids.shape
+        kw = dict(Ci=Ci, Cj=Cj, S=S)
+        for dt, suffix in ((torch.float32, ""), (torch.float64, "_f64")):
+            ops = tuple(x.to(dt) if x.is_floating_point() else x
+                        for x in f32_operands(rng, ids, Ci, Cj, S))
+            ref = fusedpair.fused_pair_apply_reference(*ops, **kw)
+            for kernel in ("fused_pair_apply_atomics", "fused_pair_apply_atomics_thread"):
+                fn = getattr(fusedpair, kernel + suffix)
+                err = max_rel_err(fn(*ops, **kw), ref)
+                eager, graph = per_launch_ms(lambda: fn(*ops, **kw), args.n)
+                emit({"name": name, "kernel": kernel + suffix, "W": W, "N": N, "Ci": Ci,
+                      "Cj": Cj, "S": S, "eager_ms": eager, "graph_ms": graph, "rel_err": err,
+                      "route": fusedpair.fused_pair_route(W, N, Ci, Cj, S, dtype=dt),
+                      "card": smi}, out)
 
 
 def sweep_bf16(args, smi, out):
@@ -506,7 +598,7 @@ def sweep_v1(args, smi, out):
 
 
 GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum,
-          "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate, "bf16": sweep_bf16,
+          "staged": sweep_staged, "slots": sweep_slots, "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate, "bf16": sweep_bf16,
           "variants": sweep_variants, "v1": sweep_v1}
 
 

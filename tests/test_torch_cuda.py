@@ -1696,3 +1696,88 @@ def test_capturable_eigh_matches_torch_and_captures(cuda, K, dtype):
     graph.replay()
     torch.cuda.synchronize()
     assert float((out["lam"] - lam).abs().max()) <= tol
+
+
+# the atomics route's shapes (W, N, Ci, Cj, S, ids): ARAP's 3 x 3 col
+# levels (grouped: element n's slots are its grid neighbours; shuffled:
+# the same ids permuted), a BA pair whose accumulator is beyond the
+# persistent kernel, bundle_fusion's [8, 700], embedded deformation's
+# 9 x 3, and the largest pair, 16 x 16
+def _grid_ids(side, shuffled):
+    n = np.arange(side * side)
+    x, y = n % side, n // side
+    ids = np.stack([np.where(x + 1 < side, n + 1, -1), np.where(x > 0, n - 1, -1),
+                    np.where(y + 1 < side, n + side, -1), np.where(y > 0, n - side, -1)])
+    if shuffled:
+        ids = ids[:, np.random.default_rng(5).permutation(side * side)]
+    return np.ascontiguousarray(ids, dtype=np.int32)
+
+
+ATOMICS_ROUTE_SHAPES = [("arap_grouped", 3, 3, 64 * 64), ("arap_shuffled", 3, 3, 64 * 64),
+                        ((4, 20_000), 3, 9, 4000), ((8, 700), 6, 6, 700),
+                        ((4, 1600), 9, 3, 400), ((3, 5000), 16, 16, 3000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("double", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape,Ci,Cj,S", ATOMICS_ROUTE_SHAPES,
+                         ids=["arap_grouped", "arap_shuffled", "ba_big_s", "bundle_fusion",
+                              "embedded", "16x16"])
+def test_fused_pair_atomics_bodies_cuda_match_plain(cuda, double, shape, Ci, Cj, S):
+    """The slots kernel and the first atomics body, f32 and f64, at every
+    shape of the atomics route, against the plain version; each wrapper
+    counts its own launch, and fused_pair_route names one of them."""
+    rng = np.random.default_rng(11)
+    if isinstance(shape, str):
+        ids = _grid_ids(64, shape.endswith("shuffled"))
+    else:
+        ids = rng.integers(0, S, shape).astype(np.int32)
+    W, N = ids.shape
+    dt = torch.float64 if double else torch.float32
+    args = [torch.from_numpy(ids).to(cuda)] + [
+        torch.from_numpy(rng.normal(size=s)).to(cuda, dt) for s in ((W * Ci * Cj, N), (Cj, S),
+                                                                    (Ci, N))]
+    ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    sfx = "_f64" if double else ""
+    names = ["fused_pair_apply_atomics" + sfx, "fused_pair_apply_atomics_thread" + sfx]
+    assert fusedpair.fused_pair_route(W, N, Ci, Cj, S, dtype=dt) in names
+    tol = CUDA_F64_TOL if double else CUDA_TOL
+    for name in names:
+        fn = getattr(fusedpair, name)
+        n0 = fn.launches
+        rows, cols = fn(*args, Ci=Ci, Cj=Cj, S=S)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1 and rows.dtype == cols.dtype == dt
+        close(rows.cpu(), ref[0].cpu(), tol)
+        close(cols.cpu(), ref[1].cpu(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [segsum.STAGED_BLOCKS, 6])
+@pytest.mark.parametrize("double", [False, True], ids=["f32", "f64"])
+def test_segsum_ring_cuda_bit_identical(cuda, monkeypatch, blocks, double):
+    """The ring kernel (segment_sum's staged route) and the first staged
+    body on channel-major data: each within CUDA_TOL (CUDA_F64_TOL) of the
+    plain version, the ring kernel the same bits on two launches, and its
+    own plain twin's [G, S, C] order."""
+    monkeypatch.setattr(segsum, "STAGED_BLOCKS", blocks)
+    rng = np.random.default_rng(12)
+    S, M = 256, 60_000
+    ids = rng.integers(0, S, M).astype(np.int32)
+    dt = torch.float64 if double else torch.float32
+    data = torch.from_numpy(rng.normal(size=(9, M))).to(cuda, dt).T
+    plan = segsum.build_plan(ids, S, device=cuda)
+    assert plan.local is not None and plan.n_blocks == min(plan.n_chunks, blocks)
+    tol = CUDA_F64_TOL if double else CUDA_TOL
+    ref = segsum.segment_sum_reference(data, plan)
+    n0 = dict(segsum.BODY_LAUNCHES)
+    ring = segsum.segment_sum(data, plan)
+    again = segsum.segment_sum(data, plan)
+    first = segsum.segment_sum_per_chunk(data, plan)
+    torch.cuda.synchronize()
+    assert segsum.BODY_LAUNCHES["ring"] == n0.get("ring", 0) + 2
+    assert segsum.BODY_LAUNCHES["per_chunk"] == n0.get("per_chunk", 0) + 1
+    assert torch.equal(ring, again)
+    for got in (ring, first):
+        close(got.cpu(), ref.cpu(), tol)
+    close(ring.cpu(), segsum.segment_sum_staged_reference(data, plan).cpu(), tol)

@@ -347,15 +347,18 @@ def test_oh_aggregate_plain_f64_matches_oracle(R, N):
 @pytest.mark.parametrize("W,N_t,S,want", [
     (4, 250_000, 1024, "fused_pair_apply_f64"),        # BA uniform 1M
     (2, 250_000, 1024, "fused_pair_apply_f64"),        # the skewed 1M scene's first level
-    (24, 12_599, 1024, "fused_pair_apply_atomics_f64"),  # its wide levels (W-loop in f32)
+    # its wide levels (W-loop in f32)
+    (24, 12_599, 1024, "fused_pair_apply_atomics_thread_f64"),
     (8, 1400, 16, "fused_pair_apply_atomics_f64"),     # short levels (W-loop in f32)
-    (4, 250_000, 1600, "fused_pair_apply_atomics_f64"),  # f64 accumulator beyond the kernel
+    # f64 accumulator beyond the kernel
+    (4, 250_000, 1600, "fused_pair_apply_atomics_thread_f64"),
 ])
 def test_fused_pair_route_f64(W, N_t, S, want):
     """fused_pair_route names the f64 persistent kernel where the f32 route
-    is the persistent kernel and the [9, S] f64 accumulator fits, else the
-    f64 atomics body; bf16 blocks keep their bf16 route (the CPU runs its
-    plain version; the card refuses the plan)."""
+    is the persistent kernel and the [9, S] f64 accumulator fits, else an
+    f64 atomics body: the slots kernel on short levels, the first atomics
+    body elsewhere (atomics_keeps_thread); bf16 blocks keep their bf16
+    route (the CPU runs its plain version; the card refuses the plan)."""
     assert fusedpair.fused_pair_route(W, N_t, 3, 9, S, dtype=torch.float64) == want
     assert fusedpair.fused_pair_route(4, 1000, 3, 3, 1000, dtype=torch.float64) == \
         "fused_pair_apply_atomics_f64"

@@ -504,13 +504,15 @@ def test_segsum_choose_modes(counts, modes):
     (3, 9, 1024, "fused_pair_apply"), (3, 9, 16, "fused_pair_apply"),
     (3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36, "fused_pair_apply"),
     # accumulator too large
-    (3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36 + 1, "fused_pair_apply_atomics"),
-    (9, 3, 64, "fused_pair_apply_atomics"), (3, 3, 64, "fused_pair_apply_atomics"),
-    (8, 16, 1024, "fused_pair_apply_atomics"),
+    (3, 9, fusedpair.PERSISTENT_MAX_SMEM // 36 + 1, "fused_pair_apply_atomics_thread"),
+    (9, 3, 64, "fused_pair_apply_atomics_thread"), (3, 3, 64, "fused_pair_apply_atomics"),
+    (8, 16, 1024, "fused_pair_apply_atomics_thread"),
 ])
 def test_fused_pair_route(Ci, Cj, S, route):
     """Narrow levels (W 4, many elements): the persistent kernel where the
-    pair and its accumulator fit it, else the atomics body."""
+    pair and its accumulator fit it, else the atomics route: the slots
+    kernel for the 3 x 3 pair, the first atomics body for the others
+    (atomics_keeps_thread)."""
     assert fusedpair.fused_pair_route(4, 250_000, Ci, Cj, S) == route
 
 

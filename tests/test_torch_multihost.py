@@ -41,7 +41,8 @@ MH_RTOL = 5e-3  # tests/mh_worker.py:36-38
 def two(tmp_path_factory):
     """Two processes joined by multihost.initialize, every check on them."""
     fmt = str(tmp_path_factory.mktemp("ckpt") / "ckpt_{process}.npz")
-    return run_ranks(S.multihost_worker, 2, args=(fmt,), join=False, timeout=300), fmt
+    return run_ranks(S.multihost_worker, 2, device="cpu", args=(fmt,), join=False,
+                     timeout=300), fmt
 
 
 def _single_cost(steps=3):

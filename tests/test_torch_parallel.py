@@ -136,10 +136,11 @@ def runs():
     rebinding checks in another, and the 2-rank weak-scaling run."""
     cases = _cases()
     names = list(cases)
-    res = run_ranks(S.run_cases, RANKS, args=([cases[n] for n in names],), timeout=600)
+    res = run_ranks(S.run_cases, RANKS, device="cpu", args=([cases[n] for n in names],),
+                    timeout=600)
     out = dict(zip(names, res))
-    out.update(run_ranks(S.checks, RANKS, timeout=300))
-    out["weak2"] = run_ranks(S.run_case, 2, args=(_weak_ba(),), timeout=300)
+    out.update(run_ranks(S.checks, RANKS, device="cpu", timeout=300))
+    out["weak2"] = run_ranks(S.run_case, 2, device="cpu", args=(_weak_ba(),), timeout=300)
     out["cases"] = cases
     return out
 

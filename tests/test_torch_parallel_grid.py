@@ -142,7 +142,8 @@ def runs():
     out = {}
     for n, cases in ((2, CASES2), (4, CASES4)):
         names = list(cases)
-        res = run_ranks(S.grid_checks, n, args=([cases[k] for k in names], "cpu", n == 2),
+        res = run_ranks(S.grid_checks, n, device="cpu",
+                        args=([cases[k] for k in names], "cpu", n == 2),
                         join=n != 2, timeout=600)
         out[f"halo{n}"] = res["halo"]
         out.update(zip(names, res["cases"]))

@@ -47,13 +47,43 @@
 //   pair: the graph models' 3 x 3 pairs and the embedded graph's
 //   9-channel rotation rows against 3-channel offsets).
 //
+// fused_pair_slots_kernel  (thallo_fused_pair_atomics_slots, the redesign
+//     of the atomics kernel above for this card; _f64 the same template)
+//   Bound by bytes, like the atomics kernel, which walks an element's W
+//   slots one after another: id, then the pcol gather that needs it, then
+//   the blocks, then Cj atomics, so W load chains run back to back and no
+//   load of slot w + 1 starts before slot w's atomics (0.36 of the bound
+//   at ARAP 256²'s 3 x 3 levels, W 4, N 65 536).  Here a thread starts
+//   every load of its slots before any sum: the ids of kSlotIds slots,
+//   then, for the exact 3 x 3 pair, all their blocks (kSlotAhead values),
+//   then the pcol gathers, so one element's ~50 loads are in flight at
+//   once.  On a level of fewer than kSlotSpreadMaxN elements one thread
+//   per element leaves the card nearly empty (bundle_fusion's 700), so
+//   there the W slots are spread over P slot lanes (P the largest power
+//   of two <= min(W, 8)): a block of kSlotThreads covers kSlotThreads / P
+//   elements, each warp 32 neighbouring elements at one slot lane (a
+//   warp's loads of a block plane stay 128-byte rows), and lane 0 adds
+//   the other lanes' rows from shared memory in lane order (a fixed
+//   order).  On long levels spreading measured slower (the lane
+//   bookkeeping, the shared rows and every lane's prow reads cost more
+//   than the extra warps gave), so P is 1 there.  Cols: one global atomic
+//   per (slot, element, cj), as before; in ARAP's grouped edge order a
+//   warp's 32 ids are neighbouring vertices, so its atomics land on one
+//   or two 128-byte lines, and a warp of ARAP holds no equal ids for a
+//   merge to save.  Instantiated exactly for (3, 3) (P = 1 and P > 1) and
+//   for (Ci, Cj) up to (4, 4), (16, 4) and (16, 16): the other levels
+//   keep the first body unless they are short (fusedpair.py
+//   atomics_keeps_thread), so fewer instantiations than the first body's
+//   keep the build short.
+//
 // f64 (the solver's double_precision): both kernels are templated on the
 // value type V of pcol, prow, rows, cols and the shared accumulator.
 // thallo_fused_pair_persistent_f64 is the persistent kernel with T = V =
 // double (one double a lane; the [9, S] accumulator is 72 KB at S =
 // 1024, within kMaxSmem up to S = 1592), thallo_fused_pair_atomics_f64
-// the atomics kernel with V = double (atomicAdd on double is native on
-// sm_90).  Registers and shared memory double; every sum is an f64 sum.
+// and thallo_fused_pair_atomics_slots_f64 the two atomics kernels with V
+// = double (atomicAdd on double is native on sm_90).  Registers and
+// shared memory double; every sum is an f64 sum.
 //
 // add_cols (the warp merge) lives in block_accum.cuh, shared with the
 // W-loop kernel and oh_aggregate.cu; pair_slot (one slot's loads and
@@ -157,6 +187,165 @@ cudaError_t launch_atomics(const void* ids, const void* blocks, const void* pcol
         static_cast<const int*>(ids), static_cast<const V*>(blocks),
         static_cast<const V*>(pcol), static_cast<const V*>(prow), static_cast<V*>(rows),
         static_cast<V*>(cols), W, N, Ci, Cj, S);
+  }
+  return cudaGetLastError();
+}
+
+constexpr int kSlotThreads = 256;    // the slots kernel's block
+constexpr int kSlotIds = 4;          // slots whose ids and pcol a thread loads at once (Cj <= 4)
+constexpr int kSlotAhead = 36;       // block values a thread loads ahead (kSlotIds slots of 3 x 3)
+constexpr int kSlotSpreadMaxN = 4096;  // levels of fewer elements spread their slots over lanes
+
+// Slot lane p of kSlotThreads / P elements: slots p, p + P, ... of element
+// n.  kExact: Ci == kCi and Cj == kCj (no guards); else Ci <= kCi, Cj <=
+// kCj.  Where the kIds slots' blocks fit kSlotAhead registers they are all
+// loaded before the pcol gathers, so no load waits for another.  kSpread
+// false: P is 1, and the lane bookkeeping and the shared rows compile out
+// (with them the exact 3 x 3 pair took 80 registers a thread).
+template <typename V, int kCi, int kCj, bool kExact, bool kSpread>
+__global__ void __launch_bounds__(kSlotThreads)
+    fused_pair_slots_kernel(const int* __restrict__ ids, const V* __restrict__ blocks,
+                            const V* __restrict__ pcol, const V* __restrict__ prow,
+                            V* __restrict__ rows, V* __restrict__ cols, int W, int N, int Ci,
+                            int Cj, int S, int P_arg) {
+  const int P = kSpread ? P_arg : 1;
+  constexpr int kIds = kCj <= 4 ? kSlotIds : 1;  // a wide pcol vector: one slot at a time
+  constexpr int kF = kCi * kCj;
+  constexpr bool kAhead = kExact && kF * kIds <= kSlotAhead;
+  // [P - 1][kCi][E]: the rows of lanes 1.. of each element, dynamic and
+  // none where P is 1 (shared memory taken from L1, which holds pcol)
+  extern __shared__ __align__(16) unsigned char slot_smem[];
+  V* lane_rows = reinterpret_cast<V*>(slot_smem);
+  const int ci_n = kExact ? kCi : Ci;
+  const int cj_n = kExact ? kCj : Cj;
+  const int E = kSlotThreads / P;
+  const int lane = threadIdx.x & 31;
+  const int warps_per_lane = E >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int p = kSpread ? warp / warps_per_lane : 0;  // warp-uniform
+  const int e = kSpread ? (warp - p * warps_per_lane) * 32 + lane : threadIdx.x;
+  const int n = blockIdx.x * E + e;
+  const bool live = n < N;
+  const size_t Nz = static_cast<size_t>(N);
+  const size_t F = static_cast<size_t>(ci_n) * cj_n;
+
+  V pr[kCi];
+  V acc[kCi];
+#pragma unroll
+  for (int ci = 0; ci < kCi; ++ci) {
+    pr[ci] = live && ci < ci_n ? __ldg(prow + ci * Nz + n) : V(0);
+    acc[ci] = V(0);
+  }
+  for (int w0 = p; w0 < W; w0 += kIds * P) {
+    int id[kIds];
+    bool ok[kIds];
+#pragma unroll
+    for (int j = 0; j < kIds; ++j) {
+      const int w = w0 + j * P;
+      id[j] = live && w < W ? __ldg(ids + static_cast<size_t>(w) * Nz + n) : -1;
+    }
+    V ahead[kAhead ? kIds : 1][kAhead ? kF : 1];
+    if (kAhead) {
+#pragma unroll
+      for (int j = 0; j < kIds; ++j) {
+        const int w = w0 + j * P;
+#pragma unroll
+        for (int f = 0; f < kF; ++f) {
+          ahead[j][f] = live && w < W ? __ldcs(blocks + (static_cast<size_t>(w) * kF + f) * Nz + n)
+                                      : V(0);
+        }
+      }
+    }
+    V pc[kIds][kCj];
+#pragma unroll
+    for (int j = 0; j < kIds; ++j) {
+      ok[j] = id[j] >= 0 && id[j] < S;  // padded / out-of-range: dropped
+#pragma unroll
+      for (int cj = 0; cj < kCj; ++cj) {
+        pc[j][cj] = ok[j] && cj < cj_n ? __ldg(pcol + static_cast<size_t>(cj) * S + id[j]) : V(0);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kIds; ++j) {
+      const int w = w0 + j * P;
+      if (w >= W) break;  // warp-uniform
+      const V* b = blocks + static_cast<size_t>(w) * F * Nz + n;
+      V z[kCj];
+#pragma unroll
+      for (int cj = 0; cj < kCj; ++cj) z[cj] = V(0);
+#pragma unroll
+      for (int ci = 0; ci < kCi; ++ci) {
+#pragma unroll
+        for (int cj = 0; cj < kCj; ++cj) {
+          if (ci < ci_n && cj < cj_n) {
+            const V bv = kAhead ? ahead[kAhead ? j : 0][kAhead ? ci * kCj + cj : 0]
+                                : live ? __ldcs(b + static_cast<size_t>(ci * cj_n + cj) * Nz)
+                                       : V(0);
+            acc[ci] = fma_v(bv, pc[j][cj], acc[ci]);
+            z[cj] = fma_v(bv, pr[ci], z[cj]);
+          }
+        }
+      }
+      if (ok[j]) {
+#pragma unroll
+        for (int cj = 0; cj < kCj; ++cj) {
+          if (cj < cj_n) atomicAdd(cols + static_cast<size_t>(cj) * S + id[j], z[cj]);
+        }
+      }
+    }
+  }
+  if (kSpread && P > 1) {  // P is the same for every block
+    if (p > 0) {
+#pragma unroll
+      for (int ci = 0; ci < kCi; ++ci) {
+        if (ci < ci_n) lane_rows[((p - 1) * ci_n + ci) * E + e] = acc[ci];
+      }
+    }
+    __syncthreads();
+    if (p > 0) return;
+#pragma unroll
+    for (int ci = 0; ci < kCi; ++ci) {
+      if (ci < ci_n) {
+        for (int q = 1; q < P; ++q) acc[ci] += lane_rows[((q - 1) * ci_n + ci) * E + e];
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int ci = 0; ci < kCi; ++ci) {
+      if (ci < ci_n) rows[ci * Nz + n] = acc[ci];
+    }
+  }
+}
+
+template <typename V>
+using SlotsKernel = void (*)(const int*, const V*, const V*, const V*, V*, V*, int, int, int,
+                             int, int, int);
+
+
+template <typename V>
+cudaError_t launch_slots(const void* ids, const void* blocks, const void* pcol,
+                         const void* prow, void* rows, void* cols, int W, int N, int Ci, int Cj,
+                         int S, void* stream) {
+  if (Ci < 1 || Ci > kAtomicsMaxCi || Cj < 1 || Cj > kMaxCj || W < 1) {
+    return cudaErrorInvalidValue;
+  }
+  if (N > 0) {
+    int P = 1;  // slot lanes: one, or on a short level the largest power of two <= min(W, 8)
+    while (N < kSlotSpreadMaxN && P * 2 <= W && P < 8) P *= 2;
+    const int E = kSlotThreads / P;
+    const int grid = (N + E - 1) / E;
+    const SlotsKernel<V> kernel =
+        Ci == 3 && Cj == 3 ? (P > 1 ? fused_pair_slots_kernel<V, 3, 3, true, true>
+                                    : fused_pair_slots_kernel<V, 3, 3, true, false>)
+        : Cj > 4           ? fused_pair_slots_kernel<V, kAtomicsMaxCi, kMaxCj, false, true>
+        : Ci <= 4          ? fused_pair_slots_kernel<V, 4, 4, false, true>
+                           : fused_pair_slots_kernel<V, kAtomicsMaxCi, 4, false, true>;
+    const size_t smem = static_cast<size_t>(P - 1) * Ci * E * sizeof(V);  // <= 32 KB
+    kernel<<<grid, kSlotThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(ids), static_cast<const V*>(blocks),
+        static_cast<const V*>(pcol), static_cast<const V*>(prow), static_cast<V*>(rows),
+        static_cast<V*>(cols), W, N, Ci, Cj, S, P);
   }
   return cudaGetLastError();
 }
@@ -334,4 +523,21 @@ extern "C" int thallo_fused_pair_atomics_f64(const void* ids, const void* blocks
                                              void* stream) {
   return static_cast<int>(
       launch_atomics<double>(ids, blocks, pcol, prow, rows, cols, W, N, Ci, Cj, S, stream));
+}
+
+// The slots kernel (the redesigned atomics body): f32, and f64.
+extern "C" int thallo_fused_pair_atomics_slots(const void* ids, const void* blocks,
+                                               const void* pcol, const void* prow, void* rows,
+                                               void* cols, int W, int N, int Ci, int Cj, int S,
+                                               void* stream) {
+  return static_cast<int>(launch_slots<float>(ids, blocks, pcol, prow, rows, cols, W, N, Ci, Cj,
+                                              S, stream));
+}
+
+extern "C" int thallo_fused_pair_atomics_slots_f64(const void* ids, const void* blocks,
+                                                   const void* pcol, const void* prow,
+                                                   void* rows, void* cols, int W, int N, int Ci,
+                                                   int Cj, int S, void* stream) {
+  return static_cast<int>(launch_slots<double>(ids, blocks, pcol, prow, rows, cols, W, N, Ci,
+                                               Cj, S, stream));
 }

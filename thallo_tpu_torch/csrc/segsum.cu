@@ -44,6 +44,27 @@
 // kernel sums each segment's K rows of it.  Still no atomic and a fixed
 // order of additions.
 //
+// thallo_segment_sum_staged is the first staged body: one block per chunk,
+// the whole tile loaded before any sum (no copy overlaps a sum), and a
+// scratch row per (segment, chunk).  At [1M, 9] -> 1024 in f64 that
+// scratch (~489 chunks: 36 MB written and read again) is as large as the
+// data, and a 2048-row tile of doubles (148 KB) leaves one block an SM
+// that waits for its tile.  thallo_segment_sum_ring is the redesign for
+// this card:
+//
+//   staged_ring_kernel<V, kCh, kSegs>  a persistent grid of G blocks of
+//     kRingThreads, block g owning the contiguous chunks
+//     [block_chunk[g], block_chunk[g + 1]).  Each chunk (its kCh channel
+//     rows, its S + 1 cell offsets and its lanes) is copied by cp.async
+//     into a ring of kStages buffers (3 in f32, 2 in f64), so the copy of
+//     the next chunks runs while the block sums this one.  Thread t owns
+//     segments t, t + kRingThreads, ... (kSegs of them) and keeps their
+//     kCh sums in registers across the block's whole chunk range: one
+//     scratch row per (segment, block), [S, G, C] (G ~ one block an SM)
+//     instead of [S, K, C].  Each sum adds its lanes in (chunk, lane)
+//     order, from 0, and the warp kernel sums each segment's G rows:
+//     a fixed order, the same bits from run to run.
+//
 // The caller allocates out and scratch; nothing is zeroed.
 //
 // f64 (the solver's double_precision): every kernel is templated on the
@@ -63,6 +84,12 @@ constexpr int kStagedThreads = 512;
 // the staged kernel's shared memory: kCh channels of STAGED_ROWS rows, the
 // cell offsets of STAGED_MAX_SEGMENTS segments and the lanes (ops/segsum.py)
 constexpr int kMaxSmem = 200 * 1024;
+// the ring kernel: threads a block (one block an SM: its ring takes most
+// of the SM's shared memory), segments a thread at most, and the SM's
+// shared memory a block may take
+constexpr int kRingThreads = 512;
+constexpr int kRingMaxSegs = 4;
+constexpr int kRingMaxSmem = 227 * 1024;
 
 // 16 bytes of V: one vector load
 template <typename V>
@@ -214,6 +241,260 @@ cudaError_t launch_staged(const V* data, long long sc, const int* local, const i
   return cudaGetLastError();
 }
 
+// ring stages: three in f32, two in f64 (a stage of 1024 rows of 9
+// channels is 37 KB of floats, 74 KB of doubles)
+template <typename V>
+struct RingStages {
+  static constexpr int kN = sizeof(V) == 8 ? 2 : 3;
+};
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Stage n ints from src (4-byte aligned) into dst (16-byte aligned, room
+// for n + 3): 16-byte copies where src is 16-byte aligned, 4-byte ones at
+// the ends; src[0] lands at dst[int_shift(src)].
+__device__ __forceinline__ int int_shift(const int* src) {
+  return static_cast<int>(reinterpret_cast<size_t>(src) >> 2 & 3);
+}
+
+template <int kBlock>
+__device__ __forceinline__ void stage_ints(int* dst, const int* src, int n) {
+  const int shift = int_shift(src);
+  const int head = min(n, (4 - shift) & 3);
+  const int n_vec = (n - head) >> 2;
+  const int tail = head + 4 * n_vec;
+  for (int j = threadIdx.x; j < n_vec; j += kBlock) {
+    cp_async(dst + shift + head + 4 * j, src + head + 4 * j, 16);
+  }
+  const int t = threadIdx.x;
+  if (t < head) cp_async(dst + shift + t, src + t, 4);
+  if (t < n - tail) cp_async(dst + shift + tail + t, src + tail + t, 4);
+}
+
+// shared memory of the ring kernel: kStages x (kCh tile rows of T + 4
+// values, cell_room(S) cell offsets, T + 4 lanes: room for the staging
+// shifts, in 16-byte multiples),
+// then the first lane of each chunk of the block's range and the end
+// (span + 1 offsets); the tiles' room also holds the block's [S, kCh]
+// sums at the end
+template <typename V, int kCh>
+__host__ __device__ __forceinline__ size_t ring_tiles(int S, int T) {
+  constexpr int kStages = RingStages<V>::kN;
+  const size_t tiles = static_cast<size_t>(kStages) * kCh * (T + 4) * sizeof(V);
+  const size_t sums = static_cast<size_t>(S) * kCh * sizeof(V);
+  return (tiles > sums ? tiles : sums + 15) / 16 * 16;
+}
+
+__host__ __device__ __forceinline__ int cell_room(int S) { return (S + 7) & ~3; }
+
+template <typename V, int kCh>
+size_t ring_smem(int S, int T, int span) {
+  constexpr int kStages = RingStages<V>::kN;
+  return ring_tiles<V, kCh>(S, T) +
+         (static_cast<size_t>(kStages) * (cell_room(S) + T + 4) + span + 1) * 4;
+}
+
+// Block (g, channel chunk): chunks [block_chunk[g], block_chunk[g + 1]) of
+// T rows of kCh channels of channel-major data (row stride 1, channel
+// stride sc) through the ring; partial[g, s, c] = the sum of the block's
+// rows of segment s, added in (chunk, lane) order, stored through shared
+// memory as one contiguous [S, kCh] slab (the block's scattered stores of
+// a [S, G, C] layout cost more than the rest of the kernel).  vec:
+// 16-byte copies (data and sc 16-byte aligned, T a multiple of 16 bytes
+// of V).
+template <typename V, int kCh, int kSegs>
+__global__ void __launch_bounds__(kRingThreads, 1)
+    staged_ring_kernel(const V* __restrict__ data, long long sc,
+                       const int* __restrict__ local, const int* __restrict__ cell_start,
+                       const int* __restrict__ block_chunk, V* __restrict__ partial, int M,
+                       int C, int S, int T, bool vec) {
+  constexpr int kStages = RingStages<V>::kN;
+  constexpr int kN = Vec16<V>::kN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int stride = T + 4;  // a tile row: 16-byte multiples, its channels spread over banks
+  const int cells_room = cell_room(S), lane_room = T + 4;
+  V* tiles = reinterpret_cast<V*>(smem_raw);  // [kStages][kCh][stride]; at the end [S][kCh]
+  int* cells = reinterpret_cast<int*>(smem_raw + ring_tiles<V, kCh>(S, T));  // [kStages][cells_room]
+  int* lanes = cells + kStages * cells_room;                                  // [kStages][lane_room]
+  int* bounds = lanes + kStages * lane_room;                                  // [n + 1]
+  const int g = blockIdx.x;
+  const int c0 = blockIdx.y * kCh;
+  const int k0 = __ldg(block_chunk + g);
+  const int n = __ldg(block_chunk + g + 1) - k0;
+  for (int j = threadIdx.x; j <= n; j += kRingThreads) {
+    bounds[j] = __ldg(cell_start + static_cast<size_t>(k0 + j) * S);
+  }
+  __syncthreads();
+
+  // the copies of chunk k0 + i into stage i % kStages, each thread its share
+  auto issue = [&](int i) {
+    const int st = i % kStages;
+    const int r0 = (k0 + i) * T;
+    const int n_rows = min(T, M - r0);
+    V* tile = tiles + st * kCh * stride;
+    const V* src = data + c0 * sc + r0;
+    if (vec && n_rows == T) {
+      const int per = T / kN;
+      for (int j = threadIdx.x; j < kCh * per; j += kRingThreads) {
+        const int c = j / per;
+        const int r = (j - c * per) * kN;
+        cp_async(tile + c * stride + r, src + c * sc + r, 16);
+      }
+    } else {
+      for (int j = threadIdx.x; j < kCh * n_rows; j += kRingThreads) {
+        const int c = j / n_rows;
+        const int r = j - c * n_rows;
+        cp_async(tile + c * stride + r, src + c * sc + r, static_cast<int>(sizeof(V)));
+      }
+    }
+    stage_ints<kRingThreads>(cells + st * cells_room, cell_start + static_cast<size_t>(k0 + i) * S,
+                             S + 1);
+    stage_ints<kRingThreads>(lanes + st * lane_room, local + bounds[i], bounds[i + 1] - bounds[i]);
+  };
+
+  V acc[kSegs][kCh];
+#pragma unroll
+  for (int q = 0; q < kSegs; ++q) {
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) acc[q][c] = V(0);
+  }
+  // one commit group per chunk (empty past the range), so that waiting
+  // for all but the newest kStages - 1 groups waits for chunk i
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n) issue(i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    if (i + kStages - 1 < n) issue(i + kStages - 1);  // into the stage chunk i - 1 freed
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int st = i % kStages;
+    const V* tile = tiles + st * kCh * stride;
+    const int first = bounds[i];
+    const int* cl = cells + st * cells_room + int_shift(cell_start + static_cast<size_t>(k0 + i) * S);
+    const int* ln = lanes + st * lane_room + int_shift(local + first);
+#pragma unroll
+    for (int q = 0; q < kSegs; ++q) {
+      const int s = threadIdx.x + q * kRingThreads;
+      if (s < S) {
+        const int b = cl[s + 1] - first;
+        for (int e = cl[s] - first; e < b; ++e) {
+          const int r = ln[e];
+#pragma unroll
+          for (int c = 0; c < kCh; ++c) acc[q][c] += tile[c * stride + r];
+        }
+      }
+    }
+    __syncthreads();  // stage st is refilled at the next iteration
+  }
+  V* sums = tiles;  // every stage is free now
+#pragma unroll
+  for (int q = 0; q < kSegs; ++q) {
+    const int s = threadIdx.x + q * kRingThreads;
+    if (s < S) {
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) sums[s * kCh + c] = acc[q][c];
+    }
+  }
+  __syncthreads();
+  V* out = partial + static_cast<size_t>(g) * S * C + c0;
+  for (int j = threadIdx.x; j < S * kCh; j += kRingThreads) {
+    const int s = j / kCh;
+    out[static_cast<size_t>(s) * C + j - s * kCh] = sums[j];
+  }
+}
+
+// Level 2 of the ring form: out[s, c] = the sum over g of partial[g, s, c]
+// ([G, S, C]).  Block (32 segments, channel chunk): lane l of every warp
+// owns segment s0 + l, so a warp reads the 32 segments' kCh values of one
+// row g as one contiguous run; warp w adds the rows of its slice of G in
+// order, and the kWarps slices are added in warp order through shared
+// memory (a fixed order).
+template <typename V, int kCh>
+__global__ void __launch_bounds__(kThreads)
+    block_rows_kernel(const V* __restrict__ partial, V* __restrict__ out, int G, int S, int C) {
+  __shared__ V part[kWarps][kCh][32];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int s = blockIdx.x * 32 + lane;
+  const int c0 = blockIdx.y * kCh;
+  const int g0 = w * G / kWarps, g1 = (w + 1) * G / kWarps;
+  V acc[kCh];
+#pragma unroll
+  for (int k = 0; k < kCh; ++k) acc[k] = 0;
+  if (s < S) {
+#pragma unroll 4
+    for (int g = g0; g < g1; ++g) {
+      const V* row = partial + (static_cast<size_t>(g) * S + s) * C + c0;
+#pragma unroll
+      for (int k = 0; k < kCh; ++k) acc[k] += __ldg(row + k);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kCh; ++k) part[w][k][lane] = acc[k];
+  __syncthreads();
+  for (int j = threadIdx.x; j < 32 * kCh; j += kThreads) {
+    const int k = j >> 5, l = j & 31;
+    V v = part[0][k][l];
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) v += part[q][k][l];
+    if (blockIdx.x * 32 + l < S) out[static_cast<size_t>(blockIdx.x * 32 + l) * C + c0 + k] = v;
+  }
+}
+
+template <typename V, int kCh, int kSegs>
+cudaError_t launch_ring_segs(const V* data, long long sc, const int* local,
+                             const int* cell_start, const int* block_chunk, V* partial, V* out,
+                             int M, int C, int S, int G, int T, int span, cudaStream_t stream) {
+  const size_t smem = ring_smem<V, kCh>(S, T, span);
+  if (smem > kRingMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = staged_ring_kernel<V, kCh, kSegs>;
+  if (smem > 48 * 1024) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+  }
+  constexpr int kN = Vec16<V>::kN;
+  const bool vec = T % kN == 0 && sc % kN == 0 && reinterpret_cast<size_t>(data) % 16 == 0;
+  kernel<<<dim3(G, C / kCh), kRingThreads, smem, stream>>>(data, sc, local, cell_start,
+                                                           block_chunk, partial, M, C, S, T,
+                                                           vec);
+  block_rows_kernel<V, kCh><<<dim3((S + 31) / 32, C / kCh), kThreads, 0, stream>>>(partial, out,
+                                                                                G, S, C);
+  return cudaGetLastError();
+}
+
+template <typename V, int kCh>
+cudaError_t launch_ring(const V* data, long long sc, const int* local, const int* cell_start,
+                        const int* block_chunk, V* partial, V* out, int M, int C, int S, int G,
+                        int T, int span, cudaStream_t stream) {
+  if (S <= 2 * kRingThreads) {
+    return launch_ring_segs<V, kCh, 2>(data, sc, local, cell_start, block_chunk, partial, out,
+                                       M, C, S, G, T, span, stream);
+  }
+  return launch_ring_segs<V, kCh, kRingMaxSegs>(data, sc, local, cell_start, block_chunk,
+                                                partial, out, M, C, S, G, T, span, stream);
+}
+
 template <typename V, int kCh, bool kUnit>
 void launch_warp(const V* data, long long sm, long long sc, const int* order, const int* start,
                  V* out, int n_runs, int C, cudaStream_t stream) {
@@ -307,6 +588,38 @@ int segment_sum_staged(const void* data, long long sc, const void* local,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The ring form: G blocks over K chunks of T rows (block_chunk [G + 1],
+// each block's range contiguous, span = the most chunks a block owns),
+// `local` and cell_start as for segment_sum_staged; scratch [G, S, C].
+template <typename V>
+int segment_sum_ring(const void* data, long long sc, const void* local, const void* cell_start,
+                     const void* block_chunk, void* scratch, void* out, int M, int C, int S,
+                     int K, int G, int T, int span, void* stream) {
+  if (M < 1 || C < 1 || C > 65535 || S < 1 || S > kRingMaxSegs * kRingThreads || K < 1 ||
+      G < 1 || G > K || T < 32 || T % 4 != 0 || span < 1 ||
+      static_cast<long long>(K - 1) * T >= M) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  auto d = static_cast<const V*>(data);
+  auto loc = static_cast<const int*>(local);
+  auto cells = static_cast<const int*>(cell_start);
+  auto blocks = static_cast<const int*>(block_chunk);
+  auto part = static_cast<V*>(scratch);
+  auto o = static_cast<V*>(out);
+  cudaError_t err;
+  if (C % 9 == 0) {
+    err = launch_ring<V, 9>(d, sc, loc, cells, blocks, part, o, M, C, S, G, T, span, s);
+  } else if (C % 4 == 0) {
+    err = launch_ring<V, 4>(d, sc, loc, cells, blocks, part, o, M, C, S, G, T, span, s);
+  } else if (C % 3 == 0) {
+    err = launch_ring<V, 3>(d, sc, loc, cells, blocks, part, o, M, C, S, G, T, span, s);
+  } else {
+    err = launch_ring<V, 1>(d, sc, loc, cells, blocks, part, o, M, C, S, G, T, span, s);
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // P == 0: one level over the S segments (start = seg_start).  P > 0: the
@@ -347,4 +660,21 @@ extern "C" int thallo_segment_sum_staged_f64(const void* data, long long sc, con
                                              int K, int T, void* stream) {
   return segment_sum_staged<double>(data, sc, local, cell_start, seg_chunks, scratch, out, M,
                                     C, S, K, T, stream);
+}
+
+// The ring body (segment_sum_ring above): f32 and f64.
+extern "C" int thallo_segment_sum_ring(const void* data, long long sc, const void* local,
+                                       const void* cell_start, const void* block_chunk,
+                                       void* scratch, void* out, int M, int C, int S, int K,
+                                       int G, int T, int span, void* stream) {
+  return segment_sum_ring<float>(data, sc, local, cell_start, block_chunk, scratch, out, M, C,
+                                 S, K, G, T, span, stream);
+}
+
+extern "C" int thallo_segment_sum_ring_f64(const void* data, long long sc, const void* local,
+                                           const void* cell_start, const void* block_chunk,
+                                           void* scratch, void* out, int M, int C, int S, int K,
+                                           int G, int T, int span, void* stream) {
+  return segment_sum_ring<double>(data, sc, local, cell_start, block_chunk, scratch, out, M, C,
+                                  S, K, G, T, span, stream);
 }

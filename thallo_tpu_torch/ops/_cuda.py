@@ -47,6 +47,7 @@ SIGNATURES = {
     "thallo_fused_pair_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_persistent_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_atomics": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_fused_pair_atomics_slots": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_oh_setup_products": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup_thread": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup_tiles": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
@@ -54,6 +55,7 @@ SIGNATURES = {
     "thallo_oh_setup_aggregate_smem": (P, P, P, I, I, I, I, I, I, I, I, P),
     "thallo_segment_sum": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_staged": (P, L, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_segment_sum_ring": (P, L, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_wloop": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_wloop_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_wloop_persistent_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
@@ -66,11 +68,13 @@ SIGNATURES = {
     # f64 instantiations (double_precision)
     "thallo_fused_pair_persistent_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_atomics_f64": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_fused_pair_atomics_slots_f64": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_oh_setup_products_persistent_f64": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fullrepeat_setup_tiles_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
     "thallo_oh_setup_aggregate_smem_f64": (P, P, P, I, I, I, I, I, I, I, I, P),
     "thallo_segment_sum_f64": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_staged_f64": (P, L, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_segment_sum_ring_f64": (P, L, P, P, P, P, P, I, I, I, I, I, I, I, P),
 }
 # where the kernels without an f64 instantiation wait
 F64_TODO = "ROADMAP queue 2, item 7"

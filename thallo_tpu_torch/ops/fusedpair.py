@@ -22,10 +22,17 @@ on a degree-skewed scene):
   summed in the block's shared accumulator (a warp first merges lanes
   with equal ids by shuffles, so a hot id costs one shared addition per
   warp and channel) and flushed once, one global atomic per nonzero
-  entry.  Every other shape goes to ``fused_pair_apply_atomics``.
-* ``fused_pair_apply_atomics`` (same source): one thread per n loops
-  over w, owns rows[:, n] outright and adds its Cj-vector z into
-  cols[:, id] with global atomics.  Any (Ci, Cj) up to 8 x 16, any S.
+  entry.  Every other shape goes to the atomics route below.
+* ``fused_pair_apply_atomics`` (same source, the slots kernel): any
+  (Ci, Cj) up to ATOMICS_MAX_CI x 16, any S.  A thread loads the ids of
+  its slots, then (for the 3 x 3 pair) all their blocks, then the pcol
+  gathers, before any sum, and adds its Cj-vector z into cols[:, id]
+  with global atomics; on a level of fewer than SLOT_SPREAD_MAX_N
+  elements an element's W slots are spread over up to 8 slot lanes and
+  its rows summed through shared memory.  ``fused_pair_apply_atomics_thread``
+  (the first atomics body): one thread per n walks its w's one after
+  another.  ``atomics_keeps_thread`` names the levels that keep the
+  first body (fused_pair_route).
 * ``fused_pair_apply_wloop`` (``csrc/fused_pair_wloop.cu``, JAX's
   ``_kernel_wloop``, the wide and short levels of degree skew): for 3 x 9
   with the accumulator in shared memory, a persistent kernel over work
@@ -63,13 +70,14 @@ the f32 atomics body, so it takes Ci up to ``ATOMICS_MAX_CI`` too).
 ``fused_pair_route(..., bf16=True)`` names the bf16 kernel of a level.
 
 **f64** (the solver's ``double_precision``: blocks, pcol and prow f64):
-``fused_pair_apply_f64`` and ``fused_pair_apply_atomics_f64``, the f64
-instantiations of the persistent kernel and of the atomics body
-(``csrc/fused_pair.cu``, every sum f64).  ``fused_pair_route(...,
+``fused_pair_apply_f64``, ``fused_pair_apply_atomics_f64`` and
+``fused_pair_apply_atomics_thread_f64``, the f64 instantiations of the
+persistent kernel and of the two atomics bodies (``csrc/fused_pair.cu``,
+every sum f64).  ``fused_pair_route(...,
 dtype=torch.float64)`` is the one place that picks between them: the
 persistent f64 kernel where the f32 route would take the persistent
 kernel and the [9, S] f64 accumulator (72 KB at S = 1024) fits
-``PERSISTENT_MAX_SMEM``; the f64 atomics body for every other f64 level,
+``PERSISTENT_MAX_SMEM``; an f64 atomics body for every other f64 level,
 the wide levels the W-loop kernels take in f32 among them: a named
 route, not a fallback.  ``fused_pair_apply_f64`` raises where its
 accumulator does not fit.  The f32 wrappers, the W-loop kernels, the
@@ -206,6 +214,26 @@ BF16_ROUTES = {"fused_pair_apply": "fused_pair_apply_bf16",
                "fused_pair_apply_wloop": "fused_pair_apply_wloop_bf16"}
 
 
+# the slots kernel spreads a level's W slots over lanes below this many
+# elements (csrc/fused_pair.cu kSlotSpreadMaxN)
+SLOT_SPREAD_MAX_N = 4096
+
+
+def atomics_keeps_thread(W: int, N_t: int, Ci: int, Cj: int, f64: bool = False) -> bool:
+    """Whether a level of the atomics route keeps the first atomics body
+    (fused_pair_apply_atomics_thread[_f64]) over the slots kernel: every
+    level of SLOT_SPREAD_MAX_N elements or more but the f32 3 x 3 pair.
+    H100 graph ms with the zeroed cols (slots / first body;
+    scripts/torch_redesign_sweep.py --only slots; PERF.md, Findings):
+    ARAP 256²'s 3 x 3 [4, 65 536] 0.0077-0.0109 / 0.0117-0.0126 in f32
+    and 0.0115-0.0132 / 0.0105-0.0132 in f64; [4, 250 000] 3 x 9 into 4000
+    0.1949 / 0.1655; [3, 5000] 16 x 16 0.1693 / 0.0579; the short levels,
+    bundle_fusion's [8, 700] 6 x 6 0.0159 / 0.0429 and [4, 1600] 9 x 3
+    0.0137 / 0.0162, in f64 alike."""
+    spread = N_t < SLOT_SPREAD_MAX_N and W >= 2
+    return not spread and (f64 or (Ci, Cj) != (3, 3))
+
+
 def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = False,
                      dtype: torch.dtype = torch.float32) -> str:
     """The kernel a level of W x N_t elements takes on the card, by the
@@ -213,24 +241,33 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = Fa
     "fused_pair_apply_wloop" for the specialised pairs, by the level's
     shape; "fused_pair_apply_wloop_chunked" for other wide levels whose
     S fits the chunked kernel's accumulator and whose Ci its register
-    arrays take (MAX_CI); else "fused_pair_apply_atomics".  bf16: the
+    arrays take (MAX_CI); else "fused_pair_apply_atomics" (the slots
+    kernel), or "fused_pair_apply_atomics_thread" (the first atomics body)
+    where atomics_keeps_thread names the level.  bf16: the
     level's kernel on bf16 blocks (BF16_ROUTES, else
     "fused_pair_bf16_atomics", which takes Ci up to ATOMICS_MAX_CI).
     dtype float64 (the values' dtype) with f64 blocks: "fused_pair_apply_f64"
     where the f32 route is the persistent kernel and the f64 accumulator
-    fits, else "fused_pair_apply_atomics_f64" (Ci up to ATOMICS_MAX_CI).
+    fits, else "fused_pair_apply_atomics_f64" (Ci up to ATOMICS_MAX_CI),
+    or "fused_pair_apply_atomics_thread_f64" where atomics_keeps_thread
+    names the level.
     bf16 blocks keep their bf16 routes under f64 values: the CPU's plain
     version runs them, the card's kernels refuse f64 values (a plan
     refuses the combination on the card)."""
     wide = W >= WLOOP_MIN_W
     if dtype == torch.float64 and not bf16:
         persistent = persistent_fits(Ci, Cj, S, 8) and not wide and N_t >= PERSISTENT_MIN_N
-        return "fused_pair_apply_f64" if persistent else "fused_pair_apply_atomics_f64"
+        if persistent:
+            return "fused_pair_apply_f64"
+        thread = atomics_keeps_thread(W, N_t, Ci, Cj, f64=True)
+        return "fused_pair_apply_atomics_thread_f64" if thread else "fused_pair_apply_atomics_f64"
     if persistent_fits(Ci, Cj, S):
         route = "fused_pair_apply" if not wide and N_t >= PERSISTENT_MIN_N \
             else "fused_pair_apply_wloop"
     elif wide and Ci <= MAX_CI and S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
         route = "fused_pair_apply_wloop_chunked"
+    elif not bf16 and atomics_keeps_thread(W, N_t, Ci, Cj):
+        route = "fused_pair_apply_atomics_thread"
     else:
         route = "fused_pair_apply_atomics"
     return BF16_ROUTES.get(route, "fused_pair_bf16_atomics") if bf16 else route
@@ -273,14 +310,17 @@ def fused_pair_apply(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     CPU tensors take the plain version; CUDA tensors with bf16 blocks go to
     fused_pair_apply_bf16; with f32 blocks they launch the f32 persistent
     kernel, or, for a pair it is not specialised for or an accumulator
-    beyond its shared memory, go to fused_pair_apply_atomics (f64
-    operands raise: fused_pair_route names their kernel)."""
+    beyond its shared memory, go to the atomics body atomics_keeps_thread
+    picks (f64 operands raise: fused_pair_route names their kernel)."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     if blocks_wm.dtype == torch.bfloat16:
         return fused_pair_apply_bf16(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     if not persistent_fits(Ci, Cj, S):
-        return fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+        W, N = ids2d.shape
+        body = fused_pair_apply_atomics_thread if atomics_keeps_thread(W, N, Ci, Cj) \
+            else fused_pair_apply_atomics
+        return body(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     return _launch_persistent(fused_pair_apply, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, True)
 
 
@@ -322,43 +362,73 @@ def fused_pair_rows_floor(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
 
 
 def fused_pair_apply_atomics(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """The contract of fused_pair_apply by one thread per element and one
-    global atomic per cols value: any Ci <= ATOMICS_MAX_CI, Cj <= 16 and
-    S.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel (f64 operands raise: fused_pair_apply_atomics_f64 is theirs)."""
+    """The contract of fused_pair_apply for any Ci <= ATOMICS_MAX_CI, Cj <=
+    16 and S, by the slots kernel: an element's W slots spread over slot
+    lanes, rows summed per element in shared memory, one global atomic per
+    cols value (equal ids of a warp merged first).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (f64 operands raise:
+    fused_pair_apply_atomics_f64 is theirs)."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     return _launch_atomics(fused_pair_apply_atomics, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
-                           torch.float32)
+                           torch.float32, slots=True)
 
 
 def fused_pair_apply_atomics_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
-    """fused_pair_apply_atomics in f64: the f64 instantiation of the
-    atomics body (every operand but ids f64, atomicAdd on doubles).  CPU
-    tensors take the plain version."""
+    """fused_pair_apply_atomics in f64: the f64 instantiation of the slots
+    kernel (every operand but ids f64, atomicAdd on doubles).  CPU tensors
+    take the plain version."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     return _launch_atomics(fused_pair_apply_atomics_f64, ids2d, blocks_wm, pcol, prow, Ci, Cj,
-                           S, torch.float64)
+                           S, torch.float64, slots=True)
 
 
-def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, dt):
+def fused_pair_apply_atomics_thread(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """The first atomics body: one thread per element walks its W slots,
+    one global atomic per cols value; the same contract and shapes as
+    fused_pair_apply_atomics, kept where fused_pair_route names it.  CPU
+    tensors take the plain version (f64 operands raise:
+    fused_pair_apply_atomics_thread_f64 is theirs)."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_atomics(fused_pair_apply_atomics_thread, ids2d, blocks_wm, pcol, prow, Ci,
+                           Cj, S, torch.float32, slots=False)
+
+
+def fused_pair_apply_atomics_thread_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply_atomics_thread in f64 (the first body's f64
+    instantiation).  CPU tensors take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_atomics(fused_pair_apply_atomics_thread_f64, ids2d, blocks_wm, pcol, prow, Ci,
+                           Cj, S, torch.float64, slots=False)
+
+
+def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, dt, slots):
     what = fn.__name__
     W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, dt, ATOMICS_MAX_CI,
                             value_dtype=dt)
     rows = torch.empty((Ci, N), dtype=dt, device=ids2d.device)
     cols = torch.zeros((Cj, S), dtype=dt, device=ids2d.device)
-    launch = (_cuda.lib().thallo_fused_pair_atomics_f64 if dt == torch.float64
-              else _cuda.lib().thallo_fused_pair_atomics)
-    code = launch(ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
-                  rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S, _cuda.stream(ids2d))
+    lib, f64 = _cuda.lib(), dt == torch.float64
+    args = (ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
+            rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S)
+    if slots:
+        launch = lib.thallo_fused_pair_atomics_slots_f64 if f64 else \
+            lib.thallo_fused_pair_atomics_slots
+        code = launch(*args, _cuda.stream(ids2d))
+    else:
+        launch = lib.thallo_fused_pair_atomics_f64 if f64 else lib.thallo_fused_pair_atomics
+        code = launch(*args, _cuda.stream(ids2d))
     _cuda.check(code, what)
     fn.launches += 1
     return rows, cols
 
 
 for _fn in (fused_pair_apply, fused_pair_apply_bf16, fused_pair_apply_f64, fused_pair_rows_floor,
-            fused_pair_apply_atomics, fused_pair_apply_atomics_f64):
+            fused_pair_apply_atomics, fused_pair_apply_atomics_f64,
+            fused_pair_apply_atomics_thread, fused_pair_apply_atomics_thread_f64):
     _fn.launches = 0
 
 

@@ -60,14 +60,29 @@ costs a 32-byte sector.  For a plan of few segments and long runs
   local       [L]         row of each lane within its chunk
   cell_start  [K*S + 1]   CSR offsets of cell (chunk k, segment s) = k*S + s
 
-and on data with unit row stride the staged kernel reads each chunk of
-rows in memory order into shared memory, sums every cell from there into
-a ``[S, K, C]`` scratch, and the warp kernel sums each segment's K cells
-(``seg_chunks`` [S + 1]).  The same guarantees: no atomic, every output
-written once, a fixed order.
+and, for the ring kernel (``csrc/segsum.cu``, the staged route on data
+with unit row stride), G = min(K, ``STAGED_BLOCKS``) blocks, each owning
+a contiguous range of chunks:
+
+  block_chunk [G + 1]     block g owns chunks [block_chunk[g], block_chunk[g + 1])
+
+A block streams its chunks through a ring of shared-memory stages
+(cp.async: the copy of the next chunks overlaps the sums of this one),
+keeps each (segment, channel) sum of its whole range in registers, adding
+the lanes in (chunk, lane) order, writes its [S, C] sums as one slab of a
+``[G, S, C]`` scratch, and a second kernel adds each segment's G rows in
+a fixed order.  The same
+guarantees: no atomic, every output written once, a fixed order.  The
+first staged body, ``segment_sum_per_chunk[_f64]``, reads the same form one
+block per chunk (the whole tile loaded, then summed) into a ``[S, K, C]``
+scratch (``seg_chunks`` [S + 1] = s*K), kept beside the ring kernel
+(which measured faster in f32 and f64 on the H100) but on no route.
+``BODY_LAUNCHES`` counts each body's launches: "runs", "ring",
+"per_chunk".
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Tuple
 
@@ -88,17 +103,24 @@ TARGET_PIECES = 4096
 # level 2 takes one thread per (segment, channel) up to this many pieces
 # in a segment, one warp per segment beyond
 THREAD_MAX_PIECES = 32
-# the staged kernel (channel-major data through shared memory): data rows
-# per chunk (9 channels of them, the lanes and the cell offsets take 86 KB:
-# two blocks per SM; H100 sweep over 1024-4096 rows,
-# scripts/torch_redesign_sweep.py --sweep), and the plans it serves: at
-# most STAGED_MAX_SEGMENTS segments (the cell table holds K*S offsets)
-# averaging at least STAGED_MIN_RUN rows, none owning more than
-# 1/STAGED_MAX_SHARE of all rows (a thread sums a cell alone)
-STAGED_ROWS = 2048
+# the staged kernels (channel-major data through shared memory): data rows
+# per chunk (the ring kernel's stage: 9 channels of 1024 rows, the cell
+# offsets and the lanes take 45 KB in f32, three stages a block, and 82 KB
+# in f64, two stages), the ring kernel's blocks (one an H100 SM: its ring
+# takes most of the SM's shared memory), and the plans the staged route
+# serves: at most STAGED_MAX_SEGMENTS segments (the cell table holds K*S
+# offsets; a ring thread sums at most 4 segments) averaging at least
+# STAGED_MIN_RUN rows, none owning more than 1/STAGED_MAX_SHARE of all
+# rows (a thread sums a cell alone).  The first staged body's chunk was
+# 2048 rows (H100 sweep over 1024-4096, scripts/torch_redesign_sweep.py
+# --sweep: 9 channels, the lanes and the cells in 86 KB, two blocks an SM)
+STAGED_ROWS = 1024
+PER_CHUNK_ROWS = 2048
+STAGED_BLOCKS = 132
 STAGED_MAX_SEGMENTS = 2048
 STAGED_MIN_RUN = 64
 STAGED_MAX_SHARE = 16
+BODY_LAUNCHES = collections.Counter()  # "runs", "ring", "per_chunk"
 
 
 @dataclasses.dataclass
@@ -121,6 +143,10 @@ class SegSumPlan:
     cell_start: Optional[torch.Tensor] = None  # [K*S + 1] int32
     seg_chunks: Optional[torch.Tensor] = None  # [S + 1] int32: s*K
     n_chunks: int = 0  # K
+    staged_rows: int = 0  # T: data rows a chunk
+    block_chunk: Optional[torch.Tensor] = None  # [G + 1] int32: the ring blocks' chunks
+    n_blocks: int = 0  # G
+    block_span: int = 0  # the most chunks a block owns
 
     def validate(self) -> None:
         """Shapes, types and devices of the plan's tensors, checked once
@@ -148,6 +174,8 @@ class SegSumPlan:
             _cuda.require(self.cell_start, "cell_start", (self.n_chunks * S + 1,),
                           torch.int32, dev)
             _cuda.require(self.seg_chunks, "seg_chunks", (S + 1,), torch.int32, dev)
+            _cuda.require(self.block_chunk, "block_chunk", (self.n_blocks + 1,), torch.int32,
+                          dev)
 
     def compact(self) -> "SegSumPlan":
         """This plan with its compact form; derived here, once, for a plan
@@ -195,29 +223,36 @@ def staged_eligible(counts, n_lanes: int) -> bool:
             and int(np.max(counts)) * STAGED_MAX_SHARE <= n_lanes)
 
 
-def _fill_staged(plan: SegSumPlan, rows, dests, device) -> None:
-    """The lanes once more, sorted by (chunk of STAGED_ROWS data rows,
-    destination), as chunk-local rows and CSR offsets over the cells."""
+def _fill_staged(plan: SegSumPlan, rows, dests, device, T: int) -> None:
+    """The lanes once more, sorted by (chunk of T data rows, destination),
+    as chunk-local rows and CSR offsets over the cells; the ring blocks'
+    contiguous chunk ranges (an even split of the K chunks)."""
     S = plan.num_segments
-    K = plan.max_row // STAGED_ROWS + 1
+    K = plan.max_row // T + 1
     if K * S >= 2 ** 31:
         return
-    chunk = rows // STAGED_ROWS
-    if np.bincount(chunk).max() > STAGED_ROWS:
+    chunk = rows // T
+    if np.bincount(chunk).max() > T:
         return  # a hand-made plan reading a row through several lanes
     cell = chunk.astype(np.int64) * S + dests
     by_cell = np.argsort(cell, kind="stable")
-    plan.local = _i32(rows[by_cell] % STAGED_ROWS, device)
+    plan.local = _i32(rows[by_cell] % T, device)
     plan.cell_start = _i32(
         np.concatenate([[0], np.cumsum(np.bincount(cell, minlength=K * S))]), device)
     plan.seg_chunks = _i32(np.arange(S + 1, dtype=np.int64) * K, device)
-    plan.n_chunks = K
+    plan.n_chunks, plan.staged_rows = K, T
+    G = min(K, STAGED_BLOCKS)
+    block_chunk = np.arange(G + 1, dtype=np.int64) * K // G
+    plan.block_chunk = _i32(block_chunk, device)
+    plan.n_blocks, plan.block_span = G, int(np.diff(block_chunk).max())
 
 
-def _fill_compact(plan: SegSumPlan, rows, dests, device, in_order=False) -> None:
+def _fill_compact(plan: SegSumPlan, rows, dests, device, in_order=False,
+                  staged_rows: Optional[int] = None) -> None:
     """Set plan's compact form from the real lanes' data rows and
     destinations (both sorted by destination, all below num_segments);
-    in_order: one level of the thread kernel, no staged form."""
+    in_order: one level of the thread kernel, no staged form; staged_rows:
+    the staged form's chunk (default STAGED_ROWS)."""
     S = plan.num_segments
     if len(rows) >= 2 ** 31:
         raise ValueError(f"segment sum: {len(rows)} lanes exceed int32 offsets")
@@ -236,10 +271,11 @@ def _fill_compact(plan: SegSumPlan, rows, dests, device, in_order=False) -> None
     plan.order = _i32(rows, device)
     plan.seg_start = _i32(seg_start, device)
     plan.max_row = int(rows.max()) if len(rows) else -1
-    plan.local = plan.cell_start = plan.seg_chunks = None
-    plan.n_chunks = 0
+    plan.local = plan.cell_start = plan.seg_chunks = plan.block_chunk = None
+    plan.n_chunks = plan.staged_rows = plan.n_blocks = plan.block_span = 0
     if not in_order and staged_eligible(counts, len(rows)):
-        _fill_staged(plan, np.asarray(rows), np.asarray(dests), device)
+        _fill_staged(plan, np.asarray(rows), np.asarray(dests), device,
+                     staged_rows or STAGED_ROWS)
     plan.validate()
 
 
@@ -248,14 +284,17 @@ def _i32(a, device):
 
 
 def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0,
-               device=None, in_order: bool = False) -> Optional[SegSumPlan]:
+               device=None, in_order: bool = False,
+               staged_rows: Optional[int] = None) -> Optional[SegSumPlan]:
     """Host-side static plan for `ids` (destination per row), the same
     arrays as thallo_tpu's build_plan plus the compact form of the same
     sorted order; None when the padding would exceed `max_waste` times the
     rows (a degenerate distribution).  in_order: the card sums each run
     with one thread, in ascending data row, as the CPU's index_add_ adds
     (and the plain version here): the same bits on both, for the short
-    runs lower.fixed_order_plan sends here."""
+    runs lower.fixed_order_plan sends here.  staged_rows: the staged
+    form's chunk (default STAGED_ROWS; PER_CHUNK_ROWS: the first staged
+    body's own)."""
     ids = np.asarray(ids)
     M = ids.shape[0]
     if M == 0:
@@ -286,7 +325,8 @@ def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0
         num_segments=num_segments,
     )
     kept = sorted_ids < num_segments  # the tiles' tail past num_segments is cut
-    _fill_compact(plan, order[kept], sorted_ids[kept], plan.gather_idx.device, in_order)
+    _fill_compact(plan, order[kept], sorted_ids[kept], plan.gather_idx.device, in_order,
+                  staged_rows)
     return plan
 
 
@@ -314,15 +354,26 @@ def _run_sums(rows, start):
 
 
 def segment_sum_staged_reference(data, plan: SegSumPlan):
-    """Plain torch version driven by the staged form alone, as the staged
-    kernel reads it: each cell's rows (chunk base + local) summed, then
-    each segment's cells."""
+    """Plain torch version driven by the staged form alone, in the ring
+    kernel's order: segment_sum_ring_partials, then each segment's G
+    rows."""
+    return segment_sum_ring_partials(data, plan).sum(0)
+
+
+def segment_sum_ring_partials(data, plan: SegSumPlan):
+    """The ring kernel's [G, S, C] scratch from the staged form: each
+    (block, segment) sum adds its lanes from 0 in (chunk, lane) order
+    (index_add_ on the CPU adds in index order)."""
     plan = plan.compact()
-    K, S = plan.n_chunks, plan.num_segments
+    K, S, G = plan.n_chunks, plan.num_segments, plan.n_blocks
+    dev = data.device
     cells = (plan.cell_start[1:] - plan.cell_start[:-1]).long()
-    chunk = torch.repeat_interleave(torch.arange(K * S, device=data.device), cells) // S
-    g = data.index_select(0, chunk * STAGED_ROWS + plan.local.long())
-    return _run_sums(g, plan.cell_start).view(K, S, -1).sum(0)
+    cell = torch.repeat_interleave(torch.arange(K * S, device=dev), cells)
+    chunk, seg = cell // S, cell % S
+    block = torch.bucketize(chunk, plan.block_chunk[1:].long(), right=True)
+    g = data.index_select(0, chunk * plan.staged_rows + plan.local.long())
+    partial = torch.zeros((G * S, data.shape[1]), dtype=data.dtype, device=dev)
+    return partial.index_add_(0, block * S + seg, g).view(G, S, -1)
 
 
 def segment_sum_compact_reference(data, plan: SegSumPlan):
@@ -340,8 +391,8 @@ def segment_sum_compact_reference(data, plan: SegSumPlan):
 def segment_sum(data, plan: SegSumPlan):
     """data [M, C] f32 (any non-negative strides) -> [num_segments, C] f32,
     summed per the plan.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel: the staged one for a plan with the staged form and
-    data of unit row stride, else the sorted runs (a call's two levels
+    launch the kernel: for a plan with the staged form and data of unit
+    row stride the ring kernel, else the sorted runs (a call's two levels
     count as one launch); f64 data goes to segment_sum_f64."""
     if data.device.type == "cpu":
         return segment_sum_reference(data, plan)
@@ -359,7 +410,32 @@ def segment_sum_f64(data, plan: SegSumPlan):
     return _launch(segment_sum_f64, data, plan, torch.float64)
 
 
-def _launch(fn, data, plan, dtype):
+def segment_sum_per_chunk(data, plan: SegSumPlan):
+    """The first staged body (one block per chunk, a scratch row per
+    (segment, chunk)) on a plan with the staged form and f32 data of unit
+    row stride: kept beside the ring kernel that replaced it on the staged
+    route.  CPU tensors take the plain version; f64 data goes to
+    segment_sum_per_chunk_f64."""
+    if data.device.type != "cpu" and data.dtype == torch.float64:
+        return segment_sum_per_chunk_f64(data, plan)
+    return _per_chunk(segment_sum_per_chunk, data, plan, torch.float32)
+
+
+def segment_sum_per_chunk_f64(data, plan: SegSumPlan):
+    """segment_sum_per_chunk in f64.  CPU tensors take the plain version."""
+    return _per_chunk(segment_sum_per_chunk_f64, data, plan, torch.float64)
+
+
+def _per_chunk(fn, data, plan, dtype):
+    if data.device.type == "cpu":
+        return segment_sum_reference(data, plan)
+    plan = plan.compact()
+    if plan.local is None or data.stride(0) != 1 or data.shape[0] < 2:
+        raise ValueError(f"{fn.__name__}: needs a staged plan and data of unit row stride")
+    return _launch(fn, data, plan, dtype, "per_chunk")
+
+
+def _launch(fn, data, plan, dtype, body="ring"):
     if data.device.type != "cuda":
         raise ValueError(f"{fn.__name__}: unsupported device {data.device}")
     plan = plan.compact()
@@ -377,17 +453,28 @@ def _launch(fn, data, plan, dtype):
     out = torch.empty((S, C), dtype=dtype, device=data.device)
     lib = _cuda.lib()
     if plan.local is not None and data.stride(0) == 1 and M > 1:
-        K = plan.n_chunks
-        if S * K * C >= 2 ** 31:
-            raise ValueError(f"segment_sum: {S} x {K} x {C} cell sums exceed int32 offsets")
-        scratch = torch.empty((S, K, C), dtype=dtype, device=data.device)
-        staged = lib.thallo_segment_sum_staged_f64 if f64 else lib.thallo_segment_sum_staged
-        code = staged(
-            data.data_ptr(), data.stride(1), plan.local.data_ptr(), plan.cell_start.data_ptr(),
-            plan.seg_chunks.data_ptr(), scratch.data_ptr(), out.data_ptr(), M, C, S, K,
-            STAGED_ROWS, _cuda.stream(data))
-        _cuda.check(code, f"{fn.__name__} (staged)")
+        K, G, T = plan.n_chunks, plan.n_blocks, plan.staged_rows
+        rows = K if body == "per_chunk" else G
+        if S * rows * C >= 2 ** 31:
+            raise ValueError(f"segment_sum: {S} x {rows} x {C} partial sums exceed int32 "
+                             "offsets")
+        if body == "ring":
+            scratch = torch.empty((G, S, C), dtype=dtype, device=data.device)
+            ring = lib.thallo_segment_sum_ring_f64 if f64 else lib.thallo_segment_sum_ring
+            code = ring(
+                data.data_ptr(), data.stride(1), plan.local.data_ptr(),
+                plan.cell_start.data_ptr(), plan.block_chunk.data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), M, C, S, K, G, T, plan.block_span, _cuda.stream(data))
+        else:
+            scratch = torch.empty((S, K, C), dtype=dtype, device=data.device)
+            staged = lib.thallo_segment_sum_staged_f64 if f64 else lib.thallo_segment_sum_staged
+            code = staged(
+                data.data_ptr(), data.stride(1), plan.local.data_ptr(),
+                plan.cell_start.data_ptr(), plan.seg_chunks.data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), M, C, S, K, T, _cuda.stream(data))
+        _cuda.check(code, f"{fn.__name__} ({body})")
         fn.launches += 1
+        BODY_LAUNCHES[body] += 1
         return out
     two = plan.piece_start is not None
     P = plan.piece_start.shape[0] - 1 if two else 0
@@ -403,8 +490,11 @@ def _launch(fn, data, plan, dtype):
         plan.modes[0], plan.modes[-1], _cuda.stream(data))
     _cuda.check(code, fn.__name__)
     fn.launches += 1
+    BODY_LAUNCHES["runs"] += 1
     return out
 
 
 segment_sum.launches = 0
 segment_sum_f64.launches = 0
+segment_sum_per_chunk.launches = 0
+segment_sum_per_chunk_f64.launches = 0

@@ -54,16 +54,24 @@ def _load_fn(where, qualname):
     return obj
 
 
-def run_ranks(fn, n: int, device: str = "cpu", backend: str = None, args=(), join=True,
+def run_ranks(fn, n: int, device: str = "cuda", backend: str = None, args=(), join=True,
               timeout: float = 600.0):
-    """fn(*args) on n ranks; returns rank 0's result.  backend defaults to
-    the device's ("gloo" on the CPU, "nccl" on the card); a collective
+    """fn(*args) on n ranks; returns rank 0's result.  device: "cuda"
+    (the default, as every entry point of the port; raises here, before
+    any rank starts, where torch finds no CUDA device) or "cpu".  backend
+    defaults to the device's ("gloo" on the CPU, "nccl" on the card); a collective
     waits at most `timeout` seconds, and so do the ranks.  join=False
     leaves joining to fn (e.g. parallel.multihost.initialize): the child
     then finds its rank, the world size and a free port in RANK,
     WORLD_SIZE and MASTER_PORT."""
     if device not in ("cpu", "cuda"):
         raise ValueError(f"device must be 'cpu' or 'cuda', got {device!r}")
+    if device == "cuda":
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("run_ranks: device='cuda' but torch finds no CUDA device; "
+                               "pass device='cpu' to run the ranks on the CPU")
     backend = backend or ("nccl" if device == "cuda" else "gloo")
     port = free_port()
     with tempfile.TemporaryDirectory(prefix="thallo_ranks_") as tmp:

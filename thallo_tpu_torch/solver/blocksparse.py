@@ -62,7 +62,8 @@ import torch
 from ..ops import structured
 from ..ops.fullrepeat import fullrepeat_setup
 from ..ops.fusedpair import (fused_pair_apply, fused_pair_apply_atomics,
-                             fused_pair_apply_atomics_f64, fused_pair_apply_bf16,
+                             fused_pair_apply_atomics_f64, fused_pair_apply_atomics_thread,
+                             fused_pair_apply_atomics_thread_f64, fused_pair_apply_bf16,
                              fused_pair_apply_f64, fused_pair_apply_wloop,
                              fused_pair_apply_wloop_bf16, fused_pair_apply_wloop_chunked,
                              fused_pair_bf16_atomics, fused_pair_route)
@@ -633,6 +634,8 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
                   "fused_pair_apply_atomics": fused_pair_apply_atomics,
                   "fused_pair_apply_f64": fused_pair_apply_f64,
                   "fused_pair_apply_atomics_f64": fused_pair_apply_atomics_f64,
+                  "fused_pair_apply_atomics_thread": fused_pair_apply_atomics_thread,
+                  "fused_pair_apply_atomics_thread_f64": fused_pair_apply_atomics_thread_f64,
                   "fused_pair_apply_wloop": fused_pair_apply_wloop,
                   "fused_pair_apply_wloop_chunked": fused_pair_apply_wloop_chunked,
                   "fused_pair_apply_bf16": fused_pair_apply_bf16,
