@@ -27,13 +27,17 @@ its seconds; any failure exits non-zero):
      f32 and f64; the ring segment sum and the first staged body
      (segment_sum_per_chunk[_f64], on its own 2048-row plan) at the
      camera map in f32 and f64, the ring kernel launched twice for the
-     same bits; fused_pair_bf16_atomics at wide levels of 9 and 16
+     same bits; the bf16 slots kernel (fused_pair_apply_atomics_bf16)
+     beside the first bf16 body (fused_pair_bf16_atomics) at ARAP 256²'s
+     (3, 3) levels in both edge orders and at wide levels of 9 and 16
      row channels (BF16_WIDE); every kernel phases 15 and 17 launch, at
      the shapes, recipes and tables of one step of that plan on the card:
-     model_kernel_cases, the block-sparse plans and the in-order segment
-     sum of the contraction and sampled-image models' stored-Jacobian
-     scatters, each beside the aggregation kernel and index_add_ on the
-     same values, bundle_fusion above the dense threshold (CASES' larger
+     model_kernel_cases, the block-sparse plans and the fixed-order segment
+     sum (segment_sum_fixed_order, one launch) of the contraction and
+     sampled-image models' stored-Jacobian scatters, each beside its first
+     body (segment_sum on the plan the earlier rule built: in order
+     up to runs of 32, else sorted runs), the aggregation kernel and
+     index_add_ on the same values, bundle_fusion above the dense threshold (CASES' larger
      size) and embedded deformation under block_dtype="bf16") and at a small ragged
      shape with out-of-range ids or padded plan lanes; kernel, plain and
      library times in ms, each kernel and library call twice: `ms` over
@@ -188,7 +192,8 @@ its seconds; any failure exits non-zero):
      f64, 10 steps, its camera scatters through oh_setup_aggregate_f64,
      its first 3 steps against the f64 block-sparse solve (F64_CROSS);
      (e) a parity check at test size: deconvolution 16² and face_fitting
-     in f64 card vs CPU through oh_setup_aggregate_f64 (F64_MODELS).
+     in f64 card vs CPU through the fixed-order segment sum's f64
+     instantiation, segment_sum_fixed_order_f64 (F64_MODELS).
      Phase 2 holds each f64 instantiation against its plain f64 version
      at the shapes, recipes and tables of (a), (b) and (d), taken from
      one step of each plan (F64_KERNEL_TOL);
@@ -198,7 +203,8 @@ its seconds; any failure exits non-zero):
  22. the drivers (thallo_tpu_torch/examples): run_model on a grid, a
      graph and a BA model, every gallery row (synthetic and the BAL and
      PLY samples) with its cost falling, get_performance_summary() at
-     timing levels 1 and 2;
+     timing levels 1 and 2; compile_check (utils/compile_check.py) on
+     ARAP's energy at its default dims, on the card by default;
  23. scheduling, each against an empty measurement store of its own in a
      temporary directory: (a) the uniform 1M LM solve under
      use_autoscheduler=1 (the heuristic's estimates, resident bytes and
@@ -282,6 +288,16 @@ its seconds; any failure exits non-zero):
      CAPI_KERNELS; (d) ``python -m thallo_tpu_torch.cli`` on
      image_warping and bundle_adjustment with --device cuda --iters 3:
      exit 0, final below c0.
+ 27. ARAP 256² GN under block_dtype="bf16" (phase 16's plan, its two (3,
+     3) col levels' crosses stored as bf16), both edge orders, as phase 16
+     runs it: costs after steps 1-3 and 10 within ARAP_BF16_TRAJ_RTOL of
+     the JAX package's bf16 trajectory (ARAP_JAX_BF16_COSTS) and of the
+     other order's; after step 3 the linear parts card vs CPU
+     (GRID_LINEAR_RTOL); fused_pair_apply_atomics_bf16 launched at both
+     levels and no other fused pair; the step median, the launches, and
+     the marginal PCG iteration eager (beside phase 16's f32 value) and
+     graphed (steps_per_dispatch ARAP_MARGINAL_STEPS, bf16 beside f32 in
+     this phase).
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -490,6 +506,30 @@ ARAP_TRAJ_RTOL = {1: 1e-5, 2: 2e-5, 3: 2e-5, ARAP_STEPS: 2e-2}
 # warm step, (t_110 - t_10) / 100
 ARAP_MARGINAL = (10, 110)
 ARAP_MARGINAL_STEPS = 3
+# phase 27: ARAP 256² under block_dtype="bf16" (its two (3, 3) levels'
+# crosses stored as bf16); the JAX package's bf16 trajectories on a CPU,
+# costs after steps 0-10:
+#   JAX_PLATFORMS=cpu python3 scripts/torch_model_trajectory.py --package jax \
+#       --block-dtype bf16 [--shuffle]
+# Six bf16 runs of the port's CPU path, as is and with the unknowns moved
+# by 1e-7 x max|U| (--package torch --device cpu --block-dtype bf16
+# --perturb 1|2 [--shuffle]), lie at most 3.6e-6, 1.0e-5, 3.7e-5 and
+# 6.7e-3 from JAX's run after steps 1, 2, 3 and 10 (the bf16 rounding
+# spread: a cross entry near a rounding boundary rounds a step apart, and
+# GN grows it); ARAP_BF16_TRAJ_RTOL is about twice those (step 10 as
+# phase 16's).  The two edge orders are held to each other at the same
+# bounds.
+ARAP_JAX_BF16_COSTS = {
+    "grouped": (120.0, 22.74494743347168, 33.33510971069336, 30.129541397094727,
+                17.55815887451172, 11.366631507873535, 11.682729721069336, 10.270575523376465,
+                8.820371627807617, 9.197484970092773, 10.024299621582031),
+    "shuffled": (120.0, 22.744949340820312, 33.335105895996094, 30.13041114807129,
+                 17.557815551757812, 11.364736557006836, 11.72692584991455, 10.23320198059082,
+                 8.814282417297363, 9.225992202758789, 10.065844535827637)}
+ARAP_BF16_TRAJ_RTOL = {1: 1e-5, 2: 2e-5, 3: 8e-5, ARAP_STEPS: 2e-2}
+# phase 16's marginal PCG iteration (ms) by edge order, logged beside
+# phase 27's
+ARAP_F32_MARGINAL_MS = {}
 # device_ms: calls per captured CUDA graph, replays per timing
 # phase 2: the bf16 atomics body at wide levels of more than 8 row
 # channels (a 9-channel rotation row, and its register arrays' bound),
@@ -1082,6 +1122,8 @@ def measurement_kernel_cases(dev, rng):
 RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("fused_pair_apply_atomics", "arap256"): "fused_pair_apply_atomics",
           ("fused_pair_apply_atomics_thread", "arap256"): "fused_pair_apply_atomics_thread",
+          ("fused_pair_apply_atomics_bf16", "arap256_bf16"): "fused_pair_apply_atomics_bf16",
+          ("segment_sum_fixed_order", "deconvolution_0"): "segment_sum_fixed_order",
           ("segment_sum_per_chunk", "ba1m_cameras"): "segment_sum_per_chunk",
           ("segment_sum_per_chunk_f64", "ba1m_cameras_f64"): "segment_sum_per_chunk_f64",
           ("fused_pair_apply_atomics_thread_f64", "arap256_f64_0"):
@@ -1130,6 +1172,9 @@ KERNELS = {
     # the short ones (fusedpair.atomics_keeps_thread)
     "fused_pair_apply_atomics_thread": ("thallo_tpu_torch/csrc/fused_pair.cu",
                                         "thallo_tpu/ops/fusedpair.py:349", "measurement"),
+    # the slots kernel on bf16 blocks: the bf16 atomics route (phase 27)
+    "fused_pair_apply_atomics_bf16": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                                      "thallo_tpu/ops/fusedpair.py:349", "arap256 bf16 grouped"),
     "fused_pair_apply_wloop": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
                                "thallo_tpu/ops/fusedpair.py:385", "skew block-sparse"),
     "fused_pair_apply_wloop_chunked": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
@@ -1150,6 +1195,9 @@ KERNELS = {
                     "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
     "segment_sum_cameras": ("thallo_tpu_torch/csrc/segsum.cu",
                             "thallo_tpu/ops/segsum.py:254", "apply_separately_tiled"),
+    # the small-image scatters' fixed-order plans (phase 15's deconvolution)
+    "segment_sum_fixed_order": ("thallo_tpu_torch/csrc/segsum.cu",
+                                "thallo_tpu/ops/segsum.py:254", "model deconvolution"),
     # the first staged body, which the ring kernel replaced on the route
     "segment_sum_per_chunk": ("thallo_tpu_torch/csrc/segsum.cu",
                               "thallo_tpu/ops/segsum.py:254", "measurement"),
@@ -1207,6 +1255,7 @@ def counters():
     return {"fused_pair_apply": fusedpair.fused_pair_apply,
             "fused_pair_apply_atomics": fusedpair.fused_pair_apply_atomics,
             "fused_pair_apply_atomics_thread": fusedpair.fused_pair_apply_atomics_thread,
+            "fused_pair_apply_atomics_bf16": fusedpair.fused_pair_apply_atomics_bf16,
             "fused_pair_rows_floor": fusedpair.fused_pair_rows_floor,
             "fused_pair_apply_wloop": fusedpair.fused_pair_apply_wloop,
             "fused_pair_apply_wloop_chunked": fusedpair.fused_pair_apply_wloop_chunked,
@@ -1217,6 +1266,8 @@ def counters():
             "oh_setup_aggregate": ohsetup.oh_setup_aggregate,
             "oh_setup_aggregate_atomics": ohsetup.oh_setup_aggregate_atomics,
             "segment_sum": segsum.segment_sum,
+            "segment_sum_fixed_order": segsum.segment_sum_fixed_order,
+            "segment_sum_fixed_order_f64": segsum.segment_sum_fixed_order_f64,
             "segment_sum_per_chunk": segsum.segment_sum_per_chunk,
             "segment_sum_per_chunk_f64": segsum.segment_sum_per_chunk_f64,
             "fused_pair_bf16": fusedpair.fused_pair_bf16,
@@ -1590,7 +1641,8 @@ def phase_ba_1m_bf16(ba, tt, scene, f32_final):
         "fused_pair_apply_bf16", "oh_setup_products", "fullrepeat_setup"), block_dtype="bf16")
     stray = [n for n in ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
                          "fused_pair_apply_wloop_chunked", "fused_pair_bf16_atomics",
-                         "fused_pair_v2_smem", "fused_pair_v3_partials") if launches[n]]
+                         "fused_pair_apply_atomics_bf16", "fused_pair_v2_smem",
+                         "fused_pair_v3_partials") if launches[n]]
     if stray:
         raise AssertionError(f"{label}: launched {stray}, not the bf16 persistent kernel")
     never_rising(label, costs)
@@ -1643,7 +1695,8 @@ def phase_skew_1m(ba, tt, scene, block_dtype=None, n_steps=N_STEPS_1M):
     from thallo_tpu_torch.solver import blocksparse
 
     label = "1M skew block-sparse" + (" bf16" if block_dtype else "")
-    names = (("fused_pair_apply_bf16", "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics")
+    names = (("fused_pair_apply_bf16", "fused_pair_apply_wloop_bf16",
+              "fused_pair_apply_atomics_bf16")
              if block_dtype else ("fused_pair_apply", "fused_pair_apply_atomics",
                                   "fused_pair_apply_wloop", "fused_pair_apply_wloop_chunked"))
     by_shape = {}
@@ -1930,12 +1983,14 @@ def phase_measurement_scripts():
     return launches
 
 
-def arap_kernel_cases(dev, rng, bsr, order="grouped"):
+def arap_kernel_cases(dev, rng, bsr, order="grouped", bf16=False):
     """The atomics route's two f32 bodies, fused_pair_apply_atomics (the
     slots kernel, the route's) and fused_pair_apply_atomics_thread (the
     first body), at the level shapes of ARAP 256²'s reg group in one edge
     order: each (3, 3) col pair's table ([4, 65 536] element ids) with
-    seeded blocks, pcol and prow."""
+    seeded blocks, pcol and prow.  bf16: the blocks as bf16 (phase 27's
+    crosses), the bf16 slots kernel (fused_pair_apply_atomics_bf16, the
+    route's) and the first bf16 body (fused_pair_bf16_atomics)."""
     from thallo_tpu_torch.ops import fusedpair
 
     S = ARAP_SIDE * ARAP_SIDE
@@ -1943,11 +1998,13 @@ def arap_kernel_cases(dev, rng, bsr, order="grouped"):
     levels = [bsr.cols[bsr.col_gathers[pr[3]][0]] for pr in bsr.pairs if pr[2] == "col"]
     log(f"ARAP 256² reg levels, {order} (W, N_t): "
         + ", ".join(str(tuple(c.shape)) for c in levels))
-    base = "arap256" if order == "grouped" else f"arap256_{order}"
+    base = ("arap256_bf16" if bf16 else "arap256") + ("" if order == "grouped" else f"_{order}")
+    body = "fused_pair_apply_atomics_bf16" if bf16 else "fused_pair_apply_atomics"
     for k, ids in enumerate(levels):
         W, N = ids.shape
-        a = _pair_args(lambda x: torch.from_numpy(x).to(dev), rng, ids, Ci=3, Cj=3, S=S)
-        for name in ATOMICS_BODIES["fused_pair_apply_atomics"]:
+        a = _pair_args(lambda x: torch.from_numpy(x).to(dev), rng, ids, Ci=3, Cj=3, S=S,
+                       block_dtype=torch.bfloat16 if bf16 else torch.float32)
+        for name in ATOMICS_BODIES[body]:
             cases.append((name, base if k == 0 else f"{base}_{k}",
                           lambda a=a, fn=getattr(fusedpair, name): fn(*a, Ci=3, Cj=3, S=S),
                           lambda a=a: fusedpair.fused_pair_apply_reference(*a, Ci=3, Cj=3, S=S),
@@ -2010,26 +2067,29 @@ def f64_kernel_cases(dev, rng, ba, tt, scene):
 
 
 def bf16_wide_cases(dev, rng):
-    """fused_pair_bf16_atomics at wide levels of more than 8 row channels,
-    Ci x Cj of BF16_WIDE (bf16 blocks of a level that fused_pair_route
-    sends there: W = BF16_WIDE_W), against the plain version."""
+    """The bf16 slots kernel (fused_pair_apply_atomics_bf16, the route's)
+    and the first bf16 body (fused_pair_bf16_atomics) at wide levels of
+    more than 8 row channels, Ci x Cj of BF16_WIDE (bf16 blocks of a level
+    that fused_pair_route sends there: W = BF16_WIDE_W), against the plain
+    version."""
     from thallo_tpu_torch.ops import fusedpair
 
     cases = []
     W, N, S = BF16_WIDE_W, BF16_WIDE_N, BF16_WIDE_N
     for Ci, Cj in BF16_WIDE:
         route = fusedpair.fused_pair_route(W, N, Ci, Cj, S, bf16=True)
-        if route != "fused_pair_bf16_atomics":
+        if route != "fused_pair_apply_atomics_bf16":
             raise AssertionError(f"bf16 ({Ci}, {Cj}) level routes to {route}")
         ids = torch.from_numpy(rng.integers(0, S, size=(W, N)).astype(np.int32)).to(dev)
         a = _pair_args(lambda x: torch.from_numpy(x).to(dev), rng, ids, Ci=Ci, Cj=Cj, S=S,
                        block_dtype=torch.bfloat16)
-        cases.append(("fused_pair_bf16_atomics", f"wide_{Ci}x{Cj}",
-                      lambda a=a, Ci=Ci, Cj=Cj: fusedpair.fused_pair_bf16_atomics(
-                          *a, Ci=Ci, Cj=Cj, S=S),
-                      lambda a=a, Ci=Ci, Cj=Cj: fusedpair.fused_pair_apply_reference(
-                          *a, Ci=Ci, Cj=Cj, S=S),
-                      None, nbytes(*a), 4 * W * N * Ci * Cj, None))
+        for name in ATOMICS_BODIES[route]:
+            cases.append((name, f"wide_{Ci}x{Cj}",
+                          lambda a=a, Ci=Ci, Cj=Cj, fn=getattr(fusedpair, name): fn(
+                              *a, Ci=Ci, Cj=Cj, S=S),
+                          lambda a=a, Ci=Ci, Cj=Cj: fusedpair.fused_pair_apply_reference(
+                              *a, Ci=Ci, Cj=Cj, S=S),
+                          None, nbytes(*a), 4 * W * N * Ci * Cj, None))
     return cases
 
 
@@ -2038,14 +2098,16 @@ def bf16_wide_cases(dev, rng):
 SOLVER_KERNELS = ("oh_setup_products", "fullrepeat_setup", "fused_pair_apply",
                   "fused_pair_apply_atomics", "fused_pair_apply_wloop",
                   "fused_pair_apply_wloop_chunked", "fused_pair_apply_bf16",
-                  "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics",
-                  "fused_pair_apply_f64", "fused_pair_apply_atomics_f64",
+                  "fused_pair_apply_wloop_bf16", "fused_pair_apply_atomics_bf16",
+                  "fused_pair_apply_f64",
+                  "fused_pair_apply_atomics_f64",
                   "fused_pair_apply_atomics_thread", "fused_pair_apply_atomics_thread_f64")
 # the two bodies of the atomics route (fusedpair.atomics_keeps_thread picks
 # between them): phase 2 runs both at every atomics-route call of a path
 ATOMICS_BODIES = {n: pair for pair in (
     ("fused_pair_apply_atomics", "fused_pair_apply_atomics_thread"),
-    ("fused_pair_apply_atomics_f64", "fused_pair_apply_atomics_thread_f64")) for n in pair}
+    ("fused_pair_apply_atomics_f64", "fused_pair_apply_atomics_thread_f64"),
+    ("fused_pair_apply_atomics_bf16", "fused_pair_bf16_atomics")) for n in pair}
 
 
 def path_calls(plan):
@@ -2126,15 +2188,27 @@ def path_kernel_cases(dev, rng, tag, calls):
                                             .index_add_(1, a[1].long(), a[0]),),
                           nbytes(*a), F * R, None, *tol))
         elif name == "segment_sum":
-            # the in-order plan of a tiny scatter, beside the aggregation
-            # kernel (its route before) and index_add_ on the same values
+            # the fixed-order plan of a tiny scatter (segment_sum_fixed_order),
+            # beside its first body (the runs kernel on the plan the earlier
+            # rule built: in order where no run exceeds 32, else sorted
+            # runs), the aggregation kernel (the route before those) and
+            # index_add_ on the same values
             plan = args[1]
             d = normal(args[0].T).T  # channel-major [F, M], as scatter_route's
             M, F = d.shape
             S = plan.num_segments
-            ids = torch.empty(M, dtype=torch.long, device=dev)
+            ids = torch.full((M,), S, dtype=torch.long, device=dev)
             ids[plan.order.long()] = torch.repeat_interleave(
                 torch.arange(S, device=dev), (plan.seg_start[1:] - plan.seg_start[:-1]).long())
+            if plan.block_run is not None:
+                kname = "segment_sum_fixed_order"
+                counts = (plan.seg_start[1:] - plan.seg_start[:-1]).cpu().numpy()
+                first = segsum.build_plan(ids.cpu().numpy().astype(np.int32), S, device=dev,
+                                          in_order=int(counts.max()) <= 32)
+                cases.append(("segment_sum", ctag + "_first_body",
+                              lambda d=d, p=first: (segsum.segment_sum(d, p),),
+                              lambda d=d, p=plan: (segsum.segment_sum_reference(d, p),), None,
+                              nbytes(d, first.order, first.seg_start), F * M, None, *tol))
             fn = getattr(segsum, kname)
             cases.append((kname, ctag, lambda d=d, p=plan, fn=fn: (fn(d, p),),
                           lambda d=d, p=plan: (segsum.segment_sum_reference(d, p),),
@@ -2178,11 +2252,11 @@ def model_kernel_cases(dev, rng, tt):
     """The kernels phases 15 and 17 launch, at the shapes, recipes and
     tables of their plans on the card (one step each): the graph models
     above the dense threshold, the contraction and sampled-image models
-    (their stored-Jacobian scatters through the aggregation kernel),
+    (their stored-Jacobian scatters through the fixed-order segment sum),
     bundle_fusion above the dense threshold (its one-hot camera slots),
     embedded deformation under
     block_dtype="bf16" (its 9-channel rotation rows through
-    fused_pair_bf16_atomics) and the io samples."""
+    fused_pair_apply_atomics_bf16) and the io samples."""
     from thallo_tpu_torch.models.cases import CASES, ITEM6_MODELS
 
     makes = {f"{name}_big": (lambda d, name=name: model_plan(tt, name, d, True))
@@ -2197,9 +2271,9 @@ def model_kernel_cases(dev, rng, tt):
     for tag, make in makes.items():
         calls = path_calls(make("cuda"))
         if tag == "embedded_bf16" and not any(
-                n == "fused_pair_bf16_atomics" and kw["Ci"] == 9 for n, _, kw in calls):
+                n == "fused_pair_apply_atomics_bf16" and kw["Ci"] == 9 for n, _, kw in calls):
             raise AssertionError("embedded deformation under block_dtype=bf16: its 9-channel "
-                                 "rotation rows did not run on fused_pair_bf16_atomics")
+                                 "rotation rows did not run on fused_pair_apply_atomics_bf16")
         cases += path_kernel_cases(dev, rng, tag, calls)
     return cases
 
@@ -2385,19 +2459,7 @@ def phase_arap_256(tt):
         del cpu_plan
         for n, fn in fns.items():
             fn.launches = solve_launches[n]  # the check's own apply is not the solve's
-        rel = abs(got[0] - ref[0]) / abs(ref[0])
-        log(f"{label}, step 3, card vs CPU: cost {got[0]!r} vs {ref[0]!r}, rel {rel:.3e}")
-        if not rel <= GRID_LINEAR_RTOL:
-            raise AssertionError(f"{label}: cost at step 3, card {got[0]} vs CPU {ref[0]}")
-        for what, a, b in zip(("-JᵀF", "diag(JᵀJ)", "JᵀJ·p"), got[1:], ref[1:]):
-            for name in b:
-                err = float(np.abs(a[name] - b[name]).max())
-                scale = float(np.abs(b[name]).max())
-                log(f"{label}, step 3, card vs CPU: {what} {name} max|diff| {err:.3e} "
-                    f"= {err / scale:.3e} x max|ref|")
-                if not err <= GRID_LINEAR_RTOL * scale:
-                    raise AssertionError(f"{label}: {what} of {name} at step 3, card vs CPU, "
-                                         f"{err} > {GRID_LINEAR_RTOL} x {scale}")
+        hold_linear_parts(label, got, ref)
         t0 = time.perf_counter()
         n = plan.run_steps(ARAP_STEPS - 3)
         torch.cuda.synchronize()
@@ -2434,30 +2496,161 @@ def phase_arap_256(tt):
                 f"(limit {tol})")
             if not (np.isfinite(traj[order][k]) and rel <= tol):
                 raise AssertionError(f"{label}, step {k}: cost {traj[order][k]} vs JAX {ref_k}")
-        # the marginal PCG iteration (bench.py:306-330): whole steps at two
-        # lIterations, one warm step before each timed batch
-        times, counts = {}, {}
-        for li in ARAP_MARGINAL:
-            plan.set_solver_parameter("lIterations", li)
-            plan.run_steps(1)
-            torch.cuda.synchronize()
-            n0 = fns["fused_pair_apply_atomics"].launches
-            t0 = time.perf_counter()
-            plan.run_steps(ARAP_MARGINAL_STEPS)
-            torch.cuda.synchronize()
-            times[li] = (time.perf_counter() - t0) / ARAP_MARGINAL_STEPS
-            counts[li] = (fns["fused_pair_apply_atomics"].launches - n0) / ARAP_MARGINAL_STEPS
-        lo, hi = ARAP_MARGINAL
-        log(f"{label} marginal PCG iteration: step {times[lo] * 1e3:.3f} ms at lIterations {lo}, "
-            f"{times[hi] * 1e3:.3f} ms at {hi}: {(times[hi] - times[lo]) / (hi - lo) * 1e3:.4f} "
-            f"ms an iteration, fused_pair_apply_atomics "
-            f"{(counts[hi] - counts[lo]) / (hi - lo):.2f} launches an iteration")
+        # the marginal PCG iteration (bench.py:306-330)
+        ms, per_iter = arap_marginal_ms(plan, fns, "fused_pair_apply_atomics")
+        ARAP_F32_MARGINAL_MS[order] = ms
+        log(f"{label} marginal PCG iteration: {ms:.4f} ms an iteration, "
+            f"fused_pair_apply_atomics {per_iter:.2f} launches an iteration")
     for k, tol in ARAP_TRAJ_RTOL.items():
         a, b = traj["shuffled"][k], traj["grouped"][k]
         rel = abs(a - b) / abs(b)
         log(f"ARAP {ARAP_SIDE}² GN step {k}: shuffled {a!r} vs grouped {b!r}, rel {rel:.3e}")
         if not rel <= tol:
             raise AssertionError(f"ARAP {ARAP_SIDE}², step {k}: the edge orders differ: {a} vs {b}")
+    return runs
+
+
+def hold_linear_parts(label, got, ref):
+    """The cost, -JᵀF, diag(JᵀJ) and JᵀJ·p of linear_parts on the card
+    (got) against the port's CPU path (ref) at the same unknowns, each
+    within GRID_LINEAR_RTOL (x max|ref|)."""
+    rel = abs(got[0] - ref[0]) / abs(ref[0])
+    log(f"{label}, step 3, card vs CPU: cost {got[0]!r} vs {ref[0]!r}, rel {rel:.3e}")
+    if not rel <= GRID_LINEAR_RTOL:
+        raise AssertionError(f"{label}: cost at step 3, card {got[0]} vs CPU {ref[0]}")
+    for what, a, b in zip(("-JᵀF", "diag(JᵀJ)", "JᵀJ·p"), got[1:], ref[1:]):
+        for name in b:
+            err = float(np.abs(a[name] - b[name]).max())
+            scale = float(np.abs(b[name]).max())
+            log(f"{label}, step 3, card vs CPU: {what} {name} max|diff| {err:.3e} "
+                f"= {err / scale:.3e} x max|ref|")
+            if not err <= GRID_LINEAR_RTOL * scale:
+                raise AssertionError(f"{label}: {what} of {name} at step 3, card vs CPU, "
+                                     f"{err} > {GRID_LINEAR_RTOL} x {scale}")
+
+
+def arap_marginal_ms(plan, fns, name, warm=1):
+    """The marginal PCG iteration of an ARAP plan (bench.py:306-330's
+    metric: whole steps at the two lIterations of ARAP_MARGINAL, `warm`
+    steps before each timed batch of ARAP_MARGINAL_STEPS; a graphed plan
+    warms by one dispatch, which captures): (ms an iteration, launches of
+    fns[name] an iteration)."""
+    times, counts = {}, {}
+    for li in ARAP_MARGINAL:
+        plan.set_solver_parameter("lIterations", li)
+        plan.run_steps(warm)
+        torch.cuda.synchronize()
+        n0 = fns[name].launches
+        t0 = time.perf_counter()
+        plan.run_steps(ARAP_MARGINAL_STEPS)
+        torch.cuda.synchronize()
+        times[li] = (time.perf_counter() - t0) / ARAP_MARGINAL_STEPS
+        counts[li] = (fns[name].launches - n0) / ARAP_MARGINAL_STEPS
+    lo, hi = ARAP_MARGINAL
+    return (times[hi] - times[lo]) / (hi - lo) * 1e3, (counts[hi] - counts[lo]) / (hi - lo)
+
+
+def phase_arap_256_bf16(tt):
+    """Phase 27: ARAP 256², GN, lIterations ARAP_L_ITERATIONS, under
+    block_dtype="bf16", in both edge orders, as phase 16 runs it: warmup(),
+    run_steps(1) three times, run_steps(7); the costs after steps 0-3 and
+    10 within ARAP_BF16_TRAJ_RTOL of the JAX package's bf16 trajectory and
+    of the other order's; after step 3 the linear parts card vs the port's
+    CPU path under block_dtype="bf16" (hold_linear_parts); both (3, 3)
+    levels routed to and launching fused_pair_apply_atomics_bf16, no other
+    fused pair.  Logs the step median, the launches a step and a PCG
+    iteration, the eager marginal PCG iteration beside phase 16's f32 one,
+    and the graphed one (steps_per_dispatch ARAP_MARGINAL_STEPS) in bf16
+    and in f32.  Returns the launches of each order's 10 steps."""
+    fns = counters()
+    name = "fused_pair_apply_atomics_bf16"
+    runs, traj = {}, {}
+    for order in ("grouped", "shuffled"):
+        label = f"ARAP {ARAP_SIDE}² GN bf16 {order}"
+        plan = arap_plan(tt, ARAP_SIDE, order, "cuda",
+                         ARAP_STEPS + 2 * (1 + ARAP_MARGINAL_STEPS), block_dtype="bf16")
+        bsr = plan._prep["consts"][1]["bsr"]
+        routes = level_routes(bsr, bf16=True)
+        log(f"{label}: levels (W, N_t) -> kernel {routes}, initial cost {plan.final_cost!r}")
+        if len(routes) != 1 or set(routes.values()) != {name}:
+            raise AssertionError(f"{label}: levels route to {routes}, not {name}")
+        plan.warmup()
+        for fn in fns.values():
+            fn.launches = 0
+        costs, step_s = [plan.final_cost], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            plan.run_steps(1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            costs.append(plan.final_cost)
+        rng = np.random.default_rng(13)
+        p = {k: rng.normal(size=tuple(v.shape)).astype(np.float32) for k, v in plan._U.items()}
+        solve_launches = {n: fn.launches for n, fn in fns.items()}
+        got = linear_parts(plan, p)
+        cpu_plan = arap_plan(tt, ARAP_SIDE, order, "cpu", block_dtype="bf16")
+        cpu_plan._U = {k: v.cpu() for k, v in plan._U.items()}
+        ref = linear_parts(cpu_plan, p)
+        del cpu_plan
+        for n, fn in fns.items():
+            fn.launches = solve_launches[n]  # the check's own apply is not the solve's
+        hold_linear_parts(label, got, ref)
+        t0 = time.perf_counter()
+        n = plan.run_steps(ARAP_STEPS - 3)
+        torch.cuda.synchronize()
+        batch = time.perf_counter() - t0
+        costs.append(plan.final_cost)
+        launches = {k: fn.launches for k, fn in fns.items()}
+        runs[f"arap256 bf16 {order}"] = launches
+        if n != ARAP_STEPS - 3 or plan.num_iterations != ARAP_STEPS:
+            raise AssertionError(f"{label}: run_steps ran {n} steps, {plan.num_iterations} in all")
+        per_step = step_s[1:] + [batch / n] * n
+        slots = launches[name]
+        log(f"{label} costs after steps 0-3 and {ARAP_STEPS}: {costs}")
+        log(f"{label} step times: steps 1-3 {[round(t * 1e3, 2) for t in step_s]} ms, steps 4-"
+            f"{ARAP_STEPS} one run_steps({n}) batch {batch * 1e3:.2f} ms; median of steps 2-"
+            f"{ARAP_STEPS} {float(np.median(per_step)) * 1e3:.2f} ms")
+        log(f"{label} launches over {ARAP_STEPS} steps {({k: v for k, v in launches.items() if v})}"
+            f"; {name} {slots / ARAP_STEPS:.1f} a step, "
+            f"{slots / (ARAP_STEPS * ARAP_L_ITERATIONS):.2f} a PCG iteration")
+        stray = [k for k, v in launches.items() if v and k != name and k.startswith("fused_pair")]
+        if slots <= 0 or stray:
+            raise AssertionError(f"{label}: {name} launched {slots} times, other fused-pair "
+                                 f"kernels {stray}")
+        for u_name, U in plan.unknowns().items():
+            if not bool(torch.isfinite(U).all()):
+                raise AssertionError(f"{label}: non-finite unknowns {u_name}")
+        traj[order] = dict(zip((0, 1, 2, 3, ARAP_STEPS), costs))
+        for k, tol in ((0, GRID_LINEAR_RTOL),) + tuple(ARAP_BF16_TRAJ_RTOL.items()):
+            ref_k = ARAP_JAX_BF16_COSTS[order][k]
+            rel = abs(traj[order][k] - ref_k) / abs(ref_k)
+            log(f"{label} step {k}: cost {traj[order][k]!r} vs JAX bf16 {ref_k!r}, rel "
+                f"{rel:.3e} (limit {tol})")
+            if not (np.isfinite(traj[order][k]) and rel <= tol):
+                raise AssertionError(f"{label}, step {k}: cost {traj[order][k]} vs JAX {ref_k}")
+        ms, per_iter = arap_marginal_ms(plan, fns, name)
+        log(f"{label} marginal PCG iteration, eager: {ms:.4f} ms an iteration ({name} "
+            f"{per_iter:.2f} launches an iteration); phase 16's f32 {order}: "
+            f"{ARAP_F32_MARGINAL_MS.get(order, float('nan')):.4f} ms")
+        del plan
+    for k, tol in ARAP_BF16_TRAJ_RTOL.items():
+        a, b = traj["shuffled"][k], traj["grouped"][k]
+        rel = abs(a - b) / abs(b)
+        log(f"ARAP {ARAP_SIDE}² GN bf16 step {k}: shuffled {a!r} vs grouped {b!r}, rel {rel:.3e}")
+        if not rel <= tol:
+            raise AssertionError(f"ARAP {ARAP_SIDE}² bf16, step {k}: the edge orders differ: "
+                                 f"{a} vs {b}")
+    # the graphed marginal PCG iteration, bf16 beside f32, in one call (a
+    # replay runs no wrapper, so nothing is counted there)
+    graphed = {}
+    for dtype, counted in (("f32", "fused_pair_apply_atomics"), ("bf16", name)):
+        extra = {"block_dtype": "bf16"} if dtype == "bf16" else {}
+        plan = arap_plan(tt, ARAP_SIDE, "grouped", "cuda", 1000,
+                         steps_per_dispatch=ARAP_MARGINAL_STEPS, **extra)
+        graphed[dtype] = arap_marginal_ms(plan, fns, counted, warm=ARAP_MARGINAL_STEPS)[0]
+        del plan
+    log(f"ARAP {ARAP_SIDE}² GN grouped, graphed marginal PCG iteration (steps_per_dispatch "
+        f"{ARAP_MARGINAL_STEPS}): bf16 {graphed['bf16']:.4f} ms, f32 {graphed['f32']:.4f} ms")
     return runs
 
 
@@ -2777,17 +2970,18 @@ def phase_schur_skew_f64(ba, tt):
 
 def phase_f64_models(tt):
     """Phase 20(e): F64_MODELS at their test sizes card vs CPU in f64,
-    their tiny scatters through segment_sum_f64's in-order plans and no
-    f32 kernel."""
+    their tiny scatters through the fixed-order kernel's f64 instantiation
+    (segment_sum_fixed_order_f64, reached by segment_sum_f64) and no f32
+    kernel."""
     for name, (u_tol, c_tol) in F64_MODELS.items():
         label = f"model {name} f64"
         lg, _, plan = card_vs_cpu(label, lambda d, name=name: model_plan(tt, name, d, False,
                                                                         double=True),
                                   MODEL_STEPS, u_tol, c_tol)
         stray = [n for n, k in lg.items() if k and not n.endswith("_f64")]
-        if lg["segment_sum_f64"] <= 0 or stray:
-            raise AssertionError(f"{label}: segment_sum_f64 launched "
-                                 f"{lg['segment_sum_f64']} times, f32 kernels {stray}")
+        if lg["segment_sum_fixed_order_f64"] <= 0 or stray:
+            raise AssertionError(f"{label}: segment_sum_fixed_order_f64 launched "
+                                 f"{lg['segment_sum_fixed_order_f64']} times, f32 kernels {stray}")
 
 
 def phase_precompute_j_f64(ba, tt, scene, f32_final):
@@ -2879,9 +3073,14 @@ def phase_jacobian(ba, tt, scene):
 def phase_drivers(tt):
     """Phase 22: the drivers on the card: run_model on RUN_MODELS, every
     gallery row (synthetic and file) with its cost falling, and the
-    timer's summary of an image_warping solve at timing levels 1 and 2."""
+    timer's summary of an image_warping solve at timing levels 1 and 2;
+    compile_check on ARAP's energy at its default dims, on the card."""
+    import tempfile
+
     from thallo_tpu_torch.examples import gallery, run_model
+    from thallo_tpu_torch.models import arap_mesh_deformation as arap
     from thallo_tpu_torch.models import image_warping as iw
+    from thallo_tpu_torch.utils.compile_check import compile_check
 
     for model in RUN_MODELS:
         out = run_model.main([model, "--device", "cuda", "--iters", str(DRIVER_STEPS),
@@ -2894,6 +3093,14 @@ def phase_drivers(tt):
     log(f"gallery: {len(falling)} of {len(rows)} rows with a falling cost")
     if len(falling) != len(rows):
         raise AssertionError(f"gallery: costs not falling in {set(r[0] for r in rows) - set(falling)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "arap_energy.py"
+        path.write_text(arap.ENERGY)
+        plan = compile_check(str(path))  # the card by default
+        if plan.device.type != "cuda":
+            raise AssertionError(f"compile_check planned on {plan.device}, not the card")
+        log(f"compile_check on ARAP's energy at its default dims: {plan.device}, groups "
+            + ", ".join(f"{g.name}[{g.schedule.value}]" for g in plan.compiled.groups))
     for level in (1, 2):
         plan = tt.load_energy(iw.ENERGY).plan({"W": 64, "H": 64}, solver="levenberg_marquardt",
                                               device="cuda", timing_level=level)
@@ -3851,6 +4058,7 @@ def main():
     for order in ("grouped", "shuffled"):
         arap_reg = arap_plan(tt, ARAP_SIDE, order, "cuda")._prep["consts"][1]["bsr"]
         cases += arap_kernel_cases(dev, rng, arap_reg, order)
+        cases += arap_kernel_cases(dev, rng, arap_reg, order, bf16=True)
     cases += bf16_wide_cases(dev, rng)
     cases += model_kernel_cases(dev, rng, tt)
     cases += f64_kernel_cases(dev, rng, ba, tt, scene)
@@ -3998,6 +4206,14 @@ def main():
     torch.cuda.synchronize()
     log(f"phase 26 grid energies sharded by halo exchange, BA 1M through the C API, the "
         f"CLI: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    bf16_runs = phase_arap_256_bf16(tt)
+    model_runs.update(bf16_runs)
+    runs.update(bf16_runs)
+    torch.cuda.synchronize()
+    log(f"phase 27 ARAP {ARAP_SIDE}² GN under block_dtype=bf16, both edge orders: "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8),
     # and on each run of phases 15-17 that launched it

@@ -48,7 +48,8 @@ by 1e-7 x max(max|U|, 1) of normal noise (seeded) before the first step
 too); the
 added line has the same differences between the two runs: the spread f32
 rounding alone causes.  --package jax needs the JAX package (on its
-default backend); the port runs on --device.  --against-cpu N runs the
+default backend); the port runs on --device.  --block-dtype bf16 plans
+both packages with block_dtype="bf16".  --against-cpu N runs the
 port once on the CPU and N times on --device, each followed by a line of
 its differences from the CPU run and whether its unknowns equal the
 first device run's bit for bit: the spread card against CPU that
@@ -127,6 +128,8 @@ def run(package, args, perturb=None):
             inputs = m.shuffle_edges(inputs, seed=0)
         text = case_energy(args.model, m)
         steps = steps or 10
+    if args.block_dtype:
+        options["block_dtype"] = args.block_dtype
     plan = pkg.load_energy(text, spec).plan(dims, solver=args.solver or solver, **options)
     plan.set_solver_parameter("nIterations", steps)
     plan.set_solver_parameter("lIterations", args.l_iterations or l_iterations)
@@ -154,7 +157,8 @@ def run(package, args, perturb=None):
                    for name, u in plan.unknowns().items()})
     rec = {"package": package, "device": args.device if package == "torch" else "jax default",
            "model": args.model, "dims": dims, "shuffle": args.shuffle,
-           "size": args.size, "double": spec is not None, "solver": args.solver or solver,
+           "size": args.size, "double": spec is not None, "block_dtype": args.block_dtype,
+           "solver": args.solver or solver,
            "lIterations": args.l_iterations or l_iterations,
            "q_tolerance": q_tol, "perturb": perturb, "eager": args.eager,
            "flush_denormal": args.flush_denormal, "costs": costs,
@@ -187,6 +191,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="the port's device")
     ap.add_argument("--double", action="store_true",
                     help="double_precision (either package: f64 throughout)")
+    ap.add_argument("--block-dtype", choices=("bf16",),
+                    help="either package: the block-sparse cross blocks stored as bf16")
     ap.add_argument("--against-cpu", type=int, metavar="N",
                     help="the port N times on --device against once on the CPU")
     ap.add_argument("--eager", action="store_true", help="JAX's steps under disable_jit")

@@ -48,6 +48,15 @@ Groups (all by default):
           route takes (random ids): the slots kernel
           (fused_pair_apply_atomics[_f64]) and the first body
           (fused_pair_apply_atomics_thread[_f64]).
+  bf16_slots  the atomics route on bf16 blocks (block_dtype="bf16") at
+          ARAP 256²'s (3, 3) col levels (grid order and shuffled), W = 12,
+          N = S = 16 384 at (9, 3) and (16, 3) (chip_smoke.py's BF16_WIDE)
+          and embedded deformation's (9, 3) [4, 1 600]: the bf16 slots
+          kernel (fused_pair_apply_atomics_bf16) at the slot lanes
+          bf16_slot_lanes picks and at P = 1, 2, 4 and 8, the first bf16
+          body (fused_pair_bf16_atomics) and the f32 slots kernel on the
+          same values as f32 blocks; the measurements behind
+          BF16_SLOT_FILL and the bf16 route.
   fullrepeat  fullrepeat_setup at the uniform 1M scene's point level (N_t
           250 000, W 4, rc 2, Kall 24; the solver's recipe: jtr 3, d2 3,
           the 3 x 9 cross pair, the 3 x 3 diag pair): the tile kernel
@@ -463,6 +472,44 @@ def sweep_slots(args, smi, out):
                       "card": smi}, out)
 
 
+BF16_SLOTS_SHAPES = (("wide_9x3", 12, 16384, 9, 3, 16384), ("wide_16x3", 12, 16384, 16, 3, 16384),
+                     ("embedded", 4, 1600, 9, 3, 1600))
+
+
+def sweep_bf16_slots(args, smi, out):
+    from thallo_tpu_torch.ops import _cuda, fusedpair
+
+    rng = np.random.default_rng(9)
+    cases = [(f"grid256_{order}", grid_ids(256, order == "shuffled"), 3, 3, 256 * 256)
+             for order in ("grouped", "shuffled")]
+    cases += [(tag, random_ids(rng, W, N, S), Ci, Cj, S)
+              for tag, W, N, Ci, Cj, S in BF16_SLOTS_SHAPES]
+    slots = fusedpair.fused_pair_apply_atomics_bf16
+    for name, ids, Ci, Cj, S in cases:
+        W, N = ids.shape
+        kw = dict(Ci=Ci, Cj=Cj, S=S)
+        f32 = f32_operands(rng, ids, Ci, Cj, S)
+        ops = (f32[0], f32[1].bfloat16(), *f32[2:])
+        f32 = (ops[0], ops[1].float(), *ops[2:])  # the same (rounded) values
+        ref = fusedpair.fused_pair_apply_reference(*ops, **kw)
+        auto = fusedpair.bf16_slot_lanes(W, N, _cuda.sm_count(ids.device))
+
+        def timed(kernel, fn, operands=ops, **extra):
+            err = max_rel_err(fn(*operands), ref)
+            eager, graph = per_launch_ms(lambda: fn(*operands), args.n)
+            emit({"name": name, "kernel": kernel, "W": W, "N": N, "Ci": Ci, "Cj": Cj, "S": S,
+                  "eager_ms": eager, "graph_ms": graph, "rel_err": err, "card": smi,
+                  "route": fusedpair.fused_pair_route(W, N, Ci, Cj, S, bf16=True), **extra}, out)
+
+        timed("fused_pair_apply_atomics_bf16", lambda *a: slots(*a, **kw), P=auto)
+        for P in (1, 2, 4, 8):
+            timed("fused_pair_apply_atomics_bf16", lambda *a, P=P: fusedpair._launch_atomics(
+                slots, *a, Ci, Cj, S, torch.bfloat16, True, P=P), P=P)
+        timed("fused_pair_bf16_atomics", lambda *a: fusedpair.fused_pair_bf16_atomics(*a, **kw))
+        timed("fused_pair_apply_atomics_f32", lambda *a: fusedpair.fused_pair_apply_atomics(
+            *a, **kw), f32)
+
+
 def sweep_bf16(args, smi, out):
     from thallo_tpu_torch.ops import fusedpair
 
@@ -496,6 +543,7 @@ def sweep_bf16(args, smi, out):
         else:
             timed(route + "_bf16", bf16_fn)
         timed("fused_pair_bf16_atomics", fusedpair.fused_pair_bf16_atomics)
+        timed("fused_pair_apply_atomics_bf16", fusedpair.fused_pair_apply_atomics_bf16)
         timed(route + "_f32", getattr(fusedpair, route), f32)
         if not args.sweep:
             continue
@@ -599,6 +647,7 @@ def sweep_v1(args, smi, out):
 
 GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum,
           "staged": sweep_staged, "slots": sweep_slots, "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate, "bf16": sweep_bf16,
+          "bf16_slots": sweep_bf16_slots,
           "variants": sweep_variants, "v1": sweep_v1}
 
 

@@ -639,18 +639,19 @@ def test_fused_pair_bf16_duplicate_ids_cuda_match_plain(cuda, bf16_elems, name, 
                                          (3, 9, 24, 333, 3200)])
 def test_fused_pair_bf16_atomics_route_cuda_matches_plain(cuda, entry, Ci, Cj, W, N, S):
     """bf16 shapes the persistent kernels do not take (a [9, S] accumulator
-    beyond PERSISTENT_MAX_SMEM, a pair other than 3 x 9) go to
-    fused_pair_bf16_atomics, from both entry points."""
+    beyond PERSISTENT_MAX_SMEM, a pair other than 3 x 9) go to the bf16
+    atomics route's slots kernel, fused_pair_apply_atomics_bf16, from both
+    entry points."""
     rng = np.random.default_rng(8)
     ids = rng.integers(-2, S + 3, (W, N)).astype(np.int32)
     args = _bf16_args(cuda, ids, rng.normal(size=(W * Ci * Cj, N)).astype(np.float32),
                       rng.normal(size=(Cj, S)).astype(np.float32),
                       rng.normal(size=(Ci, N)).astype(np.float32))
     assert not fusedpair.persistent_fits(Ci, Cj, S)
-    n0 = fusedpair.fused_pair_bf16_atomics.launches
+    n0 = fusedpair.fused_pair_apply_atomics_bf16.launches
     rows, cols = getattr(fusedpair, entry)(*args, Ci=Ci, Cj=Cj, S=S)
     torch.cuda.synchronize()
-    assert fusedpair.fused_pair_bf16_atomics.launches == n0 + 1
+    assert fusedpair.fused_pair_apply_atomics_bf16.launches == n0 + 1
     r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
     close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
     close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
@@ -703,7 +704,7 @@ VARIANT_ROUTES = VARIANTS + [n + "_generic" for n in VARIANTS]
 V1_ROUTES = ["fused_pair_v1_rows", "fused_pair_v1_rows_generic"]
 WATCHED = VARIANT_ROUTES + V1_ROUTES + ["fused_pair_cluster_noflush", "fused_pair_bf16",
                                         "fused_pair_bf16_atomics", "fused_pair_apply",
-                                        "fused_pair_apply_bf16"]
+                                        "fused_pair_apply_bf16", "fused_pair_apply_atomics_bf16"]
 # FUSED_SHAPES (ragged N, odd and even), the uniform 1M BA shape and the
 # JAX script's skew_level_w8
 VARIANT_SHAPES = FUSED_SHAPES + [(4, 250_000, 1024), (8, 16384, 256)]
@@ -1229,12 +1230,13 @@ def test_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Ci,Cj", [(9, 3), (16, 3)])
 def test_fused_pair_bf16_atomics_wide_rows_cuda_match_plain(cuda, Ci, Cj):
-    """The bf16 atomics body at more than 8 row channels (instantiated per
-    (Ci, Cj) bound, as the f32 one): a wide level (W = 12) that
-    fused_pair_route(bf16=True) sends there, one launch, CUDA_TOL on the
-    same bf16 values; 17 row channels raise."""
+    """The first bf16 atomics body at more than 8 row channels
+    (instantiated per (Ci, Cj) bound, as the f32 one), at a wide level (W =
+    12) that fused_pair_route(bf16=True) sends to the bf16 slots kernel:
+    one launch, CUDA_TOL on the same bf16 values; 17 row channels raise."""
     W, N, S = 12, 1001, 500
-    assert fusedpair.fused_pair_route(W, N, Ci, Cj, S, bf16=True) == "fused_pair_bf16_atomics"
+    assert fusedpair.fused_pair_route(W, N, Ci, Cj, S, bf16=True) == \
+        "fused_pair_apply_atomics_bf16"
     rng = np.random.default_rng(Ci)
     ids = rng.integers(0, S, (W, N)).astype(np.int32)
     ids[:, -7:] = S + 3
@@ -1282,7 +1284,7 @@ def _item6_plan(cuda, which):
     ("face_fitting", {"segment_sum"}),
     ("bundle_fusion", {"segment_sum"}),
     ("bundle_fusion_big", {"oh_setup_products", "fused_pair_apply_atomics"}),
-    ("embedded_bf16", {"fused_pair_bf16_atomics"})])
+    ("embedded_bf16", {"fused_pair_apply_atomics_bf16"})])
 def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
     """Every kernel one solver step launches on the contraction and
     sampled-image models at tests/test_models2.py's sizes (their stored
@@ -1290,14 +1292,15 @@ def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
     sum, lower.fixed_order_plan),
     bundle_fusion at 700 frames (one-hot camera rows) and embedded
     deformation under block_dtype="bf16" (its 9-channel rotation rows on
-    the bf16 atomics body), at that step's shapes, recipes and tables on
-    seeded values: one launch a call, CUDA_TOL."""
+    the bf16 slots kernel), at that step's shapes, recipes and tables on
+    seeded values: one launch a call (the fixed-order plans' on
+    segment_sum_fixed_order), CUDA_TOL."""
     from thallo_tpu_torch import lower
     from thallo_tpu_torch.solver import blocksparse
 
     plan = _item6_plan(cuda, which)
     calls = {}
-    names = PATH_KERNELS + ("fused_pair_bf16_atomics",)
+    names = PATH_KERNELS + ("fused_pair_apply_atomics_bf16",)
     for mod, name in [(blocksparse, n) for n in names] + [(lower, "oh_setup_aggregate"),
                                                           (lower, "segment_sum")]:
         def record(*a, real=getattr(mod, name), name=name, **k):
@@ -1330,7 +1333,8 @@ def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
         elif name == "segment_sum":
             args = (normal(a[0].T).T, a[1])  # channel-major values, as scatter_route's
             refs = (segsum.segment_sum_reference(*args),)
-            fn = segsum.segment_sum
+            fn = segsum.segment_sum_fixed_order if a[1].block_run is not None \
+                else segsum.segment_sum
         else:
             args = (a[0], normal(a[1]), normal(a[2]), normal(a[3]))
             refs = fusedpair.fused_pair_apply_reference(*args, **k)
@@ -1436,9 +1440,10 @@ def test_matrix_free_graph_group_cuda_matches_cpu(cuda, monkeypatch, tmp_path, m
     """LINEARIZE (use_autoscheduler=2) and INLINE (exhaustive candidate 1)
     on small BA's graph group, 2 LM steps on the card against the CPU: the
     camera transposes (16 cameras, 5 600 values) launch the segment sum in
-    a fixed order (lower.fixed_order_plan), and under THALLO_SEGSUM=tiled
-    every transpose does; never the aggregation kernel (f64: their f64
-    instantiations); INLINE reaches them through torch.func.vjp."""
+    a fixed order (lower.fixed_order_plan: segment_sum_fixed_order), and
+    under THALLO_SEGSUM=tiled every transpose does; never the aggregation
+    kernel (f64: their f64 instantiations); INLINE reaches them through
+    torch.func.vjp."""
     import thallo_tpu_torch as tt
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
@@ -1454,7 +1459,8 @@ def test_matrix_free_graph_group_cuda_matches_cpu(cuda, monkeypatch, tmp_path, m
             dims, solver="levenberg_marquardt", device=device, use_autoscheduler=mode)
         plan.set_solver_parameter("q_tolerance", -1.0)
         plan.init({k: np.copy(v) for k, v in ins.items()})
-        n0 = (seg.launches, agg.launches)
+        fixed = segsum.segment_sum_fixed_order_f64 if double else segsum.segment_sum_fixed_order
+        n0 = (seg.launches + fixed.launches, agg.launches)
         for _ in range(2):
             plan.step()
         costs.append(plan.cost())
@@ -1462,7 +1468,7 @@ def test_matrix_free_graph_group_cuda_matches_cpu(cuda, monkeypatch, tmp_path, m
             torch.cuda.synchronize()
             assert plan.compiled.groups[0].schedule.value == ("linearize" if mode == 2
                                                               else "inline")
-            launched = (seg.launches - n0[0], agg.launches - n0[1])
+            launched = (seg.launches + fixed.launches - n0[0], agg.launches - n0[1])
             assert launched[0] > 0 and launched[1] == 0, launched
     assert abs(costs[0] - costs[1]) <= (1e-10 if double else 1e-4) * costs[1], costs
 
@@ -1638,10 +1644,13 @@ def test_set_solver_parameter_drops_the_graph(cuda):
 @pytest.mark.cuda
 def test_in_order_scatter_is_deterministic(cuda):
     """The tiny scatters' in-order segment sum (deconvolution 16²'s
-    stored-Jacobian scatter, 6 400 values into 256) gives index_add_'s CPU
-    sums bit for bit, and two card runs of the model's first step give the
-    same unknowns bit for bit."""
+    stored-Jacobian scatter, 6 400 values into 256: the thread kernel on
+    an in-order plan, and the fixed-order kernel on the plan
+    lower.fixed_order_plan builds) gives index_add_'s CPU sums bit for
+    bit, and two card runs of the model's first step give the same
+    unknowns bit for bit."""
     import thallo_tpu_torch as tt
+    from thallo_tpu_torch import lower
     from thallo_tpu_torch.models.cases import case_energy, model_case
 
     rng = np.random.default_rng(0)
@@ -1649,8 +1658,10 @@ def test_in_order_scatter_is_deterministic(cuda):
     vals = torch.from_numpy(rng.normal(size=(2, 6400)).astype(np.float32))
     plan = segsum.build_plan(ids, 256, device=cuda, in_order=True)
     got = segsum.segment_sum(vals.to(cuda).T, plan).T.cpu()
-    assert torch.equal(got, torch.zeros((2, 256)).index_add_(1, torch.from_numpy(ids).long(),
-                                                              vals))
+    want = torch.zeros((2, 256)).index_add_(1, torch.from_numpy(ids).long(), vals)
+    assert torch.equal(got, want)
+    fixed = lower.fixed_order_plan(ids, 256, cuda)
+    assert torch.equal(segsum.segment_sum(vals.to(cuda).T, fixed).T.cpu(), want)
     m, inputs, dims, solver, l_iterations = model_case("deconvolution")
     Us = []
     for _ in range(2):
@@ -1659,9 +1670,9 @@ def test_in_order_scatter_is_deterministic(cuda):
         p.set_solver_parameter("lIterations", l_iterations)
         p.set_solver_parameter("q_tolerance", -1.0)
         p.init({n: np.copy(v) for n, v in inputs.items()})
-        n0 = segsum.segment_sum.launches
+        n0 = segsum.segment_sum_fixed_order.launches
         p.step()
-        assert segsum.segment_sum.launches > n0
+        assert segsum.segment_sum_fixed_order.launches > n0
         Us.append(p.unknowns()["X"].cpu())
     assert torch.equal(Us[0], Us[1])
 
@@ -1781,3 +1792,130 @@ def test_segsum_ring_cuda_bit_identical(cuda, monkeypatch, blocks, double):
     for got in (ring, first):
         close(got.cpu(), ref.cpu(), tol)
     close(ring.cpu(), segsum.segment_sum_staged_reference(data, plan).cpu(), tol)
+
+
+# ---------------------------------------------------------------------------
+# the fixed-order segment sum (csrc/segsum.cu run_sum_staged_order_kernel):
+# the plans lower.fixed_order_plan builds for the small-image scatters
+# (deconvolution's [1-2, 6 400] -> 256, face_fitting's [1-2, 192] -> 4,
+# bundle_fusion's [6, 300] and [6, 24] -> 4, the tests' BA cameras [9, 5 600]
+# -> 16: sorted runs), a ragged map (ids past S dropped, empty segments),
+# runs longer than a tile (in order and as a tree), one long run
+# ---------------------------------------------------------------------------
+FIXED_ORDER_SHAPES = [(1, 6400, 256), (2, 6400, 256), (1, 192, 4), (2, 192, 4), (6, 300, 4),
+                      (6, 24, 4), (9, 5600, 16)]
+
+
+def _fixed_order_case(F, M, N, seed, ragged=False):
+    rng = np.random.default_rng(seed)
+    ids = np.repeat(np.arange(N), -(-M // N))[:M].astype(np.int32)
+    rng.shuffle(ids)
+    if ragged:
+        ids[rng.random(M) < 0.1] = N + 5  # dropped: past the segments
+        ids[ids == 1] = 2  # an empty segment
+    return ids, rng.normal(size=(F, M)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("double", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("F,M,N,ragged", [s + (False,) for s in FIXED_ORDER_SHAPES]
+                         + [(3, 1001, 37, True), (2, 5000, 3, False), (4, 20000, 1, False)])
+def test_segment_sum_fixed_order_cuda_matches_plain(cuda, double, F, M, N, ragged):
+    """lower.fixed_order_plan's plan summed by segment_sum_fixed_order[_f64]
+    (through segment_sum, one launch a call, the runs kernel not launched)
+    on channel-major values: an in-order plan gives the CPU's index_add_
+    bits, a sorted-runs plan lies within CUDA_TOL (CUDA_F64_TOL) of it;
+    two launches give the same bits; the first body (segment_sum on the
+    plan build_plan makes without the fixed-order form) within the same
+    bound."""
+    from thallo_tpu_torch import lower
+
+    ids, vals = _fixed_order_case(F, M, N, F * M + N, ragged)
+    dt = torch.float64 if double else torch.float32
+    cpu_vals = torch.from_numpy(vals).to(dt)
+    keep = ids < N
+    want = torch.zeros((F, N), dtype=dt).index_add_(1, torch.from_numpy(ids[keep]).long(),
+                                                    cpu_vals[:, keep])
+    plan = lower.fixed_order_plan(ids, N, cuda)
+    assert plan.block_run is not None and len(plan.modes) == 1
+    in_order = plan.modes == (segsum.THREAD,)
+    assert in_order == (np.bincount(ids[keep], minlength=N).max() <= lower.IN_ORDER_MAX_RUN)
+    d = cpu_vals.to(cuda).T
+    fixed = segsum.segment_sum_fixed_order_f64 if double else segsum.segment_sum_fixed_order
+    n0 = (fixed.launches, dict(segsum.BODY_LAUNCHES))
+    got = segsum.segment_sum(d, plan)
+    again = segsum.segment_sum(d, plan)
+    torch.cuda.synchronize()
+    assert fixed.launches == n0[0] + 2
+    assert segsum.BODY_LAUNCHES["runs"] == n0[1].get("runs", 0)
+    assert got.dtype == dt and torch.equal(got, again)
+    if in_order:
+        assert torch.equal(got.T.cpu(), want)
+    tol = CUDA_F64_TOL if double else CUDA_TOL
+    close(got.T.cpu(), want, tol)
+    first = segsum.build_plan(ids, N, device=cuda, in_order=plan.modes == (segsum.THREAD,))
+    close(segsum.segment_sum(d, first).T.cpu(), want, tol)
+
+
+@pytest.mark.cuda
+def test_segment_sum_fixed_order_tree_and_long_runs_cuda(cuda, monkeypatch):
+    """The tree form at one run a block (all warps on it) and at several,
+    and an in-order plan whose runs span several tiles (ORDER_TILE): each
+    against the CPU's index_add_, the in-order one bit for bit; a plan
+    without the fixed-order form raises."""
+    rng = np.random.default_rng(3)
+    for N, M, in_order in ((1, 70_000, False), (40, 3000, False), (2, 2600, True)):
+        ids = rng.integers(0, N, M).astype(np.int32)
+        vals = torch.from_numpy(rng.normal(size=(3, M)).astype(np.float32))
+        plan = segsum.build_plan(ids, N, device=cuda, in_order=in_order, fixed_order=True)
+        got = segsum.segment_sum_fixed_order(vals.to(cuda).T, plan).T.cpu()
+        want = torch.zeros((3, N)).index_add_(1, torch.from_numpy(ids).long(), vals)
+        if in_order:
+            assert plan.order_tile == segsum.ORDER_TILE
+            assert torch.equal(got, want)
+        close(got, want, CUDA_TOL)
+    with pytest.raises(ValueError, match="fixed-order form"):
+        segsum.segment_sum_fixed_order(vals.to(cuda).T, segsum.build_plan(ids, N, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the slots kernel on bf16 blocks (fused_pair_apply_atomics_bf16): ARAP
+# 256²'s (3, 3) level shape, BF16_WIDE's (W = 12, N = S = 16 384 at (9, 3)
+# and (16, 3)), embedded deformation's (9, 3) [4, 1 600], a ragged level
+# with out-of-range ids, at every slot-lane count
+# ---------------------------------------------------------------------------
+BF16_SLOTS_SHAPES = [(3, 3, 4, 65536, 65536), (9, 3, 12, 16384, 16384), (16, 3, 12, 16384, 16384),
+                     (9, 3, 4, 1600, 1600), (2, 5, 7, 1001, 300)]
+
+
+def _bf16_level(cuda, Ci, Cj, W, N, S, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-2, S + 3, (W, N)).astype(np.int32)
+    return _bf16_args(cuda, ids, rng.normal(size=(W * Ci * Cj, N)).astype(np.float32),
+                      rng.normal(size=(Cj, S)).astype(np.float32),
+                      rng.normal(size=(Ci, N)).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Ci,Cj,W,N,S", BF16_SLOTS_SHAPES)
+def test_fused_pair_apply_atomics_bf16_cuda_matches_plain(cuda, Ci, Cj, W, N, S):
+    """The bf16 slots kernel against the plain version on the same bf16
+    values (f32 on both sides, only the order of sums differs), one launch
+    on its own count at the slot lanes bf16_slot_lanes picks and at P = 1,
+    2, 4, 8 (fusedpair._launch_atomics); fused_pair_route(bf16=True) names
+    it at these shapes, and the first bf16 body agrees."""
+    args = _bf16_level(cuda, Ci, Cj, W, N, S, Ci * W + N)
+    assert fusedpair.fused_pair_route(W, N, Ci, Cj, S, bf16=True) == \
+        "fused_pair_apply_atomics_bf16"
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    fn = fusedpair.fused_pair_apply_atomics_bf16
+    n0 = fn.launches
+    outs = [fn(*args, Ci=Ci, Cj=Cj, S=S)]
+    outs += [fusedpair._launch_atomics(fn, *args, Ci, Cj, S, torch.bfloat16, True, P=P)
+             for P in (1, 2, 4, 8)]
+    outs.append(fusedpair.fused_pair_bf16_atomics(*args, Ci=Ci, Cj=Cj, S=S))
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 5
+    for rows, cols in outs:
+        close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
+        close(cols.cpu(), c_ref.cpu(), CUDA_TOL)

@@ -207,18 +207,19 @@ def test_gn_dense_solve_is_the_minimum_norm_solution(dtype):
     assert np.abs(got.numpy() - want).max() <= tol * np.abs(want).max()
 
 
-@pytest.mark.parametrize("shape,in_order", [((1, 6400, 256), True), ((2, 192, 4), False),
-                                            ((6, 300, 4), False), ((6, 24, 4), True),
-                                            ((9, 5600, 16), False)])
+@pytest.mark.parametrize("shape,in_order", [((1, 6400, 256), True), ((2, 192, 4), True),
+                                            ((6, 300, 4), True), ((6, 24, 4), True),
+                                            ((9, 5600, 16), True)])
 def test_fixed_order_route_matches_index_add(shape, in_order):
     """The small-image scatters of at most FIXED_ORDER_MAX_ROWS values (the
     contraction models' stored Jacobians: [1-2, 6 400] -> 256, [1-2, 192]
     -> 4, bundle_fusion's [6, 300] and [6, 24] -> 4; the tests' BA cameras
-    [9, 5 600] -> 16) take a segment-sum plan: in order (one level, one
-    thread a run) where no run exceeds IN_ORDER_MAX_RUN, else sorted runs.
-    On the CPU the plain version gives index_add_'s sums bit for bit (it
-    adds each run in ascending source order); so does the card's order
-    (the compact form's plain version) for an in-order plan."""
+    [9, 5 600] -> 16) take a segment-sum plan with the fixed-order form
+    (one level, one launch): in order (one thread a run) where no run
+    exceeds IN_ORDER_MAX_RUN (runs of 48, 75 and 350 among them), else
+    sorted runs.  On the CPU the plain version gives index_add_'s sums bit for
+    bit (it adds each run in ascending source order); so does the card's
+    order (the compact form's plain version) for an in-order plan."""
     from thallo_tpu_torch import lower
     from thallo_tpu_torch.ops import segsum
 
@@ -230,6 +231,7 @@ def test_fixed_order_route_matches_index_add(shape, in_order):
     plan = lower.fixed_order_plan(ids, N, "cpu")
     assert (plan.modes == (segsum.THREAD,) and plan.piece_start is None
             and plan.local is None) == in_order
+    assert plan.block_run is not None and plan.piece_start is None and len(plan.modes) == 1
     route = lower.SlotRoute(torch.from_numpy(ids).long(), plan, None, N)
     got = lower.scatter_route(vals, route)
     want = torch.zeros((F, N)).index_add_(1, torch.from_numpy(ids).long(), vals)

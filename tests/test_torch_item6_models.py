@@ -132,15 +132,17 @@ def test_bundle_fusion_dense_jacobian_matches_jax_oracle():
 
 def test_bf16_wide_rotation_levels_route_to_the_atomics_body(monkeypatch):
     """Under block_dtype="bf16" a level of more than 8 row channels, wide
-    (W >= 9) or not, routes to fused_pair_bf16_atomics (its bf16 body now
-    takes Ci <= ATOMICS_MAX_CI): a W = 9, Ci = 9 level by fused_pair_route,
-    and one step of embedded deformation at side 40 (its 9-channel rotation
-    rows) calls it for the (9, 3) col pair on the CPU."""
+    (W >= 9) or not, routes to the bf16 atomics route's slots kernel,
+    fused_pair_apply_atomics_bf16 (it takes Ci <= ATOMICS_MAX_CI): a W = 9,
+    Ci = 9 level by fused_pair_route, and one step of embedded deformation
+    at side 40 (its 9-channel rotation rows) calls it for the (9, 3) col
+    pair on the CPU."""
     from thallo_tpu_torch.models.cases import case_energy, model_case
     from thallo_tpu_torch.ops import fusedpair
     from thallo_tpu_torch.solver import blocksparse
 
-    assert fusedpair.fused_pair_route(9, 1001, 9, 3, 64, bf16=True) == "fused_pair_bf16_atomics"
+    assert fusedpair.fused_pair_route(9, 1001, 9, 3, 64, bf16=True) == \
+        "fused_pair_apply_atomics_bf16"
     assert fusedpair.fused_pair_route(9, 1001, 9, 3, 64) == "fused_pair_apply_atomics"
     assert fusedpair.fused_pair_route(9, 1001, 8, 3, 64) == "fused_pair_apply_wloop_chunked"
     name = "embedded_mesh_deformation"
@@ -149,12 +151,12 @@ def test_bf16_wide_rotation_levels_route_to_the_atomics_body(monkeypatch):
                                                      block_dtype="bf16")
     plan.init(ins)
     seen = []
-    real = blocksparse.fused_pair_bf16_atomics
+    real = blocksparse.fused_pair_apply_atomics_bf16
 
     def record(ids, blocks, pcol, prow, **k):
         seen.append((k["Ci"], k["Cj"], blocks.dtype))
         return real(ids, blocks, pcol, prow, **k)
 
-    monkeypatch.setattr(blocksparse, "fused_pair_bf16_atomics", record)
+    monkeypatch.setattr(blocksparse, "fused_pair_apply_atomics_bf16", record)
     plan.step()
     assert (9, 3, torch.bfloat16) in seen

@@ -262,7 +262,8 @@ def test_loop_floor_plain_odd_length():
 # the bf16 persistent kernels and of the first bf16 body
 # ---------------------------------------------------------------------------
 BF16_PAIR_WRAPPERS = ["fused_pair_apply", "fused_pair_apply_wloop", "fused_pair_apply_bf16",
-                      "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics"]
+                      "fused_pair_apply_wloop_bf16", "fused_pair_bf16_atomics",
+                      "fused_pair_apply_atomics_bf16"]
 
 
 @pytest.mark.parametrize("name", BF16_PAIR_WRAPPERS)

@@ -145,8 +145,9 @@ def test_schedules_match_jax(runs):
 def test_scatter_routes(runs):
     """Tiled mode: both packages built a segment-sum plan for both slots,
     array for array equal.  Otherwise the camera slot (16 elements, 5 600
-    values) takes the fixed-order segment sum (sorted runs: a camera's run
-    is ~350 long) and the point slot index_add_."""
+    values) takes the fixed-order segment sum (in order: a camera's run is
+    ~350 long, within IN_ORDER_MAX_RUN; one launch of the fixed-order
+    kernel on the card) and the point slot index_add_."""
     case, r = runs
     c = r["port_consts"]
     assert c["bsr"] is None
@@ -161,9 +162,10 @@ def test_scatter_routes(runs):
                                               np.asarray(getattr(ref, name)))
     else:
         assert sorted(c["stables"]) == [0]  # slot 0: cameras(oToC(o))
-        from thallo_tpu_torch.ops.segsum import WARP
+        from thallo_tpu_torch.ops.segsum import THREAD
 
-        assert c["stables"][0].modes[0] == WARP  # runs of ~350: not in order
+        plan = c["stables"][0]
+        assert plan.modes == (THREAD,) and plan.block_run is not None  # runs of ~350: in order
         assert c["agg_ids"] == {}
 
 

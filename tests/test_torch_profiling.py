@@ -140,12 +140,13 @@ def test_compile_check_matches_jax(tmp_path, energy):
     text = {"smooth": SMOOTH, "ba": ba.ENERGY, "arap": arap.ENERGY}[energy]
     p = tmp_path / "energy.py"
     p.write_text(text)
-    port = compile_check(str(p), default_dim=16)
+    port = compile_check(str(p), default_dim=16, device="cpu")
     ref = jax_check(str(p), default_dim=16)
     assert [(g.name, g.schedule.value) for g in port.compiled.groups] == \
         [(g.name, g.schedule.value) for g in ref.compiled.groups]
     assert port.device.type == "cpu" and port.num_iterations == 0
-    assert main([str(p)] + ["8"] * len(port.spec.dims)) == 0 and main([]) == 2
+    assert main([str(p)] + ["8"] * len(port.spec.dims) + ["--device", "cpu"]) == 0
+    assert main([]) == 2
 
 
 def test_compile_check_raises_on_a_bad_energy(tmp_path):
@@ -154,7 +155,28 @@ def test_compile_check_raises_on_a_bad_energy(tmp_path):
     p = tmp_path / "energy.py"
     p.write_text(SMOOTH.replace("X(x, y) - A(x, y)", "X(x, y) - B(x, y)"))
     with pytest.raises(NameError):
+        compile_check(str(p), default_dim=8, device="cpu")
+
+
+def test_compile_check_defaults_to_the_card(tmp_path, monkeypatch):
+    """compile_check and its command line plan on the card unless the CPU
+    is asked for (thallo_tpu/utils/compile_check.py plans on the default
+    backend): without CUDA the default raises, naming device='cpu', and
+    nothing falls back to the CPU."""
+    import torch
+
+    from thallo_tpu_torch.utils.compile_check import compile_check, main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = tmp_path / "energy.py"
+    p.write_text(SMOOTH)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         compile_check(str(p), default_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([str(p), "8", "8"])
+    with pytest.raises(SystemExit):
+        main([str(p), "--device", "tpu"])
+    assert compile_check(str(p), default_dim=8, device="cpu").device.type == "cpu"
 
 
 def _traffic(plan):

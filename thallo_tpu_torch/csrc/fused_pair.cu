@@ -76,6 +76,23 @@
 //   atomics_keeps_thread), so fewer instantiations than the first body's
 //   keep the build short.
 //
+// thallo_fused_pair_atomics_slots_bf16: the same kernel on bf16 block
+//   storage (the solver's block_dtype="bf16"), T = __nv_bfloat16 beside
+//   the value type V = float, as the persistent kernel has it: each block
+//   value widens to f32 on load (load_block, fused_pair_slot.cuh), every
+//   other operand and all arithmetic f32; the same order of loads (ids,
+//   then blocks, then pcol, before any sum).  It replaces the first bf16
+//   body (fused_pair_variants.cu mode 0, one thread walking its W slots)
+//   on the bf16 levels the persistent kernels do not take.  Its blocks
+//   are half the bytes, so one thread per element fills the card even
+//   less: the caller passes the slot lanes P (fusedpair.py
+//   bf16_slot_lanes: spread while the level's threads stay below a share
+//   of the SMs' resident threads).  The 9 x 3 and 16 x 3 pairs (a
+//   9-channel rotation row against 3-channel offsets, and BF16_WIDE's
+//   bound) are instantiated exactly, their blocks loaded ahead like the
+//   3 x 3 pair's (2 and 1 slots of them): the guarded (16, 4) instantiation
+//   took 2-4x as long on the H100 (PERF.md).
+//
 // f64 (the solver's double_precision): both kernels are templated on the
 // value type V of pcol, prow, rows, cols and the shared accumulator.
 // thallo_fused_pair_persistent_f64 is the persistent kernel with T = V =
@@ -93,6 +110,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 #include "block_accum.cuh"      // add_cols
 #include "fused_pair_slot.cuh"  // pair_slot
@@ -193,7 +211,8 @@ cudaError_t launch_atomics(const void* ids, const void* blocks, const void* pcol
 
 constexpr int kSlotThreads = 256;    // the slots kernel's block
 constexpr int kSlotIds = 4;          // slots whose ids and pcol a thread loads at once (Cj <= 4)
-constexpr int kSlotAhead = 36;       // block values a thread loads ahead (kSlotIds slots of 3 x 3)
+constexpr int kSlotAhead = 64;       // block values a thread loads ahead (kSlotIds slots of 3 x 3,
+                                     // one of 16 x 3)
 constexpr int kSlotSpreadMaxN = 4096;  // levels of fewer elements spread their slots over lanes
 
 // Slot lane p of kSlotThreads / P elements: slots p, p + P, ... of element
@@ -202,15 +221,26 @@ constexpr int kSlotSpreadMaxN = 4096;  // levels of fewer elements spread their 
 // loaded before the pcol gathers, so no load waits for another.  kSpread
 // false: P is 1, and the lane bookkeeping and the shared rows compile out
 // (with them the exact 3 x 3 pair took 80 registers a thread).
-template <typename V, int kCi, int kCj, bool kExact, bool kSpread>
+// one block value at its storage type T, widened to the value type V
+template <typename V, typename T>
+__device__ __forceinline__ V block_value(const T* p) {
+  V v[1];
+  load_block(p, v);
+  return v[0];
+}
+
+template <typename T, typename V, int kCi, int kCj, bool kExact, bool kSpread>
 __global__ void __launch_bounds__(kSlotThreads)
-    fused_pair_slots_kernel(const int* __restrict__ ids, const V* __restrict__ blocks,
+    fused_pair_slots_kernel(const int* __restrict__ ids, const T* __restrict__ blocks,
                             const V* __restrict__ pcol, const V* __restrict__ prow,
                             V* __restrict__ rows, V* __restrict__ cols, int W, int N, int Ci,
                             int Cj, int S, int P_arg) {
   const int P = kSpread ? P_arg : 1;
-  constexpr int kIds = kCj <= 4 ? kSlotIds : 1;  // a wide pcol vector: one slot at a time
   constexpr int kF = kCi * kCj;
+  // a wide pcol vector: one slot at a time; an exact pair: as many slots
+  // as kSlotAhead block values hold (4 of 3 x 3, 2 of 9 x 3, 1 of 16 x 3)
+  constexpr int kFit = kSlotAhead / kF < 1 ? 1 : kSlotAhead / kF;
+  constexpr int kIds = kCj > 4 ? 1 : kExact ? (kFit < kSlotIds ? kFit : kSlotIds) : kSlotIds;
   constexpr bool kAhead = kExact && kF * kIds <= kSlotAhead;
   // [P - 1][kCi][E]: the rows of lanes 1.. of each element, dynamic and
   // none where P is 1 (shared memory taken from L1, which holds pcol)
@@ -251,8 +281,9 @@ __global__ void __launch_bounds__(kSlotThreads)
         const int w = w0 + j * P;
 #pragma unroll
         for (int f = 0; f < kF; ++f) {
-          ahead[j][f] = live && w < W ? __ldcs(blocks + (static_cast<size_t>(w) * kF + f) * Nz + n)
-                                      : V(0);
+          ahead[j][f] = live && w < W
+                            ? block_value<V>(blocks + (static_cast<size_t>(w) * kF + f) * Nz + n)
+                            : V(0);
         }
       }
     }
@@ -269,7 +300,7 @@ __global__ void __launch_bounds__(kSlotThreads)
     for (int j = 0; j < kIds; ++j) {
       const int w = w0 + j * P;
       if (w >= W) break;  // warp-uniform
-      const V* b = blocks + static_cast<size_t>(w) * F * Nz + n;
+      const T* b = blocks + static_cast<size_t>(w) * F * Nz + n;
       V z[kCj];
 #pragma unroll
       for (int cj = 0; cj < kCj; ++cj) z[cj] = V(0);
@@ -279,8 +310,8 @@ __global__ void __launch_bounds__(kSlotThreads)
         for (int cj = 0; cj < kCj; ++cj) {
           if (ci < ci_n && cj < cj_n) {
             const V bv = kAhead ? ahead[kAhead ? j : 0][kAhead ? ci * kCj + cj : 0]
-                                : live ? __ldcs(b + static_cast<size_t>(ci * cj_n + cj) * Nz)
-                                       : V(0);
+                         : live ? block_value<V>(b + static_cast<size_t>(ci * cj_n + cj) * Nz)
+                                : V(0);
             acc[ci] = fma_v(bv, pc[j][cj], acc[ci]);
             z[cj] = fma_v(bv, pr[ci], z[cj]);
           }
@@ -318,32 +349,43 @@ __global__ void __launch_bounds__(kSlotThreads)
   }
 }
 
-template <typename V>
-using SlotsKernel = void (*)(const int*, const V*, const V*, const V*, V*, V*, int, int, int,
+template <typename T, typename V>
+using SlotsKernel = void (*)(const int*, const T*, const V*, const V*, V*, V*, int, int, int,
                              int, int, int);
 
 
-template <typename V>
+// P: slot lanes, 1, 2, 4 or 8; 0: one, or on a level of fewer than
+// kSlotSpreadMaxN elements the largest power of two <= min(W, 8)
+template <typename T, typename V>
 cudaError_t launch_slots(const void* ids, const void* blocks, const void* pcol,
                          const void* prow, void* rows, void* cols, int W, int N, int Ci, int Cj,
-                         int S, void* stream) {
-  if (Ci < 1 || Ci > kAtomicsMaxCi || Cj < 1 || Cj > kMaxCj || W < 1) {
+                         int S, int P, void* stream) {
+  if (Ci < 1 || Ci > kAtomicsMaxCi || Cj < 1 || Cj > kMaxCj || W < 1 ||
+      (P != 0 && P != 1 && P != 2 && P != 4 && P != 8)) {
     return cudaErrorInvalidValue;
   }
   if (N > 0) {
-    int P = 1;  // slot lanes: one, or on a short level the largest power of two <= min(W, 8)
-    while (N < kSlotSpreadMaxN && P * 2 <= W && P < 8) P *= 2;
+    if (P == 0) {
+      P = 1;
+      while (N < kSlotSpreadMaxN && P * 2 <= W && P < 8) P *= 2;
+    }
     const int E = kSlotThreads / P;
     const int grid = (N + E - 1) / E;
-    const SlotsKernel<V> kernel =
-        Ci == 3 && Cj == 3 ? (P > 1 ? fused_pair_slots_kernel<V, 3, 3, true, true>
-                                    : fused_pair_slots_kernel<V, 3, 3, true, false>)
-        : Cj > 4           ? fused_pair_slots_kernel<V, kAtomicsMaxCi, kMaxCj, false, true>
-        : Ci <= 4          ? fused_pair_slots_kernel<V, 4, 4, false, true>
-                           : fused_pair_slots_kernel<V, kAtomicsMaxCi, 4, false, true>;
+    SlotsKernel<T, V> kernel =
+        Ci == 3 && Cj == 3 ? (P > 1 ? fused_pair_slots_kernel<T, V, 3, 3, true, true>
+                                    : fused_pair_slots_kernel<T, V, 3, 3, true, false>)
+        : Cj > 4           ? fused_pair_slots_kernel<T, V, kAtomicsMaxCi, kMaxCj, false, true>
+        : Ci <= 4          ? fused_pair_slots_kernel<T, V, 4, 4, false, true>
+                           : fused_pair_slots_kernel<T, V, kAtomicsMaxCi, 4, false, true>;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      // bf16 blocks: the wide rotation rows exactly too (the guarded (16,
+      // 4) instantiation loads no block ahead and took 2-4x as long)
+      if (Ci == 9 && Cj == 3) kernel = fused_pair_slots_kernel<T, V, 9, 3, true, true>;
+      if (Ci == 16 && Cj == 3) kernel = fused_pair_slots_kernel<T, V, 16, 3, true, true>;
+    }
     const size_t smem = static_cast<size_t>(P - 1) * Ci * E * sizeof(V);  // <= 32 KB
     kernel<<<grid, kSlotThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(ids), static_cast<const V*>(blocks),
+        static_cast<const int*>(ids), static_cast<const T*>(blocks),
         static_cast<const V*>(pcol), static_cast<const V*>(prow), static_cast<V*>(rows),
         static_cast<V*>(cols), W, N, Ci, Cj, S, P);
   }
@@ -530,14 +572,25 @@ extern "C" int thallo_fused_pair_atomics_slots(const void* ids, const void* bloc
                                                const void* pcol, const void* prow, void* rows,
                                                void* cols, int W, int N, int Ci, int Cj, int S,
                                                void* stream) {
-  return static_cast<int>(launch_slots<float>(ids, blocks, pcol, prow, rows, cols, W, N, Ci, Cj,
-                                              S, stream));
+  return static_cast<int>(launch_slots<float, float>(ids, blocks, pcol, prow, rows, cols, W, N,
+                                                     Ci, Cj, S, 0, stream));
 }
 
 extern "C" int thallo_fused_pair_atomics_slots_f64(const void* ids, const void* blocks,
                                                    const void* pcol, const void* prow,
                                                    void* rows, void* cols, int W, int N, int Ci,
                                                    int Cj, int S, void* stream) {
-  return static_cast<int>(launch_slots<double>(ids, blocks, pcol, prow, rows, cols, W, N, Ci,
-                                               Cj, S, stream));
+  return static_cast<int>(launch_slots<double, double>(ids, blocks, pcol, prow, rows, cols, W,
+                                                       N, Ci, Cj, S, 0, stream));
+}
+
+// The slots kernel on bf16 blocks (every other operand f32), on P slot
+// lanes (1, 2, 4 or 8).
+extern "C" int thallo_fused_pair_atomics_slots_bf16(const void* ids, const void* blocks,
+                                                    const void* pcol, const void* prow,
+                                                    void* rows, void* cols, int W, int N, int Ci,
+                                                    int Cj, int S, int P, void* stream) {
+  if (P == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_slots<__nv_bfloat16, float>(ids, blocks, pcol, prow, rows,
+                                                             cols, W, N, Ci, Cj, S, P, stream));
 }

@@ -65,6 +65,31 @@
 //     order, from 0, and the warp kernel sums each segment's G rows:
 //     a fixed order, the same bits from run to run.
 //
+// The fixed-order plans (lower.fixed_order_plan: the small-image scatters,
+// at most a few hundred thousand values into at most 1024 segments) take
+// run_sum_staged_order_kernel<V, kCh, kTree>, one launch whatever their
+// runs.  The thread kernel walks a run as a chain of dependent loads
+// (order[e], then data[order[e]]), on one thread per (run, channel): at
+// [2, 6 400] -> 256 that is 512 threads, two blocks of a 132-SM card, and
+// a plan with runs beyond 32 lanes took two levels (two launches).  Here
+// block b owns the runs [block_run[b], block_run[b + 1]) and so the
+// contiguous sorted lanes [block_lane[b], block_lane[b + 1]) (the plan
+// cuts about ORDER_LANES lanes a block, a run wholly in the block where
+// it starts).  All its threads first copy the lanes' `order` entries and
+// then the gathered values of its kCh channels into shared memory, every
+// load issued before any sum (coalesced on `order`), in tiles of at most
+// `tile` lanes; after a __syncthreads:
+//   kTree false (in order)  thread t adds run block_run[b] + t from 0 in
+//                           ascending lane (= data row) order: the
+//                           additions and the order of the CPU's
+//                           index_add_, so the same bits as the CPU
+//   kTree true (sorted runs) the block's warps are split evenly over its
+//                           runs (at most kWarps); a run's 32 x wpr
+//                           threads stride over it, an xor-shuffle tree a
+//                           warp, then its warps' sums in warp order
+// Either order is fixed: the same bits from run to run.  A run longer than
+// a tile carries its sums in registers from tile to tile, in order.
+//
 // The caller allocates out and scratch; nothing is zeroed.
 //
 // f64 (the solver's double_precision): every kernel is templated on the
@@ -157,6 +182,168 @@ __global__ void __launch_bounds__(kThreads)
     if (lane == k) mine = v;
   }
   if (lane < kCh) out[static_cast<size_t>(r) * C + c0 + lane] = mine;
+}
+
+constexpr int kOrderThreads = 256;  // ops/segsum.py ORDER_THREADS
+constexpr int kOrderWarps = kOrderThreads / 32;
+constexpr int kOrderUnroll = 4;  // lanes a thread stages at once
+constexpr int kOrderMaxTile = kOrderThreads * kOrderUnroll;  // ops/segsum.py ORDER_TILE
+
+// Block (b, channel chunk) of a fixed-order plan (the comment above): the
+// runs [block_run[b], block_run[b + 1]) (at most kOrderThreads in order,
+// kOrderWarps as a tree), out[r, c0 .. c0 + kCh) for each.
+template <typename V, int kCh, bool kTree>
+__global__ void __launch_bounds__(kOrderThreads)
+    run_sum_staged_order_kernel(const V* __restrict__ data, long long sm, long long sc,
+                                const int* __restrict__ order, const int* __restrict__ start,
+                                const int* __restrict__ block_run,
+                                const int* __restrict__ block_lane, V* __restrict__ out, int C,
+                                int tile) {
+  extern __shared__ __align__(16) unsigned char order_smem[];
+  V* vals = reinterpret_cast<V*>(order_smem);  // [kCh][tile]
+  V* warp_sums = vals + kCh * tile;            // [kOrderWarps][kCh] (kTree)
+  const int b = blockIdx.x;
+  const int c0 = blockIdx.y * kCh;
+  const int r0 = __ldg(block_run + b);
+  const int n_runs = __ldg(block_run + b + 1) - r0;
+  const int l0 = __ldg(block_lane + b);
+  const int l1 = __ldg(block_lane + b + 1);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // the run this thread adds, and its place among the run's threads
+  const int wpr = kTree ? kOrderWarps / max(n_runs, 1) : 1;  // warps a run
+  const int mine = kTree ? warp / wpr : tid;
+  const int slot = kTree ? (warp - mine * wpr) * 32 + lane : 0;
+  const int stride = kTree ? 32 * wpr : 1;
+  const bool active = mine < n_runs;
+  int a = 0, e_end = 0;
+  if (active) {
+    a = __ldg(start + r0 + mine);
+    e_end = __ldg(start + r0 + mine + 1);
+  }
+  V acc[kCh];
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) acc[c] = V(0);
+  const V* col = data + c0 * sc;
+  int e = a + slot;  // the next lane this thread adds
+  for (int tb = l0; tb < l1; tb += tile) {
+    const int n = min(tile, l1 - tb);
+    if (tb != l0) __syncthreads();  // the last tile's sums are done
+    int g[kOrderUnroll];
+#pragma unroll
+    for (int u = 0; u < kOrderUnroll; ++u) {
+      const int j = u * kOrderThreads + tid;
+      g[u] = j < n ? __ldg(order + tb + j) : 0;
+    }
+    V v[kOrderUnroll][kCh];
+#pragma unroll
+    for (int u = 0; u < kOrderUnroll; ++u) {
+      const bool live = u * kOrderThreads + tid < n;
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) {
+        v[u][c] = live ? __ldg(col + g[u] * sm + c * sc) : V(0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kOrderUnroll; ++u) {
+      const int j = u * kOrderThreads + tid;
+      if (j < n) {
+#pragma unroll
+        for (int c = 0; c < kCh; ++c) vals[c * tile + j] = v[u][c];
+      }
+    }
+    __syncthreads();
+    const int stop = min(e_end, tb + n);
+    for (; e < stop; e += stride) {
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) acc[c] += vals[c * tile + (e - tb)];
+    }
+  }
+  if (!kTree) {
+    if (active) {
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) out[static_cast<size_t>(r0 + mine) * C + c0 + c] = acc[c];
+    }
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) acc[c] += __shfl_xor_sync(kFull, acc[c], d);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) warp_sums[warp * kCh + c] = acc[c];
+  }
+  __syncthreads();
+  // thread (run, channel) adds its run's warps in warp order
+  if (tid < n_runs * kCh) {
+    const int r = tid / kCh;
+    const int c = tid - r * kCh;
+    V sum = 0;
+    for (int q = 0; q < wpr; ++q) sum += warp_sums[(r * wpr + q) * kCh + c];
+    out[static_cast<size_t>(r0 + r) * C + c0 + c] = sum;
+  }
+}
+
+template <typename V, int kCh, bool kTree>
+void launch_staged_order(const V* data, long long sm, long long sc, const int* order,
+                         const int* start, const int* block_run, const int* block_lane, V* out,
+                         int C, int G, int tile, cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(kCh) * tile + static_cast<size_t>(kOrderWarps) * kCh) * sizeof(V);
+  run_sum_staged_order_kernel<V, kCh, kTree>
+      <<<dim3(G, C / kCh), kOrderThreads, smem, stream>>>(data, sm, sc, order, start, block_run,
+                                                          block_lane, out, C, tile);
+}
+
+template <typename V, bool kTree>
+void launch_staged_order_ch(const V* data, long long sm, long long sc, const int* order,
+                            const int* start, const int* block_run, const int* block_lane,
+                            V* out, int C, int G, int tile, cudaStream_t stream) {
+  if (C % 4 == 0) {
+    launch_staged_order<V, 4, kTree>(data, sm, sc, order, start, block_run, block_lane, out, C,
+                                     G, tile, stream);
+  } else if (C % 3 == 0) {
+    launch_staged_order<V, 3, kTree>(data, sm, sc, order, start, block_run, block_lane, out, C,
+                                     G, tile, stream);
+  } else if (C % 2 == 0) {
+    launch_staged_order<V, 2, kTree>(data, sm, sc, order, start, block_run, block_lane, out, C,
+                                     G, tile, stream);
+  } else {
+    launch_staged_order<V, 1, kTree>(data, sm, sc, order, start, block_run, block_lane, out, C,
+                                     G, tile, stream);
+  }
+}
+
+// The fixed-order form: G blocks (block_run, block_lane [G + 1]), lanes
+// staged `tile` at a time (1 .. kOrderMaxTile), tree: sorted runs (else
+// in order, one thread a run).
+template <typename V>
+int segment_sum_staged_order(const void* data, long long sm, long long sc, const void* order,
+                             const void* seg_start, const void* block_run,
+                             const void* block_lane, void* out, int C, int G, int tile,
+                             int tree, void* stream) {
+  if (C < 1 || C > 65535 || G < 0 || tile < 1 || tile > kOrderMaxTile || tree < 0 ||
+      tree > 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (G > 0) {
+    auto s = static_cast<cudaStream_t>(stream);
+    auto d = static_cast<const V*>(data);
+    auto ord = static_cast<const int*>(order);
+    auto st = static_cast<const int*>(seg_start);
+    auto br = static_cast<const int*>(block_run);
+    auto bl = static_cast<const int*>(block_lane);
+    auto o = static_cast<V*>(out);
+    if (tree) {
+      launch_staged_order_ch<V, true>(d, sm, sc, ord, st, br, bl, o, C, G, tile, s);
+    } else {
+      launch_staged_order_ch<V, false>(d, sm, sc, ord, st, br, bl, o, C, G, tile, s);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Block (k, channel chunk): rows [k*T, k*T + T) of kCh channels of
@@ -642,6 +829,26 @@ extern "C" int thallo_segment_sum_f64(const void* data, long long sm, long long 
                                       int mode2, void* stream) {
   return segment_sum<double>(data, sm, sc, order, seg_start, piece_start, seg_piece, scratch,
                              out, C, S, P, mode1, mode2, stream);
+}
+
+// The fixed-order plans in one launch (segment_sum_staged_order above):
+// f32, and f64.
+extern "C" int thallo_segment_sum_staged_order(const void* data, long long sm, long long sc,
+                                               const void* order, const void* seg_start,
+                                               const void* block_run, const void* block_lane,
+                                               void* out, int C, int G, int tile, int tree,
+                                               void* stream) {
+  return segment_sum_staged_order<float>(data, sm, sc, order, seg_start, block_run, block_lane,
+                                         out, C, G, tile, tree, stream);
+}
+
+extern "C" int thallo_segment_sum_staged_order_f64(const void* data, long long sm, long long sc,
+                                                   const void* order, const void* seg_start,
+                                                   const void* block_run,
+                                                   const void* block_lane, void* out, int C,
+                                                   int G, int tile, int tree, void* stream) {
+  return segment_sum_staged_order<double>(data, sm, sc, order, seg_start, block_run,
+                                          block_lane, out, C, G, tile, tree, stream);
 }
 
 // Channel-major data through shared memory (segment_sum_staged above).

@@ -78,15 +78,25 @@ ONEHOT_MAX_SEGMENTS = 1024  # thallo_tpu/ops/segsum.py: small-image scatter boun
 # a small-image scatter of at most FIXED_ORDER_MAX_ROWS values takes a
 # segment-sum plan (ops/segsum.py) whatever THALLO_SEGSUM says: the same
 # order of additions every run, where the aggregation kernel's and
-# index_add_'s atomics add in another order every run.  The plan sums in
+# index_add_'s atomics add in another order every run.  The plan's
+# fixed-order form is summed in one launch (segment_sum_fixed_order: a
+# block stages its runs' values in shared memory, then adds them) in
 # order (one thread a run, ascending source: the CPU's order, the same
-# bits) when no run is longer than IN_ORDER_MAX_RUN values, else in sorted
-# runs.  On an H100 the route is within 1 us of index_add_ (its launch
-# floor) from [1, 192] -> 4 to [2, 6 400] -> 256 and up to 10x faster at
-# 262 144 values; beyond, the aggregation kernel is the fastest
-# (scripts/torch_fixed_order_scatter.py; PERF.md)
+# bits) when no run is longer than IN_ORDER_MAX_RUN values, else as sorted
+# runs.  IN_ORDER_MAX_RUN is the longest run at which the in-order sum
+# stayed at or below index_add_ on an H100 (NVIDIA H100 80GB HBM3, 700 W;
+# scripts/torch_fixed_order_scatter.py's runs of exactly 32-1024 lanes,
+# device ms: [2, 2 048] -> 4 in runs of 512 0.0052 against 0.0054, [9, 8
+# 192] -> 16 0.0066 against 0.0112; runs of 768 0.0068 against 0.0067 and
+# 1024 0.0085 against 0.0080 at [2, 4 x run] -> 4); a run that long fits
+# one stage of a block (segsum.ORDER_TILE).  At the models' scatters the
+# kernel takes 0.0026-0.0030 ms against index_add_'s 0.0031-0.0047; the
+# first body (one thread a run walking its gathers, runs of at most 32)
+# took 0.0026-0.0077 in the same call.  Up to 262 144 values the route is
+# 5x below index_add_; beyond, the aggregation kernel is the fastest
+# (PERF.md)
 FIXED_ORDER_MAX_ROWS = 262144
-IN_ORDER_MAX_RUN = 32
+IN_ORDER_MAX_RUN = 512
 
 
 # ---------------------------------------------------------------------------
@@ -400,10 +410,13 @@ class SlotRoute:
 
 def fixed_order_plan(flat, S, device):
     """The fixed-order route of a small-image scatter (FIXED_ORDER_MAX_ROWS):
-    ids `flat` into S segments, summed in order where no run is longer
-    than IN_ORDER_MAX_RUN, else in sorted runs."""
-    longest = int(np.bincount(flat, minlength=S).max())
-    return build_plan(flat, S, device=device, in_order=longest <= IN_ORDER_MAX_RUN)
+    ids `flat` into S segments, one launch of the fixed-order kernel,
+    summed in order where no run is longer than IN_ORDER_MAX_RUN, else as
+    sorted runs."""
+    kept = flat[flat < S]  # ids past the image add nothing
+    longest = int(np.bincount(kept, minlength=S).max()) if kept.size else 0
+    return build_plan(flat, S, device=device, in_order=longest <= IN_ORDER_MAX_RUN,
+                      fixed_order=True)
 
 
 def scatter_route(valsT, route: SlotRoute):

@@ -48,6 +48,7 @@ SIGNATURES = {
     "thallo_fused_pair_persistent_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_atomics": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_atomics_slots": (P, P, P, P, P, P, I, I, I, I, I, P),
+    "thallo_fused_pair_atomics_slots_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, P),
     "thallo_oh_setup_products": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup_thread": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup_tiles": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
@@ -56,6 +57,7 @@ SIGNATURES = {
     "thallo_segment_sum": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_staged": (P, L, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_ring": (P, L, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    "thallo_segment_sum_staged_order": (P, L, L, P, P, P, P, P, I, I, I, I, P),
     "thallo_fused_pair_wloop": (P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_fused_pair_wloop_persistent": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_wloop_persistent_bf16": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
@@ -75,6 +77,7 @@ SIGNATURES = {
     "thallo_segment_sum_f64": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_staged_f64": (P, L, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_ring_f64": (P, L, P, P, P, P, P, I, I, I, I, I, I, I, P),
+    "thallo_segment_sum_staged_order_f64": (P, L, L, P, P, P, P, P, I, I, I, I, P),
 }
 # where the kernels without an f64 instantiation wait
 F64_TODO = "ROADMAP queue 2, item 7"

@@ -63,11 +63,22 @@ and ``fused_pair_apply_wloop_bf16``, the bf16 instantiations of the two
 persistent kernels (block values widened to f32 on load, every other
 operand f32; the persistent one takes ``BF16_ELEMS`` neighbouring
 elements per thread where N is even, read as one ``__nv_bfloat162``).
-Shapes those do not take go to ``fused_pair_bf16_atomics``
-(``csrc/fused_pair_variants.cu`` mode 0, one thread per element, cols by
-global atomics: the first bf16 body; instantiated per (Ci, Cj) bound as
-the f32 atomics body, so it takes Ci up to ``ATOMICS_MAX_CI`` too).
-``fused_pair_route(..., bf16=True)`` names the bf16 kernel of a level.
+Shapes those do not take go to ``fused_pair_apply_atomics_bf16`` (the
+slots kernel of ``csrc/fused_pair.cu`` on bf16 blocks: every load of an
+element's slots issued before any sum, its slots spread over
+``bf16_slot_lanes`` lanes where one thread per element leaves the card
+idle; Ci up to ``ATOMICS_MAX_CI``).  The first bf16 body,
+``fused_pair_bf16_atomics`` (``csrc/fused_pair_variants.cu`` mode 0, one
+thread per element walking its slots, cols by global atomics;
+instantiated per (Ci, Cj) bound as the f32 atomics body, so it takes Ci
+up to ``ATOMICS_MAX_CI`` too), is on no route: the slots kernel measured
+faster at every shape the route reaches (H100 device ms, slots / first
+bf16 body, ``chip_smoke.py`` phase 2 in one call: ARAP 256²'s (3, 3)
+levels 0.0072-0.0077 / 0.0084-0.0085 grouped, 0.0071-0.0093 /
+0.0085-0.0100 shuffled; W = 12, N = S = 16 384 at (9, 3) 0.0192 / 0.0415
+and (16, 3) 0.0211 / 0.0711; embedded deformation's [4, 1 600] (3, 3)
+0.0051 / 0.0069 and (9, 3) 0.0061 / 0.0140).  ``fused_pair_route(...,
+bf16=True)`` names the bf16 kernel of a level.
 
 **f64** (the solver's ``double_precision``: blocks, pcol and prow f64):
 ``fused_pair_apply_f64``, ``fused_pair_apply_atomics_f64`` and
@@ -217,6 +228,25 @@ BF16_ROUTES = {"fused_pair_apply": "fused_pair_apply_bf16",
 # the slots kernel spreads a level's W slots over lanes below this many
 # elements (csrc/fused_pair.cu kSlotSpreadMaxN)
 SLOT_SPREAD_MAX_N = 4096
+# on bf16 blocks the caller picks the slot lanes (bf16_slot_lanes): a level
+# spreads its slots while its threads stay below this many per SM (H100
+# graph ms at P = 1 / 2 / 4 / 8, scripts/torch_redesign_sweep.py --only
+# bf16_slots: ARAP 256²'s [4, 65 536] 0.0070 / 0.0099 / 0.0151 / 0.0245; W
+# = 12, N = 16 384 at (9, 3) 0.0219 / 0.0187 / 0.0199 / 0.0219, at (16, 3)
+# 0.0251 / 0.0205 / 0.0209 / 0.0271; [4, 1 600] (9, 3) 0.0095 / 0.0069 /
+# 0.0068 / 0.0076: the rule picks the fastest at each, within 2%)
+BF16_SLOT_FILL = 128
+
+
+def bf16_slot_lanes(W: int, N: int, sms: int) -> int:
+    """Slot lanes P of the bf16 slots kernel at a level of W x N elements
+    on `sms` SMs: doubled from 1 while P * 2 <= min(W, 8) and the level's
+    N * P threads stay below BF16_SLOT_FILL a SM, so a short level fills
+    the card and a long one keeps a thread per element."""
+    P = 1
+    while P * 2 <= min(W, 8) and N * P < BF16_SLOT_FILL * sms:
+        P *= 2
+    return P
 
 
 def atomics_keeps_thread(W: int, N_t: int, Ci: int, Cj: int, f64: bool = False) -> bool:
@@ -229,7 +259,8 @@ def atomics_keeps_thread(W: int, N_t: int, Ci: int, Cj: int, f64: bool = False) 
     and 0.0115-0.0132 / 0.0105-0.0132 in f64; [4, 250 000] 3 x 9 into 4000
     0.1949 / 0.1655; [3, 5000] 16 x 16 0.1693 / 0.0579; the short levels,
     bundle_fusion's [8, 700] 6 x 6 0.0159 / 0.0429 and [4, 1600] 9 x 3
-    0.0137 / 0.0162, in f64 alike."""
+    0.0137 / 0.0162, in f64 alike.  bf16 levels keep no first body (the
+    module docstring)."""
     spread = N_t < SLOT_SPREAD_MAX_N and W >= 2
     return not spread and (f64 or (Ci, Cj) != (3, 3))
 
@@ -245,7 +276,8 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = Fa
     kernel), or "fused_pair_apply_atomics_thread" (the first atomics body)
     where atomics_keeps_thread names the level.  bf16: the
     level's kernel on bf16 blocks (BF16_ROUTES, else
-    "fused_pair_bf16_atomics", which takes Ci up to ATOMICS_MAX_CI).
+    "fused_pair_apply_atomics_bf16", the slots kernel, which takes Ci up to
+    ATOMICS_MAX_CI).
     dtype float64 (the values' dtype) with f64 blocks: "fused_pair_apply_f64"
     where the f32 route is the persistent kernel and the f64 accumulator
     fits, else "fused_pair_apply_atomics_f64" (Ci up to ATOMICS_MAX_CI),
@@ -270,7 +302,7 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = Fa
         route = "fused_pair_apply_atomics_thread"
     else:
         route = "fused_pair_apply_atomics"
-    return BF16_ROUTES.get(route, "fused_pair_bf16_atomics") if bf16 else route
+    return BF16_ROUTES.get(route, "fused_pair_apply_atomics_bf16") if bf16 else route
 
 
 def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols,
@@ -328,11 +360,11 @@ def fused_pair_apply_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """fused_pair_apply on bf16 blocks: the bf16 instantiation of the
     persistent kernel (csrc/fused_pair.cu), or, for a pair it is not
     specialised for or an accumulator beyond its shared memory,
-    fused_pair_bf16_atomics.  CPU tensors take the plain version."""
+    fused_pair_apply_atomics_bf16.  CPU tensors take the plain version."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     if not persistent_fits(Ci, Cj, S):
-        return fused_pair_bf16_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+        return fused_pair_apply_atomics_bf16(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     return _launch_persistent(fused_pair_apply_bf16, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
                               True, torch.bfloat16)
 
@@ -384,6 +416,18 @@ def fused_pair_apply_atomics_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
                            S, torch.float64, slots=True)
 
 
+def fused_pair_apply_atomics_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply_atomics on bf16 blocks (pcol, prow, rows and cols
+    f32): the slots kernel's bf16 instantiation, each block value widened
+    on load, its slots on bf16_slot_lanes lanes; any Ci <= ATOMICS_MAX_CI,
+    Cj <= 16 and S.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_atomics(fused_pair_apply_atomics_bf16, ids2d, blocks_wm, pcol, prow, Ci, Cj,
+                           S, torch.bfloat16, slots=True)
+
+
 def fused_pair_apply_atomics_thread(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """The first atomics body: one thread per element walks its W slots,
     one global atomic per cols value; the same contract and shapes as
@@ -405,16 +449,20 @@ def fused_pair_apply_atomics_thread_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj,
                            Cj, S, torch.float64, slots=False)
 
 
-def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, dt, slots):
+def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, slots, P=None):
     what = fn.__name__
-    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, dt, ATOMICS_MAX_CI,
-                            value_dtype=dt)
+    dt = torch.float32 if block_dtype == torch.bfloat16 else block_dtype
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype,
+                            ATOMICS_MAX_CI, value_dtype=dt)
     rows = torch.empty((Ci, N), dtype=dt, device=ids2d.device)
     cols = torch.zeros((Cj, S), dtype=dt, device=ids2d.device)
     lib, f64 = _cuda.lib(), dt == torch.float64
     args = (ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S)
-    if slots:
+    if block_dtype == torch.bfloat16:
+        lanes = P or bf16_slot_lanes(W, N, _cuda.sm_count(ids2d.device))
+        code = lib.thallo_fused_pair_atomics_slots_bf16(*args, lanes, _cuda.stream(ids2d))
+    elif slots:
         launch = lib.thallo_fused_pair_atomics_slots_f64 if f64 else \
             lib.thallo_fused_pair_atomics_slots
         code = launch(*args, _cuda.stream(ids2d))
@@ -427,7 +475,7 @@ def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, dt, slots):
 
 
 for _fn in (fused_pair_apply, fused_pair_apply_bf16, fused_pair_apply_f64, fused_pair_rows_floor,
-            fused_pair_apply_atomics, fused_pair_apply_atomics_f64,
+            fused_pair_apply_atomics, fused_pair_apply_atomics_f64, fused_pair_apply_atomics_bf16,
             fused_pair_apply_atomics_thread, fused_pair_apply_atomics_thread_f64):
     _fn.launches = 0
 
@@ -488,11 +536,11 @@ def fused_pair_apply_wloop_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """fused_pair_apply_wloop on bf16 blocks: the bf16 instantiation of the
     persistent W-loop kernel (csrc/fused_pair_wloop.cu), or, for a pair it
     is not specialised for or an accumulator beyond its shared memory,
-    fused_pair_bf16_atomics.  CPU tensors take the plain version."""
+    fused_pair_apply_atomics_bf16.  CPU tensors take the plain version."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     if not persistent_fits(Ci, Cj, S):
-        return fused_pair_bf16_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+        return fused_pair_apply_atomics_bf16(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     return _launch_wloop(fused_pair_apply_wloop_bf16, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
                          torch.bfloat16)
 
@@ -576,12 +624,12 @@ def fused_pair_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """The micro script's pair (scripts/tpu_fused_pair_micro.py) on bf16
     blocks -> (rows, cols): the bf16 persistent kernel, as
     fused_pair_apply_bf16 launches it but counted here, or, for a shape it
-    does not take, fused_pair_bf16_atomics.  CPU tensors take the plain
-    version."""
+    does not take, fused_pair_apply_atomics_bf16.  CPU tensors take the
+    plain version."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     if not persistent_fits(Ci, Cj, S):
-        return fused_pair_bf16_atomics(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+        return fused_pair_apply_atomics_bf16(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
     return _launch_persistent(fused_pair_bf16, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, True,
                               torch.bfloat16)
 

@@ -78,7 +78,25 @@ block per chunk (the whole tile loaded, then summed) into a ``[S, K, C]``
 scratch (``seg_chunks`` [S + 1] = s*K), kept beside the ring kernel
 (which measured faster in f32 and f64 on the H100) but on no route.
 ``BODY_LAUNCHES`` counts each body's launches: "runs", "ring",
-"per_chunk".
+"per_chunk", "fixed_order".
+
+A plan built ``fixed_order`` (``lower.fixed_order_plan``: the small-image
+scatters) also keeps its runs cut into blocks, each a contiguous range of
+about ``ORDER_LANES`` sorted lanes, a run wholly in the block where it
+starts:
+
+  block_run  [G + 1]  block b owns runs [block_run[b], block_run[b + 1])
+  block_lane [G + 1]  and so lanes [block_lane[b], block_lane[b + 1])
+
+and ``segment_sum_fixed_order`` (``csrc/segsum.cu``
+``run_sum_staged_order_kernel``) sums it in one launch: a block copies its
+lanes' values into shared memory (every load before any sum), then each
+run is added from there, in order (``in_order``: one thread a run from 0
+in ascending data row, the CPU's order and bits) or as a tree (sorted
+runs: the block's warps split over at most ``ORDER_THREADS`` / 32 runs, a
+fixed order).  ``segment_sum`` sends such a plan there.  The first body
+of these plans is ``segment_sum`` on the plan ``build_plan`` makes without
+the form (in order up to runs of 32, else sorted runs).
 """
 from __future__ import annotations
 
@@ -120,7 +138,14 @@ STAGED_BLOCKS = 132
 STAGED_MAX_SEGMENTS = 2048
 STAGED_MIN_RUN = 64
 STAGED_MAX_SHARE = 16
-BODY_LAUNCHES = collections.Counter()  # "runs", "ring", "per_chunk"
+BODY_LAUNCHES = collections.Counter()  # "runs", "ring", "per_chunk", "fixed_order"
+# the fixed-order kernel (csrc/segsum.cu kOrderThreads, kOrderMaxTile):
+# threads a block, the most lanes it stages at once, and the lanes a block
+# owns (about: a run is never cut); an in-order block sums at most
+# ORDER_THREADS runs (a thread each), a tree block ORDER_THREADS / 32
+ORDER_THREADS = 256
+ORDER_TILE = 1024
+ORDER_LANES = 256
 
 
 @dataclasses.dataclass
@@ -147,6 +172,10 @@ class SegSumPlan:
     block_chunk: Optional[torch.Tensor] = None  # [G + 1] int32: the ring blocks' chunks
     n_blocks: int = 0  # G
     block_span: int = 0  # the most chunks a block owns
+    # the fixed-order form (module docstring), for plans built fixed_order
+    block_run: Optional[torch.Tensor] = None  # [G + 1] int32: runs a block
+    block_lane: Optional[torch.Tensor] = None  # [G + 1] int32: its lanes
+    order_tile: int = 0  # lanes staged at once: the widest block, at most ORDER_TILE
 
     def validate(self) -> None:
         """Shapes, types and devices of the plan's tensors, checked once
@@ -176,6 +205,13 @@ class SegSumPlan:
             _cuda.require(self.seg_chunks, "seg_chunks", (S + 1,), torch.int32, dev)
             _cuda.require(self.block_chunk, "block_chunk", (self.n_blocks + 1,), torch.int32,
                           dev)
+        if self.block_run is not None:
+            G = self.block_run.shape[0] - 1
+            _cuda.require(self.block_run, "block_run", (G + 1,), torch.int32, dev)
+            _cuda.require(self.block_lane, "block_lane", (G + 1,), torch.int32, dev)
+            if self.piece_start is not None or not 1 <= self.order_tile <= ORDER_TILE:
+                raise ValueError("the fixed-order form: one level, 1 <= order_tile <= "
+                                 f"{ORDER_TILE}")
 
     def compact(self) -> "SegSumPlan":
         """This plan with its compact form; derived here, once, for a plan
@@ -247,18 +283,40 @@ def _fill_staged(plan: SegSumPlan, rows, dests, device, T: int) -> None:
     plan.n_blocks, plan.block_span = G, int(np.diff(block_chunk).max())
 
 
+def order_blocks(counts, in_order: bool):
+    """block_run [G + 1] of the fixed-order form for run lengths `counts`:
+    runs taken in order into a block while it holds at most ORDER_LANES
+    lanes and ORDER_THREADS runs (ORDER_THREADS / 32 as a tree); a run
+    longer than ORDER_LANES is a block of its own."""
+    max_runs = ORDER_THREADS if in_order else ORDER_THREADS // 32
+    cuts, lanes, runs = [0], 0, 0
+    for s, n in enumerate(np.asarray(counts).tolist()):
+        if runs and (runs == max_runs or lanes + n > ORDER_LANES):
+            cuts.append(s)
+            lanes = runs = 0
+        lanes += n
+        runs += 1
+    if runs:
+        cuts.append(len(counts))
+    return np.asarray(cuts, np.int64)
+
+
 def _fill_compact(plan: SegSumPlan, rows, dests, device, in_order=False,
-                  staged_rows: Optional[int] = None) -> None:
+                  staged_rows: Optional[int] = None, fixed_order=False) -> None:
     """Set plan's compact form from the real lanes' data rows and
     destinations (both sorted by destination, all below num_segments);
     in_order: one level of the thread kernel, no staged form; staged_rows:
-    the staged form's chunk (default STAGED_ROWS)."""
+    the staged form's chunk (default STAGED_ROWS); fixed_order: one level
+    (THREAD in order, else WARP), the fixed-order form, no staged form."""
     S = plan.num_segments
     if len(rows) >= 2 ** 31:
         raise ValueError(f"segment sum: {len(rows)} lanes exceed int32 offsets")
     counts = np.bincount(dests, minlength=S)[:S] if S else np.zeros(0, np.int64)
     seg_start = np.concatenate([[0], np.cumsum(counts)])
-    plan.modes, piece = ((THREAD,), 0) if in_order else choose_modes(counts, len(rows))
+    if fixed_order:
+        plan.modes, piece = ((THREAD,) if in_order else (WARP,)), 0
+    else:
+        plan.modes, piece = ((THREAD,), 0) if in_order else choose_modes(counts, len(rows))
     plan.piece_start = plan.seg_piece = None
     if len(plan.modes) == 2:
         n_pieces = -(-counts // piece)  # an empty segment has none
@@ -273,7 +331,15 @@ def _fill_compact(plan: SegSumPlan, rows, dests, device, in_order=False,
     plan.max_row = int(rows.max()) if len(rows) else -1
     plan.local = plan.cell_start = plan.seg_chunks = plan.block_chunk = None
     plan.n_chunks = plan.staged_rows = plan.n_blocks = plan.block_span = 0
-    if not in_order and staged_eligible(counts, len(rows)):
+    plan.block_run = plan.block_lane = None
+    plan.order_tile = 0
+    if fixed_order:
+        block_run = order_blocks(counts, in_order)
+        block_lane = seg_start[block_run]
+        plan.block_run, plan.block_lane = _i32(block_run, device), _i32(block_lane, device)
+        widest = int(np.diff(block_lane).max()) if len(block_lane) > 1 else 0
+        plan.order_tile = max(1, min(ORDER_TILE, widest))
+    elif not in_order and staged_eligible(counts, len(rows)):
         _fill_staged(plan, np.asarray(rows), np.asarray(dests), device,
                      staged_rows or STAGED_ROWS)
     plan.validate()
@@ -285,7 +351,8 @@ def _i32(a, device):
 
 def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0,
                device=None, in_order: bool = False,
-               staged_rows: Optional[int] = None) -> Optional[SegSumPlan]:
+               staged_rows: Optional[int] = None,
+               fixed_order: bool = False) -> Optional[SegSumPlan]:
     """Host-side static plan for `ids` (destination per row), the same
     arrays as thallo_tpu's build_plan plus the compact form of the same
     sorted order; None when the padding would exceed `max_waste` times the
@@ -294,7 +361,9 @@ def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0
     (and the plain version here): the same bits on both, for the short
     runs lower.fixed_order_plan sends here.  staged_rows: the staged
     form's chunk (default STAGED_ROWS; PER_CHUNK_ROWS: the first staged
-    body's own)."""
+    body's own).  fixed_order: the fixed-order form (module docstring),
+    summed in order where in_order, else as sorted runs in one level, by
+    segment_sum_fixed_order."""
     ids = np.asarray(ids)
     M = ids.shape[0]
     if M == 0:
@@ -326,7 +395,7 @@ def build_plan(ids, num_segments: int, tile_n: int = 128, max_waste: float = 8.0
     )
     kept = sorted_ids < num_segments  # the tiles' tail past num_segments is cut
     _fill_compact(plan, order[kept], sorted_ids[kept], plan.gather_idx.device, in_order,
-                  staged_rows)
+                  staged_rows, fixed_order)
     return plan
 
 
@@ -391,11 +460,14 @@ def segment_sum_compact_reference(data, plan: SegSumPlan):
 def segment_sum(data, plan: SegSumPlan):
     """data [M, C] f32 (any non-negative strides) -> [num_segments, C] f32,
     summed per the plan.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel: for a plan with the staged form and data of unit
-    row stride the ring kernel, else the sorted runs (a call's two levels
-    count as one launch); f64 data goes to segment_sum_f64."""
+    launch the kernel: for a plan with the fixed-order form
+    segment_sum_fixed_order's, for one with the staged form and data of
+    unit row stride the ring kernel, else the sorted runs (a call's two
+    levels count as one launch); f64 data goes to segment_sum_f64."""
     if data.device.type == "cpu":
         return segment_sum_reference(data, plan)
+    if plan.block_run is not None:
+        return segment_sum_fixed_order(data, plan)
     if data.dtype == torch.float64:
         return segment_sum_f64(data, plan)
     return _launch(segment_sum, data, plan, torch.float32)
@@ -407,7 +479,36 @@ def segment_sum_f64(data, plan: SegSumPlan):
     version."""
     if data.device.type == "cpu":
         return segment_sum_reference(data, plan)
+    if plan.block_run is not None:
+        return segment_sum_fixed_order_f64(data, plan)
     return _launch(segment_sum_f64, data, plan, torch.float64)
+
+
+def segment_sum_fixed_order(data, plan: SegSumPlan):
+    """data [M, C] f32 (any non-negative strides) -> [num_segments, C], by
+    the fixed-order kernel on a plan built fixed_order (module docstring):
+    one launch, in order (the CPU's bits) or as sorted runs.  CPU tensors
+    take the plain version; CUDA tensors launch the kernel; f64 data goes
+    to segment_sum_fixed_order_f64."""
+    if data.device.type != "cpu" and data.dtype == torch.float64:
+        return segment_sum_fixed_order_f64(data, plan)
+    return _fixed_order(segment_sum_fixed_order, data, plan, torch.float32)
+
+
+def segment_sum_fixed_order_f64(data, plan: SegSumPlan):
+    """segment_sum_fixed_order in f64 (data f64 -> [num_segments, C] f64):
+    the kernel's f64 instantiation.  CPU tensors take the plain version."""
+    return _fixed_order(segment_sum_fixed_order_f64, data, plan, torch.float64)
+
+
+def _fixed_order(fn, data, plan, dtype):
+    if data.device.type == "cpu":
+        return segment_sum_reference(data, plan)
+    plan = plan.compact()
+    if plan.block_run is None:
+        raise ValueError(f"{fn.__name__}: the plan has no fixed-order form "
+                         "(build_plan(..., fixed_order=True))")
+    return _launch(fn, data, plan, dtype, "fixed_order")
 
 
 def segment_sum_per_chunk(data, plan: SegSumPlan):
@@ -441,7 +542,7 @@ def _launch(fn, data, plan, dtype, body="ring"):
     plan = plan.compact()
     M, C = data.shape
     S = plan.num_segments
-    if data.dtype != dtype:
+    if dtype not in (torch.float32, torch.float64) or data.dtype != dtype:
         raise ValueError(f"data: expected {dtype}, got {data.dtype}")
     f64 = dtype == torch.float64
     if data.device != plan.order.device:
@@ -452,6 +553,23 @@ def _launch(fn, data, plan, dtype, body="ring"):
         raise ValueError(f"data: the plan reads row {plan.max_row} of {M}")
     out = torch.empty((S, C), dtype=dtype, device=data.device)
     lib = _cuda.lib()
+    if body == "fixed_order":
+        if S * C >= 2 ** 31:
+            raise ValueError(f"segment_sum: {S} x {C} outputs exceed int32 offsets")
+        if not (S and C):
+            return out  # nothing to sum: no launch
+        G = plan.block_run.shape[0] - 1
+        fixed = lib.thallo_segment_sum_staged_order_f64 if f64 else \
+            lib.thallo_segment_sum_staged_order
+        code = fixed(
+            data.data_ptr(), data.stride(0), data.stride(1), plan.order.data_ptr(),
+            plan.seg_start.data_ptr(), plan.block_run.data_ptr(), plan.block_lane.data_ptr(),
+            out.data_ptr(), C, G, plan.order_tile, int(plan.modes[0] == WARP),
+            _cuda.stream(data))
+        _cuda.check(code, fn.__name__)
+        fn.launches += 1
+        BODY_LAUNCHES[body] += 1
+        return out
     if plan.local is not None and data.stride(0) == 1 and M > 1:
         K, G, T = plan.n_chunks, plan.n_blocks, plan.staged_rows
         rows = K if body == "per_chunk" else G
@@ -496,5 +614,7 @@ def _launch(fn, data, plan, dtype, body="ring"):
 
 segment_sum.launches = 0
 segment_sum_f64.launches = 0
+segment_sum_fixed_order.launches = 0
+segment_sum_fixed_order_f64.launches = 0
 segment_sum_per_chunk.launches = 0
 segment_sum_per_chunk_f64.launches = 0
