@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Two 1M-observation BA scenes are generated once, on the host, from a
+Three 1M-observation BA scenes are generated once, on the host, from a
 seed, and each solve gets its own copy: the uniform one (1024 cameras,
-250 000 points, 4 observations per point) and the degree-skewed one
+250 000 points, 4 observations per point), phase 28's (1024 cameras,
+100 000 points, 10 observations per point), both in two worker processes
+while the kernels build (make_scenes), and the degree-skewed one
 (``skewed_inputs(1024, 250000, target_obs=1_000_000)``: 953 157 shuffled
 observations, power-law point and camera degrees).  Phases (each prints
 its seconds; any failure exits non-zero):
@@ -95,10 +97,13 @@ its seconds; any failure exits non-zero):
      W-loop kernel, the global-atomics oh_setup_products,
      fullrepeat_setup_thread, oh_setup_aggregate_atomics, and the first
      bodies of v2 and v3) launched;
-  9. the 1M LM solve, block-sparse JᵀJ under block_dtype="bf16": the bf16
-     persistent kernel (fused_pair_apply_bf16), oh_setup_products and
-     fullrepeat_setup launched, no f32 or atomics fused pair; costs never
-     rising, final cost <= 1e-2 x initial, logged beside phase 4's;
+  9. the 1M LM solve, block-sparse JᵀJ under block_dtype="bf16",
+     BF16_1M_RUNS times: the bf16 persistent kernel
+     (fused_pair_apply_bf16), oh_setup_products and fullrepeat_setup
+     launched, no f32 or atomics fused pair; held by hold_bf16_runs (each
+     run never rising, its cost after step 1 within BF16_RULE's first
+     limit; the best final cost within its second), logged beside phase
+     4's;
  10. the skewed 1M scene under block_dtype="bf16" for BF16_SKEW_STEPS LM
      steps: each level launches the bf16 instantiation of the kernel
      fused_pair_route names for it (the W-loop one at every wide level);
@@ -298,6 +303,26 @@ its seconds; any failure exits non-zero):
      the marginal PCG iteration eager (beside phase 16's f32 value) and
      graphed (steps_per_dispatch ARAP_MARGINAL_STEPS, bf16 beside f32 in
      this phase).
+ 28. double_precision where the card used to refuse it: (a) the W = 10
+     scene (BA_10: synthetic_inputs(1024, 100000, 10)), F64_WIDE_STEPS LM
+     steps through fullrepeat_setup_thread_f64, fused_pair_apply_wloop_f64
+     and oh_setup_products_f64 (no f32 kernel, no atomics pair), never
+     rising, final <= 1e-2 x initial, the linear parts at the initial
+     unknowns card vs CPU (F64_LINEAR_RTOL); (b) the W = 10 scene and the
+     uniform 1M scene with block_dtype="bf16", BF16_1M_RUNS solves each
+     through fused_pair_apply_wloop_bf16_f64 and fused_pair_apply_bf16_f64
+     alone, held by phase 9's rule (BF16_RULE), the linear parts card vs
+     CPU with the card's bf16 crosses on both sides; (c) the skewed 1M scene
+     in f64, F64_SKEW_STEPS steps, its wide levels on
+     fused_pair_apply_wloop_f64 and the rest on fused_pair_apply_f64 (no
+     atomics pair), the linear parts card vs CPU; (d) ARAP 256² GN in f64
+     with block_dtype="bf16", both edge orders, through
+     fused_pair_apply_atomics_bf16_f64, the linear parts card vs CPU, the
+     costs within ARAP_BF16_F64_TRAJ_RTOL of JAX's (ARAP_JAX_BF16_F64_COSTS).
+     Phase 2 holds each of the five new kernels against its plain f64
+     version at the shapes of one step of each of these plans
+     (f64_wide_kernel_cases; the skewed levels' hot camera by the sum rule
+     in f64, KERNEL_SUM_TOL_F64).
 Each solve's and phase 8's kernel counts are set to 0 just before it and
 read just after.
 
@@ -335,6 +360,8 @@ F64_KERNEL_TOL = 1e-12
 # terms' magnitudes (n and that sum from the plain version on ones and on
 # |inputs|): 4 x 2^-24, about 10x above that measured error.
 KERNEL_SUM_TOL = 4 * 2.0 ** -24
+# the same rule for an f64 kernel (phase 28(c)'s skewed levels in f64)
+KERNEL_SUM_TOL_F64 = 4 * 2.0 ** -53
 # phase 3: the unknowns after each LM step agree to f32 trajectory noise;
 # near convergence this scene's cost moves ~2e-3 relative under such
 # changes of the unknowns (measured CPU-port vs CPU-JAX), hence the cost
@@ -359,6 +386,42 @@ SKEW_1M = (1024, 250_000, 1_000_000)  # cameras, points, target observations
 SKEW_SMALL = (16, 1400, 5600)
 N_STEPS_1M = 10
 BF16_SKEW_STEPS = 3  # phase 10: enough to launch every level's kernel
+# phase 9: the uniform 1M LM solve under block_dtype="bf16".  Its first
+# step is accepted (c0 6 972 748 -> 663 000-670 000, 0.5% apart between
+# runs: the pair's atomics add in another order each run); after it the
+# bf16 crosses' rounding lies above LM's damping (1e-4 of diag(JᵀJ)), the
+# damped JᵀJ is indefinite along BA's gauge directions, and each run
+# stalls on rejected steps for a number of steps of its own before it
+# descends again (tests/test_torch_bf16.py's finding).  So the final
+# cost after 10 steps is heavy-tailed: 24 card solves ended anywhere from
+# 4.0e-5 to 9.6e-4 of c0, and JAX's CPU plan spreads alike at the keep
+# size (scripts/torch_lm_mode_probe.py; PERF.md, Findings).  A
+# single end point at 1e-2 x c0 failed by chance once in 27 runs.  The
+# rule (hold_bf16_runs): BF16_1M_RUNS solves; every one never rising,
+# through the bf16 persistent kernel alone, its cost after step 1 at most
+# the first limit x c0; the best final cost of the runs at most the
+# second limit x c0.  Each limit lies below twice the worst reading it
+# covers, so every recorded run passes, one run beyond a limit fails the
+# step-1 check, and the finals fail only if all BF16_1M_RUNS runs fail.
+BF16_1M_RUNS = 3
+# The readings (scripts/torch_bf16_1m_finals.py on an H100 80GB HBM3, 700
+# W; the largest cost after step 1 and final cost, / c0): "uniform", phase
+# 9's solve, 24 runs: 0.09579 (from 0.09525) and 9.601e-4 (278.0-6694.6
+# from c0 6 972 748); phase 28(b)'s under double_precision, 12 runs each
+# (--double [--scene w10]): "uniform f64" 0.09552 and 5.370e-5, "w10 f64"
+# 1.0 (its first step is rejected: the cost stays c0) and 1.128e-5.  With
+# f64 values the runs agree to 1e-9 of the final cost (374.4034, 84.39488):
+# the crosses, f64 sums in another order, round to the same bf16 values
+# run after run, and no f32 noise feeds LM's accepts.
+# configuration -> (step-1 limit, final limit) x c0: each about 1.5x its
+# reading and below twice it (the W = 10 scene's step-1 limit is its
+# reading, 1: that step is held by never rising alone).  With the crosses
+# of the uniform scene's point level zeroed (a scratch copy under build/,
+# 4 + 6 runs) step 1 read 0.4338 and the finals 0.0478 of c0: every
+# group of runs fails both limits.
+BF16_RULE = {"uniform": (0.15, 1.5e-3),
+             "uniform f64": (0.15, 8e-5),
+             "w10 f64": (1.0, 1.7e-5)}
 # phases 12-14: the Schur-complement solves.  Phase 12's scene is
 # tests/test_schur.py's test_schur_dense_matches_direct_on_ba scene;
 # EXACT_TOL is that test's bound on schur_dense's first step against the
@@ -632,6 +695,40 @@ F64_CROSS = (1e-9, 1e-9)
 # (unknowns) and 2.5e5x (cost) tighter than f32's.  face_fitting, 5.5e-16
 # of max|U| (one run): 1e-8.
 F64_MODELS = {"deconvolution": (1.2e-5, 4e-8), "face_fitting": (1e-8, 1e-8)}
+# phase 28: the f64 configurations the card used to refuse.  (a)
+# synthetic_inputs(1024, 100000, 10): 1 000 000 observations, every point
+# seen by 10 of the 1024 cameras, so the point side is one full-repeat
+# table of W = 10 (no f64 tile plan: fullrepeat_setup_thread_f64) and its
+# col pair a wide level (fused_pair_apply_wloop_f64); LM F64_WIDE_STEPS
+# steps, block-Jacobi, never rising, final <= 1e-2 x c0, the linear parts
+# card vs CPU at F64_LINEAR_RTOL.  (b) the same scene and the uniform 1M
+# scene with block_dtype="bf16" (the <bf16, double> kernels), each
+# BF16_1M_RUNS times by phase 9's rule (BF16_RULE), the linear parts card
+# vs CPU with the card's bf16 crosses on both sides.  (c) the skewed 1M
+# scene in f64, F64_SKEW_STEPS steps: wide levels on the f64 W-loop
+# kernel, the rest on the f64 persistent one, no atomics pair.  (d) ARAP
+# 256² GN under block_dtype="bf16" in f64, both edge orders, against the
+# JAX package's run (JAX_PLATFORMS=cpu python3
+# scripts/torch_model_trajectory.py --package jax --double --block-dtype
+# bf16 [--shuffle]), ARAP_BF16_F64_TRAJ_RTOL about twice the spread of the
+# port's CPU runs with the unknowns moved by 1e-7 x max|U| (--package torch
+# --device cpu --double --block-dtype bf16 --perturb 1..3 [--shuffle]).
+BA_10 = (1024, 100_000, 10)
+F64_WIDE_STEPS = 10
+F64_SKEW_STEPS = 3
+# The port's CPU run lies within 3e-12 of JAX's at every step; three runs
+# with moved unknowns lie at most 3.8e-6, 9.8e-6, 3.75e-5 and 1.87e-3 from
+# it after steps 1, 2, 3 and 10 (bf16 crosses near a rounding boundary
+# rounding a step apart), in either edge order; the card's f64 crosses
+# agree with the CPU's to f64 rounding, so it should lie far inside.
+ARAP_JAX_BF16_F64_COSTS = {
+    "grouped": (120.00000000000003, 22.744906967880866, 33.335112345115355, 30.12948644960389,
+                17.55827093640177, 11.36779084313176, 11.682620282082498, 10.271122338701758,
+                8.806436441203912, 9.209131452454582, 10.03504103905406),
+    "shuffled": (120.00000000000003, 22.74490696788085, 33.33511234511536, 30.129486449603846,
+                 17.558270936401737, 11.36779084313186, 11.682620282082947, 10.271122338701286,
+                 8.80643644120358, 9.209131452455305, 10.035041039054725)}
+ARAP_BF16_F64_TRAJ_RTOL = {1: 8e-6, 2: 2e-5, 3: 8e-5, ARAP_STEPS: 4e-3}
 # phase 21: Plan.jacobian.  COO card vs CPU (the same rows and cols, the
 # values f32 by another AD order) and Jᵀr from the 1M COO (index_add_)
 # against the solver's -JᵀF, each within JAC_TOL x max|ref| (f32 sums of
@@ -792,7 +889,7 @@ def compare(name, got, ref, terms=None, tol=KERNEL_TOL):
     """max|got - ref| over all outputs; fails above tol (KERNEL_TOL) * max|ref|,
     or, given terms = (each output's sum of |terms|, its number of terms),
     where an output differs by more than KERNEL_SUM_TOL sqrt(n) x its
-    sum of |terms|.  A third entry of terms, a tolerance, holds only the
+    sum of |terms| (KERNEL_SUM_TOL_F64 for an f64 output).  A third entry of terms, a tolerance, holds only the
     hot outputs (those summing at least 1% of all terms) to that rule and
     the others to tolerance x max|ref|."""
     err, scale = 0.0, 0.0
@@ -803,14 +900,15 @@ def compare(name, got, ref, terms=None, tol=KERNEL_TOL):
         scale = max(scale, float(r.abs().max()))
         if terms is not None:
             n = terms[1][k]
-            bound = KERNEL_SUM_TOL * n.sqrt() * terms[0][k]
+            sum_tol = KERNEL_SUM_TOL_F64 if g.dtype == torch.float64 else KERNEL_SUM_TOL
+            bound = sum_tol * n.sqrt() * terms[0][k]
             if len(terms) == 3:
                 hot = n >= 0.01 * n.sum(-1, keepdim=True)
                 bound = torch.where(hot, bound, terms[2] * float(r.abs().max()))
             excess = float(((g - r).abs() - bound).max())
             if excess > 0:
                 raise AssertionError(f"{name}: an output is off by {excess:.3e} more than "
-                                     f"{KERNEL_SUM_TOL:.2e} sqrt(n) x the sum of its terms' "
+                                     f"{sum_tol:.2e} sqrt(n) x the sum of its terms' "
                                      "magnitudes")
     if terms is None and err > tol * scale:
         raise AssertionError(f"{name}: max|err| {err:.3e} > {tol} * {scale:.3e}")
@@ -1158,7 +1256,14 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           # its PCG iteration's [9, 1M] -> 1024 scatter (_0: the setup's [18, 1M])
           ("oh_setup_aggregate_f64", "ba1m_pj_f64_1"): "oh_setup_aggregate_f64",
           ("segment_sum_f64", "ba1m_f64"): "segment_sum_f64",
-          ("segment_sum_f64", "ba1m_cameras_f64"): "segment_sum_f64_cameras"}
+          ("segment_sum_f64", "ba1m_cameras_f64"): "segment_sum_f64_cameras",
+          # phase 28's paths' first call of each new kernel (f64_wide_kernel_cases)
+          ("fullrepeat_setup_thread_f64", "w10_f64_0"): "fullrepeat_setup_thread_f64",
+          ("fused_pair_apply_wloop_f64", "w10_f64_0"): "fused_pair_apply_wloop_f64",
+          ("fused_pair_apply_wloop_bf16_f64", "w10_bf16_f64_0"): "fused_pair_apply_wloop_bf16_f64",
+          ("fused_pair_apply_bf16_f64", "ba1m_bf16_f64_0"): "fused_pair_apply_bf16_f64",
+          ("fused_pair_apply_atomics_bf16_f64", "arap256_bf16_f64_0"):
+              "fused_pair_apply_atomics_bf16_f64"}
 
 # record entry -> (source, the TPU kernel it replaces: file:line of its
 # pallas_call or kernel body, the smoke solve or phase whose launches it
@@ -1245,6 +1350,20 @@ KERNELS = {
                         "thallo_tpu/ops/segsum.py:254", "inline f64 tiled"),
     "segment_sum_f64_cameras": ("thallo_tpu_torch/csrc/segsum.cu",
                                 "thallo_tpu/ops/segsum.py:254", "inline f64 tiled"),
+    # phase 28: f64 full repeats outside the tile plan, the f64 W-loop
+    # kernel, bf16 blocks under f64 values
+    "fullrepeat_setup_thread_f64": ("thallo_tpu_torch/csrc/fullrepeat.cu",
+                                    "thallo_tpu/ops/fullrepeat.py:178", "w10 f64 block-sparse"),
+    "fused_pair_apply_wloop_f64": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
+                                   "thallo_tpu/ops/fusedpair.py:385", "w10 f64 block-sparse"),
+    "fused_pair_apply_wloop_bf16_f64": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
+                                        "thallo_tpu/ops/fusedpair.py:385",
+                                        "w10 bf16 f64 block-sparse"),
+    "fused_pair_apply_bf16_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                                  "thallo_tpu/ops/fusedpair.py:349", "bf16 f64 block-sparse"),
+    "fused_pair_apply_atomics_bf16_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
+                                          "thallo_tpu/ops/fusedpair.py:349",
+                                          "arap256 bf16 f64 grouped"),
 }
 
 
@@ -1288,7 +1407,12 @@ def counters():
             "oh_setup_products_f64": ohsetup.oh_setup_products_f64,
             "fullrepeat_setup_f64": fullrepeat.fullrepeat_setup_f64,
             "oh_setup_aggregate_f64": ohsetup.oh_setup_aggregate_f64,
-            "segment_sum_f64": segsum.segment_sum_f64}
+            "segment_sum_f64": segsum.segment_sum_f64,
+            "fullrepeat_setup_thread_f64": fullrepeat.fullrepeat_setup_thread_f64,
+            "fused_pair_apply_wloop_f64": fusedpair.fused_pair_apply_wloop_f64,
+            "fused_pair_apply_wloop_bf16_f64": fusedpair.fused_pair_apply_wloop_bf16_f64,
+            "fused_pair_apply_bf16_f64": fusedpair.fused_pair_apply_bf16_f64,
+            "fused_pair_apply_atomics_bf16_f64": fusedpair.fused_pair_apply_atomics_bf16_f64}
 
 
 def ba_plan(ba, tt, inputs, dims, device, n_iter, schedule=None, double=False, **options):
@@ -1310,6 +1434,40 @@ def make_scene(ba, n_cameras, n_points, obs_per_point):
     return inputs, {"C": n_cameras, "P": n_points, "O": len(inputs["oToC"])}
 
 
+def scene_inputs(shape):
+    """The port's synthetic_inputs(*shape, seed=SEED) (cameras, points,
+    observations per point): a worker process's job in make_scenes."""
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+
+    t0 = time.perf_counter()
+    inputs, _ = ba.synthetic_inputs(n_cameras=shape[0], n_points=shape[1],
+                                    obs_per_point=shape[2], seed=SEED)
+    return inputs, time.perf_counter() - t0
+
+
+def make_scenes(shapes, overlap):
+    """make_scene for each shape, generated side by side in worker
+    processes (spawned: the host generation is a Python loop over the
+    points, ~1 min a 1M scene) while overlap() runs here; returns
+    overlap's result and the scenes, the workers stopped."""
+    import concurrent.futures
+    import multiprocessing
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            len(shapes), mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = [pool.submit(scene_inputs, shape) for shape in shapes]
+        out = overlap()
+        scenes = []
+        for shape, job in zip(shapes, jobs):
+            inputs, seconds = job.result()
+            log(f"scene {'x'.join(map(str, shape))}: host generation {seconds:.2f} s in a "
+                f"worker process")
+            scenes.append((inputs, {"C": shape[0], "P": shape[1], "O": len(inputs["oToC"])}))
+    log(f"scenes ready {time.perf_counter() - t0:.2f} s after their workers started")
+    return out, scenes
+
+
 def make_skew_scene(ba, n_cameras, n_points, target_obs):
     t0 = time.perf_counter()
     inputs, _ = ba.skewed_inputs(n_cameras=n_cameras, n_points=n_points,
@@ -1328,9 +1486,10 @@ def skew_tables(ba, tt, scene):
     return plan._prep["consts"][0]["bsr"]
 
 
-def level_routes(bsr, bf16=False):
+def level_routes(bsr, bf16=False, dtype=torch.float32):
     """(W, N_t) of each col level of a plan's tables -> the fused-pair
-    kernel fused_pair_route names for it (bf16: on bf16 blocks)."""
+    kernel fused_pair_route names for it (bf16: on bf16 blocks; dtype: the
+    values')."""
     from thallo_tpu_torch.ops import fusedpair
 
     out = {}
@@ -1339,7 +1498,8 @@ def level_routes(bsr, bf16=False):
             W, N_t = bsr.cols[bsr.col_gathers[pr[3]][0]].shape
             S = int(np.prod(bsr.image_shapes[bsr.slot_images[pr[1]]][:-1]))
             out[W, N_t] = fusedpair.fused_pair_route(
-                W, N_t, bsr.slot_channels[pr[0]], bsr.slot_channels[pr[1]], S, bf16=bf16)
+                W, N_t, bsr.slot_channels[pr[0]], bsr.slot_channels[pr[1]], S, bf16=bf16,
+                dtype=dtype)
     return out
 
 
@@ -1424,16 +1584,34 @@ def phase_small_grid():
         raise AssertionError("grid masked LM: the unknowns never moved")
 
 
-def linear_parts(plan, p):
+def linear_parts(plan, p, crosses=None):
     """(cost, -JᵀF, diag(JᵀJ), JᵀJ·p) of plan at its current unknowns, as
-    numpy: the solver's setup and one JᵀJ·p application, state untouched."""
+    numpy: the solver's setup and one JᵀJ·p application, state untouched.
+    crosses (bf16_crosses of another plan of the same tables): the bf16
+    cross blocks JᵀJ·p applies instead of the plan's own."""
     comp, prep, ins = plan.compiled, plan._prep, plan._step_inputs()
     st = comp.solve_setup(plan._U, plan._lm, ins, plan._sp(), prep)
-    jtjp = comp.make_jtjp(plan._U, ins, prep["consts"], st["masks"], st["jac_store"])
     dev = plan._U[next(iter(plan._U))].device
+    for gi, blocks in (crosses or {}).items():
+        own = st["jac_store"][gi]["bsr"]
+        for k, b in blocks.items():
+            if own[k].shape != b.shape or own[k].dtype != b.dtype:
+                raise AssertionError(f"cross block {gi}/{k}: {tuple(b.shape)} {b.dtype} in "
+                                     f"place of {tuple(own[k].shape)} {own[k].dtype}")
+            own[k] = b.to(dev)
+    jtjp = comp.make_jtjp(plan._U, ins, prep["consts"], st["masks"], st["jac_store"])
     Ap = jtjp({k: torch.from_numpy(v).to(dev) for k, v in p.items()})
     as_np = lambda t: {k: v.cpu().numpy() for k, v in t.items()}  # noqa: E731
     return plan.final_cost, as_np(st["r0"]), as_np(st["rawdiag"]), as_np(Ap)
+
+
+def bf16_crosses(plan):
+    """{group: {pair: block}} of the bf16 cross blocks plan's setup makes
+    at its current unknowns, on the CPU."""
+    st = plan.compiled.solve_setup(plan._U, plan._lm, plan._step_inputs(), plan._sp(),
+                                   plan._prep)
+    return {gi: {k: b.cpu() for k, b in e["bsr"].items() if b.dtype == torch.bfloat16}
+            for gi, e in st["jac_store"].items() if "bsr" in e}
 
 
 def phase_grid_512():
@@ -1632,24 +1810,49 @@ def phase_ba_1m(ba, tt, scene):
     return launches, costs[-1]
 
 
+def hold_bf16_runs(label, runs, limits):
+    """Phase 9's rule over the costs of BF16_1M_RUNS solves of one bf16
+    configuration (limits: its BF16_RULE entry, the step-1 and final
+    limits x c0): each run never rising and its cost after step 1 within
+    the first limit; the best final cost of the runs within the second.
+    Returns the best final cost."""
+    step1_max, final_max = limits
+    for costs in runs:
+        never_rising(label, costs)
+        if not costs[1] <= step1_max * costs[0]:
+            raise AssertionError(f"{label}: cost after step 1 {costs[1]} > {step1_max} x initial "
+                                 f"{costs[0]}")
+    best = min(runs, key=lambda c: c[-1] / c[0])
+    log(f"{label}: cost after step 1 / c0 {[c[1] / c[0] for c in runs]} (each at most "
+        f"{step1_max}); final / c0 {[c[-1] / c[0] for c in runs]} (the best at most {final_max})")
+    if not best[-1] <= final_max * best[0]:
+        raise AssertionError(f"{label}: the best final cost of {len(runs)} runs, {best[-1]}, > "
+                             f"{final_max} x initial {best[0]}")
+    return best[-1]
+
+
 def phase_ba_1m_bf16(ba, tt, scene, f32_final):
-    """The uniform 1M solve under block_dtype="bf16": every cross block
-    through the bf16 persistent kernel, none through an f32 or atomics
-    fused pair."""
+    """The uniform 1M solve under block_dtype="bf16", BF16_1M_RUNS times:
+    every cross block through the bf16 persistent kernel, none through an
+    f32 or atomics fused pair; the runs held by hold_bf16_runs.  Returns
+    the first run's launches and the best final cost."""
     label = "1M block-sparse bf16"
-    costs, _, launches, _ = solve_1m(ba, tt, scene, label, (
-        "fused_pair_apply_bf16", "oh_setup_products", "fullrepeat_setup"), block_dtype="bf16")
-    stray = [n for n in ("fused_pair_apply", "fused_pair_apply_atomics", "fused_pair_apply_wloop",
-                         "fused_pair_apply_wloop_chunked", "fused_pair_bf16_atomics",
-                         "fused_pair_apply_atomics_bf16", "fused_pair_v2_smem",
-                         "fused_pair_v3_partials") if launches[n]]
-    if stray:
-        raise AssertionError(f"{label}: launched {stray}, not the bf16 persistent kernel")
-    never_rising(label, costs)
-    if not costs[-1] <= 1e-2 * costs[0]:
-        raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
-    log(f"{label}: final cost {costs[-1]!r} (f32 blocks, phase 4: {f32_final!r})")
-    return launches, costs[-1]
+    runs, first = [], None
+    for r in range(BF16_1M_RUNS):
+        costs, _, launches, _ = solve_1m(ba, tt, scene, f"{label} run {r + 1}", (
+            "fused_pair_apply_bf16", "oh_setup_products", "fullrepeat_setup"),
+            block_dtype="bf16")
+        stray = [n for n in ("fused_pair_apply", "fused_pair_apply_atomics",
+                             "fused_pair_apply_wloop", "fused_pair_apply_wloop_chunked",
+                             "fused_pair_bf16_atomics", "fused_pair_apply_atomics_bf16",
+                             "fused_pair_v2_smem", "fused_pair_v3_partials") if launches[n]]
+        if stray:
+            raise AssertionError(f"{label}: launched {stray}, not the bf16 persistent kernel")
+        runs.append(costs)
+        first = first or launches
+    best = hold_bf16_runs(label, runs, BF16_RULE["uniform"])
+    log(f"{label}: best final cost {best!r} (f32 blocks, phase 4: {f32_final!r})")
+    return first, best
 
 
 def phase_precompute_j(ba, tt, scene):
@@ -2101,7 +2304,9 @@ SOLVER_KERNELS = ("oh_setup_products", "fullrepeat_setup", "fused_pair_apply",
                   "fused_pair_apply_wloop_bf16", "fused_pair_apply_atomics_bf16",
                   "fused_pair_apply_f64",
                   "fused_pair_apply_atomics_f64",
-                  "fused_pair_apply_atomics_thread", "fused_pair_apply_atomics_thread_f64")
+                  "fused_pair_apply_atomics_thread", "fused_pair_apply_atomics_thread_f64",
+                  "fused_pair_apply_wloop_f64", "fused_pair_apply_wloop_bf16_f64",
+                  "fused_pair_apply_bf16_f64", "fused_pair_apply_atomics_bf16_f64")
 # the two bodies of the atomics route (fusedpair.atomics_keeps_thread picks
 # between them): phase 2 runs both at every atomics-route call of a path
 ATOMICS_BODIES = {n: pair for pair in (
@@ -2148,12 +2353,14 @@ def _recipe_outputs(recipe):
     return sum(e[2] if e[0] in ("jtr", "d2") else e[2] * e[4] for e in recipe)
 
 
-def path_kernel_cases(dev, rng, tag, calls):
+def path_kernel_cases(dev, rng, tag, calls, hot=False):
     """Cases of the kernels `calls` (path_calls) launched, at their shapes,
     recipes and tables (ids as the path gave them), on seeded normal values
     of the same shapes and dtypes; each held to KERNEL_TOL x max|ref|.  An
     f64 call (double_precision) is a case of the f64 instantiation, the
-    kernel its wrapper launched, held to F64_KERNEL_TOL."""
+    kernel its wrapper launched, held to F64_KERNEL_TOL.  hot: a fused
+    pair's hot outputs (a degree-skewed scene's hot camera) are held to
+    compare's sum-of-terms rule instead."""
     from thallo_tpu_torch.ops import fullrepeat, fusedpair, ohsetup, segsum
 
     def normal(x):
@@ -2225,6 +2432,8 @@ def path_kernel_cases(dev, rng, tag, calls):
         elif name == "fullrepeat_setup":
             a = (normal(args[0]), normal(args[1]))
             rc, R = a[0].shape
+            kname = fullrepeat.fullrepeat_route(kw["recipe"], kw["W"], a[1].shape[0], rc,
+                                                a[0].dtype)
 
             def run(fn, a=a, kw=kw):
                 agg, crosses = fn(*a, **kw)
@@ -2236,12 +2445,19 @@ def path_kernel_cases(dev, rng, tag, calls):
         else:
             a = (args[0], normal(args[1]), normal(args[2]), normal(args[3]))
             W, N = a[0].shape
+            terms = None
+            if hot:
+                absa = (a[0], *(x.abs() for x in a[1:]))
+                ones = (a[0], *(torch.ones_like(x) for x in a[1:]))
+                terms = (lambda b=(absa, ones), kw=kw: tuple(
+                    fusedpair.fused_pair_apply_reference(*x, **kw) for x in b) + (tol or
+                                                                                 (KERNEL_TOL,)))
             # an atomics-route call: the slots kernel and the first body both
             for body in (name,) + tuple(b for b in ATOMICS_BODIES.get(name, ()) if b != name):
                 cases.append((body, ctag,
                               lambda a=a, fn=getattr(fusedpair, body), kw=kw: fn(*a, **kw),
                               lambda a=a, kw=kw: fusedpair.fused_pair_apply_reference(*a, **kw),
-                              None, nbytes(*a), 4 * W * N * kw["Ci"] * kw["Cj"], None, *tol))
+                              None, nbytes(*a), 4 * W * N * kw["Ci"] * kw["Cj"], terms, *tol))
         log(f"{kname}[{ctag}] from the path: " + ", ".join(
             f"{tuple(x.shape) if torch.is_tensor(x) else type(x).__name__}" for x in args)
             + f", {kw}")
@@ -2868,30 +3084,55 @@ def phase_f64_1m(ba, tt, scene, f32_final, bf16_final):
     log(f"{label}: final cost {costs[-1]!r} (f32, phase 4: {f32_final!r}; bf16 blocks, "
         f"phase 9: {bf16_final!r}); peak memory allocated {peak / 2 ** 20:.1f} MiB")
     del plan
-    inputs, dims = scene
-    rng = np.random.default_rng(17)
-    p = {"cameras": rng.normal(size=(dims["C"], 9)), "points": rng.normal(size=(dims["P"], 3))}
-    parts = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        plan = ba_plan(ba, tt, inputs, dims, dev, 1, double=True)
-        plan.init({k: np.copy(v) for k, v in inputs.items()})
-        parts[dev] = linear_parts(plan, p)
-        del plan
-        log(f"{label}: linear parts on {dev} {time.perf_counter() - t0:.2f} s")
-    got, ref = parts["cuda"], parts["cpu"]
+    hold_f64_linear_parts(label, ba, tt, scene)
+    return launches
+
+
+def hold_f64_parts(label, got, ref):
+    """linear_parts of an f64 plan on the card (got) against the port's
+    CPU path (ref): each within F64_LINEAR_RTOL (the cost relative, the
+    rest x max|ref|), f64 on both sides."""
     rel = abs(got[0] - ref[0]) / abs(ref[0])
-    log(f"{label}, initial unknowns, card vs CPU: cost rel {rel:.3e}")
+    log(f"{label}, card vs CPU: cost rel {rel:.3e}")
     if not rel <= F64_LINEAR_RTOL:
-        raise AssertionError(f"{label}: initial cost card {got[0]} vs CPU {ref[0]}")
+        raise AssertionError(f"{label}: cost card {got[0]} vs CPU {ref[0]}")
     for what, a, b in zip(("-JᵀF", "diag(JᵀJ)", "JᵀJ·p"), got[1:], ref[1:]):
         for name in b:
             err, scale = float(np.abs(a[name] - b[name]).max()), float(np.abs(b[name]).max())
-            log(f"{label}, card vs CPU: {what} {name} {err / scale:.3e} x max|ref|")
+            log(f"{label}, card vs CPU: {what} {name} max|diff| {err:.3e}, max|ref| {scale:.3e}")
             if not (a[name].dtype == np.float64 and err <= F64_LINEAR_RTOL * scale):
                 raise AssertionError(f"{label}: {what} of {name}, card vs CPU, {err} > "
                                      f"{F64_LINEAR_RTOL} x {scale}")
-    return launches
+
+
+def hold_f64_linear_parts(label, ba, tt, scene, **options):
+    """The linear parts of an f64 BA plan of scene at its initial unknowns,
+    card vs the port's CPU path (hold_f64_parts).  Under block_dtype="bf16"
+    the CPU's JᵀJ·p applies the card's bf16 crosses (bf16_crosses): the two
+    devices make the f64 crosses with different kernels, and a value at a
+    bf16 rounding boundary would round one bf16 step (2^-8) apart; the
+    entries that differ between the two devices' own crosses are logged."""
+    inputs, dims = scene
+    rng = np.random.default_rng(17)
+    p = {"cameras": rng.normal(size=(dims["C"], 9)), "points": rng.normal(size=(dims["P"], 3))}
+    parts, crosses = {}, None
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        plan = ba_plan(ba, tt, inputs, dims, dev, 1, double=True, **options)
+        plan.init({k: np.copy(v) for k, v in inputs.items()})
+        if options.get("block_dtype"):
+            own = bf16_crosses(plan)
+            if crosses is None:
+                crosses = own
+            else:
+                differ = sum(int((a != crosses[gi][k]).sum()) for gi, blocks in own.items()
+                             for k, a in blocks.items())
+                total = sum(a.numel() for blocks in own.values() for a in blocks.values())
+                log(f"{label}: bf16 cross entries that differ card vs CPU: {differ} of {total}")
+        parts[dev] = linear_parts(plan, p, crosses if dev == "cpu" else None)
+        del plan
+        log(f"{label}: linear parts on {dev} {time.perf_counter() - t0:.2f} s")
+    hold_f64_parts(f"{label}, initial unknowns", parts["cuda"], parts["cpu"])
 
 
 def phase_arap_f64(tt):
@@ -3985,6 +4226,198 @@ def phase_grid_sharded_and_capi(ba, tt, scene):
     return out
 
 
+def f64_wide_kernel_cases(dev, rng, ba, tt, scene, scene10, skew_scene):
+    """Phase 28's kernels at the shapes, recipes and tables of one step of
+    each of its plans on the card (path_calls), each against its plain
+    f64 version within F64_KERNEL_TOL x max|ref|; the skewed scene's
+    levels' hot outputs (its hot camera) to compare's sum-of-terms rule in
+    f64 (KERNEL_SUM_TOL_F64)."""
+
+    def ba1(sc, **options):
+        plan = ba_plan(ba, tt, *sc, "cuda", 1, double=True, **options)
+        plan.init({k: np.copy(v) for k, v in sc[0].items()})
+        return plan
+
+    makes = {"w10_f64": (lambda: ba1(scene10), {"oh_setup_products", "fullrepeat_setup",
+                                                 "fused_pair_apply_wloop_f64"}),
+             "w10_bf16_f64": (lambda: ba1(scene10, block_dtype="bf16"),
+                              {"oh_setup_products", "fullrepeat_setup",
+                               "fused_pair_apply_wloop_bf16_f64"}),
+             "ba1m_bf16_f64": (lambda: ba1(scene, block_dtype="bf16"),
+                               {"oh_setup_products", "fullrepeat_setup",
+                                "fused_pair_apply_bf16_f64"}),
+             "skew1m_f64": (lambda: ba1(skew_scene), {"oh_setup_products", "fused_pair_apply_f64",
+                                                      "fused_pair_apply_wloop_f64"}),
+             "arap256_bf16_f64": (lambda: arap_plan(tt, ARAP_SIDE, "grouped", "cuda", double=True,
+                                                    block_dtype="bf16"),
+                                  {"fused_pair_apply_atomics_bf16_f64"})}
+    cases = []
+    for tag, (make, want) in makes.items():
+        calls = path_calls(make())
+        names = {c[0] for c in calls}
+        if names != want:
+            raise AssertionError(f"{tag}: the path launched {sorted(names)}, not {sorted(want)}")
+        cases += path_kernel_cases(dev, rng, tag, calls, hot=tag.startswith("skew"))
+    return cases
+
+
+def phase_f64_wide(ba, tt, scene10):
+    """Phase 28(a): the W = 10 scene in f64 through
+    fullrepeat_setup_thread_f64, fused_pair_apply_wloop_f64 and
+    oh_setup_products_f64 (no f32 kernel, no atomics pair); never rising,
+    final <= 1e-2 x c0; the linear parts card vs CPU.  Returns the
+    launches."""
+    label = "1M W=10 f64"
+    costs, _, launches, plan = solve_1m(ba, tt, scene10, label, (
+        "fullrepeat_setup_thread_f64", "fused_pair_apply_wloop_f64", "oh_setup_products_f64"),
+        n_steps=F64_WIDE_STEPS, double=True)
+    del plan
+    stray = [n for n, k in launches.items() if k and (not n.endswith("_f64") or "atomics" in n)]
+    if stray:
+        raise AssertionError(f"{label}: launched {stray}")
+    never_rising(label, costs)
+    if not costs[-1] <= 1e-2 * costs[0]:
+        raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
+    hold_f64_linear_parts(label, ba, tt, scene10)
+    return launches
+
+
+def phase_bf16_f64(ba, tt, scene, scene10):
+    """Phase 28(b): the W = 10 scene and the uniform 1M scene under
+    double_precision with block_dtype="bf16", BF16_1M_RUNS solves each
+    through the <bf16, double> pair of its level (no other fused pair, no
+    f32 kernel), held by hold_bf16_runs; the linear parts card vs CPU with
+    the card's bf16 crosses on both sides.  Returns each scene's first
+    run's launches."""
+    out = {}
+    for key, sc, label, pair, run in (
+            ("w10 f64", scene10, "1M W=10 bf16 f64", "fused_pair_apply_wloop_bf16_f64",
+             "w10 bf16 f64 block-sparse"),
+            ("uniform f64", scene, "1M bf16 f64", "fused_pair_apply_bf16_f64",
+             "bf16 f64 block-sparse")):
+        runs = []
+        for r in range(BF16_1M_RUNS):
+            costs, _, launches, _ = solve_1m(ba, tt, sc, f"{label} run {r + 1}", (
+                pair, "oh_setup_products_f64"), double=True, block_dtype="bf16")
+            stray = [n for n, k in launches.items() if k and (
+                not n.endswith("_f64") or (n.startswith("fused_pair") and n != pair))]
+            if stray:
+                raise AssertionError(f"{label}: launched {stray}, not {pair} alone")
+            runs.append(costs)
+            out.setdefault(run, launches)
+        hold_bf16_runs(label, runs, BF16_RULE[key])
+        hold_f64_linear_parts(label, ba, tt, sc, block_dtype="bf16")
+    return out
+
+
+def phase_skew_f64(ba, tt, skew_scene):
+    """Phase 28(c): the skewed 1M scene in f64, F64_SKEW_STEPS LM steps:
+    its wide levels (W >= WLOOP_MIN_W) on fused_pair_apply_wloop_f64, the
+    rest on fused_pair_apply_f64, each level's kernel launched, no atomics
+    pair; never rising; the linear parts card vs CPU.  Returns the
+    launches."""
+    from thallo_tpu_torch.ops import fusedpair
+    from thallo_tpu_torch.solver import blocksparse
+
+    label = "1M skew f64"
+    names = ("fused_pair_apply_f64", "fused_pair_apply_wloop_f64", "fused_pair_apply_atomics_f64",
+             "fused_pair_apply_atomics_thread_f64")
+    by_shape = {}
+    with contextlib.ExitStack() as hooks:
+        for name in names:
+            by_shape[name] = hooks.enter_context(
+                tally(blocksparse, name, lambda ids, *a, **k: tuple(ids.shape)))
+        costs, _, launches, plan = solve_1m(ba, tt, skew_scene, label, (
+            "fused_pair_apply_f64", "fused_pair_apply_wloop_f64", "oh_setup_products_f64"),
+            n_steps=F64_SKEW_STEPS, double=True)
+    routes = level_routes(plan._prep["consts"][0]["bsr"], dtype=torch.float64)
+    del plan
+    want = {shape: "fused_pair_apply_wloop_f64" if shape[0] >= fusedpair.WLOOP_MIN_W
+            else "fused_pair_apply_f64" for shape in routes}
+    log(f"{label} point levels (W, N_t) -> kernel {routes}")
+    if routes != want:
+        raise AssertionError(f"{label}: levels route to {routes}, not {want}")
+    missing = [(shape, name) for shape, name in routes.items() if by_shape[name][shape] <= 0]
+    stray = [n for n, k in launches.items() if k and (not n.endswith("_f64") or "atomics" in n)]
+    if missing or stray:
+        raise AssertionError(f"{label}: levels whose kernel never launched {missing}; "
+                             f"launched {stray}")
+    log(f"{label} launches per level shape: " + ", ".join(
+        f"(W {W}, N_t {N}) {name} {n}" for name, counts in by_shape.items()
+        for (W, N), n in sorted(counts.items())))
+    never_rising(label, costs)
+    hold_f64_linear_parts(label, ba, tt, skew_scene)
+    return launches
+
+
+def phase_arap_bf16_f64(tt):
+    """Phase 28(d): ARAP 256² GN under double_precision with
+    block_dtype="bf16", both edge orders: its two (3, 3) col levels routed
+    to and launching fused_pair_apply_atomics_bf16_f64 alone (launches a
+    PCG iteration logged); warmup() and ARAP_STEPS run_steps(1), after
+    step 3 the linear parts card vs CPU with the card's bf16 crosses on
+    both sides; the costs within ARAP_BF16_F64_TRAJ_RTOL of
+    JAX's (ARAP_JAX_BF16_F64_COSTS) and of the other order's.  Returns the
+    launches of each order's steps."""
+    fns = counters()
+    name = "fused_pair_apply_atomics_bf16_f64"
+    runs, traj = {}, {}
+    for order in ("grouped", "shuffled"):
+        label = f"ARAP {ARAP_SIDE}² GN bf16 f64 {order}"
+        plan = arap_plan(tt, ARAP_SIDE, order, "cuda", double=True, block_dtype="bf16")
+        routes = level_routes(plan._prep["consts"][1]["bsr"], bf16=True, dtype=torch.float64)
+        if set(routes.values()) != {name}:
+            raise AssertionError(f"{label}: levels route to {routes}, not {name}")
+        plan.warmup()
+        for fn in fns.values():
+            fn.launches = 0
+        costs, step_s = [plan.final_cost], []
+        for step in range(ARAP_STEPS):
+            t0 = time.perf_counter()
+            plan.run_steps(1)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            costs.append(plan.final_cost)
+            if step == 2:  # after step 3: the linear parts card vs CPU, as phase 27
+                solve_launches = {n: fn.launches for n, fn in fns.items()}
+                rng = np.random.default_rng(13)
+                p = {k: rng.normal(size=tuple(v.shape)) for k, v in plan._U.items()}
+                got = linear_parts(plan, p)
+                cpu_plan = arap_plan(tt, ARAP_SIDE, order, "cpu", double=True,
+                                     block_dtype="bf16")
+                cpu_plan._U = {k: v.cpu() for k, v in plan._U.items()}
+                ref = linear_parts(cpu_plan, p, bf16_crosses(plan))
+                del cpu_plan
+                hold_f64_parts(f"{label}, step 3", got, ref)
+                for n, fn in fns.items():
+                    fn.launches = solve_launches[n]  # the check's own apply is not the solve's
+        launches = {k: fn.launches for k, fn in fns.items()}
+        runs[f"arap256 bf16 f64 {order}"] = launches
+        slots = launches[name]
+        stray = [k for k, v in launches.items() if v and k != name and k.startswith("fused_pair")]
+        log(f"{label} costs {costs}; {name} {slots} launches, "
+            f"{slots / (ARAP_STEPS * ARAP_L_ITERATIONS):.2f} a PCG iteration; median step of 2-"
+            f"{ARAP_STEPS} {float(np.median(step_s[1:])) * 1e3:.2f} ms")
+        if slots <= 0 or stray:
+            raise AssertionError(f"{label}: {name} launched {slots} times, other fused-pair "
+                                 f"kernels {stray}")
+        traj[order] = costs
+        for k, tol in ARAP_BF16_F64_TRAJ_RTOL.items():
+            ref_k = ARAP_JAX_BF16_F64_COSTS[order][k]
+            rel = abs(costs[k] - ref_k) / abs(ref_k)
+            log(f"{label} step {k}: cost {costs[k]!r} vs JAX bf16 f64 {ref_k!r}, rel {rel:.3e} "
+                f"(limit {tol})")
+            if not (np.isfinite(costs[k]) and rel <= tol):
+                raise AssertionError(f"{label}, step {k}: cost {costs[k]} vs JAX {ref_k}")
+        del plan
+    for k, tol in ARAP_BF16_F64_TRAJ_RTOL.items():
+        a, b = traj["shuffled"][k], traj["grouped"][k]
+        if not abs(a - b) <= tol * abs(b):
+            raise AssertionError(f"ARAP {ARAP_SIDE}² bf16 f64, step {k}: the edge orders differ: "
+                                 f"{a} vs {b}")
+    return runs
+
+
 def run_kernel_cases(cases):
     """Each case's kernel against its plain version (and a library call,
     where there is one) on the card, with the times of each; returns the
@@ -4038,16 +4471,18 @@ def main():
     log(f"HBM peak of this card: {hbm_peak()} (bounds below use {HBM_BYTES_PER_S:.3e} B/s)")
     dev = torch.device("cuda")
 
-    t0 = time.perf_counter()
-    path = _cuda.build()
-    _cuda.lib()
-    for line in open(f"{path}.log"):
-        if line.startswith("==") or "entry function" in line or "registers" in line \
-                or "spill" in line:
-            log(line.rstrip())
-    log(f"phase 1 build {path.name}: {time.perf_counter() - t0:.2f} s")
+    def build():
+        t0 = time.perf_counter()
+        path = _cuda.build()
+        _cuda.lib()
+        for line in open(f"{path}.log"):
+            if line.startswith("==") or "entry function" in line or "registers" in line \
+                    or "spill" in line:
+                log(line.rstrip())
+        log(f"phase 1 build {path.name}: {time.perf_counter() - t0:.2f} s")
 
-    scene = make_scene(ba, *BA_1M)
+    # the two 1M scenes of uniform degree are generated while the kernels build
+    _, (scene, scene10) = make_scenes((BA_1M, BA_10), build)
     skew_scene = make_skew_scene(ba, *SKEW_1M)
 
     t0 = time.perf_counter()
@@ -4062,6 +4497,7 @@ def main():
     cases += bf16_wide_cases(dev, rng)
     cases += model_kernel_cases(dev, rng, tt)
     cases += f64_kernel_cases(dev, rng, ba, tt, scene)
+    cases += f64_wide_kernel_cases(dev, rng, ba, tt, scene, scene10, skew_scene)
     record = run_kernel_cases(cases)
     del cases
     torch.cuda.synchronize()
@@ -4213,6 +4649,18 @@ def main():
     runs.update(bf16_runs)
     torch.cuda.synchronize()
     log(f"phase 27 ARAP {ARAP_SIDE}² GN under block_dtype=bf16, both edge orders: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    runs["w10 f64 block-sparse"] = phase_f64_wide(ba, tt, scene10)
+    runs.update(phase_bf16_f64(ba, tt, scene, scene10))
+    runs["skew f64 block-sparse"] = phase_skew_f64(ba, tt, skew_scene)
+    f64_arap_runs = phase_arap_bf16_f64(tt)
+    model_runs.update(f64_arap_runs)
+    runs.update(f64_arap_runs)
+    torch.cuda.synchronize()
+    log(f"phase 28 double_precision where the card refused it: the W = 10 scene, bf16 blocks "
+        f"under f64 (W = 10, uniform 1M, ARAP {ARAP_SIDE}²), the skewed 1M scene: "
         f"{time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8),

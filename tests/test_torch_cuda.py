@@ -1414,12 +1414,13 @@ def test_fused_pair_atomics_f64_pairs_cuda_match_plain(cuda, Ci, Cj):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,N,S", [(12, 2000, 64), (24, 333, 300), (2, 40000, 1024)])
 def test_fused_pair_f64_route_cuda_matches_plain(cuda, W, N, S):
-    """fused_pair_route's f64 route: wide levels (the W-loop kernel's in
-    f32) and short ones take the f64 atomics body, a long narrow level the
-    f64 persistent kernel; the route's wrapper launches once and agrees."""
+    """fused_pair_route's f64 route: wide and short levels take the f64
+    W-loop kernel (as the W-loop kernel takes them in f32), a long narrow
+    level the f64 persistent kernel; the route's wrapper launches once and
+    agrees."""
     route = fusedpair.fused_pair_route(W, N, CI, CJ, S, dtype=torch.float64)
     assert route == ("fused_pair_apply_f64" if (W, N) == (2, 40000)
-                     else "fused_pair_apply_atomics_f64")
+                     else "fused_pair_apply_wloop_f64")
     args = _f64(cuda, fused_inputs(W, N, S))
     fn = getattr(fusedpair, route)
     n0 = fn.launches
@@ -1556,12 +1557,11 @@ def test_oh_aggregate_f64_cuda_matches_plain(cuda, R, N):
 def test_double_step_makes_no_host_sync(cuda):
     """One LM step of the small BA scene under double_precision, in f64
     throughout (the f64 oh_setup_products, fullrepeat_setup and fused
-    pair), reads nothing back from the card."""
-    n0 = fusedpair.fused_pair_apply_f64.launches + \
-        fusedpair.fused_pair_apply_atomics_f64.launches
+    pair: the short point level (4, 1400) on the f64 W-loop kernel), reads
+    nothing back from the card."""
+    n0 = fusedpair.fused_pair_apply_wloop_f64.launches
     _step_makes_no_host_sync(cuda, double=True)
-    assert fusedpair.fused_pair_apply_f64.launches + \
-        fusedpair.fused_pair_apply_atomics_f64.launches > n0
+    assert fusedpair.fused_pair_apply_wloop_f64.launches > n0
 
 
 def _dispatch_plan(cuda, k, solver="levenberg_marquardt", **options):
@@ -1919,3 +1919,149 @@ def test_fused_pair_apply_atomics_bf16_cuda_matches_plain(cuda, Ci, Cj, W, N, S)
     for rows, cols in outs:
         close(rows.cpu(), r_ref.cpu(), CUDA_TOL)
         close(cols.cpu(), c_ref.cpu(), CUDA_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the f64 W-loop kernel, the f64 first full-repeat body and the <bf16,
+# double> kernels (block_dtype="bf16" under double_precision), at the
+# shapes of chip_smoke.py phase 28's paths and at odd N
+# ---------------------------------------------------------------------------
+# (name, Ci, Cj, W, N, S): 28(a)'s level (10 observations a point), the
+# skewed 1M scene's wide levels, the uniform 1M scene's, ARAP 256²'s and
+# embedded deformation's pairs, ragged and odd N (out-of-range ids)
+NEW_F64_PAIRS = [
+    ("fused_pair_apply_wloop_f64", 3, 9, 10, 100_000, 1024),
+    ("fused_pair_apply_wloop_f64", 3, 9, 24, 12_599, 1024),
+    ("fused_pair_apply_wloop_f64", 3, 9, 716, 325, 1024),
+    ("fused_pair_apply_wloop_f64", 3, 9, 9, 1001, 1592),
+    ("fused_pair_apply_wloop_bf16_f64", 3, 9, 10, 100_000, 1024),
+    ("fused_pair_apply_wloop_bf16_f64", 3, 9, 96, 2_054, 1024),
+    ("fused_pair_apply_wloop_bf16_f64", 3, 9, 9, 1001, 64),
+    ("fused_pair_apply_bf16_f64", 3, 9, 4, 250_000, 1024),
+    ("fused_pair_apply_bf16_f64", 3, 9, 3, 40_001, 500),
+    ("fused_pair_apply_atomics_bf16_f64", 3, 3, 4, 65_536, 65_536),
+    ("fused_pair_apply_atomics_bf16_f64", 9, 3, 4, 1600, 1600),
+    ("fused_pair_apply_atomics_bf16_f64", 16, 3, 12, 16_384, 16_384),
+    ("fused_pair_apply_atomics_bf16_f64", 2, 5, 7, 1001, 300),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,Ci,Cj,W,N,S", NEW_F64_PAIRS)
+def test_new_f64_pairs_cuda_match_plain(cuda, name, Ci, Cj, W, N, S):
+    """Each new f64 fused pair launches once on its own count and agrees
+    with the plain f64 version (bf16 blocks read as their bf16 values):
+    f64 on both sides, only the order of (atomic) sums differs."""
+    rng = np.random.default_rng(W * N + Ci)
+    ids = rng.integers(-2, S + 3, (W, N)).astype(np.int32)
+    blocks = rng.normal(size=(W * Ci * Cj, N))
+    bf16 = "bf16" in name
+    args = [torch.from_numpy(ids).to(cuda),
+            torch.from_numpy(blocks).to(cuda, torch.bfloat16 if bf16 else torch.float64),
+            torch.from_numpy(rng.normal(size=(Cj, S))).to(cuda),
+            torch.from_numpy(rng.normal(size=(Ci, N))).to(cuda)]
+    fn = getattr(fusedpair, name)
+    n0 = fn.launches
+    rows, cols = fn(*args, Ci=Ci, Cj=Cj, S=S)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1 and rows.dtype == cols.dtype == torch.float64
+    r_ref, c_ref = fusedpair.fused_pair_apply_reference(*args, Ci=Ci, Cj=Cj, S=S)
+    close(rows.cpu(), r_ref.cpu(), CUDA_F64_TOL)
+    close(cols.cpu(), c_ref.cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_pair_apply_bf16", "fused_pair_apply_wloop_bf16",
+                                  "fused_pair_apply_atomics_bf16", "fused_pair_apply_wloop"])
+def test_bf16_entries_refuse_f64_values_on_cuda(cuda, name):
+    """Only the _f64 entries take f64 values: the bf16 ones (and the f32
+    W-loop entry's bf16 dispatch) raise on f64 pcol and prow, launching
+    nothing."""
+    ids, blocks, pcol, prow = fused_inputs(12, 2000, 64)
+    args = [torch.from_numpy(ids).to(cuda), torch.from_numpy(blocks).to(cuda).bfloat16(),
+            torch.from_numpy(pcol).to(cuda).double(), torch.from_numpy(prow).to(cuda).double()]
+    with pytest.raises(NotImplementedError, match="f64"):
+        getattr(fusedpair, name)(*args, Ci=CI, Cj=CJ, S=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N_t,W,rc", [(100_000, 10, 2), (1001, 9, 2), (77, 16, 2), (301, 4, 9)])
+def test_fullrepeat_thread_f64_cuda_matches_plain(cuda, N_t, W, rc):
+    """The first full-repeat body in f64, reached through fullrepeat_setup
+    at every shape without an f64 tile plan (28(a)'s point level, W = 10,
+    among them), launches once and agrees with the plain f64 version."""
+    recipe = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 3 * rc, 9, 0), ("diag", 0, 3, 0, 3))
+    rT, Jall = [torch.from_numpy(a).to(cuda).double() for a in fr_inputs(N_t, W, rc=rc)]
+    assert fullrepeat.fullrepeat_route(recipe, W, Jall.shape[0], rc, torch.float64) == \
+        "fullrepeat_setup_thread_f64"
+    n0 = fullrepeat.fullrepeat_setup_thread_f64.launches
+    agg, crosses = fullrepeat.fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    torch.cuda.synchronize()
+    assert fullrepeat.fullrepeat_setup_thread_f64.launches == n0 + 1
+    ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    for got, ref in zip([agg, *crosses], [ragg, *rcross]):
+        assert got.dtype == torch.float64
+        close(got.cpu(), ref.cpu(), CUDA_F64_TOL)
+
+
+# card vs CPU in f64 over 2 LM steps of the W = 10 scene: f64 rounding
+# (~1e-15) carried through LM's linear solves (camera blocks of condition
+# up to ~1e4, PCG on the gauge directions); 1e-8 leaves room for 1e7 of it
+F64_PLAN_TOL = 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_dtype", [None, "bf16"])
+def test_f64_ten_observations_a_point_cuda_matches_cpu(cuda, block_dtype):
+    """synthetic_inputs(16, 1400, 10) under double_precision (and with bf16
+    blocks), 2 LM steps on the card and on the CPU: the point level (W =
+    10) through fullrepeat_setup_thread_f64 and the f64 W-loop kernel (bf16:
+    its <bf16, double> instantiation), no other fused pair; costs and
+    unknowns agree to F64_PLAN_TOL (f64 sums in another order, ~1e-15,
+    through LM's solve; bf16 blocks: the f64 crosses agree to ~1e-15, so
+    they round to the same bf16 values but where one lands on a rounding
+    boundary)."""
+    import thallo_tpu_torch as tt
+    from thallo_tpu_torch.models import bundle_adjustment as ba
+
+    ins, _ = ba.synthetic_inputs(n_cameras=16, n_points=1400, obs_per_point=10, seed=1)
+    dims = {"C": 16, "P": 1400, "O": len(ins["oToC"])}
+    opts = {"block_dtype": block_dtype} if block_dtype else {}
+    want = "fused_pair_apply_wloop_bf16_f64" if block_dtype else "fused_pair_apply_wloop_f64"
+    pairs = [n for n in dir(fusedpair) if n.startswith("fused_pair_")
+             and hasattr(getattr(fusedpair, n), "launches")]
+    runs = {}
+    for dev in ("cpu", cuda):
+        plan = tt.load_energy(ba.ENERGY, tt.ProblemSpec(double_precision=True)).plan(
+            dims, solver="levenberg_marquardt", device=dev, **opts)
+        plan.set_solver_parameter("nIterations", 2)
+        n0 = {n: getattr(fusedpair, n).launches for n in pairs}
+        t0 = fullrepeat.fullrepeat_setup_thread_f64.launches
+        costs = [plan.init({k: np.copy(v) for k, v in ins.items()})]
+        for _ in range(2):
+            plan.step()
+            costs.append(plan.cost())
+        torch.cuda.synchronize()
+        if dev == cuda:
+            launched = {n for n in pairs if getattr(fusedpair, n).launches > n0[n]}
+            assert launched == {want}, launched
+            assert fullrepeat.fullrepeat_setup_thread_f64.launches > t0
+        runs[str(dev)] = (costs, {k: v.cpu().numpy() for k, v in plan.unknowns().items()})
+    (cpu_costs, cpu_U), (gpu_costs, gpu_U) = runs["cpu"], runs[str(cuda)]
+    for a, b in zip(gpu_costs, cpu_costs):
+        assert abs(a - b) <= F64_PLAN_TOL * abs(b), (gpu_costs, cpu_costs)
+    for k, u in cpu_U.items():
+        assert gpu_U[k].dtype == np.float64
+        assert np.abs(gpu_U[k] - u).max() <= F64_PLAN_TOL * np.abs(u).max(), k
+
+
+
+@pytest.mark.cuda
+def test_bf16_f64_step_makes_no_host_sync(cuda):
+    """One LM step of the small BA scene with bf16 blocks under
+    double_precision reads nothing back from the card; its short point
+    level takes the f64 W-loop kernel on bf16 blocks."""
+    n0 = fusedpair.fused_pair_apply_wloop_bf16_f64.launches
+    _step_makes_no_host_sync(cuda, double=True, block_dtype="bf16")
+    assert fusedpair.fused_pair_apply_wloop_bf16_f64.launches > n0
+

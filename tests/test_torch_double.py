@@ -208,11 +208,11 @@ def test_double_jtjp_is_exact(scene, monkeypatch):
 
 def test_bf16_blocks_with_double_precision_run_as_jax():
     """block_dtype="bf16" with double_precision: JAX allows it (bf16 cross
-    blocks, f64 everything else); the port does too on the CPU, and its
-    first step lies as close to JAX's as bf16 storage allows (5e-3 of
-    the cost: the blocks' bf16 rounding, 2^-9, in both), while the card
-    raises NotImplementedError (no kernel takes bf16 blocks with f64
-    values; not reached here: no card)."""
+    blocks, f64 everything else), and so does the port: its first step on
+    the CPU lies as close to JAX's as bf16 storage allows (5e-3 of the
+    cost: the blocks' bf16 rounding, 2^-9, in both), and on the card its
+    col levels take the <bf16, double> kernels fused_pair_route names
+    (not reached here: no card)."""
     from thallo_tpu_torch.models import bundle_adjustment as ba
 
     # 4344 unknowns: above the dense threshold, on block-sparse tables
@@ -228,6 +228,11 @@ def test_bf16_blocks_with_double_precision_run_as_jax():
         costs.append(plan.cost())
     assert _bf16_blocks_f64_unknowns(plan)
     assert abs(costs[1] - costs[0]) <= 5e-3 * costs[0], costs
+    bsr = plan._prep["consts"][0]["bsr"]
+    routes = {fusedpair.fused_pair_route(*bsr.cols[bsr.col_gathers[pr[3]][0]].shape, 3, 9, 16,
+                                         bf16=True, dtype=torch.float64)
+              for pr in bsr.pairs if pr[2] == "col"}
+    assert routes == {"fused_pair_apply_wloop_bf16_f64"}, routes
 
 
 def _bf16_blocks_f64_unknowns(plan):
@@ -344,23 +349,33 @@ def test_oh_aggregate_plain_f64_matches_oracle(R, N):
     close(ohsetup.oh_setup_aggregate_planned(*_t64(arrays), N=N), ref, KERNEL_TOL)
 
 
-@pytest.mark.parametrize("W,N_t,S,want", [
-    (4, 250_000, 1024, "fused_pair_apply_f64"),        # BA uniform 1M
-    (2, 250_000, 1024, "fused_pair_apply_f64"),        # the skewed 1M scene's first level
-    # its wide levels (W-loop in f32)
-    (24, 12_599, 1024, "fused_pair_apply_atomics_thread_f64"),
-    (8, 1400, 16, "fused_pair_apply_atomics_f64"),     # short levels (W-loop in f32)
-    # f64 accumulator beyond the kernel
-    (4, 250_000, 1600, "fused_pair_apply_atomics_thread_f64"),
+@pytest.mark.parametrize("W,N_t,S,want,want_bf16", [
+    # BA uniform 1M; the skewed 1M scene's first level
+    (4, 250_000, 1024, "fused_pair_apply_f64", "fused_pair_apply_bf16_f64"),
+    (2, 250_000, 1024, "fused_pair_apply_f64", "fused_pair_apply_bf16_f64"),
+    # its wide levels, and a point seen by 10 cameras (W-loop in f32)
+    (24, 12_599, 1024, "fused_pair_apply_wloop_f64", "fused_pair_apply_wloop_bf16_f64"),
+    (10, 100_000, 1024, "fused_pair_apply_wloop_f64", "fused_pair_apply_wloop_bf16_f64"),
+    # short levels (W-loop in f32)
+    (8, 1400, 16, "fused_pair_apply_wloop_f64", "fused_pair_apply_wloop_bf16_f64"),
+    # f64 accumulator beyond the persistent kernels
+    (4, 250_000, 1600, "fused_pair_apply_atomics_thread_f64", "fused_pair_apply_atomics_bf16_f64"),
+    (24, 12_599, 1600, "fused_pair_apply_atomics_thread_f64", "fused_pair_apply_atomics_bf16_f64"),
 ])
-def test_fused_pair_route_f64(W, N_t, S, want):
-    """fused_pair_route names the f64 persistent kernel where the f32 route
-    is the persistent kernel and the [9, S] f64 accumulator fits, else an
+def test_fused_pair_route_f64(W, N_t, S, want, want_bf16):
+    """fused_pair_route names the f64 instantiation of the f32 route's
+    persistent kernel (fused_pair_apply_f64 or fused_pair_apply_wloop_f64,
+    by the same shape rule) where the [9, S] f64 accumulator fits, else an
     f64 atomics body: the slots kernel on short levels, the first atomics
-    body elsewhere (atomics_keeps_thread); bf16 blocks keep their bf16
-    route (the CPU runs its plain version; the card refuses the plan)."""
+    body elsewhere (atomics_keeps_thread); bf16 blocks with f64 values take
+    the <bf16, double> instantiations of the same kernels, the slots kernel
+    where no persistent one fits."""
     assert fusedpair.fused_pair_route(W, N_t, 3, 9, S, dtype=torch.float64) == want
     assert fusedpair.fused_pair_route(4, 1000, 3, 3, 1000, dtype=torch.float64) == \
         "fused_pair_apply_atomics_f64"
     assert fusedpair.fused_pair_route(W, N_t, 3, 9, S, bf16=True, dtype=torch.float64) == \
-        fusedpair.fused_pair_route(W, N_t, 3, 9, S, bf16=True)
+        want_bf16
+    for Ci, Cj in ((3, 3), (9, 3), (16, 3)):  # ARAP's and embedded deformation's pairs
+        assert fusedpair.fused_pair_route(4, 65_536, Ci, Cj, 65_536, bf16=True,
+                                          dtype=torch.float64) == \
+            "fused_pair_apply_atomics_bf16_f64"

@@ -34,10 +34,11 @@
 //     kind 2 diag   agg[f0 + a*Cb+b]    = sum_w sum_c Ja[c, a] * Jb[c, b]
 //     kind 3 cross  cross[f0 + w*Ca*Cb + a*Cb + b] = sum_c Ja_w[c, a] * Jb_w[c, b]
 //
-// f64 (the solver's double_precision): the tile kernel is templated on
-// the value type V of the inputs, the stage and the outputs
-// (thallo_fullrepeat_setup_tiles_f64: V = double; the first body stays
-// f32).  A 16-byte cp.async then carries 2 values (every row 16-byte
+// f64 (the solver's double_precision): both kernels are templated on the
+// value type V of the inputs, the stage and the outputs
+// (thallo_fullrepeat_setup_tiles_f64, thallo_fullrepeat_setup_thread_f64:
+// V = double; the first body takes every f64 shape the tile plan does
+// not: W > 8, rc > 8 or Kall > 128, e.g. a point seen by 10 cameras).  A 16-byte cp.async then carries 2 values (every row 16-byte
 // aligned where N_t*W is even, else 8-byte copies), a lane reads an
 // element's W observations as double2 vectors where W is even, and
 // ops/fullrepeat.py plans the tiles at 8 bytes a value.
@@ -248,18 +249,17 @@ cudaError_t launch_tiles(const V* rT, const V* J, const int4* groups, const int4
   return cudaGetLastError();
 }
 
-__global__ void fullrepeat_thread_kernel(const float* __restrict__ rT,
-                                         const float* __restrict__ J,
-                                         const int* __restrict__ recipe,
-                                         float* __restrict__ agg,
-                                         float* __restrict__ cross,
-                                         int n_entries, int rc, int W, int N_t) {
+template <typename V>
+__global__ void fullrepeat_thread_kernel(const V* __restrict__ rT, const V* __restrict__ J,
+                                         const int* __restrict__ recipe, V* __restrict__ agg,
+                                         V* __restrict__ cross, int n_entries, int rc, int W,
+                                         int N_t) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N_t) return;
   const size_t RW = static_cast<size_t>(N_t) * W;
   const size_t Nz = static_cast<size_t>(N_t);
-  const float* Jn = J + static_cast<size_t>(n) * W;
-  const float* rn = rT + static_cast<size_t>(n) * W;
+  const V* Jn = J + static_cast<size_t>(n) * W;
+  const V* rn = rT + static_cast<size_t>(n) * W;
 
   for (int e = 0; e < n_entries; ++e) {
     const int kind = __ldg(recipe + 6 * e + 0);
@@ -270,11 +270,11 @@ __global__ void fullrepeat_thread_kernel(const float* __restrict__ rT,
     const int f0 = __ldg(recipe + 6 * e + 5);
     if (kind == 0 || kind == 1) {
       for (int ch = 0; ch < Ca; ++ch) {
-        float s = 0.f;
+        V s = V(0);
         for (int w = 0; w < W; ++w) {
           for (int c = 0; c < rc; ++c) {
-            const float j = __ldg(Jn + static_cast<size_t>(offa + c * Ca + ch) * RW + w);
-            s = fmaf(j, kind == 0 ? __ldg(rn + c * RW + w) : j, s);
+            const V j = __ldg(Jn + static_cast<size_t>(offa + c * Ca + ch) * RW + w);
+            s = fma_v(j, kind == 0 ? __ldg(rn + c * RW + w) : j, s);
           }
         }
         agg[static_cast<size_t>(f0 + ch) * Nz + n] = s;
@@ -282,11 +282,11 @@ __global__ void fullrepeat_thread_kernel(const float* __restrict__ rT,
     } else if (kind == 2) {
       for (int a = 0; a < Ca; ++a) {
         for (int b = 0; b < Cb; ++b) {
-          float s = 0.f;
+          V s = V(0);
           for (int w = 0; w < W; ++w) {
             for (int c = 0; c < rc; ++c) {
-              s = fmaf(__ldg(Jn + static_cast<size_t>(offa + c * Ca + a) * RW + w),
-                       __ldg(Jn + static_cast<size_t>(offb + c * Cb + b) * RW + w), s);
+              s = fma_v(__ldg(Jn + static_cast<size_t>(offa + c * Ca + a) * RW + w),
+                        __ldg(Jn + static_cast<size_t>(offb + c * Cb + b) * RW + w), s);
             }
           }
           agg[static_cast<size_t>(f0 + a * Cb + b) * Nz + n] = s;
@@ -297,10 +297,10 @@ __global__ void fullrepeat_thread_kernel(const float* __restrict__ rT,
       for (int w = 0; w < W; ++w) {
         for (int a = 0; a < Ca; ++a) {
           for (int b = 0; b < Cb; ++b) {
-            float s = 0.f;
+            V s = V(0);
             for (int c = 0; c < rc; ++c) {
-              s = fmaf(__ldg(Jn + static_cast<size_t>(offa + c * Ca + a) * RW + w),
-                       __ldg(Jn + static_cast<size_t>(offb + c * Cb + b) * RW + w), s);
+              s = fma_v(__ldg(Jn + static_cast<size_t>(offa + c * Ca + a) * RW + w),
+                        __ldg(Jn + static_cast<size_t>(offb + c * Cb + b) * RW + w), s);
             }
             cross[static_cast<size_t>(f0 + w * Fc + a * Cb + b) * Nz + n] = s;
           }
@@ -348,6 +348,19 @@ int setup_tiles(const void* rT, const void* Jall, const void* groups, const void
   return static_cast<int>(err);
 }
 
+template <typename V>
+int setup_thread(const void* rT, const void* Jall, const void* recipe, void* agg, void* cross,
+                 int n_entries, int rc, int W, int N_t, void* stream) {
+  if (N_t > 0) {
+    constexpr int kThreads = 256;
+    const int grid = (N_t + kThreads - 1) / kThreads;
+    fullrepeat_thread_kernel<V><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const V*>(rT), static_cast<const V*>(Jall), static_cast<const int*>(recipe),
+        static_cast<V*>(agg), static_cast<V*>(cross), n_entries, rc, W, N_t);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // The tile kernel.  groups [n_groups, 4] int32 (a0, sa, j0, j1), chans
@@ -374,17 +387,18 @@ extern "C" int thallo_fullrepeat_setup_tiles_f64(const void* rT, const void* Jal
                              W, N_t, T, stages, threads, grid, stream);
 }
 
+// The first body.  recipe [n_entries, 6] int32 (see above); any W, rc, Kall.
 extern "C" int thallo_fullrepeat_setup_thread(const void* rT, const void* Jall,
                                               const void* recipe, void* agg, void* cross,
                                               int n_entries, int rc, int W, int N_t,
                                               void* stream) {
-  if (N_t > 0) {
-    constexpr int kThreads = 256;
-    const int grid = (N_t + kThreads - 1) / kThreads;
-    fullrepeat_thread_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(rT), static_cast<const float*>(Jall),
-        static_cast<const int*>(recipe), static_cast<float*>(agg),
-        static_cast<float*>(cross), n_entries, rc, W, N_t);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return setup_thread<float>(rT, Jall, recipe, agg, cross, n_entries, rc, W, N_t, stream);
+}
+
+// The first body in f64: rT, Jall, agg and cross double.
+extern "C" int thallo_fullrepeat_setup_thread_f64(const void* rT, const void* Jall,
+                                                  const void* recipe, void* agg, void* cross,
+                                                  int n_entries, int rc, int W, int N_t,
+                                                  void* stream) {
+  return setup_thread<double>(rT, Jall, recipe, agg, cross, n_entries, rc, W, N_t, stream);
 }

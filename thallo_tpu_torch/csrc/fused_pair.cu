@@ -102,6 +102,15 @@
 // = double (atomicAdd on double is native on sm_90).  Registers and
 // shared memory double; every sum is an f64 sum.
 //
+// bf16 blocks under f64 values (block_dtype="bf16" with double_precision):
+// the same two templates with T = __nv_bfloat16 and V = double, each block
+// value widened exactly to a double on load, every other operand and sum
+// f64.  thallo_fused_pair_persistent_bf16_f64 takes one element a thread
+// (two would double a thread's f64 registers: pr, acc, z and pc are 24
+// doubles an element); thallo_fused_pair_atomics_slots_bf16_f64 is the
+// bf16 slots kernel with the same exact 9 x 3 and 16 x 3 instantiations
+// and the caller's slot lanes P.
+//
 // add_cols (the warp merge) lives in block_accum.cuh, shared with the
 // W-loop kernel and oh_aggregate.cu; pair_slot (one slot's loads and
 // products) in fused_pair_slot.cuh, shared with the W-loop kernel.  The
@@ -593,4 +602,33 @@ extern "C" int thallo_fused_pair_atomics_slots_bf16(const void* ids, const void*
   if (P == 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_slots<__nv_bfloat16, float>(ids, blocks, pcol, prow, rows,
                                                              cols, W, N, Ci, Cj, S, P, stream));
+}
+
+// The persistent kernel on bf16 blocks with f64 values: pcol, prow, rows
+// and cols double, one element a thread (cols required).
+extern "C" int thallo_fused_pair_persistent_bf16_f64(const void* ids, const void* blocks,
+                                                     const void* pcol, const void* prow,
+                                                     void* rows, void* cols, int W, int N,
+                                                     int Ci, int Cj, int S, int threads,
+                                                     int grid, int merge_min, void* stream) {
+  if (cols == nullptr ||
+      !persistent_args_ok(Ci, Cj, S, threads, grid, merge_min, kMaxThreads, sizeof(double))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (N <= 0) return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_persistent<__nv_bfloat16, double, 1, true>(
+      ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, merge_min,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The slots kernel on bf16 blocks with f64 values (pcol, prow, rows and
+// cols double), on P slot lanes (1, 2, 4 or 8).
+extern "C" int thallo_fused_pair_atomics_slots_bf16_f64(const void* ids, const void* blocks,
+                                                        const void* pcol, const void* prow,
+                                                        void* rows, void* cols, int W, int N,
+                                                        int Ci, int Cj, int S, int P,
+                                                        void* stream) {
+  if (P == 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_slots<__nv_bfloat16, double>(ids, blocks, pcol, prow, rows,
+                                                              cols, W, N, Ci, Cj, S, P, stream));
 }

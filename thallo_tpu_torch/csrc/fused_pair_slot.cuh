@@ -5,8 +5,9 @@
 // (__ldcs): float, or __nv_bfloat16 through the intrinsics only, one
 // value or two neighbouring ones as one __nv_bfloat162 (4 bytes a lane, a
 // 128-byte warp load).  Everything else, and all arithmetic, is at the
-// value type V: f32, or f64 for the f64 instantiation (T = V = double,
-// one double a lane, a 256-byte warp load).  Internal linkage: each
+// value type V: f32, or f64 for the f64 instantiations (T = V = double,
+// one double a lane, a 256-byte warp load; T = __nv_bfloat16 with V =
+// double, one bf16 a lane widened to a double).  Internal linkage: each
 // source that includes it compiles its own copy.
 #pragma once
 
@@ -25,6 +26,12 @@ __device__ __forceinline__ void load_block(const double* p, double (&v)[1]) { v[
 
 __device__ __forceinline__ void load_block(const __nv_bfloat16* p, float (&v)[1]) {
   v[0] = __bfloat162float(__ldcs(p));
+}
+
+// bf16 blocks under f64 values (the solver's block_dtype="bf16" with
+// double_precision): each block value widened to a double, exactly
+__device__ __forceinline__ void load_block(const __nv_bfloat16* p, double (&v)[1]) {
+  v[0] = static_cast<double>(__bfloat162float(__ldcs(p)));
 }
 
 // p even-aligned: the caller gives kElems = 2 only where N is even

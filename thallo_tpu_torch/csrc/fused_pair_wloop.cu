@@ -11,14 +11,17 @@
 // would run 11 warps, each looping 716 times.  The bound is the block
 // read, W*Ci*Cj*N*4 bytes.  Two kernels:
 //
-// wloop_persistent_kernel<T>  (thallo_fused_pair_wloop_persistent: T
-//     float; thallo_fused_pair_wloop_persistent_bf16: T __nv_bfloat16)
+// wloop_persistent_kernel<T, V>  (thallo_fused_pair_wloop_persistent: T =
+//     V = float; thallo_fused_pair_wloop_persistent_bf16: T __nv_bfloat16,
+//     V float; _f64: T = V = double; _bf16_f64: T __nv_bfloat16, V double)
 //   Specialised on 3 x 9.  The work is cut into items of (32-element
 //   tile, range of w_item w's); a warp takes one item at a time, lane =
 //   element, so each load of a w-plane is 32 neighbouring values (128 bytes
 //   in f32, 64 in bf16), read once with __ldcs past the caches that hold
 //   pcol and ids (pair_slot, fused_pair_slot.cuh, as in fused_pair.cu);
-//   arithmetic is f32.  (Two bf16 elements a lane, as the bf16 persistent
+//   arithmetic is at the value type V (f32; f64 under double_precision,
+//   where the [9, S] accumulator doubles to 72 KB at S = 1024 and a block
+//   takes at most 512 threads).  (Two bf16 elements a lane, as the bf16 persistent
 //   kernel reads them, halve the items: 8% slower at (96, 2054), the one
 //   even wide level of the skewed 1M scene, H100.)  A fixed grid
 //   (a few blocks per SM) strides over the items, so a block zeroes and
@@ -146,16 +149,24 @@ __global__ void fused_pair_wloop_kernel(const int* __restrict__ ids,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+// the largest block of the persistent kernel at value type V: 1024 threads
+// in f32, 512 in f64 (its doubles take twice the registers)
+template <typename V>
+constexpr int wloop_max_threads() {
+  return kMaxThreads / static_cast<int>(sizeof(V) / sizeof(float));
+}
+
+template <typename T, typename V>
+__global__ void __launch_bounds__(kMaxThreads * sizeof(float) / sizeof(V))
     wloop_persistent_kernel(const int* __restrict__ ids, const T* __restrict__ blocks,
-                            const float* __restrict__ pcol, const float* __restrict__ prow,
-                            float* __restrict__ rows, float* __restrict__ cols, int W, int N,
-                            int S, int w_item, int n_items, int merge_min) {
+                            const V* __restrict__ pcol, const V* __restrict__ prow,
+                            V* __restrict__ rows, V* __restrict__ cols, int W, int N, int S,
+                            int w_item, int n_items, int merge_min) {
   constexpr int kCi = 3, kCj = 9;
-  extern __shared__ float acc_cols[];  // [kCj, S]
+  extern __shared__ __align__(16) unsigned char wloop_smem[];
+  V* acc_cols = reinterpret_cast<V*>(wloop_smem);  // [kCj, S]
   const int n_acc = kCj * S;
-  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_cols[i] = 0.f;
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_cols[i] = V(0);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -172,15 +183,15 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int n = tile * 32 + lane;
     const bool live = n < N;
     // pair_slot's one-element form: the lane's element is entry [0]
-    float pr[1][kCi];
-    float acc[1][kCi];
+    V pr[1][kCi];
+    V acc[1][kCi];
 #pragma unroll
     for (int ci = 0; ci < kCi; ++ci) {
-      pr[0][ci] = live ? __ldg(prow + ci * Nz + n) : 0.f;
-      acc[0][ci] = 0.f;
+      pr[0][ci] = live ? __ldg(prow + ci * Nz + n) : V(0);
+      acc[0][ci] = V(0);
     }
     for (int w = w0; w < w1; ++w) {
-      float z[1][kCj];
+      V z[1][kCj];
       int id[1];
       bool ok[1];
       pair_slot<T, kCi, kCj, 1, true>(ids, blocks, pcol, S, Nz, w, n, live, pr, acc, z, id, ok);
@@ -200,35 +211,49 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   __syncthreads();
   for (int i = threadIdx.x; i < n_acc; i += blockDim.x) {
-    const float v = acc_cols[i];
-    if (v != 0.f) atomicAdd(cols + i, v);
+    const V v = acc_cols[i];
+    if (v != V(0)) atomicAdd(cols + i, v);
   }
 }
 
-template <typename T>
+template <typename T, typename V>
 cudaError_t launch_wloop_persistent(const void* ids, const void* blocks, const void* pcol,
                                     const void* prow, void* rows, void* cols, int W, int N,
                                     int S, int threads, int grid, int w_item, int merge_min,
                                     cudaStream_t stream) {
-  auto kernel = wloop_persistent_kernel<T>;
-  const size_t smem = static_cast<size_t>(9) * S * sizeof(float);
+  auto kernel = wloop_persistent_kernel<T, V>;
+  const size_t smem = static_cast<size_t>(9) * S * sizeof(V);
   if (smem > 48 * 1024) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
   }
   const int n_items = ((N + 31) / 32) * ((W + w_item - 1) / w_item);
   kernel<<<grid, threads, smem, stream>>>(
-      static_cast<const int*>(ids), static_cast<const T*>(blocks),
-      static_cast<const float*>(pcol), static_cast<const float*>(prow),
-      static_cast<float*>(rows), static_cast<float*>(cols), W, N, S, w_item, n_items, merge_min);
+      static_cast<const int*>(ids), static_cast<const T*>(blocks), static_cast<const V*>(pcol),
+      static_cast<const V*>(prow), static_cast<V*>(rows), static_cast<V*>(cols), W, N, S, w_item,
+      n_items, merge_min);
   return cudaGetLastError();
 }
 
+template <typename V>
 bool wloop_persistent_args_ok(int W, int N, int Ci, int Cj, int S, int threads, int grid,
-                              int w_item, int merge_min, int max_threads) {
+                              int w_item, int merge_min) {
   return Ci == 3 && Cj == 9 && S >= 1 && W >= 0 && N >= 0 && grid >= 1 && w_item >= 1 &&
-         merge_min >= 2 && threads >= 32 && threads <= max_threads && threads % 32 == 0 &&
-         static_cast<size_t>(Cj) * S * sizeof(float) <= kMaxPersistentSmem;
+         merge_min >= 2 && threads >= 32 && threads <= wloop_max_threads<V>() &&
+         threads % 32 == 0 && static_cast<size_t>(Cj) * S * sizeof(V) <= kMaxPersistentSmem;
+}
+
+template <typename T, typename V>
+int wloop_persistent(const void* ids, const void* blocks, const void* pcol, const void* prow,
+                     void* rows, void* cols, int W, int N, int Ci, int Cj, int S, int threads,
+                     int grid, int w_item, int merge_min, void* stream) {
+  if (!wloop_persistent_args_ok<V>(W, N, Ci, Cj, S, threads, grid, w_item, merge_min)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_wloop_persistent<T, V>(
+      ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, w_item, merge_min,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -242,13 +267,8 @@ extern "C" int thallo_fused_pair_wloop_persistent(const void* ids, const void* b
                                                   void* cols, int W, int N, int Ci, int Cj, int S,
                                                   int threads, int grid, int w_item,
                                                   int merge_min, void* stream) {
-  if (!wloop_persistent_args_ok(W, N, Ci, Cj, S, threads, grid, w_item, merge_min,
-                                kMaxThreads)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(launch_wloop_persistent<float>(
-      ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, w_item, merge_min,
-      static_cast<cudaStream_t>(stream)));
+  return wloop_persistent<float, float>(ids, blocks, pcol, prow, rows, cols, W, N, Ci, Cj, S,
+                                        threads, grid, w_item, merge_min, stream);
 }
 
 // The same for bf16 blocks.
@@ -258,13 +278,33 @@ extern "C" int thallo_fused_pair_wloop_persistent_bf16(const void* ids, const vo
                                                        int Ci, int Cj, int S, int threads,
                                                        int grid, int w_item, int merge_min,
                                                        void* stream) {
-  if (!wloop_persistent_args_ok(W, N, Ci, Cj, S, threads, grid, w_item, merge_min,
-                                kMaxThreads)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(launch_wloop_persistent<__nv_bfloat16>(
-      ids, blocks, pcol, prow, rows, cols, W, N, S, threads, grid, w_item, merge_min,
-      static_cast<cudaStream_t>(stream)));
+  return wloop_persistent<__nv_bfloat16, float>(ids, blocks, pcol, prow, rows, cols, W, N, Ci,
+                                                Cj, S, threads, grid, w_item, merge_min, stream);
+}
+
+// In f64: blocks, pcol, prow, rows and cols double (threads at most 512;
+// the [9, S] f64 accumulator, 72 KB at S = 1024, in opted-in dynamic
+// shared memory).
+extern "C" int thallo_fused_pair_wloop_persistent_f64(const void* ids, const void* blocks,
+                                                      const void* pcol, const void* prow,
+                                                      void* rows, void* cols, int W, int N,
+                                                      int Ci, int Cj, int S, int threads,
+                                                      int grid, int w_item, int merge_min,
+                                                      void* stream) {
+  return wloop_persistent<double, double>(ids, blocks, pcol, prow, rows, cols, W, N, Ci, Cj, S,
+                                          threads, grid, w_item, merge_min, stream);
+}
+
+// bf16 blocks with f64 values (pcol, prow, rows and cols double).
+extern "C" int thallo_fused_pair_wloop_persistent_bf16_f64(const void* ids, const void* blocks,
+                                                           const void* pcol, const void* prow,
+                                                           void* rows, void* cols, int W, int N,
+                                                           int Ci, int Cj, int S, int threads,
+                                                           int grid, int w_item, int merge_min,
+                                                           void* stream) {
+  return wloop_persistent<__nv_bfloat16, double>(ids, blocks, pcol, prow, rows, cols, W, N, Ci,
+                                                 Cj, S, threads, grid, w_item, merge_min,
+                                                 stream);
 }
 
 extern "C" int thallo_fused_pair_wloop(const void* ids, const void* blocks,

@@ -16,9 +16,11 @@ nothing, and returns ``cudaGetLastError()``; ``check`` turns a non-zero
 code into an exception.
 
 The solver's ``double_precision`` runs f64 instantiations of the kernels
-its default schedules launch (the ``*_f64`` exports: the same sources,
-templated on the value type).  A kernel without one refuses an f64
-tensor with NotImplementedError (``require``), naming ``F64_TODO``.
+its schedules launch (the ``*_f64`` exports: the same sources, templated
+on the value type; ``*_bf16_f64`` for bf16 blocks with f64 values).  A
+kernel without one refuses an f64 tensor with NotImplementedError
+(``require``), naming ``F64_TODO``: the one-hot first bodies, the first
+W-loop body and the measurement scripts' kernels.
 """
 from __future__ import annotations
 
@@ -78,6 +80,13 @@ SIGNATURES = {
     "thallo_segment_sum_staged_f64": (P, L, P, P, P, P, P, I, I, I, I, I, P),
     "thallo_segment_sum_ring_f64": (P, L, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "thallo_segment_sum_staged_order_f64": (P, L, L, P, P, P, P, P, I, I, I, I, P),
+    "thallo_fullrepeat_setup_thread_f64": (P, P, P, P, P, I, I, I, I, P),
+    "thallo_fused_pair_wloop_persistent_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    # bf16 blocks with f64 values (block_dtype="bf16" under double_precision)
+    "thallo_fused_pair_persistent_bf16_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
+    "thallo_fused_pair_wloop_persistent_bf16_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                                                    P),
+    "thallo_fused_pair_atomics_slots_bf16_f64": (P, P, P, P, P, P, I, I, I, I, I, I, P),
 }
 # where the kernels without an f64 instantiation wait
 F64_TODO = "ROADMAP queue 2, item 7"

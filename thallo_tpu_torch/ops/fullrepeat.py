@@ -46,9 +46,10 @@ bf16 split is not carried over.
 **f64** (the solver's ``double_precision``): ``fullrepeat_setup`` hands
 f64 windows to ``fullrepeat_setup_f64``, the f64 instantiation of the tile
 kernel (16-byte ``cp.async`` copies of 2 values; tiles planned at 8 bytes
-a value: BA's point level takes T = 64 with two windows).  The first body
-has no f64 instantiation: a shape without an f64 plan raises
-NotImplementedError (``_cuda.F64_TODO``).
+a value: BA's point level takes T = 64 with two windows), or, for a shape
+without an f64 tile plan (W > 8, rc > 8, Kall > 128: a scene whose points
+are each seen by 10 cameras), to ``fullrepeat_setup_thread_f64``, the
+first body's f64 instantiation.
 """
 from __future__ import annotations
 
@@ -214,6 +215,17 @@ def fullrepeat_plan(recipe, W: int, Kall: int, rc: int, tile: int = FULLREPEAT_T
     return None
 
 
+def fullrepeat_route(recipe, W: int, Kall: int, rc: int, dtype=torch.float32) -> str:
+    """The kernel fullrepeat_setup launches on the card at this shape, by
+    the name of its wrapper: the tile kernel where fullrepeat_plan has a
+    plan (at dtype's itemsize), else the first body; "_f64" for f64
+    windows."""
+    f64 = dtype == torch.float64
+    plan = fullrepeat_plan(tuple(recipe), W, Kall, rc, FULLREPEAT_TILE,
+                           FULLREPEAT_BLOCKS_PER_SM, FULLREPEAT_THREADS, 8 if f64 else 4)
+    return ("fullrepeat_setup" if plan else "fullrepeat_setup_thread") + ("_f64" if f64 else "")
+
+
 def fullrepeat_grid(plan: FullrepeatPlan, N_t: int, sms: int) -> int:
     """Persistent blocks: plan.blocks_per_sm per SM, no more than tiles."""
     return max(1, min(plan.blocks_per_sm * sms, -(-N_t // plan.T)))
@@ -288,18 +300,17 @@ def fullrepeat_setup(rT_win, Jall_win, *, W, N_t, recipe):
 
 def fullrepeat_setup_f64(rT_win, Jall_win, *, W, N_t, recipe):
     """fullrepeat_setup in f64 (windows f64 -> agg, crosses f64): the f64
-    instantiation of the tile kernel.  CPU tensors take the plain version;
-    a shape without an f64 plan raises NotImplementedError (the first body
-    is f32 only)."""
+    instantiation of the tile kernel, or, for a shape without an f64 tile
+    plan, fullrepeat_setup_thread_f64.  CPU tensors take the plain
+    version."""
     if rT_win.device.type == "cpu":
         return fullrepeat_setup_reference(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
     rc, Kall, dev = _checked("fullrepeat_setup_f64", rT_win, Jall_win, W, N_t, torch.float64)
     _recipe_rows(recipe, rc, Kall, W)
+    if fullrepeat_route(recipe, W, Kall, rc, torch.float64) == "fullrepeat_setup_thread_f64":
+        return fullrepeat_setup_thread_f64(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
     plan = fullrepeat_plan(tuple(recipe), W, Kall, rc, FULLREPEAT_TILE,
                            FULLREPEAT_BLOCKS_PER_SM, FULLREPEAT_THREADS, 8)
-    if plan is None:
-        raise NotImplementedError(f"fullrepeat_setup_f64: no tile plan at W={W}, rc={rc}, "
-                                  f"Kall={Kall}; the f64 first body waits ({_cuda.F64_TODO})")
     return _launch_tiles(fullrepeat_setup_f64, rT_win, Jall_win, W, N_t, plan)
 
 
@@ -322,20 +333,40 @@ def _launch_tiles(fn, rT_win, Jall_win, W, N_t, plan):
 def fullrepeat_setup_thread(rT_win, Jall_win, *, W, N_t, recipe):
     """The contract of fullrepeat_setup by the first body: one thread per
     element; any W, rc, Kall.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel (f64 windows raise:
+    fullrepeat_setup_thread_f64 is theirs)."""
     if rT_win.device.type == "cpu":
         return fullrepeat_setup_reference(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
-    rc, Kall, dev = _checked("fullrepeat_setup_thread", rT_win, Jall_win, W, N_t)
+    return _launch_thread(fullrepeat_setup_thread, rT_win, Jall_win, W, N_t, recipe,
+                          torch.float32)
+
+
+def fullrepeat_setup_thread_f64(rT_win, Jall_win, *, W, N_t, recipe):
+    """fullrepeat_setup_thread in f64 (windows f64 -> agg, crosses f64):
+    the first body's f64 instantiation, every product summed in f64; the
+    f64 shapes the tile plan does not take.  CPU tensors take the plain
+    version."""
+    if rT_win.device.type == "cpu":
+        return fullrepeat_setup_reference(rT_win, Jall_win, W=W, N_t=N_t, recipe=recipe)
+    return _launch_thread(fullrepeat_setup_thread_f64, rT_win, Jall_win, W, N_t, recipe,
+                          torch.float64)
+
+
+def _launch_thread(fn, rT_win, Jall_win, W, N_t, recipe, dt):
+    what = fn.__name__
+    rc, Kall, dev = _checked(what, rT_win, Jall_win, W, N_t, dt)
     rows, F_agg, cross_widths = _recipe_rows(recipe, rc, Kall, W)
-    agg, cross = _outputs(F_agg, cross_widths, N_t, dev)
+    agg, cross = _outputs(F_agg, cross_widths, N_t, dev, dt)
     rec = _cuda.recipe_tensor(rows, dev)
-    code = _cuda.lib().thallo_fullrepeat_setup_thread(
-        rT_win.data_ptr(), Jall_win.data_ptr(), rec.data_ptr(), agg.data_ptr(),
-        cross.data_ptr(), len(rows), rc, W, N_t, _cuda.stream(rT_win))
-    _cuda.check(code, "fullrepeat_setup_thread")
-    fullrepeat_setup_thread.launches += 1
+    launch = (_cuda.lib().thallo_fullrepeat_setup_thread_f64 if dt == torch.float64
+              else _cuda.lib().thallo_fullrepeat_setup_thread)
+    code = launch(rT_win.data_ptr(), Jall_win.data_ptr(), rec.data_ptr(), agg.data_ptr(),
+                  cross.data_ptr(), len(rows), rc, W, N_t, _cuda.stream(rT_win))
+    _cuda.check(code, what)
+    fn.launches += 1
     return agg, _split(cross, cross_widths)
 
 
-for _fn in (fullrepeat_setup, fullrepeat_setup_f64, fullrepeat_setup_thread):
+for _fn in (fullrepeat_setup, fullrepeat_setup_f64, fullrepeat_setup_thread,
+            fullrepeat_setup_thread_f64):
     _fn.launches = 0

@@ -81,20 +81,24 @@ and (16, 3) 0.0211 / 0.0711; embedded deformation's [4, 1 600] (3, 3)
 bf16=True)`` names the bf16 kernel of a level.
 
 **f64** (the solver's ``double_precision``: blocks, pcol and prow f64):
-``fused_pair_apply_f64``, ``fused_pair_apply_atomics_f64`` and
-``fused_pair_apply_atomics_thread_f64``, the f64 instantiations of the
-persistent kernel and of the two atomics bodies (``csrc/fused_pair.cu``,
-every sum f64).  ``fused_pair_route(...,
-dtype=torch.float64)`` is the one place that picks between them: the
-persistent f64 kernel where the f32 route would take the persistent
-kernel and the [9, S] f64 accumulator (72 KB at S = 1024) fits
-``PERSISTENT_MAX_SMEM``; an f64 atomics body for every other f64 level,
-the wide levels the W-loop kernels take in f32 among them: a named
-route, not a fallback.  ``fused_pair_apply_f64`` raises where its
-accumulator does not fit.  The f32 wrappers, the W-loop kernels, the
-first bf16 body and the measurement scripts' kernels have no f64
-instantiation and raise NotImplementedError on an f64 tensor
-(``_cuda.F64_TODO``).
+``fused_pair_apply_f64`` and ``fused_pair_apply_wloop_f64``, the f64
+instantiations of the two persistent kernels (the [9, S] f64 accumulator,
+72 KB at S = 1024, in opted-in dynamic shared memory), and
+``fused_pair_apply_atomics_f64`` and
+``fused_pair_apply_atomics_thread_f64``, those of the two atomics bodies
+(``csrc/fused_pair.cu``, ``csrc/fused_pair_wloop.cu``, every sum f64).
+``fused_pair_route(..., dtype=torch.float64)`` is the one place that picks
+between them: the f32 route's persistent kernel, by the same shape rule,
+where the f64 accumulator fits ``PERSISTENT_MAX_SMEM``; an f64 atomics
+body for every other f64 level.  **bf16 blocks with f64 values**
+(``block_dtype="bf16"`` under ``double_precision``):
+``fused_pair_apply_bf16_f64``, ``fused_pair_apply_wloop_bf16_f64`` and
+``fused_pair_apply_atomics_bf16_f64``, the <bf16, double> instantiations
+of the persistent pair (one element a thread), the W-loop kernel and the
+slots kernel, each block value widened exactly to a double.  Only the
+``_f64`` wrappers take f64 values: the f32 and bf16 wrappers, the first
+W-loop body, the first bf16 body and the measurement scripts' kernels
+raise NotImplementedError on an f64 tensor (``_cuda.F64_TODO``).
 
 The measurement scripts' kernels (``scripts/tpu_fused_pair_micro.py``,
 ``scripts/tpu_fused_variants.py``) are the same pair on bf16 blocks:
@@ -278,24 +282,26 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = Fa
     level's kernel on bf16 blocks (BF16_ROUTES, else
     "fused_pair_apply_atomics_bf16", the slots kernel, which takes Ci up to
     ATOMICS_MAX_CI).
-    dtype float64 (the values' dtype) with f64 blocks: "fused_pair_apply_f64"
-    where the f32 route is the persistent kernel and the f64 accumulator
-    fits, else "fused_pair_apply_atomics_f64" (Ci up to ATOMICS_MAX_CI),
-    or "fused_pair_apply_atomics_thread_f64" where atomics_keeps_thread
-    names the level.
-    bf16 blocks keep their bf16 routes under f64 values: the CPU's plain
-    version runs them, the card's kernels refuse f64 values (a plan
-    refuses the combination on the card)."""
+    dtype float64 (the values' dtype): where the [9, S] f64 accumulator
+    fits (persistent_fits at 8 bytes) the level takes the f32 route's
+    persistent kernel by the same shape rule, "fused_pair_apply_f64" or
+    "fused_pair_apply_wloop_f64"; else "fused_pair_apply_atomics_f64" (Ci up
+    to ATOMICS_MAX_CI), or "fused_pair_apply_atomics_thread_f64" where
+    atomics_keeps_thread names the level.  bf16 blocks with f64 values:
+    "fused_pair_apply_bf16_f64" or "fused_pair_apply_wloop_bf16_f64" where
+    the f64 accumulator fits, else "fused_pair_apply_atomics_bf16_f64"."""
     wide = W >= WLOOP_MIN_W
-    if dtype == torch.float64 and not bf16:
-        persistent = persistent_fits(Ci, Cj, S, 8) and not wide and N_t >= PERSISTENT_MIN_N
-        if persistent:
-            return "fused_pair_apply_f64"
+    persistent = not wide and N_t >= PERSISTENT_MIN_N
+    if dtype == torch.float64:
+        if persistent_fits(Ci, Cj, S, 8):
+            route = "fused_pair_apply" if persistent else "fused_pair_apply_wloop"
+            return route + ("_bf16_f64" if bf16 else "_f64")
+        if bf16:
+            return "fused_pair_apply_atomics_bf16_f64"
         thread = atomics_keeps_thread(W, N_t, Ci, Cj, f64=True)
         return "fused_pair_apply_atomics_thread_f64" if thread else "fused_pair_apply_atomics_f64"
     if persistent_fits(Ci, Cj, S):
-        route = "fused_pair_apply" if not wide and N_t >= PERSISTENT_MIN_N \
-            else "fused_pair_apply_wloop"
+        route = "fused_pair_apply" if persistent else "fused_pair_apply_wloop"
     elif wide and Ci <= MAX_CI and S * 4 <= _cuda.MAX_DYNAMIC_SMEM:
         route = "fused_pair_apply_wloop_chunked"
     elif not bf16 and atomics_keeps_thread(W, N_t, Ci, Cj):
@@ -306,9 +312,9 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = Fa
 
 
 def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols,
-                       block_dtype=torch.float32):
+                       block_dtype=torch.float32, value_dtype=None):
     what = fn.__name__
-    vdt = torch.float64 if block_dtype == torch.float64 else torch.float32
+    vdt = value_dtype or (torch.float64 if block_dtype == torch.float64 else torch.float32)
     W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype,
                             value_dtype=vdt)
     itemsize = torch.finfo(vdt).bits // 8
@@ -323,7 +329,9 @@ def _launch_persistent(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, with_cols,
     args = (ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
             rows.data_ptr(), cols.data_ptr() if with_cols else None, W, N, Ci, Cj, S, THREADS,
             per_sm * _cuda.sm_count(dev), MERGE_MIN)
-    if block_dtype == torch.bfloat16:
+    if block_dtype == torch.bfloat16 and vdt == torch.float64:
+        code = _cuda.lib().thallo_fused_pair_persistent_bf16_f64(*args, _cuda.stream(ids2d))
+    elif block_dtype == torch.bfloat16:
         code = _cuda.lib().thallo_fused_pair_persistent_bf16(*args, bf16_elems(N),
                                                              _cuda.stream(ids2d))
     elif block_dtype == torch.float64:
@@ -382,6 +390,21 @@ def fused_pair_apply_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
                               True, torch.float64)
 
 
+def fused_pair_apply_bf16_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply on bf16 blocks with f64 values (pcol, prow -> rows,
+    cols f64; block_dtype="bf16" under double_precision): the persistent
+    kernel's <bf16, double> instantiation, one element a thread, each block
+    value widened exactly to a double.  A pair it is not specialised for,
+    or an f64 accumulator beyond its shared memory, raises ValueError
+    (fused_pair_route sends those levels to
+    fused_pair_apply_atomics_bf16_f64).  CPU tensors take the plain
+    version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_persistent(fused_pair_apply_bf16_f64, ids2d, blocks_wm, pcol, prow, Ci, Cj,
+                              S, True, torch.bfloat16, torch.float64)
+
+
 def fused_pair_rows_floor(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """rows [Ci, N] alone, by the persistent kernel (f32 or bf16 blocks)
     with its cols side compiled out (a measurement; the persistent route's
@@ -428,6 +451,19 @@ def fused_pair_apply_atomics_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
                            S, torch.bfloat16, slots=True)
 
 
+def fused_pair_apply_atomics_bf16_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply_atomics_bf16 with f64 values (pcol, prow, rows and
+    cols f64; block_dtype="bf16" under double_precision): the slots
+    kernel's <bf16, double> instantiation, each block value widened exactly
+    to a double, its slots on bf16_slot_lanes lanes; any Ci <=
+    ATOMICS_MAX_CI, Cj <= 16 and S.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_atomics(fused_pair_apply_atomics_bf16_f64, ids2d, blocks_wm, pcol, prow, Ci,
+                           Cj, S, torch.bfloat16, slots=True, value_dtype=torch.float64)
+
+
 def fused_pair_apply_atomics_thread(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """The first atomics body: one thread per element walks its W slots,
     one global atomic per cols value; the same contract and shapes as
@@ -449,9 +485,10 @@ def fused_pair_apply_atomics_thread_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj,
                            Cj, S, torch.float64, slots=False)
 
 
-def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, slots, P=None):
+def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, slots, P=None,
+                    value_dtype=None):
     what = fn.__name__
-    dt = torch.float32 if block_dtype == torch.bfloat16 else block_dtype
+    dt = value_dtype or (torch.float32 if block_dtype == torch.bfloat16 else block_dtype)
     W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype,
                             ATOMICS_MAX_CI, value_dtype=dt)
     rows = torch.empty((Ci, N), dtype=dt, device=ids2d.device)
@@ -461,7 +498,9 @@ def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, sl
             rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S)
     if block_dtype == torch.bfloat16:
         lanes = P or bf16_slot_lanes(W, N, _cuda.sm_count(ids2d.device))
-        code = lib.thallo_fused_pair_atomics_slots_bf16(*args, lanes, _cuda.stream(ids2d))
+        launch = lib.thallo_fused_pair_atomics_slots_bf16_f64 if f64 else \
+            lib.thallo_fused_pair_atomics_slots_bf16
+        code = launch(*args, lanes, _cuda.stream(ids2d))
     elif slots:
         launch = lib.thallo_fused_pair_atomics_slots_f64 if f64 else \
             lib.thallo_fused_pair_atomics_slots
@@ -474,42 +513,55 @@ def _launch_atomics(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype, sl
     return rows, cols
 
 
-for _fn in (fused_pair_apply, fused_pair_apply_bf16, fused_pair_apply_f64, fused_pair_rows_floor,
-            fused_pair_apply_atomics, fused_pair_apply_atomics_f64, fused_pair_apply_atomics_bf16,
-            fused_pair_apply_atomics_thread, fused_pair_apply_atomics_thread_f64):
+for _fn in (fused_pair_apply, fused_pair_apply_bf16, fused_pair_apply_f64,
+            fused_pair_apply_bf16_f64, fused_pair_rows_floor, fused_pair_apply_atomics,
+            fused_pair_apply_atomics_f64, fused_pair_apply_atomics_bf16,
+            fused_pair_apply_atomics_bf16_f64, fused_pair_apply_atomics_thread,
+            fused_pair_apply_atomics_thread_f64):
     _fn.launches = 0
 
 
-def wloop_plan(W: int, N: int, S: int, sms: int):
+def wloop_plan(W: int, N: int, S: int, sms: int, itemsize: int = 4):
     """(w_item, grid) of the persistent W-loop kernel: items of a 32-element
     tile and w_item w's, about one per warp of the grid, at least
     WLOOP_MIN_ITEM w's each, W split evenly (an item that covers its
     elements' whole level stores their rows); grid: WLOOP_BLOCKS_PER_SM
-    blocks per SM (fewer where the [9, S] accumulator leaves no room), no
-    more than the items fill."""
+    blocks per SM (fewer where the [9, S] accumulator, itemsize bytes a
+    value, leaves no room), no more than the items fill."""
     warps = WLOOP_THREADS // 32
     tiles = -(-N // 32)
-    blocks = _cuda.blocks_per_sm(9 * S * 4, WLOOP_BLOCKS_PER_SM) * sms
+    blocks = _cuda.blocks_per_sm(9 * S * itemsize, WLOOP_BLOCKS_PER_SM) * sms
     target = max(1, WLOOP_MIN_ITEM, -(-(W * tiles) // (blocks * warps)))
     w_item = max(1, -(-W // max(1, -(-W // target))))
     items = tiles * -(-W // w_item)
     return w_item, max(1, min(blocks, -(-items // warps)))
 
 
-def _launch_wloop(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype):
+# the persistent W-loop kernel's export by (block dtype, value dtype)
+_WLOOP_EXPORTS = {
+    (torch.float32, torch.float32): "thallo_fused_pair_wloop_persistent",
+    (torch.bfloat16, torch.float32): "thallo_fused_pair_wloop_persistent_bf16",
+    (torch.float64, torch.float64): "thallo_fused_pair_wloop_persistent_f64",
+    (torch.bfloat16, torch.float64): "thallo_fused_pair_wloop_persistent_bf16_f64"}
+
+
+def _launch_wloop(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype,
+                  value_dtype=torch.float32):
     what = fn.__name__
-    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype)
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, block_dtype,
+                            value_dtype=value_dtype)
+    itemsize = torch.finfo(value_dtype).bits // 8
+    if not persistent_fits(Ci, Cj, S, itemsize):
+        raise ValueError(f"{what}: no persistent W-loop kernel for Ci={Ci}, Cj={Cj}, S={S}")
     dev = ids2d.device
-    w_item, grid = wloop_plan(W, N, S, _cuda.sm_count(dev))
-    rows = (torch.empty if w_item >= W else torch.zeros)((Ci, N), dtype=torch.float32, device=dev)
-    cols = torch.zeros((Cj, S), dtype=torch.float32, device=dev)
+    w_item, grid = wloop_plan(W, N, S, _cuda.sm_count(dev), itemsize)
+    rows = (torch.empty if w_item >= W else torch.zeros)((Ci, N), dtype=value_dtype, device=dev)
+    cols = torch.zeros((Cj, S), dtype=value_dtype, device=dev)
     args = (ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(),
             rows.data_ptr(), cols.data_ptr(), W, N, Ci, Cj, S, WLOOP_THREADS, grid, w_item,
             MERGE_MIN)
-    if block_dtype == torch.bfloat16:
-        code = _cuda.lib().thallo_fused_pair_wloop_persistent_bf16(*args, _cuda.stream(ids2d))
-    else:
-        code = _cuda.lib().thallo_fused_pair_wloop_persistent(*args, _cuda.stream(ids2d))
+    launch = getattr(_cuda.lib(), _WLOOP_EXPORTS[block_dtype, value_dtype])
+    code = launch(*args, _cuda.stream(ids2d))
     _cuda.check(code, what)
     fn.launches += 1
     return rows, cols
@@ -545,6 +597,32 @@ def fused_pair_apply_wloop_bf16(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
                          torch.bfloat16)
 
 
+def fused_pair_apply_wloop_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply_wloop in f64 (blocks, pcol, prow -> rows, cols f64):
+    the persistent W-loop kernel's f64 instantiation, its [9, S] f64
+    accumulator in opted-in dynamic shared memory (72 KB at S = 1024); a
+    pair it is not specialised for, or an accumulator beyond
+    PERSISTENT_MAX_SMEM, raises ValueError (fused_pair_route sends those
+    levels to an f64 atomics body).  CPU tensors take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_wloop(fused_pair_apply_wloop_f64, ids2d, blocks_wm, pcol, prow, Ci, Cj, S,
+                         torch.float64, torch.float64)
+
+
+def fused_pair_apply_wloop_bf16_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """fused_pair_apply_wloop on bf16 blocks with f64 values
+    (block_dtype="bf16" under double_precision): the persistent W-loop
+    kernel's <bf16, double> instantiation, each block value widened
+    exactly to a double; shapes it does not take raise ValueError
+    (fused_pair_route sends them to fused_pair_apply_atomics_bf16_f64).
+    CPU tensors take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_wloop(fused_pair_apply_wloop_bf16_f64, ids2d, blocks_wm, pcol, prow, Ci, Cj,
+                         S, torch.bfloat16, torch.float64)
+
+
 def fused_pair_apply_wloop_chunked(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """The contract of fused_pair_apply by the first W-loop body: blocks
     over (element tile, w-chunk, channel chunk), rows and cols summed per
@@ -569,7 +647,8 @@ def fused_pair_apply_wloop_chunked(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     return rows, cols
 
 
-for _fn in (fused_pair_apply_wloop, fused_pair_apply_wloop_bf16, fused_pair_apply_wloop_chunked):
+for _fn in (fused_pair_apply_wloop, fused_pair_apply_wloop_bf16, fused_pair_apply_wloop_f64,
+            fused_pair_apply_wloop_bf16_f64, fused_pair_apply_wloop_chunked):
     _fn.launches = 0
 
 

@@ -8,9 +8,8 @@ every kernel's plain torch version.  Nothing picks a device by itself.
 ``ProblemSpec(double_precision=True)`` makes every array the plan
 allocates or casts f64 (``self.dtype``; index arrays stay integer): on
 the card the kernels run their f64 instantiations.  ``block_dtype="bf16"``
-with it is allowed, as in JAX (bf16 cross blocks, f64 everything else),
-on the CPU; on the card it raises NotImplementedError (no kernel takes
-bf16 blocks with f64 values).
+with it is allowed, as in JAX (bf16 cross blocks, f64 everything else):
+on the card the fused pairs' ``_bf16_f64`` instantiations read them.
 
 ``use_autoscheduler`` (thallo_tpu/plan.py:115-228) picks the groups'
 schedules: 0 (the default) the energy's directives and
@@ -193,11 +192,6 @@ class Plan:
                              f"{sorted(BLOCK_DTYPES, key=str)}")
         self.device = _resolve_device(options.get("device", "cuda"))
         self.dtype = torch.float64 if spec.double_precision else torch.float32
-        if spec.double_precision and BLOCK_DTYPES[options.get("block_dtype")] is not None \
-                and self.device.type == "cuda":
-            raise NotImplementedError(
-                "block_dtype='bf16' with double_precision on the card: no kernel takes bf16 "
-                "blocks with f64 values (ROADMAP queue 2, item 7); the CPU runs it, as JAX")
         self.timing_level = int(options.get("timing_level", 1))
         self.timer = Timer()
         # k nonlinear steps a dispatch (thallo_tpu/plan.py:674-749): on the

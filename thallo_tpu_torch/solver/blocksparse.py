@@ -34,7 +34,8 @@ partner runs both directions through one fused kernel launch per level
 persistent ``fused_pair_apply`` or the W-loop kernel for wide, short
 levels; under ``block_dtype="bf16"`` their bf16 instantiations, and
 the slots kernel on bf16 blocks, ``fused_pair_apply_atomics_bf16``, for
-the other shapes); a col pair without one
+the other shapes; under ``double_precision`` their ``_f64``
+instantiations, bf16 blocks included); a col pair without one
 gathers p by its col table and multiplies.  An image that
 ``linear_solver="schur_dense"`` is told to eliminate builds row tables
 instead of one-hot rows and keeps its col blocks (``onehot_exclude``):
@@ -63,12 +64,13 @@ import torch
 from ..ops import structured
 from ..ops.fullrepeat import fullrepeat_setup
 from ..ops.fusedpair import (fused_pair_apply, fused_pair_apply_atomics,
-                             fused_pair_apply_atomics_bf16,
+                             fused_pair_apply_atomics_bf16, fused_pair_apply_atomics_bf16_f64,
                              fused_pair_apply_atomics_f64, fused_pair_apply_atomics_thread,
                              fused_pair_apply_atomics_thread_f64, fused_pair_apply_bf16,
-                             fused_pair_apply_f64, fused_pair_apply_wloop,
-                             fused_pair_apply_wloop_bf16, fused_pair_apply_wloop_chunked,
-                             fused_pair_route)
+                             fused_pair_apply_bf16_f64, fused_pair_apply_f64,
+                             fused_pair_apply_wloop, fused_pair_apply_wloop_bf16,
+                             fused_pair_apply_wloop_bf16_f64, fused_pair_apply_wloop_chunked,
+                             fused_pair_apply_wloop_f64, fused_pair_route)
 from ..ops.ohsetup import oh_setup_products, setup_slabs
 
 # padding budget of the rank-keyed tables: sum N_t*W_t <= MAX_WASTE*R + MAX_PAD_EXTRA
@@ -642,7 +644,11 @@ def bsr_apply(bsr: GroupBsr, blocks, p):
                   "fused_pair_apply_wloop_chunked": fused_pair_apply_wloop_chunked,
                   "fused_pair_apply_bf16": fused_pair_apply_bf16,
                   "fused_pair_apply_wloop_bf16": fused_pair_apply_wloop_bf16,
-                  "fused_pair_apply_atomics_bf16": fused_pair_apply_atomics_bf16}[route]
+                  "fused_pair_apply_atomics_bf16": fused_pair_apply_atomics_bf16,
+                  "fused_pair_apply_wloop_f64": fused_pair_apply_wloop_f64,
+                  "fused_pair_apply_bf16_f64": fused_pair_apply_bf16_f64,
+                  "fused_pair_apply_wloop_bf16_f64": fused_pair_apply_wloop_bf16_f64,
+                  "fused_pair_apply_atomics_bf16_f64": fused_pair_apply_atomics_bf16_f64}[route]
             rows, cols = fn(ids, blocks[p_idx], pcol, prow.contiguous(), Ci=Ci, Cj=Cj,
                             S=pcol.shape[1])
             add(i, rows, sel)
