@@ -19,7 +19,9 @@ its seconds; any failure exits non-zero):
      the one fused_pair_route names; oh_setup_products and its first
      body at the uniform and the skewed camera ids; fullrepeat_setup and
      its first body (fullrepeat_setup_thread) at the uniform point level,
-     a ragged one and W = 9; oh_setup_aggregate and its first body
+     a ragged one and W = 9 (and the wide kernel, fullrepeat_setup_wide),
+     and the wide kernel beside the first body at phase 28's W = 10 point
+     level in f32 and f64; oh_setup_aggregate and its first body
      (oh_setup_aggregate_atomics) at the uniform and the skewed camera
      ids; the measurement scripts' kernels at the JAX scripts' BA-1M
      shape; the atomics route's two bodies (the slots kernel,
@@ -95,8 +97,8 @@ its seconds; any failure exits non-zero):
      loop-floor kernel (one tile and 64 tiles), the global-atomics fused
      pair and the six first bodies the redesigns replaced (the chunked
      W-loop kernel, the global-atomics oh_setup_products,
-     fullrepeat_setup_thread, oh_setup_aggregate_atomics, and the first
-     bodies of v2 and v3) launched;
+     fullrepeat_setup_thread[_f64] (W = 4 and W = 10), oh_setup_aggregate_atomics,
+     and the first bodies of v2 and v3) launched;
   9. the 1M LM solve, block-sparse JᵀJ under block_dtype="bf16",
      BF16_1M_RUNS times: the bf16 persistent kernel
      (fused_pair_apply_bf16), oh_setup_products and fullrepeat_setup
@@ -305,10 +307,15 @@ its seconds; any failure exits non-zero):
      this phase).
  28. double_precision where the card used to refuse it: (a) the W = 10
      scene (BA_10: synthetic_inputs(1024, 100000, 10)), F64_WIDE_STEPS LM
-     steps through fullrepeat_setup_thread_f64, fused_pair_apply_wloop_f64
-     and oh_setup_products_f64 (no f32 kernel, no atomics pair), never
+     steps through fullrepeat_setup_wide_f64, fused_pair_apply_wloop_f64
+     and oh_setup_products_f64 (no f32 kernel, no atomics pair, no first
+     full-repeat body), never rising, final <= 1e-2 x initial, the linear
+     parts at the initial unknowns card vs CPU (F64_LINEAR_RTOL); (e) the
+     same scene in f32, F64_WIDE_STEPS LM steps through
+     fullrepeat_setup_wide, oh_setup_products and fused_pair_apply_wloop
+     (no first full-repeat body, no f64 kernel, no atomics pair), never
      rising, final <= 1e-2 x initial, the linear parts at the initial
-     unknowns card vs CPU (F64_LINEAR_RTOL); (b) the W = 10 scene and the
+     unknowns card vs CPU (GRID_LINEAR_RTOL); (b) the W = 10 scene and the
      uniform 1M scene with block_dtype="bf16", BF16_1M_RUNS solves each
      through fused_pair_apply_wloop_bf16_f64 and fused_pair_apply_bf16_f64
      alone, held by phase 9's rule (BF16_RULE), the linear parts card vs
@@ -319,8 +326,8 @@ its seconds; any failure exits non-zero):
      with block_dtype="bf16", both edge orders, through
      fused_pair_apply_atomics_bf16_f64, the linear parts card vs CPU, the
      costs within ARAP_BF16_F64_TRAJ_RTOL of JAX's (ARAP_JAX_BF16_F64_COSTS).
-     Phase 2 holds each of the five new kernels against its plain f64
-     version at the shapes of one step of each of these plans
+     Phase 2 holds each kernel of these paths against its plain version at
+     the shapes of one step of each of these plans, 28(e)'s too
      (f64_wide_kernel_cases; the skewed levels' hot camera by the sum rule
      in f64, KERNEL_SUM_TOL_F64).
 Each solve's and phase 8's kernel counts are set to 0 just before it and
@@ -698,7 +705,8 @@ F64_MODELS = {"deconvolution": (1.2e-5, 4e-8), "face_fitting": (1e-8, 1e-8)}
 # phase 28: the f64 configurations the card used to refuse.  (a)
 # synthetic_inputs(1024, 100000, 10): 1 000 000 observations, every point
 # seen by 10 of the 1024 cameras, so the point side is one full-repeat
-# table of W = 10 (no f64 tile plan: fullrepeat_setup_thread_f64) and its
+# table of W = 10 (no tile plan: fullrepeat_setup_wide_f64; (e) the same
+# scene in f32, fullrepeat_setup_wide) and its
 # col pair a wide level (fused_pair_apply_wloop_f64); LM F64_WIDE_STEPS
 # steps, block-Jacobi, never rising, final <= 1e-2 x c0, the linear parts
 # card vs CPU at F64_LINEAR_RTOL.  (b) the same scene and the uniform 1M
@@ -1015,21 +1023,32 @@ def kernel_cases(dev, rng, scene, skew_oToC):
              t(rng.normal(size=(18, R)).astype(np.float32)), t(ids))
         cases += products_cases(tag, a, N, oh_recipe)
     # the point level of the uniform scene (the solver's recipe), a ragged
-    # one, and W = 9 (which fullrepeat_setup gives the first body)
+    # one, and W = 9 (which fullrepeat_setup gives the wide kernel); the
+    # point level of phase 28's W = 10 scene in f32 and f64: the wide
+    # kernel beside the first body it replaced
     fr_recipe = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 6, 9, 0), ("diag", 0, 3, 0, 3))
-    for tag, (N_t, W) in (("ba1m", (250_000, 4)), ("ragged", (131, 3)), ("ragged_w9", (131, 9))):
-        a = (t(rng.normal(size=(2, N_t * W)).astype(np.float32)),
-             t(rng.normal(size=(24, N_t * W)).astype(np.float32)))
+    fr_cases = (("ba1m", 250_000, 4, np.float32, ("fullrepeat_setup", "fullrepeat_setup_thread")),
+                ("ragged", 131, 3, np.float32, ("fullrepeat_setup", "fullrepeat_setup_thread")),
+                ("ragged_w9", 131, 9, np.float32,
+                 ("fullrepeat_setup", "fullrepeat_setup_wide", "fullrepeat_setup_thread")),
+                ("w10", BA_10[1], BA_10[2], np.float32,
+                 ("fullrepeat_setup_wide", "fullrepeat_setup_thread")),
+                ("w10_f64", BA_10[1], BA_10[2], np.float64,
+                 ("fullrepeat_setup_wide_f64", "fullrepeat_setup_thread_f64")))
+    for tag, N_t, W, dt, names in fr_cases:
+        a = (t(rng.normal(size=(2, N_t * W)).astype(dt)),
+             t(rng.normal(size=(24, N_t * W)).astype(dt)))
+        tol = (F64_KERNEL_TOL,) if dt == np.float64 else ()
 
         def run(fn, a=a, N_t=N_t, W=W):
             agg, crosses = fn(*a, W=W, N_t=N_t, recipe=fr_recipe)
             return (agg, *crosses)
 
-        for name in ("fullrepeat_setup", "fullrepeat_setup_thread"):
+        for name in names:
             cases.append((name, tag,
                           lambda run=run, fn=getattr(fullrepeat, name): run(fn),
                           lambda run=run: run(fullrepeat.fullrepeat_setup_reference),
-                          None, nbytes(*a), (3 + 3 + 27 + 9) * 2 * 2 * N_t * W, None))
+                          None, nbytes(*a), (3 + 3 + 27 + 9) * 2 * 2 * N_t * W, None, *tol))
     # the camera scatter of the materialized-J schedules: [9, 1M] by oToC;
     # the skewed scene's oToC (one camera with half the rows: that
     # camera's outputs held to the sqrt(n) rule, the rest to KERNEL_TOL);
@@ -1258,7 +1277,10 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("segment_sum_f64", "ba1m_f64"): "segment_sum_f64",
           ("segment_sum_f64", "ba1m_cameras_f64"): "segment_sum_f64_cameras",
           # phase 28's paths' first call of each new kernel (f64_wide_kernel_cases)
-          ("fullrepeat_setup_thread_f64", "w10_f64_0"): "fullrepeat_setup_thread_f64",
+          ("fullrepeat_setup_wide_f64", "w10_f64_0"): "fullrepeat_setup_wide_f64",
+          ("fullrepeat_setup_thread_f64", "w10_f64"): "fullrepeat_setup_thread_f64",
+          # phase 28(e)'s path (f64_wide_kernel_cases' w10_f32)
+          ("fullrepeat_setup_wide", "w10_f32_0"): "fullrepeat_setup_wide",
           ("fused_pair_apply_wloop_f64", "w10_f64_0"): "fused_pair_apply_wloop_f64",
           ("fused_pair_apply_wloop_bf16_f64", "w10_bf16_f64_0"): "fused_pair_apply_wloop_bf16_f64",
           ("fused_pair_apply_bf16_f64", "ba1m_bf16_f64_0"): "fused_pair_apply_bf16_f64",
@@ -1352,8 +1374,15 @@ KERNELS = {
                                 "thallo_tpu/ops/segsum.py:254", "inline f64 tiled"),
     # phase 28: f64 full repeats outside the tile plan, the f64 W-loop
     # kernel, bf16 blocks under f64 values
+    # the wide kernel (every full repeat without a tile plan), f32
+    # (phase 28(e)) and f64 (28(a)); the first body it replaced, timed at
+    # the same shape in phase 2 and launched by phase 8
+    "fullrepeat_setup_wide": ("thallo_tpu_torch/csrc/fullrepeat.cu",
+                              "thallo_tpu/ops/fullrepeat.py:178", "w10 f32 block-sparse"),
+    "fullrepeat_setup_wide_f64": ("thallo_tpu_torch/csrc/fullrepeat.cu",
+                                  "thallo_tpu/ops/fullrepeat.py:178", "w10 f64 block-sparse"),
     "fullrepeat_setup_thread_f64": ("thallo_tpu_torch/csrc/fullrepeat.cu",
-                                    "thallo_tpu/ops/fullrepeat.py:178", "w10 f64 block-sparse"),
+                                    "thallo_tpu/ops/fullrepeat.py:178", "measurement"),
     "fused_pair_apply_wloop_f64": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
                                    "thallo_tpu/ops/fusedpair.py:385", "w10 f64 block-sparse"),
     "fused_pair_apply_wloop_bf16_f64": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
@@ -1382,6 +1411,8 @@ def counters():
             "oh_setup_products_atomics": ohsetup.oh_setup_products_atomics,
             "fullrepeat_setup": fullrepeat.fullrepeat_setup,
             "fullrepeat_setup_thread": fullrepeat.fullrepeat_setup_thread,
+            "fullrepeat_setup_wide": fullrepeat.fullrepeat_setup_wide,
+            "fullrepeat_setup_wide_f64": fullrepeat.fullrepeat_setup_wide_f64,
             "oh_setup_aggregate": ohsetup.oh_setup_aggregate,
             "oh_setup_aggregate_atomics": ohsetup.oh_setup_aggregate_atomics,
             "segment_sum": segsum.segment_sum,
@@ -2675,7 +2706,7 @@ def phase_arap_256(tt):
         del cpu_plan
         for n, fn in fns.items():
             fn.launches = solve_launches[n]  # the check's own apply is not the solve's
-        hold_linear_parts(label, got, ref)
+        hold_linear_parts(f"{label}, step 3", got, ref)
         t0 = time.perf_counter()
         n = plan.run_steps(ARAP_STEPS - 3)
         torch.cuda.synchronize()
@@ -2729,19 +2760,20 @@ def phase_arap_256(tt):
 def hold_linear_parts(label, got, ref):
     """The cost, -JᵀF, diag(JᵀJ) and JᵀJ·p of linear_parts on the card
     (got) against the port's CPU path (ref) at the same unknowns, each
-    within GRID_LINEAR_RTOL (x max|ref|)."""
+    within GRID_LINEAR_RTOL (x max|ref|).  label names the unknowns (a
+    step, or the initial ones)."""
     rel = abs(got[0] - ref[0]) / abs(ref[0])
-    log(f"{label}, step 3, card vs CPU: cost {got[0]!r} vs {ref[0]!r}, rel {rel:.3e}")
+    log(f"{label}, card vs CPU: cost {got[0]!r} vs {ref[0]!r}, rel {rel:.3e}")
     if not rel <= GRID_LINEAR_RTOL:
-        raise AssertionError(f"{label}: cost at step 3, card {got[0]} vs CPU {ref[0]}")
+        raise AssertionError(f"{label}: cost, card {got[0]} vs CPU {ref[0]}")
     for what, a, b in zip(("-JᵀF", "diag(JᵀJ)", "JᵀJ·p"), got[1:], ref[1:]):
         for name in b:
             err = float(np.abs(a[name] - b[name]).max())
             scale = float(np.abs(b[name]).max())
-            log(f"{label}, step 3, card vs CPU: {what} {name} max|diff| {err:.3e} "
+            log(f"{label}, card vs CPU: {what} {name} max|diff| {err:.3e} "
                 f"= {err / scale:.3e} x max|ref|")
             if not err <= GRID_LINEAR_RTOL * scale:
-                raise AssertionError(f"{label}: {what} of {name} at step 3, card vs CPU, "
+                raise AssertionError(f"{label}: {what} of {name}, card vs CPU, "
                                      f"{err} > {GRID_LINEAR_RTOL} x {scale}")
 
 
@@ -2810,7 +2842,7 @@ def phase_arap_256_bf16(tt):
         del cpu_plan
         for n, fn in fns.items():
             fn.launches = solve_launches[n]  # the check's own apply is not the solve's
-        hold_linear_parts(label, got, ref)
+        hold_linear_parts(f"{label}, step 3", got, ref)
         t0 = time.perf_counter()
         n = plan.run_steps(ARAP_STEPS - 3)
         torch.cuda.synchronize()
@@ -4229,17 +4261,19 @@ def phase_grid_sharded_and_capi(ba, tt, scene):
 def f64_wide_kernel_cases(dev, rng, ba, tt, scene, scene10, skew_scene):
     """Phase 28's kernels at the shapes, recipes and tables of one step of
     each of its plans on the card (path_calls), each against its plain
-    f64 version within F64_KERNEL_TOL x max|ref|; the skewed scene's
-    levels' hot outputs (its hot camera) to compare's sum-of-terms rule in
-    f64 (KERNEL_SUM_TOL_F64)."""
+    version within F64_KERNEL_TOL x max|ref| (f32, 28(e): KERNEL_TOL); the
+    skewed scene's levels' hot outputs (its hot camera) to compare's
+    sum-of-terms rule in f64 (KERNEL_SUM_TOL_F64)."""
 
-    def ba1(sc, **options):
-        plan = ba_plan(ba, tt, *sc, "cuda", 1, double=True, **options)
+    def ba1(sc, double=True, **options):
+        plan = ba_plan(ba, tt, *sc, "cuda", 1, double=double, **options)
         plan.init({k: np.copy(v) for k, v in sc[0].items()})
         return plan
 
     makes = {"w10_f64": (lambda: ba1(scene10), {"oh_setup_products", "fullrepeat_setup",
                                                  "fused_pair_apply_wloop_f64"}),
+             "w10_f32": (lambda: ba1(scene10, double=False),
+                         {"oh_setup_products", "fullrepeat_setup", "fused_pair_apply_wloop"}),
              "w10_bf16_f64": (lambda: ba1(scene10, block_dtype="bf16"),
                               {"oh_setup_products", "fullrepeat_setup",
                                "fused_pair_apply_wloop_bf16_f64"}),
@@ -4263,22 +4297,59 @@ def f64_wide_kernel_cases(dev, rng, ba, tt, scene, scene10, skew_scene):
 
 def phase_f64_wide(ba, tt, scene10):
     """Phase 28(a): the W = 10 scene in f64 through
-    fullrepeat_setup_thread_f64, fused_pair_apply_wloop_f64 and
-    oh_setup_products_f64 (no f32 kernel, no atomics pair); never rising,
-    final <= 1e-2 x c0; the linear parts card vs CPU.  Returns the
-    launches."""
+    fullrepeat_setup_wide_f64, fused_pair_apply_wloop_f64 and
+    oh_setup_products_f64 (no f32 kernel, no atomics pair, no first
+    full-repeat body); never rising, final <= 1e-2 x c0; the linear parts
+    card vs CPU.  Returns the launches."""
     label = "1M W=10 f64"
     costs, _, launches, plan = solve_1m(ba, tt, scene10, label, (
-        "fullrepeat_setup_thread_f64", "fused_pair_apply_wloop_f64", "oh_setup_products_f64"),
+        "fullrepeat_setup_wide_f64", "fused_pair_apply_wloop_f64", "oh_setup_products_f64"),
         n_steps=F64_WIDE_STEPS, double=True)
     del plan
-    stray = [n for n, k in launches.items() if k and (not n.endswith("_f64") or "atomics" in n)]
+    stray = [n for n, k in launches.items() if k and (not n.endswith("_f64") or "atomics" in n
+                                                      or n.startswith("fullrepeat_setup_thread"))]
     if stray:
         raise AssertionError(f"{label}: launched {stray}")
     never_rising(label, costs)
     if not costs[-1] <= 1e-2 * costs[0]:
         raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
     hold_f64_linear_parts(label, ba, tt, scene10)
+    return launches
+
+
+def phase_f32_wide(ba, tt, scene10):
+    """Phase 28(e): the W = 10 scene in f32, F64_WIDE_STEPS LM steps,
+    block-Jacobi, through fullrepeat_setup_wide, oh_setup_products and the
+    f32 W-loop pair (fused_pair_route's kernel at (10, 100 000)): no first
+    full-repeat body, no f64 kernel, no atomics pair; never rising, final
+    <= 1e-2 x c0; the linear parts at the initial unknowns card vs the
+    port's CPU path within GRID_LINEAR_RTOL (the f32 rule of phases 11, 16,
+    18 and 27).  Returns the launches."""
+    label = "1M W=10 f32"
+    costs, _, launches, plan = solve_1m(ba, tt, scene10, label, (
+        "fullrepeat_setup_wide", "fused_pair_apply_wloop", "oh_setup_products"),
+        n_steps=F64_WIDE_STEPS)
+    del plan
+    stray = [n for n, k in launches.items() if k and (n.endswith("_f64") or "atomics" in n
+                                                      or n.startswith("fullrepeat_setup_thread"))]
+    if stray:
+        raise AssertionError(f"{label}: launched {stray}")
+    never_rising(label, costs)
+    if not costs[-1] <= 1e-2 * costs[0]:
+        raise AssertionError(f"{label}: final cost {costs[-1]} > 1e-2 * initial {costs[0]}")
+    inputs, dims = scene10
+    rng = np.random.default_rng(17)
+    p = {"cameras": rng.normal(size=(dims["C"], 9)).astype(np.float32),
+         "points": rng.normal(size=(dims["P"], 3)).astype(np.float32)}
+    parts = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        plan = ba_plan(ba, tt, inputs, dims, dev, 1)
+        plan.init({k: np.copy(v) for k, v in inputs.items()})
+        parts[dev] = linear_parts(plan, p)
+        del plan
+        log(f"{label}: linear parts on {dev} {time.perf_counter() - t0:.2f} s")
+    hold_linear_parts(f"{label}, initial unknowns", parts["cuda"], parts["cpu"])
     return launches
 
 
@@ -4653,14 +4724,16 @@ def main():
 
     t0 = time.perf_counter()
     runs["w10 f64 block-sparse"] = phase_f64_wide(ba, tt, scene10)
+    runs["w10 f32 block-sparse"] = phase_f32_wide(ba, tt, scene10)
     runs.update(phase_bf16_f64(ba, tt, scene, scene10))
     runs["skew f64 block-sparse"] = phase_skew_f64(ba, tt, skew_scene)
     f64_arap_runs = phase_arap_bf16_f64(tt)
     model_runs.update(f64_arap_runs)
     runs.update(f64_arap_runs)
     torch.cuda.synchronize()
-    log(f"phase 28 double_precision where the card refused it: the W = 10 scene, bf16 blocks "
-        f"under f64 (W = 10, uniform 1M, ARAP {ARAP_SIDE}²), the skewed 1M scene: "
+    log(f"phase 28 double_precision where the card refused it: the W = 10 scene (and in "
+        f"f32), bf16 blocks under f64 (W = 10, uniform 1M, ARAP {ARAP_SIDE}²), the skewed 1M "
+        f"scene: "
         f"{time.perf_counter() - t0:.2f} s")
 
     # launches on the run named beside each kernel (a solve, or phase 8),

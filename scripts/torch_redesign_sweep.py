@@ -60,9 +60,16 @@ Groups (all by default):
   fullrepeat  fullrepeat_setup at the uniform 1M scene's point level (N_t
           250 000, W 4, rc 2, Kall 24; the solver's recipe: jtr 3, d2 3,
           the 3 x 9 cross pair, the 3 x 3 diag pair): the tile kernel
-          (tiles) and fullrepeat_setup_thread (the first body).  --sweep:
-          the tile kernel over FULLREPEAT_TILE x FULLREPEAT_BLOCKS_PER_SM
-          and FULLREPEAT_THREADS.
+          (tiles) and fullrepeat_setup_thread (the first body); then the
+          point level of synthetic_inputs(1024, 100000, 10) (N_t 100 000,
+          W 10, the same recipe), in f32 and f64: the wide kernel (wide,
+          wide_f64) and the first body (thread, thread_f64), and the plain
+          version (plain, plain_f64).  --sweep: the tile kernel over
+          FULLREPEAT_TILE x FULLREPEAT_BLOCKS_PER_SM and FULLREPEAT_THREADS;
+          the wide kernel at W = 10 in both dtypes over WIDE_MAX_CONFLICT
+          (0: an odd pitch, scalar copies; 2: pitch W, 16-byte copies and
+          pair reads) x (WIDE_TILE, WIDE_BLOCKS_PER_SM, WIDE_MAX_STAGES) x
+          WIDE_THREADS (f64: WIDE_THREADS_F64).
   aggregate  oh_setup_aggregate at the PRECOMPUTE_J camera scatter,
           [9, 1 000 000] by random ids into 1024, and at the skewed
           scene's camera ids (one camera with half the rows): the
@@ -137,6 +144,13 @@ FR_RECIPE = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 6, 9, 0), ("diag", 0, 
 # (FULLREPEAT_TILE, FULLREPEAT_BLOCKS_PER_SM), then FULLREPEAT_THREADS
 FR_SWEEP = (((32, 4), (64, 2), (64, 3), (64, 4), (96, 2), (128, 1), (128, 2), (256, 1)),
             (128, 256))
+# the wide kernel's shape: the point level of synthetic_inputs(1024, 100000, 10)
+FR_WIDE = (100_000, 10)  # (N_t, W)
+# WIDE_MAX_CONFLICT, (WIDE_TILE, WIDE_BLOCKS_PER_SM, WIDE_MAX_STAGES), WIDE_THREADS[_F64]
+FR_WIDE_SWEEP = ((0, 2),
+                 ((32, 1, 1), (32, 1, 2), (32, 2, 1), (32, 2, 2), (32, 3, 1), (32, 3, 2),
+                  (32, 4, 1), (64, 1, 2), (64, 4, 2)),
+                 (256, 512, 768, 1024))
 # (THREADS or WLOOP_THREADS, BLOCKS_PER_SM or WLOOP_BLOCKS_PER_SM) of the
 # bf16 kernels
 BF16_SWEEP = ((256, 2), (256, 4), (512, 1), (512, 2), (512, 3))
@@ -295,14 +309,60 @@ def sweep_fullrepeat(args, smi, out):
 
     timed("tiles", "fullrepeat_setup")
     timed("thread", "fullrepeat_setup_thread")
+    if args.sweep:
+        with kept(fullrepeat, "FULLREPEAT_TILE", "FULLREPEAT_BLOCKS_PER_SM",
+                  "FULLREPEAT_THREADS"):
+            for fullrepeat.FULLREPEAT_TILE, fullrepeat.FULLREPEAT_BLOCKS_PER_SM in FR_SWEEP[0]:
+                timed("tiles", "fullrepeat_setup")
+        with kept(fullrepeat, "FULLREPEAT_THREADS"):
+            for fullrepeat.FULLREPEAT_THREADS in FR_SWEEP[1]:
+                timed("tiles", "fullrepeat_setup")
+    for dtype in (torch.float32, torch.float64):
+        sweep_fullrepeat_wide(args, smi, out, rng, dtype)
+
+
+def sweep_fullrepeat_wide(args, smi, out, rng, dtype):
+    """The wide kernel, the first body and the plain version at FR_WIDE in
+    dtype; --sweep: the wide kernel over FR_WIDE_SWEEP."""
+    from thallo_tpu_torch.ops import fullrepeat
+
+    N_t, W = FR_WIDE
+    rc, Kall = 2, 24
+    sfx = "_f64" if dtype == torch.float64 else ""
+    rT, Jall = (torch.from_numpy(rng.normal(size=(k, N_t * W))).to("cuda", dtype)
+                for k in (rc, Kall))
+    kw = dict(W=W, N_t=N_t, recipe=FR_RECIPE)
+    ref = fullrepeat.fullrepeat_setup_reference(rT, Jall, **kw)
+    ref = [ref[0], *ref[1]]
+
+    def timed(kernel, fn, **extra):
+        agg, crosses = fn(rT, Jall, **kw)
+        eager, graph = per_launch_ms(lambda: fn(rT, Jall, **kw), args.n)
+        if kernel.startswith("wide"):
+            plan = fullrepeat._wide_plan(FR_RECIPE, W, Kall, rc, dtype.itemsize)
+            extra.update(T=plan.T, Wc=plan.Wc, pitch=plan.pitch, stages=plan.stages,
+                         threads=plan.threads, blocks_per_sm=plan.blocks_per_sm,
+                         block_smem=plan.block_smem)
+        emit({"name": "w10_points", "kernel": kernel, "N_t": N_t, "W": W, "eager_ms": eager,
+              "graph_ms": graph, "rel_err": max_rel_err([agg, *crosses], ref), "card": smi,
+              **extra}, out)
+
+    timed("wide" + sfx, getattr(fullrepeat, "fullrepeat_setup_wide" + sfx))
+    timed("thread" + sfx, getattr(fullrepeat, "fullrepeat_setup_thread" + sfx))
+    timed("plain" + sfx, fullrepeat.fullrepeat_setup_reference)
     if not args.sweep:
         return
-    with kept(fullrepeat, "FULLREPEAT_TILE", "FULLREPEAT_BLOCKS_PER_SM", "FULLREPEAT_THREADS"):
-        for fullrepeat.FULLREPEAT_TILE, fullrepeat.FULLREPEAT_BLOCKS_PER_SM in FR_SWEEP[0]:
-            timed("tiles", "fullrepeat_setup")
-    with kept(fullrepeat, "FULLREPEAT_THREADS"):
-        for fullrepeat.FULLREPEAT_THREADS in FR_SWEEP[1]:
-            timed("tiles", "fullrepeat_setup")
+    names = ("WIDE_MAX_CONFLICT", "WIDE_TILE", "WIDE_BLOCKS_PER_SM", "WIDE_MAX_STAGES",
+             "WIDE_THREADS_F64" if dtype == torch.float64 else "WIDE_THREADS")
+    with kept(fullrepeat, *names):
+        for conflict in FR_WIDE_SWEEP[0]:
+            for tile, bps, stages in FR_WIDE_SWEEP[1]:
+                for threads in FR_WIDE_SWEEP[2]:
+                    setting = (conflict, tile, bps, stages, threads)
+                    for n, v in zip(names, setting):
+                        setattr(fullrepeat, n, v)
+                    timed("wide" + sfx, getattr(fullrepeat, "fullrepeat_setup_wide" + sfx),
+                          **dict(zip(names, setting)))
 
 
 def sweep_aggregate(args, smi, out):

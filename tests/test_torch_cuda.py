@@ -195,18 +195,19 @@ def _fr_case(N_t, W, recipe, rc=2):
 @pytest.mark.parametrize("N_t,W,rc", [s + (2,) for s in FR_CUDA_SHAPES] + [(301, 8, 8)])
 def test_fullrepeat_cuda_matches_plain(cuda, recipe, N_t, W, rc):
     """fullrepeat_setup launches the tile kernel where fullrepeat_plan has
-    a plan (its own count), else the first body (that wrapper's count),
-    and agrees with the plain version."""
+    a plan (its own count), else the wide kernel (that wrapper's count),
+    never the first body, and agrees with the plain version."""
     recipe, (rT, Jall) = _fr_case(N_t, W, recipe, rc)
     plan = fullrepeat.fullrepeat_plan(recipe, W, Jall.shape[0], rc)
     assert (plan is None) == (W > 8)
     if rc == 8:
         assert plan.stages == 1
-    counted = fullrepeat.fullrepeat_setup_thread if plan is None else fullrepeat.fullrepeat_setup
-    n0 = counted.launches
+    counted = fullrepeat.fullrepeat_setup_wide if plan is None else fullrepeat.fullrepeat_setup
+    n0, t0 = counted.launches, fullrepeat.fullrepeat_setup_thread.launches
     agg, crosses = fullrepeat.fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=recipe)
     torch.cuda.synchronize()
     assert counted.launches == n0 + 1
+    assert fullrepeat.fullrepeat_setup_thread.launches == t0
     ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t, recipe=recipe)
     assert len(crosses) == len(rcross)
     for got, ref in zip([agg, *crosses], [ragg, *rcross]):
@@ -216,7 +217,7 @@ def test_fullrepeat_cuda_matches_plain(cuda, recipe, N_t, W, rc):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N_t,W", FR_CUDA_SHAPES[:-1])
 def test_fullrepeat_thread_cuda_matches_plain(cuda, N_t, W):
-    """The first body, kept for the shapes the tile kernel does not take."""
+    """The first body, kept for measurement (on no route)."""
     recipe, (rT, Jall) = _fr_case(N_t, W, FR_RECIPE2)
     n0 = fullrepeat.fullrepeat_setup_thread.launches
     agg, crosses = fullrepeat.fullrepeat_setup_thread(rT, Jall, W=W, N_t=N_t, recipe=recipe)
@@ -1987,21 +1988,74 @@ def test_bf16_entries_refuse_f64_values_on_cuda(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("N_t,W,rc", [(100_000, 10, 2), (1001, 9, 2), (77, 16, 2), (301, 4, 9)])
 def test_fullrepeat_thread_f64_cuda_matches_plain(cuda, N_t, W, rc):
-    """The first full-repeat body in f64, reached through fullrepeat_setup
-    at every shape without an f64 tile plan (28(a)'s point level, W = 10,
-    among them), launches once and agrees with the plain f64 version."""
+    """The f64 shapes without an f64 tile plan (28(a)'s point level, W =
+    10, among them): fullrepeat_setup routes them to the wide kernel's f64
+    instantiation (once, no first-body launch); the first body in f64,
+    called by name, and the routed call agree with the plain f64 version."""
     recipe = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 3 * rc, 9, 0), ("diag", 0, 3, 0, 3))
     rT, Jall = [torch.from_numpy(a).to(cuda).double() for a in fr_inputs(N_t, W, rc=rc)]
     assert fullrepeat.fullrepeat_route(recipe, W, Jall.shape[0], rc, torch.float64) == \
-        "fullrepeat_setup_thread_f64"
-    n0 = fullrepeat.fullrepeat_setup_thread_f64.launches
+        "fullrepeat_setup_wide_f64"
+    n0 = fullrepeat.fullrepeat_setup_wide_f64.launches
+    t0 = fullrepeat.fullrepeat_setup_thread_f64.launches
     agg, crosses = fullrepeat.fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=recipe)
     torch.cuda.synchronize()
-    assert fullrepeat.fullrepeat_setup_thread_f64.launches == n0 + 1
+    assert fullrepeat.fullrepeat_setup_wide_f64.launches == n0 + 1
+    assert fullrepeat.fullrepeat_setup_thread_f64.launches == t0
+    first = fullrepeat.fullrepeat_setup_thread_f64(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    torch.cuda.synchronize()
+    assert fullrepeat.fullrepeat_setup_thread_f64.launches == t0 + 1
     ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t, recipe=recipe)
-    for got, ref in zip([agg, *crosses], [ragg, *rcross]):
+    for got, ref in zip([agg, *crosses, first[0], *first[1]], [ragg, *rcross] * 2):
         assert got.dtype == torch.float64
         close(got.cpu(), ref.cpu(), CUDA_F64_TOL)
+
+
+# the wide kernel's shapes: (N_t, W, rc, extra channels), N_t ragged (not
+# a multiple of T = 32); W 9, 10, 16, 40 at BA's recipe (f64 W = 16 at two
+# stages, W = 40 in w-chunks), rc 9 (Kall 108) and Kall 129 (rc 3)
+WIDE_CUDA_SHAPES = [(1001, 9, 2, 0), (100_003, 10, 2, 0), (777, 16, 2, 0), (333, 40, 2, 0),
+                    (301, 4, 9, 0), (205, 4, 3, 31)]
+
+
+def _wide_recipe(rc, extra):
+    base = (("jtr", 0, 3), ("d2", 0, 3), ("cross", 0, 3, 3 * rc, 9, 0), ("diag", 0, 3, 0, 3))
+    return base + ((("cross", 0, 3, 12 * rc, extra, 1), ("jtr", 12 * rc, extra)) if extra
+                   else ())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("N_t,W,rc,extra", WIDE_CUDA_SHAPES)
+def test_fullrepeat_wide_cuda_matches_plain(cuda, N_t, W, rc, extra, dtype):
+    """The wide kernel against the plain version, f32 within CUDA_TOL x
+    max|ref| and f64 within CUDA_F64_TOL: reached through fullrepeat_setup
+    (its wrapper's count up by one, the first body's not at all) and called
+    by name (the same bits: no atomics); the first body at the same shape
+    agrees too."""
+    f64 = dtype == torch.float64
+    sfx = "_f64" if f64 else ""
+    recipe = _wide_recipe(rc, extra)
+    rT, Jall = (torch.from_numpy(a).to(cuda).to(dtype)
+                for a in fr_inputs(N_t, W, rc=rc, extra=extra))
+    wide = getattr(fullrepeat, "fullrepeat_setup_wide" + sfx)
+    first = getattr(fullrepeat, "fullrepeat_setup_thread" + sfx)
+    assert fullrepeat.fullrepeat_route(recipe, W, Jall.shape[0], rc, dtype) == wide.__name__
+    n0, t0 = wide.launches, first.launches
+    agg, crosses = fullrepeat.fullrepeat_setup(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    torch.cuda.synchronize()
+    assert (wide.launches, first.launches) == (n0 + 1, t0)
+    again = wide(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    body = first(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    torch.cuda.synchronize()
+    assert (wide.launches, first.launches) == (n0 + 2, t0 + 1)
+    ragg, rcross = fullrepeat.fullrepeat_setup_reference(rT, Jall, W=W, N_t=N_t, recipe=recipe)
+    assert len(crosses) == len(rcross) == (2 if extra else 1)
+    for got, same, ref in zip([agg, *crosses], [again[0], *again[1]], [ragg, *rcross]):
+        assert got.dtype == dtype and torch.equal(got, same)
+        close(got.cpu(), ref.cpu(), CUDA_F64_TOL if f64 else CUDA_TOL)
+    for got, ref in zip([body[0], *body[1]], [ragg, *rcross]):
+        close(got.cpu(), ref.cpu(), CUDA_F64_TOL if f64 else CUDA_TOL)
 
 
 # card vs CPU in f64 over 2 LM steps of the W = 10 scene: f64 rounding
@@ -2015,7 +2069,7 @@ F64_PLAN_TOL = 1e-8
 def test_f64_ten_observations_a_point_cuda_matches_cpu(cuda, block_dtype):
     """synthetic_inputs(16, 1400, 10) under double_precision (and with bf16
     blocks), 2 LM steps on the card and on the CPU: the point level (W =
-    10) through fullrepeat_setup_thread_f64 and the f64 W-loop kernel (bf16:
+    10) through fullrepeat_setup_wide_f64 and the f64 W-loop kernel (bf16:
     its <bf16, double> instantiation), no other fused pair; costs and
     unknowns agree to F64_PLAN_TOL (f64 sums in another order, ~1e-15,
     through LM's solve; bf16 blocks: the f64 crosses agree to ~1e-15, so
@@ -2036,7 +2090,8 @@ def test_f64_ten_observations_a_point_cuda_matches_cpu(cuda, block_dtype):
             dims, solver="levenberg_marquardt", device=dev, **opts)
         plan.set_solver_parameter("nIterations", 2)
         n0 = {n: getattr(fusedpair, n).launches for n in pairs}
-        t0 = fullrepeat.fullrepeat_setup_thread_f64.launches
+        t0 = fullrepeat.fullrepeat_setup_wide_f64.launches
+        f0 = fullrepeat.fullrepeat_setup_thread_f64.launches
         costs = [plan.init({k: np.copy(v) for k, v in ins.items()})]
         for _ in range(2):
             plan.step()
@@ -2045,7 +2100,8 @@ def test_f64_ten_observations_a_point_cuda_matches_cpu(cuda, block_dtype):
         if dev == cuda:
             launched = {n for n in pairs if getattr(fusedpair, n).launches > n0[n]}
             assert launched == {want}, launched
-            assert fullrepeat.fullrepeat_setup_thread_f64.launches > t0
+            assert fullrepeat.fullrepeat_setup_wide_f64.launches > t0
+            assert fullrepeat.fullrepeat_setup_thread_f64.launches == f0
         runs[str(dev)] = (costs, {k: v.cpu().numpy() for k, v in plan.unknowns().items()})
     (cpu_costs, cpu_U), (gpu_costs, gpu_U) = runs["cpu"], runs[str(cuda)]
     for a, b in zip(gpu_costs, cpu_costs):

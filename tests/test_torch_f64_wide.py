@@ -5,7 +5,7 @@ package, and those kernels' plain versions against float64 oracles.
 Scene: ``synthetic_inputs(16, 1400, 10, seed=1)`` under
 ``double_precision``: every point seen by 10 of the 16 cameras, so the
 point side is one full-repeat table of W = 10 (no f64 tile plan: the card
-takes ``fullrepeat_setup_thread_f64``) and its col pair a wide level
+takes ``fullrepeat_setup_wide_f64``) and its col pair a wide level
 (``fused_pair_apply_wloop_f64`` on the card); then the same scene under
 ``block_dtype="bf16"`` (``fused_pair_apply_wloop_bf16_f64``).  Both
 packages plan the same energy text from the same numpy inputs and run 2 LM
@@ -89,7 +89,7 @@ def test_ten_observations_a_point_in_f64_run_as_jax(block_dtype):
     N_t, W = bsr.perms[base].shape
     assert bsr.full_repeat[base] and (N_t, W) == (SCENE[1], SCENE[2])
     assert fullrepeat.fullrepeat_route(FR_RECIPE, W, 24, 2, torch.float64) == \
-        "fullrepeat_setup_thread_f64"
+        "fullrepeat_setup_wide_f64"
     routes = {fusedpair.fused_pair_route(*bsr.cols[bsr.col_gathers[pr[3]][0]].shape, CI, CJ,
                                          SCENE[0], bf16=block_dtype is not None,
                                          dtype=torch.float64)
@@ -133,16 +133,16 @@ def test_route_names_the_new_f64_kernels(W, N_t, S, bf16, want):
 
 
 @pytest.mark.parametrize("W,rc,Kall,want", [
-    (9, 2, 24, "fullrepeat_setup_thread_f64"),
-    (16, 2, 24, "fullrepeat_setup_thread_f64"),
-    (4, 9, 108, "fullrepeat_setup_thread_f64"),
-    (4, 3, 129, "fullrepeat_setup_thread_f64"),
+    (9, 2, 24, "fullrepeat_setup_wide_f64"),
+    (16, 2, 24, "fullrepeat_setup_wide_f64"),
+    (4, 9, 108, "fullrepeat_setup_wide_f64"),
+    (4, 3, 129, "fullrepeat_setup_wide_f64"),
     (4, 2, 24, "fullrepeat_setup_f64"),   # BA's uniform point level: the tile plan
     (8, 2, 24, "fullrepeat_setup_f64"),
 ])
 def test_fullrepeat_f64_dispatch(W, rc, Kall, want):
     """fullrepeat_setup_f64 sends every shape without an f64 tile plan (W >
-    8, rc > 8, Kall > 128) to the first body's f64 instantiation; f32
+    8, rc > 8, Kall > 128) to the wide kernel's f64 instantiation; f32
     windows take the f32 names."""
     assert fullrepeat.fullrepeat_route(FR_RECIPE, W, Kall, rc, torch.float64) == want
     assert fullrepeat.fullrepeat_route(FR_RECIPE, W, Kall, rc) == want.replace("_f64", "")

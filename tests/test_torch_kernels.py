@@ -638,7 +638,7 @@ def test_fullrepeat_plan(W, rc, extra):
                                        (4, 90, 9)])
 def test_fullrepeat_plan_refuses(W, Kall, rc):
     """Shapes outside W 2-8, Kall <= 128, rc <= 8 have no plan: they take
-    the first body (fullrepeat_setup_thread)."""
+    the wide kernel (fullrepeat_setup_wide)."""
     assert fullrepeat.fullrepeat_plan(FR_RECIPE, W, Kall, rc) is None
 
 

@@ -54,6 +54,7 @@ SIGNATURES = {
     "thallo_oh_setup_products": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup_thread": (P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup_tiles": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P),
+    "thallo_fullrepeat_setup_wide": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P),
     "thallo_oh_setup_aggregate_atomics": (P, P, P, I, I, I, P),
     "thallo_oh_setup_aggregate_smem": (P, P, P, I, I, I, I, I, I, I, I, P),
     "thallo_segment_sum": (P, L, L, P, P, P, P, P, P, I, I, I, I, I, P),
@@ -81,6 +82,7 @@ SIGNATURES = {
     "thallo_segment_sum_ring_f64": (P, L, P, P, P, P, P, I, I, I, I, I, I, I, P),
     "thallo_segment_sum_staged_order_f64": (P, L, L, P, P, P, P, P, I, I, I, I, P),
     "thallo_fullrepeat_setup_thread_f64": (P, P, P, P, P, I, I, I, I, P),
+    "thallo_fullrepeat_setup_wide_f64": (P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, P),
     "thallo_fused_pair_wloop_persistent_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     # bf16 blocks with f64 values (block_dtype="bf16" under double_precision)
     "thallo_fused_pair_persistent_bf16_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, P),
