@@ -16,8 +16,10 @@ its seconds; any failure exits non-zero):
      shapes its path gives it (the uniform scene's, the segment sum with
      plans built from its oToP and oToC; the fused pair at each level of
      the skewed scene's sorted tables by every kernel, the solver taking
-     the one fused_pair_route names; oh_setup_products and its first
-     body at the uniform and the skewed camera ids; fullrepeat_setup and
+     the one fused_pair_route names; oh_setup_products (the range
+     kernel), the channel-chunk kernel it replaced
+     (oh_setup_products_chunked) and its first body at the uniform and the
+     skewed camera ids; fullrepeat_setup and
      its first body (fullrepeat_setup_thread) at the uniform point level,
      a ragged one and W = 9 (and the wide kernel, fullrepeat_setup_wide),
      and the wide kernel beside the first body at phase 28's W = 10 point
@@ -317,8 +319,9 @@ its seconds; any failure exits non-zero):
      rising, final <= 1e-2 x initial, the linear parts at the initial
      unknowns card vs CPU (GRID_LINEAR_RTOL); (b) the W = 10 scene and the
      uniform 1M scene with block_dtype="bf16", BF16_1M_RUNS solves each
-     through fused_pair_apply_wloop_bf16_f64 and fused_pair_apply_bf16_f64
-     alone, held by phase 9's rule (BF16_RULE), the linear parts card vs
+     through fused_pair_apply_wloop_bf16_f64 (the w-lane kernel) and
+     fused_pair_apply_bf16_f64 alone, held by phase 9's rule (BF16_RULE),
+     the linear parts card vs
      CPU with the card's bf16 crosses on both sides; (c) the skewed 1M scene
      in f64, F64_SKEW_STEPS steps, its wide levels on
      fused_pair_apply_wloop_f64 and the rest on fused_pair_apply_f64 (no
@@ -977,12 +980,14 @@ def _pair_cases(tag, a, S, fusedpair, kernels, terms):
     return cases
 
 
-PRODUCTS_KERNELS = ("oh_setup_products", "oh_setup_products_atomics")
+PRODUCTS_KERNELS = ("oh_setup_products", "oh_setup_products_chunked",
+                    "oh_setup_products_atomics")
 
 
 def products_cases(tag, a, N, recipe, terms=None):
-    """oh_setup_products's two kernels (the shared-memory kernel and the
-    first, global-atomics body) on operands a = (rT, Jall, ids)."""
+    """oh_setup_products's kernel (the range kernel), the channel-chunk
+    kernel it replaced and the first, global-atomics body on operands a =
+    (rT, Jall, ids)."""
     from thallo_tpu_torch.ops import ohsetup
 
     R = a[0].shape[1]
@@ -1249,6 +1254,7 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("fused_pair_apply_wloop", "skew_tail"): "fused_pair_apply_wloop",
           ("fused_pair_apply_wloop_chunked", "skew_tail"): "fused_pair_apply_wloop_chunked",
           ("oh_setup_products", "ba1m"): "oh_setup_products",
+          ("oh_setup_products_chunked", "ba1m"): "oh_setup_products_chunked",
           ("oh_setup_products_atomics", "ba1m"): "oh_setup_products_atomics",
           ("fullrepeat_setup", "ba1m"): "fullrepeat_setup",
           ("fullrepeat_setup_thread", "ba1m"): "fullrepeat_setup_thread",
@@ -1283,6 +1289,11 @@ RECORD = {("fused_pair_apply", "ba1m"): "fused_pair_apply",
           ("fullrepeat_setup_wide", "w10_f32_0"): "fullrepeat_setup_wide",
           ("fused_pair_apply_wloop_f64", "w10_f64_0"): "fused_pair_apply_wloop_f64",
           ("fused_pair_apply_wloop_bf16_f64", "w10_bf16_f64_0"): "fused_pair_apply_wloop_bf16_f64",
+          # the bodies the two f64 redesigns replaced, at the same path calls
+          ("fused_pair_apply_wloop_bf16_f64_gathered", "w10_bf16_f64_0"):
+              "fused_pair_apply_wloop_bf16_f64_gathered",
+          ("oh_setup_products_chunked_f64", "ba1m_f64_0"): "oh_setup_products_chunked_f64",
+          ("oh_setup_products_atomics_f64", "ba1m_f64_0"): "oh_setup_products_atomics_f64",
           ("fused_pair_apply_bf16_f64", "ba1m_bf16_f64_0"): "fused_pair_apply_bf16_f64",
           ("fused_pair_apply_atomics_bf16_f64", "arap256_bf16_f64_0"):
               "fused_pair_apply_atomics_bf16_f64"}
@@ -1308,6 +1319,9 @@ KERNELS = {
                                        "thallo_tpu/ops/fusedpair.py:385", "measurement"),
     "oh_setup_products": ("thallo_tpu_torch/csrc/oh_setup.cu",
                           "thallo_tpu/ops/ohsetup.py:192", "block-sparse"),
+    # the channel-chunk kernel the range kernel replaced on the f32 route
+    "oh_setup_products_chunked": ("thallo_tpu_torch/csrc/oh_setup.cu",
+                                  "thallo_tpu/ops/ohsetup.py:192", "measurement"),
     "oh_setup_products_atomics": ("thallo_tpu_torch/csrc/oh_setup.cu",
                                   "thallo_tpu/ops/ohsetup.py:192", "measurement"),
     "fullrepeat_setup": ("thallo_tpu_torch/csrc/fullrepeat.cu",
@@ -1388,6 +1402,16 @@ KERNELS = {
     "fused_pair_apply_wloop_bf16_f64": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
                                         "thallo_tpu/ops/fusedpair.py:385",
                                         "w10 bf16 f64 block-sparse"),
+    # the first <bf16, double> W-loop body, which the w-lane kernel
+    # replaced on the route; the f64 products kernel the range kernel
+    # replaced and the f64 first products body (N beyond the range plan)
+    "fused_pair_apply_wloop_bf16_f64_gathered": ("thallo_tpu_torch/csrc/fused_pair_wloop.cu",
+                                                 "thallo_tpu/ops/fusedpair.py:385",
+                                                 "measurement"),
+    "oh_setup_products_chunked_f64": ("thallo_tpu_torch/csrc/oh_setup.cu",
+                                      "thallo_tpu/ops/ohsetup.py:192", "measurement"),
+    "oh_setup_products_atomics_f64": ("thallo_tpu_torch/csrc/oh_setup.cu",
+                                      "thallo_tpu/ops/ohsetup.py:192", "measurement"),
     "fused_pair_apply_bf16_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
                                   "thallo_tpu/ops/fusedpair.py:349", "bf16 f64 block-sparse"),
     "fused_pair_apply_atomics_bf16_f64": ("thallo_tpu_torch/csrc/fused_pair.cu",
@@ -1408,6 +1432,7 @@ def counters():
             "fused_pair_apply_wloop": fusedpair.fused_pair_apply_wloop,
             "fused_pair_apply_wloop_chunked": fusedpair.fused_pair_apply_wloop_chunked,
             "oh_setup_products": ohsetup.oh_setup_products,
+            "oh_setup_products_chunked": ohsetup.oh_setup_products_chunked,
             "oh_setup_products_atomics": ohsetup.oh_setup_products_atomics,
             "fullrepeat_setup": fullrepeat.fullrepeat_setup,
             "fullrepeat_setup_thread": fullrepeat.fullrepeat_setup_thread,
@@ -1442,6 +1467,10 @@ def counters():
             "fullrepeat_setup_thread_f64": fullrepeat.fullrepeat_setup_thread_f64,
             "fused_pair_apply_wloop_f64": fusedpair.fused_pair_apply_wloop_f64,
             "fused_pair_apply_wloop_bf16_f64": fusedpair.fused_pair_apply_wloop_bf16_f64,
+            "fused_pair_apply_wloop_bf16_f64_gathered":
+                fusedpair.fused_pair_apply_wloop_bf16_f64_gathered,
+            "oh_setup_products_chunked_f64": ohsetup.oh_setup_products_chunked_f64,
+            "oh_setup_products_atomics_f64": ohsetup.oh_setup_products_atomics_f64,
             "fused_pair_apply_bf16_f64": fusedpair.fused_pair_apply_bf16_f64,
             "fused_pair_apply_atomics_bf16_f64": fusedpair.fused_pair_apply_atomics_bf16_f64}
 
@@ -2344,6 +2373,12 @@ ATOMICS_BODIES = {n: pair for pair in (
     ("fused_pair_apply_atomics", "fused_pair_apply_atomics_thread"),
     ("fused_pair_apply_atomics_f64", "fused_pair_apply_atomics_thread_f64"),
     ("fused_pair_apply_atomics_bf16", "fused_pair_bf16_atomics")) for n in pair}
+# the bodies a redesign replaced on a route: phase 2 runs them at every
+# call of the path that launched the route's kernel, beside it
+REPLACED_BODIES = {
+    "fused_pair_apply_wloop_bf16_f64": ("fused_pair_apply_wloop_bf16_f64_gathered",),
+    "oh_setup_products": ("oh_setup_products_chunked",),
+    "oh_setup_products_f64": ("oh_setup_products_chunked_f64", "oh_setup_products_atomics_f64")}
 
 
 def path_calls(plan):
@@ -2410,10 +2445,14 @@ def path_kernel_cases(dev, rng, tag, calls, hot=False):
         if name == "oh_setup_products":
             a = (normal(args[0]), normal(args[1]), args[2])
             rc, R = a[0].shape
-            fn, ref = getattr(ohsetup, kname), ohsetup.oh_setup_products_reference
-            cases.append((kname, ctag, lambda a=a, fn=fn, kw=kw: (fn(*a, **kw),),
-                          lambda a=a, ref=ref, kw=kw: (ref(*a, **kw),), None, nbytes(*a),
-                          _recipe_outputs(kw["recipe"]) * rc * 2 * R, None, *tol))
+            ref = ohsetup.oh_setup_products_reference
+            route = ohsetup.products_route(kw["recipe"], rc, a[1].shape[0], kw["N"], a[0].dtype,
+                                           R)
+            for body in (route,) + REPLACED_BODIES.get(route, ()):
+                cases.append((body, ctag,
+                              lambda a=a, fn=getattr(ohsetup, body), kw=kw: (fn(*a, **kw),),
+                              lambda a=a, ref=ref, kw=kw: (ref(*a, **kw),), None, nbytes(*a),
+                              _recipe_outputs(kw["recipe"]) * rc * 2 * R, None, *tol))
         elif name == "oh_setup_aggregate":
             a = (normal(args[0]), args[1])
             F, R = a[0].shape
@@ -2484,7 +2523,8 @@ def path_kernel_cases(dev, rng, tag, calls, hot=False):
                     fusedpair.fused_pair_apply_reference(*x, **kw) for x in b) + (tol or
                                                                                  (KERNEL_TOL,)))
             # an atomics-route call: the slots kernel and the first body both
-            for body in (name,) + tuple(b for b in ATOMICS_BODIES.get(name, ()) if b != name):
+            bodies = tuple(b for b in ATOMICS_BODIES.get(name, ()) if b != name)
+            for body in (name,) + bodies + REPLACED_BODIES.get(name, ()):
                 cases.append((body, ctag,
                               lambda a=a, fn=getattr(fusedpair, body), kw=kw: fn(*a, **kw),
                               lambda a=a, kw=kw: fusedpair.fused_pair_apply_reference(*a, **kw),
@@ -2549,16 +2589,22 @@ def arap_plan(tt, side, order, device, n_iter=ARAP_STEPS, l_iterations=ARAP_L_IT
 
 def bsr_kernels(plan):
     """The kernels a plan's block-sparse tables launch on the card: each
-    col level's fused_pair_route kernel, oh_setup_products for one-hot
-    rows, fullrepeat_setup for full-repeat tables."""
+    col level's fused_pair_route kernel, the products_route kernel of each
+    one-hot table, fullrepeat_setup for full-repeat tables."""
+    from thallo_tpu_torch.ops import ohsetup
+    from thallo_tpu_torch.solver import blocksparse
+
     out = set()
-    for c in plan._prep["consts"]:
+    for gp, c in zip(plan.compiled.groups, plan._prep["consts"]):
         bsr = c["bsr"]
         if bsr is None:
             continue
         out |= set(level_routes(bsr).values())
-        if any(x is not None for x in bsr.oh_idxs):
-            out.add("oh_setup_products")
+        rc = gp.group.rc
+        for i, x in enumerate(bsr.oh_idxs):
+            if x is not None:
+                _, _, recipe, K, N = blocksparse.onehot_recipe(bsr, i, rc)
+                out.add(ohsetup.products_route(recipe, rc, K, N, R=x.shape[0]))
         if any(bsr.full_repeat):
             out.add("fullrepeat_setup")
     return out

@@ -23,8 +23,10 @@ Groups (all by default):
   oh      oh_setup_products at BA-1M (R 1 000 000, N 1024, random ids) and
           at the skewed scene's camera ids (sorted residual order, one
           camera with half the rows), recipe jtr 9 + d2 9 + pair 9 x 9:
-          the shared-memory kernel and oh_setup_products_atomics (the
-          first body).  --sweep: PRODUCTS_THREADS x PRODUCTS_SMEM (the
+          the range kernel (the route's), the channel-chunk kernel it
+          replaced (oh_setup_products_chunked) and
+          oh_setup_products_atomics (the first body).  --sweep: the
+          channel-chunk kernel over PRODUCTS_THREADS x PRODUCTS_SMEM (the
           channel chunks) x PRODUCTS_BLOCKS_PER_SM.
   segsum  segment sum, on maps with the 1M scenes' statistics (points:
           250 000 segments of 4 sorted rows, 3 channels; cameras: 1024
@@ -106,11 +108,43 @@ Groups (all by default):
           kernel without its cols side (rows_floor_bf16, the design it
           started from).  --sweep: the rows kernel over (V1_THREADS,
           V1_BLOCKS_PER_SM).
+  wloop_f64  the W-loop pair on bf16 blocks with f64 values
+          (block_dtype="bf16" under double_precision) at phase 28(a)'s
+          point level, (10, 100 000), S 1024 (random ids), and at the
+          skewed 1M scene's wide levels: the w-lane kernel
+          (fused_pair_apply_wloop_bf16_f64) and the first <bf16, double>
+          body it replaced (fused_pair_apply_wloop_bf16_f64_gathered, on no
+          route), each line with the level's route, and beside them the
+          f64 and f32 W-loop pairs at the same shape.  --sweep: the w-lane
+          kernel without its cols side (probe_nocols) and over (elems,
+          w_item).  These probes launch a scratch build
+          of csrc/fused_pair_wloop.cu (build/thallo_tpu_torch/probe/) that
+          exports the kernel at any plan, its cols side on or compiled
+          out; the port's library exports the route's instantiation only.
+  oh_f64  oh_setup_products in f64 at BA-1M (R 1 000 000, N 1024, random
+          ids) and at the skewed scene's camera ids: the range kernel
+          (oh_setup_products_f64, the route's), the f64 channel chunks it
+          replaced (oh_setup_products_chunked_f64) and the f64 first body
+          (oh_setup_products_atomics_f64); in f32 the range kernel
+          (oh_setup_products) beside the channel chunks it replaced
+          (oh_setup_products_chunked).  --sweep: the range kernel over its
+          threads (OH_F64_THREADS in f64, 512 in f32); then, in both
+          dtypes, the range kernel (at its plan, up to OH_SCAN_MAX_RANGES
+          ranges) beside the chunk kernel and, from 6 144 cameras, the
+          first body over camera counts N (R 1 000 000, random ids), and
+          the range and chunk kernels over observation counts R (5 590 to
+          262 144, N 1024 and 64): the data behind products_route's
+          PRODUCTS_MAX_RANGES[_F64], PRODUCTS_RANGE_MIN_R[_F64] and
+          PRODUCTS_CHUNKED_MAX_CHUNKS (each line with its n_ranges, the
+          chunk plan's n_chunks and the route).
 One JSON line per timing: ms per call over n calls eager and in one CUDA
 graph (CUDA events; a replayed graph finds everything below 50 MB warm
 in L2), and the error against the plain torch version.  Needs CUDA.
 """
 import argparse
+import ctypes
+import functools
+import subprocess
 import sys
 
 import numpy as np
@@ -264,21 +298,23 @@ def sweep_oh(args, smi, out):
             fn = getattr(ohsetup, fname)
             err = max_rel_err((fn(*ops, N=C, recipe=OH_RECIPE),), (ref,))
             eager, graph = per_launch_ms(lambda: fn(*ops, N=C, recipe=OH_RECIPE), args.n)
-            if kernel == "smem":
+            if kernel == "chunked":
                 plan = ohsetup.products_plan(OH_RECIPE, 2, 18, C, ohsetup.PRODUCTS_THREADS,
                                              ohsetup.PRODUCTS_SMEM)
                 extra.update(chunk=plan.chunk, n_chunks=plan.n_chunks)
             emit({"name": name, "kernel": kernel, "R": R, "N": C, "eager_ms": eager,
                   "graph_ms": graph, "rel_err": err, "card": smi, **extra}, out)
 
-        timed("smem", "oh_setup_products")
+        timed("ranges", "oh_setup_products")
+        timed("chunked", "oh_setup_products_chunked")
         timed("atomics", "oh_setup_products_atomics")
         if not args.sweep:
             continue
         with kept(ohsetup, "PRODUCTS_THREADS", "PRODUCTS_SMEM", "PRODUCTS_BLOCKS_PER_SM"):
             for (ohsetup.PRODUCTS_THREADS, ohsetup.PRODUCTS_SMEM,
                  ohsetup.PRODUCTS_BLOCKS_PER_SM) in OH_SWEEP:
-                timed("smem", "oh_setup_products", PRODUCTS_THREADS=ohsetup.PRODUCTS_THREADS,
+                timed("chunked", "oh_setup_products_chunked",
+                      PRODUCTS_THREADS=ohsetup.PRODUCTS_THREADS,
                       PRODUCTS_SMEM=ohsetup.PRODUCTS_SMEM,
                       PRODUCTS_BLOCKS_PER_SM=ohsetup.PRODUCTS_BLOCKS_PER_SM)
 
@@ -705,10 +741,228 @@ def sweep_v1(args, smi, out):
                       elems=fusedpair.v1_elems(N))
 
 
+# (elems, w_item) of the w-lane W-loop kernel
+WLOOP_F64_ITEMS = ((32, 10), (32, 5), (16, 5))
+OH_F64_THREADS = (256, 384)  # the range kernel's threads in f64
+# the range kernel beside the chunk kernel: camera counts at R 1 000 000,
+# and observation counts at N 1024 and 64
+OH_SCAN_N = (1024, 1536, 2048, 3072, 4096, 6144, 9000, 12288, 18000, 24576, 36000)
+OH_SCAN_R = (5_590, 12_784, 32_768, 65_536, 131_072, 262_144)
+OH_SCAN_R_N = (1024, 64)
+OH_SCAN_MAX_RANGES = 128
+
+# the w-lane kernel at any plan, its cols side on or compiled out
+LANES_PROBE_SRC = r'''
+#include "fused_pair_wloop.cu"
+
+extern "C" int probe_wloop_lanes_bf16_f64(const void* ids, const void* blocks, const void* pcol,
+                                          const void* prow, void* rows, void* cols, int W,
+                                          int N, int S, int grid, int elems, int w_item,
+                                          int merge_min, int with_cols, void* stream) {
+  const auto launch = with_cols ? launch_wloop_lanes<__nv_bfloat16, double, true>
+                                : launch_wloop_lanes<__nv_bfloat16, double, false>;
+  return static_cast<int>(launch(ids, blocks, pcol, prow, rows, cols, W, N, S, grid, elems,
+                                 w_item, merge_min, static_cast<cudaStream_t>(stream)));
+}
+'''
+
+
+@functools.lru_cache(maxsize=1)
+def lanes_probe_lib():
+    """The scratch build of csrc/fused_pair_wloop.cu with the probe's
+    export (one nvcc, a few seconds)."""
+    from thallo_tpu_torch.ops import _cuda
+
+    out = _cuda.BUILD_DIR / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    src, so = out / "wloop_lanes_probe.cu", out / "wloop_lanes_probe.so"
+    src.write_text(LANES_PROBE_SRC)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", str(_cuda._CSRC), "-o",
+                    str(so), str(src)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(so))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.probe_wloop_lanes_bf16_f64.argtypes = (P,) * 6 + (I,) * 8 + (P,)
+    lib.probe_wloop_lanes_bf16_f64.restype = I
+    return lib
+
+
+def lanes_probe(ids, blocks, pcol, prow, *, Ci, Cj, S, plan, with_cols):
+    """The w-lane kernel at plan (elems, w_item, grid), as the route's
+    wrapper launches it, without its cols side where with_cols is False
+    (cols stay zero)."""
+    from thallo_tpu_torch.ops import _cuda, fusedpair
+
+    W, N = ids.shape
+    elems, w_item, grid = plan
+    dev = ids.device
+    rows = (torch.empty if w_item >= W > 0 else torch.zeros)((Ci, N), dtype=torch.float64,
+                                                             device=dev)
+    cols = torch.zeros((Cj, S), dtype=torch.float64, device=dev)
+    code = lanes_probe_lib().probe_wloop_lanes_bf16_f64(
+        ids.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(), rows.data_ptr(),
+        cols.data_ptr(), W, N, S, grid, elems, w_item, fusedpair.MERGE_MIN, int(with_cols),
+        _cuda.stream(ids))
+    _cuda.check(code, "probe_wloop_lanes_bf16_f64")
+    return rows, cols
+
+
+def sweep_wloop_f64(args, smi, out):
+    from thallo_tpu_torch.ops import _cuda, fusedpair
+
+    rng = np.random.default_rng(7)
+    kw = dict(Ci=3, Cj=9, S=1024)
+    sms = _cuda.sm_count(torch.device("cuda"))
+    cases = [("w10_n100000", random_ids(rng, 10, 100_000, kw["S"]))]
+    cases += [(n, ids) for n, ids in skew_tables(None) if ids.shape[0] >= fusedpair.WLOOP_MIN_W]
+    for name, ids in cases:
+        W, N = ids.shape
+        f32 = f32_operands(rng, ids, **kw)
+        ops = (ids, f32[1].bfloat16(), f32[2].double(), f32[3].double())
+        f64 = (ids, f32[1].bfloat16().double(), *ops[2:])
+        ref = fusedpair.fused_pair_apply_reference(*ops, **kw)
+        plan = fusedpair.wloop_lanes_plan(W, N, sms)
+        route = fusedpair.fused_pair_route(W, N, **kw, bf16=True, dtype=torch.float64)
+
+        def timed(kernel, fn, operands=ops, exact=True, **extra):
+            got = fn(*operands, **kw)
+            err = max_rel_err(got, ref) if exact else None
+            eager, graph = per_launch_ms(lambda: fn(*operands, **kw), args.n)
+            emit({"name": name, "kernel": kernel, "W": W, "N": N, "eager_ms": eager,
+                  "graph_ms": graph, "rel_err": err, "card": smi, "route": route, **extra}, out)
+
+        def probe(kernel, with_cols=True, pl=plan, **extra):
+            timed(kernel, lambda *a, **k: lanes_probe(*a, **k, plan=pl, with_cols=with_cols),
+                  exact=with_cols, plan=list(pl), **extra)
+
+        timed("lanes", fusedpair.fused_pair_apply_wloop_bf16_f64, plan=list(plan))
+        timed("gathered", fusedpair.fused_pair_apply_wloop_bf16_f64_gathered,
+              plan=list(fusedpair.wloop_plan(W, N, kw["S"], sms, 8)))
+        timed("wloop_f64", fusedpair.fused_pair_apply_wloop_f64, f64)
+        timed("wloop_f32", fusedpair.fused_pair_apply_wloop, f32, exact=False,
+              rel_err_f32=max_rel_err(fusedpair.fused_pair_apply_wloop(*f32, **kw),
+                                      fusedpair.fused_pair_apply_reference(*f32, **kw)))
+        if not args.sweep:
+            continue
+        probe("probe_nocols", False)
+        for elems, wi in WLOOP_F64_ITEMS:
+            if wi <= W:
+                probe("lanes", pl=(elems, wi, plan[2]))
+
+
+def sweep_oh_f64(args, smi, out):
+    from thallo_tpu_torch.ops import _cuda, ohsetup
+
+    rng = np.random.default_rng(8)
+    C = SKEW_1M[0]
+    sms = _cuda.sm_count(torch.device("cuda"))
+    cases = [("ba_1m_cameras", torch.from_numpy(
+        rng.integers(0, C, 1_000_000).astype(np.int32)).cuda()),
+             ("skew_1m_cameras", skew_camera_ids())]
+
+    class _Count:  # the swept launches count on no wrapper
+        __name__ = "oh_setup_products_ranges_swept"
+        launches = 0
+
+    for name, ids in cases:
+        R = ids.shape[0]
+        ops = tuple(torch.from_numpy(rng.normal(size=(k, R))).cuda() for k in (2, 18)) + (ids,)
+        ops32 = (ops[0].float(), ops[1].float(), ids)
+        ref = ohsetup.oh_setup_products_reference(*ops, N=C, recipe=OH_RECIPE)
+        ref32 = ohsetup.oh_setup_products_reference(*ops32, N=C, recipe=OH_RECIPE)
+
+        def timed(kernel, fn, operands=ops, r=ref, **extra):
+            err = max_rel_err((fn(*operands, N=C, recipe=OH_RECIPE),), (r,))
+            eager, graph = per_launch_ms(lambda: fn(*operands, N=C, recipe=OH_RECIPE), args.n)
+            emit({"name": name, "kernel": kernel, "R": R, "N": C, "eager_ms": eager,
+                  "graph_ms": graph, "rel_err": err, "card": smi, **extra}, out)
+
+        def ranges(threads, itemsize):
+            plan = ohsetup.products_ranges_plan(OH_RECIPE, 2, 18, C, threads,
+                                                ohsetup.PRODUCTS_SMEM, itemsize)
+            return plan, lambda rT, J, i, N, recipe: ohsetup._launch_products_ranges(
+                _Count, rT, J, i, N, plan, threads)
+
+        plan = ohsetup.products_ranges_plan(OH_RECIPE, 2, 18, C,
+                                            ohsetup.PRODUCTS_RANGE_THREADS_F64,
+                                            ohsetup.PRODUCTS_SMEM)
+        timed("ranges_f64", ohsetup.oh_setup_products_f64, n_ranges=plan.n_ranges,
+              span=plan.span,
+              grid=ohsetup.products_ranges_grid(plan, R, ohsetup.PRODUCTS_RANGE_THREADS_F64,
+                                                sms))
+        timed("chunked_f64", ohsetup.oh_setup_products_chunked_f64)
+        timed("atomics_f64", ohsetup.oh_setup_products_atomics_f64)
+        timed("ranges_f32", ohsetup.oh_setup_products, ops32, ref32,
+              threads=ohsetup.PRODUCTS_RANGE_THREADS)
+        timed("chunked_f32", ohsetup.oh_setup_products_chunked, ops32, ref32)
+        if not args.sweep:
+            continue
+        for threads in OH_F64_THREADS:
+            plan_t, fn_t = ranges(threads, 8)
+            timed("ranges_f64", fn_t, threads=threads, n_ranges=plan_t.n_ranges)
+        plan32, fn32 = ranges(512, 4)
+        timed("ranges_f32", fn32, ops32, ref32, threads=512, n_ranges=plan32.n_ranges)
+    if args.sweep:
+        scan_oh(args, smi, out, rng)
+
+
+def scan_oh(args, smi, out, rng):
+    """The range kernel (launched at its plan, whatever the route, up to
+    OH_SCAN_MAX_RANGES ranges) beside the chunk kernel (and, from 6 144
+    cameras, the first body) over N at R 1 000 000 and over R at N 1024
+    and 64, in f64 and f32."""
+    from thallo_tpu_torch.ops import ohsetup
+
+    class _Count:  # the scan's launches count on no wrapper
+        __name__ = "oh_setup_products_ranges_scanned"
+        launches = 0
+
+    shapes = [(N, 1_000_000) for N in OH_SCAN_N] + [(N, R) for N in OH_SCAN_R_N
+                                                     for R in OH_SCAN_R]
+    for dt in (torch.float64, torch.float32):
+        f64 = dt == torch.float64
+        threads = ohsetup.PRODUCTS_RANGE_THREADS_F64 if f64 else ohsetup.PRODUCTS_RANGE_THREADS
+        chunked = (ohsetup.oh_setup_products_chunked_f64 if f64
+                   else ohsetup.oh_setup_products_chunked)
+        first = (ohsetup.oh_setup_products_atomics_f64 if f64
+                 else ohsetup.oh_setup_products_atomics)
+        for N, R in shapes:
+            ids = torch.from_numpy(rng.integers(0, N, R).astype(np.int32)).cuda()
+            ops = tuple(torch.from_numpy(rng.normal(size=(k, R))).to("cuda", dt)
+                        for k in (2, 18)) + (ids,)
+            ref = ohsetup.oh_setup_products_reference(*ops, N=N, recipe=OH_RECIPE)
+            with kept(ohsetup, "PRODUCTS_MAX_RANGES", "PRODUCTS_MAX_RANGES_F64"):
+                ohsetup.PRODUCTS_MAX_RANGES = ohsetup.PRODUCTS_MAX_RANGES_F64 = OH_SCAN_MAX_RANGES
+                plan = ohsetup.products_ranges_plan.__wrapped__(
+                    OH_RECIPE, 2, 18, N, threads, ohsetup.PRODUCTS_SMEM, 8 if f64 else 4)
+            chunks = ohsetup.products_plan(
+                OH_RECIPE, 2, 18, N,
+                ohsetup.PRODUCTS_THREADS_F64 if f64 else ohsetup.PRODUCTS_THREADS,
+                ohsetup.PRODUCTS_SMEM, 8 if f64 else 4)
+            route = ohsetup.products_route(OH_RECIPE, 2, 18, N, dt, R)
+            fns = [("chunked", chunked)] + ([("atomics", first)] if N >= 6144 else [])
+            if plan is not None:
+                fns.insert(0, ("ranges", lambda rT, J, i, N, recipe, plan=plan:
+                               ohsetup._launch_products_ranges(_Count, rT, J, i, N, plan,
+                                                               threads)))
+            for kernel, fn in fns:
+                try:
+                    got = fn(*ops, N=N, recipe=OH_RECIPE)
+                except ValueError:  # no chunk plan at this N
+                    continue
+                err = max_rel_err((got,), (ref,))
+                eager, graph = per_launch_ms(lambda: fn(*ops, N=N, recipe=OH_RECIPE), args.n)
+                emit({"name": "scan", "kernel": f"{kernel}_{'f64' if f64 else 'f32'}", "R": R,
+                      "N": N, "eager_ms": eager, "graph_ms": graph, "rel_err": err,
+                      "card": smi, "route": route,
+                      "n_ranges": plan.n_ranges if plan else None,
+                      "n_chunks": chunks.n_chunks if chunks else None}, out)
+
+
 GROUPS = {"pairs": sweep_pairs, "wloop": sweep_wloop, "oh": sweep_oh, "segsum": sweep_segsum,
           "staged": sweep_staged, "slots": sweep_slots, "fullrepeat": sweep_fullrepeat, "aggregate": sweep_aggregate, "bf16": sweep_bf16,
           "bf16_slots": sweep_bf16_slots,
-          "variants": sweep_variants, "v1": sweep_v1}
+          "variants": sweep_variants, "v1": sweep_v1, "wloop_f64": sweep_wloop_f64,
+          "oh_f64": sweep_oh_f64}
 
 
 def main(argv=None):

@@ -124,14 +124,23 @@ def test_oh_products_cuda_matches_plain(cuda, R, N):
     close(out.cpu(), ref.cpu(), CUDA_TOL)
 
 
-def _close_products(out, args, N):
+def _products_counted(args, kw):
+    """The wrapper whose count oh_setup_products(*args, **kw) raises: the
+    kernel products_route names for the call's shape (the chunk kernel
+    at few chunks and rows, as the small models', else the range kernel)."""
+    (rc, R), K = args[0].shape, args[1].shape[0]
+    return getattr(ohsetup, ohsetup.products_route(kw["recipe"], rc, K, kw["N"],
+                                                   args[0].dtype, R))
+
+
+def _close_products(out, args, N, recipe=OH_RECIPE):
     """Each output within 4 x 2^-24 sqrt(n) x the sum of its n terms'
     magnitudes (a hot id sums half the rows; chip_smoke.py's rule)."""
-    ref = ohsetup.oh_setup_products_reference(*args, N=N, recipe=OH_RECIPE)
+    ref = ohsetup.oh_setup_products_reference(*args, N=N, recipe=recipe)
     mags = ohsetup.oh_setup_products_reference(args[0].abs(), args[1].abs(), args[2], N=N,
-                                               recipe=OH_RECIPE)
+                                               recipe=recipe)
     n = ohsetup.oh_setup_products_reference(torch.ones_like(args[0]), torch.ones_like(args[1]),
-                                            args[2], N=N, recipe=OH_RECIPE)
+                                            args[2], N=N, recipe=recipe)
     assert out.shape == ref.shape
     assert bool(((out - ref).abs() <= 4 * 2.0 ** -24 * n.sqrt() * mags).all())
 
@@ -144,16 +153,22 @@ def _close_products(out, args, N):
 @pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
 @pytest.mark.parametrize("R,N", OH_SHAPES + [(20000, 3000)])
 def test_oh_products_forms_cuda_match_plain(cuda, share, R, N):
+    """The channel chunks of the shared-memory kernel the range
+    kernel replaced (oh_setup_products_chunked), and the route's kernel:
+    at more than PRODUCTS_CHUNKED_MAX_CHUNKS chunks the range kernel."""
     rT, Jall, ids = oh_inputs(R, N)
     args = [torch.from_numpy(a).to(cuda) for a in (rT, Jall, hot_ids(ids, share))]
     plan = ohsetup.products_plan(OH_RECIPE, 2, Jall.shape[0], N, ohsetup.PRODUCTS_THREADS,
                                  ohsetup.PRODUCTS_SMEM)
     assert plan.n_chunks > 1 and (plan.chunk < 16) == (N == 3000)
-    n0 = ohsetup.oh_setup_products.launches
-    out = ohsetup.oh_setup_products(*args, N=N, recipe=OH_RECIPE)
-    torch.cuda.synchronize()
-    assert ohsetup.oh_setup_products.launches == n0 + 1
-    _close_products(out, args, N)
+    assert plan.n_chunks > ohsetup.PRODUCTS_CHUNKED_MAX_CHUNKS
+    assert ohsetup.products_route(OH_RECIPE, 2, Jall.shape[0], N, R=R) == "oh_setup_products"
+    for fn in (ohsetup.oh_setup_products_chunked, ohsetup.oh_setup_products):
+        n0 = fn.launches
+        out = fn(*args, N=N, recipe=OH_RECIPE)
+        torch.cuda.synchronize()
+        assert fn.launches == n0 + 1
+        _close_products(out, args, N)
 
 
 @pytest.mark.cuda
@@ -163,8 +178,8 @@ def test_oh_products_atomics_cuda_matches_plain(cuda, R, N):
     (one channel row of N = 40000 does not fit the shared memory)."""
     rT, Jall, ids = oh_inputs(R, N)
     args = [torch.from_numpy(a).to(cuda) for a in (rT, Jall, hot_ids(ids, 0.5))]
-    routed = ohsetup.products_plan(OH_RECIPE, 2, Jall.shape[0], N, ohsetup.PRODUCTS_THREADS,
-                                   ohsetup.PRODUCTS_SMEM) is None
+    routed = ohsetup.products_route(OH_RECIPE, 2, Jall.shape[0], N, R=R) == \
+        "oh_setup_products_atomics"
     assert routed == (N == 40000)
     fn = ohsetup.oh_setup_products if routed else ohsetup.oh_setup_products_atomics
     n0 = (ohsetup.oh_setup_products.launches, ohsetup.oh_setup_products_atomics.launches)
@@ -1216,10 +1231,11 @@ def test_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
             refs = fusedpair.fused_pair_apply_reference(*args, **k)
         fn = getattr(ohsetup if name == "oh_setup_products" else
                      fullrepeat if name == "fullrepeat_setup" else fusedpair, name)
-        n0 = fn.launches
+        counted = _products_counted(args, k) if name == "oh_setup_products" else fn
+        n0 = counted.launches
         out = fn(*args, **k)
         torch.cuda.synchronize()
-        assert fn.launches == n0 + 1, name
+        assert counted.launches == n0 + 1, name
         if name == "oh_setup_products":
             out = (out,)
         elif name == "fullrepeat_setup":
@@ -1323,10 +1339,12 @@ def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
             device=cuda, dtype=x.dtype)
 
     for name, a, k in calls.values():
+        counted = None
         if name == "oh_setup_products":
             args = (normal(a[0]), normal(a[1]), a[2])
             refs = (ohsetup.oh_setup_products_reference(*args, **k),)
             fn = ohsetup.oh_setup_products
+            counted = _products_counted(args, k)
         elif name == "oh_setup_aggregate":
             args = (normal(a[0]), a[1])
             refs = (ohsetup.oh_setup_aggregate_reference(*args, **k),)
@@ -1340,10 +1358,11 @@ def test_item6_path_kernels_cuda_match_plain(cuda, monkeypatch, which, want):
             args = (a[0], normal(a[1]), normal(a[2]), normal(a[3]))
             refs = fusedpair.fused_pair_apply_reference(*args, **k)
             fn = getattr(fusedpair, name)
-        n0 = fn.launches
+        counted = counted or fn
+        n0 = counted.launches
         out = fn(*args, **k)
         torch.cuda.synchronize()
-        assert fn.launches == n0 + 1, name
+        assert counted.launches == n0 + 1, name
         for got, ref in zip(out if isinstance(out, tuple) else (out,), refs):
             close(got.cpu(), ref.cpu(), CUDA_TOL)
 
@@ -1515,10 +1534,12 @@ def test_kernels_without_f64_refuse_it_on_cuda(cuda, name):
 def test_oh_products_f64_cuda_matches_plain(cuda, share, R, N):
     rT, Jall, ids = _f64(cuda, oh_inputs(R, N))
     ids = torch.from_numpy(hot_ids(ids.cpu().numpy()[None], share)[0]).to(cuda)
-    n0 = ohsetup.oh_setup_products_f64.launches
+    fn = getattr(ohsetup, ohsetup.products_route(OH_RECIPE, 2, Jall.shape[0], N, torch.float64,
+                                                 R))
+    n0 = fn.launches
     out = ohsetup.oh_setup_products(rT, Jall, ids, N=N, recipe=OH_RECIPE)
     torch.cuda.synchronize()
-    assert ohsetup.oh_setup_products_f64.launches == n0 + 1
+    assert fn.launches == n0 + 1
     assert out.dtype == torch.float64
     ref = ohsetup.oh_setup_products_reference(rT, Jall, ids, N=N, recipe=OH_RECIPE)
     close(out.cpu(), ref.cpu(), CUDA_F64_TOL)
@@ -2121,3 +2142,191 @@ def test_bf16_f64_step_makes_no_host_sync(cuda):
     _step_makes_no_host_sync(cuda, double=True, block_dtype="bf16")
     assert fusedpair.fused_pair_apply_wloop_bf16_f64.launches > n0
 
+
+# ---------------------------------------------------------------------------
+# the w-lane W-loop kernel (bf16 blocks, f64 values) and the range
+# products kernel, the f64 routes' redesigns, beside the bodies they
+# replaced and the f64 first products body
+# ---------------------------------------------------------------------------
+# (W, N, S, hot share): phase 28(a)'s level; the skewed 1M scene's wide
+# levels' shapes; odd W and ragged N; N below one item; the largest S the
+# first body takes; a hot camera on half the entries
+LANES_SHAPES = [(10, 100_000, 1024, 0.0), (24, 12_599, 1024, 0.0), (96, 2_054, 1024, 0.5),
+                (716, 325, 1024, 0.5), (9, 1001, 64, 0.0), (11, 777, 300, 0.5),
+                (13, 5, 1024, 0.0), (10, 3001, 1592, 0.0), (10, 40_000, 1024, 1.0)]
+
+
+def _lanes_args(cuda, W, N, S, share):
+    """bf16 blocks (their values exact in f64), f64 pcol and prow; ids
+    with out-of-range entries and `share` of them on one camera."""
+    rng = np.random.default_rng(W * 7 + N)
+    ids = hot_ids(rng.integers(-2, S + 3, (W, N)), share, hot=min(5, S - 1))
+    blocks = bf16_round(rng.normal(size=(W * 27, N)).astype(np.float32))
+    return [torch.from_numpy(ids).to(cuda), torch.from_numpy(blocks).to(cuda).bfloat16(),
+            torch.from_numpy(rng.normal(size=(9, S))).to(cuda),
+            torch.from_numpy(rng.normal(size=(3, N))).to(cuda)]
+
+
+def _close_pair_f64(got, ref):
+    for g, r in zip(got, ref):
+        assert g.dtype == torch.float64
+        close(g.cpu(), r.cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fused_pair_apply_wloop_bf16_f64",
+                                  "fused_pair_apply_wloop_bf16_f64_gathered"])
+@pytest.mark.parametrize("W,N,S,share", LANES_SHAPES)
+def test_wloop_bf16_f64_bodies_cuda_match_plain(cuda, name, W, N, S, share):
+    """The w-lane kernel and the first <bf16, double> body, each called
+    directly on its own count, against the plain f64 version."""
+    args = _lanes_args(cuda, W, N, S, share)
+    fn = getattr(fusedpair, name)
+    n0 = fn.launches
+    got = fn(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    _close_pair_f64(got, fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S))
+
+
+# (W, N, elems, whole): levels whose route plan (wloop_lanes_plan at the
+# H100's 132 SMs) takes items of 16 or 32 elements that cover all W w's
+# (rows stored) or split them (rows added)
+LANES_FORMS = [(10, 100_000, 16, True), (9, 1001, 16, False), (10, 200_000, 32, True),
+               (716, 325, 32, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,elems,whole", LANES_FORMS)
+def test_wloop_lanes_forms_cuda_match_plain(cuda, W, N, elems, whole):
+    """The w-lane kernel at each form of item its route plans: the same
+    sums as the plain version."""
+    e, w_item, _ = fusedpair.wloop_lanes_plan(W, N, fusedpair._cuda.sm_count(cuda))
+    if fusedpair._cuda.sm_count(cuda) == 132:
+        assert (e, w_item >= W) == (elems, whole)
+    args = _lanes_args(cuda, W, N, 1024, 0.5)
+    fn = fusedpair.fused_pair_apply_wloop_bf16_f64
+    n0 = fn.launches
+    got = fn(*args, Ci=CI, Cj=CJ, S=1024)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    _close_pair_f64(got, fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=1024))
+
+
+@pytest.mark.cuda
+def test_wloop_lanes_refuses_bad_shapes_on_cuda(cuda):
+    """Other pairs and an f64 accumulator beyond PERSISTENT_MAX_SMEM raise;
+    the route never sends them (fused_pair_route)."""
+    with pytest.raises(ValueError, match="no w-lane W-loop kernel"):
+        fusedpair.fused_pair_apply_wloop_bf16_f64(*_lanes_args(cuda, 10, 100, 1600, 0.0), Ci=CI,
+                                                  Cj=CJ, S=1600)
+    args = _lanes_args(cuda, 10, 100, 64, 0.0)
+    with pytest.raises(ValueError):
+        fusedpair.fused_pair_apply_wloop_bf16_f64(args[0], args[1][:9 * 10], args[2][:3],
+                                                  args[3], Ci=3, Cj=3, S=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,S,share", LANES_SHAPES)
+def test_wloop_bf16_f64_route_cuda_matches_plain(cuda, W, N, S, share):
+    """fused_pair_route's kernel for each wide bf16-f64 level launches on
+    its own count and agrees with the plain f64 version."""
+    route = fusedpair.fused_pair_route(W, N, CI, CJ, S, bf16=True, dtype=torch.float64)
+    assert route.startswith("fused_pair_apply_wloop_bf16_f64")
+    args = _lanes_args(cuda, W, N, S, share)
+    fn = getattr(fusedpair, route)
+    n0 = fn.launches
+    got = fn(*args, Ci=CI, Cj=CJ, S=S)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    _close_pair_f64(got, fusedpair.fused_pair_apply_reference(*args, Ci=CI, Cj=CJ, S=S))
+
+
+# (R, N, recipe): BA's camera recipe at the 1M scene's size; the test
+# recipe's 90 channels (two chunks of up to 64); a ragged R; N below one
+# range, several ranges, and beyond the plan (the f64 first body)
+OH_F64_CASES = [(1_000_000, 1024, "ba"), (20_001, 1024, "test"), (777, 5, "test"),
+                (20_000, 3000, "test"), (5_003, 3000, "ba"), (20_000, 20_000, "test")]
+BA_CAMERA_RECIPE = (("jtr", 0, 9), ("d2", 0, 9), ("pair", 0, 9, 0, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.5])
+@pytest.mark.parametrize("R,N,which", OH_F64_CASES)
+def test_oh_products_f64_routes_cuda_match_plain(cuda, share, R, N, which):
+    """oh_setup_products on f64 operands launches the kernel products_route
+    names, the range kernel or, beyond its plan, the f64 first
+    body, on its own count; both against the plain f64 version, with
+    out-of-range ids and `share` of the rows on one camera."""
+    recipe = BA_CAMERA_RECIPE if which == "ba" else OH_RECIPE
+    rT, Jall, ids = oh_inputs(R, N)
+    ids[:3] = [-1, N, N + 7]
+    args = _f64(cuda, (rT, Jall[:18] if which == "ba" else Jall, hot_ids(ids, share)))
+    route = ohsetup.products_route(recipe, 2, args[1].shape[0], N, torch.float64, R)
+    assert route == ("oh_setup_products_atomics_f64" if N == 20_000 else "oh_setup_products_f64")
+    fn = getattr(ohsetup, route)
+    n0 = fn.launches
+    out = ohsetup.oh_setup_products(*args, N=N, recipe=recipe)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    ref = ohsetup.oh_setup_products_reference(*args, N=N, recipe=recipe)
+    assert out.dtype == torch.float64
+    close(out.cpu(), ref.cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [0.0, 0.5])
+@pytest.mark.parametrize("R,N,which", OH_F64_CASES[:5])
+def test_oh_products_ranges_f64_cuda_matches_plain(cuda, share, R, N, which):
+    """The f64 range kernel called directly at every case with a range plan
+    (one range, several, a ragged R, N below one range, two chunks of
+    channels), on oh_setup_products_f64's count, against the plain f64
+    version."""
+    recipe = BA_CAMERA_RECIPE if which == "ba" else OH_RECIPE
+    rT, Jall, ids = oh_inputs(R, N)
+    ids[:3] = [-1, N, N + 7]
+    args = _f64(cuda, (rT, Jall[:18] if which == "ba" else Jall, hot_ids(ids, share)))
+    plan = ohsetup.products_ranges_plan(recipe, 2, args[1].shape[0], N,
+                                        ohsetup.PRODUCTS_RANGE_THREADS_F64, ohsetup.PRODUCTS_SMEM)
+    assert plan is not None and (plan.n_ranges == 1) == (N == 5)
+    n0 = ohsetup.oh_setup_products_f64.launches
+    out = ohsetup._launch_products_ranges(ohsetup.oh_setup_products_f64, *args, N, plan,
+                                          ohsetup.PRODUCTS_RANGE_THREADS_F64)
+    torch.cuda.synchronize()
+    assert ohsetup.oh_setup_products_f64.launches == n0 + 1
+    close(out.cpu(), ohsetup.oh_setup_products_reference(*args, N=N, recipe=recipe).cpu(),
+          CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["oh_setup_products_chunked_f64", "oh_setup_products_atomics_f64"])
+@pytest.mark.parametrize("R,N", [(1_000_000, 1024), (20_001, 1024)])
+def test_oh_products_f64_first_bodies_cuda_match_plain(cuda, name, R, N):
+    """The f64 channel chunks the range kernel replaced, and the f64
+    first body, called directly."""
+    rT, Jall, ids = oh_inputs(R, N)
+    args = _f64(cuda, (rT, Jall[:18], hot_ids(ids, 0.5)))
+    fn = getattr(ohsetup, name)
+    n0 = fn.launches
+    out = fn(*args, N=N, recipe=BA_CAMERA_RECIPE)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    close(out.cpu(), ohsetup.oh_setup_products_reference(*args, N=N, recipe=BA_CAMERA_RECIPE)
+          .cpu(), CUDA_F64_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N", [(1_000_000, 1024), (20_001, 3000)])
+def test_oh_products_ranges_f32_cuda_matches_plain(cuda, R, N):
+    """The range kernel in f32 against the plain version, through the f32
+    route: at BA 1M's size, and below PRODUCTS_RANGE_MIN_R where the chunk
+    kernel would need more than PRODUCTS_CHUNKED_MAX_CHUNKS chunks (the
+    test recipe's two chunks of channels, 8 ranges)."""
+    rT, Jall, ids = oh_inputs(R, N)
+    args = [torch.from_numpy(a).to(cuda) for a in (rT, Jall, hot_ids(ids, 0.5))]
+    assert ohsetup.products_route(OH_RECIPE, 2, Jall.shape[0], N, R=R) == "oh_setup_products"
+    n0 = ohsetup.oh_setup_products.launches
+    out = ohsetup.oh_setup_products(*args, N=N, recipe=OH_RECIPE)
+    torch.cuda.synchronize()
+    assert ohsetup.oh_setup_products.launches == n0 + 1
+    _close_products(out, args, N)

@@ -9,7 +9,7 @@
 // The skewed levels are wide and short (W = 716 over N = 325 elements on
 // the skewed 1M BA scene): one thread per element, as in fused_pair.cu,
 // would run 11 warps, each looping 716 times.  The bound is the block
-// read, W*Ci*Cj*N*4 bytes.  Two kernels:
+// read, W*Ci*Cj*N*4 bytes.  Three kernels:
 //
 // wloop_persistent_kernel<T, V>  (thallo_fused_pair_wloop_persistent: T =
 //     V = float; thallo_fused_pair_wloop_persistent_bf16: T __nv_bfloat16,
@@ -35,6 +35,33 @@
 //   entry to cols with a global atomic: on the H100 it beat per-block
 //   slabs [G, 9, S] summed by a second kernel at all five levels of the
 //   skewed 1M scene.
+//
+// wloop_lanes_kernel<T, V>  (thallo_fused_pair_wloop_lanes_bf16_f64: T
+//     __nv_bfloat16, V double; the route of every wide bf16-f64 level
+//     whose f64 accumulator fits, ops/fusedpair.py fused_pair_route)
+//   The persistent kernel's sums, redesigned for f64 values at phase
+//   28(a)'s level (W 10, N 100 000, S 1024; bound 0.0188 ms: the 54 MB of
+//   bf16 blocks and 8 MB of the rest at 3.35 TB/s).  What held the <bf16,
+//   double> persistent kernel at 0.094 ms, by probes on the H100
+//   (scripts/torch_redesign_sweep.py --only wloop_f64): not the block
+//   reads nor the pcol gathers (pcol staged in shared memory: no gain;
+//   never gathered: -4 us) but the cols side, 9 M f64 additions into
+//   shared memory, each a compare-and-swap loop (ATOMS.CAST.SPIN.64) at
+//   about one lane a clock per SM: ~35 us that no layout removes; the
+//   kernel without its cols side takes 0.033 ms.  So the design trims the
+//   rest: an item is `elems` (16) elements x all W w's, its 32 lanes
+//   (h, e) taking w-lane h of element e (w = w0 + h, w0 + h + 32 / elems,
+//   ...), so 6 250 items fill 2 112 warps evenly (3 each, 5 steps) and
+//   every item stores its rows after a shuffle over its w-lanes (no row
+//   atomics, no memset); one 512-thread block an SM with up to 128
+//   registers, so the block loads of a step are all in flight together;
+//   pcol stays in the read-only cache; the flush as above, 132 blocks.
+//   Measured against it and not kept: the staged pcol above, the flush
+//   summed over a 2-block cluster through distributed shared memory first
+//   (-2%), a share of the channels added by global reductions (slower),
+//   and a cols side without atomics (each round's z vectors staged and
+//   added by the warp that owns their ids: slower, two block barriers a
+//   round).  Its plan: ops/fusedpair.py wloop_lanes_plan.
 //
 // fused_pair_wloop_kernel  (thallo_fused_pair_wloop, the first body)
 //   Any (Ci, Cj) up to 8 x 16, S up to kMaxSmem / 4: the grid is
@@ -256,6 +283,121 @@ int wloop_persistent(const void* ids, const void* blocks, const void* pcol, cons
       static_cast<cudaStream_t>(stream)));
 }
 
+
+// The w-lane kernel (wloop_lanes_kernel; see the note at the top).
+// kCols = false compiles the cols side out: scripts/torch_redesign_sweep.py
+// builds that instantiation on its own to time the rows alone.
+constexpr int kLanesThreads = 512;  // ops/fusedpair.py WLOOP_LANES_THREADS
+
+template <typename T, typename V, bool kCols>
+__global__ void __launch_bounds__(kLanesThreads, 1)
+    wloop_lanes_kernel(const int* __restrict__ ids, const T* __restrict__ blocks,
+                       const V* __restrict__ pcol, const V* __restrict__ prow,
+                       V* __restrict__ rows, V* __restrict__ cols, int W, int N, int S,
+                       int elems, int w_item, int n_items, int merge_min) {
+  constexpr int kCi = 3, kCj = 9;
+  extern __shared__ __align__(16) unsigned char wloop_smem[];
+  V* acc_cols = reinterpret_cast<V*>(wloop_smem);  // [kCj, S]
+  const int n_acc = kCj * S;
+  for (int i = threadIdx.x; i < n_acc; i += blockDim.x) acc_cols[i] = V(0);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  // lane = (h, e): element e of the item's `elems`, w-lane h of 32 / elems
+  const int e = lane & (elems - 1);
+  const int h = lane / elems;
+  const int w_lanes = 32 / elems;
+  const int w_chunks = (W + w_item - 1) / w_item;
+  const size_t Nz = static_cast<size_t>(N);
+
+  // item, w0, w1 and the step count are the same for every lane of a
+  // warp, so all 32 lanes reach the warp primitives together
+  for (int item = blockIdx.x * warps + (threadIdx.x >> 5); item < n_items;
+       item += gridDim.x * warps) {
+    const int tile = item / w_chunks;
+    const int w0 = (item - tile * w_chunks) * w_item;
+    const int w1 = min(W, w0 + w_item);
+    const int n = tile * elems + e;
+    const bool live = n < N;
+    V pr[1][kCi];
+    V acc[1][kCi];
+#pragma unroll
+    for (int ci = 0; ci < kCi; ++ci) {
+      pr[0][ci] = live ? __ldg(prow + ci * Nz + n) : V(0);
+      acc[0][ci] = V(0);
+    }
+    const int steps = (w1 - w0 + w_lanes - 1) / w_lanes;
+    for (int k = 0; k < steps; ++k) {
+      const int w = w0 + k * w_lanes + h;
+      V z[1][kCj];
+      int id[1];
+      bool ok[1];
+      pair_slot<T, kCi, kCj, 1, kCols>(ids, blocks, pcol, S, Nz, w, n, live && w < w1, pr, acc,
+                                       z, id, ok);
+      if (kCols) add_cols<kCj>(acc_cols, S, id[0], ok[0], z[0], lane, merge_min);
+    }
+    // the element's rows: its w-lanes' sums, by shuffles in a fixed order
+#pragma unroll
+    for (int ci = 0; ci < kCi; ++ci) {
+      for (int off = elems; off < 32; off <<= 1) {
+        acc[0][ci] += __shfl_xor_sync(kFull, acc[0][ci], off);
+      }
+    }
+    if (live && h == 0) {
+#pragma unroll
+      for (int ci = 0; ci < kCi; ++ci) {
+        if (w_item >= W) {
+          rows[ci * Nz + n] = acc[0][ci];
+        } else {
+          atomicAdd(rows + ci * Nz + n, acc[0][ci]);
+        }
+      }
+    }
+  }
+
+  // the flush: one global atomic per nonzero accumulator entry
+  __syncthreads();
+  for (int i = threadIdx.x; i < n_acc && kCols; i += blockDim.x) {
+    const V v = acc_cols[i];
+    if (v != V(0)) atomicAdd(cols + i, v);
+  }
+}
+
+template <typename T, typename V, bool kCols>
+cudaError_t launch_wloop_lanes(const void* ids, const void* blocks, const void* pcol,
+                               const void* prow, void* rows, void* cols, int W, int N, int S,
+                               int grid, int elems, int w_item, int merge_min,
+                               cudaStream_t stream) {
+  auto kernel = wloop_lanes_kernel<T, V, kCols>;
+  const size_t smem = static_cast<size_t>(9) * S * sizeof(V);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const int n_items = ((N + elems - 1) / elems) * ((W + w_item - 1) / w_item);
+  if (n_items == 0) return cudaGetLastError();  // nothing to add: cols stay zero
+  kernel<<<grid, kLanesThreads, smem, stream>>>(
+      static_cast<const int*>(ids), static_cast<const T*>(blocks), static_cast<const V*>(pcol),
+      static_cast<const V*>(prow), static_cast<V*>(rows), static_cast<V*>(cols), W, N, S, elems,
+      w_item, n_items, merge_min);
+  return cudaGetLastError();
+}
+
+template <typename T, typename V>
+int wloop_lanes(const void* ids, const void* blocks, const void* pcol, const void* prow,
+                void* rows, void* cols, int W, int N, int Ci, int Cj, int S, int grid,
+                int elems, int w_item, int merge_min, void* stream) {
+  if (Ci != 3 || Cj != 9 || S < 1 || W < 0 || N < 0 || grid < 1 || w_item < 1 ||
+      merge_min < 2 || (elems != 16 && elems != 32) ||
+      static_cast<size_t>(9) * S * sizeof(V) > kMaxPersistentSmem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(launch_wloop_lanes<T, V, true>(ids, blocks, pcol, prow, rows, cols, W,
+                                                         N, S, grid, elems, w_item, merge_min,
+                                                         static_cast<cudaStream_t>(stream)));
+}
+
 }  // namespace
 
 // The persistent W-loop kernel for 3 x 9, f32 blocks.  threads: per
@@ -305,6 +447,21 @@ extern "C" int thallo_fused_pair_wloop_persistent_bf16_f64(const void* ids, cons
   return wloop_persistent<__nv_bfloat16, double>(ids, blocks, pcol, prow, rows, cols, W, N, Ci,
                                                  Cj, S, threads, grid, w_item, merge_min,
                                                  stream);
+}
+
+// The w-lane kernel for 3 x 9, bf16 blocks with f64 values (pcol, prow,
+// rows and cols double), 512 threads a block.  elems: 16 or 32 elements
+// an item (32 / elems w-lanes an element); w_item: w's an item (>= W:
+// rows stored, else added to rows, zeroed by the caller); cols zeroed by
+// the caller.
+extern "C" int thallo_fused_pair_wloop_lanes_bf16_f64(const void* ids, const void* blocks,
+                                                      const void* pcol, const void* prow,
+                                                      void* rows, void* cols, int W, int N,
+                                                      int Ci, int Cj, int S, int grid,
+                                                      int elems, int w_item, int merge_min,
+                                                      void* stream) {
+  return wloop_lanes<__nv_bfloat16, double>(ids, blocks, pcol, prow, rows, cols, W, N, Ci, Cj,
+                                            S, grid, elems, w_item, merge_min, stream);
 }
 
 extern "C" int thallo_fused_pair_wloop(const void* ids, const void* blocks,

@@ -19,8 +19,8 @@ The solver's ``double_precision`` runs f64 instantiations of the kernels
 its schedules launch (the ``*_f64`` exports: the same sources, templated
 on the value type; ``*_bf16_f64`` for bf16 blocks with f64 values).  A
 kernel without one refuses an f64 tensor with NotImplementedError
-(``require``), naming ``F64_TODO``: the one-hot first bodies, the first
-W-loop body and the measurement scripts' kernels.
+(``require``), naming ``F64_TODO``: the aggregation's first body, the
+first W-loop body and the measurement scripts' kernels.
 """
 from __future__ import annotations
 
@@ -89,6 +89,12 @@ SIGNATURES = {
     "thallo_fused_pair_wloop_persistent_bf16_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                                                     P),
     "thallo_fused_pair_atomics_slots_bf16_f64": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "thallo_fused_pair_wloop_lanes_bf16_f64": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    # the range products kernel (the f32 and f64 routes) and the
+    # f64 first products body
+    "thallo_oh_setup_products_ranges": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    "thallo_oh_setup_products_ranges_f64": (P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P),
+    "thallo_oh_setup_products_f64": (P, P, P, P, P, I, I, I, I, P),
 }
 # where the kernels without an f64 instantiation wait
 F64_TODO = "ROADMAP queue 2, item 7"

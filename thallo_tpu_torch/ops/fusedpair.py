@@ -92,10 +92,16 @@ between them: the f32 route's persistent kernel, by the same shape rule,
 where the f64 accumulator fits ``PERSISTENT_MAX_SMEM``; an f64 atomics
 body for every other f64 level.  **bf16 blocks with f64 values**
 (``block_dtype="bf16"`` under ``double_precision``):
-``fused_pair_apply_bf16_f64``, ``fused_pair_apply_wloop_bf16_f64`` and
-``fused_pair_apply_atomics_bf16_f64``, the <bf16, double> instantiations
-of the persistent pair (one element a thread), the W-loop kernel and the
-slots kernel, each block value widened exactly to a double.  Only the
+``fused_pair_apply_bf16_f64`` and ``fused_pair_apply_atomics_bf16_f64``,
+the <bf16, double> instantiations of the persistent pair (one element a
+thread) and the slots kernel, and ``fused_pair_apply_wloop_bf16_f64``, the
+w-lane W-loop kernel redesigned for it (``csrc/fused_pair_wloop.cu``
+``wloop_lanes_kernel``: an item of 16 elements x all W w's spread over the
+warp's w-lanes stores its rows, one 512-thread block an SM;
+``wloop_lanes_plan``), each block value widened exactly to a double.  The
+W-loop kernel's <bf16, double> instantiation, the first body it replaced,
+stays as ``fused_pair_apply_wloop_bf16_f64_gathered``, on no route
+(``chip_smoke.py`` times it beside the w-lane kernel).  Only the
 ``_f64`` wrappers take f64 values: the f32 and bf16 wrappers, the first
 W-loop body, the first bf16 body and the measurement scripts' kernels
 raise NotImplementedError on an f64 tensor (``_cuda.F64_TODO``).
@@ -288,8 +294,9 @@ def fused_pair_route(W: int, N_t: int, Ci: int, Cj: int, S: int, bf16: bool = Fa
     "fused_pair_apply_wloop_f64"; else "fused_pair_apply_atomics_f64" (Ci up
     to ATOMICS_MAX_CI), or "fused_pair_apply_atomics_thread_f64" where
     atomics_keeps_thread names the level.  bf16 blocks with f64 values:
-    "fused_pair_apply_bf16_f64" or "fused_pair_apply_wloop_bf16_f64" where
-    the f64 accumulator fits, else "fused_pair_apply_atomics_bf16_f64"."""
+    "fused_pair_apply_bf16_f64" or "fused_pair_apply_wloop_bf16_f64" (the
+    w-lane kernel) where the f64 accumulator fits, else
+    "fused_pair_apply_atomics_bf16_f64"."""
     wide = W >= WLOOP_MIN_W
     persistent = not wide and N_t >= PERSISTENT_MIN_N
     if dtype == torch.float64:
@@ -612,15 +619,112 @@ def fused_pair_apply_wloop_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
 
 def fused_pair_apply_wloop_bf16_f64(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
     """fused_pair_apply_wloop on bf16 blocks with f64 values
-    (block_dtype="bf16" under double_precision): the persistent W-loop
-    kernel's <bf16, double> instantiation, each block value widened
-    exactly to a double; shapes it does not take raise ValueError
-    (fused_pair_route sends them to fused_pair_apply_atomics_bf16_f64).
-    CPU tensors take the plain version."""
+    (block_dtype="bf16" under double_precision): the w-lane W-loop kernel
+    (items of wloop_lanes_plan: an element's w's spread over w-lanes of
+    one warp, so an item covers its elements' whole level and stores their
+    rows; one 512-thread block an SM), each block value widened exactly to
+    a double.  A pair it is not specialised for, or an f64 accumulator
+    beyond PERSISTENT_MAX_SMEM, raises ValueError: fused_pair_route sends
+    those levels elsewhere.  CPU tensors take the plain version."""
     if ids2d.device.type == "cpu":
         return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
-    return _launch_wloop(fused_pair_apply_wloop_bf16_f64, ids2d, blocks_wm, pcol, prow, Ci, Cj,
-                         S, torch.bfloat16, torch.float64)
+    return _launch_wloop_lanes(fused_pair_apply_wloop_bf16_f64, ids2d, blocks_wm, pcol, prow,
+                               Ci, Cj, S)
+
+
+def fused_pair_apply_wloop_bf16_f64_gathered(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
+    """The first <bf16, double> W-loop body, which the w-lane kernel
+    replaced (a measurement, on no route): the persistent W-loop kernel's
+    <bf16, double> instantiation (wloop_plan's items, two blocks an SM),
+    each block value widened exactly to a double.  A pair it is not
+    specialised for, or an accumulator beyond PERSISTENT_MAX_SMEM, raises
+    ValueError.  CPU tensors take the plain version."""
+    if ids2d.device.type == "cpu":
+        return fused_pair_apply_reference(ids2d, blocks_wm, pcol, prow, Ci=Ci, Cj=Cj, S=S)
+    return _launch_wloop(fused_pair_apply_wloop_bf16_f64_gathered, ids2d, blocks_wm, pcol, prow,
+                         Ci, Cj, S, torch.bfloat16, torch.float64)
+
+
+# the w-lane W-loop kernel (csrc/fused_pair_wloop.cu wloop_lanes_kernel,
+# <bf16, double>): threads a block (one block an SM: up to 128 registers a
+# thread, csrc kLanesThreads), the elements an item may take (a bf16 warp
+# load of 16 elements fills a 32-byte sector)
+WLOOP_LANES_THREADS = 512
+WLOOP_LANES_ELEMS = (32, 16)
+
+
+@functools.lru_cache(maxsize=256)
+def wloop_lanes_plan(W: int, N: int, sms: int):
+    """(elems, w_item, grid) of the w-lane W-loop kernel: items of `elems`
+    elements (32 / elems w-lanes an element) and w_item w's; one block an
+    SM.  The pick minimises the steps of the busiest warp,
+    ceil(items / warps) x ceil(w_item / w-lanes); among equals it prefers
+    items that cover their elements' whole level (rows stored, not added),
+    then more elements an item, then fewer items."""
+    grid = max(1, sms)
+    warps = grid * (WLOOP_LANES_THREADS // 32)
+    best = None
+    for elems in WLOOP_LANES_ELEMS:
+        lanes = 32 // elems
+        tiles = -(-N // elems)
+        for k in range(1, W + 1):
+            w_item = -(-W // k)
+            if k > 1 and w_item == -(-W // (k - 1)):
+                continue
+            if w_item < min(W, WLOOP_MIN_ITEM):
+                break
+            items = tiles * -(-W // w_item)
+            steps = -(-items // warps) * -(-w_item // lanes)
+            key = (steps, w_item < W, -elems, items)
+            if best is None or key < best[0]:
+                best = (key, elems, w_item)
+    if best is None:  # W == 0
+        return WLOOP_LANES_ELEMS[0], 1, grid
+    return best[1], best[2], grid
+
+
+def fused_pair_apply_wloop_lanes_planned(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S, sms):
+    """What the w-lane W-loop kernel computes, from its plan alone, in plain
+    torch at pcol's dtype: each item's rows summed over its w-lanes' w's
+    (w-lane h takes w0 + h, w0 + h + lanes, ...) and added over the item's
+    w-chunks, cols summed by id (wloop_lanes_plan at `sms` SMs)."""
+    W, N = ids2d.shape
+    dt = pcol.dtype
+    elems, w_item, _ = wloop_lanes_plan(W, N, sms)
+    lanes = 32 // elems
+    B = blocks_wm.reshape(W, Ci, Cj, N).to(dt)
+    ok = (ids2d >= 0) & (ids2d < S)
+    idx = torch.where(ok, ids2d, torch.zeros_like(ids2d)).long()
+    pc = (pcol[:, idx] * ok).permute(1, 0, 2)  # [W, Cj, N]
+    per_w = (B * pc[:, None]).sum(dim=2)  # [W, Ci, N]
+    rows = torch.zeros((Ci, N), dtype=dt, device=pcol.device)
+    for w0 in range(0, W, w_item):
+        w1 = min(W, w0 + w_item)
+        lane_sums = [per_w[w0 + h:w1:lanes].sum(dim=0) for h in range(min(lanes, w1 - w0))]
+        rows += sum(lane_sums[1:], lane_sums[0])
+    z = (B * prow.to(dt)[None, :, None, :]).sum(dim=1) * ok[:, None]  # [W, Cj, N]
+    cols = torch.zeros((Cj, S), dtype=dt, device=pcol.device)
+    cols.index_add_(1, idx.reshape(-1), z.permute(1, 0, 2).reshape(Cj, W * N))
+    return rows, cols
+
+
+def _launch_wloop_lanes(fn, ids2d, blocks_wm, pcol, prow, Ci, Cj, S):
+    what = fn.__name__
+    W, N, blocks = _checked(what, ids2d, blocks_wm, pcol, prow, Ci, Cj, S, torch.bfloat16,
+                            value_dtype=torch.float64)
+    if not persistent_fits(Ci, Cj, S, 8):
+        raise ValueError(f"{what}: no w-lane W-loop kernel for Ci={Ci}, Cj={Cj}, S={S}")
+    dev = ids2d.device
+    elems, w_item, grid = wloop_lanes_plan(W, N, _cuda.sm_count(dev))
+    rows = (torch.empty if w_item >= W > 0 else torch.zeros)((Ci, N), dtype=torch.float64,
+                                                             device=dev)
+    cols = torch.zeros((Cj, S), dtype=torch.float64, device=dev)
+    code = _cuda.lib().thallo_fused_pair_wloop_lanes_bf16_f64(
+        ids2d.data_ptr(), blocks.data_ptr(), pcol.data_ptr(), prow.data_ptr(), rows.data_ptr(),
+        cols.data_ptr(), W, N, Ci, Cj, S, grid, elems, w_item, MERGE_MIN, _cuda.stream(ids2d))
+    _cuda.check(code, what)
+    fn.launches += 1
+    return rows, cols
 
 
 def fused_pair_apply_wloop_chunked(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
@@ -648,7 +752,8 @@ def fused_pair_apply_wloop_chunked(ids2d, blocks_wm, pcol, prow, *, Ci, Cj, S):
 
 
 for _fn in (fused_pair_apply_wloop, fused_pair_apply_wloop_bf16, fused_pair_apply_wloop_f64,
-            fused_pair_apply_wloop_bf16_f64, fused_pair_apply_wloop_chunked):
+            fused_pair_apply_wloop_bf16_f64, fused_pair_apply_wloop_bf16_f64_gathered,
+            fused_pair_apply_wloop_chunked):
     _fn.launches = 0
 
 

@@ -14,27 +14,37 @@ and the slabs, stacked in recipe order into F rows, are summed over the
 observations of each id into ``[F, N]``.  Ids outside [0, N) drop.
 
 On the card (``csrc/oh_setup.cu``) the sum by id happens in shared
-memory.  ``products_plan`` turns the recipe into channels, each a product
-sum_c X[a0 + c*sa] * X[b0 + c*sb] over the stacked inputs X = [rT; Jall]
-with an output row and a mirror row: a pair entry whose two operands are
-the same slot (``offa == offb``, ``Ca == Cb``: BA's camera-camera block)
-is symmetric, so only its a <= b entries are channels and each b > a
-entry is the mirror of one (63 channels for BA's 99 rows).  The channels
-are cut into chunks of at most 32 whose [N, chunk] f32 accumulator,
-beside a stage of each warp's inputs, fits ``PRODUCTS_SMEM`` (two chunks
-of 32 at N = 1024).  A fixed grid of blocks per chunk strides over
-tiles of 32 observations, a warp per tile: it stages the tile's inputs,
-groups equal ids, and then, a lane per channel, sums each distinct id's
-observations in registers and adds once to the accumulator; the
-accumulator is flushed once per block into a slab, and a second kernel
-sums the slabs in a fixed order and writes the mirror rows.  The bound
-is the input read, 80 MB at BA-1M.  Where one channel row does not fit
-(N beyond ~36 000 for BA's camera slot at the default budget),
-``oh_setup_products`` goes to ``oh_setup_products_atomics``, the first
-body: one thread per observation, a global atomic per slab value (F*R
-adds, 99 M at BA-1M, onto F*N addresses).  The TPU kernel's in-VMEM
-one-hot and 3-term bf16 split are not carried over: every sum is a plain
-f32 sum whose order varies with the shared atomics.
+memory.  ``recipe_channels`` turns the recipe into channels, each a
+product sum_c X[a0 + c*sa] * X[b0 + c*sb] over the stacked inputs X =
+[rT; Jall] with an output row and a mirror row: a pair entry whose two
+operands are the same slot (``offa == offb``, ``Ca == Cb``: BA's
+camera-camera block) is symmetric, so only its a <= b entries are
+channels and each b > a entry is the mirror of one (63 channels for BA's
+99 rows).  The route is the range kernel (``products_ranges_plan``,
+``products_route``): the N cameras are cut into as few ranges as leave a
+block's [span, stride] accumulator of every channel room beside its
+warps' stages (BA 1M: 4 ranges of 256 cameras in f64, 2 of 512 in f32),
+and a fixed grid of blocks per range strides over tiles of 32
+observations, a warp per tile: it stages the inputs of the observations
+of its block's range, groups equal ids, and then, a lane per channel
+pair, sums each distinct id's observations in registers and adds once to
+the accumulator.  Each block flushes its range's columns into a slab,
+and a second kernel sums the slabs in a fixed order and writes the mirror
+rows.  The bound is the input read, 80 MB at BA-1M (160 MB in f64); the
+time left is the shared additions, each a compare-and-swap loop on the
+H100.  Where the range plan would cut more ranges than the range kernel
+was measured to win at (N beyond ~36 000 cameras in f32 and ~12 300 in
+f64 for BA's camera slot), ``oh_setup_products`` goes to
+``oh_setup_products_atomics``, the first body: one thread per observation,
+a global atomic per slab value (F*R adds, 99 M at BA-1M, onto F*N
+addresses).  ``oh_setup_products_chunked`` is the route before the range
+kernel: blocks over chunks of at most 32 channels whose [N, chunk]
+accumulator fits ``PRODUCTS_SMEM``, each walking every tile
+(``products_plan``, ``oh_setup_products_planned``); it stays the route
+where it needs at most two chunks and R is small (``products_route``: the
+small models).  The TPU
+kernel's in-VMEM one-hot and 3-term bf16 split are not carried over:
+every sum is a plain f32 sum whose order varies with the shared atomics.
 
 ``oh_setup_aggregate`` replaces ``thallo_tpu/ops/ohsetup.py::
 oh_setup_aggregate`` (Pallas body ``_kernel``): channel-major parts
@@ -56,15 +66,15 @@ per row and channel, and a global atomic per nonzero accumulator entry
 (N up to ``_cuda.MAX_DYNAMIC_SMEM`` / 4).
 
 **f64** (the solver's ``double_precision``): ``oh_setup_products`` and
-``oh_setup_aggregate`` hand f64 operands to ``oh_setup_products_f64`` and
-``oh_setup_aggregate_f64``, the f64 instantiations of the two
-shared-memory kernels (every stage, accumulator and sum f64).  Their
-plans count 8 bytes a value: the products kernel runs
-``PRODUCTS_THREADS_F64`` threads, so that the warps' stages leave room
-for chunks of channel rows (BA's camera slot: 4 chunks of 16 channels at
-N = 1024, against 2 of 32 in f32).  The first bodies have no f64
-instantiation: a shape without an f64 plan raises NotImplementedError
-(``_cuda.F64_TODO``).
+``oh_setup_products_atomics`` hand f64 operands to ``oh_setup_products_f64``
+and ``oh_setup_products_atomics_f64``, and ``oh_setup_aggregate`` to
+``oh_setup_aggregate_f64``: the f64 instantiations (every stage,
+accumulator and sum f64).  Their plans count 8 bytes a value: the range
+kernel runs ``PRODUCTS_RANGE_THREADS_F64`` threads (BA's camera slot: 4
+ranges of 256 cameras at N = 1024); ``oh_setup_products_chunked_f64`` (the
+f64 route before it) 4 chunks of 16 channels.  The aggregation's
+first body has no f64 instantiation: an N without an f64 plan raises
+NotImplementedError (``_cuda.F64_TODO``).
 """
 from __future__ import annotations
 
@@ -94,6 +104,33 @@ PRODUCTS_MAX_CHUNK = 32  # a lane per channel of the chunk
 # stages of its warps leave room for the accumulator's channel rows (not
 # swept; 1024 threads leave BA's camera slot chunks of 7 channels)
 PRODUCTS_THREADS_F64 = 512
+# The route's constants, from one scan on the H100
+# (scripts/torch_redesign_sweep.py --only oh_f64 --sweep; BA's recipe, random
+# ids; PERF.md, Findings).  The range kernel: threads a block in f32
+# and in f64 (1024 / 512, the most the shared memory holds beside the
+# stages, ahead of 256-512 / 256-384) and channels a chunk (two a lane:
+# csrc/oh_setup.cu kRangeChunk).
+PRODUCTS_RANGE_THREADS = 1024
+PRODUCTS_RANGE_THREADS_F64 = 512
+RANGE_CHUNK = 64
+# The most camera ranges a range plan cuts, each range's blocks walking
+# every tile: the most at which the range kernel was timed ahead of the
+# first body at R 1 000 000 (f32: 63 ranges, N 36 000, 0.81 against 1.11
+# ms; f64: 43 ranges, N 12 288, 0.99 against 1.18 ms, and behind it at 63,
+# 1.23 against 1.19).  Beyond, the first body.
+PRODUCTS_MAX_RANGES = 63
+PRODUCTS_MAX_RANGES_F64 = 43
+# The channel-chunk kernel walks every tile once a chunk: it stays the route
+# only where it needs at most PRODUCTS_CHUNKED_MAX_CHUNKS chunks and R is
+# below PRODUCTS_RANGE_MIN_R[_F64], where the range kernel's 132 blocks'
+# zeroing and flush outweigh its walk.  Measured on both sides: 2 chunks
+# (N 64) ahead at R 65 536 in f32 (0.0172 against 0.0203 ms) and 32 768 in
+# f64 (0.0158 against 0.0185), behind at 131 072 (0.0281 against 0.0216)
+# and 65 536 (0.0255 against 0.0194); f64's 4 chunks at N 1024 behind the
+# range kernel at every R from 5 590 (0.0223 against 0.0197).
+PRODUCTS_CHUNKED_MAX_CHUNKS = 2
+PRODUCTS_RANGE_MIN_R = 1 << 17
+PRODUCTS_RANGE_MIN_R_F64 = 1 << 16
 _STAGE_LD = 33  # csrc/oh_setup.cu kStageLd
 
 
@@ -159,6 +196,24 @@ def products_plan(recipe, rc: int, K: int, N: int, threads: int,
     value: 4, or 8 for the f64 instantiation); None where not even one
     channel row fits (those shapes take oh_setup_products_atomics in f32).
     Pure Python and cached per static recipe."""
+    chan, dest, F = recipe_channels(recipe, rc)
+    chunk = min(len(chan), PRODUCTS_MAX_CHUNK)
+    while chunk >= 1 and _smem_bytes(chunk, N, rc, K, threads, itemsize) > smem:
+        chunk -= 1
+    if chunk < 1:
+        return None
+    n_chunks = -(-len(chan) // chunk)
+    chunk = -(-len(chan) // n_chunks)  # the same work in every chunk
+    return ProductsPlan(chan, dest, F, chunk, n_chunks, chunk | 1,
+                        _smem_bytes(chunk, N, rc, K, threads, itemsize))
+
+
+@functools.lru_cache(maxsize=64)
+def recipe_channels(recipe, rc: int):
+    """(chan, dest, F): the recipe's channels as products of rows of the
+    stacked [rT; Jall], chan[k] = (a0, sa, b0, sb), with dest[k] = (output
+    row, mirror row or -1) (a symmetric pair keeps its a <= b entries),
+    and the F output rows."""
     chan, dest, F = [], [], 0
     for ent in recipe:
         if ent[0] in ("jtr", "d2"):
@@ -176,15 +231,88 @@ def products_plan(recipe, rc: int, K: int, N: int, threads: int,
                 chan.append((rc + offa + a, Ca, rc + offb + b, Cb))
                 dest.append((F + a * Cb + b, F + b * Ca + a if sym and b != a else -1))
         F += Ca * Cb
-    chunk = min(len(chan), PRODUCTS_MAX_CHUNK)
-    while chunk >= 1 and _smem_bytes(chunk, N, rc, K, threads, itemsize) > smem:
-        chunk -= 1
-    if chunk < 1:
+    return tuple(chan), tuple(dest), F
+
+
+class RangesPlan(NamedTuple):
+    """The range products kernel's plan: the recipe's channels
+    (chan, dest, F as ProductsPlan's), cut into n_chunks chunks of up to
+    RANGE_CHUNK (two a lane); the N cameras into n_ranges ranges of span,
+    each range's [span, stride] accumulator (stride odd) beside a [rc + K,
+    33] stage a warp within the shared memory; block_smem bytes."""
+    chan: Tuple[Tuple[int, int, int, int], ...]
+    dest: Tuple[Tuple[int, int], ...]
+    F: int
+    n_chunks: int
+    stride: int
+    span: int
+    n_ranges: int
+    block_smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def products_ranges_plan(recipe, rc: int, K: int, N: int, threads: int, smem: int,
+                         itemsize: int = 8) -> Optional[RangesPlan]:
+    """The camera ranges of the range kernel for blocks of `threads`
+    threads within `smem` bytes (itemsize bytes a value): as few ranges as
+    leave each range's accumulator room beside the warps' stages, at most
+    PRODUCTS_MAX_RANGES (PRODUCTS_MAX_RANGES_F64 at itemsize 8); None
+    beyond (those shapes take the first body).
+    Pure Python and cached per static recipe."""
+    chan, dest, F = recipe_channels(recipe, rc)
+    n_chunks = -(-len(chan) // RANGE_CHUNK)
+    stride = min(len(chan), RANGE_CHUNK) | 1
+    room = smem // itemsize - threads // 32 * (rc + K) * _STAGE_LD
+    span_max = room // stride
+    if span_max < 1:
         return None
-    n_chunks = -(-len(chan) // chunk)
-    chunk = -(-len(chan) // n_chunks)  # the same work in every chunk
-    return ProductsPlan(tuple(chan), tuple(dest), F, chunk, n_chunks, chunk | 1,
-                        _smem_bytes(chunk, N, rc, K, threads, itemsize))
+    n_ranges = -(-N // span_max)
+    if n_ranges > (PRODUCTS_MAX_RANGES_F64 if itemsize == 8 else PRODUCTS_MAX_RANGES):
+        return None
+    span = -(-N // n_ranges)
+    block_smem = (span * stride + threads // 32 * (rc + K) * _STAGE_LD) * itemsize
+    return RangesPlan(chan, dest, F, n_chunks, stride, span, n_ranges, block_smem)
+
+
+def products_ranges_grid(plan: RangesPlan, R: int, threads: int, sms: int) -> int:
+    """Blocks per range and chunk: one block an SM shared by the ranges and
+    chunks, no more than the observation tiles."""
+    blocks = _cuda.blocks_per_sm(plan.block_smem, 1) * sms
+    return max(1, min(blocks // (plan.n_ranges * plan.n_chunks), -(-R // threads)))
+
+
+def oh_setup_products_ranges_planned(rT, Jall, ids, *, N, recipe, smem=PRODUCTS_SMEM):
+    """The sum the range kernel computes, from its plan alone, in plain
+    torch (in rT's dtype, planned at its threads and itemsize): each range's and
+    chunk's channels summed over the observations of the range's ids into
+    a [span, stride] accumulator, written to their output rows and mirror
+    rows; rows no range writes stay NaN."""
+    rc, R = rT.shape
+    dt, dev = rT.dtype, rT.device
+    threads = PRODUCTS_RANGE_THREADS_F64 if dt == torch.float64 else PRODUCTS_RANGE_THREADS
+    plan = products_ranges_plan(tuple(recipe), rc, Jall.shape[0], N, threads, smem,
+                                rT.element_size())
+    X = torch.cat([rT, Jall.to(dt)])
+    c = torch.arange(rc, device=dev)
+    out = torch.full((plan.F, N), float("nan"), dtype=dt, device=dev)
+    for q in range(plan.n_ranges):
+        lo = q * plan.span
+        nb = max(0, min(plan.span, N - lo))
+        ok = (ids >= lo) & (ids < lo + nb)
+        idx = ids[ok].long() - lo
+        for k in range(plan.n_chunks):
+            rows = range(k * RANGE_CHUNK, min(len(plan.chan), (k + 1) * RANGE_CHUNK))
+            a = torch.stack([a0 + sa * c for a0, sa, _, _ in (plan.chan[j] for j in rows)])
+            b = torch.stack([b0 + sb * c for _, _, b0, sb in (plan.chan[j] for j in rows)])
+            v = (X[a][:, :, ok] * X[b][:, :, ok]).sum(1)  # [chunk, R_ok]
+            acc = torch.zeros((plan.span, len(rows)), dtype=dt, device=dev)
+            acc.index_add_(0, idx, v.T)
+            for i, j in enumerate(rows):
+                f, mirror = plan.dest[j]
+                out[f, lo:lo + nb] = acc[:nb, i]
+                if mirror >= 0:
+                    out[mirror, lo:lo + nb] = acc[:nb, i]
+    return out
 
 
 def products_grid(plan: ProductsPlan, R: int, threads: int, sms: int) -> int:
@@ -258,36 +386,117 @@ def _checked(what, rT, Jall, ids, dt=torch.float32):
 def oh_setup_products(rT, Jall, ids, *, N, recipe):
     """rT [rc, R] f32, Jall [K, R] f32, ids [R] int32, recipe: static
     tuple of ("jtr", off, C) | ("d2", off, C) | ("pair", offa, Ca, offb, Cb)
-    -> [F, N] f32.  CPU tensors take the plain version; CUDA tensors
-    launch the shared-memory kernel, or, where products_plan finds no
-    room for one channel row, go to oh_setup_products_atomics; f64
-    operands go to oh_setup_products_f64."""
+    -> [F, N] f32.  CPU tensors take the plain version; CUDA tensors take
+    the kernel products_route names: the range kernel (launched here,
+    PRODUCTS_RANGE_THREADS threads a block), oh_setup_products_chunked or
+    oh_setup_products_atomics; f64 operands go to oh_setup_products_f64."""
     if rT.device.type == "cpu":
         return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
     if rT.dtype == torch.float64:
         return oh_setup_products_f64(rT, Jall, ids, N=N, recipe=recipe)
-    rc, R, K = _checked("oh_setup_products", rT, Jall, ids)
+    return _products_routed(oh_setup_products, rT, Jall, ids, N, recipe)
+
+
+def oh_setup_products_chunked(rT, Jall, ids, *, N, recipe):
+    """The f32 route's kernel before the range kernel: the
+    shared-memory kernel over channel chunks on grid y, PRODUCTS_THREADS
+    threads a block; kept for measurement.  A shape without a chunk plan
+    raises ValueError.  CPU tensors take the plain version."""
+    if rT.device.type == "cpu":
+        return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
+    rc, R, K = _checked("oh_setup_products_chunked", rT, Jall, ids)
     _recipe_rows(recipe, rc, K)
     plan = products_plan(tuple(recipe), rc, K, N, PRODUCTS_THREADS, PRODUCTS_SMEM)
     if plan is None:
-        return oh_setup_products_atomics(rT, Jall, ids, N=N, recipe=recipe)
-    return _launch_products(oh_setup_products, rT, Jall, ids, N, plan, PRODUCTS_THREADS)
+        raise ValueError(f"oh_setup_products_chunked: no channel row fits at N={N}")
+    return _launch_products(oh_setup_products_chunked, rT, Jall, ids, N, plan, PRODUCTS_THREADS)
+
+
+def products_route(recipe, rc: int, K: int, N: int, dtype=torch.float32, R: int = 1 << 30) -> str:
+    """The kernel oh_setup_products launches for a recipe, N and R
+    observations, by the name of its wrapper (the f64 names end in
+    "_f64"): the channel-chunk kernel ("oh_setup_products_chunked") where
+    products_plan needs at most PRODUCTS_CHUNKED_MAX_CHUNKS chunks and R is
+    below PRODUCTS_RANGE_MIN_R (f64: PRODUCTS_RANGE_MIN_R_F64); else the
+    range kernel ("oh_setup_products") where products_ranges_plan has a
+    plan; else the first body ("oh_setup_products_atomics")."""
+    recipe, f64 = tuple(recipe), dtype == torch.float64
+    ranges = products_ranges_plan(recipe, rc, K, N,
+                                  PRODUCTS_RANGE_THREADS_F64 if f64 else PRODUCTS_RANGE_THREADS,
+                                  PRODUCTS_SMEM, 8 if f64 else 4)
+    chunks = products_plan(recipe, rc, K, N, PRODUCTS_THREADS_F64 if f64 else PRODUCTS_THREADS,
+                           PRODUCTS_SMEM, 8 if f64 else 4)
+    few = chunks is not None and chunks.n_chunks <= PRODUCTS_CHUNKED_MAX_CHUNKS
+    if few and (R < (PRODUCTS_RANGE_MIN_R_F64 if f64 else PRODUCTS_RANGE_MIN_R) or not ranges):
+        name = "oh_setup_products_chunked"
+    elif ranges:
+        name = "oh_setup_products"
+    else:
+        name = "oh_setup_products_atomics"
+    return name + ("_f64" if f64 else "")
 
 
 def oh_setup_products_f64(rT, Jall, ids, *, N, recipe):
-    """oh_setup_products in f64 (rT, Jall f64 -> [F, N] f64): the f64
-    instantiation of the shared-memory kernel, PRODUCTS_THREADS_F64
-    threads a block.  CPU tensors take the plain version; a shape without
-    an f64 plan raises NotImplementedError (the first body is f32 only)."""
+    """oh_setup_products in f64 (rT, Jall f64 -> [F, N] f64): the kernel
+    products_route names, the range kernel (launched here,
+    PRODUCTS_RANGE_THREADS_F64 threads a block, each block summing all
+    channels of the observations of one camera range),
+    oh_setup_products_chunked_f64 or oh_setup_products_atomics_f64.  CPU
+    tensors take the plain version."""
     if rT.device.type == "cpu":
         return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
-    rc, R, K = _checked("oh_setup_products_f64", rT, Jall, ids, torch.float64)
+    return _products_routed(oh_setup_products_f64, rT, Jall, ids, N, recipe)
+
+
+def oh_setup_products_chunked_f64(rT, Jall, ids, *, N, recipe):
+    """oh_setup_products_chunked in f64 (channel chunks on grid y,
+    PRODUCTS_THREADS_F64 threads a block), the f64 route before the
+    range kernel; kept for measurement.
+    A shape without a chunk plan raises ValueError.  CPU tensors take the
+    plain version."""
+    if rT.device.type == "cpu":
+        return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
+    rc, R, K = _checked("oh_setup_products_chunked_f64", rT, Jall, ids, torch.float64)
     _recipe_rows(recipe, rc, K)
     plan = products_plan(tuple(recipe), rc, K, N, PRODUCTS_THREADS_F64, PRODUCTS_SMEM, 8)
     if plan is None:
-        raise NotImplementedError(f"oh_setup_products_f64: no channel row fits at N={N}; the "
-                                  f"f64 first body waits ({_cuda.F64_TODO})")
-    return _launch_products(oh_setup_products_f64, rT, Jall, ids, N, plan, PRODUCTS_THREADS_F64)
+        raise ValueError(f"oh_setup_products_chunked_f64: no channel row fits at N={N}")
+    return _launch_products(oh_setup_products_chunked_f64, rT, Jall, ids, N, plan,
+                            PRODUCTS_THREADS_F64)
+
+
+def _products_routed(entry, rT, Jall, ids, N, recipe):
+    """oh_setup_products[_f64] on the card: the range kernel, counted on
+    `entry`, where products_route names it, else the body it names."""
+    dt = rT.dtype
+    rc, R, K = _checked(entry.__name__, rT, Jall, ids, dt)
+    _recipe_rows(recipe, rc, K)
+    route = products_route(recipe, rc, K, N, dt, R)
+    if route != entry.__name__:
+        return _PRODUCTS_BODIES[route](rT, Jall, ids, N=N, recipe=recipe)
+    f64 = dt == torch.float64
+    threads = PRODUCTS_RANGE_THREADS_F64 if f64 else PRODUCTS_RANGE_THREADS
+    plan = products_ranges_plan(tuple(recipe), rc, K, N, threads, PRODUCTS_SMEM, 8 if f64 else 4)
+    return _launch_products_ranges(entry, rT, Jall, ids, N, plan, threads)
+
+
+def _launch_products_ranges(fn, rT, Jall, ids, N, plan, threads):
+    """One launch of the range kernel (f32 or f64 by rT's dtype)
+    and its slab sum."""
+    (rc, R), K, dev, dt = rT.shape, Jall.shape[0], rT.device, rT.dtype
+    grid = products_ranges_grid(plan, R, threads, _cuda.sm_count(dev))
+    slab = torch.empty((grid, len(plan.chan), N), dtype=dt, device=dev)
+    out = torch.empty((plan.F, N), dtype=dt, device=dev)
+    chan = _cuda.recipe_tensor(plan.chan, dev)
+    dest = _cuda.recipe_tensor(plan.dest, dev)
+    launch = (_cuda.lib().thallo_oh_setup_products_ranges_f64 if dt == torch.float64
+              else _cuda.lib().thallo_oh_setup_products_ranges)
+    code = launch(rT.data_ptr(), Jall.data_ptr(), ids.data_ptr(), chan.data_ptr(),
+                  dest.data_ptr(), out.data_ptr(), slab.data_ptr(), len(plan.chan), plan.stride,
+                  plan.span, rc, K, R, N, threads, grid, _cuda.stream(rT))
+    _cuda.check(code, fn.__name__)
+    fn.launches += 1
+    return out
 
 
 def _launch_products(fn, rT, Jall, ids, N, plan, threads):
@@ -310,22 +519,45 @@ def _launch_products(fn, rT, Jall, ids, N, plan, threads):
 def oh_setup_products_atomics(rT, Jall, ids, *, N, recipe):
     """The contract of oh_setup_products by the first body: one thread per
     observation, one global atomic per slab value; any N.  CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
+    take the plain version; CUDA tensors launch the kernel (f64 operands
+    raise: oh_setup_products_atomics_f64 is theirs)."""
     if rT.device.type == "cpu":
         return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
-    rc, R, K = _checked("oh_setup_products_atomics", rT, Jall, ids)
+    return _launch_products_first(oh_setup_products_atomics, rT, Jall, ids, N, recipe,
+                                  torch.float32)
+
+
+def oh_setup_products_atomics_f64(rT, Jall, ids, *, N, recipe):
+    """oh_setup_products_atomics in f64 (the first body's f64
+    instantiation, global atomicAdd on doubles): the f64 route where
+    products_ranges_plan has no plan.  CPU tensors take the plain
+    version."""
+    if rT.device.type == "cpu":
+        return oh_setup_products_reference(rT, Jall, ids, N=N, recipe=recipe)
+    return _launch_products_first(oh_setup_products_atomics_f64, rT, Jall, ids, N, recipe,
+                                  torch.float64)
+
+
+def _launch_products_first(fn, rT, Jall, ids, N, recipe, dt):
+    what = fn.__name__
+    rc, R, K = _checked(what, rT, Jall, ids, dt)
     rows, F = _recipe_rows(recipe, rc, K)
-    out = torch.zeros((F, N), dtype=torch.float32, device=rT.device)
+    out = torch.zeros((F, N), dtype=dt, device=rT.device)
     rec = _cuda.recipe_tensor(rows, rT.device)
-    code = _cuda.lib().thallo_oh_setup_products(
-        rT.data_ptr(), Jall.data_ptr(), ids.data_ptr(), rec.data_ptr(),
-        out.data_ptr(), len(rows), rc, R, N, _cuda.stream(rT))
-    _cuda.check(code, "oh_setup_products_atomics")
-    oh_setup_products_atomics.launches += 1
+    launch = (_cuda.lib().thallo_oh_setup_products_f64 if dt == torch.float64
+              else _cuda.lib().thallo_oh_setup_products)
+    code = launch(rT.data_ptr(), Jall.data_ptr(), ids.data_ptr(), rec.data_ptr(),
+                  out.data_ptr(), len(rows), rc, R, N, _cuda.stream(rT))
+    _cuda.check(code, what)
+    fn.launches += 1
     return out
 
 
-for _fn in (oh_setup_products, oh_setup_products_f64, oh_setup_products_atomics):
+# the bodies products_route names beside the range kernel
+_PRODUCTS_BODIES = {fn.__name__: fn for fn in (
+    oh_setup_products_chunked, oh_setup_products_chunked_f64, oh_setup_products_atomics,
+    oh_setup_products_atomics_f64)}
+for _fn in (oh_setup_products, oh_setup_products_f64, *_PRODUCTS_BODIES.values()):
     _fn.launches = 0
 
 

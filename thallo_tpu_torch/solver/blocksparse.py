@@ -434,6 +434,25 @@ def _stack_slots(jTs, slots, rc, R):
     return torch.cat(parts).contiguous(), offs
 
 
+def onehot_recipe(bsr, i, rc):
+    """One-hot slot i's oh_setup_products call for rc residual channels:
+    (specs, slots, recipe, K, N): its slab specs, the slots stacked (as
+    _stack_slots stacks them, K rows), the recipe over them and the N
+    elements of its image."""
+    C = bsr.slot_channels[i]
+    specs = [("jtr", i, C), ("d2", i, C)]
+    specs += [("pair", p, C * bsr.slot_channels[pr[1]])
+              for p, pr in enumerate(bsr.pairs) if pr[2] == "diag" and pr[0] == i]
+    slots = sorted({i} | {bsr.pairs[k][1] for kind, k, _ in specs if kind == "pair"})
+    offs, K = {}, 0
+    for s in slots:
+        offs[s] = K
+        K += rc * bsr.slot_channels[s]
+    recipe = tuple((kind,) + _slab_entry(bsr, kind, key, offs) for kind, key, _ in specs)
+    N = int(np.prod(bsr.image_shapes[bsr.slot_images[i]][:-1]))
+    return specs, slots, recipe, K, N
+
+
 def _pair_slots(bsr, kind, key):
     return (bsr.pairs[key][0], bsr.pairs[key][1]) if kind == "pair" else (key,)
 
@@ -529,14 +548,8 @@ def bsr_setup(bsr: GroupBsr, rT, jTs, block_dtype=None):
     for i in range(len(bsr.slot_images)):
         if not bsr.slot_onehot(i):
             continue
-        C = bsr.slot_channels[i]
-        specs = [("jtr", i, C), ("d2", i, C)]
-        specs += [("pair", p, C * bsr.slot_channels[pr[1]])
-                  for p, pr in enumerate(bsr.pairs) if pr[2] == "diag" and pr[0] == i]
-        slots = sorted({i} | {bsr.pairs[k][1] for kind, k, _ in specs if kind == "pair"})
-        Jall, offs = _stack_slots(jTs, slots, rc, R)
-        recipe = tuple((kind,) + _slab_entry(bsr, kind, key, offs) for kind, key, _ in specs)
-        N = int(np.prod(bsr.image_shapes[bsr.slot_images[i]][:-1]))
+        specs, slots, recipe, _, N = onehot_recipe(bsr, i, rc)
+        Jall, _ = _stack_slots(jTs, slots, rc, R)
         agg = oh_setup_products(rT, Jall, bsr.oh_idxs[i], N=N, recipe=recipe)
         scatter_slabs(agg, specs)
 
